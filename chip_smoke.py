@@ -1,0 +1,368 @@
+#!/usr/bin/env python3
+"""Run the PyTorch/CUDA port's serving path on one NVIDIA card and check it.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+
+1. device  — the card's name, the device count and nvidia-smi's name and
+   power limit;
+2. build   — compiles every CUDA kernel source with nvcc (all at once) and
+   prints the assembler's register, shared-memory and spill lines;
+3. kernels — at dwn-jsc-lg width (F=16, T=200, m=2400, n=6, 5 classes,
+   operands from a numpy seed) holds each kernel against its plain PyTorch
+   version on the card, bit for bit, at B = 4096, 1000 and 1, for a 2-layer
+   stack (120, 50) and for a PEN (1, 8) grid, then times both at B=4096;
+4. serve   — ``ServingEngine("dwn-jsc-lg", device="cuda")`` at full width,
+   whose startup checks every backend against the float oracle; serves 16
+   requests of 4096 rows on the packed kernel, the same stream on the
+   batch-major kernel and a ragged stream, asserting from the launch
+   counters that each kernel carried its pass, and times the host-to-device
+   copy, the launch and the device-to-host copy of a step;
+5. cli     — ``python -m repro_torch.launch.serve --arch dwn-jsc-lg`` with
+   four requests.
+
+Then it prints the kernels' summary line, nvidia-smi's line and, last,
+``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
+so does a machine without a CUDA card, or a directory without the port.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# published H100 SXM peaks (NVIDIA data sheet, dense): device memory and
+# float32 outside the tensor cores, the rate used for the kernels' scalar
+# compares, bit selects, table reads and popcounts
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_SCALAR_OPS_PER_S = 67e12
+
+LG = dict(F=16, T=200, m=2400, n=6, C=5)
+#: samples per CUDA block swept at B=4096 (the default is timed above them)
+BLOCK_B_SWEEP = (4, 8, 16, 32, 64)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip()
+
+
+def time_ms(fn, iters: int, warmup: int) -> float:
+    """Mean milliseconds per call on the card (CUDA events)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def make_model(rng, F, T, counts, n, pen_frac=None):
+    """Random thresholds (ascending per feature), wires and {0,1} tables."""
+    from repro_torch.core.thermometer import quantize_fixed_point
+    th = np.sort(rng.uniform(-1, 1, (F, T)).astype(np.float32), axis=1)
+    if pen_frac is not None:
+        th = np.asarray(quantize_fixed_point(th, pen_frac), np.float32)
+    maps, tabs, cand = [], [], F * T
+    for m in counts:
+        maps.append(rng.integers(0, cand, (m, n)).astype(np.int32))
+        tabs.append(rng.integers(0, 2, (m, 2 ** n)).astype(np.int32))
+        cand = m
+    return th, maps, tabs
+
+
+def model_bytes_and_ops(variant, B, F, T, counts, n, C):
+    """Bytes the function must move (inputs read once, outputs written
+    once) and the scalar operations it does, for one launch."""
+    words = [(m + 31) // 32 for m in counts]
+    tw = (2 ** n + 31) // 32
+    table_bytes = sum(m * tw * 4 for m in counts)
+    wire_bytes = sum(m * n * 4 * 2 for m in counts)   # two int32 per wire
+    io = B * F * 4 + B * C * 4 + B * 4 + C * words[-1] * 4
+    reads = B * sum(counts)                           # one table read / LUT
+    popc = B * C * words[-1]
+    if variant == "packed":
+        nbytes = io + F * T * 4 + wire_bytes + table_bytes
+        ops = B * F * T + B * sum(m * n for m in counts) + reads + popc
+    else:
+        nbytes = io + wire_bytes + table_bytes        # wire_f + wire_th
+        ops = (B * counts[0] * n                      # direct-wire compares
+               + B * sum(m * n for m in counts[1:]) + reads + popc)
+    return nbytes, ops
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+    res = _build.build_all()
+    keep = ("registers", "spill", "smem", "Compiling entry")
+    emit({"phase": "build", "libraries": {
+        name: {"seconds": r["seconds"], "cached": r["cached"],
+               "ptxas": [line for line in r["ptxas"]
+                         if any(k in line for k in keep)]}
+        for name, r in res.items()}})
+
+
+def phase_kernels(device, batches=(4096, 1000, 1), time_batch=4096):
+    """Each kernel equal to its plain version; timings at ``time_batch``."""
+    import torch
+    from repro_torch.kernels.fused import kernel as K
+    from repro_torch.kernels.fused import ref as R
+    from repro_torch.kernels.fused.ops import prepare_operands
+    from repro_torch.core.thermometer import quantize_fixed_point
+    from repro_torch.kernels.autotune import DEFAULT_CONFIG
+
+    block_default = DEFAULT_CONFIG.block_b
+    rng = np.random.default_rng(0)
+    F, T, m, n, C = (LG[k] for k in ("F", "T", "m", "n", "C"))
+    x_all = rng.uniform(-1, 1, (max(batches), F)).astype(np.float32)
+    cases = [("lg-2400", (m,), None, batches),
+             ("stack-120-50", (120, 50), None, batches[1:]),
+             ("lg-2400-pen9", (m,), 8, batches[:2])]
+    kernels = {"packed": (K.fused_dwn_packed, R.fused_dwn_packed_plain),
+               "batch-major": (K.fused_dwn_batch_major,
+                               R.fused_dwn_batch_major_plain)}
+    checks, max_err, timing = [], {v: 0.0 for v in kernels}, {}
+    for case, counts, frac, bs in cases:
+        th, maps, tabs = make_model(rng, F, T, counts, n, frac)
+        th_d = torch.from_numpy(th).to(device)
+        maps_d = [torch.from_numpy(a).to(device) for a in maps]
+        tabs_d = [torch.from_numpy(a).to(device) for a in tabs]
+        for variant, (kern, plain) in kernels.items():
+            ops = prepare_operands(th_d, maps_d, tabs_d, C, variant)
+            for B in bs:
+                xb = x_all[:B]
+                if frac is not None:
+                    xb = quantize_fixed_point(xb, frac).astype(np.float32)
+                x = torch.from_numpy(np.ascontiguousarray(xb)).to(device)
+                ref_c, ref_i = plain(x, *ops)
+                for block_b in ((block_default, 7, 256) if B == 1000
+                                else (block_default,)):
+                    got_c, got_i = kern(x, *ops, block_b=block_b)
+                    torch.cuda.synchronize()
+                    err = float((got_c - ref_c).abs().max()) if B else 0.0
+                    equal = bool(torch.equal(got_c, ref_c)
+                                 and torch.equal(got_i, ref_i))
+                    checks.append({"case": case, "variant": variant,
+                                   "B": B, "block_b": block_b,
+                                   "equal": equal})
+                    max_err[variant] = max(max_err[variant], err)
+                    if not equal:
+                        emit({"phase": "kernels", "checks": checks})
+                        raise SystemExit(
+                            f"{variant} kernel differs from its plain "
+                            f"version: {case}, B={B}, block_b={block_b}, "
+                            f"max |diff| {err}")
+            if case == "lg-2400":
+                x = torch.from_numpy(x_all[:time_batch]).to(device)
+                nbytes, nops = model_bytes_and_ops(
+                    variant, time_batch, F, T, counts, n, C)
+                bound_s = max(nbytes / PEAK_BYTES_PER_S,
+                              nops / PEAK_SCALAR_OPS_PER_S)
+                timing[variant] = {
+                    "ms": time_ms(lambda: kern(x, *ops,
+                                               block_b=block_default),
+                                  iters=200, warmup=10),
+                    "plain_ms": time_ms(lambda: plain(x, *ops), iters=5,
+                                        warmup=1),
+                    "bound_ms": bound_s * 1e3,
+                    "bound_by": ("bytes" if nbytes / PEAK_BYTES_PER_S
+                                 >= nops / PEAK_SCALAR_OPS_PER_S
+                                 else "operations"),
+                    "bytes": nbytes, "operations": nops,
+                    "block_b_ms": {
+                        bb: time_ms(lambda: kern(x, *ops, block_b=bb),
+                                    iters=100, warmup=5)
+                        for bb in BLOCK_B_SWEEP}}
+    emit({"phase": "kernels", "checks": checks, "max_abs_err": max_err,
+          "timing_batch": time_batch, "block_b": block_default,
+          "timing": timing})
+    return max_err, timing
+
+
+def _served(done):
+    return sum(r.size for r in done)
+
+
+def _serve_pass(engine, stream, kernel_name):
+    """Counts set to 0, the stream served, counts read; returns stats."""
+    from repro_torch.kernels.fused.kernel import (launch_counts,
+                                                  reset_launch_counts)
+    from repro_torch.serving.scheduler import latency_stats
+    reset_launch_counts()
+    for p in stream:
+        engine.submit(p)
+    t0 = time.perf_counter()
+    done = engine.drain()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    if launches[kernel_name] == 0:
+        raise SystemExit(f"{kernel_name} was not launched on its pass: "
+                         f"{launches}")
+    lat = latency_stats(done)["compute_ms"]
+    return done, launches, {
+        "kernel": kernel_name, "requests": len(done),
+        "served": _served(done), "launches": launches,
+        "throughput_samples_per_s": _served(done) / wall,
+        "compute_ms_p50": lat["p50"], "compute_ms_p99": lat["p99"]}
+
+
+def _step_split(engine, x_np, reps=20):
+    """Median ms of host-to-device copy, launch + compute, and
+    device-to-host copy of one step."""
+    import torch
+    h2d, comp, d2h = [], [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xd = torch.from_numpy(x_np).to(engine.device)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        counts, pred = engine.backend(xd)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts.cpu().numpy(), pred.cpu().numpy()
+        t3 = time.perf_counter()
+        h2d.append(t1 - t0)
+        comp.append(t2 - t1)
+        d2h.append(t3 - t2)
+    med = lambda v: float(np.median(v)) * 1e3  # noqa: E731
+    return {"rows": int(x_np.shape[0]), "h2d_ms": med(h2d),
+            "launch_compute_ms": med(comp), "d2h_ms": med(d2h)}
+
+
+def _check_against_oracle(engine, done):
+    """Every request's counts and predictions equal the float oracle's."""
+    import torch
+    oracle = engine.backends["float-oracle"]
+    for r in done:
+        x = torch.from_numpy(np.ascontiguousarray(r.payload)).to(
+            engine.device)
+        c, p = (t.cpu().numpy() for t in oracle(x))
+        if not (np.array_equal(c, r.result[0])
+                and np.array_equal(p, r.result[1])):
+            raise SystemExit(f"request {r.rid} differs from the oracle")
+
+
+def phase_serve(device, batch=4096, requests=16, n_train=20000):
+    from repro_torch.kernels.autotune import DEFAULT_CONFIG, FusedConfig
+    from repro_torch.serving import ServingEngine
+    t0 = time.perf_counter()
+    engine = ServingEngine("dwn-jsc-lg", device=device, max_bucket=batch,
+                           n_train=n_train, seed=0)
+    startup_s = time.perf_counter() - t0
+    if engine.bit_exact != {"fused-packed": True, "packed-eager": True}:
+        raise SystemExit(f"startup verification incomplete: "
+                         f"{engine.bit_exact}")
+    stream = [engine.make_request(batch, seed=1000 + i)
+              for i in range(requests)]
+    engine.warmup(batch)
+    done_k2, launches_k2, k2 = _serve_pass(engine, stream,
+                                           "fused_dwn_packed")
+    split_k2 = _step_split(engine, stream[0])
+
+    for bucket in engine.scheduler.buckets:
+        engine.model.tuned_configs[bucket] = FusedConfig(
+            "batch-major", block_b=DEFAULT_CONFIG.block_b)
+    engine.warmup(batch)
+    done_k1, launches_k1, k1 = _serve_pass(engine, stream,
+                                           "fused_dwn_batch_major")
+    split_k1 = _step_split(engine, stream[0])
+    for a, b in zip(done_k2, done_k1):
+        if not (np.array_equal(a.result[0], b.result[0])
+                and np.array_equal(a.result[1], b.result[1])):
+            raise SystemExit(f"request {a.rid}: the two kernels disagree")
+    _check_against_oracle(engine, done_k2[:2])
+
+    engine.model.tuned_configs.clear()
+    rng = np.random.default_rng(7)
+    ragged = [engine.make_request(int(rng.integers(1, batch + 1)),
+                                  seed=2000 + i) for i in range(requests)]
+    done_rg, _, rg = _serve_pass(engine, ragged, "fused_dwn_packed")
+    _check_against_oracle(engine, done_rg)
+    emit({"phase": "serve", "arch": "dwn-jsc-lg", "luts": engine.spec.luts,
+          "startup_s": startup_s, "bit_exact_vs_oracle": engine.bit_exact,
+          "passes": [k2, k1, dict(rg, ragged=True)],
+          "step_split": {"fused_dwn_packed": split_k2,
+                         "fused_dwn_batch_major": split_k1}})
+    return {"fused_dwn_packed": launches_k2["fused_dwn_packed"],
+            "fused_dwn_batch_major": launches_k1["fused_dwn_batch_major"]}
+
+
+def phase_cli(device):
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    serve.main(["--arch", "dwn-jsc-lg", "--requests", "4", "--device",
+                device])
+    emit({"phase": "cli", "seconds": time.perf_counter() - t0})
+
+
+def main() -> int:
+    if not (SRC / "repro_torch").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {__file__}",
+              file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "runs the port on a CUDA card", file=sys.stderr)
+        return 3
+    sys.path.insert(0, str(SRC))
+
+    smi = nvidia_smi_line()
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    emit({"phase": "device", "name": kind, "count": count,
+          "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+    phase_build()
+    max_err, timing = phase_kernels("cuda")
+    launches = phase_serve("cuda")
+    phase_cli("cuda")
+
+    src = "src/repro_torch/kernels/fused/csrc/fused_dwn.cu"
+    replaces = {"fused_dwn_packed": "src/repro/kernels/fused/kernel.py:189",
+                "fused_dwn_batch_major":
+                    "src/repro/kernels/fused/kernel.py:286"}
+    variant_of = {"fused_dwn_packed": "packed",
+                  "fused_dwn_batch_major": "batch-major"}
+    summary = []
+    for name in ("fused_dwn_batch_major", "fused_dwn_packed"):
+        t = timing[variant_of[name]]
+        summary.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces[name], "launches": launches[name],
+            "equal": True, "max_abs_err": max_err[variant_of[name]],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
+    emit({"kernels": summary})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": count}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

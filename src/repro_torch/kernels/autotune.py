@@ -1,0 +1,48 @@
+"""Fused-kernel configuration: which kernel variant serves a batch bucket
+and how many samples one CUDA block takes.
+
+The reference's timed sweep and its persistent cache are not ported yet;
+a model serves on :data:`DEFAULT_CONFIG` unless its bundle's
+``tuned_configs`` names a config for the bucket.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+#: kernel variants (see ``fused/ops.py``).
+VARIANTS = ("packed", "batch-major")
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedConfig:
+    """One point in the fused-kernel configuration space.
+
+    Attributes:
+      variant: "packed" (the full F*T bit tensor in words) or
+        "batch-major" (direct-wire first layer).
+      block_b: samples one CUDA block takes (its 8 warps share them).
+        The results do not depend on it.  The default, one sample per warp,
+        was the fastest of {4, 8, 16, 32, 64} for both kernels at
+        dwn-jsc-lg width and 4096 rows on an H100 80GB HBM3 at 700 W
+        (``chip_smoke.py``; PERF.md).
+    """
+
+    variant: str = "packed"
+    block_b: int = 8
+
+    def __post_init__(self):
+        if self.variant not in VARIANTS:
+            raise ValueError(f"unknown fused variant {self.variant!r}; "
+                             f"choose one of {VARIANTS}")
+        if self.block_b < 1:
+            raise ValueError(f"block_b must be >= 1, got {self.block_b}")
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+#: what an untuned model serves with.
+DEFAULT_CONFIG = FusedConfig()
+
+__all__ = ["DEFAULT_CONFIG", "FusedConfig", "VARIANTS"]

@@ -1,0 +1,214 @@
+"""Launch wrappers of the fused DWN CUDA kernels (``csrc/fused_dwn.cu``).
+
+``fused_dwn_packed``
+    encodes all F*T thermometer bits into packed words, runs every LUT
+    layer word-addressed, then a masked popcount and the first argmax
+    (counterpart of the reference's Pallas ``fused_dwn_packed``).
+``fused_dwn_batch_major``
+    compares only the m0*n wired bits of the first layer (direct-wire),
+    packs that layer's outputs and runs the rest word-addressed
+    (counterpart of the reference's Pallas ``fused_dwn_batch_major``).
+
+Both return ``(counts (B, classes) float32, idx (B,) int32)`` for any B.
+For tensors on the CPU a wrapper runs its plain version (``ref.py``); for
+CUDA tensors it launches the kernel or raises — it never falls back.  Each
+launch adds one to the kernel's count in :func:`launch_counts`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from ..autotune import DEFAULT_CONFIG
+from .ref import (MAX_LAYERS, LayerStack, fused_dwn_batch_major_plain,
+                  fused_dwn_packed_plain)
+
+LIBRARY = "fused_dwn"
+#: threads per block (== kThreads in the source): 8 warps.
+THREADS = 256
+#: dynamic shared memory one block may use on an H100.
+MAX_SMEM_BYTES = 232_448
+
+_LAUNCHES = {"fused_dwn_packed": 0, "fused_dwn_batch_major": 0}
+_BOUND: list = []
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel name -> launches since the last :func:`reset_launch_counts`."""
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    """The kernel library, built on first use, with its C signatures."""
+    if not _BOUND:
+        lib = _build.load(LIBRARY)
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.fused_dwn_packed_launch.argtypes = [
+            P, P, I, I, I, P, I, P, P, P, P, I, I, P, P, I, I, P]
+        lib.fused_dwn_packed_launch.restype = I
+        lib.fused_dwn_batch_major_launch.argtypes = [
+            P, I, I, P, P, P, I, I, I, P, I, P, P, P, P, I, I, P, P, I, I, P]
+        lib.fused_dwn_batch_major_launch.restype = I
+        lib.fused_dwn_error_string.argtypes = [I]
+        lib.fused_dwn_error_string.restype = ctypes.c_char_p
+        _BOUND.append(lib)
+    return _BOUND[0]
+
+
+def _expect(t: torch.Tensor, name: str, dtype, ndim: int,
+            device: torch.device) -> None:
+    if t.dtype != dtype or t.dim() != ndim:
+        raise ValueError(f"{name} must be a {ndim}-d {dtype} tensor, got "
+                         f"{t.dim()}-d {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, x is on {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_stack(layers: LayerStack, device: torch.device) -> None:
+    if layers.num_layers > MAX_LAYERS:
+        raise ValueError(f"the CUDA kernels take at most {MAX_LAYERS} "
+                         f"word-addressed layers, got {layers.num_layers}")
+    for t, name in ((layers.widx, "widx"), (layers.boff, "boff"),
+                    (layers.tab, "tab")):
+        _expect(t, name, torch.int32, 1, device)
+
+
+def _check_masks(class_masks: torch.Tensor, last_m: int,
+                 device: torch.device) -> int:
+    _expect(class_masks, "class_masks", torch.int32, 2, device)
+    if class_masks.shape[1] != last_m // 32:
+        raise ValueError(f"class_masks have {class_masks.shape[1]} words; "
+                         f"the last layer packs to {last_m // 32}")
+    return class_masks.shape[0]
+
+
+def _launch(name: str, x: torch.Tensor, call, num_classes: int,
+            buf_words: int):
+    """Allocate outputs, run ``call(lib, counts, idx, stream)`` on the
+    current stream and raise on any CUDA error it returns."""
+    B, F = x.shape
+    smem = (THREADS // 32) * (F + 2 * buf_words) * 4
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: {smem} bytes of shared memory per block "
+                         f"exceed the card's {MAX_SMEM_BYTES}")
+    counts = torch.empty((B, num_classes), dtype=torch.float32,
+                         device=x.device)
+    idx = torch.empty((B,), dtype=torch.int32, device=x.device)
+    if B == 0:
+        return counts, idx
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = call(lib, counts, idx, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
+                           f"({lib.fused_dwn_error_string(err).decode()})")
+    _LAUNCHES[name] += 1
+    return counts, idx
+
+
+def _device_of(x: torch.Tensor) -> str:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused DWN kernels run on cpu or cuda tensors, "
+                         f"got {x.device}")
+    return x.device.type
+
+
+def fused_dwn_packed(x: torch.Tensor, thresholds: torch.Tensor,
+                     layers: LayerStack, class_masks: torch.Tensor, *,
+                     block_b: int = DEFAULT_CONFIG.block_b):
+    """Whole-model packed inference in one launch.
+
+    x (B, F) float32; thresholds (F, T) float32; ``layers`` the whole LUT
+    stack (``ref.LayerStack``); class_masks (classes, m_last/32) int32
+    words.  ``block_b`` samples per CUDA block; results do not depend on
+    it.  Returns (counts (B, classes) float32, idx (B,) int32).
+    """
+    if _device_of(x) == "cpu":
+        return fused_dwn_packed_plain(x, thresholds, layers, class_masks)
+    dev = x.device
+    _expect(x, "x", torch.float32, 2, dev)
+    _expect(thresholds, "thresholds", torch.float32, 2, dev)
+    if layers.num_layers < 1:
+        raise ValueError("fused_dwn_packed needs at least one LUT layer")
+    _check_stack(layers, dev)
+    B, F = x.shape
+    F_th, T = thresholds.shape
+    if F_th != F:
+        raise ValueError(f"x has {F} features, thresholds {F_th}")
+    C = _check_masks(class_masks, layers.shapes[-1][0], dev)
+    buf_words = max([(F * T + 31) // 32] + [m // 32 for m, _ in
+                                            layers.shapes])
+    meta = layers.meta
+
+    def call(lib, counts, idx, stream):
+        return lib.fused_dwn_packed_launch(
+            x.data_ptr(), thresholds.data_ptr(), B, F, T,
+            meta.ctypes.data, layers.num_layers, layers.widx.data_ptr(),
+            layers.boff.data_ptr(), layers.tab.data_ptr(),
+            class_masks.data_ptr(), C, class_masks.shape[1],
+            counts.data_ptr(), idx.data_ptr(), block_b, buf_words, stream)
+    return _launch("fused_dwn_packed", x, call, C, buf_words)
+
+
+def fused_dwn_batch_major(x: torch.Tensor, wire_f: torch.Tensor,
+                          wire_th: torch.Tensor, tab0: torch.Tensor,
+                          rest: LayerStack, class_masks: torch.Tensor, *,
+                          block_b: int = DEFAULT_CONFIG.block_b):
+    """Batch-major direct-wire inference in one launch.
+
+    x (B, F) float32; wire_f (m0, n) int32 feature index and wire_th
+    (m0, n) float32 threshold of every first-layer wire, tab0 (m0, tw)
+    int32 table words (m0 a multiple of 32; ``ref.first_layer_wires``);
+    ``rest`` the layers after the first (possibly none); class_masks
+    (classes, m_last/32) int32 words.  Returns (counts, idx) as
+    :func:`fused_dwn_packed`.
+    """
+    if _device_of(x) == "cpu":
+        return fused_dwn_batch_major_plain(x, wire_f, wire_th, tab0, rest,
+                                           class_masks)
+    dev = x.device
+    _expect(x, "x", torch.float32, 2, dev)
+    _expect(wire_f, "wire_f", torch.int32, 2, dev)
+    _expect(wire_th, "wire_th", torch.float32, 2, dev)
+    _expect(tab0, "tab0", torch.int32, 2, dev)
+    _check_stack(rest, dev)
+    B, F = x.shape
+    m0, n0 = wire_f.shape
+    if m0 % 32 != 0 or wire_th.shape != wire_f.shape or \
+            tab0.shape[0] != m0:
+        raise ValueError(f"first-layer operands disagree: wire_f "
+                         f"{tuple(wire_f.shape)}, wire_th "
+                         f"{tuple(wire_th.shape)}, tab0 {tuple(tab0.shape)} "
+                         f"(m0 must be a multiple of 32)")
+    if tab0.shape[1] != (2 ** n0 + 31) // 32:
+        raise ValueError(f"tab0 has {tab0.shape[1]} words per LUT; fan-in "
+                         f"{n0} needs {(2 ** n0 + 31) // 32}")
+    last_m = rest.shapes[-1][0] if rest.num_layers else m0
+    C = _check_masks(class_masks, last_m, dev)
+    buf_words = max([m0 // 32] + [m // 32 for m, _ in rest.shapes])
+    meta = rest.meta
+
+    def call(lib, counts, idx, stream):
+        return lib.fused_dwn_batch_major_launch(
+            x.data_ptr(), B, F, wire_f.data_ptr(), wire_th.data_ptr(),
+            tab0.data_ptr(), m0, n0, tab0.shape[1],
+            meta.ctypes.data if rest.num_layers else None, rest.num_layers,
+            rest.widx.data_ptr(), rest.boff.data_ptr(), rest.tab.data_ptr(),
+            class_masks.data_ptr(), C, class_masks.shape[1],
+            counts.data_ptr(), idx.data_ptr(), block_b, buf_words, stream)
+    return _launch("fused_dwn_batch_major", x, call, C, buf_words)
+
+
+__all__ = ["fused_dwn_batch_major", "fused_dwn_packed", "launch_counts",
+           "reset_launch_counts"]

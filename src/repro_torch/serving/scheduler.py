@@ -1,0 +1,236 @@
+"""Request queue with dynamic microbatching into power-of-two buckets.
+
+The port's own copy of the reference's ``repro.serving.scheduler`` (numpy
+only).  Serving traffic is ragged: requests carry anywhere from one sample
+to thousands.  Padding everything to one giant batch wastes compute on
+small requests, so:
+
+* requests are drained strictly in **admission order** (FIFO — no
+  reordering, so latency is predictable and starvation impossible);
+* consecutive requests are **coalesced** into a microbatch as long as the
+  combined sample count fits the largest bucket;
+* the microbatch is **padded up to the smallest power-of-two bucket** that
+  holds it, so the set of batch shapes a backend ever sees is the fixed
+  bucket ladder ``{min_bucket, 2*min_bucket, ..., max_bucket}``;
+* oversized requests (> max_bucket) are split into max_bucket chunks.
+
+Every request records wall-clock (``time.perf_counter`` — monotonic, the
+correct timer for sub-ms latencies) for **queue** time (submit -> step
+launch) and **compute** time (step launch -> results ready) separately,
+so a serving report can distinguish "waiting behind other traffic" from
+"the datapath is slow".
+
+``drain_batched`` serves array payloads that coalesce along a batch axis
+(DWN feature batches).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Any, Callable
+
+import numpy as np
+
+
+def next_pow2(n: int) -> int:
+    """Smallest power of two >= n (bucket math lives in this module)."""
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def power_of_two_buckets(min_bucket: int, max_bucket: int) -> tuple[int, ...]:
+    """The bucket ladder: powers of two in [min_bucket, max_bucket]."""
+    assert min_bucket > 0 and max_bucket >= min_bucket
+    assert min_bucket & (min_bucket - 1) == 0, min_bucket
+    assert max_bucket & (max_bucket - 1) == 0, max_bucket
+    out, b = [], min_bucket
+    while b <= max_bucket:
+        out.append(b)
+        b *= 2
+    return tuple(out)
+
+
+def bucket_for(n: int, buckets: tuple[int, ...]) -> int:
+    """Smallest ladder bucket holding n samples (n <= buckets[-1])."""
+    assert 0 < n <= buckets[-1], (n, buckets)
+    for b in buckets:
+        if n <= b:
+            return b
+    raise AssertionError  # unreachable: ladder ends at max_bucket
+
+
+@dataclasses.dataclass
+class Request:
+    """One serving request plus its latency accounting."""
+
+    rid: int
+    payload: Any                       # (size, F) features
+    size: int                          # samples
+    t_submit: float
+    t_start: float = 0.0               # first step launch
+    t_done: float = 0.0                # last result ready
+    buckets: tuple = ()                # bucket(s) this request ran in
+    result: Any = None
+
+    @property
+    def queue_ms(self) -> float:
+        return (self.t_start - self.t_submit) * 1e3
+
+    @property
+    def compute_ms(self) -> float:
+        return (self.t_done - self.t_start) * 1e3
+
+    @property
+    def total_ms(self) -> float:
+        return (self.t_done - self.t_submit) * 1e3
+
+
+class MicrobatchScheduler:
+    """Admission-order FIFO with power-of-two batch bucketing.
+
+    ``timer`` is injectable (default ``time.perf_counter``) so latency
+    attribution — queue time from *original submit* even across oversize
+    chunk splits — is testable with a deterministic clock.
+    """
+
+    def __init__(self, *, max_bucket: int = 256, min_bucket: int = 8,
+                 timer: Callable[[], float] = time.perf_counter):
+        self.buckets = power_of_two_buckets(min_bucket, max_bucket)
+        self.min_bucket = min_bucket
+        self.max_bucket = max_bucket
+        self._timer = timer
+        self._queue: deque[Request] = deque()
+        self._next_rid = 0
+        #: high-water mark of queued requests (serving report observable)
+        self.max_pending = 0
+        #: accounting history: slim copies (payload/result dropped) so a
+        #: long-lived server's latency stats don't pin every array served.
+        #: Full requests — payloads and results included — are returned to
+        #: the caller by the drain call that served them.
+        self.completed: list[Request] = []
+
+    def _record(self, done: list[Request]) -> None:
+        self.completed.extend(
+            dataclasses.replace(r, payload=None, result=None) for r in done)
+
+    # -- admission ----------------------------------------------------------
+
+    def submit(self, payload: Any, size: int | None = None) -> Request:
+        if size is None:
+            size = int(np.asarray(payload).shape[0])
+        req = Request(rid=self._next_rid, payload=payload, size=size,
+                      t_submit=self._timer())
+        self._next_rid += 1
+        self._queue.append(req)
+        self.max_pending = max(self.max_pending, len(self._queue))
+        return req
+
+    @property
+    def pending(self) -> int:
+        return len(self._queue)
+
+    def bucket_for(self, n: int) -> int:
+        """Smallest ladder bucket holding n samples (n <= max_bucket)."""
+        return bucket_for(n, self.buckets)
+
+    # -- draining -----------------------------------------------------------
+
+    def _take_microbatch(self) -> list[Request]:
+        """Pop the next admission-order run of requests fitting max_bucket."""
+        group = [self._queue.popleft()]
+        total = group[0].size            # <= max_bucket: oversize heads
+        # take the split path in drain_batched before reaching here
+        while self._queue and total + self._queue[0].size <= self.max_bucket:
+            nxt = self._queue.popleft()
+            group.append(nxt)
+            total += nxt.size
+        return group
+
+    def _run_chunk(self, step: Callable, xs: list[np.ndarray],
+                   total: int):
+        """Pad a coalesced chunk to its bucket and run one step."""
+        bucket = self.bucket_for(total)
+        x = np.concatenate(xs, axis=0) if len(xs) > 1 else np.asarray(xs[0])
+        if bucket > total:
+            pad = np.zeros((bucket - total,) + x.shape[1:], x.dtype)
+            x = np.concatenate([x, pad], axis=0)
+        out = step(x)
+        return bucket, [np.asarray(o)[:total] for o in out]
+
+    def drain_batched(self, step: Callable) -> list[Request]:
+        """Serve every queued request; returns them in completion order.
+
+        ``step(x)`` takes a bucket-padded (bucket, ...) array and returns a
+        tuple of per-sample result arrays; it must block until the results
+        are ready (the scheduler's compute timing is the step call).
+        """
+        done: list[Request] = []
+        while self._queue:
+            head = self._queue[0]
+            if head.size > self.max_bucket:
+                # oversize: serve alone, split into max_bucket chunks.
+                # The clock does NOT restart per chunk: t_start is
+                # stamped once at first step launch (before the payload
+                # conversion, which is compute-side work — the group path
+                # converts inside _run_chunk, after its t_start), so
+                # queue_ms spans original submit -> first launch and
+                # compute_ms spans every chunk.
+                req = self._queue.popleft()
+                req.t_start = self._timer()
+                x = np.asarray(req.payload)
+                chunks, buckets = [], []
+                for i in range(0, req.size, self.max_bucket):
+                    bucket, outs = self._run_chunk(
+                        step, [x[i:i + self.max_bucket]],
+                        min(self.max_bucket, req.size - i))
+                    buckets.append(bucket)
+                    chunks.append(outs)
+                req.result = tuple(np.concatenate(parts, axis=0)
+                                   for parts in zip(*chunks))
+                req.t_done = self._timer()
+                req.buckets = tuple(buckets)
+                done.append(req)
+                continue
+            group = self._take_microbatch()
+            total = sum(r.size for r in group)
+            t_start = self._timer()
+            for r in group:
+                r.t_start = t_start
+            bucket, outs = self._run_chunk(
+                step, [np.asarray(r.payload) for r in group], total)
+            t_done = self._timer()
+            off = 0
+            for r in group:
+                r.result = tuple(o[off:off + r.size] for o in outs)
+                r.t_done = t_done
+                r.buckets = (bucket,)
+                off += r.size
+                done.append(r)
+        self._record(done)
+        return done
+
+
+def percentiles(values, *, round_to: int = 3) -> dict:
+    """{p50, p99, p999, mean} over a value sequence (shared schema between
+    the per-backend rows and the load-harness curve levels)."""
+    vals = np.asarray(list(values), np.float64)
+    return {"p50": round(float(np.percentile(vals, 50)), round_to),
+            "p99": round(float(np.percentile(vals, 99)), round_to),
+            "p999": round(float(np.percentile(vals, 99.9)), round_to),
+            "mean": round(float(vals.mean()), round_to)}
+
+
+def latency_stats(requests: list[Request]) -> dict:
+    """Queue/compute/total latency percentiles over completed requests."""
+    if not requests:
+        return {}
+    return {kind: percentiles(getattr(r, kind) for r in requests)
+            for kind in ("queue_ms", "compute_ms", "total_ms")}
+
+
+__all__ = ["MicrobatchScheduler", "Request", "bucket_for", "latency_stats",
+           "next_pow2", "percentiles", "power_of_two_buckets"]

@@ -1,0 +1,116 @@
+"""On a CUDA card: each fused CUDA kernel against its plain version, and
+the serving engine through the kernels.
+
+These tests import torch and not JAX (the card's machine has no JAX); the
+plain versions they compare with are held to the reference's Pallas
+kernels by ``test_torch_fused.py``.  Each test decides inside itself
+whether a card is present and skips without one.  Every comparison is
+exact: counts are integers held in float32 and the argmax is an integer.
+
+Run on a card: ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py``.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.autotune import FusedConfig  # noqa: E402
+from repro_torch.kernels.fused import kernel as K  # noqa: E402
+from repro_torch.kernels.fused import ops as tops  # noqa: E402
+from repro_torch.kernels.fused import ref as R  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only on the GPU")
+
+
+def _model(seed, F, T, counts, n=6, B=1000, pen_frac=None):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1, 1, (B, F)).astype(np.float32)
+    th = np.sort(rng.uniform(-1, 1, (F, T)).astype(np.float32), axis=1)
+    if pen_frac is not None:          # PEN: many exact x == th ties
+        x = np.round(x * 2 ** pen_frac) / 2 ** pen_frac
+        th = np.round(th * 2 ** pen_frac) / 2 ** pen_frac
+    maps, tabs, cand = [], [], F * T
+    for m in counts:
+        maps.append(rng.integers(0, cand, (m, n)).astype(np.int32))
+        tabs.append(rng.integers(0, 2, (m, 2 ** n)).astype(np.int32))
+        cand = m
+    return x, th, maps, tabs
+
+
+@pytest.mark.parametrize("variant", ["packed", "batch-major"])
+def test_cuda_kernel_matches_plain(variant):
+    """Exact: lg-2400 width, a 2-layer stack, PEN ties, a ragged F*T,
+    ragged B (incl. 1 and 0) and several block_b; one launch counted per
+    non-empty call."""
+    _need_card()
+    kern, plain = {
+        "packed": (K.fused_dwn_packed, R.fused_dwn_packed_plain),
+        "batch-major": (K.fused_dwn_batch_major,
+                        R.fused_dwn_batch_major_plain)}[variant]
+    name = "fused_dwn_" + variant.replace("-", "_")
+    cases = [(16, 200, (2400,), None), (16, 200, (120, 50), None),
+             (16, 200, (360,), 8), (5, 13, (40,), None)]
+    for i, (F, T, counts, frac) in enumerate(cases):
+        x, th, maps, tabs = _model(i, F, T, counts, pen_frac=frac)
+        ops = tops.prepare_operands(
+            torch.from_numpy(th).cuda(),
+            [torch.from_numpy(a).cuda() for a in maps],
+            [torch.from_numpy(a).cuda() for a in tabs], 5, variant)
+        for B in (1000, 33, 1, 0):
+            xd = torch.from_numpy(x[:B]).cuda()
+            ref_c, ref_i = plain(xd, *ops)
+            for block_b in (1, 8, 32, 256):
+                before = K.launch_counts()[name]
+                got_c, got_i = kern(xd, *ops, block_b=block_b)
+                torch.cuda.synchronize()
+                assert torch.equal(got_c, ref_c), (i, B, block_b)
+                assert torch.equal(got_i, ref_i), (i, B, block_b)
+                assert K.launch_counts()[name] == before + (B > 0)
+
+
+def test_cuda_wrapper_refuses_bad_operands():
+    """On the card a wrapper raises on operands it cannot take; it never
+    falls back to the plain version."""
+    _need_card()
+    x, th, maps, tabs = _model(9, 16, 200, (50,), B=8)
+    ops = tops.prepare_operands(torch.from_numpy(th).cuda(),
+                                [torch.from_numpy(maps[0]).cuda()],
+                                [torch.from_numpy(tabs[0]).cuda()], 5)
+    xd = torch.from_numpy(x).cuda()
+    with pytest.raises(ValueError, match="float32"):
+        K.fused_dwn_packed(xd.double(), *ops)
+    with pytest.raises(ValueError, match="is on"):
+        K.fused_dwn_packed(xd, ops[0].cpu(), *ops[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        K.fused_dwn_packed(xd.t().contiguous().t(), *ops)
+
+
+def test_engine_serves_through_both_kernels_on_card():
+    """Exact: the engine on the card equals the float oracle per request,
+    with the default (packed) kernel and with batch-major per bucket; the
+    launch counters show which kernel carried each pass."""
+    _need_card()
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine("dwn-jsc-md", max_bucket=256, n_train=2000)
+    assert eng.bit_exact == {"fused-packed": True, "packed-eager": True}
+    oracle = eng.backends["float-oracle"]
+    for variant, name in (("packed", "fused_dwn_packed"),
+                          ("batch-major", "fused_dwn_batch_major")):
+        for b in eng.scheduler.buckets:
+            eng.model.tuned_configs[b] = FusedConfig(variant, block_b=8)
+        K.reset_launch_counts()
+        for size in (1, 100, 256, 300):
+            eng.submit(eng.make_request(size, seed=size))
+        done = eng.drain()
+        assert K.launch_counts()[name] >= 4
+        for r in done:
+            xd = torch.from_numpy(np.ascontiguousarray(r.payload)).cuda()
+            c, p = (t.cpu().numpy() for t in oracle(xd))
+            np.testing.assert_array_equal(r.result[0], c)
+            np.testing.assert_array_equal(r.result[1], p)
