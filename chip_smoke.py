@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's serving path on one NVIDIA card and check it.
+"""Run the PyTorch/CUDA port on one NVIDIA card and check it: its serving
+path and its staged packed datapath.
 
     python3 chip_smoke.py
 
@@ -13,13 +14,23 @@ Phases, each printing one JSON line:
    operands from a numpy seed) holds each kernel against its plain PyTorch
    version on the card, bit for bit, at B = 4096, 1000 and 1, for a 2-layer
    stack (120, 50) and for a PEN (1, 8) grid, then times both at B=4096;
-4. serve   — ``ServingEngine("dwn-jsc-lg", device="cuda")`` at full width,
+4. staged  — the staged packed datapath at the same width: the three
+   stage kernels (packed encode, LUT layer, masked popcount + classify)
+   each held against its plain version bit for bit (B = 4096, 1000, 1, the
+   (120, 50) stack, PEN, a ragged F*T = 21); then ``encode_packed`` ->
+   ``evaluate_packed`` per layer -> ``classify_packed`` at B=4096, equal to
+   the fused packed kernel and to the float oracle ``apply_hard``, with
+   the launch counters showing one encode, one LUT launch per layer and one
+   classify per pass; then each stage kernel, the staged total and the
+   fused kernel timed in the same run, in CUDA graphs (the card's time)
+   and as a loop of wrapper calls (which includes the host's);
+5. serve   — ``ServingEngine("dwn-jsc-lg", device="cuda")`` at full width,
    whose startup checks every backend against the float oracle; serves 16
    requests of 4096 rows on the packed kernel, the same stream on the
    batch-major kernel and a ragged stream, asserting from the launch
    counters that each kernel carried its pass, and times the host-to-device
    copy, the launch and the device-to-host copy of a step;
-5. cli     — ``python -m repro_torch.launch.serve --arch dwn-jsc-lg`` with
+6. cli     — ``python -m repro_torch.launch.serve --arch dwn-jsc-lg`` with
    four requests.
 
 Then it prints the kernels' summary line, nvidia-smi's line and, last,
@@ -29,6 +40,7 @@ so does a machine without a CUDA card, or a directory without the port.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -79,6 +91,35 @@ def time_ms(fn, iters: int, warmup: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 100, replays: int = 5) -> float:
+    """Mean milliseconds per call on the card with no Python between the
+    launches: ``iters`` calls captured in one CUDA graph, replayed
+    ``replays`` times between CUDA events.  Where the wrapper's host work
+    takes longer than its kernel, :func:`time_ms` measures the host; this
+    measures the card."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
 def make_model(rng, F, T, counts, n, pen_frac=None):
     """Random thresholds (ascending per feature), wires and {0,1} tables."""
     from repro_torch.core.thermometer import quantize_fixed_point
@@ -95,8 +136,26 @@ def make_model(rng, F, T, counts, n, pen_frac=None):
 
 def model_bytes_and_ops(variant, B, F, T, counts, n, C):
     """Bytes the function must move (inputs read once, outputs written
-    once) and the scalar operations it does, for one launch."""
+    once) and the scalar operations it does, for one launch.
+
+    ``variant`` is a fused kernel ("packed", "batch-major") or a stage
+    kernel of the staged path: "thermometer" (F*T compares per sample),
+    "lut_eval" (the first layer of ``counts``: m*n bit selects and m table
+    reads per sample) or "popcount" (the last layer's C*W masked word
+    popcounts per sample).
+    """
     words = [(m + 31) // 32 for m in counts]
+    w_in = (F * T + 31) // 32
+    if variant == "thermometer":
+        return B * F * 4 + F * T * 4 + B * w_in * 4, B * F * T
+    if variant == "lut_eval":
+        m = counts[0]
+        nbytes = (B * w_in * 4 + m * n * 4 * 2 + m * ((2 ** n + 31) // 32)
+                  * 4 + B * words[0] * 4)
+        return nbytes, B * m * n + B * m
+    if variant == "popcount":
+        return (B * words[-1] * 4 + C * words[-1] * 4 + B * C * 4 + B * 4,
+                B * C * words[-1])
     tw = (2 ** n + 31) // 32
     table_bytes = sum(m * tw * 4 for m in counts)
     wire_bytes = sum(m * n * 4 * 2 for m in counts)   # two int32 per wire
@@ -199,6 +258,203 @@ def phase_kernels(device, batches=(4096, 1000, 1), time_batch=4096):
           "timing_batch": time_batch, "block_b": block_default,
           "timing": timing})
     return max_err, timing
+
+
+STAGES = {
+    # kernel: (source, the TPU kernel it replaces, bytes/ops variant)
+    "thermometer_encode_packed": (
+        "src/repro_torch/kernels/thermometer/csrc/thermometer.cu",
+        "src/repro/kernels/thermometer/kernel.py:78", "thermometer"),
+    "lut_eval_packed": (
+        "src/repro_torch/kernels/lut_eval/csrc/lut_eval.cu",
+        "src/repro/kernels/lut_eval/kernel.py:99", "lut_eval"),
+    "popcount_classify_packed": (
+        "src/repro_torch/kernels/popcount/csrc/popcount.cu",
+        "src/repro/kernels/popcount/kernel.py:79", "popcount"),
+}
+
+
+def _bound(variant, B, F, T, counts, n, C):
+    nbytes, nops = model_bytes_and_ops(variant, B, F, T, counts, n, C)
+    by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S, nops / PEAK_SCALAR_OPS_PER_S
+    return {"bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes, "operations": nops}
+
+
+def _stage_kernels():
+    """The wrapper modules of the three stage kernels."""
+    from repro_torch.kernels.lut_eval import kernel as KL
+    from repro_torch.kernels.popcount import kernel as KP
+    from repro_torch.kernels.thermometer import kernel as KT
+    return KT, KL, KP
+
+
+def _staged_pass(x, th, maps, tabs, C):
+    """One pass of the staged path through the public ops, counts set to
+    0 just before and read just after; returns (counts, idx, launches)."""
+    import torch
+    from repro_torch.kernels.lut_eval.ops import evaluate_packed
+    from repro_torch.kernels.popcount.ops import classify_packed
+    from repro_torch.kernels.thermometer.ops import encode_packed
+    for K in _stage_kernels():
+        K.reset_launch_counts()
+    packed = encode_packed(x, th)
+    for mp, tb in zip(maps, tabs):
+        packed = evaluate_packed(packed, mp, tb)
+    counts, idx = classify_packed(packed, C)
+    torch.cuda.synchronize()
+    launches = {name: n for K in _stage_kernels()
+                for name, n in K.launch_counts().items()}
+    want = {"thermometer_encode_packed": 1, "lut_eval_packed": len(maps),
+            "popcount_classify_packed": 1}
+    if launches != want:
+        raise SystemExit(f"staged pass launched {launches}, not {want}")
+    return counts, idx, launches
+
+
+def phase_staged(device, batches=(4096, 1000, 1), time_batch=4096):
+    """The three stage kernels equal to their plain versions; the staged
+    path equal to the fused kernel and the float oracle; timings."""
+    import torch
+    from repro_torch.core import bitpack as bp
+    from repro_torch.core.classifier import predict
+    from repro_torch.core.model import JSC_PRESETS, FrozenDWN, apply_hard
+    from repro_torch.core.thermometer import quantize_fixed_point
+    from repro_torch.kernels.fused import ref as FR
+    from repro_torch.kernels.fused.ops import make_forward_packed
+    from repro_torch.kernels.lut_eval import kernel as KL
+    from repro_torch.kernels.lut_eval import ref as RL
+    from repro_torch.kernels.popcount import kernel as KP
+    from repro_torch.kernels.popcount import ref as RP
+    from repro_torch.kernels.thermometer import kernel as KT
+    from repro_torch.kernels.thermometer import ref as RT
+
+    rng = np.random.default_rng(1)
+    F, T, m, n, C = (LG[k] for k in ("F", "T", "m", "n", "C"))
+    x_all = rng.uniform(-1, 1, (max(batches), F)).astype(np.float32)
+    cases = [("lg-2400", F, T, (m,), None, batches),
+             ("stack-120-50", F, T, (120, 50), None, batches[1:]),
+             ("lg-2400-pen9", F, T, (m,), 8, batches[:2]),
+             ("ragged-3x7", 3, 7, (40,), None, batches)]
+    checks, max_err, models = [], dict.fromkeys(STAGES, 0.0), {}
+
+    def held(name, case, B, got, ref):
+        err = float((got.double() - ref.double()).abs().max()) if B else 0.0
+        equal = bool(torch.equal(got, ref))
+        checks.append({"kernel": name, "case": case, "B": B,
+                       "equal": equal})
+        max_err[name] = max(max_err[name], err)
+        if not equal:
+            emit({"phase": "staged", "checks": checks})
+            raise SystemExit(f"{name} differs from its plain version: "
+                             f"{case}, B={B}, max |diff| {err}")
+
+    for case, Fc, Tc, counts, frac, bs in cases:
+        th, maps, tabs = make_model(rng, Fc, Tc, counts, n, frac)
+        th_d = torch.from_numpy(th).to(device)
+        maps_d = [torch.from_numpy(a).to(device) for a in maps]
+        tabs_d = [torch.from_numpy(a).to(device) for a in tabs]
+        layers, cand = [], Fc * Tc
+        for mp, tb in zip(maps_d, tabs_d):
+            stack = FR.LayerStack.build([mp], [tb], cand, device)
+            layers.append(next(stack.layers()))
+            cand = mp.shape[0]
+        masks = bp.to_word_pattern(bp.group_masks(cand, C, device))
+        models[case] = (th, maps, tabs, th_d, maps_d, tabs_d, layers, masks)
+        for B in bs:
+            xb = np.ascontiguousarray(x_all[:B, :Fc])
+            if frac is not None:
+                xb = quantize_fixed_point(xb, frac).astype(np.float32)
+            x = torch.from_numpy(xb).to(device)
+            words = KT.thermometer_encode_packed(x, th_d)
+            torch.cuda.synchronize()
+            held("thermometer_encode_packed", case, B,
+                 bp.from_word_pattern(words),
+                 RT.thermometer_packed_plain(x, th_d))
+            for (widx, boff, tab), m_l in zip(layers, counts):
+                out = KL.lut_eval_packed(words, widx, boff, tab)
+                torch.cuda.synchronize()
+                held("lut_eval_packed", case, B, bp.from_word_pattern(out),
+                     RL.lut_eval_packed_plain(words, widx, boff, tab))
+                if bp.unpack_bits(out, out.shape[1] * 32)[:, m_l:].any():
+                    raise SystemExit(f"lut_eval_packed set a pad bit past "
+                                     f"LUT {m_l}: {case}, B={B}")
+                words = out
+            got_c, got_i = KP.popcount_classify_packed(words, masks)
+            torch.cuda.synchronize()
+            ref_c, ref_i = RP.popcount_classify_packed_plain(words, masks)
+            held("popcount_classify_packed", case, B, got_c, ref_c)
+            held("popcount_classify_packed", case, B, got_i, ref_i)
+
+    # the staged path end to end at dwn-jsc-lg width, then on the stack
+    x = torch.from_numpy(x_all[:time_batch]).to(device)
+    launches = dict.fromkeys(STAGES, 0)
+    passes = {}
+    for case in ("lg-2400", "stack-120-50"):
+        th, maps, tabs, th_d, maps_d, tabs_d, _, _ = models[case]
+        counts, idx, got = _staged_pass(x, th_d, maps_d, tabs_d, C)
+        for name in launches:
+            launches[name] += got[name]
+        k2_c, k2_i = make_forward_packed(th_d, maps_d, tabs_d, C)(x)
+        cfg = (JSC_PRESETS["lg-2400"] if case == "lg-2400" else
+               dataclasses.replace(JSC_PRESETS["lg-2400"],
+                                   lut_counts=(120, 50)))
+        oracle = apply_hard(FrozenDWN(cfg, th, maps, tabs), x)
+        passes[case] = {
+            "launches": got,
+            "equal_fused_packed": bool(torch.equal(counts, k2_c)
+                                       and torch.equal(idx, k2_i)),
+            "equal_apply_hard": bool(torch.equal(counts, oracle) and
+                                     torch.equal(idx, predict(oracle)))}
+        if not all(v for k, v in passes[case].items() if k != "launches"):
+            emit({"phase": "staged", "passes": passes})
+            raise SystemExit(f"staged path differs on {case}: "
+                             f"{passes[case]}")
+
+    # times at time_batch, lg-2400, prepared operands
+    th, maps, tabs, th_d, maps_d, tabs_d, layers, masks = models["lg-2400"]
+    [(widx, boff, tab)] = layers
+    w0 = KT.thermometer_encode_packed(x, th_d)
+    w1 = KL.lut_eval_packed(w0, widx, boff, tab)
+    shape = (time_batch, F, T, (m,), n, C)
+    kern = {"thermometer_encode_packed": (
+                lambda: KT.thermometer_encode_packed(x, th_d),
+                lambda: RT.thermometer_packed_plain(x, th_d)),
+            "lut_eval_packed": (
+                lambda: KL.lut_eval_packed(w0, widx, boff, tab),
+                lambda: RL.lut_eval_packed_plain(w0, widx, boff, tab)),
+            "popcount_classify_packed": (
+                lambda: KP.popcount_classify_packed(w1, masks),
+                lambda: RP.popcount_classify_packed_plain(w1, masks))}
+    # "ms": the card's time per launch (CUDA graph); "eager_ms": a loop of
+    # wrapper calls, which measures the host where it is the slower
+    timing = {}
+    for name, (fn, plain) in kern.items():
+        timing[name] = {"ms": graph_ms(fn),
+                        "eager_ms": time_ms(fn, iters=200, warmup=10),
+                        "plain_ms": time_ms(plain, iters=5, warmup=1),
+                        **_bound(STAGES[name][2], *shape)}
+    fused = make_forward_packed(th_d, maps_d, tabs_d, C)
+
+    def three():
+        return KP.popcount_classify_packed(KL.lut_eval_packed(
+            KT.thermometer_encode_packed(x, th_d), widx, boff, tab), masks)
+    staged = {
+        "kernels_ms": graph_ms(three),
+        "kernels_eager_ms": time_ms(three, iters=200, warmup=10),
+        "ops_ms": time_ms(lambda: _staged_pass(x, th_d, maps_d, tabs_d, C),
+                          iters=20, warmup=2),
+        "bound_ms": sum(t["bound_ms"] for t in timing.values()),
+        "fused_packed_ms": graph_ms(lambda: fused(x)),
+        "fused_packed_eager_ms": time_ms(lambda: fused(x), iters=200,
+                                         warmup=10),
+        "fused_packed_bound_ms": _bound("packed", *shape)["bound_ms"]}
+    emit({"phase": "staged", "checks": len(checks),
+          "all_equal": all(c["equal"] for c in checks),
+          "max_abs_err": max_err, "passes": passes,
+          "timing_batch": time_batch, "timing": timing, "staged": staged})
+    return max_err, timing, launches
 
 
 def _served(done):
@@ -338,6 +594,7 @@ def main() -> int:
           "cuda": torch.version.cuda})
     phase_build()
     max_err, timing = phase_kernels("cuda")
+    stage_err, stage_timing, stage_launches = phase_staged("cuda")
     launches = phase_serve("cuda")
     phase_cli("cuda")
 
@@ -355,6 +612,14 @@ def main() -> int:
             "replaces": replaces[name], "launches": launches[name],
             "equal": True, "max_abs_err": max_err[variant_of[name]],
             "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
+    for name, (source, replaced, _) in STAGES.items():
+        t = stage_timing[name]
+        summary.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaced, "launches": stage_launches[name],
+            "equal": True, "max_abs_err": stage_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None})
     emit({"kernels": summary})

@@ -23,6 +23,13 @@ words as an int32 *bit pattern* (:func:`to_word_pattern`), which they read
 as ``uint32_t``.  Words become numpy ``uint32`` only at the numpy boundary
 (:func:`words_to_numpy`).  The numpy twins (``*_np``) are copies of the
 reference package's, kept here so the port imports nothing of it.
+
+A :class:`PackedBits` says by its words' dtype which carrier it holds.  The
+staged packed ops (``kernels/{thermometer,lut_eval,popcount}/ops.py``)
+carry int32 bit patterns on CUDA, so one stage's output feeds the next
+kernel with no conversion, and int64 carriers on the CPU
+(:func:`device_words`).  :func:`unpack_bits`, :func:`words_to_numpy`,
+:func:`from_word_pattern` and the kernels' plain versions take either.
 """
 
 from __future__ import annotations
@@ -85,6 +92,15 @@ def from_word_pattern(words: torch.Tensor) -> torch.Tensor:
     """int32 bit pattern -> int64 words in [0, 2^32) (inverse of
     :func:`to_word_pattern`)."""
     return words.to(torch.int64) & _WORD_MASK
+
+
+def device_words(words: torch.Tensor) -> torch.Tensor:
+    """``words`` in their device's carrier: int32 bit patterns on CUDA (what
+    the kernels read), int64 values in [0, 2^32) elsewhere; returned as
+    they are when they already have it."""
+    if words.device.type == "cuda":
+        return words if words.dtype == torch.int32 else to_word_pattern(words)
+    return words if words.dtype == torch.int64 else from_word_pattern(words)
 
 
 def words_to_numpy(words: torch.Tensor) -> np.ndarray:
@@ -209,8 +225,9 @@ class PackedBits:
     """A logical bit-vector in packed words (see module docstring).
 
     Attributes:
-      words: (..., W) int64 words in [0, 2^32), W = ceil(num_bits / 32);
-        pad bits zero.
+      words: (..., W) words, W = ceil(num_bits / 32), pad bits zero: int64
+        values in [0, 2^32), or int32 bit patterns as the staged ops give
+        on CUDA (see "Word dtypes" above).
       num_bits: logical bit count N.
     """
 
@@ -227,7 +244,8 @@ class PackedBits:
 
 __all__ = [
     "WORD_BITS", "words_for_bits", "pack_bits", "unpack_bits",
-    "to_word_pattern", "from_word_pattern", "words_to_numpy",
+    "to_word_pattern", "from_word_pattern", "device_words",
+    "words_to_numpy",
     "pack_bits_np", "unpack_bits_np", "popcount_u32", "popcount_u32_np",
     "select_packed_bits", "lut_addresses", "masked_group_counts",
     "group_masks_np", "group_masks", "PackedBits",

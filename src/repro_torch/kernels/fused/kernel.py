@@ -17,11 +17,10 @@ launch adds one to the kernel's count in :func:`launch_counts`.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from .. import _build
+from .._launch import (I, LaunchCounts, P, bind, device_type, expect,
+                       launch)
 from ..autotune import DEFAULT_CONFIG
 from .ref import (MAX_LAYERS, LayerStack, fused_dwn_batch_major_plain,
                   fused_dwn_packed_plain)
@@ -32,46 +31,16 @@ THREADS = 256
 #: dynamic shared memory one block may use on an H100.
 MAX_SMEM_BYTES = 232_448
 
-_LAUNCHES = {"fused_dwn_packed": 0, "fused_dwn_batch_major": 0}
-_BOUND: list = []
-
-
-def launch_counts() -> dict[str, int]:
-    """Kernel name -> launches since the last :func:`reset_launch_counts`."""
-    return dict(_LAUNCHES)
-
-
-def reset_launch_counts() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
-
-
-def _lib() -> ctypes.CDLL:
-    """The kernel library, built on first use, with its C signatures."""
-    if not _BOUND:
-        lib = _build.load(LIBRARY)
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.fused_dwn_packed_launch.argtypes = [
-            P, P, I, I, I, P, I, P, P, P, P, I, I, P, P, I, I, P]
-        lib.fused_dwn_packed_launch.restype = I
-        lib.fused_dwn_batch_major_launch.argtypes = [
-            P, I, I, P, P, P, I, I, I, P, I, P, P, P, P, I, I, P, P, I, I, P]
-        lib.fused_dwn_batch_major_launch.restype = I
-        lib.fused_dwn_error_string.argtypes = [I]
-        lib.fused_dwn_error_string.restype = ctypes.c_char_p
-        _BOUND.append(lib)
-    return _BOUND[0]
-
-
-def _expect(t: torch.Tensor, name: str, dtype, ndim: int,
-            device: torch.device) -> None:
-    if t.dtype != dtype or t.dim() != ndim:
-        raise ValueError(f"{name} must be a {ndim}-d {dtype} tensor, got "
-                         f"{t.dim()}-d {t.dtype}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, x is on {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+_COUNTS = LaunchCounts("fused_dwn_packed", "fused_dwn_batch_major")
+#: kernel name -> launches since the last :func:`reset_launch_counts`.
+launch_counts = _COUNTS.get
+reset_launch_counts = _COUNTS.reset
+_SIGNATURES = {
+    "fused_dwn_packed_launch": [P, P, I, I, I, P, I, P, P, P, P, I, I, P, P,
+                                I, I, P],
+    "fused_dwn_batch_major_launch": [P, I, I, P, P, P, I, I, I, P, I, P, P,
+                                     P, P, I, I, P, P, I, I, P],
+}
 
 
 def _check_stack(layers: LayerStack, device: torch.device) -> None:
@@ -80,12 +49,12 @@ def _check_stack(layers: LayerStack, device: torch.device) -> None:
                          f"word-addressed layers, got {layers.num_layers}")
     for t, name in ((layers.widx, "widx"), (layers.boff, "boff"),
                     (layers.tab, "tab")):
-        _expect(t, name, torch.int32, 1, device)
+        expect(t, name, torch.int32, 1, device)
 
 
 def _check_masks(class_masks: torch.Tensor, last_m: int,
                  device: torch.device) -> int:
-    _expect(class_masks, "class_masks", torch.int32, 2, device)
+    expect(class_masks, "class_masks", torch.int32, 2, device)
     if class_masks.shape[1] != last_m // 32:
         raise ValueError(f"class_masks have {class_masks.shape[1]} words; "
                          f"the last layer packs to {last_m // 32}")
@@ -106,22 +75,10 @@ def _launch(name: str, x: torch.Tensor, call, num_classes: int,
     idx = torch.empty((B,), dtype=torch.int32, device=x.device)
     if B == 0:
         return counts, idx
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = call(lib, counts, idx, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
-                           f"({lib.fused_dwn_error_string(err).decode()})")
-    _LAUNCHES[name] += 1
+    lib = bind(LIBRARY, _SIGNATURES)
+    launch(lib, LIBRARY, name, x.device,
+           lambda stream: call(lib, counts, idx, stream), _COUNTS)
     return counts, idx
-
-
-def _device_of(x: torch.Tensor) -> str:
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"fused DWN kernels run on cpu or cuda tensors, "
-                         f"got {x.device}")
-    return x.device.type
 
 
 def fused_dwn_packed(x: torch.Tensor, thresholds: torch.Tensor,
@@ -134,11 +91,11 @@ def fused_dwn_packed(x: torch.Tensor, thresholds: torch.Tensor,
     words.  ``block_b`` samples per CUDA block; results do not depend on
     it.  Returns (counts (B, classes) float32, idx (B,) int32).
     """
-    if _device_of(x) == "cpu":
+    if device_type(x, "fused_dwn_packed") == "cpu":
         return fused_dwn_packed_plain(x, thresholds, layers, class_masks)
     dev = x.device
-    _expect(x, "x", torch.float32, 2, dev)
-    _expect(thresholds, "thresholds", torch.float32, 2, dev)
+    expect(x, "x", torch.float32, 2, dev)
+    expect(thresholds, "thresholds", torch.float32, 2, dev)
     if layers.num_layers < 1:
         raise ValueError("fused_dwn_packed needs at least one LUT layer")
     _check_stack(layers, dev)
@@ -174,14 +131,14 @@ def fused_dwn_batch_major(x: torch.Tensor, wire_f: torch.Tensor,
     (classes, m_last/32) int32 words.  Returns (counts, idx) as
     :func:`fused_dwn_packed`.
     """
-    if _device_of(x) == "cpu":
+    if device_type(x, "fused_dwn_batch_major") == "cpu":
         return fused_dwn_batch_major_plain(x, wire_f, wire_th, tab0, rest,
                                            class_masks)
     dev = x.device
-    _expect(x, "x", torch.float32, 2, dev)
-    _expect(wire_f, "wire_f", torch.int32, 2, dev)
-    _expect(wire_th, "wire_th", torch.float32, 2, dev)
-    _expect(tab0, "tab0", torch.int32, 2, dev)
+    expect(x, "x", torch.float32, 2, dev)
+    expect(wire_f, "wire_f", torch.int32, 2, dev)
+    expect(wire_th, "wire_th", torch.float32, 2, dev)
+    expect(tab0, "tab0", torch.int32, 2, dev)
     _check_stack(rest, dev)
     B, F = x.shape
     m0, n0 = wire_f.shape

@@ -81,4 +81,13 @@ def make_forward_packed(thresholds: torch.Tensor, mappings, tables,
     return fn
 
 
-__all__ = ["make_forward_packed", "prepare_operands"]
+def forward_packed(x: torch.Tensor, thresholds: torch.Tensor, mappings,
+                   tables, num_classes: int, *, config=None):
+    """Whole-model packed inference in one launch: features -> (counts
+    (B, classes) float32, idx (B,) int32).  One-shot wrapper over
+    :func:`make_forward_packed` (operands staged on every call)."""
+    return make_forward_packed(thresholds, mappings, tables, num_classes,
+                               config=config)(x)
+
+
+__all__ = ["forward_packed", "make_forward_packed", "prepare_operands"]

@@ -24,10 +24,12 @@ import numpy as np
 import torch
 import torch.nn.functional as nnf
 
-from ...core.bitpack import (WORD_BITS, from_word_pattern, lut_addresses,
-                             masked_group_counts, pack_bits,
-                             select_packed_bits, to_word_pattern)
-from ...core.lut_layer import first_max_index
+from ...core.bitpack import (WORD_BITS, lut_addresses, pack_bits,
+                             to_word_pattern)
+from ..lut_eval.ref import (lut_eval_packed_plain, packed_wire_indices,
+                            table_bits)
+from ..popcount.ref import popcount_classify_packed_plain
+from ..thermometer.ref import thermometer_packed_plain
 
 #: deepest stack of word-addressed layers the CUDA kernels take.
 MAX_LAYERS = 8
@@ -52,6 +54,8 @@ def _check_mapping(mapping: torch.Tensor, tables: torch.Tensor,
     if tuple(tables.shape) != (m, 2 ** n):
         raise ValueError(f"tables have shape {tuple(tables.shape)}; "
                          f"expected {(m, 2 ** n)}")
+    if tables.numel() and not bool(((tables == 0) | (tables == 1)).all()):
+        raise ValueError("tables must hold only 0 and 1")
     if mapping.numel() and (int(mapping.min()) < 0
                             or int(mapping.max()) >= num_candidates):
         raise ValueError(f"mapping indices must lie in [0, "
@@ -98,8 +102,9 @@ class LayerStack:
             mp = nnf.pad(mp, (0, 0, 0, m_p - m))
             words = pack_table_words(nnf.pad(tb.long(), (0, 0, 0, m_p - m)))
             tw = words.shape[1]
-            widx.append((mp >> 5).reshape(-1))
-            boff.append((mp & 31).reshape(-1))
+            word_idx, bit_off = packed_wire_indices(mp)
+            widx.append(word_idx.reshape(-1))
+            boff.append(bit_off.reshape(-1))
             tab.append(words.reshape(-1))
             meta.append((m_p, n, wire_off, tab_off, tw))
             wire_off += m_p * n
@@ -153,20 +158,11 @@ def first_layer_wires(thresholds: torch.Tensor, mapping: torch.Tensor,
     return wire_f.contiguous(), wire_th.contiguous(), tab0.contiguous()
 
 
-def _lut_outputs(tab: torch.Tensor, addr: torch.Tensor) -> torch.Tensor:
-    """tab (m, tw) word patterns, addr (B, m) -> (B, m) int64 {0,1}."""
-    lut = torch.arange(tab.shape[0], device=addr.device)
-    w = from_word_pattern(tab)[lut[None, :], addr >> 5]
-    return (w >> (addr & 31)) & 1
-
-
 def _layers_and_classify(words: torch.Tensor, layers: LayerStack,
                          class_masks: torch.Tensor):
     for widx, boff, tab in layers.layers():
-        sel = select_packed_bits(words, widx, boff)
-        words = pack_bits(_lut_outputs(tab, lut_addresses(sel)))
-    counts = masked_group_counts(words, from_word_pattern(class_masks))
-    return counts, first_max_index(counts)
+        words = lut_eval_packed_plain(words, widx, boff, tab)
+    return popcount_classify_packed_plain(words, class_masks)
 
 
 def fused_dwn_packed_plain(x: torch.Tensor, thresholds: torch.Tensor,
@@ -177,9 +173,8 @@ def fused_dwn_packed_plain(x: torch.Tensor, thresholds: torch.Tensor,
     of 32: the last word's pad bits are 0); layers the whole stack;
     class_masks (classes, W_last) int32 words.
     """
-    B = x.shape[0]
-    bits = (x[:, :, None] > thresholds[None]).reshape(B, thresholds.numel())
-    return _layers_and_classify(pack_bits(bits), layers, class_masks)
+    return _layers_and_classify(thermometer_packed_plain(x, thresholds),
+                                layers, class_masks)
 
 
 def fused_dwn_batch_major_plain(x: torch.Tensor, wire_f: torch.Tensor,
@@ -196,7 +191,7 @@ def fused_dwn_batch_major_plain(x: torch.Tensor, wire_f: torch.Tensor,
     m0, n = wire_f.shape
     sel = (x[:, wire_f.reshape(-1).long()] > wire_th.reshape(-1)).reshape(
         B, m0, n)
-    words = pack_bits(_lut_outputs(tab0, lut_addresses(sel)))
+    words = pack_bits(table_bits(tab0, lut_addresses(sel)))
     return _layers_and_classify(words, rest, class_masks)
 
 

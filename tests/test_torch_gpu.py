@@ -1,11 +1,13 @@
-"""On a CUDA card: each fused CUDA kernel against its plain version, and
-the serving engine through the kernels.
+"""On a CUDA card: each CUDA kernel against its plain version, the staged
+packed ops against the fused kernel, and the serving engine through the
+kernels.
 
 These tests import torch and not JAX (the card's machine has no JAX); the
 plain versions they compare with are held to the reference's Pallas
-kernels by ``test_torch_fused.py``.  Each test decides inside itself
-whether a card is present and skips without one.  Every comparison is
-exact: counts are integers held in float32 and the argmax is an integer.
+kernels by ``test_torch_fused.py`` and ``test_torch_staged.py``.  Each
+test decides inside itself whether a card is present and skips without
+one.  Every comparison is exact: counts are integers held in float32 and
+the argmax is an integer.
 
 Run on a card: ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py``.
 """
@@ -15,10 +17,20 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import bitpack as tbp  # noqa: E402
 from repro_torch.kernels.autotune import FusedConfig  # noqa: E402
 from repro_torch.kernels.fused import kernel as K  # noqa: E402
 from repro_torch.kernels.fused import ops as tops  # noqa: E402
 from repro_torch.kernels.fused import ref as R  # noqa: E402
+from repro_torch.kernels.lut_eval import kernel as KL  # noqa: E402
+from repro_torch.kernels.lut_eval import ops as OL  # noqa: E402
+from repro_torch.kernels.lut_eval import ref as RL  # noqa: E402
+from repro_torch.kernels.popcount import kernel as KP  # noqa: E402
+from repro_torch.kernels.popcount import ops as OP  # noqa: E402
+from repro_torch.kernels.popcount import ref as RP  # noqa: E402
+from repro_torch.kernels.thermometer import kernel as KT  # noqa: E402
+from repro_torch.kernels.thermometer import ops as OT  # noqa: E402
+from repro_torch.kernels.thermometer import ref as RT  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -114,3 +126,116 @@ def test_engine_serves_through_both_kernels_on_card():
             c, p = (t.cpu().numpy() for t in oracle(xd))
             np.testing.assert_array_equal(r.result[0], c)
             np.testing.assert_array_equal(r.result[1], p)
+
+
+# (F, T, lut_counts, PEN fraction bits): lg width, a 2-layer stack, PEN
+# ties, ragged thermometer words (F*T = 21 and 65)
+STAGE_CASES = [(16, 200, (2400,), None), (16, 200, (120, 50), None),
+               (16, 200, (360,), 8), (3, 7, (40,), None),
+               (5, 13, (40,), None)]
+
+
+def _stage_counts():
+    return {**KT.launch_counts(), **KL.launch_counts(),
+            **KP.launch_counts()}
+
+
+def test_cuda_stage_kernels_match_plain():
+    """Exact: K3, K4 (every layer) and K5 each equal their plain version
+    on the same card inputs, for ragged B (incl. 1 and 0); one launch
+    counted per non-empty call; words are int32 bit patterns."""
+    _need_card()
+    for i, (F, T, counts, frac) in enumerate(STAGE_CASES):
+        x, th, maps, tabs = _model(20 + i, F, T, counts, pen_frac=frac)
+        thd = torch.from_numpy(th).cuda()
+        layers, cand = [], F * T
+        for mp, tb in zip(maps, tabs):
+            stack = R.LayerStack.build([torch.from_numpy(mp).cuda()],
+                                       [torch.from_numpy(tb).cuda()], cand,
+                                       "cuda")
+            layers.append(next(stack.layers()))
+            cand = mp.shape[0]
+        masks = tbp.to_word_pattern(tbp.group_masks(cand, 5, "cuda"))
+        for B in (1000, 33, 1, 0):
+            xd = torch.from_numpy(x[:B]).cuda()
+            before = _stage_counts()
+            words = KT.thermometer_encode_packed(xd, thd)
+            torch.cuda.synchronize()
+            assert words.dtype == torch.int32
+            assert torch.equal(tbp.from_word_pattern(words),
+                               RT.thermometer_packed_plain(xd, thd)), (i, B)
+            for (widx, boff, tab), m in zip(layers, counts):
+                out = KL.lut_eval_packed(words, widx, boff, tab)
+                torch.cuda.synchronize()
+                assert torch.equal(
+                    tbp.from_word_pattern(out),
+                    RL.lut_eval_packed_plain(words, widx, boff, tab)), (i, B)
+                # LUTs past m are the zero-table pad: their bits stay 0
+                pad = tbp.unpack_bits(out, out.shape[1] * 32)[:, m:]
+                assert not pad.any(), (i, B)
+                words = out
+            got_c, got_i = KP.popcount_classify_packed(words, masks)
+            torch.cuda.synchronize()
+            ref_c, ref_i = RP.popcount_classify_packed_plain(words, masks)
+            assert torch.equal(got_c, ref_c) and torch.equal(got_i, ref_i)
+            after = _stage_counts()
+            assert after == {
+                "thermometer_encode_packed":
+                    before["thermometer_encode_packed"] + (B > 0),
+                "lut_eval_packed":
+                    before["lut_eval_packed"] + (B > 0) * len(layers),
+                "popcount_classify_packed":
+                    before["popcount_classify_packed"] + (B > 0)}, (i, B)
+
+
+def test_staged_ops_on_card_match_fused_kernel():
+    """Exact: the staged ops on the card give the fused packed kernel's
+    counts and argmax; one pass launches K3 once, K4 once per layer and
+    K5 once, and hands int32 bit patterns from stage to stage."""
+    _need_card()
+    for i, (F, T, counts, frac) in enumerate(STAGE_CASES):
+        x, th, maps, tabs = _model(40 + i, F, T, counts, pen_frac=frac)
+        thd = torch.from_numpy(th).cuda()
+        maps_d = [torch.from_numpy(a).cuda() for a in maps]
+        tabs_d = [torch.from_numpy(a).cuda() for a in tabs]
+        fused = tops.make_forward_packed(thd, maps_d, tabs_d, 5)
+        xd = torch.from_numpy(x).cuda()
+        for K_ in (KT, KL, KP):
+            K_.reset_launch_counts()
+        packed = OT.encode_packed(xd, thd)
+        assert packed.words.dtype == torch.int32
+        for mp, tb in zip(maps_d, tabs_d):
+            packed = OL.evaluate_packed(packed, mp, tb)
+            assert packed.words.dtype == torch.int32
+        got_c, got_i = OP.classify_packed(packed, 5)
+        torch.cuda.synchronize()
+        assert _stage_counts() == {"thermometer_encode_packed": 1,
+                                   "lut_eval_packed": len(counts),
+                                   "popcount_classify_packed": 1}
+        ref_c, ref_i = fused(xd)
+        assert torch.equal(got_c, ref_c) and torch.equal(got_i, ref_i), i
+
+
+def test_cuda_stage_wrappers_refuse_bad_operands():
+    """On the card the stage wrappers raise on operands they cannot take;
+    they never fall back to the plain version."""
+    _need_card()
+    x, th, maps, tabs = _model(60, 16, 200, (64,), B=8)
+    xd, thd = torch.from_numpy(x).cuda(), torch.from_numpy(th).cuda()
+    with pytest.raises(ValueError, match="is on"):
+        KT.thermometer_encode_packed(xd, thd.cpu())
+    with pytest.raises(ValueError, match="float32"):
+        KT.thermometer_encode_packed(xd.double(), thd)
+    words = KT.thermometer_encode_packed(xd, thd)
+    stack = R.LayerStack.build([torch.from_numpy(maps[0]).cuda()],
+                               [torch.from_numpy(tabs[0]).cuda()], 3200,
+                               "cuda")
+    widx, boff, tab = next(stack.layers())
+    with pytest.raises(ValueError, match="int32"):
+        KL.lut_eval_packed(tbp.from_word_pattern(words), widx, boff, tab)
+    with pytest.raises(ValueError, match="disagree"):
+        KL.lut_eval_packed(words, widx[:40], boff[:40], tab[:40])
+    out = KL.lut_eval_packed(words, widx, boff, tab)
+    masks = tbp.to_word_pattern(tbp.group_masks(64, 4, "cuda"))
+    with pytest.raises(ValueError, match="class_masks"):
+        KP.popcount_classify_packed(out, masks[:, :1].contiguous())

@@ -95,9 +95,12 @@ def test_kernel_build_is_deferred_to_first_launch():
     sources and sits under build/ in the checkout."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.fused import kernel  # noqa: F401
+    import repro_torch.kernels.lut_eval.ops  # noqa: F401
+    import repro_torch.kernels.popcount.ops  # noqa: F401
+    import repro_torch.kernels.thermometer.ops  # noqa: F401
     assert not _build._LIBS
     srcs = _build.sources()
-    assert list(srcs) == ["fused_dwn"]
+    assert list(srcs) == ["fused_dwn", "lut_eval", "popcount", "thermometer"]
     path = _build.library_path(srcs["fused_dwn"])
     assert path.parent == ROOT / "build" / "repro_torch_kernels"
     assert path.name.startswith("libfused_dwn-") and path.suffix == ".so"
