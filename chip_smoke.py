@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port on one NVIDIA card and check it: its serving
-path and its staged packed datapath.
+path, its staged packed datapath and its float datapath.
 
     python3 chip_smoke.py
 
@@ -24,13 +24,26 @@ Phases, each printing one JSON line:
    classify per pass; then each stage kernel, the staged total and the
    fused kernel timed in the same run, in CUDA graphs (the card's time)
    and as a loop of wrapper calls (which includes the host's);
-5. serve   — ``ServingEngine("dwn-jsc-lg", device="cuda")`` at full width,
+5. float   — the float datapath at the same width: the float encode, the
+   float LUT layer (multilinear table evaluation), the group popcount +
+   classify and the float fused kernel, each held against its plain
+   version (B = 4096, 1000, 1, the (120, 50) stack, PEN, a ragged
+   F*T = 21, m = 2402 LUTs of which two count for no class) bit for bit,
+   and within a stated tolerance on soft bits and float tables; then
+   ``encode`` -> ``evaluate`` per layer -> ``classify`` at B=4096, equal
+   to the float fused ``forward``, the staged packed path, the packed
+   fused kernel and ``apply_hard``, with the launch counters showing one
+   encode, one LUT launch per layer and one classify per pass and one
+   fused launch per ``forward``; then each float kernel, the float and
+   packed staged totals and the three fused kernels timed in the same
+   run, and the float fused kernel's block_b and block_m swept;
+6. serve   — ``ServingEngine("dwn-jsc-lg", device="cuda")`` at full width,
    whose startup checks every backend against the float oracle; serves 16
    requests of 4096 rows on the packed kernel, the same stream on the
    batch-major kernel and a ragged stream, asserting from the launch
    counters that each kernel carried its pass, and times the host-to-device
    copy, the launch and the device-to-host copy of a step;
-6. cli     — ``python -m repro_torch.launch.serve --arch dwn-jsc-lg`` with
+7. cli     — ``python -m repro_torch.launch.serve --arch dwn-jsc-lg`` with
    four requests.
 
 Then it prints the kernels' summary line, nvidia-smi's line and, last,
@@ -142,10 +155,27 @@ def model_bytes_and_ops(variant, B, F, T, counts, n, C):
     kernel of the staged path: "thermometer" (F*T compares per sample),
     "lut_eval" (the first layer of ``counts``: m*n bit selects and m table
     reads per sample) or "popcount" (the last layer's C*W masked word
-    popcounts per sample).
+    popcounts per sample); or a kernel of the float datapath (float32 bits
+    and tables, first layer of ``counts``): "float_thermometer" (F*T
+    compares, F*T floats written per sample), "float_lut_eval" (per LUT n
+    gathers and the 2^n - 1 lerps of its table, two operations each),
+    "float_popcount" (one add per LUT output) or "float_fused" (per LUT n
+    wired compares, one table read and one class add).
     """
     words = [(m + 31) // 32 for m in counts]
     w_in = (F * T + 31) // 32
+    m0, A = counts[0], 2 ** n
+    if variant == "float_thermometer":
+        return B * F * 4 + F * T * 4 + B * F * T * 4, B * F * T
+    if variant == "float_lut_eval":
+        nbytes = B * F * T * 4 + m0 * n * 4 + m0 * A * 4 + B * m0 * 4
+        return nbytes, B * m0 * (n + 2 * (A - 1))
+    if variant == "float_popcount":
+        return B * counts[-1] * 4 + B * C * 4 + B * 4, B * counts[-1]
+    if variant == "float_fused":
+        nbytes = (B * F * 4 + F * T * 4 + m0 * n * 4 + m0 * A * 4
+                  + B * C * 4 + B * 4)
+        return nbytes, B * m0 * (n + 2)
     if variant == "thermometer":
         return B * F * 4 + F * T * 4 + B * w_in * 4, B * F * T
     if variant == "lut_eval":
@@ -283,11 +313,34 @@ def _bound(variant, B, F, T, counts, n, C):
 
 
 def _stage_kernels():
-    """The wrapper modules of the three stage kernels."""
+    """The wrapper modules of the stage kernels (thermometer, LUT layer,
+    popcount; each holds a float and a packed kernel)."""
     from repro_torch.kernels.lut_eval import kernel as KL
     from repro_torch.kernels.popcount import kernel as KP
     from repro_torch.kernels.thermometer import kernel as KT
     return KT, KL, KP
+
+
+def _kernel_modules():
+    """Every kernel wrapper module: the fused kernels' and the stages'."""
+    from repro_torch.kernels.fused import kernel as KF
+    return (KF, *_stage_kernels())
+
+
+def _reset_counts():
+    for K in _kernel_modules():
+        K.reset_launch_counts()
+
+
+def _expect_launches(what, want):
+    """Every kernel's launches since :func:`_reset_counts`; raise unless
+    they are ``want`` (kernels it does not name: 0)."""
+    got = {name: n for K in _kernel_modules()
+           for name, n in K.launch_counts().items()}
+    want = {name: want.get(name, 0) for name in got}
+    if got != want:
+        raise SystemExit(f"{what} launched {got}, not {want}")
+    return {name: n for name, n in got.items() if n}
 
 
 def _staged_pass(x, th, maps, tabs, C):
@@ -297,19 +350,15 @@ def _staged_pass(x, th, maps, tabs, C):
     from repro_torch.kernels.lut_eval.ops import evaluate_packed
     from repro_torch.kernels.popcount.ops import classify_packed
     from repro_torch.kernels.thermometer.ops import encode_packed
-    for K in _stage_kernels():
-        K.reset_launch_counts()
+    _reset_counts()
     packed = encode_packed(x, th)
     for mp, tb in zip(maps, tabs):
         packed = evaluate_packed(packed, mp, tb)
     counts, idx = classify_packed(packed, C)
     torch.cuda.synchronize()
-    launches = {name: n for K in _stage_kernels()
-                for name, n in K.launch_counts().items()}
-    want = {"thermometer_encode_packed": 1, "lut_eval_packed": len(maps),
-            "popcount_classify_packed": 1}
-    if launches != want:
-        raise SystemExit(f"staged pass launched {launches}, not {want}")
+    launches = _expect_launches("staged pass", {
+        "thermometer_encode_packed": 1, "lut_eval_packed": len(maps),
+        "popcount_classify_packed": 1})
     return counts, idx, launches
 
 
@@ -457,6 +506,305 @@ def phase_staged(device, batches=(4096, 1000, 1), time_batch=4096):
     return max_err, timing, launches
 
 
+FLOAT = {
+    # kernel: (source, the TPU kernel it replaces, bytes/ops variant)
+    "thermometer_encode": (
+        "src/repro_torch/kernels/thermometer/csrc/thermometer.cu",
+        "src/repro/kernels/thermometer/kernel.py:44", "float_thermometer"),
+    "lut_eval": (
+        "src/repro_torch/kernels/lut_eval/csrc/lut_eval.cu",
+        "src/repro/kernels/lut_eval/kernel.py:54", "float_lut_eval"),
+    "popcount_classify": (
+        "src/repro_torch/kernels/popcount/csrc/popcount.cu",
+        "src/repro/kernels/popcount/kernel.py:41", "float_popcount"),
+    "fused_dwn": (
+        "src/repro_torch/kernels/fused/csrc/fused_dwn.cu",
+        "src/repro/kernels/fused/kernel.py:107", "float_fused"),
+}
+#: where an operand is not {0,1} the float kernels are held to their plain
+#: versions within a tolerance (nvcc contracts a*b+c into FMA, eager
+#: PyTorch rounds twice): the reference's own for soft bits in the LUT
+#: layer (tests/test_kernels.py:54) and for float tables in the fused
+#: kernel (tests/test_kernels.py:85).  Every other check is exact.
+SOFT_BITS_ATOL = 1e-5
+FLOAT_TABLES_ATOL = 1e-4
+#: fused_dwn's samples per block and LUTs per tile swept at B=4096
+FUSED_DWN_BLOCK_B_SWEEP = (8, 16, 32, 64, 128)
+FUSED_DWN_BLOCK_M_SWEEP = (32, 64, 128, 256)
+
+
+def _float_pass(x, th, maps, tabs, C):
+    """One pass of the float staged path through the public ops, counts
+    set to 0 just before and read just after; returns (counts, idx,
+    launches)."""
+    import torch
+    from repro_torch.kernels.lut_eval.ops import evaluate
+    from repro_torch.kernels.popcount.ops import classify
+    from repro_torch.kernels.thermometer.ops import encode
+    _reset_counts()
+    bits = encode(x, th)
+    for mp, tb in zip(maps, tabs):
+        bits = evaluate(bits, mp, tb)
+    counts, idx = classify(bits, C)
+    torch.cuda.synchronize()
+    launches = _expect_launches("float pass", {
+        "thermometer_encode": 1, "lut_eval": len(maps),
+        "popcount_classify": 1})
+    return counts, idx, launches
+
+
+def _forward_pass(x, th, mapping, tables, C):
+    """One call of the float fused op, counts set to 0 just before and
+    read just after; returns (counts, idx, launches)."""
+    import torch
+    from repro_torch.kernels.fused.ops import forward
+    _reset_counts()
+    counts, idx = forward(x, th, mapping, tables, C)
+    torch.cuda.synchronize()
+    return (counts, idx,
+            _expect_launches("forward", {"fused_dwn": 1}))
+
+
+def phase_float(device, batches=(4096, 1000, 1), time_batch=4096):
+    """The four float kernels equal to their plain versions; the float
+    staged path equal to the float fused kernel, the packed staged path,
+    the packed fused kernel and the float oracle; timings."""
+    import torch
+    from repro_torch.core.classifier import predict
+    from repro_torch.core.model import JSC_PRESETS, FrozenDWN, apply_hard
+    from repro_torch.core.thermometer import quantize_fixed_point
+    from repro_torch.kernels.autotune import FusedConfig
+    from repro_torch.kernels.fused import kernel as KF
+    from repro_torch.kernels.fused import ref as RF
+    from repro_torch.kernels.fused.ops import make_forward_packed
+    from repro_torch.kernels.lut_eval import ref as RL
+    from repro_torch.kernels.popcount import ref as RP
+    from repro_torch.kernels.thermometer import ref as RT
+    KT, KL, KP = _stage_kernels()
+
+    rng = np.random.default_rng(2)
+    F, T, m, n, C = (LG[k] for k in ("F", "T", "m", "n", "C"))
+    x_all = rng.uniform(-1, 1, (max(batches), F)).astype(np.float32)
+    # (case, F, T, LUTs per layer, PEN fraction bits, batches)
+    cases = [("lg-2400", F, T, (m,), None, batches),
+             ("stack-120-50", F, T, (120, 50), None, batches[1:]),
+             ("lg-2400-pen9", F, T, (m,), 8, batches[:2]),
+             ("ragged-3x7", 3, 7, (40,), None, batches),
+             ("lg-2402", F, T, (m + 2,), None, batches[:2])]
+    checks, max_err, models = [], dict.fromkeys(FLOAT, 0.0), {}
+
+    def held(name, case, got, ref, atol=0.0, **extra):
+        B = got.shape[0]
+        err = float((got.double() - ref.double()).abs().max()) if B else 0.0
+        ok = bool(torch.equal(got, ref)) if atol == 0.0 else err <= atol
+        checks.append({"kernel": name, "case": case, "B": B,
+                       "atol": atol, "ok": ok, **extra})
+        max_err[name] = max(max_err[name], err)
+        if not ok:
+            emit({"phase": "float", "checks": checks})
+            raise SystemExit(f"{name} differs from its plain version: "
+                             f"{case}, B={B}, max |diff| {err} > {atol}")
+
+    def corner_major(tab):
+        return tab.to(torch.float32).T.contiguous()
+
+    for case, Fc, Tc, counts, frac, bs in cases:
+        th, maps, tabs = make_model(rng, Fc, Tc, counts, n, frac)
+        th_d = torch.from_numpy(th).to(device)
+        maps_d = [torch.from_numpy(a).to(device) for a in maps]
+        tabs_d = [torch.from_numpy(a).to(device) for a in tabs]
+        models[case] = (th, maps, tabs, th_d, maps_d, tabs_d)
+        for B in bs:
+            xb = np.ascontiguousarray(x_all[:B, :Fc])
+            if frac is not None:
+                xb = quantize_fixed_point(xb, frac).astype(np.float32)
+            x = torch.from_numpy(xb).to(device)
+            bits = KT.thermometer_encode(x, th_d)
+            torch.cuda.synchronize()
+            held("thermometer_encode", case, bits,
+                 RT.thermometer_plain(x, th_d))
+            bits = bits.reshape(B, Fc * Tc)
+            for mp, tb in zip(maps_d, tabs_d):
+                out = KL.lut_eval(bits, mp, corner_major(tb))
+                torch.cuda.synchronize()
+                held("lut_eval", case, out, RL.lut_eval_plain(bits, mp, tb))
+                bits = out
+            if bits.shape[1] % C == 0:
+                got_c, got_i = KP.popcount_classify(bits, C)
+                torch.cuda.synchronize()
+                ref_c, ref_i = RP.popcount_classify_plain(bits, C)
+                held("popcount_classify", case, got_c, ref_c)
+                held("popcount_classify", case, got_i, ref_i)
+            if len(counts) == 1:
+                tab_f = tabs_d[0].to(torch.float32)
+                ref_c, ref_i = RF.fused_dwn_plain(x, th_d, maps_d[0], tab_f,
+                                                  C)
+                blocks = ([(KF.FUSED_DWN_BLOCK_B, KF.FUSED_DWN_BLOCK_M),
+                           (7, 7), (1, 256), (64, 100)] if B == 1000
+                          else [(KF.FUSED_DWN_BLOCK_B, KF.FUSED_DWN_BLOCK_M)])
+                for bb, bm in blocks:
+                    got_c, got_i = KF.fused_dwn(x, th_d, maps_d[0], tab_f, C,
+                                                block_b=bb, block_m=bm)
+                    torch.cuda.synchronize()
+                    held("fused_dwn", case, got_c, ref_c, block_b=bb,
+                         block_m=bm)
+                    held("fused_dwn", case, got_i, ref_i, block_b=bb,
+                         block_m=bm)
+
+    # denormal features against 0.0 thresholds: IEEE compares (no
+    # flush-to-zero), so 1e-40 is above 0.0 and -1e-40 is not
+    dn = torch.tensor([[1e-40, -1e-40, 0.0]], device=device)
+    dn_bits = KT.thermometer_encode(dn, torch.zeros((3, 2), device=device))
+    torch.cuda.synchronize()
+    held("thermometer_encode", "denormals", dn_bits.reshape(1, 6),
+         torch.tensor([[1.0, 1.0, 0.0, 0.0, 0.0, 0.0]], device=device))
+
+    # operands off {0,1}: soft bits into the LUT layer, float tables in
+    # both; held within the stated tolerances
+    th, maps, tabs, th_d, maps_d, tabs_d = models["lg-2400"]
+    mp = maps_d[0]
+    soft = torch.from_numpy(rng.uniform(0, 1, (1000, F * T)).astype(
+        np.float32)).to(device)
+    ftab = torch.from_numpy(rng.uniform(-1, 1, (m, 2 ** n)).astype(
+        np.float32)).to(device)
+    for label, tb in (("binary-tables", tabs_d[0].to(torch.float32)),
+                      ("float-tables", ftab)):
+        out = KL.lut_eval(soft, mp, corner_major(tb))
+        torch.cuda.synchronize()
+        held("lut_eval", f"soft-bits-{label}", out,
+             RL.lut_eval_plain(soft, mp, tb), atol=SOFT_BITS_ATOL)
+    x = torch.from_numpy(x_all[:time_batch]).to(device)
+    got_c, got_i = KF.fused_dwn(x, th_d, mp, ftab, C)
+    torch.cuda.synchronize()
+    ref_c, ref_i = RF.fused_dwn_plain(x, th_d, mp, ftab, C)
+    held("fused_dwn", "float-tables", got_c, ref_c, atol=FLOAT_TABLES_ATOL)
+    top2 = ref_c.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > FLOAT_TABLES_ATOL
+    held("fused_dwn", "float-tables-idx", got_i[clear], ref_i[clear],
+         rows_compared=int(clear.sum()))
+
+    # the float path end to end at dwn-jsc-lg width, then on the stack
+    launches = dict.fromkeys(FLOAT, 0)
+    passes = {}
+    for case in ("lg-2400", "stack-120-50"):
+        th, maps, tabs, th_d, maps_d, tabs_d = models[case]
+        counts, idx, got = _float_pass(x, th_d, maps_d, tabs_d, C)
+        for name, k in got.items():
+            launches[name] += k
+        passes[case] = {"float_pass_launches": got}
+        sc, si, _ = _staged_pass(x, th_d, maps_d, tabs_d, C)
+        k2_c, k2_i = make_forward_packed(th_d, maps_d, tabs_d, C)(x)
+        cfg = (JSC_PRESETS["lg-2400"] if case == "lg-2400" else
+               dataclasses.replace(JSC_PRESETS["lg-2400"],
+                                   lut_counts=(120, 50)))
+        oracle = apply_hard(FrozenDWN(cfg, th, maps, tabs), x)
+        same = {"equal_staged_packed": (sc, si),
+                "equal_fused_packed": (k2_c, k2_i),
+                "equal_apply_hard": (oracle, predict(oracle))}
+        if case == "lg-2400":
+            fc, fi, fgot = _forward_pass(x, th_d, maps_d[0], tabs_d[0], C)
+            launches["fused_dwn"] += fgot["fused_dwn"]
+            passes[case]["forward_launches"] = fgot
+            same["equal_fused_dwn"] = (fc, fi)
+        for key, (c, i) in same.items():
+            passes[case][key] = bool(torch.equal(counts, c)
+                                     and torch.equal(idx, i))
+        if not all(v for k, v in passes[case].items() if k.startswith("eq")):
+            emit({"phase": "float", "passes": passes})
+            raise SystemExit(f"float path differs on {case}: "
+                             f"{passes[case]}")
+
+    # times at time_batch, lg-2400, prepared operands
+    th, maps, tabs, th_d, maps_d, tabs_d = models["lg-2400"]
+    B, g = time_batch, m // C
+    mp, tab_f = maps_d[0], tabs_d[0].to(torch.float32)
+    tab_t = corner_major(tab_f)
+    bits = KT.thermometer_encode(x, th_d).reshape(B, -1)
+    out = KL.lut_eval(bits, mp, tab_t)
+    shape = (B, F, T, (m,), n, C)
+    # name: (kernel, plain version, eager yardstick of two PyTorch calls
+    # or None where no PyTorch call computes the function)
+    kern = {
+        "thermometer_encode": (
+            lambda: KT.thermometer_encode(x, th_d),
+            lambda: RT.thermometer_plain(x, th_d),
+            lambda: (x[:, :, None] > th_d).float()),
+        "lut_eval": (
+            lambda: KL.lut_eval(bits, mp, tab_t),
+            lambda: RL.lut_eval_plain(bits, mp, tab_f), None),
+        "popcount_classify": (
+            lambda: KP.popcount_classify(out, C),
+            lambda: RP.popcount_classify_plain(out, C),
+            lambda: out.view(B, C, g).sum(-1).argmax(-1)),
+        "fused_dwn": (
+            lambda: KF.fused_dwn(x, th_d, mp, tab_f, C),
+            lambda: RF.fused_dwn_plain(x, th_d, mp, tab_f, C), None)}
+    # "ms": the card's time per launch (CUDA graph); "eager_ms": a loop of
+    # wrapper calls, which measures the host where it is the slower
+    timing = {}
+    for name, (fn, plain, yardstick) in kern.items():
+        timing[name] = {
+            "ms": graph_ms(fn),
+            "eager_ms": time_ms(fn, iters=200, warmup=10),
+            "plain_ms": time_ms(plain, iters=5, warmup=1),
+            "library_ms": graph_ms(yardstick) if yardstick else None,
+            **_bound(FLOAT[name][2], *shape)}
+    timing["fused_dwn"]["block_b_ms"] = {
+        bb: graph_ms(lambda: KF.fused_dwn(x, th_d, mp, tab_f, C, block_b=bb),
+                     iters=50)
+        for bb in FUSED_DWN_BLOCK_B_SWEEP}
+    timing["fused_dwn"]["block_m_ms"] = {
+        bm: graph_ms(lambda: KF.fused_dwn(x, th_d, mp, tab_f, C, block_m=bm),
+                     iters=50)
+        for bm in FUSED_DWN_BLOCK_M_SWEEP}
+
+    # the float staged path beside the packed one and the fused kernels
+    from repro_torch.core import bitpack as bp
+    stack = RF.LayerStack.build([mp], [tabs_d[0]], F * T, device)
+    [(widx, boff, tab_w)] = list(stack.layers())
+    masks = bp.to_word_pattern(bp.group_masks(m, C, device))
+    k2 = make_forward_packed(th_d, maps_d, tabs_d, C)
+    k1 = make_forward_packed(th_d, maps_d, tabs_d, C,
+                             config=FusedConfig("batch-major"))
+
+    def float_three():
+        b = KT.thermometer_encode(x, th_d).reshape(B, -1)
+        return KP.popcount_classify(KL.lut_eval(b, mp, tab_t), C)
+
+    def packed_three():
+        return KP.popcount_classify_packed(KL.lut_eval_packed(
+            KT.thermometer_encode_packed(x, th_d), widx, boff, tab_w), masks)
+    float_bound = sum(timing[k]["bound_ms"] for k in
+                      ("thermometer_encode", "lut_eval",
+                       "popcount_classify"))
+    packed_bound = sum(_bound(STAGES[k][2], *shape)["bound_ms"]
+                       for k in STAGES)
+    staged = {
+        "float_kernels_ms": graph_ms(float_three),
+        "float_kernels_eager_ms": time_ms(float_three, iters=50, warmup=5),
+        "float_ops_ms": time_ms(
+            lambda: _float_pass(x, th_d, maps_d, tabs_d, C), iters=20,
+            warmup=2),
+        "float_bound_ms": float_bound,
+        "packed_kernels_ms": graph_ms(packed_three),
+        "packed_bound_ms": packed_bound,
+        "fused_dwn_ms": graph_ms(kern["fused_dwn"][0]),
+        "fused_packed_ms": graph_ms(lambda: k2(x)),
+        "fused_packed_bound_ms": _bound("packed", *shape)["bound_ms"],
+        "batch_major_ms": graph_ms(lambda: k1(x)),
+        "batch_major_bound_ms": _bound("batch-major", *shape)["bound_ms"]}
+    staged["float_over_packed"] = (staged["float_kernels_ms"]
+                                   / staged["packed_kernels_ms"])
+    staged["float_bound_over_packed_bound"] = float_bound / packed_bound
+    staged["fused_dwn_over_fused_packed"] = (staged["fused_dwn_ms"]
+                                             / staged["fused_packed_ms"])
+    emit({"phase": "float", "checks": len(checks),
+          "all_ok": all(c["ok"] for c in checks),
+          "max_abs_err": max_err, "passes": passes,
+          "timing_batch": time_batch, "timing": timing, "staged": staged})
+    return max_err, timing, launches
+
+
 def _served(done):
     return sum(r.size for r in done)
 
@@ -595,6 +943,7 @@ def main() -> int:
     phase_build()
     max_err, timing = phase_kernels("cuda")
     stage_err, stage_timing, stage_launches = phase_staged("cuda")
+    float_err, float_timing, float_launches = phase_float("cuda")
     launches = phase_serve("cuda")
     phase_cli("cuda")
 
@@ -622,6 +971,16 @@ def main() -> int:
             "equal": True, "max_abs_err": stage_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None})
+    for name, (source, replaced, _) in FLOAT.items():
+        t = float_timing[name]
+        summary.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaced, "launches": float_launches[name],
+            "equal": True, "max_abs_err": float_err[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library": ("two eager calls" if t["library_ms"] is not None
+                        else None)})
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,5 +1,6 @@
-"""Fused-kernel configuration: which kernel variant serves a batch bucket
-and how many samples one CUDA block takes.
+"""Fused-kernel configuration: which kernel variant serves a batch bucket,
+how many samples one CUDA block takes and, for the float fused kernel, how
+many LUTs one tile holds.
 
 The reference's timed sweep and its persistent cache are not ported yet;
 a model serves on :data:`DEFAULT_CONFIG` unless its bundle's
@@ -26,10 +27,15 @@ class FusedConfig:
         was the fastest of {4, 8, 16, 32, 64} for both kernels at
         dwn-jsc-lg width and 4096 rows on an H100 80GB HBM3 at 700 W
         (``chip_smoke.py``; PERF.md).
+      block_m: LUTs per tile of the float fused kernel (``fused_dwn``),
+        which walks the LUTs tile by tile as the reference's sequential m
+        axis does.  No other kernel reads it; the results do not depend
+        on it.
     """
 
     variant: str = "packed"
     block_b: int = 8
+    block_m: int = 128
 
     def __post_init__(self):
         if self.variant not in VARIANTS:
@@ -37,9 +43,18 @@ class FusedConfig:
                              f"choose one of {VARIANTS}")
         if self.block_b < 1:
             raise ValueError(f"block_b must be >= 1, got {self.block_b}")
+        if self.block_m < 1:
+            raise ValueError(f"block_m must be >= 1, got {self.block_m}")
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "FusedConfig":
+        """Inverse of :meth:`to_dict`; keys it does not know are ignored,
+        missing ones take their defaults (as the reference's)."""
+        return cls(**{k: d[k] for k in ("variant", "block_b", "block_m")
+                      if k in d})
 
 
 #: what an untuned model serves with.

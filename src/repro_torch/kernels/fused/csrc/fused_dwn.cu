@@ -1,20 +1,45 @@
 // Fused DWN inference kernels for Hopper (sm_90a): features -> thermometer
-// bits -> LUT layer(s) -> masked group popcount -> first argmax, one launch.
+// bits -> LUT layer(s) -> group popcount -> first argmax, one launch.
 //
-// Replaces the two Pallas TPU kernels of the serving path:
+// Replaces the three fused Pallas TPU kernels:
+//   * fused_dwn_kernel             <- src/repro/kernels/fused/kernel.py
+//                                     fused_dwn (_fused_kernel)
 //   * fused_dwn_packed_kernel      <- src/repro/kernels/fused/kernel.py
 //                                     fused_dwn_packed (_fused_packed_kernel)
 //   * fused_dwn_batch_major_kernel <- src/repro/kernels/fused/kernel.py
 //                                     fused_dwn_batch_major (_fused_bm_kernel)
 //
-// What bounds them on an H100.  Per sample the work is F*T float compares
-// (packed) or m0*n compares (batch-major), m*n single-bit selects per layer,
-// one table read per LUT and C*W popcounts; the bytes that must move are
-// only x (B*F floats), the model (mapping, bit-packed tables, thresholds)
-// and the (B, C) counts.  At lg-2400 and B=4096 that is about 0.5 MB
-// against some 80 M integer/compare operations, so the kernels are bound by
-// operations (instruction issue and the latency of the gathers), not by
-// device memory.  The design keeps every bit out of device memory:
+// fused_dwn_kernel, the float datapath: one layer of m LUTs with float32
+// tables (m, 2^n).  Its bits come from its own compares, so they are
+// exactly 0 or 1, and the reference's multilinear corner product then
+// equals the table entry they address, for finite tables: this kernel
+// reads tables[l, addr] and compares only the m*n wired bits (wire i =
+// f*T + t is x[f] > th[f, t]), never all F*T.  LUT l counts for class
+// l / g, g = m / C; LUTs from g*C on count for no class (the reference's
+// one-hot class map has a zero row for them).  What bounds it on an H100:
+// it moves 1.05 MB at lg width (x, thresholds, wires, f32 tables, counts)
+// against 59 M wired compares, 9.8 M table reads and 9.8 M class adds at
+// B=4096, so it is bound by operations.  The f32 tables (614 KB at lg
+// width) do not fit a block's shared memory, so the block walks the LUTs
+// in tiles of block_m, as the reference's sequential m axis does: each
+// tile's tables (copied 16 bytes a thread) and wires (feature index and
+// threshold, wire-major) are staged in shared memory and used by all
+// block_b rows of the block.  Lanes take consecutive LUTs and keep their
+// wires in registers across the warp's rows; each lane adds its LUTs'
+// outputs to its own sum per (row, class) in shared memory, and after the
+// last tile the 32 lane sums of a class are added with a butterfly of
+// shuffles: a fixed order, so the sums are deterministic.  LUTs that count
+// for no class are not evaluated.  The first argmax follows.
+//
+// What bounds the packed kernels on an H100.  Per sample the work is F*T
+// float compares (packed) or m0*n compares (batch-major), m*n single-bit
+// selects per layer, one table read per LUT and C*W popcounts; the bytes
+// that must move are only x (B*F floats), the model (mapping, bit-packed
+// tables, thresholds) and the (B, C) counts.  At lg-2400 and B=4096 that
+// is about 0.5 MB against some 80 M integer/compare operations, so the
+// kernels are bound by operations (instruction issue and the latency of
+// the gathers), not by device memory.  The design keeps every bit out of
+// device memory:
 //   * one warp owns one sample at a time; its packed bit vectors live in a
 //     per-warp slice of shared memory (two ping-pong buffers);
 //   * lane i of the warp evaluates LUT 32*w+i, and __ballot_sync packs the
@@ -39,6 +64,7 @@
 namespace {
 
 constexpr int kMaxLayers = 8;      // == ref.MAX_LAYERS
+constexpr int kMaxFanIn = 8;       // == kernel.FUSED_DWN_MAX_FAN_IN
 constexpr int kThreads = 256;      // 8 warps, one sample per warp at a time
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -188,6 +214,100 @@ __global__ void __launch_bounds__(kThreads) fused_dwn_batch_major_kernel(
   }
 }
 
+// Shared memory of fused_dwn_kernel, in floats: one tile's tables
+// (block_m x 2^n, first, so that it is 16-byte aligned for the vector
+// copy), its wires (feature index and threshold, n x block_m each, wire-
+// major), then the block's rows of x (block_b x F) and the class sums of
+// each lane (block_b x C x 32).
+__host__ __device__ size_t fused_dwn_smem_floats(int F, int C, int n,
+                                                 int block_b, int block_m) {
+  return (size_t)block_m * ((1 << n) + 2 * n) +
+         (size_t)block_b * (F + 32 * C);
+}
+
+// vec4: tables may be copied as float4 (2^n % 4 == 0, 16-byte aligned).
+__global__ void __launch_bounds__(kThreads) fused_dwn_kernel(
+    const float* __restrict__ x, const float* __restrict__ th, int B, int F,
+    int T, const int* __restrict__ mapping, const float* __restrict__ tables,
+    int m, int n, int C, int g, float* __restrict__ counts,
+    int* __restrict__ idx, int block_b, int block_m, bool vec4) {
+  extern __shared__ float4 smem4[];
+  const int A = 1 << n;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  const long long r0 = (long long)blockIdx.x * block_b;
+  const int rows = (int)min((long long)block_b, B - r0);
+  float* tab_s = reinterpret_cast<float*>(smem4);  // block_m x A
+  int* wf_s = reinterpret_cast<int*>(tab_s + (size_t)block_m * A);
+  float* wt_s = reinterpret_cast<float*>(wf_s + n * block_m);
+  float* x_s = wt_s + n * block_m;                 // block_b x F
+  float* part_s = x_s + block_b * F;               // block_b x C x 32
+  for (int i = threadIdx.x; i < rows * F; i += blockDim.x)
+    x_s[i] = __ldg(x + r0 * F + i);
+  for (int i = threadIdx.x; i < rows * C * 32; i += blockDim.x)
+    part_s[i] = 0.0f;
+  // LUTs at and past `counted` count for no class and are not evaluated
+  const int counted = g * C;
+  for (int t0 = 0; t0 < counted; t0 += block_m) {
+    const int tile = min(block_m, counted - t0);
+    __syncthreads();  // the previous tile is no longer read
+    for (int i = threadIdx.x; i < tile * n; i += blockDim.x) {
+      const int wire = __ldg(mapping + (size_t)t0 * n + i);
+      const int j = i / n, k = i - j * n;
+      wf_s[k * block_m + j] = wire / T;
+      wt_s[k * block_m + j] = __ldg(th + wire);
+    }
+    if (vec4) {
+      const float4* src =
+          reinterpret_cast<const float4*>(tables + (size_t)t0 * A);
+      for (int i = threadIdx.x; i < tile * A / 4; i += blockDim.x)
+        smem4[i] = __ldg(src + i);
+    } else {
+      for (int i = threadIdx.x; i < tile * A; i += blockDim.x)
+        tab_s[i] = __ldg(tables + (size_t)t0 * A + i);
+    }
+    __syncthreads();
+    // lane i takes LUTs t0 + i, t0 + i + 32, ... for each of the warp's
+    // rows, keeping a LUT's wires in registers, and adds each output to its
+    // own sum of the LUT's class
+    for (int j = lane; j < tile; j += 32) {
+      int wf[kMaxFanIn];
+      float wt[kMaxFanIn];
+#pragma unroll
+      for (int k = 0; k < kMaxFanIn; ++k) {
+        wf[k] = k < n ? wf_s[k * block_m + j] : 0;
+        wt[k] = k < n ? wt_s[k * block_m + j] : 0.0f;
+      }
+      const float* tl = tab_s + (size_t)j * A;
+      float* pl = part_s + (t0 + j) / g * 32 + lane;
+      for (int r = warp; r < rows; r += nwarps) {
+        const float* xr = x_s + r * F;
+        uint32_t addr = 0;
+#pragma unroll
+        for (int k = 0; k < kMaxFanIn; ++k)
+          if (k < n) addr |= (uint32_t)(xr[wf[k]] > wt[k]) << k;
+        pl[r * C * 32] += tl[addr];
+      }
+    }
+  }
+  __syncthreads();
+  // each class count is the butterfly sum of the lanes' sums
+  for (int r = warp; r < rows; r += nwarps) {
+    int best_c = 0;
+    float best = 0.0f;
+    for (int c = 0; c < C; ++c) {
+      float s = part_s[(r * C + c) * 32 + lane];
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
+      if (lane == 0) counts[(r0 + r) * C + c] = s;
+      if (c == 0 || s > best) {  // strict: ties keep the lower class
+        best = s;
+        best_c = c;
+      }
+    }
+    if (lane == 0) idx[r0 + r] = best_c;
+  }
+}
+
 // meta: num_layers rows of (m, n, wire_off, tab_off, tab_words).
 cudaError_t fill_stack(LayerStack* st, const int* meta, int num_layers) {
   if (num_layers < 0 || num_layers > kMaxLayers) return cudaErrorInvalidValue;
@@ -216,6 +336,28 @@ size_t smem_bytes(int F, int buf_words) {
 }
 
 }  // namespace
+
+extern "C" int fused_dwn_launch(const void* x, const void* th, int B, int F,
+                                int T, const void* mapping,
+                                const void* tables, int m, int n, int C,
+                                void* counts, void* idx, int block_b,
+                                int block_m, void* stream) {
+  if (B <= 0 || F <= 0 || T <= 0 || m <= 0 || n < 1 || n > kMaxFanIn ||
+      C <= 0 ||
+      block_b <= 0 || block_m <= 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      sizeof(float) * fused_dwn_smem_floats(F, C, n, block_b, block_m);
+  const cudaError_t err = prepare_smem(fused_dwn_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const bool vec4 = n >= 2 && (uintptr_t)tables % 16 == 0;
+  const int grid = (B + block_b - 1) / block_b;
+  fused_dwn_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)th, B, F, T, (const int*)mapping,
+      (const float*)tables, m, n, C, m / C, (float*)counts, (int*)idx,
+      block_b, block_m, vec4);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int fused_dwn_packed_launch(
     const void* x, const void* th, int B, int F, int T, const int* meta,

@@ -1,5 +1,10 @@
 """Launch wrappers of the fused DWN CUDA kernels (``csrc/fused_dwn.cu``).
 
+``fused_dwn``
+    the float datapath of one LUT layer with float32 tables: compares the
+    m*n wired bits, reads each LUT's table entry, sums class counts tile by
+    tile of ``block_m`` LUTs, then the first argmax (counterpart of the
+    reference's Pallas ``fused_dwn``).
 ``fused_dwn_packed``
     encodes all F*T thermometer bits into packed words, runs every LUT
     layer word-addressed, then a masked popcount and the first argmax
@@ -9,7 +14,7 @@
     packs that layer's outputs and runs the rest word-addressed
     (counterpart of the reference's Pallas ``fused_dwn_batch_major``).
 
-Both return ``(counts (B, classes) float32, idx (B,) int32)`` for any B.
+All return ``(counts (B, classes) float32, idx (B,) int32)`` for any B.
 For tensors on the CPU a wrapper runs its plain version (``ref.py``); for
 CUDA tensors it launches the kernel or raises — it never falls back.  Each
 launch adds one to the kernel's count in :func:`launch_counts`.
@@ -23,7 +28,7 @@ from .._launch import (I, LaunchCounts, P, bind, device_type, expect,
                        launch)
 from ..autotune import DEFAULT_CONFIG
 from .ref import (MAX_LAYERS, LayerStack, fused_dwn_batch_major_plain,
-                  fused_dwn_packed_plain)
+                  fused_dwn_packed_plain, fused_dwn_plain)
 
 LIBRARY = "fused_dwn"
 #: threads per block (== kThreads in the source): 8 warps.
@@ -31,11 +36,20 @@ THREADS = 256
 #: dynamic shared memory one block may use on an H100.
 MAX_SMEM_BYTES = 232_448
 
-_COUNTS = LaunchCounts("fused_dwn_packed", "fused_dwn_batch_major")
+#: widest fan-in ``fused_dwn`` takes: 2^8 table entries per LUT.
+FUSED_DWN_MAX_FAN_IN = 8
+#: ``fused_dwn``'s samples per block and LUTs per tile when no
+#: ``FusedConfig`` is given (chosen on the card: PERF.md).
+FUSED_DWN_BLOCK_B = 16
+FUSED_DWN_BLOCK_M = 256
+
+_COUNTS = LaunchCounts("fused_dwn", "fused_dwn_packed",
+                       "fused_dwn_batch_major")
 #: kernel name -> launches since the last :func:`reset_launch_counts`.
 launch_counts = _COUNTS.get
 reset_launch_counts = _COUNTS.reset
 _SIGNATURES = {
+    "fused_dwn_launch": [P, P, I, I, I, P, P, I, I, I, P, P, I, I, P],
     "fused_dwn_packed_launch": [P, P, I, I, I, P, I, P, P, P, P, I, I, P, P,
                                 I, I, P],
     "fused_dwn_batch_major_launch": [P, I, I, P, P, P, I, I, I, P, I, P, P,
@@ -78,6 +92,73 @@ def _launch(name: str, x: torch.Tensor, call, num_classes: int,
     lib = bind(LIBRARY, _SIGNATURES)
     launch(lib, LIBRARY, name, x.device,
            lambda stream: call(lib, counts, idx, stream), _COUNTS)
+    return counts, idx
+
+
+def _fused_dwn_smem_bytes(F: int, C: int, n: int, block_b: int,
+                         block_m: int) -> int:
+    """Shared memory one block of ``fused_dwn`` takes: one tile's tables
+    and wires, its rows' features and each lane's class sums."""
+    return 4 * (block_m * (2 ** n + 2 * n) + block_b * (F + 32 * C))
+
+
+def fused_dwn(x: torch.Tensor, thresholds: torch.Tensor,
+              mapping: torch.Tensor, tables: torch.Tensor, num_classes: int,
+              *, block_b: int = FUSED_DWN_BLOCK_B,
+              block_m: int = FUSED_DWN_BLOCK_M):
+    """One float LUT layer, fused: features -> (counts, idx).
+
+    x (B, F) float32; thresholds (F, T) float32; mapping (m, n) int32 wire
+    indices in [0, F*T) (the op checks them; the kernel does not); tables
+    (m, 2^n) float32 with finite entries (the kernel reads the addressed
+    entry, which equals the reference's corner product only for finite
+    tables); 1 <= n <= :data:`FUSED_DWN_MAX_FAN_IN`.  LUT l counts for class
+    ``l // (m // num_classes)``; LUTs past the last whole group count for
+    no class.  ``block_b`` samples per CUDA block, ``block_m`` LUTs per
+    tile; results do not depend on either beyond the order of float sums.
+    Returns (counts (B, classes) float32, idx (B,) int32).
+    """
+    if device_type(x, "fused_dwn") == "cpu":
+        return fused_dwn_plain(x, thresholds, mapping, tables, num_classes)
+    dev = x.device
+    expect(x, "x", torch.float32, 2, dev)
+    expect(thresholds, "thresholds", torch.float32, 2, dev)
+    expect(mapping, "mapping", torch.int32, 2, dev)
+    expect(tables, "tables", torch.float32, 2, dev)
+    B, F = x.shape
+    F_th, T = thresholds.shape
+    m, n = mapping.shape
+    if F_th != F:
+        raise ValueError(f"x has {F} features, thresholds {F_th}")
+    if not 1 <= n <= FUSED_DWN_MAX_FAN_IN:
+        raise ValueError(f"fused_dwn takes a fan-in of 1 to "
+                         f"{FUSED_DWN_MAX_FAN_IN}, got {n}")
+    if tuple(tables.shape) != (m, 2 ** n) or m < 1:
+        raise ValueError(f"tables have shape {tuple(tables.shape)}; "
+                         f"expected {(m, 2 ** n)} with m >= 1")
+    if num_classes < 1:
+        raise ValueError(f"num_classes must be at least 1, got "
+                         f"{num_classes}")
+    if block_b < 1 or block_m < 1:
+        raise ValueError(f"block_b and block_m must be >= 1, got "
+                         f"{block_b} and {block_m}")
+    block_b, block_m = min(block_b, max(B, 1)), min(block_m, m)
+    smem = _fused_dwn_smem_bytes(F, num_classes, n, block_b, block_m)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"fused_dwn: {smem} bytes of shared memory per "
+                         f"block exceed the card's {MAX_SMEM_BYTES}; lower "
+                         f"block_b or block_m")
+    counts = torch.empty((B, num_classes), dtype=torch.float32, device=dev)
+    idx = torch.empty((B,), dtype=torch.int32, device=dev)
+    if B == 0:
+        return counts, idx
+    lib = bind(LIBRARY, _SIGNATURES)
+    launch(lib, LIBRARY, "fused_dwn", dev,
+           lambda stream: lib.fused_dwn_launch(
+               x.data_ptr(), thresholds.data_ptr(), B, F, T,
+               mapping.data_ptr(), tables.data_ptr(), m, n, num_classes,
+               counts.data_ptr(), idx.data_ptr(), block_b, block_m, stream),
+           _COUNTS)
     return counts, idx
 
 
@@ -167,5 +248,6 @@ def fused_dwn_batch_major(x: torch.Tensor, wire_f: torch.Tensor,
     return _launch("fused_dwn_batch_major", x, call, C, buf_words)
 
 
-__all__ = ["fused_dwn_batch_major", "fused_dwn_packed", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["FUSED_DWN_BLOCK_B", "FUSED_DWN_BLOCK_M", "FUSED_DWN_MAX_FAN_IN",
+           "fused_dwn", "fused_dwn_batch_major", "fused_dwn_packed",
+           "launch_counts", "reset_launch_counts"]

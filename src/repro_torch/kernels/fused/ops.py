@@ -1,4 +1,5 @@
-"""Serving entry point of the fused DWN kernels: operand prep done once.
+"""Entry points of the fused DWN kernels: the float ``forward`` and the
+packed serving path, whose operand prep is done once.
 
 ``make_forward_packed`` stages every batch-independent operand of the
 selected kernel variant on the thresholds' device — wire indices, layers
@@ -13,9 +14,46 @@ from __future__ import annotations
 import torch
 
 from ...core.bitpack import group_masks, to_word_pattern
+from ...device import resolve_device
 from ..autotune import DEFAULT_CONFIG
-from .kernel import fused_dwn_batch_major, fused_dwn_packed
+from ..lut_eval.ref import check_wires
+from .kernel import (FUSED_DWN_BLOCK_B, FUSED_DWN_BLOCK_M, fused_dwn,
+                     fused_dwn_batch_major, fused_dwn_packed)
 from .ref import LayerStack, first_layer_wires
+
+
+def forward(x, thresholds, mapping, tables, num_classes: int, *,
+            config=None):
+    """Whole-accelerator inference on the float datapath, one LUT layer:
+    features -> (counts (B, classes) float32, idx (B,) int32).
+
+    x (B, F) (a non-tensor goes to the CUDA card, which must be present);
+    thresholds (F, T); mapping (m, n) wire indices into the F*T bits;
+    tables (m, 2^n), cast to float32 as the reference's op does (finite
+    values).  LUT l counts for class ``l // (m // num_classes)``; LUTs past
+    the last whole group count for no class, as in the reference's op.
+    ``idx`` is the first argmax (ties go to the lower class).  ``config``
+    (a ``FusedConfig``) sets ``block_b`` and ``block_m``; without one the
+    kernel's own defaults apply.  T is not padded and no one-hot matrix is
+    built.  Raises ``ValueError`` on a wire outside [0, F*T).  One kernel
+    launch on CUDA.
+    """
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(x, device=resolve_device())
+    x = x.to(torch.float32).contiguous()
+    thresholds = torch.as_tensor(thresholds, device=x.device).to(
+        torch.float32).contiguous()
+    mapping = torch.as_tensor(mapping, device=x.device).to(
+        torch.int32).contiguous()
+    tables = torch.as_tensor(tables, device=x.device).to(
+        torch.float32).contiguous()
+    check_wires(mapping, thresholds.numel())
+    if config is None:
+        block_b, block_m = FUSED_DWN_BLOCK_B, FUSED_DWN_BLOCK_M
+    else:
+        block_b, block_m = config.block_b, config.block_m
+    return fused_dwn(x, thresholds, mapping, tables, num_classes,
+                     block_b=block_b, block_m=block_m)
 
 
 def prepare_operands(thresholds: torch.Tensor, mappings, tables,
@@ -90,4 +128,5 @@ def forward_packed(x: torch.Tensor, thresholds: torch.Tensor, mappings,
                                config=config)(x)
 
 
-__all__ = ["forward_packed", "make_forward_packed", "prepare_operands"]
+__all__ = ["forward", "forward_packed", "make_forward_packed",
+           "prepare_operands"]

@@ -1,4 +1,9 @@
-"""Plain PyTorch versions of the two fused DWN kernels, and their operands.
+"""Plain PyTorch versions of the three fused DWN kernels, and the operands
+of the two packed ones.
+
+``fused_dwn_plain`` is the float kernel's: it takes the reference's
+operands as they are (thresholds, wire indices, float tables).  The rest
+of this docstring is about the packed kernels.
 
 Each plain version takes exactly the operands of its CUDA kernel
 (``kernel.py``) and returns the same ``(counts (B, classes) float32,
@@ -26,10 +31,12 @@ import torch.nn.functional as nnf
 
 from ...core.bitpack import (WORD_BITS, lut_addresses, pack_bits,
                              to_word_pattern)
-from ..lut_eval.ref import (lut_eval_packed_plain, packed_wire_indices,
-                            table_bits)
-from ..popcount.ref import popcount_classify_packed_plain
-from ..thermometer.ref import thermometer_packed_plain
+from ..lut_eval.ref import (check_wires, lut_eval_packed_plain,
+                            packed_wire_indices, table_bits)
+from ...core.lut_layer import lut_eval_hard
+from ..popcount.ref import (popcount_classify_packed_plain,
+                            popcount_classify_plain)
+from ..thermometer.ref import thermometer_packed_plain, thermometer_plain
 
 #: deepest stack of word-addressed layers the CUDA kernels take.
 MAX_LAYERS = 8
@@ -56,10 +63,7 @@ def _check_mapping(mapping: torch.Tensor, tables: torch.Tensor,
                          f"expected {(m, 2 ** n)}")
     if tables.numel() and not bool(((tables == 0) | (tables == 1)).all()):
         raise ValueError("tables must hold only 0 and 1")
-    if mapping.numel() and (int(mapping.min()) < 0
-                            or int(mapping.max()) >= num_candidates):
-        raise ValueError(f"mapping indices must lie in [0, "
-                         f"{num_candidates})")
+    check_wires(mapping, num_candidates)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -165,6 +169,27 @@ def _layers_and_classify(words: torch.Tensor, layers: LayerStack,
     return popcount_classify_packed_plain(words, class_masks)
 
 
+def fused_dwn_plain(x: torch.Tensor, thresholds: torch.Tensor,
+                    mapping: torch.Tensor, tables: torch.Tensor,
+                    num_classes: int):
+    """Plain version of ``kernel.fused_dwn``: one float LUT layer.
+
+    x (B, F) float32; thresholds (F, T) float32; mapping (m, n) wire
+    indices into the F*T bits; tables (m, 2^n) float.  The bits are
+    exactly 0 or 1, so each LUT outputs ``tables[l, addr]``, which is the
+    reference's corner product for finite tables.  LUT l counts for class
+    ``l // g`` with ``g = m // num_classes``; LUTs from ``g * num_classes``
+    on count for no class (the reference's one-hot class map has a zero
+    row for them).  Returns (counts (B, classes) float32, idx (B,) int32),
+    ``idx`` the first argmax.
+    """
+    bits = thermometer_plain(x, thresholds).reshape(x.shape[0],
+                                                    thresholds.numel())
+    out = lut_eval_hard(bits, mapping, tables.to(torch.float32))
+    counted = mapping.shape[0] // num_classes * num_classes
+    return popcount_classify_plain(out[:, :counted], num_classes)
+
+
 def fused_dwn_packed_plain(x: torch.Tensor, thresholds: torch.Tensor,
                            layers: LayerStack, class_masks: torch.Tensor):
     """Plain version of ``kernel.fused_dwn_packed``.
@@ -198,5 +223,6 @@ def fused_dwn_batch_major_plain(x: torch.Tensor, wire_f: torch.Tensor,
 __all__ = [
     "LayerStack", "MAX_FAN_IN", "MAX_LAYERS", "first_layer_wires",
     "fused_dwn_batch_major_plain", "fused_dwn_packed_plain",
+    "fused_dwn_plain",
     "pack_table_words", "round_up",
 ]

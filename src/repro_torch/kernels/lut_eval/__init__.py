@@ -1,2 +1,3 @@
-"""Packed LUT-layer evaluation: the CUDA kernel (``kernel.py``), its plain
-version (``ref.py``) and the public op ``evaluate_packed`` (``ops.py``)."""
+"""LUT-layer evaluation, on float32 bits and on packed words: the CUDA
+kernels (``kernel.py``), their plain versions (``ref.py``) and the public
+ops ``evaluate`` and ``evaluate_packed`` (``ops.py``)."""

@@ -1,6 +1,7 @@
-"""Launch wrapper of the packed LUT-layer CUDA kernel
-(``csrc/lut_eval.cu``), the counterpart of the reference's Pallas
-``lut_eval_packed``.
+"""Launch wrappers of the two LUT-layer CUDA kernels (``csrc/lut_eval.cu``):
+``lut_eval`` (float32 bits, multilinear table evaluation) and
+``lut_eval_packed`` (packed words), the counterparts of the reference's
+Pallas kernels of the same names.
 
 For tensors on the CPU the wrapper runs its plain version (``ref.py``); for
 CUDA tensors it launches the kernel or raises — it never falls back.  Each
@@ -12,18 +13,64 @@ from __future__ import annotations
 import torch
 
 from .._launch import I, LaunchCounts, P, bind, device_type, expect, launch
-from .ref import lut_eval_packed_plain
+from .ref import lut_eval_packed_plain, lut_eval_plain
 
 LIBRARY = "lut_eval"
 #: threads per block (== kThreads in the source): 8 warps, one row each.
 THREADS = 256
 #: dynamic shared memory one block may use on an H100.
 MAX_SMEM_BYTES = 232_448
-_COUNTS = LaunchCounts("lut_eval_packed")
+#: rows one block of the float kernel stages (== kRows in the source).
+FLOAT_ROWS = 8
+#: widest fan-in the float kernel takes (== kMaxFanIn): 2^8 corners.
+MAX_FAN_IN = 8
+_COUNTS = LaunchCounts("lut_eval", "lut_eval_packed")
 #: kernel name -> launches since the last :func:`reset_launch_counts`.
 launch_counts = _COUNTS.get
 reset_launch_counts = _COUNTS.reset
-_SIGNATURES = {"lut_eval_packed_launch": [P, I, I, P, P, P, I, I, I, P, P]}
+_SIGNATURES = {"lut_eval_launch": [P, I, I, P, P, I, I, I, P, P],
+               "lut_eval_packed_launch": [P, I, I, P, P, P, I, I, I, P, P]}
+
+
+def lut_eval(bits: torch.Tensor, mapping: torch.Tensor,
+             tables_t: torch.Tensor) -> torch.Tensor:
+    """One LUT layer on float32 bits: the multilinear table evaluation.
+
+    bits (B, C) float32; mapping (m, n) int32 wire indices in [0, C) (the
+    op checks them; the kernel does not); tables_t (2^n, m) float32, the
+    tables corner-major (``tables.T``), so that neighbouring threads read
+    neighbouring LUTs.  1 <= n <= :data:`MAX_FAN_IN`.  Returns (B, m)
+    float32: ``ref.lut_eval_plain(bits, mapping, tables_t.T)``.
+    """
+    if device_type(bits, "lut_eval") == "cpu":
+        return lut_eval_plain(bits, mapping, tables_t.T)
+    dev = bits.device
+    expect(bits, "bits", torch.float32, 2, dev)
+    expect(mapping, "mapping", torch.int32, 2, dev)
+    expect(tables_t, "tables_t", torch.float32, 2, dev)
+    B, C = bits.shape
+    m, n = mapping.shape
+    if not 1 <= n <= MAX_FAN_IN:
+        raise ValueError(f"lut_eval takes a fan-in of 1 to {MAX_FAN_IN}, "
+                         f"got {n}")
+    if tuple(tables_t.shape) != (2 ** n, m):
+        raise ValueError(f"tables_t has shape {tuple(tables_t.shape)}; "
+                         f"expected {(2 ** n, m)} (corner-major)")
+    rows = min(FLOAT_ROWS, MAX_SMEM_BYTES // (4 * max(C, 1)))
+    if rows < 1:
+        raise ValueError(f"lut_eval: a row of {C} bits does not fit in "
+                         f"the card's {MAX_SMEM_BYTES} bytes of shared "
+                         f"memory")
+    out = torch.empty((B, m), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    lib = bind(LIBRARY, _SIGNATURES)
+    launch(lib, LIBRARY, "lut_eval", dev,
+           lambda stream: lib.lut_eval_launch(
+               bits.data_ptr(), B, C, mapping.data_ptr(),
+               tables_t.data_ptr(), m, n, rows, out.data_ptr(), stream),
+           _COUNTS)
+    return out
 
 
 def lut_eval_packed(words: torch.Tensor, word_idx: torch.Tensor,
@@ -70,4 +117,5 @@ def lut_eval_packed(words: torch.Tensor, word_idx: torch.Tensor,
     return out
 
 
-__all__ = ["launch_counts", "lut_eval_packed", "reset_launch_counts"]
+__all__ = ["FLOAT_ROWS", "MAX_FAN_IN", "launch_counts", "lut_eval",
+           "lut_eval_packed", "reset_launch_counts"]

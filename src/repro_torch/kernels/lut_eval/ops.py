@@ -1,12 +1,45 @@
-"""Public op of the packed LUT layer (the reference's
-``lut_eval/ops.py:evaluate_packed``)."""
+"""Public ops of the LUT layer (the reference's ``lut_eval/ops.py``:
+``evaluate`` and ``evaluate_packed``)."""
 
 from __future__ import annotations
 
+import torch
+
 from ...core.bitpack import PackedBits, device_words, words_for_bits
+from ...device import resolve_device
 from ..fused.ref import LayerStack
-from .kernel import lut_eval_packed
-from .ref import packed_wire_indices
+from .kernel import lut_eval, lut_eval_packed
+from .ref import check_wires, packed_wire_indices, selection_onehot
+
+
+def evaluate(bits, mapping, tables) -> torch.Tensor:
+    """LUT-layer inference on float bits.
+
+    bits (B, C) {0,1} (or soft, in [0, 1]) as float32 (anything else is
+    converted; a non-tensor goes to the CUDA card, which must be present);
+    mapping (m, n) wire indices into the C bits; tables (m, 2^n), cast to
+    float32 as the reference's op does.  Each output is the multilinear
+    table evaluation of the LUT's n bits (``ref.lut_eval_plain``), which
+    for {0,1} bits is the table entry they address.  The wires are
+    gathered; no one-hot selection matrix is built.  Raises ``ValueError``
+    on a wire outside [0, C).  On CUDA: the tables staged corner-major, one
+    kernel launch; fan-in at most ``kernel.MAX_FAN_IN``.  Returns (B, m)
+    float32.
+    """
+    if not isinstance(bits, torch.Tensor):
+        bits = torch.as_tensor(bits, device=resolve_device())
+    bits = bits.to(torch.float32).contiguous()
+    mapping = torch.as_tensor(mapping, device=bits.device).to(torch.int32)
+    tables = torch.as_tensor(tables, device=bits.device)
+    m, n = mapping.shape
+    if tuple(tables.shape) != (m, 2 ** n):
+        raise ValueError(f"tables have shape {tuple(tables.shape)}; "
+                         f"expected {(m, 2 ** n)}")
+    check_wires(mapping, bits.shape[1])
+    tables_t = torch.empty((2 ** n, m), dtype=torch.float32,
+                           device=bits.device)
+    tables_t.copy_(tables.T)
+    return lut_eval(bits, mapping.contiguous(), tables_t)
 
 
 def evaluate_packed(packed: PackedBits, mapping, tables) -> PackedBits:
@@ -34,4 +67,5 @@ def evaluate_packed(packed: PackedBits, mapping, tables) -> PackedBits:
                                       table_words), m)
 
 
-__all__ = ["evaluate_packed", "packed_wire_indices"]
+__all__ = ["evaluate", "evaluate_packed", "packed_wire_indices",
+           "selection_onehot"]

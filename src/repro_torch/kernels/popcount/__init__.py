@@ -1,3 +1,3 @@
-"""Masked popcount and first-argmax classify on packed words: the CUDA
-kernel (``kernel.py``), its plain version (``ref.py``) and the public op
-``classify_packed`` (``ops.py``)."""
+"""Popcount and first-argmax classify, on float32 bits and on packed
+words: the CUDA kernels (``kernel.py``), their plain versions (``ref.py``)
+and the public ops ``classify`` and ``classify_packed`` (``ops.py``)."""

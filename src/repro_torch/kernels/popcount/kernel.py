@@ -1,6 +1,7 @@
-"""Launch wrapper of the masked popcount and classify CUDA kernel
-(``csrc/popcount.cu``), the counterpart of the reference's Pallas
-``popcount_classify_packed``.
+"""Launch wrappers of the two popcount and classify CUDA kernels
+(``csrc/popcount.cu``): ``popcount_classify`` (group sums of float32 bits)
+and ``popcount_classify_packed`` (masked popcounts of packed words), the
+counterparts of the reference's Pallas kernels of the same names.
 
 For tensors on the CPU the wrapper runs its plain version (``ref.py``); for
 CUDA tensors it launches the kernel or raises — it never falls back.  Each
@@ -12,14 +13,43 @@ from __future__ import annotations
 import torch
 
 from .._launch import I, LaunchCounts, P, bind, device_type, expect, launch
-from .ref import popcount_classify_packed_plain
+from .ref import (class_group, popcount_classify_packed_plain,
+                  popcount_classify_plain)
 
 LIBRARY = "popcount"
-_COUNTS = LaunchCounts("popcount_classify_packed")
+_COUNTS = LaunchCounts("popcount_classify", "popcount_classify_packed")
 #: kernel name -> launches since the last :func:`reset_launch_counts`.
 launch_counts = _COUNTS.get
 reset_launch_counts = _COUNTS.reset
-_SIGNATURES = {"popcount_classify_packed_launch": [P, I, I, P, I, P, P, P]}
+_SIGNATURES = {"popcount_classify_launch": [P, I, I, I, P, P, P],
+               "popcount_classify_packed_launch": [P, I, I, P, I, P, P, P]}
+
+
+def _outputs(B: int, C: int, device: torch.device):
+    return (torch.empty((B, C), dtype=torch.float32, device=device),
+            torch.empty((B,), dtype=torch.int32, device=device))
+
+
+def popcount_classify(bits: torch.Tensor, num_classes: int):
+    """bits (B, m) float32 -> (counts (B, classes) float32, idx (B,)
+    int32): class c sums the contiguous group ``[c*g, (c+1)*g)``, g = m /
+    classes, then the first argmax (ties go to the lower class).  Raises
+    ``ValueError`` unless ``num_classes`` divides m."""
+    if device_type(bits, "popcount_classify") == "cpu":
+        return popcount_classify_plain(bits, num_classes)
+    dev = bits.device
+    expect(bits, "bits", torch.float32, 2, dev)
+    B, m = bits.shape
+    class_group(m, num_classes)
+    counts, idx = _outputs(B, num_classes, dev)
+    if B == 0:
+        return counts, idx
+    lib = bind(LIBRARY, _SIGNATURES)
+    launch(lib, LIBRARY, "popcount_classify", dev,
+           lambda stream: lib.popcount_classify_launch(
+               bits.data_ptr(), B, m, num_classes, counts.data_ptr(),
+               idx.data_ptr(), stream), _COUNTS)
+    return counts, idx
 
 
 def popcount_classify_packed(words: torch.Tensor,
@@ -40,8 +70,7 @@ def popcount_classify_packed(words: torch.Tensor,
         raise ValueError(f"class_masks have shape "
                          f"{tuple(class_masks.shape)}; the words have {W} "
                          f"per row and there must be at least one class")
-    counts = torch.empty((B, C), dtype=torch.float32, device=dev)
-    idx = torch.empty((B,), dtype=torch.int32, device=dev)
+    counts, idx = _outputs(B, C, dev)
     if B == 0:
         return counts, idx
     lib = bind(LIBRARY, _SIGNATURES)
@@ -52,5 +81,5 @@ def popcount_classify_packed(words: torch.Tensor,
     return counts, idx
 
 
-__all__ = ["launch_counts", "popcount_classify_packed",
+__all__ = ["launch_counts", "popcount_classify", "popcount_classify_packed",
            "reset_launch_counts"]

@@ -1,2 +1,3 @@
-"""Packed thermometer encode: the CUDA kernel (``kernel.py``), its plain
-version (``ref.py``) and the public op ``encode_packed`` (``ops.py``)."""
+"""Thermometer encode, to float32 bits and to packed words: the CUDA
+kernels (``kernel.py``), their plain versions (``ref.py``) and the public
+ops ``encode`` and ``encode_packed`` (``ops.py``)."""

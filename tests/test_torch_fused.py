@@ -113,7 +113,7 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     K.reset_launch_counts()
     _port(x, th, maps, tabs, 5, "packed", 8)
     _port(x, th, maps, tabs, 5, "batch-major", 8)
-    assert K.launch_counts() == {"fused_dwn_packed": 0,
+    assert K.launch_counts() == {"fused_dwn": 0, "fused_dwn_packed": 0,
                                  "fused_dwn_batch_major": 0}
     ops = tops.prepare_operands(torch.from_numpy(th),
                                 [torch.from_numpy(maps[0])],

@@ -1,13 +1,16 @@
 """On a CUDA card: each CUDA kernel against its plain version, the staged
-packed ops against the fused kernel, and the serving engine through the
-kernels.
+packed and float ops against the fused kernels, and the serving engine
+through the kernels.
 
 These tests import torch and not JAX (the card's machine has no JAX); the
 plain versions they compare with are held to the reference's Pallas
-kernels by ``test_torch_fused.py`` and ``test_torch_staged.py``.  Each
-test decides inside itself whether a card is present and skips without
-one.  Every comparison is exact: counts are integers held in float32 and
-the argmax is an integer.
+kernels by ``test_torch_fused.py``, ``test_torch_staged.py`` and
+``test_torch_float.py``.  Each test decides inside itself whether a card
+is present and skips without one.  Every comparison on {0,1} operands is
+exact: counts are integers held in float32 and the argmax is an integer.
+Soft bits in the float LUT layer are held within 1e-5 and float tables in
+the float fused kernel within 1e-4 (nvcc contracts a*b+c into FMA; eager
+PyTorch rounds twice).
 
 Run on a card: ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py``.
 """
@@ -135,9 +138,14 @@ STAGE_CASES = [(16, 200, (2400,), None), (16, 200, (120, 50), None),
                (5, 13, (40,), None)]
 
 
-def _stage_counts():
-    return {**KT.launch_counts(), **KL.launch_counts(),
-            **KP.launch_counts()}
+PACKED_STAGES = ("thermometer_encode_packed", "lut_eval_packed",
+                 "popcount_classify_packed")
+
+
+def _stage_counts(names=PACKED_STAGES):
+    every = {**KT.launch_counts(), **KL.launch_counts(),
+             **KP.launch_counts()}
+    return {name: every[name] for name in names}
 
 
 def test_cuda_stage_kernels_match_plain():
@@ -239,3 +247,163 @@ def test_cuda_stage_wrappers_refuse_bad_operands():
     masks = tbp.to_word_pattern(tbp.group_masks(64, 4, "cuda"))
     with pytest.raises(ValueError, match="class_masks"):
         KP.popcount_classify_packed(out, masks[:, :1].contiguous())
+
+
+# (F, T, lut_counts, PEN fraction bits) for the float kernels: lg width, a
+# 2-layer stack, PEN ties, a ragged F*T = 21, and m = 2402 with 5 classes
+# (two LUTs count for no class; K6 only, as K9 needs whole groups)
+FLOAT_CASES = STAGE_CASES[:4] + [(16, 200, (2402,), None)]
+FLOAT_KERNELS = ("thermometer_encode", "lut_eval", "popcount_classify",
+                 "fused_dwn")
+
+
+def _float_counts():
+    return _stage_counts(FLOAT_KERNELS[:3]) | {
+        "fused_dwn": K.launch_counts()["fused_dwn"]}
+
+
+def test_cuda_float_kernels_match_plain():
+    """Exact on {0,1} operands: K7, K8 (every layer), K9 and K6 each equal
+    their plain version for ragged B (incl. 1 and 0) and several
+    (block_b, block_m); one launch counted per non-empty call.  Soft bits
+    (K8) within 1e-5, float tables (K6) within 1e-4."""
+    _need_card()
+    for i, (F, T, counts, frac) in enumerate(FLOAT_CASES):
+        x, th, maps, tabs = _model(80 + i, F, T, counts, pen_frac=frac)
+        thd = torch.from_numpy(th).cuda()
+        maps_d = [torch.from_numpy(a).cuda() for a in maps]
+        tabs_d = [torch.from_numpy(a).cuda().float() for a in tabs]
+        for B in (1000, 33, 1, 0):
+            xd = torch.from_numpy(x[:B]).cuda()
+            before = _float_counts()
+            bits = KT.thermometer_encode(xd, thd)
+            torch.cuda.synchronize()
+            assert torch.equal(bits, RT.thermometer_plain(xd, thd)), (i, B)
+            bits = bits.reshape(B, F * T)
+            for mp, tb in zip(maps_d, tabs_d):
+                out = KL.lut_eval(bits, mp, tb.T.contiguous())
+                torch.cuda.synchronize()
+                assert torch.equal(out, RL.lut_eval_plain(bits, mp, tb)), \
+                    (i, B)
+                bits = out
+            classified = bits.shape[1] % 5 == 0
+            if classified:
+                got = KP.popcount_classify(bits, 5)
+                torch.cuda.synchronize()
+                ref = RP.popcount_classify_plain(bits, 5)
+                assert all(torch.equal(a, b) for a, b in zip(got, ref))
+            fused = len(counts) == 1
+            if fused:
+                ref = R.fused_dwn_plain(xd, thd, maps_d[0], tabs_d[0], 5)
+                for bb, bm in ((32, 128), (1, 7), (8, 256)):
+                    got = K.fused_dwn(xd, thd, maps_d[0], tabs_d[0], 5,
+                                      block_b=bb, block_m=bm)
+                    torch.cuda.synchronize()
+                    assert all(torch.equal(a, b) for a, b in zip(got, ref)), \
+                        (i, B, bb, bm)
+            assert _float_counts() == {
+                "thermometer_encode":
+                    before["thermometer_encode"] + (B > 0),
+                "lut_eval": before["lut_eval"] + (B > 0) * len(counts),
+                "popcount_classify":
+                    before["popcount_classify"] + (B > 0) * classified,
+                "fused_dwn": before["fused_dwn"] + (B > 0) * fused * 3}
+    # IEEE compares: a denormal feature is above a 0.0 threshold
+    dn = torch.tensor([[1e-40, -1e-40, 0.0]], device="cuda")
+    got = KT.thermometer_encode(dn, torch.zeros((3, 2), device="cuda"))
+    assert got.reshape(-1).tolist() == [1, 1, 0, 0, 0, 0]
+    rng = np.random.default_rng(99)
+    x, th, maps, tabs = _model(99, 16, 200, (2400,))
+    xd, thd = torch.from_numpy(x).cuda(), torch.from_numpy(th).cuda()
+    mp = torch.from_numpy(maps[0]).cuda()
+    ftab = torch.from_numpy(rng.uniform(-1, 1, (2400, 64)).astype(
+        np.float32)).cuda()
+    soft = torch.from_numpy(rng.uniform(0, 1, (300, 3200)).astype(
+        np.float32)).cuda()
+    got = KL.lut_eval(soft, mp, ftab.T.contiguous())
+    torch.testing.assert_close(got, RL.lut_eval_plain(soft, mp, ftab),
+                               rtol=0, atol=1e-5)
+    got_c, got_i = K.fused_dwn(xd, thd, mp, ftab, 5)
+    ref_c, ref_i = R.fused_dwn_plain(xd, thd, mp, ftab, 5)
+    torch.testing.assert_close(got_c, ref_c, rtol=0, atol=1e-4)
+    top2 = ref_c.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-4
+    assert int(clear.sum()) > 900
+    assert torch.equal(got_i[clear], ref_i[clear])
+
+
+def test_float_ops_on_card_match_fused_kernels():
+    """Exact: ``encode`` -> ``evaluate`` per layer -> ``classify`` on the
+    card gives the counts and argmax of the float fused ``forward`` (one
+    layer) and of the packed fused kernel; a pass launches K7 once, K8
+    once per layer and K9 once, and ``forward`` launches K6 once."""
+    _need_card()
+    for i, (F, T, counts, frac) in enumerate(STAGE_CASES):
+        x, th, maps, tabs = _model(120 + i, F, T, counts, pen_frac=frac)
+        thd = torch.from_numpy(th).cuda()
+        maps_d = [torch.from_numpy(a).cuda() for a in maps]
+        tabs_d = [torch.from_numpy(a).cuda() for a in tabs]
+        xd = torch.from_numpy(x).cuda()
+        for K_ in (KT, KL, KP, K):
+            K_.reset_launch_counts()
+        bits = OT.encode(xd, thd)
+        for mp, tb in zip(maps_d, tabs_d):
+            bits = OL.evaluate(bits, mp, tb)
+        got_c, got_i = OP.classify(bits, 5)
+        torch.cuda.synchronize()
+        assert _float_counts() == {"thermometer_encode": 1,
+                                   "lut_eval": len(counts),
+                                   "popcount_classify": 1, "fused_dwn": 0}
+        ref_c, ref_i = tops.make_forward_packed(thd, maps_d, tabs_d, 5)(xd)
+        assert torch.equal(got_c, ref_c) and torch.equal(got_i, ref_i), i
+        if len(counts) == 1:
+            f_c, f_i = tops.forward(xd, thd, maps_d[0], tabs_d[0], 5)
+            torch.cuda.synchronize()
+            assert K.launch_counts()["fused_dwn"] == 1
+            assert torch.equal(f_c, ref_c) and torch.equal(f_i, ref_i), i
+
+
+def test_cuda_float_wrappers_refuse_bad_operands():
+    """On the card the float wrappers and ops raise on operands they
+    cannot take (block_m < 1, fan-in above 8, classes that do not divide
+    m, wires out of range, wrong dtype or device); they never fall back
+    to the plain version."""
+    _need_card()
+    x, th, maps, tabs = _model(140, 16, 200, (64,), B=8)
+    xd, thd = torch.from_numpy(x).cuda(), torch.from_numpy(th).cuda()
+    mp = torch.from_numpy(maps[0]).cuda()
+    tab = torch.from_numpy(tabs[0]).cuda().float()
+    with pytest.raises(ValueError, match="is on"):
+        KT.thermometer_encode(xd, thd.cpu())
+    with pytest.raises(ValueError, match="float32"):
+        KT.thermometer_encode(xd.double(), thd)
+    bits = KT.thermometer_encode(xd, thd).reshape(8, -1)
+    with pytest.raises(ValueError, match="fan-in"):
+        KL.lut_eval(bits, torch.zeros((4, 9), dtype=torch.int32,
+                                      device="cuda"),
+                    torch.zeros((512, 4), device="cuda"))
+    with pytest.raises(ValueError, match="corner-major"):
+        KL.lut_eval(bits, mp, tab[:, :32].contiguous())
+    with pytest.raises(ValueError, match="int32"):
+        KL.lut_eval(bits, mp.long(), tab.T.contiguous())
+    bad = mp.clone()
+    bad[3, 2] = 3200
+    with pytest.raises(ValueError, match="mapping indices"):
+        OL.evaluate(bits, bad, tab)
+    with pytest.raises(ValueError, match="mapping indices"):
+        tops.forward(xd, thd, bad, tab, 5)
+    out = KL.lut_eval(bits, mp, tab.T.contiguous())
+    with pytest.raises(ValueError, match="equal class groups"):
+        KP.popcount_classify(out, 5)
+    with pytest.raises(ValueError, match="block_b and block_m"):
+        K.fused_dwn(xd, thd, mp, tab, 5, block_m=0)
+    with pytest.raises(ValueError, match="block_m"):
+        FusedConfig(block_m=0)
+    with pytest.raises(ValueError, match="fan-in"):
+        K.fused_dwn(xd, thd, torch.zeros((4, 9), dtype=torch.int32,
+                                         device="cuda"),
+                    torch.zeros((4, 512), device="cuda"), 2)
+    wide = torch.zeros((900, 8), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        K.fused_dwn(xd, thd, wide, torch.zeros((900, 256), device="cuda"),
+                    5, block_m=900)
