@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port on one NVIDIA card and check it: its serving
-path, its staged packed datapath and its float datapath.
+"""Run the PyTorch/CUDA port on one NVIDIA card and check it: its DWN
+serving path, its staged packed and float datapaths, its flash-attention
+kernel and qwen3-8b serving at full width.
 
     python3 chip_smoke.py
 
@@ -37,14 +38,28 @@ Phases, each printing one JSON line:
    fused launch per ``forward``; then each float kernel, the float and
    packed staged totals and the three fused kernels timed in the same
    run, and the float fused kernel's block_b and block_m swept;
-6. serve   — ``ServingEngine("dwn-jsc-lg", device="cuda")`` at full width,
+6. flash   — the flash-attention kernel against its plain version at the
+   qwen3-8b head shape (32 query heads over 8 KV heads, head_dim 128, bf16
+   from a numpy seed) for (B, S) in (1, 1), (2, 33), (4, 512), (4, 2048),
+   causal and not, within 2e-2; then timed at B=4, S=2048 in a CUDA graph
+   beside its plain version and one ``scaled_dot_product_attention`` call
+   (a yardstick the port never calls) and the bound counted from shapes;
+7. lm      — ``ServingEngine(qwen3-8b with attn_impl="pallas",
+   prompt_len=2048, gen=16, device="cuda")`` at full width (36 layers,
+   weights from a seed): serves 2 requests of 4 prompts with the launch
+   counters showing 36 flash-attention launches per prefill and none in
+   decode, then holds the same params with ``attn_impl="masked"`` to the
+   kernel's prefill logits and 16 teacher-forced decode steps within
+   0.05 of the largest logit; prefill and decode times beside their
+   bounds;
+8. serve   — ``ServingEngine("dwn-jsc-lg", device="cuda")`` at full width,
    whose startup checks every backend against the float oracle; serves 16
    requests of 4096 rows on the packed kernel, the same stream on the
    batch-major kernel and a ragged stream, asserting from the launch
    counters that each kernel carried its pass, and times the host-to-device
    copy, the launch and the device-to-host copy of a step;
-7. cli     — ``python -m repro_torch.launch.serve --arch dwn-jsc-lg`` with
-   four requests.
+9. cli     — ``python -m repro_torch.launch.serve --arch dwn-jsc-lg`` with
+   four requests, and ``--arch qwen3-8b --batch 2 --prompt-len 32 --gen 4``.
 
 Then it prints the kernels' summary line, nvidia-smi's line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -70,6 +85,8 @@ SRC = ROOT / "src"
 # compares, bit selects, table reads and popcounts
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_SCALAR_OPS_PER_S = 67e12
+# dense bf16 on the tensor cores (NVIDIA data sheet, H100 SXM)
+PEAK_BF16_OPS_PER_S = 989e12
 
 LG = dict(F=16, T=200, m=2400, n=6, C=5)
 #: samples per CUDA block swept at B=4096 (the default is timed above them)
@@ -322,9 +339,11 @@ def _stage_kernels():
 
 
 def _kernel_modules():
-    """Every kernel wrapper module: the fused kernels' and the stages'."""
+    """Every kernel wrapper module: the fused kernels', the stages' and
+    flash attention's."""
+    from repro_torch.kernels.flash_attn import kernel as KA
     from repro_torch.kernels.fused import kernel as KF
-    return (KF, *_stage_kernels())
+    return (KF, *_stage_kernels(), KA)
 
 
 def _reset_counts():
@@ -805,6 +824,289 @@ def phase_float(device, batches=(4096, 1000, 1), time_batch=4096):
     return max_err, timing, launches
 
 
+FLASH = ("src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
+         "src/repro/kernels/flash_attn/kernel.py:74")
+#: the qwen3-8b attention head shape: query heads, KV heads, head_dim
+QWEN_HEADS = (32, 8, 128)
+#: flash attention (bf16 out, P rounded to bf16) against its float32
+#: plain version: the reference's bf16 bar (tests/test_flash_kernel.py:41),
+#: absolute and relative, as torch.testing.assert_close applies them
+FLASH_TOL = 2e-2
+#: K10 prefill logits and teacher-forced decode logits against the masked
+#: path on the same params: max |diff| over max |logit|, the reference's
+#: prefill/decode consistency bar (tests/test_decode_consistency.py:44)
+LOGITS_REL = 0.05
+
+
+def flash_bytes_and_ops(B, S, H, KH, hd, causal=True):
+    """Bytes of q, k, v and o (bf16, each once) and the tensor-core
+    operations of the two products over the keys each query sees."""
+    nbytes = 2 * B * S * hd * (2 * H + 2 * KH)
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return nbytes, 4 * B * H * hd * pairs
+
+
+def _bf16_bound(nbytes, nops):
+    by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S, nops / PEAK_BF16_OPS_PER_S
+    return {"bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes, "operations": nops}
+
+
+def phase_flash(device, sizes=((1, 1), (2, 33), (4, 512), (4, 2048)),
+                time_shape=(4, 2048)):
+    """K10 within FLASH_TOL of its plain version at the qwen3-8b head
+    shape; K10, its plain version and the SDPA yardstick timed."""
+    import torch
+    from repro_torch.kernels.flash_attn import kernel as KA
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+    H, KH, hd = QWEN_HEADS
+    rng = np.random.default_rng(3)
+
+    def operands(B, S):
+        return [torch.from_numpy(
+            rng.standard_normal((B, S, h, hd)).astype(np.float32) * sc).to(
+                device).bfloat16() for h, sc in ((H, 0.5), (KH, 1.0),
+                                                 (KH, 1.0))]
+    checks, max_err = [], 0.0
+    for B, S in sizes:
+        q, k, v = operands(B, S)
+        for causal in (True, False):
+            got = KA.flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            want = attention_ref(q, k, v, causal=causal).float()
+            diff = (got.float() - want).abs()
+            err = float(diff.max())
+            ok = bool((diff <= FLASH_TOL + FLASH_TOL * want.abs()).all()
+                      and torch.isfinite(got).all())
+            checks.append({"B": B, "S": S, "causal": causal,
+                           "max_abs_err": err, "ok": ok})
+            max_err = max(max_err, err)
+            if not ok:
+                emit({"phase": "flash", "checks": checks})
+                raise SystemExit(f"flash_attention differs from its plain "
+                                 f"version beyond {FLASH_TOL}: B={B}, "
+                                 f"S={S}, causal={causal}, max |diff| "
+                                 f"{err}")
+    B, S = time_shape
+    q, k, v = operands(B, S)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    timing = {
+        "ms": graph_ms(lambda: KA.flash_attention(q, k, v, causal=True),
+                       iters=20),
+        "eager_ms": time_ms(lambda: KA.flash_attention(q, k, v, causal=True),
+                            iters=50, warmup=5),
+        "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal=True),
+                            iters=3, warmup=1),
+        "library_ms": graph_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                            enable_gqa=True), iters=20),
+        **_bf16_bound(*flash_bytes_and_ops(B, S, H, KH, hd))}
+    timing["tflops"] = timing["operations"] / timing["ms"] / 1e9
+    emit({"phase": "flash", "checks": checks, "tolerance": FLASH_TOL,
+          "max_abs_err": max_err, "timing_shape": {"B": B, "S": S, "H": H,
+                                                   "KH": KH, "hd": hd},
+          "timing": timing})
+    return max_err, timing
+
+
+def lm_bounds(cfg, B, S, gen):
+    """Least times of one prefill of B x S tokens and of one decode step,
+    counted from the shapes: prefill by its bf16 matrix and attention
+    operations (the last position only is unembedded), decode by the
+    bytes of every matrix weight, the token rows of the embedding and the
+    valid KV cache at the middle step."""
+    D, F, L = cfg.d_model, cfg.d_ff, cfg.num_layers
+    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    V = cfg.vocab_padded(1)
+    per_layer = D * hd * (H + 2 * KH) + H * hd * D + 3 * D * F
+    attn_ops = L * flash_bytes_and_ops(B, S, H, KH, hd)[1]
+    prefill_ops = 2 * per_layer * L * B * S + attn_ops + 2 * B * D * V
+    prefill_bytes = 2 * (per_layer * L + D * V)
+    kv_bytes = 2 * 2 * L * B * (S + gen // 2) * KH * hd
+    decode_bytes = 2 * (per_layer * L + D * V + B * D) + kv_bytes
+    decode_ops = 2 * (per_layer * L + D * V) * B
+    return ({"prefill": _bf16_bound(prefill_bytes, prefill_ops),
+             "decode_step": _bf16_bound(decode_bytes, decode_ops)})
+
+
+def _lm_pass(engine, stream):
+    """Counts set to 0, the stream served, counts read: every prefill
+    launches flash attention once per layer, nothing else launches."""
+    import torch
+    _reset_counts()
+    for p in stream:
+        engine.submit(p)
+    done = engine.drain()
+    torch.cuda.synchronize()
+    launches = _expect_launches("lm pass", {
+        "flash_attention": engine.cfg.num_layers * len(stream)})
+    return done, launches
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max())
+
+
+def phase_lm(device, batch=4, requests=2, prompt_len=2048, gen=16):
+    """qwen3-8b at full width served through K10; the masked path on the
+    same params as its reference; times beside bounds."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import api
+    from repro_torch.serving import ServingEngine
+    cfg = dataclasses.replace(get_arch("qwen3-8b"), attn_impl="pallas")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = ServingEngine(cfg, prompt_len=prompt_len, gen=gen,
+                           device=device, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(engine.params))
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in _leaves(engine.params))
+    t0 = time.perf_counter()
+    engine.warmup(batch)
+    warmup_s = time.perf_counter() - t0
+    stream = [engine.make_request(batch, seed=100 + i)
+              for i in range(requests)]
+    done, launches = _lm_pass(engine, stream)
+    for r in done:
+        toks = r.result["tokens"]
+        if toks.shape != (batch, gen) or not (
+                (toks >= 0) & (toks < cfg.vocab_size)).all():
+            raise SystemExit(f"request {r.rid}: tokens {toks.shape}")
+
+    # per prefill and per decode step, through the engine's own steps
+    batch0 = stream[0]
+    _reset_counts()
+    logits, cache = api.make_prefill(cfg, cache_len=prompt_len + gen)(
+        engine.params, batch0)
+    torch.cuda.synchronize()
+    per_prefill = _expect_launches("one prefill", {
+        "flash_attention": cfg.num_layers})
+    masked = dataclasses.replace(cfg, attn_impl="masked")
+    m_logits, m_cache = api.make_prefill(
+        masked, cache_len=prompt_len + gen)(engine.params, batch0)
+    prefill_rel = _rel(logits, m_logits)
+    same_argmax = float((logits[:, :cfg.vocab_size].argmax(-1)
+                         == m_logits[:, :cfg.vocab_size].argmax(-1))
+                        .float().mean())
+    decode = api.make_decode_step(cfg)
+    m_decode = api.make_decode_step(masked)
+    feed = torch.from_numpy(done[0].result["tokens"]).to(device)
+    step_rel = []
+    _reset_counts()
+    for t in range(gen):
+        tok = {"tokens": feed[:, t:t + 1]}
+        logits, cache = decode(engine.params, cache, tok)
+        m_logits, m_cache = m_decode(engine.params, m_cache, tok)
+        step_rel.append(_rel(logits, m_logits))
+    torch.cuda.synchronize()
+    _expect_launches("teacher-forced decode", {})
+    worst = max([prefill_rel] + step_rel)
+    check = {"prefill_rel": prefill_rel, "decode_rel_max": max(step_rel),
+             "decode_rel": step_rel, "tolerance": LOGITS_REL,
+             "prefill_same_argmax": same_argmax}
+    if not worst < LOGITS_REL:
+        emit({"phase": "lm", "check": check})
+        raise SystemExit(f"K10 prefill disagrees with the masked path: "
+                         f"{worst} >= {LOGITS_REL}")
+    # the card's time for one decode step at the cache's last position:
+    # the step captured in a CUDA graph, so no Python runs between its
+    # kernels (the served loop's time less this is the host's share)
+    pos = cache["pos"] - 1
+    tok = {"tokens": feed[:, -1:]}
+
+    def one_step():
+        cache["pos"] = pos
+        decode(engine.params, cache, tok)
+    decode_graph_ms = graph_ms(one_step, iters=4, replays=5)
+    prefill = api.make_prefill(cfg, cache_len=prompt_len + gen)
+    profiles = {
+        "prefill": device_profile(
+            lambda: prefill(engine.params, batch0),
+            min(r.result["prefill_s"] for r in done)),
+        "decode_step": device_profile(
+            one_step, min(r.result["decode_s_per_tok"] for r in done))}
+    del cache, m_cache, logits, m_logits
+    rep = engine.report()
+    bounds = lm_bounds(cfg, batch, prompt_len, gen)
+    out = {"phase": "lm", "arch": cfg.name, "attn_impl": cfg.attn_impl,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "params": n_params, "param_bytes": param_bytes,
+           "batch": batch, "prompt_len": prompt_len, "gen": gen,
+           "init_s": init_s, "warmup_s": warmup_s,
+           "launches": launches, "launches_per_prefill": per_prefill,
+           "launches_per_decode": 0,
+           "prefill_s": [r.result["prefill_s"] for r in done],
+           "decode_s_per_tok": [r.result["decode_s_per_tok"] for r in done],
+           "decode_step_graph_ms": decode_graph_ms,
+           "profiles": profiles,
+           "bounds": bounds,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "check": check, "sample": done[0].result["tokens"][0].tolist(),
+           "report": {k: rep[k] for k in ("mode", "prompt_len", "generated",
+                                          "served", "latency")}}
+    out["prefill_s_over_bound"] = (min(out["prefill_s"])
+                                   / (bounds["prefill"]["bound_ms"] / 1e3))
+    out["decode_over_bound"] = (min(out["decode_s_per_tok"])
+                                / (bounds["decode_step"]["bound_ms"] / 1e3))
+    emit(out)
+    return launches
+
+
+#: substrings of the names of cuBLAS's matrix-product kernels on Hopper
+GEMM_KERNELS = ("gemm", "nvjet", "xmma", "cutlass")
+
+
+def device_profile(fn, wall_s, top=6):
+    """One call of ``fn`` under ``torch.profiler``: the device's busy time
+    (the kernels' own time, summed), split into cuBLAS matrix products,
+    the flash-attention kernel and everything else (norms, RoPE, SiLU,
+    casts, copies, the plain attention), the kernels that take most of
+    it, and the idle share of ``wall_s``, the call's time unprofiled.
+    None where the profiler records no device time ("not measured")."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_device_time_total / 1e3, e.key, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    if not rows:
+        return {"device_busy_ms": None, "device_idle_share": None}
+    busy = sum(r[0] for r in rows)
+    split = {"matmul_ms": 0.0, "flash_attention_ms": 0.0, "other_ms": 0.0}
+    for ms, name, _ in rows:
+        key = ("flash_attention_ms" if "flash_attn_kernel" in name else
+               "matmul_ms" if any(g in name for g in GEMM_KERNELS) else
+               "other_ms")
+        split[key] += ms
+    return {"device_busy_ms": busy, "wall_ms": wall_s * 1e3,
+            "device_idle_share": max(0.0, 1 - busy / (wall_s * 1e3)),
+            **split, "kernels": len(rows),
+            "launches": sum(r[2] for r in rows),
+            "top": [{"kernel": name[:100], "ms": ms, "calls": n}
+                    for ms, name, n in rows[:top]]}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def _served(done):
     return sum(r.size for r in done)
 
@@ -916,10 +1218,14 @@ def phase_serve(device, batch=4096, requests=16, n_train=20000):
 
 def phase_cli(device):
     from repro_torch.launch import serve
-    t0 = time.perf_counter()
-    serve.main(["--arch", "dwn-jsc-lg", "--requests", "4", "--device",
-                device])
-    emit({"phase": "cli", "seconds": time.perf_counter() - t0})
+    seconds = {}
+    for argv in (["--arch", "dwn-jsc-lg", "--requests", "4"],
+                 ["--arch", "qwen3-8b", "--batch", "2", "--prompt-len",
+                  "32", "--gen", "4"]):
+        t0 = time.perf_counter()
+        serve.main(argv + ["--device", device])
+        seconds[argv[1]] = time.perf_counter() - t0
+    emit({"phase": "cli", "seconds": seconds})
 
 
 def main() -> int:
@@ -933,6 +1239,9 @@ def main() -> int:
               "runs the port on a CUDA card", file=sys.stderr)
         return 3
     sys.path.insert(0, str(SRC))
+    # full float32 in float32 products (the masked attention path's scores)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -944,6 +1253,8 @@ def main() -> int:
     max_err, timing = phase_kernels("cuda")
     stage_err, stage_timing, stage_launches = phase_staged("cuda")
     float_err, float_timing, float_launches = phase_float("cuda")
+    flash_err, flash_timing = phase_flash("cuda")
+    flash_launches = phase_lm("cuda")
     launches = phase_serve("cuda")
     phase_cli("cuda")
 
@@ -981,6 +1292,14 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "library": ("two eager calls" if t["library_ms"] is not None
                         else None)})
+    t = flash_timing
+    summary.append({
+        "name": "flash_attention", "route": "cuda", "source": FLASH[0],
+        "replaces": FLASH[1], "launches": flash_launches["flash_attention"],
+        "equal": False, "tolerance": FLASH_TOL, "max_abs_err": flash_err,
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "library": "scaled_dot_product_attention"})
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

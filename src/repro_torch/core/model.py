@@ -99,8 +99,9 @@ def params_from_numpy(params, buffers, *, device="cpu"):
 
 @dataclasses.dataclass
 class FrozenDWN:
-    """Hardware-semantics model: what the generator emits as RTL.  All
-    fields are numpy, so a reference ``FrozenDWN``'s arrays build one."""
+    """Hardware-semantics model: what the generator emits as RTL.  The
+    array fields are numpy (so a reference ``FrozenDWN``'s arrays build
+    one) or tensors on one device (see :func:`frozen_device`)."""
     cfg: DWNConfig
     thresholds: np.ndarray                   # (F, T), possibly quantized
     mapping_idx: list                        # per layer (m, n) int32
@@ -120,11 +121,21 @@ def freeze(params, buffers, cfg: DWNConfig,
     return FrozenDWN(cfg, th, mapping, tables, input_frac_bits)
 
 
+def frozen_device(frozen: FrozenDWN) -> torch.device:
+    """Where the frozen model lives: its thresholds' device when they are
+    a tensor, else the CPU."""
+    th = frozen.thresholds
+    return th.device if isinstance(th, torch.Tensor) else torch.device("cpu")
+
+
+def _tensor(a, device, dtype=None) -> torch.Tensor:
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
+    return t.to(device=device, dtype=dtype)
+
+
 def _frozen_tensors(frozen: FrozenDWN, device):
-    th = torch.as_tensor(np.array(frozen.thresholds, np.float32),
-                         device=device)
-    layers = [(torch.as_tensor(np.array(i), device=device),
-               torch.as_tensor(np.array(t), device=device))
+    th = _tensor(frozen.thresholds, device, torch.float32)
+    layers = [(_tensor(i, device), _tensor(t, device))
               for i, t in zip(frozen.mapping_idx, frozen.tables_bin)]
     return th, layers
 
@@ -165,22 +176,24 @@ def _eval_accuracy(fn, x: np.ndarray, y: np.ndarray, batch: int,
 
 
 def eval_accuracy_hard(frozen: FrozenDWN, x: np.ndarray, y: np.ndarray,
-                       batch: int = 4096, *, device="cpu") -> float:
-    """Streaming hard-path accuracy (hardware semantics) in [0, 1]."""
+                       batch: int = 4096, *, device=None) -> float:
+    """Streaming hard-path accuracy (hardware semantics) in [0, 1].  The
+    rows go to ``device``, by default where the frozen model lives
+    (:func:`frozen_device`)."""
     return _eval_accuracy(lambda xb: apply_hard(frozen, xb), x, y, batch,
-                          device)
+                          device or frozen_device(frozen))
 
 
 def eval_accuracy_hard_packed(frozen: FrozenDWN, x: np.ndarray,
                               y: np.ndarray, batch: int = 4096, *,
-                              device="cpu") -> float:
+                              device=None) -> float:
     """Packed-bitplane twin of :func:`eval_accuracy_hard` (same value)."""
     return _eval_accuracy(lambda xb: apply_hard_packed(frozen, xb), x, y,
-                          batch, device)
+                          batch, device or frozen_device(frozen))
 
 
 __all__ = [
     "DWNConfig", "FrozenDWN", "JSC_PRESETS", "apply_hard",
     "apply_hard_packed", "eval_accuracy_hard", "eval_accuracy_hard_packed",
-    "freeze", "init_dwn", "params_from_numpy",
+    "freeze", "frozen_device", "init_dwn", "params_from_numpy",
 ]

@@ -21,7 +21,8 @@ so a serving report can distinguish "waiting behind other traffic" from
 "the datapath is slow".
 
 ``drain_batched`` serves array payloads that coalesce along a batch axis
-(DWN feature batches).
+(DWN feature batches); ``drain_serial`` serves one request per step (LM
+prefill and decode).
 """
 
 from __future__ import annotations
@@ -68,7 +69,7 @@ class Request:
     """One serving request plus its latency accounting."""
 
     rid: int
-    payload: Any                       # (size, F) features
+    payload: Any                       # (size, F) features or LM batch
     size: int                          # samples
     t_submit: float
     t_start: float = 0.0               # first step launch
@@ -210,6 +211,23 @@ class MicrobatchScheduler:
                 r.buckets = (bucket,)
                 off += r.size
                 done.append(r)
+        self._record(done)
+        return done
+
+    def drain_serial(self, step: Callable) -> list[Request]:
+        """Serve queued requests one per step (LM prefill/decode path).
+
+        ``step(payload)`` returns the request's result and blocks until
+        ready.  Same queue/compute accounting as the batched path.
+        """
+        done: list[Request] = []
+        while self._queue:
+            req = self._queue.popleft()
+            req.t_start = self._timer()
+            req.result = step(req.payload)
+            req.t_done = self._timer()
+            req.buckets = (req.size,)
+            done.append(req)
         self._record(done)
         return done
 

@@ -1,6 +1,7 @@
 """On a CUDA card: each CUDA kernel against its plain version, the staged
-packed and float ops against the fused kernels, and the serving engine
-through the kernels.
+packed and float ops against the fused kernels, the serving engine
+through the kernels, and the flash-attention kernel on its own and in the
+prefill of a reduced qwen3-8b.
 
 These tests import torch and not JAX (the card's machine has no JAX); the
 plain versions they compare with are held to the reference's Pallas
@@ -10,7 +11,10 @@ is present and skips without one.  Every comparison on {0,1} operands is
 exact: counts are integers held in float32 and the argmax is an integer.
 Soft bits in the float LUT layer are held within 1e-5 and float tables in
 the float fused kernel within 1e-4 (nvcc contracts a*b+c into FMA; eager
-PyTorch rounds twice).
+PyTorch rounds twice).  Flash attention (bf16 in and out, P rounded to
+bf16 before its product with V) is held to its float32 plain version
+within 2e-2, absolute and relative, the reference's bf16 bar
+(``tests/test_flash_kernel.py``).
 
 Run on a card: ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py``.
 """
@@ -407,3 +411,93 @@ def test_cuda_float_wrappers_refuse_bad_operands():
     with pytest.raises(ValueError, match="shared memory"):
         K.fused_dwn(xd, thd, wide, torch.zeros((900, 256), device="cuda"),
                     5, block_m=900)
+
+
+FLASH_TOL = 2e-2
+
+
+def _attn_operands(seed, B, S, H, KH, hd):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn((B, S, H, hd), generator=g, device="cuda") * 0.5,
+            torch.randn((B, S, KH, hd), generator=g, device="cuda"),
+            torch.randn((B, S, KH, hd), generator=g, device="cuda"))
+
+
+def test_flash_attention_matches_plain_on_card():
+    """bf16 within 2e-2 of the plain version at the qwen3-8b head shape
+    (32 query heads over 8 KV heads, hd 128) with S = 1, ragged S and a
+    few tiles, causal and not; hd 16; the reference's (BH, S, hd)
+    layout.  One launch counted per call."""
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+    _need_card()
+    cases = [(1, 1, 32, 8, 128), (2, 33, 32, 8, 128), (1, 200, 32, 8, 128),
+             (2, 100, 4, 2, 16), (1, 77, 4, 4, 16)]
+    for i, (B, S, H, KH, hd) in enumerate(cases):
+        q, k, v = (t.bfloat16() for t in _attn_operands(i, B, S, H, KH, hd))
+        for causal in (True, False):
+            before = FK.launch_counts()["flash_attention"]
+            got = FK.flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            assert FK.launch_counts()["flash_attention"] == before + 1
+            want = attention_ref(q, k, v, causal=causal)
+            assert got.dtype == torch.bfloat16 and got.shape == q.shape
+            torch.testing.assert_close(got.float(), want.float(),
+                                       atol=FLASH_TOL, rtol=FLASH_TOL)
+    q, k, v = (t.bfloat16() for t in _attn_operands(9, 6, 65, 1, 1, 128))
+    fold = [t[:, :, 0].contiguous() for t in (q, k, v)]
+    torch.testing.assert_close(
+        FK.flash_attention(*fold, causal=True).float(),
+        attention_ref(*fold, causal=True).float(), atol=FLASH_TOL,
+        rtol=FLASH_TOL)
+
+
+def test_prefill_launches_flash_once_per_layer():
+    """Reduced qwen3-8b on the card with ``attn_impl="pallas"``: one
+    flash-attention launch per layer in prefill, none in decode; the last
+    logits within 0.05 relative of the ``masked`` path on the same
+    params."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.models import transformer as TT
+    _need_card()
+    cfg = dataclasses.replace(get_arch("qwen3-8b").reduced(),
+                              attn_impl="pallas")
+    params = TT.init_params(cfg, seed=0, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), device="cuda")
+    FK.reset_launch_counts()
+    lg, cache = TT.prefill(params, cfg, {"tokens": toks}, cache_len=44)
+    torch.cuda.synchronize()
+    assert FK.launch_counts()["flash_attention"] == cfg.num_layers
+    TT.decode_step(params, cfg, cache, toks[:, :1])
+    torch.cuda.synchronize()
+    assert FK.launch_counts()["flash_attention"] == cfg.num_layers
+    masked = dataclasses.replace(cfg, attn_impl="masked")
+    ref, _ = TT.prefill(params, masked, {"tokens": toks}, cache_len=44)
+    err = (lg.float() - ref.float()).abs().max() / ref.float().abs().max()
+    assert float(err) < 0.05
+
+
+def test_flash_wrapper_refuses_bad_operands():
+    """On the card the wrapper raises on what the kernel does not take —
+    a head_dim without an instance, float32, heads that do not group,
+    non-contiguous or mixed-device operands — and never falls back to
+    the plain version."""
+    from repro_torch.kernels.flash_attn import kernel as FK
+    _need_card()
+    q, k, v = (t.bfloat16() for t in _attn_operands(0, 1, 16, 4, 2, 32))
+    FK.reset_launch_counts()
+    with pytest.raises(ValueError, match="head_dim 32"):
+        FK.flash_attention(q, k, v)
+    q, k, v = _attn_operands(0, 1, 16, 4, 2, 128)
+    with pytest.raises(ValueError, match="bfloat16"):
+        FK.flash_attention(q, k, v)
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    with pytest.raises(ValueError, match="grouped-query"):
+        FK.flash_attention(q[:, :, :3].contiguous(), k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        FK.flash_attention(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="is on"):
+        FK.flash_attention(q, k.cpu(), v)
+    assert FK.launch_counts() == {"flash_attention": 0}

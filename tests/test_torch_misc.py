@@ -75,6 +75,24 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     assert art.pack("cpu").stage == "packed"
 
 
+def test_lm_entry_points_raise_without_a_card(monkeypatch):
+    """The LM engine (by name and by config) and ``--arch qwen3-8b`` raise
+    with no card and no CPU request, before building a parameter."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.serving import ServingEngine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = dataclasses.replace(get_arch("qwen3-8b"), attn_impl="pallas")
+    for arch in ("qwen3-8b", cfg):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ServingEngine(arch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "qwen3-8b"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "qwen3-8b", "--reduced", "--batch", "2"])
+
+
 def test_chip_smoke_refuses_to_run_without_a_card_or_the_port(tmp_path):
     """chip_smoke.py exits non-zero and prints no result line without a
     card, and in a directory that holds only the script."""
@@ -95,12 +113,14 @@ def test_kernel_build_is_deferred_to_first_launch():
     sources and sits under build/ in the checkout."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.fused import kernel  # noqa: F401
+    import repro_torch.kernels.flash_attn.ops  # noqa: F401
     import repro_torch.kernels.lut_eval.ops  # noqa: F401
     import repro_torch.kernels.popcount.ops  # noqa: F401
     import repro_torch.kernels.thermometer.ops  # noqa: F401
     assert not _build._LIBS
     srcs = _build.sources()
-    assert list(srcs) == ["fused_dwn", "lut_eval", "popcount", "thermometer"]
+    assert list(srcs) == ["flash_attn", "fused_dwn", "lut_eval", "popcount",
+                          "thermometer"]
     path = _build.library_path(srcs["fused_dwn"])
     assert path.parent == ROOT / "build" / "repro_torch_kernels"
     assert path.name.startswith("libfused_dwn-") and path.suffix == ".so"

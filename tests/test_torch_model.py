@@ -106,6 +106,31 @@ def test_frozen_from_reference_arrays_and_accuracy():
     assert tm.eval_accuracy_hard_packed(tfrozen, x, y, batch=97) == ref
 
 
+def test_eval_accuracy_defaults_to_the_frozen_models_device():
+    """Exact: with no ``device`` the rows go where the frozen model lives —
+    the CPU for numpy fields, the tensors' device for tensor fields — and
+    the accuracy is the reference's either way."""
+    jfrozen, _ = _both_frozen(jm.JSC_PRESETS["sm-50"], None, seed=2)
+    arrays = (np.asarray(jfrozen.thresholds),
+              [np.asarray(a) for a in jfrozen.mapping_idx],
+              [np.asarray(a) for a in jfrozen.tables_bin])
+    as_numpy = tm.FrozenDWN(tm.JSC_PRESETS["sm-50"], *arrays)
+    as_tensors = tm.FrozenDWN(
+        tm.JSC_PRESETS["sm-50"], torch.from_numpy(arrays[0]),
+        [torch.from_numpy(a) for a in arrays[1]],
+        [torch.from_numpy(a) for a in arrays[2]])
+    assert tm.frozen_device(as_numpy) == torch.device("cpu")
+    assert tm.frozen_device(as_tensors) == torch.device("cpu")
+    meta = tm.FrozenDWN(tm.JSC_PRESETS["sm-50"],
+                        torch.empty((16, 200), device="meta"), [], [])
+    assert tm.frozen_device(meta) == torch.device("meta")
+    x, y = ROWS.x_test, ROWS.y_test
+    ref = jm.eval_accuracy_hard(jfrozen, x, y, batch=128)
+    for frozen in (as_numpy, as_tensors):
+        assert tm.eval_accuracy_hard(frozen, x, y, batch=128) == ref
+        assert tm.eval_accuracy_hard_packed(frozen, x, y, batch=97) == ref
+
+
 def test_presets_and_config_match_reference():
     """Exact: the presets, layer specs and auto temperature."""
     assert set(tm.JSC_PRESETS) == set(jm.JSC_PRESETS)
