@@ -58,7 +58,8 @@ def build_all(names=None) -> dict[str, dict]:
     """Compile the named kernel libraries (default: all) in parallel.
 
     Returns name -> {"path", "seconds", "cached", "ptxas"}: ``ptxas`` holds
-    the assembler's register, shared-memory and spill lines.  Raises
+    the assembler's register, shared-memory, spill and warning lines, kept
+    beside the library so that a cached build reports them too.  Raises
     ``RuntimeError`` with the compiler's output if a build fails.
     """
     srcs = sources()
@@ -68,9 +69,11 @@ def build_all(names=None) -> dict[str, dict]:
     for name in names:
         src = srcs[name]
         out = library_path(src)
-        if out.exists():
+        kept = _ptxas_log(out)
+        if out.exists() and kept.exists():
             results[name] = {"path": str(out), "seconds": 0.0,
-                             "cached": True, "ptxas": []}
+                             "cached": True,
+                             "ptxas": kept.read_text().splitlines()}
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
@@ -84,12 +87,17 @@ def build_all(names=None) -> dict[str, dict]:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed for {name} "
                                f"(exit {proc.returncode}):\n{log}")
+        ptxas = [line.strip() for line in log.splitlines()
+                 if "ptxas" in line or "spill" in line]
+        _ptxas_log(out).write_text("\n".join(ptxas))
         os.replace(tmp, out)
-        results[name] = {
-            "path": str(out), "seconds": round(seconds, 3), "cached": False,
-            "ptxas": [line.strip() for line in log.splitlines()
-                      if "ptxas" in line or "spill" in line]}
+        results[name] = {"path": str(out), "seconds": round(seconds, 3),
+                         "cached": False, "ptxas": ptxas}
     return results
+
+
+def _ptxas_log(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas")
 
 
 def load(name: str) -> ctypes.CDLL:

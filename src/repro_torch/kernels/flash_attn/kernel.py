@@ -23,8 +23,11 @@ _SIGNATURES = {"flash_attn_launch": [P, P, P, P, I, I, I, I, I, I, P]}
 #: head dims the kernel is instantiated for (qwen3-8b's and its reduced
 #: variant's); the plain version takes any
 HEAD_DIMS = (16, 128)
-#: blockIdx.y holds batch x query heads
-_MAX_BATCH_HEADS = 65535
+#: the grid's y extent: the hd-16 instance puts batch x query heads on
+#: blockIdx.y, the hd-128 one its 128-row query blocks (batch x query heads
+#: go on blockIdx.x, which no real shape fills)
+_MAX_GRID_Y = 65535
+_HD128_ROWS = 128
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -61,9 +64,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} has no kernel instance; the "
                          f"kernel takes {HEAD_DIMS}")
-    if B * H > _MAX_BATCH_HEADS:
-        raise ValueError(f"batch x heads = {B * H} exceeds "
-                         f"{_MAX_BATCH_HEADS}")
+    if hd == 16 and B * H > _MAX_GRID_Y:
+        raise ValueError(f"batch x heads = {B * H} exceeds {_MAX_GRID_Y} "
+                         f"at head_dim 16")
+    if hd == 128 and S > _HD128_ROWS * _MAX_GRID_Y:
+        raise ValueError(f"S = {S} exceeds {_HD128_ROWS * _MAX_GRID_Y} at "
+                         f"head_dim 128")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must be 16-byte aligned")
     out = torch.empty_like(q)

@@ -14,7 +14,9 @@ the float fused kernel within 1e-4 (nvcc contracts a*b+c into FMA; eager
 PyTorch rounds twice).  Flash attention (bf16 in and out, P rounded to
 bf16 before its product with V) is held to its float32 plain version
 within 2e-2, absolute and relative, the reference's bf16 bar
-(``tests/test_flash_kernel.py``).
+(``tests/test_flash_kernel.py``), and within 1e-2 of each query row's
+largest value, a bar that a dropped key tile or a missing rescale of the
+output fails where the elementwise one does not.
 
 Run on a card: ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py``.
 """
@@ -414,36 +416,59 @@ def test_cuda_float_wrappers_refuse_bad_operands():
 
 
 FLASH_TOL = 2e-2
+#: max |diff| over a query row's head dims over max |want| on that row:
+#: deep in a flat softmax |o| is far below FLASH_TOL, so the elementwise
+#: bar alone cannot see a wrong kernel there
+FLASH_ROW_REL = 1e-2
 
 
-def _attn_operands(seed, B, S, H, KH, hd):
+def _attn_operands(seed, B, S, H, KH, hd, q_scale=0.5):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    return (torch.randn((B, S, H, hd), generator=g, device="cuda") * 0.5,
+    return (torch.randn((B, S, H, hd), generator=g, device="cuda") * q_scale,
             torch.randn((B, S, KH, hd), generator=g, device="cuda"),
             torch.randn((B, S, KH, hd), generator=g, device="cuda"))
 
 
+#: sequence lengths around the hd-128 kernel's 128-row query blocks and
+#: 96-key tiles
+TILE_EDGES = (63, 95, 96, 97, 127, 128, 129, 193, 255, 257)
+
+
 def test_flash_attention_matches_plain_on_card():
     """bf16 within 2e-2 of the plain version at the qwen3-8b head shape
-    (32 query heads over 8 KV heads, hd 128) with S = 1, ragged S and a
-    few tiles, causal and not; hd 16; the reference's (BH, S, hd)
-    layout.  One launch counted per call."""
+    (32 query heads over 8 KV heads, hd 128) with S = 1, ragged S, S on
+    either side of the query-block and key-tile edges and a few tiles,
+    and with as many KV heads as query heads, causal and not, for a flat
+    and a peaked softmax (q scaled by 0.5 and 4); hd 16; the reference's
+    (BH, S, hd) layout.  Each query row within 1e-2 of its largest value
+    against the plain version in float32.  One launch counted per
+    call."""
     from repro_torch.kernels.flash_attn import kernel as FK
     from repro_torch.kernels.flash_attn.ref import attention_ref
     _need_card()
     cases = [(1, 1, 32, 8, 128), (2, 33, 32, 8, 128), (1, 200, 32, 8, 128),
-             (2, 100, 4, 2, 16), (1, 77, 4, 4, 16)]
+             (2, 100, 4, 2, 16), (1, 77, 4, 4, 16), (2, 200, 8, 8, 128),
+             (1, 1024, 32, 8, 128)]
+    cases += [(1 + S % 2, S, 32, 8, 128) for S in TILE_EDGES]
     for i, (B, S, H, KH, hd) in enumerate(cases):
-        q, k, v = (t.bfloat16() for t in _attn_operands(i, B, S, H, KH, hd))
-        for causal in (True, False):
-            before = FK.launch_counts()["flash_attention"]
-            got = FK.flash_attention(q, k, v, causal=causal)
-            torch.cuda.synchronize()
-            assert FK.launch_counts()["flash_attention"] == before + 1
-            want = attention_ref(q, k, v, causal=causal)
-            assert got.dtype == torch.bfloat16 and got.shape == q.shape
-            torch.testing.assert_close(got.float(), want.float(),
-                                       atol=FLASH_TOL, rtol=FLASH_TOL)
+        for q_scale in (0.5, 4.0):
+            q, k, v = (t.bfloat16() for t in
+                       _attn_operands(i, B, S, H, KH, hd, q_scale))
+            for causal in (True, False):
+                before = FK.launch_counts()["flash_attention"]
+                got = FK.flash_attention(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                assert FK.launch_counts()["flash_attention"] == before + 1
+                want = attention_ref(q, k, v, causal=causal)
+                assert got.dtype == torch.bfloat16 and got.shape == q.shape
+                torch.testing.assert_close(got.float(), want.float(),
+                                           atol=FLASH_TOL, rtol=FLASH_TOL)
+                exact = attention_ref(q.float(), k.float(), v.float(),
+                                      causal=causal)
+                row = ((got.float() - exact).abs().amax(-1)
+                       / exact.abs().amax(-1).clamp_min(1e-30))
+                assert float(row.max()) <= FLASH_ROW_REL, (
+                    B, S, H, KH, hd, q_scale, causal, float(row.max()))
     q, k, v = (t.bfloat16() for t in _attn_operands(9, 6, 65, 1, 1, 128))
     fold = [t[:, :, 0].contiguous() for t in (q, k, v)]
     torch.testing.assert_close(
@@ -452,8 +477,33 @@ def test_flash_attention_matches_plain_on_card():
         rtol=FLASH_TOL)
 
 
+def test_flash_attention_graph_replay_equals_eager():
+    """The launch captured in a CUDA graph (its tensor maps are kernel
+    parameters, captured by value) replays to the eager call's output bit
+    for bit, one launch counted per captured call."""
+    from repro_torch.kernels.flash_attn import kernel as FK
+    _need_card()
+    q, k, v = (t.bfloat16() for t in _attn_operands(7, 2, 300, 32, 8, 128))
+    eager = FK.flash_attention(q, k, v, causal=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        FK.flash_attention(q, k, v, causal=True)      # warm-up off-graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = FK.launch_counts()["flash_attention"]
+    with torch.cuda.graph(graph):
+        out = FK.flash_attention(q, k, v, causal=True)
+    assert FK.launch_counts()["flash_attention"] == before + 1
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
 def test_prefill_launches_flash_once_per_layer():
-    """Reduced qwen3-8b on the card with ``attn_impl="pallas"``: one
+    """Reduced qwen3-8b on the card with ``attn_impl="pallas"``, at its
+    head_dim 16 and at qwen3-8b's 128 (the served design): one
     flash-attention launch per layer in prefill, none in decode; the last
     logits within 0.05 relative of the ``masked`` path on the same
     params."""
@@ -462,28 +512,29 @@ def test_prefill_launches_flash_once_per_layer():
     from repro_torch.kernels.flash_attn import kernel as FK
     from repro_torch.models import transformer as TT
     _need_card()
-    cfg = dataclasses.replace(get_arch("qwen3-8b").reduced(),
-                              attn_impl="pallas")
-    params = TT.init_params(cfg, seed=0, device="cuda")
-    toks = torch.randint(0, cfg.vocab_size, (2, 40), device="cuda")
-    FK.reset_launch_counts()
-    lg, cache = TT.prefill(params, cfg, {"tokens": toks}, cache_len=44)
-    torch.cuda.synchronize()
-    assert FK.launch_counts()["flash_attention"] == cfg.num_layers
-    TT.decode_step(params, cfg, cache, toks[:, :1])
-    torch.cuda.synchronize()
-    assert FK.launch_counts()["flash_attention"] == cfg.num_layers
-    masked = dataclasses.replace(cfg, attn_impl="masked")
-    ref, _ = TT.prefill(params, masked, {"tokens": toks}, cache_len=44)
-    err = (lg.float() - ref.float()).abs().max() / ref.float().abs().max()
-    assert float(err) < 0.05
+    for head_dim in (16, 128):      # hd 128 runs the served design
+        cfg = dataclasses.replace(get_arch("qwen3-8b").reduced(),
+                                  attn_impl="pallas", head_dim=head_dim)
+        params = TT.init_params(cfg, seed=0, device="cuda")
+        toks = torch.randint(0, cfg.vocab_size, (2, 40), device="cuda")
+        FK.reset_launch_counts()
+        lg, cache = TT.prefill(params, cfg, {"tokens": toks}, cache_len=44)
+        torch.cuda.synchronize()
+        assert FK.launch_counts()["flash_attention"] == cfg.num_layers
+        TT.decode_step(params, cfg, cache, toks[:, :1])
+        torch.cuda.synchronize()
+        assert FK.launch_counts()["flash_attention"] == cfg.num_layers
+        masked = dataclasses.replace(cfg, attn_impl="masked")
+        ref, _ = TT.prefill(params, masked, {"tokens": toks}, cache_len=44)
+        err = (lg.float() - ref.float()).abs().max() / ref.float().abs().max()
+        assert float(err) < 0.05, (head_dim, float(err))
 
 
 def test_flash_wrapper_refuses_bad_operands():
     """On the card the wrapper raises on what the kernel does not take —
     a head_dim without an instance, float32, heads that do not group,
-    non-contiguous or mixed-device operands — and never falls back to
-    the plain version."""
+    non-contiguous or mixed-device operands, more batch x heads than the
+    hd-16 grid holds — and never falls back to the plain version."""
     from repro_torch.kernels.flash_attn import kernel as FK
     _need_card()
     q, k, v = (t.bfloat16() for t in _attn_operands(0, 1, 16, 4, 2, 32))
@@ -500,4 +551,13 @@ def test_flash_wrapper_refuses_bad_operands():
         FK.flash_attention(q.transpose(1, 2), k, v)
     with pytest.raises(ValueError, match="is on"):
         FK.flash_attention(q, k.cpu(), v)
+    # hd 16 puts batch x heads on the grid's y (at most 65535); hd 128 puts
+    # them on x, so the same count launches there
+    q, k, v = (t.bfloat16() for t in _attn_operands(0, 1, 1, 65536, 1, 16))
+    with pytest.raises(ValueError, match="batch x heads"):
+        FK.flash_attention(q, k, v)
     assert FK.launch_counts() == {"flash_attention": 0}
+    q, k, v = (t.bfloat16() for t in _attn_operands(0, 1, 1, 65536, 1, 128))
+    torch.testing.assert_close(FK.flash_attention(q, k, v).float(),
+                               v.expand_as(q).float(), atol=0, rtol=0)
+    assert FK.launch_counts() == {"flash_attention": 1}

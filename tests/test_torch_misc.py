@@ -125,3 +125,27 @@ def test_kernel_build_is_deferred_to_first_launch():
     assert path.parent == ROOT / "build" / "repro_torch_kernels"
     assert path.name.startswith("libfused_dwn-") and path.suffix == ".so"
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_cached_build_reports_its_ptxas_lines(tmp_path, monkeypatch):
+    """A library reused from the build cache reports the assembler's
+    lines it was compiled with, so a check of spills still sees them (a
+    stand-in for nvcc writes the library and prints the lines)."""
+    from repro_torch.kernels import _build
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                    ': > "$2"\n'
+                    'echo "ptxas info    : Used 40 registers"\n'
+                    'echo "0 bytes stack frame, 0 bytes spill stores, '
+                    '0 bytes spill loads"\n'
+                    'echo "unrelated"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    first = _build.build_all(["popcount"])["popcount"]
+    again = _build.build_all(["popcount"])["popcount"]
+    assert not first["cached"] and again["cached"]
+    assert first["ptxas"] == again["ptxas"] == [
+        "ptxas info    : Used 40 registers",
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"]
+    assert Path(again["path"]).parent == tmp_path / "build"
