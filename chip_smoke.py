@@ -7,14 +7,24 @@ kernel and qwen3-8b serving at full width.
 
 Phases, each printing one JSON line:
 
-1. device  — the card's name, the device count and nvidia-smi's name and
-   power limit;
-2. build   — compiles every CUDA kernel source with nvcc (all at once) and
-   prints the assembler's register, shared-memory and spill lines;
+1. device  — the card's name, the device count, nvidia-smi's name and
+   power limit, and its largest SM clock (the operation bounds use it);
+2. build   — compiles every CUDA kernel source with nvcc (all at once),
+   prints the assembler's register, shared-memory and spill lines and
+   the fused kernels' registers and shared memory, and fails if a fused
+   kernel spills;
 3. kernels — at dwn-jsc-lg width (F=16, T=200, m=2400, n=6, 5 classes,
-   operands from a numpy seed) holds each kernel against its plain PyTorch
-   version on the card, bit for bit, at B = 4096, 1000 and 1, for a 2-layer
-   stack (120, 50) and for a PEN (1, 8) grid, then times both at B=4096;
+   operands from a numpy seed) holds K2 (packed) and K1 (batch-major)
+   against their plain PyTorch versions on the card, bit for bit, at
+   B = 4096, 4097, 1000, 33, 31 and 1 and block_b = the default, 7, 256
+   and 4096, for a 2-layer stack (120, 50), a fan-in-8 stack (256, 60) whose
+   tables are read word by word, a PEN (1, 8) grid and models larger than
+   a block's shared memory (2050 LUTs of fan-in 10 and 70 of fan-in 15,
+   whose last layer is split over blocks; 40 of fan-in 16 and a
+   (40, 70) fan-in-16 stack, read from global memory), each launch's
+   layout held to that; then times both in CUDA graphs at the served
+   buckets B = 1, 64, 1024 and 4096 and sweeps block_b at B=4096; last
+   the zero kernel of a split launch on its own against ``Tensor.zero_``;
 4. staged  — the staged packed datapath at the same width: the three
    stage kernels (packed encode, LUT layer, masked popcount + classify)
    each held against its plain version bit for bit (B = 4096, 1000, 1, the
@@ -63,7 +73,8 @@ Phases, each printing one JSON line:
    whose startup checks every backend against the float oracle; serves 16
    requests of 4096 rows on the packed kernel, the same stream on the
    batch-major kernel and a ragged stream, asserting from the launch
-   counters that each kernel carried its pass, and times the host-to-device
+   counters that each kernel carried its pass (and that the zero kernel
+   ran before the split launches), and times the host-to-device
    copy, the launch and the device-to-host copy of a step;
 9. cli     — ``python -m repro_torch.launch.serve --arch dwn-jsc-lg`` with
    four requests, and ``--arch qwen3-8b --batch 2 --prompt-len 32 --gen 4``.
@@ -89,17 +100,33 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# published H100 SXM peaks (NVIDIA data sheet, dense): device memory and
-# float32 outside the tensor cores, the rate used for the kernels' scalar
-# compares, bit selects, table reads and popcounts
+# published H100 SXM peak of device memory (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_SCALAR_OPS_PER_S = 67e12
+# the DWN kernels' scalar operations, each one instruction, at the CUDA C
+# Programming Guide's per-instruction throughputs for compute capability
+# 9.0, in lanes per clock per SM: 32-bit integer, logic, shift and compare
+# ("int": compares, bit selects, table reads, gathers), float32 add,
+# multiply and FMA ("fp32": float sums and lerps), population count
+LANES_PER_CLOCK = {"int": 64, "fp32": 128, "popc": 16}
+# the classes run on separate pipes at once, but each of an SM's 4
+# schedulers dispatches at most one warp instruction a clock: 128 lanes
+DISPATCH_LANES_PER_CLOCK = 128
+SMS = 132
+#: the SM clock the bounds count with: nvidia-smi's clocks.max.sm, read
+#: by main() (Hz)
+SM_CLOCK_HZ = None
 # dense bf16 on the tensor cores (NVIDIA data sheet, H100 SXM)
 PEAK_BF16_OPS_PER_S = 989e12
 
 LG = dict(F=16, T=200, m=2400, n=6, C=5)
-#: samples per CUDA block swept at B=4096 (the default is timed above them)
-BLOCK_B_SWEEP = (4, 8, 16, 32, 64)
+#: samples per CUDA block (a tile) swept at B=4096 for K1 and K2
+BLOCK_B_SWEEP = (32, 64, 128, 256)
+#: block_b values K1 and K2 are checked at beside the default: below a
+#: warp and not a multiple of 32, eight warps, and more than a block's
+#: shared memory holds beside the lg-2400 model (cut to what fits)
+BLOCK_B_CHECKED = (7, 256, 4096)
+#: the serving engine's batch buckets K1 and K2 are timed at
+SERVED_BUCKETS = (1, 64, 1024, 4096)
 
 
 def emit(obj) -> None:
@@ -112,6 +139,15 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip()
+
+
+def max_sm_clock_hz() -> float:
+    """The card's largest SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip()) * 1e6
 
 
 def time_ms(fn, iters: int, warmup: int) -> float:
@@ -175,7 +211,8 @@ def make_model(rng, F, T, counts, n, pen_frac=None):
 
 def model_bytes_and_ops(variant, B, F, T, counts, n, C):
     """Bytes the function must move (inputs read once, outputs written
-    once) and the scalar operations it does, for one launch.
+    once) and the scalar operations it does for one launch, by class of
+    :data:`LANES_PER_CLOCK`.
 
     ``variant`` is a fused kernel ("packed", "batch-major") or a stage
     kernel of the staged path: "thermometer" (F*T compares per sample),
@@ -184,48 +221,63 @@ def model_bytes_and_ops(variant, B, F, T, counts, n, C):
     popcounts per sample); or a kernel of the float datapath (float32 bits
     and tables, first layer of ``counts``): "float_thermometer" (F*T
     compares, F*T floats written per sample), "float_lut_eval" (per LUT n
-    gathers and the 2^n - 1 lerps of its table, two operations each),
-    "float_popcount" (one add per LUT output) or "float_fused" (per LUT n
-    wired compares, one table read and one class add).
+    gathers and the 2^n - 1 lerps of its table, an add and an FMA each),
+    "float_popcount" (one float add per LUT output) or "float_fused" (per
+    LUT n wired compares, one table read and one float class add).
     """
     words = [(m + 31) // 32 for m in counts]
     w_in = (F * T + 31) // 32
     m0, A = counts[0], 2 ** n
     if variant == "float_thermometer":
-        return B * F * 4 + F * T * 4 + B * F * T * 4, B * F * T
+        return (B * F * 4 + F * T * 4 + B * F * T * 4,
+                {"int": B * F * T})
     if variant == "float_lut_eval":
         nbytes = B * F * T * 4 + m0 * n * 4 + m0 * A * 4 + B * m0 * 4
-        return nbytes, B * m0 * (n + 2 * (A - 1))
+        return nbytes, {"int": B * m0 * n, "fp32": B * m0 * 2 * (A - 1)}
     if variant == "float_popcount":
-        return B * counts[-1] * 4 + B * C * 4 + B * 4, B * counts[-1]
+        return (B * counts[-1] * 4 + B * C * 4 + B * 4,
+                {"fp32": B * counts[-1]})
     if variant == "float_fused":
         nbytes = (B * F * 4 + F * T * 4 + m0 * n * 4 + m0 * A * 4
                   + B * C * 4 + B * 4)
-        return nbytes, B * m0 * (n + 2)
+        return nbytes, {"int": B * m0 * (n + 1), "fp32": B * m0}
     if variant == "thermometer":
-        return B * F * 4 + F * T * 4 + B * w_in * 4, B * F * T
+        return (B * F * 4 + F * T * 4 + B * w_in * 4, {"int": B * F * T})
     if variant == "lut_eval":
         m = counts[0]
         nbytes = (B * w_in * 4 + m * n * 4 * 2 + m * ((2 ** n + 31) // 32)
                   * 4 + B * words[0] * 4)
-        return nbytes, B * m * n + B * m
+        return nbytes, {"int": B * m * n + B * m}
     if variant == "popcount":
         return (B * words[-1] * 4 + C * words[-1] * 4 + B * C * 4 + B * 4,
-                B * C * words[-1])
+                {"popc": B * C * words[-1]})
     tw = (2 ** n + 31) // 32
     table_bytes = sum(m * tw * 4 for m in counts)
-    wire_bytes = sum(m * n * 4 * 2 for m in counts)   # two int32 per wire
+    wire_bytes = sum(m * n * 4 for m in counts)       # one int32 per wire
     io = B * F * 4 + B * C * 4 + B * 4 + C * words[-1] * 4
     reads = B * sum(counts)                           # one table read / LUT
     popc = B * C * words[-1]
     if variant == "packed":
         nbytes = io + F * T * 4 + wire_bytes + table_bytes
-        ops = B * F * T + B * sum(m * n for m in counts) + reads + popc
+        ints = B * F * T + B * sum(m * n for m in counts) + reads
     else:
-        nbytes = io + wire_bytes + table_bytes        # wire_f + wire_th
-        ops = (B * counts[0] * n                      # direct-wire compares
-               + B * sum(m * n for m in counts[1:]) + reads + popc)
-    return nbytes, ops
+        # wire_f int16 + wire_th float32 for the first layer
+        nbytes = (io + wire_bytes - counts[0] * n * 4 + counts[0] * n * 6
+                  + table_bytes)
+        ints = (B * counts[0] * n                     # direct-wire compares
+                + B * sum(m * n for m in counts[1:]) + reads)
+    return nbytes, {"int": ints, "popc": popc}
+
+
+def ops_seconds(ops: dict) -> float:
+    """Least time the card's SMs take for ``ops`` (class -> count): the
+    classes' pipes run at once, so the slowest class at its
+    per-instruction rate, or all of them at the dispatch rate
+    (:data:`DISPATCH_LANES_PER_CLOCK`), whichever is longer."""
+    clocks = SMS * SM_CLOCK_HZ
+    slowest = max(k / (LANES_PER_CLOCK[c] * clocks) for c, k in ops.items())
+    return max(slowest,
+               sum(ops.values()) / (DISPATCH_LANES_PER_CLOCK * clocks))
 
 
 #: the assembler's lines worth printing: resources, spills and the
@@ -234,21 +286,45 @@ PTXAS_KEEP = ("registers", "spill", "smem", "Compiling entry",
               "Performance Loss")
 
 
+#: the fused library's kernels: (symbol in ptxas's entry names, name)
+FUSED_SYMBOLS = (
+    ("fused_tiles_kernelILb0ELb1E", "fused_dwn_packed"),
+    ("fused_tiles_kernelILb0ELb0E", "fused_dwn_packed, model in global"),
+    ("fused_tiles_kernelILb1ELb1E", "fused_dwn_batch_major"),
+    ("fused_tiles_kernelILb1ELb0E",
+     "fused_dwn_batch_major, model in global"),
+    ("zero_kernel", "fused_dwn_zero"),
+    ("fused_dwn_kernel", "fused_dwn"))
+
+
 def phase_build():
     """Every kernel library built at once; returns name -> its ptxas
-    lines."""
+    lines.  The fused kernels' registers, static shared memory and spills
+    are printed (the dynamic shared memory of K1 and K2 is in the kernels
+    phase, as each launch reports it); a spill fails the run."""
     from repro_torch.kernels import _build
     res = _build.build_all()
     libs = {name: {"seconds": r["seconds"], "cached": r["cached"],
                    "ptxas": [line for line in r["ptxas"]
                              if any(k in line for k in PTXAS_KEEP)]}
             for name, r in res.items()}
-    emit({"phase": "build", "libraries": libs})
+    fused = {name: _ptxas_resources(libs["fused_dwn"]["ptxas"], symbol)
+             for symbol, name in FUSED_SYMBOLS}
+    emit({"phase": "build", "libraries": libs, "fused_kernels": fused})
     return {name: lib["ptxas"] for name, lib in libs.items()}
 
 
-def phase_kernels(device, batches=(4096, 1000, 1), time_batch=4096):
-    """Each kernel equal to its plain version; timings at ``time_batch``."""
+def phase_kernels(device, batches=(4096, 4097, 1000, 33, 31, 1),
+                  time_batch=4096):
+    """K2 and K1 equal to their plain versions at every B of ``batches``
+    and every block_b of :data:`BLOCK_B_CHECKED`, at lg-2400 width, on a
+    2-layer stack, on a fan-in-8 stack (tables past 64 entries, read word
+    by word), on a PEN grid and on models larger than a block's shared
+    memory (fan-in 10 and 15: the last layer split over blocks; fan-in 16:
+    the model read from global memory), each launch's layout held to
+    that; then each timed at the served buckets in CUDA graphs, its
+    block_b swept at ``time_batch``.  Last the zero kernel of a split
+    launch on its own, against ``Tensor.zero_``."""
     import torch
     from repro_torch.kernels.fused import kernel as K
     from repro_torch.kernels.fused import ref as R
@@ -260,15 +336,24 @@ def phase_kernels(device, batches=(4096, 1000, 1), time_batch=4096):
     rng = np.random.default_rng(0)
     F, T, m, n, C = (LG[k] for k in ("F", "T", "m", "n", "C"))
     x_all = rng.uniform(-1, 1, (max(batches), F)).astype(np.float32)
-    cases = [("lg-2400", (m,), None, batches),
-             ("stack-120-50", (120, 50), None, batches[1:]),
-             ("lg-2400-pen9", (m,), 8, batches[:2])]
+    # (case, LUTs per layer, fan-in, PEN fraction bits, batches, where
+    # the model must be: "split" = staged, the last layer over at least
+    # two blocks from B = 4096 on; "global" = read from global memory)
+    cases = [("lg-2400", (m,), n, None, batches, None),
+             ("stack-120-50", (120, 50), n, None, batches[2:], None),
+             ("stack-fan8-256-60", (256, 60), 8, None, batches[1:], None),
+             ("lg-2400-pen9", (m,), n, 8, batches[:3], None),
+             ("fan10-2050", (2050,), 10, None, batches, "split"),
+             ("fan15-70", (70,), 15, None, batches[2:], "split"),
+             ("fan16-40", (40,), 16, None, batches[1:], "global"),
+             ("stack-fan16-40-70", (40, 70), 16, None, batches[2:],
+              "global")]
     kernels = {"packed": (K.fused_dwn_packed, R.fused_dwn_packed_plain),
                "batch-major": (K.fused_dwn_batch_major,
                                R.fused_dwn_batch_major_plain)}
     checks, max_err, timing = [], {v: 0.0 for v in kernels}, {}
-    for case, counts, frac, bs in cases:
-        th, maps, tabs = make_model(rng, F, T, counts, n, frac)
+    for case, counts, fan_in, frac, bs, where in cases:
+        th, maps, tabs = make_model(rng, F, T, counts, fan_in, frac)
         th_d = torch.from_numpy(th).to(device)
         maps_d = [torch.from_numpy(a).to(device) for a in maps]
         tabs_d = [torch.from_numpy(a).to(device) for a in tabs]
@@ -280,48 +365,85 @@ def phase_kernels(device, batches=(4096, 1000, 1), time_batch=4096):
                     xb = quantize_fixed_point(xb, frac).astype(np.float32)
                 x = torch.from_numpy(np.ascontiguousarray(xb)).to(device)
                 ref_c, ref_i = plain(x, *ops)
-                for block_b in ((block_default, 7, 256) if B == 1000
-                                else (block_default,)):
+                for block_b in (block_default, *BLOCK_B_CHECKED):
                     got_c, got_i = kern(x, *ops, block_b=block_b)
                     torch.cuda.synchronize()
                     err = float((got_c - ref_c).abs().max()) if B else 0.0
                     equal = bool(torch.equal(got_c, ref_c)
                                  and torch.equal(got_i, ref_i))
+                    lay = K.last_launch()
+                    placed = (where is None or not B
+                              or (where == "global") == (not lay["staged"])
+                              and (where != "split" or B < 4096
+                                   or lay["slices"] > 1))
                     checks.append({"case": case, "variant": variant,
                                    "B": B, "block_b": block_b,
-                                   "equal": equal})
+                                   "equal": equal, "layout": lay})
                     max_err[variant] = max(max_err[variant], err)
-                    if not equal:
+                    if not (equal and placed):
                         emit({"phase": "kernels", "checks": checks})
                         raise SystemExit(
                             f"{variant} kernel differs from its plain "
-                            f"version: {case}, B={B}, block_b={block_b}, "
-                            f"max |diff| {err}")
+                            f"version or is not {where}: {case}, B={B}, "
+                            f"block_b={block_b}, max |diff| {err}, {lay}")
             if case == "lg-2400":
                 x = torch.from_numpy(x_all[:time_batch]).to(device)
-                nbytes, nops = model_bytes_and_ops(
-                    variant, time_batch, F, T, counts, n, C)
-                bound_s = max(nbytes / PEAK_BYTES_PER_S,
-                              nops / PEAK_SCALAR_OPS_PER_S)
                 timing[variant] = {
-                    "ms": time_ms(lambda: kern(x, *ops,
-                                               block_b=block_default),
-                                  iters=200, warmup=10),
+                    "ms": graph_ms(lambda: kern(x, *ops,
+                                                block_b=block_default)),
+                    "eager_ms": time_ms(lambda: kern(
+                        x, *ops, block_b=block_default), iters=200,
+                        warmup=10),
                     "plain_ms": time_ms(lambda: plain(x, *ops), iters=5,
                                         warmup=1),
-                    "bound_ms": bound_s * 1e3,
-                    "bound_by": ("bytes" if nbytes / PEAK_BYTES_PER_S
-                                 >= nops / PEAK_SCALAR_OPS_PER_S
-                                 else "operations"),
-                    "bytes": nbytes, "operations": nops,
+                    **_bound(variant, time_batch, F, T, counts, n, C),
+                    "bucket_ms": {
+                        B: graph_ms(lambda B=B: kern(
+                            x[:B], *ops, block_b=block_default))
+                        for B in SERVED_BUCKETS},
+                    "bucket_layout": {
+                        B: (kern(x[:B], *ops, block_b=block_default),
+                            K.last_launch())[1]
+                        for B in SERVED_BUCKETS},
+                    "bucket_bound_ms": {
+                        B: _bound(variant, B, F, T, counts, n, C)[
+                            "bound_ms"] for B in SERVED_BUCKETS},
                     "block_b_ms": {
-                        bb: time_ms(lambda: kern(x, *ops, block_b=bb),
-                                    iters=100, warmup=5)
+                        bb: graph_ms(lambda bb=bb: kern(x, *ops,
+                                                        block_b=bb))
                         for bb in BLOCK_B_SWEEP}}
-    emit({"phase": "kernels", "checks": checks, "max_abs_err": max_err,
-          "timing_batch": time_batch, "block_b": block_default,
+    timing["zero"] = _zero_kernel(device, F=F, C=C)
+    emit({"phase": "kernels", "checks": len(checks),
+          "all_equal": all(c["equal"] for c in checks),
+          "max_abs_err": max_err, "timing_batch": time_batch,
+          "block_b": block_default,
+          "layouts": sorted({(c["case"], c["layout"]["staged"],
+                              c["layout"]["slices"]) for c in checks
+                             if c["B"]}),
           "timing": timing})
     return max_err, timing
+
+
+def _zero_kernel(device, F, C, B=1024):
+    """The zero kernel on its own at the size a split launch of B rows
+    gives it (B*C counts and a counter per tile of 32), on a buffer of
+    garbage: equal to ``Tensor.zero_``, then timed beside it in CUDA
+    graphs."""
+    import torch
+    from repro_torch.kernels.fused import kernel as K
+    n = B * C + (B + 31) // 32
+    buf = torch.randint(1, 2 ** 30, (n,), dtype=torch.int32, device=device)
+    K.fused_dwn_zero(buf)
+    torch.cuda.synchronize()
+    err = float(buf.abs().max())
+    if err:
+        raise SystemExit(f"fused_dwn_zero left {err} in its buffer")
+    nbytes = 4 * n
+    zero_ms = graph_ms(lambda: buf.zero_())
+    return {"ms": graph_ms(lambda: K.fused_dwn_zero(buf)),
+            "plain_ms": zero_ms, "library_ms": zero_ms, "max_abs_err": err,
+            "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": nbytes, "B": B}
 
 
 STAGES = {
@@ -339,11 +461,12 @@ STAGES = {
 
 
 def _bound(variant, B, F, T, counts, n, C):
-    nbytes, nops = model_bytes_and_ops(variant, B, F, T, counts, n, C)
-    by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S, nops / PEAK_SCALAR_OPS_PER_S
+    nbytes, ops = model_bytes_and_ops(variant, B, F, T, counts, n, C)
+    by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S, ops_seconds(ops)
     return {"bound_ms": max(by_bytes, by_ops) * 1e3,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "bytes": nbytes, "operations": nops}
+            "bytes": nbytes, "operations": sum(ops.values()),
+            "operations_by_class": ops}
 
 
 def _stage_kernels():
@@ -1299,15 +1422,23 @@ def phase_serve(device, batch=4096, requests=16, n_train=20000):
     rng = np.random.default_rng(7)
     ragged = [engine.make_request(int(rng.integers(1, batch + 1)),
                                   seed=2000 + i) for i in range(requests)]
-    done_rg, _, rg = _serve_pass(engine, ragged, "fused_dwn_packed")
+    done_rg, launches_rg, rg = _serve_pass(engine, ragged,
+                                           "fused_dwn_packed")
     _check_against_oracle(engine, done_rg)
     emit({"phase": "serve", "arch": "dwn-jsc-lg", "luts": engine.spec.luts,
           "startup_s": startup_s, "bit_exact_vs_oracle": engine.bit_exact,
           "passes": [k2, k1, dict(rg, ragged=True)],
           "step_split": {"fused_dwn_packed": split_k2,
                          "fused_dwn_batch_major": split_k1}})
+    # the zero kernel runs before a launch that splits its tiles (the
+    # ragged pass's requests of fewer than 132 * 32 rows)
+    zeroed = sum(n["fused_dwn_zero"]
+                 for n in (launches_k2, launches_k1, launches_rg))
+    if not zeroed:
+        raise SystemExit("fused_dwn_zero was not launched on the passes")
     return {"fused_dwn_packed": launches_k2["fused_dwn_packed"],
-            "fused_dwn_batch_major": launches_k1["fused_dwn_batch_major"]}
+            "fused_dwn_batch_major": launches_k1["fused_dwn_batch_major"],
+            "fused_dwn_zero": zeroed}
 
 
 def phase_cli(device):
@@ -1338,10 +1469,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     smi = nvidia_smi_line()
+    global SM_CLOCK_HZ
+    SM_CLOCK_HZ = max_sm_clock_hz()
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     emit({"phase": "device", "name": kind, "count": count,
-          "nvidia_smi": smi, "torch": torch.__version__,
+          "nvidia_smi": smi, "clocks_max_sm_hz": SM_CLOCK_HZ,
+          "torch": torch.__version__,
           "cuda": torch.version.cuda})
     ptxas = phase_build()
     max_err, timing = phase_kernels("cuda")
@@ -1365,9 +1499,19 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces[name], "launches": launches[name],
             "equal": True, "max_abs_err": max_err[variant_of[name]],
-            "ms": t["ms"],
+            "ms": t["ms"], "bucket_ms": t["bucket_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None})
+    t = timing["zero"]
+    summary.append({
+        "name": "fused_dwn_zero", "route": "cuda", "source": src,
+        "replaces": replaces["fused_dwn_packed"],
+        "part_of": ["fused_dwn_packed", "fused_dwn_batch_major"],
+        "launches": launches["fused_dwn_zero"], "equal": True,
+        "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "library": "Tensor.zero_", "B": t["B"]})
     for name, (source, replaced, _) in STAGES.items():
         t = stage_timing[name]
         summary.append({

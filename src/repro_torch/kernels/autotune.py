@@ -22,11 +22,13 @@ class FusedConfig:
     Attributes:
       variant: "packed" (the full F*T bit tensor in words) or
         "batch-major" (direct-wire first layer).
-      block_b: samples one CUDA block takes (its 8 warps share them).
-        The results do not depend on it.  The default, one sample per warp,
-        was the fastest of {4, 8, 16, 32, 64} for both kernels at
-        dwn-jsc-lg width and 4096 rows on an H100 80GB HBM3 at 700 W
-        (``chip_smoke.py``; PERF.md).
+      block_b: samples one CUDA block of the packed kernels takes at a
+        time (a tile), rounded up to a multiple of 32 (a warp's lanes are
+        32 samples) and down to what fits a block's shared memory beside
+        the model.  The results do not depend on it.  The default, one
+        warp's 32 samples, was the fastest of {32, 64, 128, 256} for both
+        kernels at dwn-jsc-lg width and 4096 rows on an H100 80GB HBM3 at
+        700 W (``chip_smoke.py``; PERF.md).
       block_m: LUTs per tile of the float fused kernel (``fused_dwn``),
         which walks the LUTs tile by tile as the reference's sequential m
         axis does.  No other kernel reads it; the results do not depend
@@ -34,7 +36,7 @@ class FusedConfig:
     """
 
     variant: str = "packed"
-    block_b: int = 8
+    block_b: int = 32
     block_m: int = 128
 
     def __post_init__(self):

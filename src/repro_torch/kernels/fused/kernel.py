@@ -14,13 +14,30 @@
     packs that layer's outputs and runs the rest word-addressed
     (counterpart of the reference's Pallas ``fused_dwn_batch_major``).
 
+The two packed kernels stage the model once per CUDA block in shared
+memory and let a warp's 32 lanes be 32 samples, so every read of the
+model is one broadcast (``csrc/fused_dwn.cu`` says how).  A block takes
+``block_b`` samples at a time (a tile, a multiple of 32); when a batch has
+fewer tiles than the card has SMs, or the last layer does not fit a
+block's shared memory whole, the last layer's LUTs are split over several
+blocks per tile, which add their class counts into the output: a small
+kernel, ``fused_dwn_zero``, zeroes it first on the launch's stream.  A
+model that does not fit even so (a fan-in-16 table is 8 KB a LUT) is read
+from global memory with the same broadcasts.  The activations of one tile
+of 32 samples must fit a block's shared memory: the wrappers refuse wider
+layers (:func:`check_activation_width`).
+
 All return ``(counts (B, classes) float32, idx (B,) int32)`` for any B.
 For tensors on the CPU a wrapper runs its plain version (``ref.py``); for
 CUDA tensors it launches the kernel or raises — it never falls back.  Each
-launch adds one to the kernel's count in :func:`launch_counts`.
+launch adds one to the kernel's count in :func:`launch_counts`, and one
+to ``fused_dwn_zero``'s when the zero kernel ran first.
+:func:`last_launch` says how the latest packed launch laid itself out.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -31,8 +48,9 @@ from .ref import (MAX_LAYERS, LayerStack, fused_dwn_batch_major_plain,
                   fused_dwn_packed_plain, fused_dwn_plain)
 
 LIBRARY = "fused_dwn"
-#: threads per block (== kThreads in the source): 8 warps.
-THREADS = 256
+#: a tile of the packed kernels is a multiple of one warp's 32 lanes,
+#: one sample each.
+TILE_ROWS = 32
 #: dynamic shared memory one block may use on an H100.
 MAX_SMEM_BYTES = 232_448
 
@@ -44,25 +62,68 @@ FUSED_DWN_BLOCK_B = 16
 FUSED_DWN_BLOCK_M = 256
 
 _COUNTS = LaunchCounts("fused_dwn", "fused_dwn_packed",
-                       "fused_dwn_batch_major")
+                       "fused_dwn_batch_major", "fused_dwn_zero")
 #: kernel name -> launches since the last :func:`reset_launch_counts`.
 launch_counts = _COUNTS.get
 reset_launch_counts = _COUNTS.reset
 _SIGNATURES = {
     "fused_dwn_launch": [P, P, I, I, I, P, P, I, I, I, P, P, I, I, P],
-    "fused_dwn_packed_launch": [P, P, I, I, I, P, I, P, P, P, P, I, I, P, P,
-                                I, I, P],
+    "fused_dwn_packed_launch": [P, P, I, I, I, P, I, P, P, P, I, I, P, P,
+                                P, I, P, P],
     "fused_dwn_batch_major_launch": [P, I, I, P, P, P, I, I, I, P, I, P, P,
-                                     P, P, I, I, P, P, I, I, P],
+                                     P, I, I, P, P, P, I, P, P],
+    "fused_dwn_zero_launch": [P, I, P],
 }
+#: how the latest packed launch laid itself out (see :func:`last_launch`)
+_LAST: dict = {}
+_LAUNCH_INFO = ("zeroed", "staged", "slices", "tile_rows", "smem_bytes")
+
+
+def last_launch() -> dict:
+    """The latest ``fused_dwn_packed`` / ``fused_dwn_batch_major`` launch
+    of this process: ``zeroed`` (the zero kernel ran first), ``staged``
+    (the model was staged in shared memory, else read from global
+    memory), ``slices`` (blocks per tile that split the last layer),
+    ``tile_rows`` (samples per tile) and ``smem_bytes`` (dynamic shared
+    memory of a block)."""
+    return dict(_LAST)
+
+
+def min_tile_smem(F: int, num_classes: int, act_words: int,
+                  buffers: int) -> int:
+    """Dynamic shared memory of the smallest block of the packed kernels,
+    one tile of 32 samples with the model left in global memory: two
+    feature buffers, ``buffers`` (0-2) activation buffers of ``act_words``
+    words a sample, the class counts and a flag, as the launch lays them
+    out."""
+    return 4 * TILE_ROWS * (2 * F + buffers * act_words + num_classes) + 16
+
+
+def check_activation_width(variant: str, F: int, T: int, lut_counts,
+                           num_classes: int) -> None:
+    """Raise ``ValueError`` unless a tile of 32 samples of the ``variant``
+    kernel fits a block's shared memory: its features and its widest
+    activations (the packed encode's F*T bits and every layer's outputs
+    but the last; batch-major compares its first layer's wires directly).
+    ``lut_counts``: LUTs of every layer, first to last."""
+    widths = [(m + 31) // 32 for m in lut_counts[:-1]]
+    if variant == "packed":
+        widths.append((F * T + 31) // 32)
+    buffers = min(len(widths), 2)
+    need = min_tile_smem(F, num_classes, max(widths, default=0), buffers)
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"fused_dwn_{variant.replace('-', '_')}: features ({F}) and "
+            f"activations ({max(widths, default=0)} words a sample) of 32 "
+            f"samples need {need} bytes of shared memory, over a block's "
+            f"{MAX_SMEM_BYTES}")
 
 
 def _check_stack(layers: LayerStack, device: torch.device) -> None:
     if layers.num_layers > MAX_LAYERS:
         raise ValueError(f"the CUDA kernels take at most {MAX_LAYERS} "
                          f"word-addressed layers, got {layers.num_layers}")
-    for t, name in ((layers.widx, "widx"), (layers.boff, "boff"),
-                    (layers.tab, "tab")):
+    for t, name in ((layers.wires, "wires"), (layers.tab, "tab")):
         expect(t, name, torch.int32, 1, device)
 
 
@@ -75,24 +136,51 @@ def _check_masks(class_masks: torch.Tensor, last_m: int,
     return class_masks.shape[0]
 
 
-def _launch(name: str, x: torch.Tensor, call, num_classes: int,
-            buf_words: int):
-    """Allocate outputs, run ``call(lib, counts, idx, stream)`` on the
-    current stream and raise on any CUDA error it returns."""
-    B, F = x.shape
-    smem = (THREADS // 32) * (F + 2 * buf_words) * 4
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"{name}: {smem} bytes of shared memory per block "
-                         f"exceed the card's {MAX_SMEM_BYTES}")
-    counts = torch.empty((B, num_classes), dtype=torch.float32,
-                         device=x.device)
+def _launch_tiles(name: str, x: torch.Tensor, call, num_classes: int,
+                  block_b: int):
+    """Allocate outputs, run ``call(lib, counts, idx, arrive, info,
+    stream)`` on the current stream and raise on any CUDA error it
+    returns.  ``arrive`` holds a counter per tile (at most one per 32
+    samples), right after ``counts`` in one buffer: when blocks split a
+    tile's last layer the launch zeroes both first, and the blocks add
+    into them.  ``info`` receives the launch's layout
+    (:func:`last_launch`)."""
+    if block_b < 1:
+        raise ValueError(f"block_b must be >= 1, got {block_b}")
+    B = x.shape[0]
+    buf = torch.empty((B * num_classes + (B + TILE_ROWS - 1) // TILE_ROWS,),
+                      dtype=torch.int32, device=x.device)
+    counts = buf[:B * num_classes].view(torch.float32).view(B, num_classes)
     idx = torch.empty((B,), dtype=torch.int32, device=x.device)
     if B == 0:
         return counts, idx
+    arrive = buf[B * num_classes:]
+    info = (ctypes.c_int * len(_LAUNCH_INFO))()
     lib = bind(LIBRARY, _SIGNATURES)
     launch(lib, LIBRARY, name, x.device,
-           lambda stream: call(lib, counts, idx, stream), _COUNTS)
+           lambda stream: call(lib, counts, idx, arrive, info, stream),
+           _COUNTS)
+    _LAST.update(zip(_LAUNCH_INFO, info))
+    if info[0]:
+        _COUNTS.add("fused_dwn_zero")
     return counts, idx
+
+
+def fused_dwn_zero(t: torch.Tensor) -> torch.Tensor:
+    """Zero a contiguous 4-byte tensor in place with the kernel that
+    zeroes a split launch's outputs (the packed kernels launch it
+    themselves; this runs it on its own).  On the CPU: ``t.zero_()``."""
+    if device_type(t, "fused_dwn_zero") == "cpu":
+        return t.zero_()
+    if t.element_size() != 4 or not t.is_contiguous():
+        raise ValueError("fused_dwn_zero takes a contiguous tensor of "
+                         "4-byte elements")
+    if t.numel():
+        lib = bind(LIBRARY, _SIGNATURES)
+        launch(lib, LIBRARY, "fused_dwn_zero", t.device,
+               lambda stream: lib.fused_dwn_zero_launch(
+                   t.data_ptr(), t.numel(), stream), _COUNTS)
+    return t
 
 
 def _fused_dwn_smem_bytes(F: int, C: int, n: int, block_b: int,
@@ -169,8 +257,13 @@ def fused_dwn_packed(x: torch.Tensor, thresholds: torch.Tensor,
 
     x (B, F) float32; thresholds (F, T) float32; ``layers`` the whole LUT
     stack (``ref.LayerStack``); class_masks (classes, m_last/32) int32
-    words.  ``block_b`` samples per CUDA block; results do not depend on
-    it.  Returns (counts (B, classes) float32, idx (B,) int32).
+    words.  ``block_b`` (>= 1): the samples a CUDA block takes at a time
+    (a tile), rounded up to a multiple of 32 (one sample per lane), to no
+    more than B fills, and down to the most that fit a block's shared
+    memory beside the model (:func:`last_launch` reports it); results do
+    not depend on it.  Raises ``ValueError`` if the activations of 32
+    samples do not fit a block (:func:`check_activation_width`).
+    Returns (counts (B, classes) float32, idx (B,) int32).
     """
     if device_type(x, "fused_dwn_packed") == "cpu":
         return fused_dwn_packed_plain(x, thresholds, layers, class_masks)
@@ -185,18 +278,18 @@ def fused_dwn_packed(x: torch.Tensor, thresholds: torch.Tensor,
     if F_th != F:
         raise ValueError(f"x has {F} features, thresholds {F_th}")
     C = _check_masks(class_masks, layers.shapes[-1][0], dev)
-    buf_words = max([(F * T + 31) // 32] + [m // 32 for m, _ in
-                                            layers.shapes])
+    check_activation_width("packed", F, T,
+                           [m for m, _ in layers.shapes], C)
     meta = layers.meta
 
-    def call(lib, counts, idx, stream):
+    def call(lib, counts, idx, arrive, info, stream):
         return lib.fused_dwn_packed_launch(
             x.data_ptr(), thresholds.data_ptr(), B, F, T,
-            meta.ctypes.data, layers.num_layers, layers.widx.data_ptr(),
-            layers.boff.data_ptr(), layers.tab.data_ptr(),
-            class_masks.data_ptr(), C, class_masks.shape[1],
-            counts.data_ptr(), idx.data_ptr(), block_b, buf_words, stream)
-    return _launch("fused_dwn_packed", x, call, C, buf_words)
+            meta.ctypes.data, layers.num_layers, layers.wires.data_ptr(),
+            layers.tab.data_ptr(), class_masks.data_ptr(), C,
+            class_masks.shape[1], counts.data_ptr(), idx.data_ptr(),
+            arrive.data_ptr(), block_b, info, stream)
+    return _launch_tiles("fused_dwn_packed", x, call, C, block_b)
 
 
 def fused_dwn_batch_major(x: torch.Tensor, wire_f: torch.Tensor,
@@ -205,11 +298,12 @@ def fused_dwn_batch_major(x: torch.Tensor, wire_f: torch.Tensor,
                           block_b: int = DEFAULT_CONFIG.block_b):
     """Batch-major direct-wire inference in one launch.
 
-    x (B, F) float32; wire_f (m0, n) int32 feature index and wire_th
+    x (B, F) float32; wire_f (m0, n) int16 feature index and wire_th
     (m0, n) float32 threshold of every first-layer wire, tab0 (m0, tw)
     int32 table words (m0 a multiple of 32; ``ref.first_layer_wires``);
     ``rest`` the layers after the first (possibly none); class_masks
-    (classes, m_last/32) int32 words.  Returns (counts, idx) as
+    (classes, m_last/32) int32 words.  ``block_b`` as in
+    :func:`fused_dwn_packed`.  Returns (counts, idx) as
     :func:`fused_dwn_packed`.
     """
     if device_type(x, "fused_dwn_batch_major") == "cpu":
@@ -217,7 +311,7 @@ def fused_dwn_batch_major(x: torch.Tensor, wire_f: torch.Tensor,
                                            class_masks)
     dev = x.device
     expect(x, "x", torch.float32, 2, dev)
-    expect(wire_f, "wire_f", torch.int32, 2, dev)
+    expect(wire_f, "wire_f", torch.int16, 2, dev)
     expect(wire_th, "wire_th", torch.float32, 2, dev)
     expect(tab0, "tab0", torch.int32, 2, dev)
     _check_stack(rest, dev)
@@ -234,20 +328,23 @@ def fused_dwn_batch_major(x: torch.Tensor, wire_f: torch.Tensor,
                          f"{n0} needs {(2 ** n0 + 31) // 32}")
     last_m = rest.shapes[-1][0] if rest.num_layers else m0
     C = _check_masks(class_masks, last_m, dev)
-    buf_words = max([m0 // 32] + [m // 32 for m, _ in rest.shapes])
+    check_activation_width("batch-major", F, 0,
+                           [m0, *(m for m, _ in rest.shapes)], C)
     meta = rest.meta
 
-    def call(lib, counts, idx, stream):
+    def call(lib, counts, idx, arrive, info, stream):
         return lib.fused_dwn_batch_major_launch(
             x.data_ptr(), B, F, wire_f.data_ptr(), wire_th.data_ptr(),
             tab0.data_ptr(), m0, n0, tab0.shape[1],
             meta.ctypes.data if rest.num_layers else None, rest.num_layers,
-            rest.widx.data_ptr(), rest.boff.data_ptr(), rest.tab.data_ptr(),
+            rest.wires.data_ptr(), rest.tab.data_ptr(),
             class_masks.data_ptr(), C, class_masks.shape[1],
-            counts.data_ptr(), idx.data_ptr(), block_b, buf_words, stream)
-    return _launch("fused_dwn_batch_major", x, call, C, buf_words)
+            counts.data_ptr(), idx.data_ptr(), arrive.data_ptr(), block_b,
+            info, stream)
+    return _launch_tiles("fused_dwn_batch_major", x, call, C, block_b)
 
 
 __all__ = ["FUSED_DWN_BLOCK_B", "FUSED_DWN_BLOCK_M", "FUSED_DWN_MAX_FAN_IN",
-           "fused_dwn", "fused_dwn_batch_major", "fused_dwn_packed",
-           "launch_counts", "reset_launch_counts"]
+           "check_activation_width", "fused_dwn", "fused_dwn_batch_major",
+           "fused_dwn_packed", "fused_dwn_zero", "last_launch",
+           "launch_counts", "min_tile_smem", "reset_launch_counts"]

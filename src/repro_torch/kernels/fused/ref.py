@@ -15,6 +15,10 @@ Operand formats (built once per model by ``ops.make_forward_packed``):
 
 * words, tables and class masks are int32 tensors holding the uint32 bit
   pattern the kernels read (``core.bitpack.to_word_pattern``);
+* a wire of a word-addressed layer is one int32, the index of the bit it
+  reads in the previous layer's packed output (word ``i >> 5``, bit
+  ``i & 31``); a wire of the batch-major first layer is an int16 feature
+  index and a float32 threshold;
 * a LUT's truth table is ``ceil(2^n / 32)`` words, entry ``a`` at bit
   ``a & 31`` of word ``a >> 5``;
 * every layer is padded to a multiple of 32 LUTs with all-zero tables, so
@@ -31,8 +35,7 @@ import torch.nn.functional as nnf
 
 from ...core.bitpack import (WORD_BITS, lut_addresses, pack_bits,
                              to_word_pattern)
-from ..lut_eval.ref import (check_wires, lut_eval_packed_plain,
-                            packed_wire_indices, table_bits)
+from ..lut_eval.ref import check_wires, lut_eval_packed_plain, table_bits
 from ...core.lut_layer import lut_eval_hard
 from ..popcount.ref import (popcount_classify_packed_plain,
                             popcount_classify_plain)
@@ -42,6 +45,8 @@ from ..thermometer.ref import thermometer_packed_plain, thermometer_plain
 MAX_LAYERS = 8
 #: widest LUT fan-in the operand prep accepts (2^n-entry tables).
 MAX_FAN_IN = 16
+#: most features the batch-major kernel's 16-bit feature indices reach.
+MAX_DIRECT_FEATURES = 2 ** 15 - 1
 
 
 def round_up(x: int, m: int) -> int:
@@ -68,20 +73,18 @@ def _check_mapping(mapping: torch.Tensor, tables: torch.Tensor,
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class LayerStack:
-    """Word-addressed LUT layers stored flat, as the kernels read them.
+    """Word-addressed LUT layers stored flat, as the kernels stage them.
 
     Attributes:
-      widx / boff: (sum m_l*n_l,) int32 — each wire's word index
-        ``idx >> 5`` and bit position ``idx & 31`` in the previous
-        layer's packed output.
+      wires: (sum m_l*n_l,) int32 — each wire's bit index in the previous
+        layer's packed output (word ``i >> 5``, bit ``i & 31``), LUT-major.
       tab: (sum m_l*tw_l,) int32 truth-table words.
       meta: (L, 5) int32 host array per layer: m (a multiple of 32), n,
         wire offset, table offset, table words per LUT (the kernels'
         layer descriptor).
     """
 
-    widx: torch.Tensor
-    boff: torch.Tensor
+    wires: torch.Tensor
     tab: torch.Tensor
     meta: np.ndarray
 
@@ -94,7 +97,7 @@ class LayerStack:
         layer reads the previous layer's m outputs.  Raises ``ValueError``
         on an out-of-range wire or a malformed table.
         """
-        widx, boff, tab, meta = [], [], [], []
+        wires, tab, meta = [], [], []
         wire_off = tab_off = 0
         C = num_candidates
         for mp, tb in zip(mappings, tables):
@@ -103,12 +106,9 @@ class LayerStack:
             _check_mapping(mp, tb, C)
             m, n = mp.shape
             m_p = round_up(m, WORD_BITS)
-            mp = nnf.pad(mp, (0, 0, 0, m_p - m))
             words = pack_table_words(nnf.pad(tb.long(), (0, 0, 0, m_p - m)))
             tw = words.shape[1]
-            word_idx, bit_off = packed_wire_indices(mp)
-            widx.append(word_idx.reshape(-1))
-            boff.append(bit_off.reshape(-1))
+            wires.append(nnf.pad(mp, (0, 0, 0, m_p - m)).reshape(-1))
             tab.append(words.reshape(-1))
             meta.append((m_p, n, wire_off, tab_off, tw))
             wire_off += m_p * n
@@ -119,7 +119,7 @@ class LayerStack:
             if not parts:
                 return torch.zeros(0, dtype=torch.int32, device=device)
             return torch.cat(parts).to(torch.int32).contiguous()
-        return cls(flat(widx), flat(boff), flat(tab),
+        return cls(flat(wires), flat(tab),
                    np.asarray(meta, np.int32).reshape(-1, 5))
 
     @property
@@ -132,10 +132,13 @@ class LayerStack:
         return tuple((m, n) for m, n, *_ in self.meta.tolist())
 
     def layers(self):
-        """Per-layer views (widx (m, n), boff (m, n), tab (m, tw))."""
+        """Per layer the operands of the LUT-layer kernel
+        (``lut_eval.kernel.lut_eval_packed``): word index (m, n) and bit
+        position (m, n) of every wire, int32, and the table words
+        (m, tw)."""
         for m, n, wo, to, tw in self.meta.tolist():
-            yield (self.widx[wo:wo + m * n].view(m, n),
-                   self.boff[wo:wo + m * n].view(m, n),
+            wires = self.wires[wo:wo + m * n].view(m, n)
+            yield (wires >> 5, wires & 31,
                    self.tab[to:to + m * tw].view(m, tw))
 
 
@@ -145,17 +148,21 @@ def first_layer_wires(thresholds: torch.Tensor, mapping: torch.Tensor,
 
     Wire k of LUT l reads bit ``idx = mapping[l, k]``, which is
     ``x[:, idx // T] > thresholds.flat[idx]``.  Returns ``wire_f`` (m_p, n)
-    int32, ``wire_th`` (m_p, n) float32 and ``tab0`` (m_p, tw) int32 words,
-    m padded to a multiple of 32 with wires that always read 0 (+inf
-    thresholds) and all-zero tables.
+    int16 (so F is at most :data:`MAX_DIRECT_FEATURES`), ``wire_th``
+    (m_p, n) float32 and ``tab0`` (m_p, tw) int32 words, m padded to a
+    multiple of 32 with wires that always read 0 (+inf thresholds) and
+    all-zero tables.
     """
     F, T = thresholds.shape
+    if F > MAX_DIRECT_FEATURES:
+        raise ValueError(f"the batch-major kernel takes at most "
+                         f"{MAX_DIRECT_FEATURES} features, got {F}")
     mapping = torch.as_tensor(mapping, device=thresholds.device).long()
     tables = torch.as_tensor(tables, device=thresholds.device)
     _check_mapping(mapping, tables, F * T)
     m = mapping.shape[0]
     pad = round_up(m, WORD_BITS) - m
-    wire_f = nnf.pad(mapping // T, (0, 0, 0, pad)).to(torch.int32)
+    wire_f = nnf.pad(mapping // T, (0, 0, 0, pad)).to(torch.int16)
     wire_th = nnf.pad(thresholds.reshape(-1)[mapping], (0, 0, 0, pad),
                       value=float("inf")).to(torch.float32)
     tab0 = pack_table_words(nnf.pad(tables.long(), (0, 0, 0, pad)))
@@ -221,7 +228,8 @@ def fused_dwn_batch_major_plain(x: torch.Tensor, wire_f: torch.Tensor,
 
 
 __all__ = [
-    "LayerStack", "MAX_FAN_IN", "MAX_LAYERS", "first_layer_wires",
+    "LayerStack", "MAX_DIRECT_FEATURES", "MAX_FAN_IN", "MAX_LAYERS",
+    "first_layer_wires",
     "fused_dwn_batch_major_plain", "fused_dwn_packed_plain",
     "fused_dwn_plain",
     "pack_table_words", "round_up",

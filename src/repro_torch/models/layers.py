@@ -162,11 +162,16 @@ def qkv_project(p, x: torch.Tensor, *, positions: torch.Tensor | None,
 
 def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       layout: HeadLayout, *, causal: bool,
-                      kv_chunk: int = 1024) -> torch.Tensor:
+                      kv_chunk: int = 1024,
+                      scores_dtype: torch.dtype = torch.float32
+                      ) -> torch.Tensor:
     """Online-softmax attention over KV chunks, plain PyTorch (the
     reference's ``attn_impl="masked"`` path).
 
     q: (B, Sq, Hp, hd); k/v: (B, Skv, Kp, hd) (already padded layout).
+    ``scores_dtype`` is the type the score product Q K^T is rounded to
+    before it is taken back to float32 and scaled (the reference's
+    ``preferred_element_type``): float32, or bf16 for ``attn_scores_bf16``.
     Returns (B, Sq, Hp, hd) bf16.  The last chunk is taken short instead
     of zero-padded: its missing keys are masked in the reference, so the
     two agree.
@@ -186,7 +191,8 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kci = k[:, c0:c0 + kv_chunk].to(COMPUTE_DTYPE).float()
         vci = v[:, c0:c0 + kv_chunk].to(COMPUTE_DTYPE).float()
         kv_pos = c0 + torch.arange(kci.shape[1], device=dev)
-        s = torch.einsum("bqkgd,bckd->bqkgc", qg, kci) * scale
+        s = torch.einsum("bqkgd,bckd->bqkgc", qg, kci).to(
+            scores_dtype).float() * scale
         if causal:
             mask = (q_pos[:, None] >= kv_pos[None, :])[None, :, None, None]
             s = s.masked_fill(~mask, float("-inf"))

@@ -123,11 +123,14 @@ def _block_apply(lp, cfg: ArchConfig, layout: L.HeadLayout,
                             rope_theta=cfg.rope_theta or None,
                             qk_norm_eps=cfg.norm_eps)
     if cfg.attn_impl == "pallas":
+        # K10 keeps its scores in float32 whatever attn_scores_bf16 says,
+        # as the reference's pallas path does
         o = flash.attend(q, k, v, causal=True,
                          block=min(cfg.attn_chunk, q.shape[1]))
     else:
+        sdt = torch.bfloat16 if cfg.attn_scores_bf16 else torch.float32
         o = L.attention_chunked(q, k, v, layout, causal=True,
-                                kv_chunk=cfg.attn_chunk)
+                                kv_chunk=cfg.attn_chunk, scores_dtype=sdt)
     x = x + L.attn_output(lp["attn"], o)
     h = L.rms_norm(x, lp["ln2"]["scale"], cfg.norm_eps)
     return x + L.swiglu(lp["mlp"], h), k, v

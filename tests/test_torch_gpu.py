@@ -64,35 +64,143 @@ def _model(seed, F, T, counts, n=6, B=1000, pen_frac=None):
     return x, th, maps, tabs
 
 
-@pytest.mark.parametrize("variant", ["packed", "batch-major"])
-def test_cuda_kernel_matches_plain(variant):
-    """Exact: lg-2400 width, a 2-layer stack, PEN ties, a ragged F*T,
-    ragged B (incl. 1 and 0) and several block_b; one launch counted per
-    non-empty call."""
-    _need_card()
+def _fused_kernel(variant):
+    """(kernel, plain version, launch-count name) of a packed variant."""
     kern, plain = {
         "packed": (K.fused_dwn_packed, R.fused_dwn_packed_plain),
         "batch-major": (K.fused_dwn_batch_major,
                         R.fused_dwn_batch_major_plain)}[variant]
-    name = "fused_dwn_" + variant.replace("-", "_")
-    cases = [(16, 200, (2400,), None), (16, 200, (120, 50), None),
-             (16, 200, (360,), 8), (5, 13, (40,), None)]
-    for i, (F, T, counts, frac) in enumerate(cases):
-        x, th, maps, tabs = _model(i, F, T, counts, pen_frac=frac)
+    return kern, plain, "fused_dwn_" + variant.replace("-", "_")
+
+
+@pytest.mark.parametrize("variant", ["packed", "batch-major"])
+def test_cuda_kernel_matches_plain(variant):
+    """Exact: lg-2400 width, a 2-layer stack, a fan-in-8 stack (tables
+    past 64 entries), PEN ties, a ragged F*T, ragged B (chip_smoke's
+    4097, 4096, 1000, 33, 31 and 1, and 0) and several block_b; one launch
+    counted per non-empty call."""
+    _need_card()
+    kern, plain, name = _fused_kernel(variant)
+    cases = [(16, 200, (2400,), 6, None), (16, 200, (120, 50), 6, None),
+             (16, 200, (256, 60), 8, None), (16, 200, (360,), 6, 8),
+             (5, 13, (40,), 6, None)]
+    for i, (F, T, counts, n, frac) in enumerate(cases):
+        x, th, maps, tabs = _model(i, F, T, counts, n=n, B=4097,
+                                   pen_frac=frac)
         ops = tops.prepare_operands(
             torch.from_numpy(th).cuda(),
             [torch.from_numpy(a).cuda() for a in maps],
             [torch.from_numpy(a).cuda() for a in tabs], 5, variant)
-        for B in (1000, 33, 1, 0):
+        for B in (4097, 4096, 1000, 33, 31, 1, 0):
             xd = torch.from_numpy(x[:B]).cuda()
             ref_c, ref_i = plain(xd, *ops)
-            for block_b in (1, 8, 32, 256):
+            for block_b in (1, 7, 32, 256, 4096):
                 before = K.launch_counts()[name]
                 got_c, got_i = kern(xd, *ops, block_b=block_b)
                 torch.cuda.synchronize()
                 assert torch.equal(got_c, ref_c), (i, B, block_b)
                 assert torch.equal(got_i, ref_i), (i, B, block_b)
                 assert K.launch_counts()[name] == before + (B > 0)
+
+
+@pytest.mark.parametrize("variant", ["packed", "batch-major"])
+def test_cuda_graph_replay_equals_eager_call(variant):
+    """Exact: K2 and K1 captured in a CUDA graph at lg-2400 width and the
+    served buckets (one tile split over blocks at B=1 and 64, whole tiles
+    at 4096), replayed on new inputs written into the captured ones, equal
+    the eager call on the same inputs."""
+    _need_card()
+    kern, _, _ = _fused_kernel(variant)
+    x, th, maps, tabs = _model(40, 16, 200, (2400,), B=8192)
+    ops = tops.prepare_operands(
+        torch.from_numpy(th).cuda(), [torch.from_numpy(maps[0]).cuda()],
+        [torch.from_numpy(tabs[0]).cuda()], 5, variant)
+    for B in (1, 64, 1024, 4096):
+        xd = torch.from_numpy(x[:B]).cuda()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            kern(xd, *ops)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got_c, got_i = kern(xd, *ops)
+        for rows in (x[:B], x[B:2 * B]):
+            xd.copy_(torch.from_numpy(rows))
+            graph.replay()
+            want_c, want_i = kern(xd, *ops)
+            torch.cuda.synchronize()
+            assert torch.equal(got_c, want_c) and torch.equal(got_i, want_i)
+
+
+def test_cuda_tile_rounds_block_b_and_fits_shared_memory():
+    """A tile is block_b rounded up to a multiple of 32, no more than B
+    fills, and cut to what fits a block's shared memory beside the model
+    (lg-2400: 4096 does not fit whole).  Models larger than a block's
+    shared memory are served, not refused: 2050 LUTs of fan-in 10 split
+    their last layer over blocks, fan-in 16 (one 32-LUT word of tables is
+    256 KB) reads the model from global memory; both equal the plain
+    version, and the zero kernel is counted when a launch splits its
+    tiles.  Activations too wide for a tile raise before any launch."""
+    _need_card()
+    x, th, maps, tabs = _model(50, 16, 200, (2400,), B=4096)
+    xd = torch.from_numpy(x).cuda()
+    for variant in ("packed", "batch-major"):
+        kern, _, _ = _fused_kernel(variant)
+        ops = tops.prepare_operands(
+            torch.from_numpy(th).cuda(), [torch.from_numpy(maps[0]).cuda()],
+            [torch.from_numpy(tabs[0]).cuda()], 5, variant)
+        for B, block_b, rows in ((64, 1, 32), (64, 7, 32), (64, 33, 64),
+                                 (40, 4096, 64)):
+            kern(xd[:B], *ops, block_b=block_b)
+            assert K.last_launch()["tile_rows"] == rows, (B, block_b)
+        kern(xd, *ops, block_b=4096)
+        lay = K.last_launch()
+        assert lay["staged"] and 32 <= lay["tile_rows"] < 4096
+        assert lay["tile_rows"] % 32 == 0
+        assert 0 < lay["smem_bytes"] <= K.MAX_SMEM_BYTES
+    for seed, counts, n, staged in ((51, (2050,), 10, True),
+                                    (52, (40,), 16, False)):
+        x, th, maps, tabs = _model(seed, 16, 200, counts, n=n, B=4096)
+        xd = torch.from_numpy(x).cuda()
+        for variant in ("packed", "batch-major"):
+            kern, plain, _ = _fused_kernel(variant)
+            ops = tops.prepare_operands(
+                torch.from_numpy(th).cuda(),
+                [torch.from_numpy(maps[0]).cuda()],
+                [torch.from_numpy(tabs[0]).cuda()], 5, variant)
+            for B in (4096, 33):
+                before = K.launch_counts()["fused_dwn_zero"]
+                got_c, got_i = kern(xd[:B], *ops)
+                lay = K.last_launch()
+                ref_c, ref_i = plain(xd[:B], *ops)
+                assert torch.equal(got_c, ref_c), (counts, variant, B)
+                assert torch.equal(got_i, ref_i), (counts, variant, B)
+                assert lay["staged"] == staged, lay
+                assert lay["slices"] > 1 or not staged or B < 4096, lay
+                assert lay["zeroed"] == (lay["slices"] > 1)
+                assert K.launch_counts()["fused_dwn_zero"] == \
+                    before + lay["zeroed"]
+    x, th, maps, tabs = _model(53, 16, 4000, (100,), B=8)
+    with pytest.raises(ValueError, match="shared memory"):
+        tops.prepare_operands(
+            torch.from_numpy(th).cuda(), [torch.from_numpy(maps[0]).cuda()],
+            [torch.from_numpy(tabs[0]).cuda()], 5)
+
+
+def test_cuda_zero_kernel_zeroes_and_counts():
+    """The zero kernel on its own zeroes every int of a buffer of garbage
+    and counts one launch; it refuses a tensor of 8-byte elements."""
+    _need_card()
+    buf = torch.randint(1, 2 ** 30, (4097 * 5 + 129,), dtype=torch.int32,
+                        device="cuda")
+    before = K.launch_counts()["fused_dwn_zero"]
+    K.fused_dwn_zero(buf)
+    torch.cuda.synchronize()
+    assert not buf.any()
+    assert K.launch_counts()["fused_dwn_zero"] == before + 1
+    with pytest.raises(ValueError, match="4-byte"):
+        K.fused_dwn_zero(torch.ones(8, dtype=torch.int64, device="cuda"))
 
 
 def test_cuda_wrapper_refuses_bad_operands():

@@ -176,6 +176,41 @@ def test_chunked_and_decode_attention_match_reference(S, chunk):
     _bf16_close(got, want)
 
 
+#: the largest |diff| allowed between the port's and the reference's
+#: masked attention with bf16 scores: far under the 0.040 that rounding
+#: the scores to bf16 moves this case by
+SCORES_BF16_TOL = 4e-3
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunked_attention_scores_dtype_matches_reference(dtype):
+    """``attention_chunked`` with ``scores_dtype`` (B=1, S=64, 4 query
+    heads over 2 KV heads, hd 16, q and k scaled by 2, kv_chunk 32):
+    float32 scores equal the reference's exactly; bf16 scores are within
+    SCORES_BF16_TOL of the reference's bf16-score path and move the output
+    by more than that from the float32 one, as they move the
+    reference's."""
+    rng = np.random.default_rng(64)
+    q, k, v = (rng.standard_normal((1, 64, h, 16)).astype(np.float32) * sc
+               for h, sc in ((4, 2.0), (2, 2.0), (2, 1.0)))
+    tdt, jdt = {"float32": (torch.float32, jnp.float32),
+                "bfloat16": (torch.bfloat16, jnp.bfloat16)}[dtype]
+    got = TL.attention_chunked(*(torch.from_numpy(a) for a in (q, k, v)),
+                               TL.make_head_layout(4, 2, 1), causal=True,
+                               kv_chunk=32, scores_dtype=tdt)
+    got = np.asarray(got.float())
+    jl = JL.make_head_layout(4, 2, 1)
+    want, want_f32 = (np.asarray(JL.attention_chunked(
+        *(jnp.asarray(a) for a in (q, k, v)), jl, causal=True, kv_chunk=32,
+        scores_dtype=d), np.float32) for d in (jdt, jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert np.abs(got - want).max() <= SCORES_BF16_TOL
+        assert np.abs(want - want_f32).max() > 2 * SCORES_BF16_TOL
+        assert np.abs(got - want_f32).max() > 2 * SCORES_BF16_TOL
+
+
 def test_init_stds_dtypes_and_dead_slots():
     """The port's own init: the reference's shapes with bf16 matrices and
     float32 norm scales, stds within 10% of the reference's, and dead q
@@ -227,6 +262,24 @@ def test_forward_matches_reference(ref_params, attn_impl):
     assert _rel(logits, jl) < LOGITS_REL
     _scaled_close(k, jk)
     _scaled_close(v, jv)
+
+
+def test_forward_with_bf16_scores_matches_reference(ref_params):
+    """``attn_scores_bf16=True`` on the masked path: the port's logits
+    within 0.05 relative of the reference's with the same flag, and the
+    flag is read (the port's logits change with it)."""
+    tree, jp = ref_params
+    cfg = dataclasses.replace(_cfg(), attn_scores_bf16=True)
+    jcfg = dataclasses.replace(_jcfg(), attn_scores_bf16=True)
+    toks = _tokens(1, (B, S), cfg.vocab_size)
+    logits, _, _ = TT.forward(TT.params_from_numpy(tree, cfg), cfg,
+                              {"tokens": toks})
+    plain, _, _ = TT.forward(TT.params_from_numpy(tree, _cfg()), _cfg(),
+                             {"tokens": toks})
+    jl, _, _ = jax.jit(lambda p, t: JT.forward(
+        p, jcfg, {"tokens": t}, tp=1))(jp, toks)
+    assert _rel(logits, jl) < LOGITS_REL
+    assert not torch.equal(logits, plain)
 
 
 @pytest.mark.parametrize("attn_impl", ["masked", "pallas"])
