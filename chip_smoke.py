@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port on one NVIDIA card and check it: its DWN
-serving path, its staged packed and float datapaths, its flash-attention
-kernel and qwen3-8b serving at full width.
+serving path (tuned, CUDA-graph steps, artifacts), its staged packed and
+float datapaths, its flash-attention kernel and qwen3-8b serving at full
+width.
 
     python3 chip_smoke.py
 
@@ -70,14 +71,25 @@ Phases, each printing one JSON line:
    if the prefill's profile finds no time in K10 while its launches were
    counted);
 8. serve   — ``ServingEngine("dwn-jsc-lg", device="cuda")`` at full width,
-   whose startup checks every backend against the float oracle; serves 16
+   whose startup checks every backend against the float oracle and whose
+   fused steps replay one CUDA graph per (bucket, tuned config); serves 16
    requests of 4096 rows on the packed kernel, the same stream on the
    batch-major kernel and a ragged stream, asserting from the launch
-   counters that each kernel carried its pass (and that the zero kernel
-   ran before the split launches), and times the host-to-device
-   copy, the launch and the device-to-host copy of a step;
+   counters (a replay adds the launches its graph captured) that each
+   kernel carried its pass and that the zero kernel ran before the split
+   launches, holding every request to the oracle, and times the
+   host-to-device copy, the step and the device-to-host copy of a
+   4096-row step, replayed and as an eager call, for both kernels; then
+   ``backend="auto"``: the tuner races K1 against K2 per bucket into a
+   fresh cache file (``REPRO_AUTOTUNE_CACHE`` under ``build/``), the
+   selector calibrates every bucket, and the 4096-row and ragged streams
+   are served with each bucket's choice, its timings and the steps built
+   per bucket (at most one) printed and every request held to the
+   oracle; last the served artifact is saved, loaded back and served
+   bit-exact;
 9. cli     — ``python -m repro_torch.launch.serve --arch dwn-jsc-lg`` with
-   four requests, and ``--arch qwen3-8b --batch 2 --prompt-len 32 --gen 4``.
+   four requests, the same with ``--backend auto``, and ``--arch
+   qwen3-8b --batch 2 --prompt-len 32 --gen 4``.
 
 Then it prints the kernels' summary line, nvidia-smi's line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -89,7 +101,9 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1328,8 +1342,9 @@ def _served(done):
     return sum(r.size for r in done)
 
 
-def _serve_pass(engine, stream, kernel_name):
-    """Counts set to 0, the stream served, counts read; returns stats."""
+def _serve_pass(engine, stream, kernel_names):
+    """Counts set to 0, the stream served, counts read; returns stats.
+    Fails unless one of ``kernel_names`` was launched."""
     from repro_torch.kernels.fused.kernel import (launch_counts,
                                                   reset_launch_counts)
     from repro_torch.serving.scheduler import latency_stats
@@ -1340,29 +1355,29 @@ def _serve_pass(engine, stream, kernel_name):
     done = engine.drain()
     wall = time.perf_counter() - t0
     launches = launch_counts()
-    if launches[kernel_name] == 0:
-        raise SystemExit(f"{kernel_name} was not launched on its pass: "
-                         f"{launches}")
+    if not any(launches[k] for k in kernel_names):
+        raise SystemExit(f"none of {kernel_names} was launched on its "
+                         f"pass: {launches}")
     lat = latency_stats(done)["compute_ms"]
     return done, launches, {
-        "kernel": kernel_name, "requests": len(done),
+        "kernels": list(kernel_names), "requests": len(done),
         "served": _served(done), "launches": launches,
         "throughput_samples_per_s": _served(done) / wall,
         "compute_ms_p50": lat["p50"], "compute_ms_p99": lat["p99"]}
 
 
-def _step_split(engine, x_np, reps=20):
-    """Median ms of host-to-device copy, launch + compute, and
-    device-to-host copy of one step."""
+def _step_split(step, x_np, device, reps=50):
+    """Median ms of host-to-device copy, ``step`` on the device rows (its
+    launches and the kernels), and device-to-host copy of one step."""
     import torch
     h2d, comp, d2h = [], [], []
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        xd = torch.from_numpy(x_np).to(engine.device)
+        xd = torch.from_numpy(x_np).to(device)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        counts, pred = engine.backend(xd)
+        counts, pred = step(xd)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         counts.cpu().numpy(), pred.cpu().numpy()
@@ -1373,6 +1388,21 @@ def _step_split(engine, x_np, reps=20):
     med = lambda v: float(np.median(v)) * 1e3  # noqa: E731
     return {"rows": int(x_np.shape[0]), "h2d_ms": med(h2d),
             "launch_compute_ms": med(comp), "d2h_ms": med(d2h)}
+
+
+def _replay_and_eager_split(engine, x_np):
+    """The step split of the fused backend at x's bucket with the config
+    in effect: as served (a CUDA graph replay) and as an eager call of
+    the same wrapper."""
+    from repro_torch.kernels.fused import ops as fused_ops
+    model, bucket = engine.model, x_np.shape[0]
+    eager = fused_ops.make_forward_packed(
+        model.thresholds, model.mappings, model.tables, model.num_classes,
+        config=model.tuned_configs.get(bucket))
+    return {"replay": _step_split(
+                engine.backends["fused-packed"].step_for(bucket), x_np,
+                engine.device),
+            "eager": _step_split(eager, x_np, engine.device)}
 
 
 def _check_against_oracle(engine, done):
@@ -1388,7 +1418,30 @@ def _check_against_oracle(engine, done):
             raise SystemExit(f"request {r.rid} differs from the oracle")
 
 
+def _same_results(a_done, b_done, what):
+    for a, b in zip(a_done, b_done):
+        if not (np.array_equal(a.result[0], b.result[0])
+                and np.array_equal(a.result[1], b.result[1])):
+            raise SystemExit(f"request {a.rid}: {what} disagree")
+
+
+def _check_compiles(engine):
+    """At most one step built (one CUDA graph captured) per (backend,
+    bucket), at ladder buckets only."""
+    counts = engine.compile_counts()
+    for name, per_bucket in counts.items():
+        if not set(per_bucket) <= set(engine.scheduler.buckets) or \
+                any(n > 1 for n in per_bucket.values()):
+            raise SystemExit(f"{name} built more than one step a bucket: "
+                             f"{per_bucket}")
+    return counts
+
+
 def phase_serve(device, batch=4096, requests=16, n_train=20000):
+    """dwn-jsc-lg pinned to the fused backend (K2, then K1 per bucket),
+    then ``backend="auto"`` (tuned, calibrated), each step a CUDA graph
+    replay; then the artifact saved, loaded and served again."""
+    from repro_torch.dwn import DWNArtifact
     from repro_torch.kernels.autotune import DEFAULT_CONFIG, FusedConfig
     from repro_torch.serving import ServingEngine
     t0 = time.perf_counter()
@@ -1398,38 +1451,86 @@ def phase_serve(device, batch=4096, requests=16, n_train=20000):
     if engine.bit_exact != {"fused-packed": True, "packed-eager": True}:
         raise SystemExit(f"startup verification incomplete: "
                          f"{engine.bit_exact}")
+    if not engine.report()["cuda_graphs"]["fused-packed"]:
+        raise SystemExit("the fused backend does not replay CUDA graphs")
     stream = [engine.make_request(batch, seed=1000 + i)
               for i in range(requests)]
     engine.warmup(batch)
     done_k2, launches_k2, k2 = _serve_pass(engine, stream,
-                                           "fused_dwn_packed")
-    split_k2 = _step_split(engine, stream[0])
+                                           ["fused_dwn_packed"])
+    split_k2 = _replay_and_eager_split(engine, stream[0])
 
     for bucket in engine.scheduler.buckets:
         engine.model.tuned_configs[bucket] = FusedConfig(
             "batch-major", block_b=DEFAULT_CONFIG.block_b)
     engine.warmup(batch)
     done_k1, launches_k1, k1 = _serve_pass(engine, stream,
-                                           "fused_dwn_batch_major")
-    split_k1 = _step_split(engine, stream[0])
-    for a, b in zip(done_k2, done_k1):
-        if not (np.array_equal(a.result[0], b.result[0])
-                and np.array_equal(a.result[1], b.result[1])):
-            raise SystemExit(f"request {a.rid}: the two kernels disagree")
-    _check_against_oracle(engine, done_k2[:2])
+                                           ["fused_dwn_batch_major"])
+    split_k1 = _replay_and_eager_split(engine, stream[0])
+    _same_results(done_k2, done_k1, "the two kernels")
+    _check_against_oracle(engine, done_k2)
 
     engine.model.tuned_configs.clear()
     rng = np.random.default_rng(7)
     ragged = [engine.make_request(int(rng.integers(1, batch + 1)),
                                   seed=2000 + i) for i in range(requests)]
     done_rg, launches_rg, rg = _serve_pass(engine, ragged,
-                                           "fused_dwn_packed")
+                                           ["fused_dwn_packed"])
     _check_against_oracle(engine, done_rg)
     emit({"phase": "serve", "arch": "dwn-jsc-lg", "luts": engine.spec.luts,
           "startup_s": startup_s, "bit_exact_vs_oracle": engine.bit_exact,
           "passes": [k2, k1, dict(rg, ragged=True)],
+          "compiles": engine.compile_counts(),
           "step_split": {"fused_dwn_packed": split_k2,
                          "fused_dwn_batch_major": split_k1}})
+
+    # backend="auto": the tuner races K1 against K2 per bucket into a
+    # fresh cache (main() points REPRO_AUTOTUNE_CACHE at it), the
+    # selector calibrates the ladder, each bucket replays its graph
+    t0 = time.perf_counter()
+    auto = ServingEngine("dwn-jsc-lg", device=device, backend="auto",
+                         max_bucket=batch, n_train=n_train, seed=0)
+    auto_startup_s = time.perf_counter() - t0
+    rep = auto.report()
+    if sorted(rep["auto"]["choice"]) != sorted(auto.scheduler.buckets) or \
+            sorted(rep["tuned_configs"]) != sorted(auto.scheduler.buckets):
+        raise SystemExit(f"auto did not cover the ladder: {rep['auto']}")
+    if not all(auto.bit_exact.values()):
+        raise SystemExit(f"auto verification failed: {auto.bit_exact}")
+    fused = ["fused_dwn_packed", "fused_dwn_batch_major"]
+    auto.warmup(batch)
+    done_a, launches_a, pa = _serve_pass(auto, stream, fused)
+    done_ar, launches_ar, par = _serve_pass(auto, ragged, fused)
+    compiles = _check_compiles(auto)     # before the oracle's own steps
+    _check_against_oracle(auto, done_a + done_ar)
+    _same_results(done_k2, done_a, "auto and the pinned kernel")
+    cache = json.loads(Path(os.environ["REPRO_AUTOTUNE_CACHE"]).read_text())
+    emit({"phase": "serve", "mode": "auto", "startup_s": auto_startup_s,
+          "choice": {b: {"backend": c,
+                         "config": rep["tuned_configs"][b]}
+                     for b, c in rep["auto"]["choice"].items()},
+          "timings_ms": rep["auto"]["timings_ms"],
+          "tuner_us": {k.split(":")[1]: v["timings_us"]
+                       for k, v in cache["entries"].items()},
+          "compiles": compiles, "cuda_graphs": rep["cuda_graphs"],
+          "passes": [pa, dict(par, ragged=True)]})
+
+    # the served artifact saved, loaded back and served bit-exact
+    ckpt = ROOT / "build" / "chip_smoke_artifact"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    auto.artifact.save(ckpt)
+    loaded = DWNArtifact.load(ckpt, device=device)
+    again = ServingEngine(loaded, device=device, backend="auto",
+                          max_bucket=batch, n_train=n_train, seed=0)
+    done_l, _, pl = _serve_pass(again, stream[:4] + ragged[:4], fused)
+    _same_results(done_a[:4] + done_ar[:4], done_l,
+                  "the loaded artifact and the served one")
+    _check_against_oracle(again, done_l)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    emit({"phase": "serve", "mode": "artifact", "stage": loaded.stage,
+          "fingerprint": loaded.spec.fingerprint(),
+          "choice": again.report()["auto"]["choice"], "pass": pl})
+
     # the zero kernel runs before a launch that splits its tiles (the
     # ragged pass's requests of fewer than 132 * 32 rows)
     zeroed = sum(n["fused_dwn_zero"]
@@ -1445,11 +1546,13 @@ def phase_cli(device):
     from repro_torch.launch import serve
     seconds = {}
     for argv in (["--arch", "dwn-jsc-lg", "--requests", "4"],
+                 ["--arch", "dwn-jsc-lg", "--requests", "4", "--backend",
+                  "auto"],
                  ["--arch", "qwen3-8b", "--batch", "2", "--prompt-len",
                   "32", "--gen", "4"]):
         t0 = time.perf_counter()
         serve.main(argv + ["--device", device])
-        seconds[argv[1]] = time.perf_counter() - t0
+        seconds[" ".join(argv)] = time.perf_counter() - t0
     emit({"phase": "cli", "seconds": seconds})
 
 
@@ -1464,6 +1567,11 @@ def main() -> int:
               "runs the port on a CUDA card", file=sys.stderr)
         return 3
     sys.path.insert(0, str(SRC))
+    # the serve phase tunes into a fresh cache of its own
+    cache = ROOT / "build" / "chip_smoke_autotune.json"
+    cache.parent.mkdir(exist_ok=True)
+    cache.unlink(missing_ok=True)
+    os.environ["REPRO_AUTOTUNE_CACHE"] = str(cache)
     # full float32 in float32 products (the masked attention path's scores)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

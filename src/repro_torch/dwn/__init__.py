@@ -6,11 +6,12 @@
 """
 
 from .artifact import DWNArtifact, LifecycleError, PackedOperands, STAGES
-from .spec import (DWNSpec, GROUPINGS, VARIANTS, get_spec, has_spec,
-                   resolve_spec, spec_presets)
+from .spec import (DATAPATH_ALIASES, DWNSpec, GROUPINGS, VARIANTS,
+                   get_spec, has_spec, resolve_spec, serving_datapath,
+                   spec_presets)
 
 __all__ = [
-    "DWNArtifact", "DWNSpec", "GROUPINGS", "LifecycleError",
-    "PackedOperands", "STAGES", "VARIANTS", "get_spec", "has_spec",
-    "resolve_spec", "spec_presets",
+    "DATAPATH_ALIASES", "DWNArtifact", "DWNSpec", "GROUPINGS",
+    "LifecycleError", "PackedOperands", "STAGES", "VARIANTS", "get_spec",
+    "has_spec", "resolve_spec", "serving_datapath", "spec_presets",
 ]

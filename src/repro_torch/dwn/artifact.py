@@ -15,6 +15,11 @@ The PyTorch counterpart of ``repro.dwn.artifact`` (serving stages)::
   {0,1} tables, thresholds quantized to the spec's (1, n) grid for PEN.
 * **packed** — the frozen operands staged on the serving device.
 
+``save``/``load`` ride on ``runtime.checkpoint`` (atomic commit, sha256
+per leaf) on the reference's on-disk layout, with the spec in the
+manifest: an artifact saved by either package loads in the other, and a
+reloaded artifact serves the saved model's outputs bit for bit.
+
 Calling a stage method out of order raises :class:`LifecycleError`;
 re-running an earlier stage invalidates the later ones.
 """
@@ -22,6 +27,7 @@ re-running an earlier stage invalidates the later ones.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
@@ -52,13 +58,24 @@ class PackedOperands:
 
 @dataclasses.dataclass
 class DWNArtifact:
-    """Lifecycle state for one :class:`~repro_torch.dwn.spec.DWNSpec`."""
+    """Lifecycle state for one :class:`~repro_torch.dwn.spec.DWNSpec`.
+
+    Attributes:
+      spec: the validated build point.
+      params / buffers: LUT state and thermometer thresholds.
+      frozen: the hardware-semantics model (after :meth:`freeze`).
+      packed: the operands staged on a device (after :meth:`pack`).
+      calibration: provenance of the trained state (seed, epochs, fit
+        sample count; what trained it), as the reference records it; it
+        rides in checkpoints.
+    """
 
     spec: DWNSpec
     params: dict | None = None
     buffers: dict | None = None
     frozen: FrozenDWN | None = None
     packed: PackedOperands | None = None
+    calibration: dict = dataclasses.field(default_factory=dict)
 
     @property
     def stage(self) -> str:
@@ -95,12 +112,15 @@ class DWNArtifact:
         gen = torch.Generator().manual_seed(seed)
         self.params, self.buffers = init_dwn(gen, self.spec.dwn_config(),
                                              x_train)
+        self.calibration = {"seed": seed, "epochs": 0, "warmstart": False,
+                            "n_fit": int(np.asarray(x_train).shape[0])}
         self._invalidate_downstream()
         return self
 
     def adopt(self, params, buffers) -> "DWNArtifact":
         """Adopt externally trained state (port params and buffers)."""
         self.params, self.buffers = params, buffers
+        self.calibration.setdefault("trained_by", "external")
         self._invalidate_downstream()
         return self
 
@@ -142,6 +162,28 @@ class DWNArtifact:
             name=name or self.spec.label, dcfg=self.spec.dwn_config(),
             frozen=self.frozen, device=p.device, thresholds=p.thresholds,
             mappings=p.mappings, tables=p.tables)
+
+    # -- persistence ---------------------------------------------------
+
+    def save(self, directory, *, step: int = 0):
+        """Checkpoint the artifact (``runtime.checkpoint.save_artifact``);
+        returns the checkpoint path."""
+        from ..runtime.checkpoint import save_artifact
+        return save_artifact(directory, self, step=step)
+
+    @classmethod
+    def load(cls, directory, *, step: int | None = None,
+             device=None) -> "DWNArtifact":
+        """Restore an artifact that either package saved; one saved at
+        stage "packed" is staged again on ``device`` (default ``cuda``)."""
+        from ..runtime.checkpoint import load_artifact
+        return load_artifact(directory, step=step, device=device)
+
+    def summary(self) -> dict[str, Any]:
+        """JSON-able one-glance description (spec, stage, calibration)."""
+        return {"spec": self.spec.to_dict(),
+                "fingerprint": self.spec.fingerprint(),
+                "stage": self.stage, "calibration": dict(self.calibration)}
 
 
 __all__ = ["DWNArtifact", "LifecycleError", "PackedOperands", "STAGES"]

@@ -39,6 +39,17 @@ def _serving_datapaths() -> list[str]:
     return available_backends()
 
 
+#: datapath names of the reference that the port serves on a backend of
+#: another name: the reference's ``packed-xla`` (packed words through
+#: plain XLA ops) is the port's ``packed-eager``.
+DATAPATH_ALIASES = {"packed-xla": "packed-eager"}
+
+
+def serving_datapath(name: str) -> str:
+    """The backend (or ``"auto"``) that serves the datapath ``name``."""
+    return DATAPATH_ALIASES.get(name, name)
+
+
 @dataclasses.dataclass(frozen=True)
 class DWNSpec:
     """One validated DWN build point.
@@ -52,7 +63,10 @@ class DWNSpec:
         "gaussian").
       input_bits: PEN fixed-point input width in *total* bits (1 sign + n
         fractional); set iff ``variant == "PEN"``.
-      datapath: serving backend name, validated against the registry.
+      datapath: serving backend name, validated against the registry, or
+        ``"auto"`` (per-bucket selection), or a name of
+        :data:`DATAPATH_ALIASES`.  The name is kept as given, so the
+        fingerprint is the reference's for every name both accept.
       grouping: popcount grouping ("contig" | "strided").
       workload: registered workload name ("jsc").
 
@@ -109,7 +123,7 @@ class DWNSpec:
             raise ValueError(
                 f"unknown popcount grouping {self.grouping!r}; supported: "
                 f"{list(GROUPINGS)}")
-        allowed = _serving_datapaths()
+        allowed = _serving_datapaths() + ["auto"] + list(DATAPATH_ALIASES)
         if self.datapath not in allowed:
             raise ValueError(
                 f"unregistered serving datapath {self.datapath!r}; "
@@ -197,6 +211,6 @@ def resolve_spec(target) -> DWNSpec:
 
 
 __all__ = [
-    "DWNSpec", "GROUPINGS", "VARIANTS", "get_spec", "has_spec",
-    "resolve_spec", "spec_presets",
+    "DATAPATH_ALIASES", "DWNSpec", "GROUPINGS", "VARIANTS", "get_spec",
+    "has_spec", "resolve_spec", "serving_datapath", "spec_presets",
 ]

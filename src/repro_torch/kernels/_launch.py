@@ -4,6 +4,7 @@ counters that ``chip_smoke.py`` reads."""
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -18,13 +19,19 @@ class LaunchCounts:
 
     A wrapper calls :meth:`add` right after its kernel launched, and
     nowhere else, so the counts show which kernels a run went through.
+    The launches a wrapper makes while a CUDA graph is being captured are
+    held back instead: the capture runs nothing, and every replay of the
+    graph adds them (:func:`recording`, ``kernels.graph``).
     """
 
     def __init__(self, *names: str):
         self._n = dict.fromkeys(names, 0)
 
-    def add(self, name: str) -> None:
-        self._n[name] += 1
+    def add(self, name: str, n: int = 1) -> None:
+        if _RECORDING:
+            _RECORDING[-1].append((self, name, n))
+        else:
+            self._n[name] += n
 
     def get(self) -> dict[str, int]:
         return dict(self._n)
@@ -32,6 +39,31 @@ class LaunchCounts:
     def reset(self) -> None:
         for name in self._n:
             self._n[name] = 0
+
+
+#: open :func:`recording` blocks, innermost last
+_RECORDING: list[list] = []
+
+
+@contextlib.contextmanager
+def recording():
+    """Inside the block, the wrappers' launches are recorded, not counted
+    (a CUDA graph capture launches nothing).  Yields the list of
+    ``(counter, name, n)`` the block recorded; :func:`replay` adds them
+    where the captured kernels really run."""
+    launches: list = []
+    _RECORDING.append(launches)
+    try:
+        yield launches
+    finally:
+        _RECORDING.pop()
+
+
+def replay(launches) -> None:
+    """Count the launches a :func:`recording` block took (one replay of
+    the graph it captured)."""
+    for counter, name, n in launches:
+        counter.add(name, n)
 
 
 def expect(t: torch.Tensor, name: str, dtype, ndim: int,
@@ -89,4 +121,4 @@ def launch(lib: ctypes.CDLL, library: str, name: str, device: torch.device,
 
 
 __all__ = ["I", "LaunchCounts", "P", "bind", "device_type", "expect",
-           "launch"]
+           "launch", "recording", "replay"]

@@ -2,10 +2,12 @@
 
 DWN presets (``--arch dwn-jsc-lg`` or ``--spec``): batches of JSC feature
 vectors are classified through the selected datapath backend
-(``--backend fused-packed | packed-eager | float-oracle``); every
-non-oracle backend is checked bit-exactly against the ``apply_hard``
-oracle before serving starts.  ``--ragged`` draws request sizes in
-[1, batch] so the scheduler's coalescing and padding run.
+(``--backend fused-packed | packed-eager | float-oracle``, or ``auto``,
+which tunes the fused kernel per bucket and serves each bucket on the
+fastest bit-exact backend); every non-oracle backend is checked
+bit-exactly against the ``apply_hard`` oracle before serving starts.
+``--ragged`` draws request sizes in [1, batch] so the scheduler's
+coalescing and padding run.
 
 LM archs (``--arch qwen3-8b``): one request of ``--batch`` random prompts
 of ``--prompt-len`` tokens, prefilled and decoded greedily for ``--gen``
@@ -18,6 +20,7 @@ Runs on the CUDA card unless ``--device cpu`` is given.
 
 Usage:
     python -m repro_torch.launch.serve --arch dwn-jsc-lg
+    python -m repro_torch.launch.serve --arch dwn-jsc-lg --backend auto
     python -m repro_torch.launch.serve --arch dwn-jsc-sm --reduced --ragged
     python -m repro_torch.launch.serve --reduced --device cpu \\
         --spec '{"preset": "sm-50", "variant": "PEN", "input_bits": 9}'
@@ -37,7 +40,7 @@ import sys
 import numpy as np
 
 from ..configs import get_arch, list_archs
-from ..dwn import DWNSpec, spec_presets
+from ..dwn import DATAPATH_ALIASES, DWNSpec, spec_presets
 from ..serving import ServingEngine, available_backends
 from ..serving.scheduler import next_pow2
 
@@ -111,9 +114,12 @@ def main(argv=None) -> int:
     ap.add_argument("--ragged", action="store_true",
                     help="DWN: draw request sizes uniformly in [1, batch]")
     ap.add_argument("--backend", default="",
-                    choices=[""] + available_backends(),
+                    choices=["", "auto"] + available_backends()
+                    + sorted(DATAPATH_ALIASES),
                     help="DWN datapath backend (default: the spec's "
-                         "datapath)")
+                         "datapath); 'auto' tunes the fused kernel per "
+                         "batch bucket at startup and serves each bucket "
+                         "on the fastest bit-exact backend")
     ap.add_argument("--prompt-len", type=int, default=32,
                     help="LM: prompt tokens per sequence")
     ap.add_argument("--gen", type=int, default=16,

@@ -5,9 +5,12 @@ The PyTorch counterpart of the reference's ``repro.serving.engine``.
 DWN specs serve batched classification of their workload's features,
 microbatched into power-of-two buckets (``serving.scheduler``) and
 classified by a pluggable datapath backend (``serving.backends``) on one
-device.  Every non-oracle backend is checked bit-exactly against the
-``apply_hard`` float oracle at startup: the engine refuses to construct a
-broken datapath.
+device.  On a CUDA card each (backend, bucket) step is one CUDA graph,
+captured once and replayed.  Every non-oracle backend is checked
+bit-exactly against the ``apply_hard`` float oracle at startup: the
+engine refuses to construct a broken datapath.  ``backend="auto"`` tunes
+the fused kernel per bucket (``kernels.autotune``) and serves each bucket
+on the fastest bit-exact backend (``backends.AutoSelector``).
 
 LM archs (``configs.registry``; the port serves the dense ``qwen3-8b``)
 serve prefill and greedy token-by-token decode against a KV cache, one
@@ -18,7 +21,9 @@ The engine runs on ``cuda`` unless ``device="cpu"`` is passed; without a
 card it raises rather than fall back.
 
 Usage:
-    engine = ServingEngine("dwn-jsc-lg", max_bucket=4096)
+    engine = ServingEngine("dwn-jsc-lg", max_bucket=4096, backend="auto")
+    # or a trained artifact, as either package saved it:
+    # ServingEngine(DWNArtifact.load("ckpt/"), backend="auto")
     for xb in request_stream:
         engine.submit(xb)
     results = engine.drain()
@@ -33,6 +38,7 @@ Usage:
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Any
 
@@ -42,11 +48,12 @@ import torch
 from ..configs import ArchConfig, get_arch, list_archs
 from ..configs.registry import NOT_PORTED
 from ..device import resolve_device
-from ..dwn import DWNArtifact, resolve_spec
+from ..dwn import DWNArtifact, resolve_spec, serving_datapath
 from ..models import api
 from ..workloads import load_workload
-from .backends import (BoundBackend, DWNModelBundle, available_backends,
-                       get_backend, verify_backends)
+from .backends import (AutoSelector, BoundBackend, DWNModelBundle,
+                       autotune_model, available_backends, get_backend,
+                       verify_backends)
 from .scheduler import MicrobatchScheduler, Request, latency_stats
 
 
@@ -73,10 +80,19 @@ class ServingEngine:
         data split), or a :class:`~repro_torch.dwn.DWNArtifact` (served
         as-is; missing stages are completed in place).
       backend: DWN datapath backend name; ``None`` takes the spec's
-        ``datapath``.
+        ``datapath`` (``"packed-xla"``, the reference's name, serves on
+        ``packed-eager``).  ``"auto"`` calibrates every bit-exact backend
+        at every bucket of the ladder at startup and serves each bucket on
+        the fastest (``backends.AutoSelector``).
       max_bucket / min_bucket: DWN: the power-of-two batch-bucket ladder.
       verify: DWN: run the startup bit-exactness check of every registered
-        non-oracle backend against the float oracle.
+        non-oracle backend against the float oracle (``"auto"`` always
+        runs it).
+      autotune: DWN: tune the fused kernel's variant and ``block_b`` per
+        bucket at startup (``backends.autotune_model``; a hit in the
+        persistent cache skips the timing).  ``None`` resolves to True
+        exactly when ``backend == "auto"``; ``REPRO_AUTOTUNE=0`` turns it
+        off.
       n_train: DWN: training rows used to fit thermometer thresholds.
       seed: data split (DWN) and parameter-init seed.
       device: ``"cuda"`` (default) or ``"cpu"``.
@@ -88,7 +104,8 @@ class ServingEngine:
 
     def __init__(self, arch, *, backend: str | None = None,
                  max_bucket: int = 256, min_bucket: int = 8,
-                 verify: bool = True, n_train: int = 2000, seed: int = 0,
+                 verify: bool = True, autotune: bool | None = None,
+                 n_train: int = 2000, seed: int = 0,
                  device=None, reduced: bool = False, prompt_len: int = 32,
                  gen: int = 16, model_parallel: int = 1):
         self.device = resolve_device(device)
@@ -99,7 +116,7 @@ class ServingEngine:
         cfg = _lm_config(arch)
         self.family = "dwn" if cfg is None else "lm"
         if cfg is None:
-            self._init_dwn(arch, backend, verify, n_train)
+            self._init_dwn(arch, backend, verify, autotune, n_train)
         else:
             self._init_lm(cfg.reduced() if reduced else cfg, prompt_len,
                           gen, model_parallel)
@@ -109,7 +126,7 @@ class ServingEngine:
     # ------------------------------------------------------------------
 
     def _init_dwn(self, arch, backend: str | None, verify: bool,
-                  n_train: int) -> None:
+                  autotune: bool | None, n_train: int) -> None:
         if isinstance(arch, DWNArtifact):
             art, self.spec = arch, arch.spec
             name = arch.spec.label
@@ -118,6 +135,7 @@ class ServingEngine:
             art = DWNArtifact(self.spec)
             name = arch if isinstance(arch, str) else self.spec.label
         self.bit_exact: dict[str, bool] = {}
+        self.tuned_configs: dict = {}
         self.data = load_workload(self.spec.workload, n_train,
                                   max(self.scheduler.max_bucket, 512),
                                   seed=self.seed)
@@ -130,16 +148,62 @@ class ServingEngine:
         self.model: DWNModelBundle = art.serving_model(name)
         self.backends = {b: BoundBackend(get_backend(b), self.model)
                          for b in available_backends()}
-        backend = self.spec.datapath if backend is None else backend
-        if backend not in self.backends:
+        backend = serving_datapath(
+            self.spec.datapath if backend is None else backend)
+        if backend != "auto" and backend not in self.backends:
             raise ValueError(f"unknown serving backend {backend!r}; "
                              f"registered: {available_backends()}")
-        if verify:
-            # probe at the largest bucket: the bucket serving uses most
-            probe = self.data.x_test[:self.scheduler.max_bucket]
+        probe = self.data.x_test[:self.scheduler.max_bucket]
+        if autotune is None:
+            autotune = backend == "auto"
+        if os.environ.get("REPRO_AUTOTUNE") == "0":
+            autotune = False
+        if autotune:
+            # before any step is captured, so that the verification
+            # below checks the tuned kernels
+            self.tuned_configs = autotune_model(
+                self.model, self.scheduler.buckets, probe,
+                spec_fingerprint=self.spec.fingerprint())
+        if verify or backend == "auto":
+            # probes the largest bucket and every tuned one; auto only
+            # picks among backends that passed
             self.bit_exact = verify_backends(
                 self.model, list(self.backends.values()), probe)
+        self.auto: AutoSelector | None = None
+        if backend == "auto":
+            # the whole ladder at startup, so that no served request pays
+            # a calibration
+            self.auto = AutoSelector(self.backends, self.bit_exact)
+            for bucket in self.scheduler.buckets:
+                self.auto.calibrate(torch.from_numpy(
+                    np.ascontiguousarray(probe[:bucket], np.float32)))
+            backend = self.auto.choice[self.scheduler.max_bucket]
         self.backend = self.backends[backend]
+        # use_backend("auto") after pinning a backend restores this one
+        self._auto_saved = self.auto
+
+    def use_backend(self, name: str) -> None:
+        """Switch the DWN datapath (the step caches are kept): a backend
+        name pins it; ``"auto"`` returns to per-bucket selection, with the
+        startup calibration if there was one (needs the startup
+        verification)."""
+        if self.family != "dwn":
+            raise ValueError("use_backend switches a DWN datapath")
+        name = serving_datapath(name)
+        if name == "auto":
+            if self.auto is None:
+                if not self.bit_exact:
+                    raise ValueError("auto-select needs the startup "
+                                     "verification (verify=True)")
+                self.auto = self._auto_saved or AutoSelector(
+                    self.backends, self.bit_exact)
+                self._auto_saved = self.auto
+            return
+        if name not in self.backends:
+            raise ValueError(f"unknown serving backend {name!r}; "
+                             f"registered: {available_backends()}")
+        self.auto = None
+        self.backend = self.backends[name]
 
     @property
     def name(self) -> str:
@@ -147,7 +211,8 @@ class ServingEngine:
 
     def warmup(self, size: int | None = None) -> None:
         """Run one step outside the request accounting — the first launch
-        builds the CUDA kernels.  DWN: the bucket ``size``-sample requests
+        builds the CUDA kernels, and a DWN step's first call captures its
+        CUDA graph.  DWN: the bucket ``size``-sample requests
         land in (default: the largest); LM: one request of ``size``
         sequences (default 1)."""
         if self.family == "lm":
@@ -158,11 +223,14 @@ class ServingEngine:
         self._dwn_step(np.asarray(self.data.x_test[:bucket]))
 
     def _dwn_step(self, x: np.ndarray):
-        """One bucket: rows to the device, one backend step, results back
-        to the host (the copy back waits for the device)."""
-        xd = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
-            self.device)
-        counts, pred = self.backend(xd)
+        """One bucket: the rows into the step (a CUDA graph's input on the
+        card), the step, results back to the host at once (the copy back
+        waits for the device; the next replay overwrites a graph's
+        outputs)."""
+        xh = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+        backend = (self.auto.backend_for(xh) if self.auto is not None
+                   else self.backend)
+        counts, pred = backend.step_for(xh.shape[0])(xh)
         return counts.cpu().numpy(), pred.cpu().numpy()
 
     # ------------------------------------------------------------------
@@ -256,6 +324,14 @@ class ServingEngine:
         self._drain_wall += time.perf_counter() - t0
         return done
 
+    def compile_counts(self) -> dict[str, dict[int, int]]:
+        """Per-backend {bucket: steps built} (CUDA graphs captured on the
+        card); DWN only, empty for LM."""
+        if self.family != "dwn":
+            return {}
+        return {name: dict(b.compiles)
+                for name, b in self.backends.items() if b.compiles}
+
     def report(self) -> dict:
         """JSON-able serving report over everything served so far.
 
@@ -297,10 +373,16 @@ class ServingEngine:
             return out
         out.update({
             "mode": "dwn-classify",
-            "datapath": self.backend.name,
+            "datapath": ("auto" if self.auto is not None
+                         else self.backend.name),
             "backends": available_backends(),
             "bit_exact_vs_oracle": self.bit_exact,
             "buckets": list(self.scheduler.buckets),
+            "compiles": self.compile_counts(),
+            # which backends replay a CUDA graph per bucket; the others
+            # run their steps eagerly
+            "cuda_graphs": {name: b.graphed
+                            for name, b in self.backends.items()},
             "luts": self.spec.luts,
             "bits_per_feature": self.spec.bits,
             "spec": self.spec.to_dict(),
@@ -310,6 +392,15 @@ class ServingEngine:
         if self.model.tuned_configs:
             out["tuned_configs"] = {int(b): c.to_dict() for b, c in
                                     self.model.tuned_configs.items()}
+        if self.auto is not None:
+            out["auto"] = {
+                "choice": dict(self.auto.choice),
+                "configs": {b: (c.to_dict() if c else None)
+                            for b, c in self.auto.configs.items()},
+                "timings_ms": {b: {n: round(t * 1e3, 4)
+                                   for n, t in times.items()}
+                               for b, times in self.auto.timings.items()},
+            }
         return out
 
 

@@ -245,6 +245,122 @@ def test_engine_serves_through_both_kernels_on_card():
             np.testing.assert_array_equal(r.result[1], p)
 
 
+LADDER = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+
+
+@pytest.fixture(scope="module")
+def lg_engine():
+    """dwn-jsc-lg on the card with the 8 ... 4096 bucket ladder."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only on the GPU")
+    from repro_torch.serving import ServingEngine
+    return ServingEngine("dwn-jsc-lg", max_bucket=4096, min_bucket=8,
+                         n_train=2000)
+
+
+@pytest.mark.parametrize("variant", ["packed", "batch-major"])
+def test_graph_replay_equals_eager_and_oracle_at_every_bucket(lg_engine,
+                                                              variant):
+    """Exact: at every bucket of the ladder (split tiles below 132 tiles,
+    whole ones at 4096), the fused backend's replayed CUDA graph equals
+    the eager call of the same kernel and the float oracle, on two sets
+    of rows written into the captured input; the replay launches the
+    variant's kernel (the first call at a bucket also warms up: two
+    launches)."""
+    eng = lg_engine
+    model, bound = eng.model, eng.backends["fused-packed"]
+    assert bound.graphed
+    oracle = eng.backends["float-oracle"]
+    x = eng.data.x_test                     # 4096 rows
+    for b in LADDER:
+        cfg = FusedConfig(variant, block_b=32)
+        model.tuned_configs[b] = cfg
+        eager = tops.make_forward_packed(model.thresholds, model.mappings,
+                                         model.tables, 5, config=cfg)
+        shuffled = x[np.random.default_rng(b).permutation(len(x))[:b]]
+        for rows, launches in ((x[:b], 2), (shuffled, 1)):
+            xh = torch.from_numpy(np.ascontiguousarray(rows))
+            K.reset_launch_counts()
+            got = [t.cpu().numpy() for t in bound.step_for(b)(xh)]
+            assert K.launch_counts()[_fused_kernel(variant)[2]] == launches
+            want = [t.cpu().numpy() for t in eager(xh.cuda())]
+            ref = [t.cpu().numpy() for t in oracle(xh)]
+            for g, w, r in zip(got, want, ref):
+                np.testing.assert_array_equal(g, w, err_msg=str((b, cfg)))
+                np.testing.assert_array_equal(g, r, err_msg=str((b, cfg)))
+    model.tuned_configs.clear()
+
+
+def test_changed_tuned_config_recaptures(lg_engine):
+    """Setting ``tuned_configs[b]`` after a capture captures anew (the
+    next step warms up and replays the new variant: two launches of it);
+    going back replays the first graph without another capture."""
+    eng = lg_engine
+    bound, b = eng.backends["fused-packed"], 64
+    xh = torch.from_numpy(np.ascontiguousarray(eng.data.x_test[:b]))
+    eng.model.tuned_configs[b] = FusedConfig("packed", block_b=64)
+    bound.step_for(b)(xh)
+    n = bound.compiles[b]
+    for variant, compiles, launches in (("batch-major", n + 1, 2),
+                                        ("packed", n + 1, 1)):
+        eng.model.tuned_configs[b] = FusedConfig(variant, block_b=64)
+        K.reset_launch_counts()
+        bound.step_for(b)(xh)
+        assert bound.compiles[b] == compiles, variant
+        assert K.launch_counts()[_fused_kernel(variant)[2]] == launches
+    eng.model.tuned_configs.clear()
+
+
+def test_launch_counts_under_replay(lg_engine):
+    """The counters add a step's captured launches (the kernel, and the
+    zero kernel before a split launch) on every replay, and nothing for
+    the capture itself."""
+    from repro_torch.kernels.graph import CapturedStep
+    eng = lg_engine
+    for b, zeroed in ((64, 1), (4096, 0)):
+        fwd = tops.make_forward_packed(eng.model.thresholds,
+                                       eng.model.mappings, eng.model.tables,
+                                       5)
+        step = CapturedStep(fwd, "cuda")
+        xh = torch.from_numpy(np.ascontiguousarray(eng.data.x_test[:b]))
+        K.reset_launch_counts()
+        step(xh)
+        assert step.launches == {"fused_dwn_packed": 1,
+                                 **({"fused_dwn_zero": 1} if zeroed else {})}
+        after_capture = K.launch_counts()
+        for _ in range(4):
+            step(xh)
+        torch.cuda.synchronize()
+        got = K.launch_counts()
+        for name, n in step.launches.items():
+            assert got[name] - after_capture[name] == 4 * n, (b, name)
+        # the warmup call and the first replay; the capture counted
+        # nothing
+        assert after_capture["fused_dwn_packed"] == 2
+
+
+def test_second_engine_on_the_same_cache_tunes_nothing(tmp_path,
+                                                       monkeypatch):
+    """An engine that tunes into a cache file leaves every bucket there;
+    a second engine on the same file takes its configs from it and makes
+    no timing call."""
+    from repro_torch.kernels import autotune
+    from repro_torch.serving import ServingEngine
+    _need_card()
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "c.json"))
+    first = ServingEngine("dwn-jsc-md", max_bucket=256, n_train=2000,
+                          autotune=True)
+    assert sorted(first.tuned_configs) == list(first.scheduler.buckets)
+    calls = []
+    timed = autotune.time_step
+    monkeypatch.setattr(autotune, "time_step",
+                        lambda *a, **k: calls.append(1) or timed(*a, **k))
+    second = ServingEngine("dwn-jsc-md", max_bucket=256, n_train=2000,
+                           autotune=True)
+    assert calls == []
+    assert second.tuned_configs == first.tuned_configs
+
+
 # (F, T, lut_counts, PEN fraction bits): lg width, a 2-layer stack, PEN
 # ties, ragged thermometer words (F*T = 21 and 65)
 STAGE_CASES = [(16, 200, (2400,), None), (16, 200, (120, 50), None),

@@ -46,6 +46,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k == 'repro' or k.startswith('repro.')]\n"
         "assert len(names) > 20, names\n"
+        "assert 'repro_torch.runtime.checkpoint' in names, names\n"
+        "assert 'repro_torch.kernels.graph' in names, names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -53,6 +55,53 @@ def test_port_imports_neither_jax_nor_the_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) > 20
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_reference():
+    """chip_smoke.py names no module of jax or repro in any import
+    statement (its functions import repro_torch only), and importing it
+    loads neither."""
+    import ast
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module or "")
+    tops = {n.split(".")[0] for n in names}
+    assert "repro_torch" in tops
+    assert not tops & {"jax", "jaxlib", "repro"}, sorted(names)
+    code = ("import sys; sys.path.insert(0, 'src'); import chip_smoke\n"
+            "bad = [k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'repro')]\nassert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_launch_recording_holds_back_and_replays():
+    """Launches counted inside ``_launch.recording()`` (a CUDA graph
+    capture) are held back, and each ``replay`` adds them once."""
+    from repro_torch.kernels import _launch
+    counts = _launch.LaunchCounts("k", "zero")
+    counts.add("k")
+    with _launch.recording() as rec:
+        counts.add("zero")
+        counts.add("k")
+    assert counts.get() == {"k": 1, "zero": 0}
+    assert [(name, n) for _, name, n in rec] == [("zero", 1), ("k", 1)]
+    for _ in range(3):
+        _launch.replay(rec)
+    assert counts.get() == {"k": 4, "zero": 3}
+
+
+def test_captured_step_needs_a_cuda_device():
+    """A CUDA graph step is refused for the CPU before anything runs; the
+    engine's steps there run eagerly."""
+    from repro_torch.kernels.graph import CapturedStep
+    with pytest.raises(ValueError, match="CUDA device"):
+        CapturedStep(lambda x: x, "cpu")
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):

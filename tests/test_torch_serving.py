@@ -7,6 +7,8 @@ predictions must be identical (exact: integers), and the port's startup
 ``verify_backends`` must pass.
 """
 
+import json
+
 import numpy as np
 import pytest
 
@@ -124,7 +126,7 @@ def test_specs_match_reference():
     with pytest.raises(ValueError, match="requires input_bits"):
         DWNSpec(preset="sm-50", variant="PEN")
     with pytest.raises(ValueError, match="unregistered serving datapath"):
-        DWNSpec(preset="sm-50", datapath="packed-xla")
+        DWNSpec(preset="sm-50", datapath="packed-xla-v2")
 
 
 def test_serve_cli_on_cpu(capsys):
@@ -138,3 +140,157 @@ def test_serve_cli_on_cpu(capsys):
     assert rep["requests"] == 3 and rep["ragged"] is True
     assert rep["bit_exact_vs_oracle"] == {"fused-packed": True,
                                           "packed-eager": True}
+
+
+# the datapath names the reference's DWNSpec accepts (its registered
+# backends and "auto"), on lg-2400 TEN and an sm-50 PEN spec
+DATAPATHS = ("auto", "packed-xla", "fused-packed")
+SPECS = (dict(preset="lg-2400"),
+         dict(preset="sm-50", variant="PEN", input_bits=9))
+
+
+@pytest.mark.parametrize("datapath", DATAPATHS)
+@pytest.mark.parametrize("spec_kw", SPECS, ids=["lg-TEN", "sm-PEN"])
+def test_spec_datapaths_match_reference_and_serve(spec_kw, datapath,
+                                                  tmp_path, monkeypatch):
+    """Every datapath the reference's DWNSpec accepts is accepted with the
+    reference's fingerprint (the name is kept as given), and the engine
+    serves it on the CPU bit-exact to the oracle: ``packed-xla`` on the
+    port's ``packed-eager``, ``auto`` per bucket."""
+    from repro.dwn import DWNSpec as JSpec
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "c.json"))
+    spec = DWNSpec(datapath=datapath, **spec_kw)
+    jspec = JSpec(datapath=datapath, **spec_kw)
+    assert spec.to_dict() == jspec.to_dict()
+    assert spec.fingerprint() == jspec.fingerprint()
+    eng = ServingEngine(spec, max_bucket=16, min_bucket=8, n_train=600,
+                        device="cpu")
+    want = {"auto": "auto", "packed-xla": "packed-eager",
+            "fused-packed": "fused-packed"}[datapath]
+    assert eng.report()["datapath"] == want
+    oracle = eng.backends["float-oracle"]
+    for size in (16, 5):
+        eng.submit(eng.make_request(size, seed=size))
+    for r in eng.drain():
+        c, p = oracle(torch.from_numpy(np.ascontiguousarray(r.payload)))
+        np.testing.assert_array_equal(r.result[0], c.numpy())
+        np.testing.assert_array_equal(r.result[1], p.numpy())
+
+
+def test_backend_auto_calibrates_and_serves(tmp_path, monkeypatch):
+    """backend="auto" (twin of the reference's
+    ``test_backend_auto_select_calibrates_and_serves``): startup tunes the
+    fused kernel at every bucket and times every bit-exact backend there,
+    each bucket serves on the measured winner (near-ties toward the fused
+    kernels), results stay exact, and ``use_backend`` round-trips to the
+    saved calibration."""
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "c.json"))
+    eng = ServingEngine("dwn-jsc-sm", max_bucket=32, min_bucket=8,
+                        n_train=800, backend="auto", device="cpu")
+    assert eng.auto is not None
+    assert sorted(eng.auto.choice) == list(eng.scheduler.buckets)
+    assert sorted(eng.auto.timings[32]) == tb.available_backends()
+    times = eng.auto.timings[32]
+    fastest = min(times, key=times.get)
+    chosen = eng.auto.choice[32]
+    assert (chosen == fastest
+            or (chosen == eng.auto.TIE_BREAK_BACKEND
+                and times[chosen] <= times[fastest]
+                * (1 + eng.auto.tie_break_pct / 100)))
+    for n in (32, 5, 17, 32):
+        eng.submit(eng.make_request(n, seed=n))
+    done = eng.drain()
+    assert sum(r.size for r in done) == 32 + 5 + 17 + 32
+    oracle = eng.backends["float-oracle"]
+    for r in done:
+        c, p = oracle(torch.from_numpy(np.ascontiguousarray(r.payload)))
+        np.testing.assert_array_equal(r.result[0], c.numpy())
+        np.testing.assert_array_equal(r.result[1], p.numpy())
+    rep = eng.report()
+    assert rep["datapath"] == "auto" and rep["auto"]["choice"]
+    assert sorted(eng.tuned_configs) == list(eng.scheduler.buckets)
+    assert set(rep["tuned_configs"]) == set(eng.scheduler.buckets)
+    for cfg in rep["tuned_configs"].values():
+        assert cfg["variant"] in ("packed", "batch-major")
+    assert rep["cuda_graphs"] == dict.fromkeys(tb.available_backends(),
+                                               False)
+    # the tuner wrote every bucket to the cache; a second engine reads it
+    entries = json.loads((tmp_path / "c.json").read_text())["entries"]
+    assert len(entries) == len(eng.scheduler.buckets)
+    auto_before = eng.auto
+    eng.use_backend("packed-xla")
+    assert eng.auto is None and eng.backend.name == "packed-eager"
+    eng.use_backend("auto")
+    assert eng.auto is auto_before
+    with pytest.raises(ValueError, match="unknown serving backend"):
+        eng.use_backend("nope")
+
+
+def test_autotune_off_by_environment(tmp_path, monkeypatch):
+    """``REPRO_AUTOTUNE=0`` turns the startup tuning off, also for
+    ``backend="auto"``; ``autotune=True`` tunes a pinned backend."""
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "c.json"))
+    eng = ServingEngine("dwn-jsc-sm", max_bucket=16, n_train=600,
+                        autotune=True, device="cpu")
+    assert sorted(eng.tuned_configs) == list(eng.scheduler.buckets)
+    assert eng.backend.name == "fused-packed" and eng.auto is None
+    monkeypatch.setenv("REPRO_AUTOTUNE", "0")
+    eng = ServingEngine("dwn-jsc-sm", max_bucket=16, n_train=600,
+                        backend="auto", device="cpu")
+    assert eng.tuned_configs == {} and eng.auto is not None
+
+
+def test_ragged_stream_compiles_once_per_bucket():
+    """Twin of the reference's
+    ``test_engine_ragged_stream_compiles_once_per_bucket``: a ragged
+    stream builds at most one step per (backend, bucket), at ladder
+    buckets only, and every request equals the oracle."""
+    engine = ServingEngine("dwn-jsc-sm", max_bucket=64, min_bucket=8,
+                           n_train=800, device="cpu")
+    rng = np.random.default_rng(0)
+    sizes = [5, 17, 64, 3, 100, 23, 64, 9, 2, 31]
+    for n in sizes:
+        engine.submit(engine.make_request(n, seed=int(rng.integers(2**31))))
+    done = engine.drain()
+    assert sum(r.size for r in done) == sum(sizes)
+    counts = engine.compile_counts()
+    assert 64 in counts["fused-packed"] and len(counts["fused-packed"]) > 1
+    for backend, per_bucket in counts.items():
+        assert set(per_bucket) <= set(engine.scheduler.buckets), backend
+        assert all(v == 1 for v in per_bucket.values()), (backend,
+                                                          per_bucket)
+    assert engine.report()["compiles"] == counts
+    oracle = engine.backends["float-oracle"]
+    for r in done:
+        c, p = oracle(torch.from_numpy(np.ascontiguousarray(r.payload)))
+        np.testing.assert_array_equal(r.result[0], c.numpy())
+        np.testing.assert_array_equal(r.result[1], p.numpy())
+    rep = engine.report()
+    assert rep["served"] == sum(sizes)
+    assert rep["bit_exact_vs_oracle"] == {"fused-packed": True,
+                                          "packed-eager": True}
+
+
+def test_verification_probes_every_tuned_bucket():
+    """The startup check runs every non-oracle backend at each bucket
+    whose tuned config differs from the default, beside the largest."""
+    eng = ServingEngine("dwn-jsc-sm", max_bucket=32, n_train=600,
+                        device="cpu", verify=False)
+    from repro_torch.kernels.autotune import FusedConfig
+    eng.model.tuned_configs.update({8: FusedConfig("batch-major"),
+                                    16: FusedConfig()})
+    tb.verify_backends(eng.model, list(eng.backends.values()),
+                       eng.data.x_test[:32])
+    assert eng.compile_counts()["fused-packed"] == {8: 1, 32: 1}
+
+
+def test_serve_cli_backend_auto_on_cpu(capsys, tmp_path, monkeypatch):
+    """``--backend auto`` serves and reports each bucket's choice."""
+    from repro_torch.launch import serve
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "c.json"))
+    assert serve.main(["--arch", "dwn-jsc-sm", "--reduced", "--requests",
+                       "2", "--batch", "16", "--backend", "auto",
+                       "--device", "cpu"]) == 0
+    rep = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rep["datapath"] == "auto"
+    assert sorted(rep["auto"]["choice"]) == ["16", "8"]
