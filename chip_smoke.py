@@ -12,8 +12,9 @@ Phases, each printing one JSON line:
    power limit, and its largest SM clock (the operation bounds use it);
 2. build   — compiles every CUDA kernel source with nvcc (all at once),
    prints the assembler's register, shared-memory and spill lines and
-   the fused kernels' registers and shared memory, and fails if a fused
-   kernel spills;
+   the tile kernels' (K1, K2, K6 and its combine, K4, and the rows
+   kernels kept beside K6 and K4) registers and shared memory, and fails
+   if one of them spills;
 3. kernels — at dwn-jsc-lg width (F=16, T=200, m=2400, n=6, 5 classes,
    operands from a numpy seed) holds K2 (packed) and K1 (batch-major)
    against their plain PyTorch versions on the card, bit for bit, at
@@ -28,8 +29,13 @@ Phases, each printing one JSON line:
    the zero kernel of a split launch on its own against ``Tensor.zero_``;
 4. staged  — the staged packed datapath at the same width: the three
    stage kernels (packed encode, LUT layer, masked popcount + classify)
-   each held against its plain version bit for bit (B = 4096, 1000, 1, the
-   (120, 50) stack, PEN, a ragged F*T = 21); then ``encode_packed`` ->
+   each held against its plain version bit for bit (B = 4096, 4097, 1000,
+   33, 31, 1, the (120, 50) stack, PEN, a ragged F*T = 21, fan-in 1, 10
+   and 16; the LUT layer also on 7264-word input rows, the widest it
+   takes, and 454-word ones, the widest a tile of 32 samples takes, and
+   in a CUDA graph replay; each of its launches held to the path it must
+   take, the layer staged per block or the rows kernel); then
+   ``encode_packed`` ->
    ``evaluate_packed`` per layer -> ``classify_packed`` at B=4096, equal to
    the fused packed kernel and to the float oracle ``apply_hard``, with
    the launch counters showing one encode, one LUT launch per layer and one
@@ -39,16 +45,20 @@ Phases, each printing one JSON line:
 5. float   — the float datapath at the same width: the float encode, the
    float LUT layer (multilinear table evaluation), the group popcount +
    classify and the float fused kernel, each held against its plain
-   version (B = 4096, 1000, 1, the (120, 50) stack, PEN, a ragged
-   F*T = 21, m = 2402 LUTs of which two count for no class) bit for bit,
-   and within a stated tolerance on soft bits and float tables; then
+   version (B = 4096, 4097, 1000, 33, 31, 1, the (120, 50) stack, PEN, a
+   ragged F*T = 21, m = 2402 LUTs of which two count for no class, fan-in
+   1 to 8; the fused kernel also at several block_b and block_m) bit for
+   bit, and within a stated tolerance on soft bits and float tables (the
+   fused kernel bitwise the same in two calls and in a CUDA graph replay;
+   its combine kernel alone equal to its plain version); then
    ``encode`` -> ``evaluate`` per layer -> ``classify`` at B=4096, equal
    to the float fused ``forward``, the staged packed path, the packed
    fused kernel and ``apply_hard``, with the launch counters showing one
    encode, one LUT launch per layer and one classify per pass and one
    fused launch per ``forward``; then each float kernel, the float and
    packed staged totals and the three fused kernels timed in the same
-   run, and the float fused kernel's block_b and block_m swept;
+   run, the float fused kernel also at the served buckets and over its
+   block_b (samples a tile) and block_m (most LUTs a slice);
 6. flash   — the flash-attention kernel against its plain version at the
    qwen3-8b head shape (32 query heads over 8 KV heads, head_dim 128, bf16
    from a numpy seed) for (B, S) in (1, 1), (2, 33), (1, 129), (2, 255),
@@ -209,6 +219,43 @@ def graph_ms(fn, iters: int = 100, replays: int = 5) -> float:
     return start.elapsed_time(end) / (iters * replays)
 
 
+def replayed(fn):
+    """``fn()``'s outputs from one replay of a CUDA graph that captured
+    it (after a warm-up on a side stream, as :func:`graph_ms` does)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+def rows_kernel(library, signatures, fn, *args):
+    """A call that launches a kept rows kernel (the port's first design of
+    K6 or K4, which the wrappers take for shapes the tile kernels do not:
+    K6 features over 454, K4 rows over 454 words or fan-in 16) through its
+    C entry point ``fn(*args, stream)`` on the current stream, for a
+    same-call comparison with the tile kernel at shapes the wrappers send
+    to the tiles.  These launches are not counted: they are not the main
+    path's."""
+    import torch
+    from repro_torch.kernels._launch import bind
+    lib = bind(library, signatures)
+
+    def call():
+        err = getattr(lib, fn)(*args,
+                               torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"{fn} failed: CUDA error {err}")
+    return call
+
+
 def make_model(rng, F, T, counts, n, pen_frac=None):
     """Random thresholds (ascending per feature), wires and {0,1} tables."""
     from repro_torch.core.thermometer import quantize_fixed_point
@@ -255,6 +302,10 @@ def model_bytes_and_ops(variant, B, F, T, counts, n, C):
         nbytes = (B * F * 4 + F * T * 4 + m0 * n * 4 + m0 * A * 4
                   + B * C * 4 + B * 4)
         return nbytes, {"int": B * m0 * (n + 1), "fp32": B * m0}
+    if variant == "float_combine":
+        chunks = C * -(-(m0 // C) // 32)
+        return (B * chunks * 4 + B * C * 4 + B * 4,
+                {"fp32": B * chunks, "int": B * C})
     if variant == "thermometer":
         return (B * F * 4 + F * T * 4 + B * w_in * 4, {"int": B * F * T})
     if variant == "lut_eval":
@@ -300,31 +351,39 @@ PTXAS_KEEP = ("registers", "spill", "smem", "Compiling entry",
               "Performance Loss")
 
 
-#: the fused library's kernels: (symbol in ptxas's entry names, name)
-FUSED_SYMBOLS = (
-    ("fused_tiles_kernelILb0ELb1E", "fused_dwn_packed"),
-    ("fused_tiles_kernelILb0ELb0E", "fused_dwn_packed, model in global"),
-    ("fused_tiles_kernelILb1ELb1E", "fused_dwn_batch_major"),
-    ("fused_tiles_kernelILb1ELb0E",
+#: the tile kernels: (library, symbol in ptxas's entry names, name)
+TILE_SYMBOLS = (
+    ("fused_dwn", "fused_tiles_kernelILb0ELb1E", "fused_dwn_packed"),
+    ("fused_dwn", "fused_tiles_kernelILb0ELb0E",
+     "fused_dwn_packed, model in global"),
+    ("fused_dwn", "fused_tiles_kernelILb1ELb1E", "fused_dwn_batch_major"),
+    ("fused_dwn", "fused_tiles_kernelILb1ELb0E",
      "fused_dwn_batch_major, model in global"),
-    ("zero_kernel", "fused_dwn_zero"),
-    ("fused_dwn_kernel", "fused_dwn"))
+    ("fused_dwn", "zero_kernel", "fused_dwn_zero"),
+    *(("fused_dwn", f"fused_dwn_kernelILi{n}E", f"fused_dwn, fan-in {n}")
+      for n in range(1, 9)),
+    ("fused_dwn", "fused_dwn_combine_kernel", "fused_dwn_combine"),
+    ("fused_dwn", "fused_dwn_rows_kernel", "fused_dwn, rows"),
+    ("lut_eval", "lut_eval_packed_kernel", "lut_eval_packed"),
+    ("lut_eval", "lut_eval_packed_rows_kernel",
+     "lut_eval_packed, rows"))
 
 
 def phase_build():
     """Every kernel library built at once; returns name -> its ptxas
-    lines.  The fused kernels' registers, static shared memory and spills
-    are printed (the dynamic shared memory of K1 and K2 is in the kernels
-    phase, as each launch reports it); a spill fails the run."""
+    lines.  The tile kernels' (K1, K2, K6, K4 and their helpers)
+    registers, static shared memory and spills are printed (their dynamic
+    shared memory is in the later phases, as each launch reports it); a
+    spill fails the run."""
     from repro_torch.kernels import _build
     res = _build.build_all()
     libs = {name: {"seconds": r["seconds"], "cached": r["cached"],
                    "ptxas": [line for line in r["ptxas"]
                              if any(k in line for k in PTXAS_KEEP)]}
             for name, r in res.items()}
-    fused = {name: _ptxas_resources(libs["fused_dwn"]["ptxas"], symbol)
-             for symbol, name in FUSED_SYMBOLS}
-    emit({"phase": "build", "libraries": libs, "fused_kernels": fused})
+    tiles = {name: _ptxas_resources(libs[lib]["ptxas"], symbol)
+             for lib, symbol, name in TILE_SYMBOLS}
+    emit({"phase": "build", "libraries": libs, "tile_kernels": tiles})
     return {name: lib["ptxas"] for name, lib in libs.items()}
 
 
@@ -535,9 +594,19 @@ def _staged_pass(x, th, maps, tabs, C):
     return counts, idx, launches
 
 
-def phase_staged(device, batches=(4096, 1000, 1), time_batch=4096):
-    """The three stage kernels equal to their plain versions; the staged
-    path equal to the fused kernel and the float oracle; timings."""
+#: the LUT-layer kernel's path on each staged case ("tiles": the layer
+#: staged per block; "rows": the rows kernel, for rows too wide for a tile
+#: or fan-in 16, whose word of LUTs does not fit a block)
+K4_PATHS = {"fan16-480": "rows", "wide-7264": "rows"}
+
+
+def phase_staged(device, batches=(4096, 4097, 1000, 33, 31, 1),
+                 time_batch=4096):
+    """The three stage kernels equal to their plain versions (K4 also at
+    fan-in 1, 10 and 16, on the widest input rows it takes and in a CUDA
+    graph replay, each launch's path held to :data:`K4_PATHS`); the
+    staged path equal to the fused kernel and the float oracle;
+    timings."""
     import torch
     from repro_torch.core import bitpack as bp
     from repro_torch.core.classifier import predict
@@ -555,25 +624,46 @@ def phase_staged(device, batches=(4096, 1000, 1), time_batch=4096):
     rng = np.random.default_rng(1)
     F, T, m, n, C = (LG[k] for k in ("F", "T", "m", "n", "C"))
     x_all = rng.uniform(-1, 1, (max(batches), F)).astype(np.float32)
-    cases = [("lg-2400", F, T, (m,), None, batches),
-             ("stack-120-50", F, T, (120, 50), None, batches[1:]),
-             ("lg-2400-pen9", F, T, (m,), 8, batches[:2]),
-             ("ragged-3x7", 3, 7, (40,), None, batches)]
+    # (case, F, T, LUTs per layer, fan-in, PEN fraction bits, batches)
+    cases = [("lg-2400", F, T, (m,), n, None, batches),
+             ("stack-120-50", F, T, (120, 50), n, None, batches[2:]),
+             ("lg-2400-pen9", F, T, (m,), n, 8, batches[:3]),
+             ("ragged-3x7", 3, 7, (40,), n, None, batches[2:]),
+             ("fan1-480", F, T, (480,), 1, None, batches[2:4]),
+             ("fan10-480", F, T, (480,), 10, None, batches[2:4]),
+             ("fan16-480", F, T, (480,), 16, None, batches[2:4])]
     checks, max_err, models = [], dict.fromkeys(STAGES, 0.0), {}
+    k4_paths = {}
 
-    def held(name, case, B, got, ref):
+    def held(name, case, B, got, ref, **extra):
         err = float((got.double() - ref.double()).abs().max()) if B else 0.0
         equal = bool(torch.equal(got, ref))
         checks.append({"kernel": name, "case": case, "B": B,
-                       "equal": equal})
+                       "equal": equal, **extra})
         max_err[name] = max(max_err[name], err)
         if not equal:
             emit({"phase": "staged", "checks": checks})
             raise SystemExit(f"{name} differs from its plain version: "
                              f"{case}, B={B}, max |diff| {err}")
 
-    for case, Fc, Tc, counts, frac, bs in cases:
-        th, maps, tabs = make_model(rng, Fc, Tc, counts, n, frac)
+    def k4_held(case, B, words, widx, boff, tab):
+        out = KL.lut_eval_packed(words, widx, boff, tab)
+        torch.cuda.synchronize()
+        path = KL.last_launch()["path"]
+        k4_paths[case] = path
+        held("lut_eval_packed", case, B, bp.from_word_pattern(out),
+             RL.lut_eval_packed_plain(words, widx, boff, tab), path=path)
+        if B and path != K4_PATHS.get(case, "tiles"):
+            raise SystemExit(f"lut_eval_packed took the {path} path on "
+                             f"{case}, B={B}")
+        m_l = widx.shape[0]
+        if bp.unpack_bits(out, out.shape[1] * 32)[:, m_l:].any():
+            raise SystemExit(f"lut_eval_packed set a pad bit past "
+                             f"LUT {m_l}: {case}, B={B}")
+        return out
+
+    for case, Fc, Tc, counts, fan_in, frac, bs in cases:
+        th, maps, tabs = make_model(rng, Fc, Tc, counts, fan_in, frac)
         th_d = torch.from_numpy(th).to(device)
         maps_d = [torch.from_numpy(a).to(device) for a in maps]
         tabs_d = [torch.from_numpy(a).to(device) for a in tabs]
@@ -594,20 +684,35 @@ def phase_staged(device, batches=(4096, 1000, 1), time_batch=4096):
             held("thermometer_encode_packed", case, B,
                  bp.from_word_pattern(words),
                  RT.thermometer_packed_plain(x, th_d))
-            for (widx, boff, tab), m_l in zip(layers, counts):
-                out = KL.lut_eval_packed(words, widx, boff, tab)
-                torch.cuda.synchronize()
-                held("lut_eval_packed", case, B, bp.from_word_pattern(out),
-                     RL.lut_eval_packed_plain(words, widx, boff, tab))
-                if bp.unpack_bits(out, out.shape[1] * 32)[:, m_l:].any():
-                    raise SystemExit(f"lut_eval_packed set a pad bit past "
-                                     f"LUT {m_l}: {case}, B={B}")
-                words = out
+            for widx, boff, tab in layers:
+                words = k4_held(case, B, words, widx, boff, tab)
             got_c, got_i = KP.popcount_classify_packed(words, masks)
             torch.cuda.synchronize()
             ref_c, ref_i = RP.popcount_classify_packed_plain(words, masks)
             held("popcount_classify_packed", case, B, got_c, ref_c)
             held("popcount_classify_packed", case, B, got_i, ref_i)
+
+    # K4 alone on the widest input rows the rows kernel takes (7264 words:
+    # rows path) and on the widest a tile takes (454 words), random words
+    for case, W_in, B in (("wide-7264", 7264, 100), ("wide-454", 454, 1000)):
+        words = bp.to_word_pattern(torch.from_numpy(rng.integers(
+            0, 2 ** 32, (B, W_in), dtype=np.uint64).astype(np.int64))).to(
+            device)
+        mp = torch.from_numpy(rng.integers(0, W_in * 32, (256, n)).astype(
+            np.int32)).to(device)
+        tb = torch.from_numpy(rng.integers(0, 2, (256, 2 ** n)).astype(
+            np.int32)).to(device)
+        k4_held(case, B, words,
+                *next(FR.LayerStack.build([mp], [tb], W_in * 32,
+                                          device).layers()))
+    # a CUDA graph replay equals the eager call (lg-2400, B = 4096)
+    th_d, layers = models["lg-2400"][3], models["lg-2400"][6]
+    w0 = KT.thermometer_encode_packed(
+        torch.from_numpy(x_all[:time_batch]).to(device), th_d)
+    eager = KL.lut_eval_packed(w0, *layers[0])
+    graphed = replayed(lambda: KL.lut_eval_packed(w0, *layers[0]))
+    held("lut_eval_packed", "lg-2400-graph-replay", time_batch, graphed,
+         eager)
 
     # the staged path end to end at dwn-jsc-lg width, then on the stack
     x = torch.from_numpy(x_all[:time_batch]).to(device)
@@ -657,6 +762,34 @@ def phase_staged(device, batches=(4096, 1000, 1), time_batch=4096):
                         "eager_ms": time_ms(fn, iters=200, warmup=10),
                         "plain_ms": time_ms(plain, iters=5, warmup=1),
                         **_bound(STAGES[name][2], *shape)}
+    # K4 at the served buckets, with each launch's layout
+    timing["lut_eval_packed"]["bucket_ms"] = {
+        B: graph_ms(lambda B=B: KL.lut_eval_packed(w0[:B], widx, boff, tab))
+        for B in SERVED_BUCKETS}
+    timing["lut_eval_packed"]["bucket_layout"] = {
+        B: (KL.lut_eval_packed(w0[:B], widx, boff, tab),
+            KL.last_launch())[1] for B in SERVED_BUCKETS}
+    timing["lut_eval_packed"]["bucket_bound_ms"] = {
+        B: _bound("lut_eval", B, *shape[1:])["bound_ms"]
+        for B in SERVED_BUCKETS}
+    # the first design (one warp a sample), kept as the rows kernel, in the
+    # same call, and its output at time_batch held to the plain version
+    out_rows = torch.empty_like(w1)
+
+    def k4_rows(B):
+        return rows_kernel(
+            KL.LIBRARY, KL._SIGNATURES, "lut_eval_packed_rows_launch",
+            w0.data_ptr(), B, w0.shape[1], widx.data_ptr(),
+            boff.data_ptr(), tab.data_ptr(), m, n, tab.shape[1],
+            out_rows.data_ptr())
+    timing["lut_eval_packed"]["rows_kernel_bucket_ms"] = {
+        B: graph_ms(k4_rows(B)) for B in SERVED_BUCKETS}
+    out_rows.zero_()
+    k4_rows(time_batch)()
+    torch.cuda.synchronize()
+    held("lut_eval_packed", "lg-2400-rows-kernel", time_batch,
+         bp.from_word_pattern(out_rows),
+         RL.lut_eval_packed_plain(w0, widx, boff, tab))
     fused = make_forward_packed(th_d, maps_d, tabs_d, C)
 
     def three():
@@ -674,6 +807,7 @@ def phase_staged(device, batches=(4096, 1000, 1), time_batch=4096):
         "fused_packed_bound_ms": _bound("packed", *shape)["bound_ms"]}
     emit({"phase": "staged", "checks": len(checks),
           "all_equal": all(c["equal"] for c in checks),
+          "lut_eval_packed_paths": k4_paths,
           "max_abs_err": max_err, "passes": passes,
           "timing_batch": time_batch, "timing": timing, "staged": staged})
     return max_err, timing, launches
@@ -693,6 +827,10 @@ FLOAT = {
     "fused_dwn": (
         "src/repro_torch/kernels/fused/csrc/fused_dwn.cu",
         "src/repro/kernels/fused/kernel.py:107", "float_fused"),
+    # K6's second kernel: each class's chunk sums in order, the argmax
+    "fused_dwn_combine": (
+        "src/repro_torch/kernels/fused/csrc/fused_dwn.cu",
+        "src/repro/kernels/fused/kernel.py:107", "float_combine"),
 }
 #: where an operand is not {0,1} the float kernels are held to their plain
 #: versions within a tolerance (nvcc contracts a*b+c into FMA, eager
@@ -701,9 +839,25 @@ FLOAT = {
 #: kernel (tests/test_kernels.py:85).  Every other check is exact.
 SOFT_BITS_ATOL = 1e-5
 FLOAT_TABLES_ATOL = 1e-4
-#: fused_dwn's samples per block and LUTs per tile swept at B=4096
-FUSED_DWN_BLOCK_B_SWEEP = (8, 16, 32, 64, 128)
-FUSED_DWN_BLOCK_M_SWEEP = (32, 64, 128, 256)
+#: fused_dwn's samples per tile (rounded up to 32) and most LUTs per slice
+#: (cut to whole chunks of 32 and class groups; None, the default: as
+#: many as fit, one class group of 480 LUTs at lg-2400) swept at B=4096
+FUSED_DWN_BLOCK_B_SWEEP = (32, 64, 128)
+FUSED_DWN_BLOCK_M_SWEEP = (64, 128, 256, None)
+#: (block_b, block_m) fused_dwn is also held to its plain version at, B =
+#: 1000: below a chunk, one sample a tile, between chunks, the
+#: FusedConfig default, more samples than a block holds, more LUTs than a
+#: tile block holds (cut to the widest slice that fits; the most the rows
+#: kernel took at fan-in 6)
+FUSED_DWN_CHECKED = ((7, 7), (1, 256), (64, 100), (32, 128), (4096, 512),
+                     (32, 764))
+#: features of the float phase's wide case: two tiles of 32 samples'
+#: features take over half a block, so fused_dwn sends it to the rows
+#: kernel (K6_PATHS)
+WIDE_F = 500
+#: the float fused kernel's path on each float case ("tiles" where not
+#: named: the model's slice staged per block; "rows": the rows kernel)
+K6_PATHS = {"wide-500": "rows"}
 
 
 def _float_pass(x, th, maps, tabs, C):
@@ -735,13 +889,18 @@ def _forward_pass(x, th, mapping, tables, C):
     counts, idx = forward(x, th, mapping, tables, C)
     torch.cuda.synchronize()
     return (counts, idx,
-            _expect_launches("forward", {"fused_dwn": 1}))
+            _expect_launches("forward", {"fused_dwn": 1,
+                                         "fused_dwn_combine": 1}))
 
 
-def phase_float(device, batches=(4096, 1000, 1), time_batch=4096):
-    """The four float kernels equal to their plain versions; the float
-    staged path equal to the float fused kernel, the packed staged path,
-    the packed fused kernel and the float oracle; timings."""
+def phase_float(device, batches=(4096, 4097, 1000, 33, 31, 1),
+                time_batch=4096):
+    """The four float kernels equal to their plain versions (K6 at fan-in
+    1 to 8, at every (block_b, block_m) of :data:`FUSED_DWN_CHECKED`,
+    bitwise the same in two calls and in a CUDA graph replay on float
+    tables, its combine kernel alone); the float staged path equal to the
+    float fused kernel, the packed staged path, the packed fused kernel
+    and the float oracle; timings."""
     import torch
     from repro_torch.core.classifier import predict
     from repro_torch.core.model import JSC_PRESETS, FrozenDWN, apply_hard
@@ -758,13 +917,20 @@ def phase_float(device, batches=(4096, 1000, 1), time_batch=4096):
     rng = np.random.default_rng(2)
     F, T, m, n, C = (LG[k] for k in ("F", "T", "m", "n", "C"))
     x_all = rng.uniform(-1, 1, (max(batches), F)).astype(np.float32)
-    # (case, F, T, LUTs per layer, PEN fraction bits, batches)
-    cases = [("lg-2400", F, T, (m,), None, batches),
-             ("stack-120-50", F, T, (120, 50), None, batches[1:]),
-             ("lg-2400-pen9", F, T, (m,), 8, batches[:2]),
-             ("ragged-3x7", 3, 7, (40,), None, batches),
-             ("lg-2402", F, T, (m + 2,), None, batches[:2])]
+    # (case, F, T, LUTs per layer, fan-in, PEN fraction bits, batches)
+    cases = [("lg-2400", F, T, (m,), n, None, batches),
+             ("stack-120-50", F, T, (120, 50), n, None, batches[2:]),
+             ("lg-2400-pen9", F, T, (m,), n, 8, batches[:3]),
+             ("ragged-3x7", 3, 7, (40,), n, None, batches[2:]),
+             ("lg-2402", F, T, (m + 2,), n, None, batches[:3]),
+             *((f"fan{k}-1000", F, T, (1000,), k, None, batches[2:4])
+               for k in range(1, 9) if k != n),
+             ("wide-500", WIDE_F, 4, (130,), n, None, (4097, 1000, 33))]
+    # features of the wide case, from a generator of their own
+    x_wide = np.random.default_rng(3).uniform(
+        -1, 1, (max(batches), WIDE_F)).astype(np.float32)
     checks, max_err, models = [], dict.fromkeys(FLOAT, 0.0), {}
+    k6_paths = {}
 
     def held(name, case, got, ref, atol=0.0, **extra):
         B = got.shape[0]
@@ -781,14 +947,14 @@ def phase_float(device, batches=(4096, 1000, 1), time_batch=4096):
     def corner_major(tab):
         return tab.to(torch.float32).T.contiguous()
 
-    for case, Fc, Tc, counts, frac, bs in cases:
-        th, maps, tabs = make_model(rng, Fc, Tc, counts, n, frac)
+    for case, Fc, Tc, counts, fan_in, frac, bs in cases:
+        th, maps, tabs = make_model(rng, Fc, Tc, counts, fan_in, frac)
         th_d = torch.from_numpy(th).to(device)
         maps_d = [torch.from_numpy(a).to(device) for a in maps]
         tabs_d = [torch.from_numpy(a).to(device) for a in tabs]
         models[case] = (th, maps, tabs, th_d, maps_d, tabs_d)
         for B in bs:
-            xb = np.ascontiguousarray(x_all[:B, :Fc])
+            xb = np.ascontiguousarray((x_all if Fc <= F else x_wide)[:B, :Fc])
             if frac is not None:
                 xb = quantize_fixed_point(xb, frac).astype(np.float32)
             x = torch.from_numpy(xb).to(device)
@@ -812,17 +978,24 @@ def phase_float(device, batches=(4096, 1000, 1), time_batch=4096):
                 tab_f = tabs_d[0].to(torch.float32)
                 ref_c, ref_i = RF.fused_dwn_plain(x, th_d, maps_d[0], tab_f,
                                                   C)
-                blocks = ([(KF.FUSED_DWN_BLOCK_B, KF.FUSED_DWN_BLOCK_M),
-                           (7, 7), (1, 256), (64, 100)] if B == 1000
-                          else [(KF.FUSED_DWN_BLOCK_B, KF.FUSED_DWN_BLOCK_M)])
+                blocks = [(KF.FUSED_DWN_BLOCK_B, None)]
+                if B == 1000 and case == "lg-2400":
+                    blocks += FUSED_DWN_CHECKED
                 for bb, bm in blocks:
                     got_c, got_i = KF.fused_dwn(x, th_d, maps_d[0], tab_f, C,
                                                 block_b=bb, block_m=bm)
                     torch.cuda.synchronize()
+                    lay = KF.last_float_launch()
+                    k6_paths[case] = lay["path"]
                     held("fused_dwn", case, got_c, ref_c, block_b=bb,
-                         block_m=bm)
+                         block_m=bm, path=lay["path"],
+                         slices=lay["slices"])
                     held("fused_dwn", case, got_i, ref_i, block_b=bb,
                          block_m=bm)
+                    if B and lay["path"] != K6_PATHS.get(case, "tiles"):
+                        raise SystemExit(f"fused_dwn took the "
+                                         f"{lay['path']} path: {case}, "
+                                         f"B={B}, {bb}/{bm}")
 
     # denormal features against 0.0 thresholds: IEEE compares (no
     # flush-to-zero), so 1e-40 is above 0.0 and -1e-40 is not
@@ -847,14 +1020,34 @@ def phase_float(device, batches=(4096, 1000, 1), time_batch=4096):
         held("lut_eval", f"soft-bits-{label}", out,
              RL.lut_eval_plain(soft, mp, tb), atol=SOFT_BITS_ATOL)
     x = torch.from_numpy(x_all[:time_batch]).to(device)
-    got_c, got_i = KF.fused_dwn(x, th_d, mp, ftab, C)
+    for B in (time_batch, 4097, 1000, 33, 1):
+        xb = torch.from_numpy(x_all[:B]).to(device)
+        got_c, got_i = KF.fused_dwn(xb, th_d, mp, ftab, C)
+        torch.cuda.synchronize()
+        ref_c, ref_i = RF.fused_dwn_plain(xb, th_d, mp, ftab, C)
+        held("fused_dwn", "float-tables", got_c, ref_c,
+             atol=FLOAT_TABLES_ATOL)
+        top2 = ref_c.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > FLOAT_TABLES_ATOL
+        held("fused_dwn", "float-tables-idx", got_i[clear], ref_i[clear],
+             rows_compared=int(clear.sum()))
+        # deterministic: a second call and a graph replay, bit for bit
+        again = KF.fused_dwn(xb, th_d, mp, ftab, C)
+        graphed = replayed(lambda: KF.fused_dwn(xb, th_d, mp, ftab, C))
+        torch.cuda.synchronize()
+        for label, out in (("again", again), ("graph-replay", graphed)):
+            held("fused_dwn", f"float-tables-{label}", out[0], got_c)
+            held("fused_dwn", f"float-tables-{label}", out[1], got_i)
+    # the combine kernel alone on random chunk sums: the plain version
+    # adds in the same order, so the two agree bit for bit
+    cpc = -(-(m // C) // 32)
+    part = torch.from_numpy(rng.uniform(-16, 16, (C * cpc, time_batch))
+                            .astype(np.float32)).to(device)
+    got = KF.fused_dwn_combine(part, C)
     torch.cuda.synchronize()
-    ref_c, ref_i = RF.fused_dwn_plain(x, th_d, mp, ftab, C)
-    held("fused_dwn", "float-tables", got_c, ref_c, atol=FLOAT_TABLES_ATOL)
-    top2 = ref_c.topk(2, dim=-1).values
-    clear = (top2[:, 0] - top2[:, 1]) > FLOAT_TABLES_ATOL
-    held("fused_dwn", "float-tables-idx", got_i[clear], ref_i[clear],
-         rows_compared=int(clear.sum()))
+    ref = RF.fused_dwn_combine_plain(part, C)
+    held("fused_dwn_combine", "random-chunk-sums", got[0], ref[0])
+    held("fused_dwn_combine", "random-chunk-sums", got[1], ref[1])
 
     # the float path end to end at dwn-jsc-lg width, then on the stack
     launches = dict.fromkeys(FLOAT, 0)
@@ -876,7 +1069,8 @@ def phase_float(device, batches=(4096, 1000, 1), time_batch=4096):
                 "equal_apply_hard": (oracle, predict(oracle))}
         if case == "lg-2400":
             fc, fi, fgot = _forward_pass(x, th_d, maps_d[0], tabs_d[0], C)
-            launches["fused_dwn"] += fgot["fused_dwn"]
+            for name in ("fused_dwn", "fused_dwn_combine"):
+                launches[name] += fgot[name]
             passes[case]["forward_launches"] = fgot
             same["equal_fused_dwn"] = (fc, fi)
         for key, (c, i) in same.items():
@@ -911,7 +1105,11 @@ def phase_float(device, batches=(4096, 1000, 1), time_batch=4096):
             lambda: out.view(B, C, g).sum(-1).argmax(-1)),
         "fused_dwn": (
             lambda: KF.fused_dwn(x, th_d, mp, tab_f, C),
-            lambda: RF.fused_dwn_plain(x, th_d, mp, tab_f, C), None)}
+            lambda: RF.fused_dwn_plain(x, th_d, mp, tab_f, C), None),
+        "fused_dwn_combine": (
+            lambda: KF.fused_dwn_combine(part, C),
+            lambda: RF.fused_dwn_combine_plain(part, C),
+            lambda: part.view(C, cpc, B).sum(1).argmax(0))}
     # "ms": the card's time per launch (CUDA graph); "eager_ms": a loop of
     # wrapper calls, which measures the host where it is the slower
     timing = {}
@@ -922,14 +1120,44 @@ def phase_float(device, batches=(4096, 1000, 1), time_batch=4096):
             "plain_ms": time_ms(plain, iters=5, warmup=1),
             "library_ms": graph_ms(yardstick) if yardstick else None,
             **_bound(FLOAT[name][2], *shape)}
-    timing["fused_dwn"]["block_b_ms"] = {
-        bb: graph_ms(lambda: KF.fused_dwn(x, th_d, mp, tab_f, C, block_b=bb),
-                     iters=50)
-        for bb in FUSED_DWN_BLOCK_B_SWEEP}
-    timing["fused_dwn"]["block_m_ms"] = {
-        bm: graph_ms(lambda: KF.fused_dwn(x, th_d, mp, tab_f, C, block_m=bm),
-                     iters=50)
-        for bm in FUSED_DWN_BLOCK_M_SWEEP}
+    # K6 at the served buckets and over its tile parameters, each launch's
+    # layout beside its time
+    timing["fused_dwn"]["float_tables_ms"] = graph_ms(
+        lambda: KF.fused_dwn(x, th_d, mp, ftab, C))
+    timing["fused_dwn"]["bucket_ms"] = {
+        B: graph_ms(lambda B=B: KF.fused_dwn(x[:B], th_d, mp, tab_f, C))
+        for B in SERVED_BUCKETS}
+    timing["fused_dwn"]["bucket_layout"] = {
+        B: (KF.fused_dwn(x[:B], th_d, mp, tab_f, C),
+            KF.last_float_launch())[1] for B in SERVED_BUCKETS}
+    timing["fused_dwn"]["bucket_bound_ms"] = {
+        B: _bound("float_fused", B, *shape[1:])["bound_ms"]
+        for B in SERVED_BUCKETS}
+    # the first design (lanes over LUTs, 16 rows and 256 LUTs a step),
+    # kept as the rows kernel, in the same call, and its output at B held
+    # to the plain version
+    counts_rows = torch.empty((B, C), device=device)
+    idx_rows = torch.empty((B,), dtype=torch.int32, device=device)
+
+    def k6_rows(b):
+        return rows_kernel(
+            KF.LIBRARY, KF._SIGNATURES, "fused_dwn_rows_launch",
+            x.data_ptr(), th_d.data_ptr(), b, F, T, mp.data_ptr(),
+            tab_f.data_ptr(), m, n, C, counts_rows.data_ptr(),
+            idx_rows.data_ptr(), 16, 256)
+    timing["fused_dwn"]["rows_kernel_bucket_ms"] = {
+        b: graph_ms(k6_rows(b)) for b in SERVED_BUCKETS}
+    counts_rows.zero_()
+    idx_rows.fill_(-1)
+    k6_rows(B)()
+    torch.cuda.synchronize()
+    ref_c, ref_i = RF.fused_dwn_plain(x, th_d, mp, tab_f, C)
+    held("fused_dwn", "lg-2400-rows-kernel", counts_rows, ref_c)
+    held("fused_dwn", "lg-2400-rows-kernel", idx_rows, ref_i)
+    timing["fused_dwn"]["block_b_block_m_ms"] = {
+        f"{bb}/{bm}": graph_ms(lambda bb=bb, bm=bm: KF.fused_dwn(
+            x, th_d, mp, tab_f, C, block_b=bb, block_m=bm), iters=50)
+        for bb in FUSED_DWN_BLOCK_B_SWEEP for bm in FUSED_DWN_BLOCK_M_SWEEP}
 
     # the float staged path beside the packed one and the fused kernels
     from repro_torch.core import bitpack as bp
@@ -973,6 +1201,7 @@ def phase_float(device, batches=(4096, 1000, 1), time_batch=4096):
                                              / staged["fused_packed_ms"])
     emit({"phase": "float", "checks": len(checks),
           "all_ok": all(c["ok"] for c in checks),
+          "fused_dwn_paths": k6_paths,
           "max_abs_err": max_err, "passes": passes,
           "timing_batch": time_batch, "timing": timing, "staged": staged})
     return max_err, timing, launches
@@ -1627,7 +1856,9 @@ def main() -> int:
             "replaces": replaced, "launches": stage_launches[name],
             "equal": True, "max_abs_err": stage_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None})
+            "bound_by": t["bound_by"], "library_ms": None,
+            **{k: t[k] for k in ("bucket_ms", "rows_kernel_bucket_ms")
+               if k in t}})
     for name, (source, replaced, _) in FLOAT.items():
         t = float_timing[name]
         summary.append({
@@ -1637,7 +1868,11 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "library": ("two eager calls" if t["library_ms"] is not None
-                        else None)})
+                        else None),
+            **{k: t[k] for k in ("bucket_ms", "rows_kernel_bucket_ms")
+               if k in t},
+            **({"part_of": ["fused_dwn"]} if name == "fused_dwn_combine"
+               else {})})
     t = flash_timing
     summary.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH[0],

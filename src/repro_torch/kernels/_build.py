@@ -2,10 +2,13 @@
 
 Every ``kernels/*/csrc/*.cu`` compiles on its own into a shared library
 with a plain C interface under ``build/repro_torch_kernels/`` at the root
-of the checkout, named by a hash of its sources and flags, so an edit
-rebuilds and an unchanged source is reused.  Nothing is built when a
-module is imported: :func:`load` builds on the first launch of a kernel,
-and :func:`build_all` starts one ``nvcc`` per source, all at once.
+of the checkout, named by a hash of its sources, the headers it
+includes (its own directory's and those of the shared ``kernels/csrc/``
+it names) and the flags, so an edit rebuilds and an unchanged source is
+reused.  Nothing is
+built when a module is imported: :func:`load` builds on the first launch
+of a kernel, and :func:`build_all` starts one ``nvcc`` per source, all at
+once.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ import time
 from pathlib import Path
 
 KERNELS_DIR = Path(__file__).resolve().parent
+#: device code shared by several kernel sources (``tiles.cuh``)
+SHARED_DIR = KERNELS_DIR / "csrc"
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -44,13 +49,19 @@ def nvcc() -> str:
 
 
 def library_path(src: Path) -> Path:
-    """Where ``src`` builds to: keyed by the bytes of every source in its
-    directory and by the flags."""
+    """Where ``src`` builds to: keyed by the bytes of every source and
+    header in its directory, of each :data:`SHARED_DIR` header it
+    includes (``#include "../../csrc/<name>"``), and by the flags."""
+    text = src.read_bytes()
+    deps = [p for p in sorted(src.parent.iterdir())
+            if p.suffix in (".cu", ".cuh", ".h")]
+    if SHARED_DIR.is_dir():
+        deps += [p for p in sorted(SHARED_DIR.iterdir())
+                 if f'csrc/{p.name}"'.encode() in text]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(src.parent.iterdir()):
-        if p.suffix in (".cu", ".cuh", ".h"):
-            h.update(p.name.encode())
-            h.update(p.read_bytes())
+    for p in deps:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
 
 
@@ -108,5 +119,5 @@ def load(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_all", "library_path", "load",
-           "nvcc", "sources"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "SHARED_DIR", "build_all",
+           "library_path", "load", "nvcc", "sources"]

@@ -89,6 +89,18 @@ def device_type(t: torch.Tensor, kernel: str) -> str:
 
 
 _BOUND: dict[str, ctypes.CDLL] = {}
+_SMS: dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the CUDA card ``device``: the tile
+    kernels' wrappers cut a launch into enough blocks to fill them."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SMS[index]
 
 
 def bind(library: str, signatures: dict) -> ctypes.CDLL:
@@ -121,4 +133,4 @@ def launch(lib: ctypes.CDLL, library: str, name: str, device: torch.device,
 
 
 __all__ = ["I", "LaunchCounts", "P", "bind", "device_type", "expect",
-           "launch", "recording", "replay"]
+           "launch", "recording", "replay", "sm_count"]

@@ -74,10 +74,11 @@ class FusedConfig:
         warp's 32 samples, was the fastest of {32, 64, 128, 256} for both
         kernels at dwn-jsc-lg width and 4096 rows on an H100 80GB HBM3 at
         700 W (``chip_smoke.py``; PERF.md).
-      block_m: LUTs per tile of the float fused kernel (``fused_dwn``),
-        which walks the LUTs tile by tile as the reference's sequential m
-        axis does.  No other kernel reads it; the results do not depend
-        on it.
+      block_m: the most LUTs a CUDA block of the float fused kernel
+        (``fused_dwn``) stages at once, its slice of the layer (the
+        reference's tile of its sequential m axis), cut to whole 32-LUT
+        chunks and class groups (``kernel.plan_fused_dwn``).  No other
+        kernel reads it; the results do not depend on it.
     """
 
     variant: str = "packed"
@@ -119,12 +120,14 @@ DEFAULT_CONFIG = FusedConfig()
 @functools.cache
 def kernel_fingerprint() -> str:
     """Hash of the sources whose edits change the fused kernels' speed:
-    ``fused/csrc/fused_dwn.cu``, ``fused/{kernel,ops}.py`` and
+    ``fused/csrc/fused_dwn.cu``, the device code it includes
+    (``csrc/tiles.cuh``), ``fused/{kernel,ops}.py`` and
     ``core/bitpack.py``.  Tuned entries carry it, so a kernel edit
     invalidates them."""
     here = Path(__file__).resolve().parent
     h = hashlib.sha256()
     for path in (here / "fused" / "csrc" / "fused_dwn.cu",
+                 here / "csrc" / "tiles.cuh",
                  here / "fused" / "kernel.py", here / "fused" / "ops.py",
                  here.parent / "core" / "bitpack.py"):
         h.update(path.read_bytes())

@@ -2,34 +2,48 @@
 // bits -> LUT layer(s) -> group popcount -> first argmax, one launch.
 //
 // Replaces the three fused Pallas TPU kernels:
-//   * fused_dwn_kernel          <- src/repro/kernels/fused/kernel.py
-//                                  fused_dwn (_fused_kernel)
+//   * fused_dwn_kernel<n>       <- src/repro/kernels/fused/kernel.py
+//     (+ fused_dwn_combine_kernel) fused_dwn (_fused_kernel)
 //   * fused_tiles_kernel<false> <- src/repro/kernels/fused/kernel.py
 //                                  fused_dwn_packed (_fused_packed_kernel)
 //   * fused_tiles_kernel<true>  <- src/repro/kernels/fused/kernel.py
 //                                  fused_dwn_batch_major (_fused_bm_kernel)
 //
 // fused_dwn_kernel, the float datapath: one layer of m LUTs with float32
-// tables (m, 2^n).  Its bits come from its own compares, so they are
-// exactly 0 or 1, and the reference's multilinear corner product then
-// equals the table entry they address, for finite tables: this kernel
+// tables (m, 2^n), n <= 8.  Its bits come from its own compares, so they
+// are exactly 0 or 1, and the reference's multilinear corner product then
+// equals the table entry they address, for finite tables: the kernel
 // reads tables[l, addr] and compares only the m*n wired bits (wire i =
 // f*T + t is x[f] > th[f, t]), never all F*T.  LUT l counts for class
 // l / g, g = m / C; LUTs from g*C on count for no class (the reference's
-// one-hot class map has a zero row for them).  What bounds it on an H100:
-// it moves 1.05 MB at lg width (x, thresholds, wires, f32 tables, counts)
-// against 59 M wired compares, 9.8 M table reads and 9.8 M class adds at
-// B=4096, so it is bound by operations.  The f32 tables (614 KB at lg
-// width) do not fit a block's shared memory, so the block walks the LUTs
-// in tiles of block_m, as the reference's sequential m axis does: each
-// tile's tables (copied 16 bytes a thread) and wires (feature index and
-// threshold, wire-major) are staged in shared memory and used by all
-// block_b rows of the block.  Lanes take consecutive LUTs and keep their
-// wires in registers across the warp's rows; each lane adds its LUTs'
-// outputs to its own sum per (row, class) in shared memory, and after the
-// last tile the 32 lane sums of a class are added with a butterfly of
-// shuffles: a fixed order, so the sums are deterministic.  LUTs that count
-// for no class are not evaluated.  The first argmax follows.
+// one-hot class map has a zero row for them) and are not evaluated.  What
+// bounds it on an H100: it moves 1.05 MB at lg width (x, thresholds,
+// wires, f32 tables, counts) against 59 M wired compares, 9.8 M table
+// reads and 9.8 M class adds at B=4096, so it is bound by operations.
+// The design (the rows kernel re-reads the model per block of rows, with
+// lanes over LUTs, conflicting table reads and a read-modify-write of a
+// shared-memory sum per output):
+//   * lanes are samples: a warp evaluates one LUT for 32 samples, so every
+//     read of a wire (8 uint16 feature offsets, 8 thresholds: three
+//     16-byte broadcasts) is one address for all lanes, x sits in shared
+//     memory as [group][f][lane] and a lane's table read is tab[addr];
+//   * the counted LUTs are cut into chunks (up to 32 LUTs of one class
+//     group); a lane adds its sample's outputs of a chunk in LUT order in
+//     a register and writes the chunk's sum to a scratch (chunks, B);
+//     fused_dwn_combine_kernel, launched right after, adds each class's
+//     chunk sums in chunk order and takes the first argmax.  The order of
+//     every float sum is fixed by (m, C) alone, so the counts do not depend
+//     on the layout, the batch or the run, and no atomics are needed;
+//   * the f32 tables (614 KB at lg width) do not fit a block, so the
+//     chunks are cut into slices (grid.y), whole class groups where one
+//     fits (lg-2400: one group of 480 LUTs, 146 KB with its wires, a slice)
+//     else pieces of one group; a block stages its slice once with cp.async
+//     and walks tiles of 32*G samples (a persistent grid, the next tile's
+//     features arriving while one is computed); below 132 tiles the
+//     slices are cut narrower (down to one chunk) to fill the card;
+//   * features too wide for two tiles in half a block (F > 454) take
+//     fused_dwn_rows_kernel, the port's first float kernel, kept as it
+//     was.
 //
 // fused_tiles_kernel, the two served kernels (packed: encode all F*T bits,
 // then word-addressed layers; batch-major: the first layer compares only
@@ -85,16 +99,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../csrc/tiles.cuh"
+
 namespace {
 
 constexpr int kMaxLayers = 8;        // == ref.MAX_LAYERS (word-addressed)
 constexpr int kMaxStack = kMaxLayers + 1;  // batch-major: direct + rest
 constexpr int kMaxFanIn = 16;        // == ref.MAX_FAN_IN
 constexpr int kFloatMaxFanIn = 8;    // == kernel.FUSED_DWN_MAX_FAN_IN
-constexpr int kThreads = 256;        // fused_dwn_kernel: 8 warps
-constexpr int kTileThreads = 512;    // fused_tiles_kernel: 16 warps
+constexpr int kThreads = 256;        // fused_dwn_rows_kernel: 8 warps
+constexpr int kTileThreads = 512;    // the tile kernels: 16 warps
 constexpr int kMaxSmem = 232448;     // dynamic shared memory of a block
-constexpr unsigned kFull = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
 // fused_tiles_kernel
@@ -132,52 +147,10 @@ struct Plan {
   int th_s, mask_s, x_s, x_words, buf_s0, buf_s1, buf_words, cnt_s, flag_s;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// One asynchronous copy from global to shared memory: 16 bytes (both
-// addresses 16-byte aligned) or 4 bytes.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src));
-}
-
-// Asynchronous copy of `bytes` (a multiple of 4) from global to shared
-// memory by the whole block: 16 bytes a thread where both sides allow it.
-__device__ void stage(void* dst, const void* src, int bytes) {
-  char* d = static_cast<char*>(dst);
-  const char* s = static_cast<const char*>(src);
-  if (((reinterpret_cast<uintptr_t>(d) | reinterpret_cast<uintptr_t>(s)) &
-       15) == 0) {
-    const int n16 = bytes >> 4;
-    for (int i = threadIdx.x; i < n16; i += blockDim.x)
-      cp_async16(d + 16 * i, s + 16 * i);
-    d += 16 * n16;
-    s += 16 * n16;
-    bytes -= 16 * n16;
-  }
-  for (int i = threadIdx.x; i < (bytes >> 2); i += blockDim.x)
-    cp_async4(d + 4 * i, s + 4 * i);
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // The features of tile t into xs as [g][f][lane]; rows past B are zeros.
-__device__ void stage_x(const Plan& p, float* xs, int t) {
+// P: Plan (K1, K2) or FloatTiles (K6).
+template <typename P>
+__device__ void stage_x(const P& p, float* xs, int t) {
   const long long row0 = (long long)t * p.G * 32;
   const int n = p.G * 32 * p.F;
   for (int e = threadIdx.x; e < n; e += blockDim.x) {
@@ -188,32 +161,6 @@ __device__ void stage_x(const Plan& p, float* xs, int t) {
     else
       *d = 0.0f;
   }
-}
-
-// One read of the model: from shared memory when the launch staged it
-// there, else from global memory through the read-only cache.  Either way
-// every lane of a warp reads the same address (a broadcast), except a
-// table word of a LUT wider than 5 inputs, which depends on the sample.
-template <bool kStaged, typename V>
-__device__ __forceinline__ V model_ld(const V* p) {
-  if constexpr (kStaged)
-    return *p;
-  else
-    return __ldg(p);
-}
-
-// Entry `addr` of one LUT's table (tw words at t), any fan-in.
-template <bool kStaged>
-__device__ __forceinline__ uint32_t table_bit(const uint32_t* t, int n,
-                                              uint32_t addr) {
-  if (n <= 5) return (model_ld<kStaged>(t) >> addr) & 1u;
-  return (model_ld<kStaged>(t + (addr >> 5)) >> (addr & 31u)) & 1u;
-}
-
-// Entry `addr` (< 64) of a fan-in-6 table held as two words.
-__device__ __forceinline__ uint32_t table6(uint32_t lo, uint32_t hi,
-                                           uint32_t addr) {
-  return ((addr & 32u) ? hi : lo) >> (addr & 31u) & 1u;
 }
 
 // Bit `i` of the lane's sample in activations laid out [word][lane]
@@ -545,7 +492,12 @@ __global__ void __launch_bounds__(kTileThreads)
   }
 }
 
-// Shared memory of fused_dwn_kernel, in floats: one tile's tables
+// ---------------------------------------------------------------------------
+// fused_dwn_rows_kernel: the first float kernel, kept for features too wide
+// for fused_dwn_kernel's tiles of 32 samples
+// ---------------------------------------------------------------------------
+
+// Shared memory of fused_dwn_rows_kernel, in floats: one tile's tables
 // (block_m x 2^n, first, so that it is 16-byte aligned for the vector
 // copy), its wires (feature index and threshold, n x block_m each, wire-
 // major), then the block's rows of x (block_b x F) and the class sums of
@@ -557,7 +509,7 @@ __host__ __device__ size_t fused_dwn_smem_floats(int F, int C, int n,
 }
 
 // vec4: tables may be copied as float4 (2^n % 4 == 0, 16-byte aligned).
-__global__ void __launch_bounds__(kThreads) fused_dwn_kernel(
+__global__ void __launch_bounds__(kThreads) fused_dwn_rows_kernel(
     const float* __restrict__ x, const float* __restrict__ th, int B, int F,
     int T, const int* __restrict__ mapping, const float* __restrict__ tables,
     int m, int n, int C, int g, float* __restrict__ counts,
@@ -637,6 +589,193 @@ __global__ void __launch_bounds__(kThreads) fused_dwn_kernel(
     }
     if (lane == 0) idx[r0 + r] = best_c;
   }
+}
+
+// ---------------------------------------------------------------------------
+// fused_dwn_kernel (K6) and fused_dwn_combine_kernel
+// ---------------------------------------------------------------------------
+
+// The counted LUTs (the first g*C) are cut into chunks: up to 32
+// consecutive LUTs of one class group, the unit whose outputs one lane
+// adds in LUT order.  Class c's chunks are c*cpc .. c*cpc + cpc - 1, and
+// its chunk k holds LUTs c*g + 32k .. min(c*g + 32k + 32, (c + 1)*g) - 1.
+// Slice s of a launch (grid.y) is piece s % ppc, of cs chunks, of unit
+// s / ppc, which holds chunks [u*ucs, u*ucs + ucs): whole class groups
+// (ppc = 1) or one group cut into pieces (ucs = cpc).
+struct FloatTiles {
+  const float* x;        // (B, F)
+  const float* th;       // (F, T)
+  const int* mapping;    // (m, n) wire indices f*T + t
+  const float* tables;   // (m, 2^n)
+  float* part;           // (nchunks, B): each chunk's sum per sample
+  int B, F, T;
+  int g, cpc, nchunks;   // LUTs of a class group, chunks of one, chunks
+  int G, tiles;          // 32-sample groups per tile; tiles
+  int ucs, ppc, cs;      // slices (above)
+};
+
+// A LUT's staged wires: 8 uint16 feature offsets f*32 into the group's
+// [f][lane] features, then 8 float thresholds (slots past n unused).
+constexpr int kWireBytes = 48;
+
+// Shared memory of fused_dwn_kernel: the slice's tables ([cs*32][2^n]
+// floats, first, 16-byte aligned for the vector copy), its wires
+// ([cs*32][kWireBytes]) and two feature buffers ([G][F][32] floats).
+__host__ __device__ size_t fused_dwn_tiles_smem(int F, int n, int G,
+                                                int cs) {
+  return (size_t)cs * 32 * ((4 << n) + kWireBytes) + 2 * (size_t)G * F * 128;
+}
+
+template <int N>
+__global__ void __launch_bounds__(kTileThreads)
+    fused_dwn_kernel(const __grid_constant__ FloatTiles p) {
+  constexpr int A = 1 << N;
+  extern __shared__ __align__(16) unsigned char sm[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  // this block's slice: chunks [c0, c0 + nc)
+  const int u = blockIdx.y / p.ppc;
+  const int u1 = min(p.nchunks, (u + 1) * p.ucs);
+  const int c0 = u * p.ucs + (blockIdx.y - u * p.ppc) * p.cs;
+  const int nc = max(0, min(u1, c0 + p.cs) - c0);
+  float* tab_s = reinterpret_cast<float*>(sm);
+  unsigned char* wire_s = sm + (size_t)p.cs * 32 * A * 4;
+  float* xbuf =
+      reinterpret_cast<float*>(wire_s + (size_t)p.cs * 32 * kWireBytes);
+  const int x_words = p.G * p.F * 32;
+
+  // the slice, once per block: tables copied, wires turned into feature
+  // offsets and thresholds
+  for (int q = 0; q < nc; ++q) {
+    const int c = (c0 + q) / p.cpc, k = c0 + q - c * p.cpc;
+    stage(tab_s + q * 32 * A, p.tables + (size_t)(c * p.g + 32 * k) * A,
+          min(32, p.g - 32 * k) * A * 4);
+  }
+  for (int i = tid; i < nc * 256; i += blockDim.x) {
+    const int q = i >> 8, j = (i >> 3) & 31, b = i & 7;
+    const int c = (c0 + q) / p.cpc, k = c0 + q - c * p.cpc;
+    uint16_t off = 0;
+    float th = 0.0f;
+    if (b < N && 32 * k + j < p.g) {
+      const int wire =
+          __ldg(p.mapping + (size_t)(c * p.g + 32 * k + j) * N + b);
+      off = static_cast<uint16_t>(wire / p.T * 32);
+      th = __ldg(p.th + wire);
+    }
+    unsigned char* w = wire_s + (q * 32 + j) * kWireBytes;
+    reinterpret_cast<uint16_t*>(w)[b] = off;
+    reinterpret_cast<float*>(w + 16)[b] = th;
+  }
+  int t = blockIdx.x;
+  if (t < p.tiles) stage_x(p, xbuf, t);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  for (int it = 0; t < p.tiles; t += gridDim.x, ++it) {
+    const float* xs = xbuf + (it & 1) * x_words;
+    const long long row0 = (long long)t * p.G * 32;
+    const int G = (int)min((long long)p.G, (p.B - row0 + 31) / 32);
+    // the next tile's features arrive while this one is computed
+    if (t + (int)gridDim.x < p.tiles)
+      stage_x(p, xbuf + ((it + 1) & 1) * x_words, t + gridDim.x);
+    cp_async_commit();
+    // a warp takes one chunk of one group: its lanes' 32 samples
+    for (int item = warp; item < G * nc; item += nwarps) {
+      const int grp = item / nc, q = item - grp * nc;
+      const int k = (c0 + q) % p.cpc;
+      const int cnt = min(32, p.g - 32 * k);
+      const float* x_lane = xs + grp * p.F * 32 + lane;
+      const unsigned char* w = wire_s + q * 32 * kWireBytes;
+      const float* tb = tab_s + q * 32 * A;
+      float acc = 0.0f;
+      for (int j = 0; j < cnt; ++j, w += kWireBytes, tb += A) {
+        const uint4 o = *reinterpret_cast<const uint4*>(w);
+        const float4 h0 = *reinterpret_cast<const float4*>(w + 16);
+        const float4 h1 = N > 4 ? *reinterpret_cast<const float4*>(w + 32)
+                                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        const uint32_t off[8] = {o.x & 0xffffu, o.x >> 16, o.y & 0xffffu,
+                                 o.y >> 16,     o.z & 0xffffu, o.z >> 16,
+                                 o.w & 0xffffu, o.w >> 16};
+        const float h[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+        uint32_t addr = 0;
+#pragma unroll
+        for (int b = 0; b < N; ++b)
+          addr |= static_cast<uint32_t>(x_lane[off[b]] > h[b]) << b;
+        acc += tb[addr];
+      }
+      const long long row = row0 + grp * 32 + lane;
+      if (row < p.B) p.part[(size_t)(c0 + q) * p.B + row] = acc;
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+}
+
+// counts[r, c]: the sum of class c's chunk sums in chunk order; idx[r]:
+// the first argmax (ties keep the lower class).  A block takes 32 rows
+// (lanes) and its warps split the classes, so that a row's loads are in
+// flight together; after the barrier the first warp reads the block's
+// counts back and takes the argmax.
+constexpr int kCombineThreads = 256;
+
+__global__ void __launch_bounds__(kCombineThreads)
+    fused_dwn_combine_kernel(const float* __restrict__ part, int B, int C,
+                             int cpc, float* __restrict__ counts,
+                             int* __restrict__ idx) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long r = (long long)blockIdx.x * 32 + lane;
+  if (r < B) {
+    for (int c = warp; c < C; c += kCombineThreads / 32) {
+      const float* pc = part + (size_t)c * cpc * B + r;
+      float s = 0.0f;
+#pragma unroll 8
+      for (int k = 0; k < cpc; ++k) s += __ldg(pc + (size_t)k * B);
+      counts[r * C + c] = s;
+    }
+  }
+  __syncthreads();
+  if (warp == 0 && r < B) {
+    float best = 0.0f;
+    int best_c = 0;
+    for (int c = 0; c < C; ++c) {
+      const float s = counts[r * C + c];
+      if (c == 0 || s > best) {
+        best = s;
+        best_c = c;
+      }
+    }
+    idx[r] = best_c;
+  }
+}
+
+template <int N>
+cudaError_t launch_fused_dwn(const FloatTiles& p, int S, int C, int sms,
+                             int plan_smem, float* counts, int* idx,
+                             cudaStream_t stream, int* info) {
+  // the caller planned the layout (kernel.py: plan_fused_dwn); its byte
+  // total must be this layout's
+  const size_t smem = fused_dwn_tiles_smem(p.F, N, p.G, p.cs);
+  if (smem != (size_t)plan_smem || smem > (size_t)kMaxSmem)
+    return cudaErrorInvalidValue;
+  int per_sm = 0;
+  cudaError_t err = prepare_smem(fused_dwn_kernel<N>, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, fused_dwn_kernel<N>, kTileThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  // a persistent grid: each slice's tiles walked by as many blocks as
+  // the card holds beside the other slices'
+  const int walkers = min(p.tiles, max(1, sms * per_sm / S));
+  fused_dwn_kernel<N><<<dim3(walkers, S), kTileThreads, smem, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  fused_dwn_combine_kernel<<<(p.B + 31) / 32, kCombineThreads, 0, stream>>>(
+      p.part, p.B, C, p.cpc, counts, idx);
+  info[0] = walkers;
+  info[1] = per_sm;
+  return cudaGetLastError();
 }
 
 size_t align16(size_t v) { return (v + 15) & ~static_cast<size_t>(15); }
@@ -809,26 +948,87 @@ cudaError_t launch_tiles(Plan& p, int block_b, cudaStream_t stream,
 
 }  // namespace
 
-extern "C" int fused_dwn_launch(const void* x, const void* th, int B, int F,
-                                int T, const void* mapping,
-                                const void* tables, int m, int n, int C,
-                                void* counts, void* idx, int block_b,
-                                int block_m, void* stream) {
+extern "C" int fused_dwn_rows_launch(const void* x, const void* th, int B,
+                                     int F, int T, const void* mapping,
+                                     const void* tables, int m, int n,
+                                     int C, void* counts, void* idx,
+                                     int block_b, int block_m,
+                                     void* stream) {
   if (B <= 0 || F <= 0 || T <= 0 || m <= 0 || n < 1 || n > kFloatMaxFanIn ||
       C <= 0 ||
       block_b <= 0 || block_m <= 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       sizeof(float) * fused_dwn_smem_floats(F, C, n, block_b, block_m);
-  const cudaError_t err = prepare_smem(fused_dwn_kernel, smem);
+  const cudaError_t err = prepare_smem(fused_dwn_rows_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const bool vec4 = n >= 2 && (uintptr_t)tables % 16 == 0;
   const int grid = (B + block_b - 1) / block_b;
-  fused_dwn_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  fused_dwn_rows_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)th, B, F, T, (const int*)mapping,
       (const float*)tables, m, n, C, m / C, (float*)counts, (int*)idx,
       block_b, block_m, vec4);
   return (int)cudaGetLastError();
+}
+
+// K6 on tiles of 32*G samples: the fused kernel over S slices of the
+// counted LUTs (ucs, ppc, cs as in FloatTiles), then the combine kernel,
+// on a card of sms SMs; smem: the plan's dynamic shared memory in bytes.
+// part: (C * ceil((m / C) / 32), B) floats of scratch.  info: walkers
+// (grid.x), blocks an SM holds.
+extern "C" int fused_dwn_launch(const void* x, const void* th, int B, int F,
+                                int T, const void* mapping,
+                                const void* tables, int m, int n, int C,
+                                void* part, void* counts, void* idx, int G,
+                                int ucs, int ppc, int cs, int S, int sms,
+                                int smem, int* info, void* stream) {
+  if (B <= 0 || F <= 0 || T <= 0 || m <= 0 || n < 1 || n > kFloatMaxFanIn ||
+      C <= 0 || G < 1 || ucs < 1 || ppc < 1 || cs < 1 || S < 1 ||
+      sms < 1 || F * 32 > 0xffff)
+    return (int)cudaErrorInvalidValue;
+  FloatTiles p = {};
+  p.x = static_cast<const float*>(x);
+  p.th = static_cast<const float*>(th);
+  p.mapping = static_cast<const int*>(mapping);
+  p.tables = static_cast<const float*>(tables);
+  p.part = static_cast<float*>(part);
+  p.B = B;
+  p.F = F;
+  p.T = T;
+  p.g = m / C;
+  p.cpc = (p.g + 31) / 32;
+  p.nchunks = C * p.cpc;
+  p.G = G;
+  p.tiles = (int)((B + 32LL * G - 1) / (32LL * G));
+  p.ucs = ucs;
+  p.ppc = ppc;
+  p.cs = cs;
+  // the slices must cover every chunk, each piece within its unit
+  const long long units = (p.nchunks + ucs - 1) / ucs;
+  if ((long long)cs * ppc < ucs || (ppc > 1 && cs > ucs) ||
+      S != max(1LL, units * ppc) || S > 65535)
+    return (int)cudaErrorInvalidValue;
+  float* c = static_cast<float*>(counts);
+  int* i = static_cast<int*>(idx);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (n) {
+    case 1:
+      return (int)launch_fused_dwn<1>(p, S, C, sms, smem, c, i, st, info);
+    case 2:
+      return (int)launch_fused_dwn<2>(p, S, C, sms, smem, c, i, st, info);
+    case 3:
+      return (int)launch_fused_dwn<3>(p, S, C, sms, smem, c, i, st, info);
+    case 4:
+      return (int)launch_fused_dwn<4>(p, S, C, sms, smem, c, i, st, info);
+    case 5:
+      return (int)launch_fused_dwn<5>(p, S, C, sms, smem, c, i, st, info);
+    case 6:
+      return (int)launch_fused_dwn<6>(p, S, C, sms, smem, c, i, st, info);
+    case 7:
+      return (int)launch_fused_dwn<7>(p, S, C, sms, smem, c, i, st, info);
+    default:
+      return (int)launch_fused_dwn<8>(p, S, C, sms, smem, c, i, st, info);
+  }
 }
 
 extern "C" int fused_dwn_packed_launch(
@@ -886,6 +1086,19 @@ extern "C" int fused_dwn_batch_major_launch(
   if (p.arrive != reinterpret_cast<int*>(p.counts) + (size_t)B * C)
     return (int)cudaErrorInvalidValue;
   return (int)launch_tiles<true>(p, block_b, (cudaStream_t)stream, info);
+}
+
+// fused_dwn's combine kernel on its own: part (C * cpc, B) chunk sums ->
+// counts (B, C), idx (B,).
+extern "C" int fused_dwn_combine_launch(const void* part, int B, int C,
+                                        int cpc, void* counts, void* idx,
+                                        void* stream) {
+  if (B <= 0 || C <= 0 || cpc < 0) return (int)cudaErrorInvalidValue;
+  fused_dwn_combine_kernel<<<(B + 31) / 32, kCombineThreads, 0,
+                             (cudaStream_t)stream>>>(
+      static_cast<const float*>(part), B, C, cpc, static_cast<float*>(counts),
+      static_cast<int*>(idx));
+  return (int)cudaGetLastError();
 }
 
 // The zero kernel of a split launch on its own: n ints at p zeroed.

@@ -2,9 +2,13 @@
 
 ``fused_dwn``
     the float datapath of one LUT layer with float32 tables: compares the
-    m*n wired bits, reads each LUT's table entry, sums class counts tile by
-    tile of ``block_m`` LUTs, then the first argmax (counterpart of the
-    reference's Pallas ``fused_dwn``).
+    m*n wired bits, reads each LUT's table entry, sums class counts, then
+    the first argmax (counterpart of the reference's Pallas
+    ``fused_dwn``).  Its LUTs are cut into slices that a block stages once
+    and keeps (:func:`plan_fused_dwn`); a lane adds its sample's outputs of
+    up to 32 LUTs of a class (a chunk) in LUT order, and a small second
+    kernel, ``fused_dwn_combine``, adds each class's chunk sums in chunk
+    order and takes the argmax, so the sums never depend on the layout.
 ``fused_dwn_packed``
     encodes all F*T thermometer bits into packed words, runs every LUT
     layer word-addressed, then a masked popcount and the first argmax
@@ -31,21 +35,25 @@ All return ``(counts (B, classes) float32, idx (B,) int32)`` for any B.
 For tensors on the CPU a wrapper runs its plain version (``ref.py``); for
 CUDA tensors it launches the kernel or raises — it never falls back.  Each
 launch adds one to the kernel's count in :func:`launch_counts`, and one
-to ``fused_dwn_zero``'s when the zero kernel ran first.
-:func:`last_launch` says how the latest packed launch laid itself out.
+to ``fused_dwn_zero``'s when the zero kernel ran first (to
+``fused_dwn_combine``'s for the float kernel's combine).
+:func:`last_launch` says how the latest packed launch laid itself out,
+:func:`last_float_launch` the latest ``fused_dwn``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from .._launch import (I, LaunchCounts, P, bind, device_type, expect,
-                       launch)
+                       launch, sm_count)
 from ..autotune import DEFAULT_CONFIG
 from .ref import (MAX_LAYERS, LayerStack, fused_dwn_batch_major_plain,
-                  fused_dwn_packed_plain, fused_dwn_plain)
+                  fused_dwn_combine_plain, fused_dwn_packed_plain,
+                  fused_dwn_plain)
 
 LIBRARY = "fused_dwn"
 #: a tile of the packed kernels is a multiple of one warp's 32 lanes,
@@ -56,27 +64,38 @@ MAX_SMEM_BYTES = 232_448
 
 #: widest fan-in ``fused_dwn`` takes: 2^8 table entries per LUT.
 FUSED_DWN_MAX_FAN_IN = 8
-#: ``fused_dwn``'s samples per block and LUTs per tile when no
-#: ``FusedConfig`` is given (chosen on the card: PERF.md).
-FUSED_DWN_BLOCK_B = 16
-FUSED_DWN_BLOCK_M = 256
+#: ``fused_dwn``'s samples per tile when no ``FusedConfig`` is given (its
+#: slices are then as wide as fit a block: :func:`plan_fused_dwn`; chosen
+#: on the card: PERF.md).
+FUSED_DWN_BLOCK_B = 32
+#: LUTs of a chunk of ``fused_dwn``: the outputs one lane adds in order.
+CHUNK_LUTS = 32
+#: bytes of one LUT's staged wires in ``fused_dwn`` (8 uint16 feature
+#: offsets, 8 float thresholds).
+_WIRE_BYTES = 48
 
-_COUNTS = LaunchCounts("fused_dwn", "fused_dwn_packed",
+_COUNTS = LaunchCounts("fused_dwn", "fused_dwn_combine", "fused_dwn_packed",
                        "fused_dwn_batch_major", "fused_dwn_zero")
 #: kernel name -> launches since the last :func:`reset_launch_counts`.
 launch_counts = _COUNTS.get
 reset_launch_counts = _COUNTS.reset
 _SIGNATURES = {
-    "fused_dwn_launch": [P, P, I, I, I, P, P, I, I, I, P, P, I, I, P],
+    "fused_dwn_launch": [P, P, I, I, I, P, P, I, I, I, P, P, P, I, I, I, I,
+                         I, I, I, P, P],
+    "fused_dwn_rows_launch": [P, P, I, I, I, P, P, I, I, I, P, P, I, I, P],
     "fused_dwn_packed_launch": [P, P, I, I, I, P, I, P, P, P, I, I, P, P,
                                 P, I, P, P],
     "fused_dwn_batch_major_launch": [P, I, I, P, P, P, I, I, I, P, I, P, P,
                                      P, I, I, P, P, P, I, P, P],
+    "fused_dwn_combine_launch": [P, I, I, I, P, P, P],
     "fused_dwn_zero_launch": [P, I, P],
 }
 #: how the latest packed launch laid itself out (see :func:`last_launch`)
 _LAST: dict = {}
 _LAUNCH_INFO = ("zeroed", "staged", "slices", "tile_rows", "smem_bytes")
+#: the latest ``fused_dwn`` (see :func:`last_float_launch`)
+_LAST_FLOAT: dict = {}
+_FLOAT_INFO = ("walkers", "blocks_per_sm")
 
 
 def last_launch() -> dict:
@@ -136,6 +155,32 @@ def _check_masks(class_masks: torch.Tensor, last_m: int,
     return class_masks.shape[0]
 
 
+def fused_dwn_combine(part: torch.Tensor, num_classes: int):
+    """``fused_dwn``'s second kernel on its own (``fused_dwn`` launches it
+    itself): part (C * cpc, B) float32, each chunk's sum per sample, a
+    class's chunks consecutive -> (counts (B, C) float32, idx (B,)
+    int32), each class's chunks added in order, then the first argmax.
+    On the CPU: ``ref.fused_dwn_combine_plain``."""
+    if device_type(part, "fused_dwn_combine") == "cpu":
+        return fused_dwn_combine_plain(part, num_classes)
+    expect(part, "part", torch.float32, 2, part.device)
+    if num_classes < 1 or part.shape[0] % num_classes:
+        raise ValueError(f"part has {part.shape[0]} rows, not whole chunks "
+                         f"of {num_classes} classes")
+    B = part.shape[1]
+    counts = torch.empty((B, num_classes), dtype=torch.float32,
+                         device=part.device)
+    idx = torch.empty((B,), dtype=torch.int32, device=part.device)
+    if B:
+        lib = bind(LIBRARY, _SIGNATURES)
+        launch(lib, LIBRARY, "fused_dwn_combine", part.device,
+               lambda stream: lib.fused_dwn_combine_launch(
+                   part.data_ptr(), B, num_classes,
+                   part.shape[0] // num_classes, counts.data_ptr(),
+                   idx.data_ptr(), stream), _COUNTS)
+    return counts, idx
+
+
 def _launch_tiles(name: str, x: torch.Tensor, call, num_classes: int,
                   block_b: int):
     """Allocate outputs, run ``call(lib, counts, idx, arrive, info,
@@ -183,17 +228,158 @@ def fused_dwn_zero(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def _fused_dwn_smem_bytes(F: int, C: int, n: int, block_b: int,
-                         block_m: int) -> int:
-    """Shared memory one block of ``fused_dwn`` takes: one tile's tables
-    and wires, its rows' features and each lane's class sums."""
+def last_float_launch() -> dict:
+    """The latest ``fused_dwn`` launch of this process: its
+    :class:`FloatPlan` fields and, on the ``"tiles"`` path, ``walkers``
+    (blocks that walk one slice's tiles) and ``blocks_per_sm`` as the
+    launch found them."""
+    return dict(_LAST_FLOAT)
+
+
+@dataclasses.dataclass(frozen=True)
+class FloatPlan:
+    """How ``fused_dwn`` lays out one launch (:func:`plan_fused_dwn`).
+
+    ``path`` is ``"tiles"`` (tiles of ``tile_rows`` samples, a multiple of
+    32, and ``slices`` blocks per tile, each staging up to ``cs`` chunks)
+    or ``"rows"`` (the port's first float kernel, kept for features too
+    wide for a tile of 32 samples: ``tile_rows`` rows and ``block_m`` LUTs
+    a step per block).  Slice s is piece ``s % ppc``, of ``cs`` chunks,
+    of unit ``s // ppc``, which holds chunks ``[u * ucs, u * ucs + ucs)``:
+    whole class groups when ``ppc == 1``, else one group cut into pieces.
+    ``chunks``: the counted LUTs' chunks, C * ceil((m // C) / 32), the
+    rows of the kernel's scratch.  ``block_m``: LUTs of a slice (tiles)
+    or of a step (rows).
+    """
+
+    path: str
+    tile_rows: int
+    slices: int
+    ucs: int
+    ppc: int
+    cs: int
+    chunks: int
+    block_m: int
+    smem_bytes: int
+
+    def slice_ranges(self) -> list[tuple[int, int]]:
+        """Each slice's chunks ``[c0, c1)``, as the kernel computes them."""
+        out = []
+        for s in range(self.slices):
+            u, piece = divmod(s, self.ppc)
+            c0 = u * self.ucs + piece * self.cs
+            c1 = min(self.chunks, (u + 1) * self.ucs, c0 + self.cs)
+            out.append((c0, max(c0, c1)))
+        return out
+
+
+def _rows_smem_bytes(F: int, C: int, n: int, block_b: int,
+                     block_m: int) -> int:
+    """Shared memory one block of the rows kernel takes: one step's
+    tables and wires, its rows' features and each lane's class sums."""
     return 4 * (block_m * (2 ** n + 2 * n) + block_b * (F + 32 * C))
+
+
+def _tiles_smem_bytes(F: int, n: int, groups: int, cs: int) -> int:
+    """Shared memory of a ``fused_dwn`` block (fused_dwn_tiles_smem in the
+    source): ``cs`` chunks' tables and wires, two feature buffers of
+    ``groups`` 32-sample groups."""
+    return cs * 32 * (4 * 2 ** n + _WIRE_BYTES) + 2 * groups * F * 128
+
+
+def _slices(cpc: int, chunks: int, k: int, ppc: int):
+    """(ucs, ppc, cs, slices) for units of ``k`` class groups (``ppc`` 1)
+    or one group cut into ``ppc`` pieces; ``cpc`` chunks a group."""
+    if chunks == 0:
+        return 1, 1, 1, 1
+    if ppc == 1:
+        ucs = cs = k * cpc
+    else:
+        ucs, cs = cpc, -(-cpc // ppc)
+        ppc = -(-cpc // cs)
+    return ucs, ppc, cs, -(-chunks // ucs) * ppc
+
+
+def plan_fused_dwn(B: int, F: int, m: int, n: int, C: int, block_b: int,
+                   block_m: int | None, sms: int) -> FloatPlan:
+    """The layout of a ``fused_dwn`` launch of B >= 1 samples on a card of
+    ``sms`` SMs; raises ``ValueError`` where no block fits.
+
+    * The path follows the shapes alone: where two tiles of 32 samples'
+      features take more than half a block's shared memory (F > 454: each
+      slice would stage them again for a sliver of the model), the rows
+      kernel takes the launch (:func:`_plan_rows`); else the tiles.
+    * ``block_m`` is the most LUTs a slice holds (None: as many as fit a
+      block): cut to whole chunks of 32 (at least one) and to what fits
+      beside the features, then to whole class groups where one fits,
+      else to equal pieces of one group.  A slice never holds parts of two
+      groups.  A ``block_m`` whose LUTs' tables and wires alone exceed a
+      block is refused on either path, as the rows kernel refused it.
+    * ``block_b`` is the samples of a tile: rounded up to a multiple of 32,
+      to no more than B fills, and down to what fits shared memory.
+    * With fewer tiles than SMs the slices are cut narrower (fewer groups
+      a slice, then more pieces a group) until tiles x slices fill the
+      card, as K1 and K2 split their last layer.
+    """
+    lut = 4 * (2 ** n + 2 * n)    # rows kernel: one LUT's table and wires
+    if block_m is not None and min(block_m, m) * lut > MAX_SMEM_BYTES:
+        raise ValueError(f"fused_dwn: {min(block_m, m)} LUTs of fan-in {n} "
+                         f"take {min(block_m, m) * lut} bytes of shared "
+                         f"memory per block, over the card's "
+                         f"{MAX_SMEM_BYTES}; lower block_m")
+    g = m // C
+    cpc = -(-g // CHUNK_LUTS)
+    chunks = C * cpc
+    if _tiles_smem_bytes(F, n, 1, 0) > MAX_SMEM_BYTES // 2:
+        return _plan_rows(B, F, m, n, C, block_b, block_m, chunks)
+    fit = (MAX_SMEM_BYTES - _tiles_smem_bytes(F, n, 1, 0)) // \
+        _tiles_smem_bytes(0, n, 0, 1)         # chunks beside the features
+    cap = fit if block_m is None else min(fit, block_m // CHUNK_LUTS)
+    cap = max(1, min(cap, chunks))
+    k, ppc = (cap // cpc, 1) if 0 < cpc <= cap else (1, -(-cpc // cap))
+    ucs, _, cs, _ = _slices(cpc, chunks, k, ppc)
+    groups = min(-(-block_b // TILE_ROWS), -(-B // TILE_ROWS))
+    while groups > 1 and _tiles_smem_bytes(F, n, groups, cs) > \
+            MAX_SMEM_BYTES:
+        groups -= 1
+    tiles = -(-B // (TILE_ROWS * groups))
+    want = max(1, (sms + tiles // 2) // tiles)
+    shape = _slices(cpc, chunks, k, ppc)
+    while shape[3] < want and shape[2] > 1:
+        if k > 1:
+            k -= 1
+        else:
+            ppc += 1
+        shape = _slices(cpc, chunks, k, ppc)
+    ucs, ppc, cs, slices = shape
+    return FloatPlan("tiles", TILE_ROWS * groups, slices, ucs, ppc, cs,
+                     chunks, cs * CHUNK_LUTS,
+                     _tiles_smem_bytes(F, n, groups, cs))
+
+
+def _plan_rows(B, F, m, n, C, block_b, block_m, chunks) -> FloatPlan:
+    """The rows kernel for features too wide for a tile: ``block_m`` LUTs
+    a step (None: as many as fit beside one row), then ``block_b`` rows
+    cut to what fits beside them; refused where not even one row fits."""
+    lut = 2 ** n + 2 * n          # floats of one LUT's table and wires
+    row = F + 32 * C              # floats of one row's features and sums
+    if block_m is None:
+        bm = max(1, min(m, (MAX_SMEM_BYTES // 4 - row) // lut))
+    else:
+        bm = min(block_m, m)
+    bb = max(1, min(block_b, B, (MAX_SMEM_BYTES // 4 - bm * lut) // row))
+    smem = _rows_smem_bytes(F, C, n, bb, bm)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"fused_dwn: {smem} bytes of shared memory per "
+                         f"block exceed the card's {MAX_SMEM_BYTES}; lower "
+                         f"block_m")
+    return FloatPlan("rows", bb, 1, 0, 0, 0, chunks, bm, smem)
 
 
 def fused_dwn(x: torch.Tensor, thresholds: torch.Tensor,
               mapping: torch.Tensor, tables: torch.Tensor, num_classes: int,
               *, block_b: int = FUSED_DWN_BLOCK_B,
-              block_m: int = FUSED_DWN_BLOCK_M):
+              block_m: int | None = None):
     """One float LUT layer, fused: features -> (counts, idx).
 
     x (B, F) float32; thresholds (F, T) float32; mapping (m, n) int32 wire
@@ -202,8 +388,12 @@ def fused_dwn(x: torch.Tensor, thresholds: torch.Tensor,
     entry, which equals the reference's corner product only for finite
     tables); 1 <= n <= :data:`FUSED_DWN_MAX_FAN_IN`.  LUT l counts for class
     ``l // (m // num_classes)``; LUTs past the last whole group count for
-    no class.  ``block_b`` samples per CUDA block, ``block_m`` LUTs per
-    tile; results do not depend on either beyond the order of float sums.
+    no class.  ``block_b`` (samples of a tile) and ``block_m`` (most LUTs
+    of a slice; None: as many as fit) as :func:`plan_fused_dwn` rounds
+    them; on the tiles path the results do not depend on them, nor on B:
+    each class sums its chunks of 32 LUTs in order, each chunk in LUT
+    order.  Raises ``ValueError`` for operands no block fits (the rows
+    kernel's limits).
     Returns (counts (B, classes) float32, idx (B,) int32).
     """
     if device_type(x, "fused_dwn") == "cpu":
@@ -227,26 +417,38 @@ def fused_dwn(x: torch.Tensor, thresholds: torch.Tensor,
     if num_classes < 1:
         raise ValueError(f"num_classes must be at least 1, got "
                          f"{num_classes}")
-    if block_b < 1 or block_m < 1:
+    if block_b < 1 or (block_m is not None and block_m < 1):
         raise ValueError(f"block_b and block_m must be >= 1, got "
                          f"{block_b} and {block_m}")
-    block_b, block_m = min(block_b, max(B, 1)), min(block_m, m)
-    smem = _fused_dwn_smem_bytes(F, num_classes, n, block_b, block_m)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"fused_dwn: {smem} bytes of shared memory per "
-                         f"block exceed the card's {MAX_SMEM_BYTES}; lower "
-                         f"block_b or block_m")
+    sms = sm_count(dev)
+    plan = plan_fused_dwn(max(B, 1), F, m, n, num_classes, block_b, block_m,
+                          sms)
     counts = torch.empty((B, num_classes), dtype=torch.float32, device=dev)
     idx = torch.empty((B,), dtype=torch.int32, device=dev)
     if B == 0:
         return counts, idx
     lib = bind(LIBRARY, _SIGNATURES)
+    _LAST_FLOAT.clear()
+    _LAST_FLOAT.update(dataclasses.asdict(plan))
+    if plan.path == "rows":
+        launch(lib, LIBRARY, "fused_dwn", dev,
+               lambda stream: lib.fused_dwn_rows_launch(
+                   x.data_ptr(), thresholds.data_ptr(), B, F, T,
+                   mapping.data_ptr(), tables.data_ptr(), m, n, num_classes,
+                   counts.data_ptr(), idx.data_ptr(), plan.tile_rows,
+                   plan.block_m, stream), _COUNTS)
+        return counts, idx
+    part = torch.empty((plan.chunks, B), dtype=torch.float32, device=dev)
+    info = (ctypes.c_int * len(_FLOAT_INFO))()
     launch(lib, LIBRARY, "fused_dwn", dev,
            lambda stream: lib.fused_dwn_launch(
                x.data_ptr(), thresholds.data_ptr(), B, F, T,
                mapping.data_ptr(), tables.data_ptr(), m, n, num_classes,
-               counts.data_ptr(), idx.data_ptr(), block_b, block_m, stream),
-           _COUNTS)
+               part.data_ptr(), counts.data_ptr(), idx.data_ptr(),
+               plan.tile_rows // TILE_ROWS, plan.ucs, plan.ppc, plan.cs,
+               plan.slices, sms, plan.smem_bytes, info, stream), _COUNTS)
+    _COUNTS.add("fused_dwn_combine")
+    _LAST_FLOAT.update(zip(_FLOAT_INFO, info))
     return counts, idx
 
 
@@ -344,7 +546,9 @@ def fused_dwn_batch_major(x: torch.Tensor, wire_f: torch.Tensor,
     return _launch_tiles("fused_dwn_batch_major", x, call, C, block_b)
 
 
-__all__ = ["FUSED_DWN_BLOCK_B", "FUSED_DWN_BLOCK_M", "FUSED_DWN_MAX_FAN_IN",
-           "check_activation_width", "fused_dwn", "fused_dwn_batch_major",
-           "fused_dwn_packed", "fused_dwn_zero", "last_launch",
-           "launch_counts", "min_tile_smem", "reset_launch_counts"]
+__all__ = ["CHUNK_LUTS", "FUSED_DWN_BLOCK_B", "FUSED_DWN_MAX_FAN_IN",
+           "FloatPlan", "check_activation_width", "fused_dwn",
+           "fused_dwn_batch_major", "fused_dwn_combine", "fused_dwn_packed",
+           "fused_dwn_zero", "last_float_launch", "last_launch",
+           "launch_counts", "min_tile_smem", "plan_fused_dwn",
+           "reset_launch_counts"]

@@ -17,8 +17,7 @@ from ...core.bitpack import group_masks, to_word_pattern
 from ...device import resolve_device
 from ..autotune import DEFAULT_CONFIG
 from ..lut_eval.ref import check_wires
-from .kernel import (FUSED_DWN_BLOCK_B, FUSED_DWN_BLOCK_M,
-                     check_activation_width, fused_dwn,
+from .kernel import (check_activation_width, fused_dwn,
                      fused_dwn_batch_major, fused_dwn_packed)
 from .ref import LayerStack, first_layer_wires
 
@@ -34,9 +33,10 @@ def forward(x, thresholds, mapping, tables, num_classes: int, *,
     values).  LUT l counts for class ``l // (m // num_classes)``; LUTs past
     the last whole group count for no class, as in the reference's op.
     ``idx`` is the first argmax (ties go to the lower class).  ``config``
-    (a ``FusedConfig``) sets ``block_b`` and ``block_m``; without one the
-    kernel's own defaults apply.  T is not padded and no one-hot matrix is
-    built.  Raises ``ValueError`` on a wire outside [0, F*T).  One kernel
+    (a ``FusedConfig``) sets ``block_b`` (samples of a tile) and
+    ``block_m`` (most LUTs of a slice); without one the kernel's own
+    defaults apply (slices as wide as fit a block).  T is not padded and
+    no one-hot matrix is built.  Raises ``ValueError`` on a wire outside [0, F*T).  One kernel
     launch on CUDA.
     """
     if not isinstance(x, torch.Tensor):
@@ -49,12 +49,9 @@ def forward(x, thresholds, mapping, tables, num_classes: int, *,
     tables = torch.as_tensor(tables, device=x.device).to(
         torch.float32).contiguous()
     check_wires(mapping, thresholds.numel())
-    if config is None:
-        block_b, block_m = FUSED_DWN_BLOCK_B, FUSED_DWN_BLOCK_M
-    else:
-        block_b, block_m = config.block_b, config.block_m
-    return fused_dwn(x, thresholds, mapping, tables, num_classes,
-                     block_b=block_b, block_m=block_m)
+    blocks = {} if config is None else {"block_b": config.block_b,
+                                        "block_m": config.block_m}
+    return fused_dwn(x, thresholds, mapping, tables, num_classes, **blocks)
 
 
 def prepare_operands(thresholds: torch.Tensor, mappings, tables,

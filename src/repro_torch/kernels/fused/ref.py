@@ -197,6 +197,22 @@ def fused_dwn_plain(x: torch.Tensor, thresholds: torch.Tensor,
     return popcount_classify_plain(out[:, :counted], num_classes)
 
 
+def fused_dwn_combine_plain(part: torch.Tensor, num_classes: int):
+    """Plain version of ``kernel.fused_dwn_combine``: part (C * cpc, B)
+    float32, each 32-LUT chunk's sum per sample, a class's ``cpc`` chunks
+    consecutive.  Class c's count is ``0 + part[c*cpc] + part[c*cpc + 1]
+    + ...`` in that order (the kernel's rounding); returns (counts (B, C)
+    float32, idx (B,) int32), ``idx`` the first argmax."""
+    B = part.shape[1]
+    cpc = part.shape[0] // num_classes
+    counts = torch.zeros((num_classes, B), dtype=torch.float32,
+                         device=part.device)
+    for k in range(cpc):
+        counts += part[k::cpc][:num_classes]
+    counts = counts.T.contiguous()
+    return counts, counts.argmax(-1).to(torch.int32)
+
+
 def fused_dwn_packed_plain(x: torch.Tensor, thresholds: torch.Tensor,
                            layers: LayerStack, class_masks: torch.Tensor):
     """Plain version of ``kernel.fused_dwn_packed``.
@@ -230,7 +246,8 @@ def fused_dwn_batch_major_plain(x: torch.Tensor, wire_f: torch.Tensor,
 __all__ = [
     "LayerStack", "MAX_DIRECT_FEATURES", "MAX_FAN_IN", "MAX_LAYERS",
     "first_layer_wires",
-    "fused_dwn_batch_major_plain", "fused_dwn_packed_plain",
+    "fused_dwn_batch_major_plain", "fused_dwn_combine_plain",
+    "fused_dwn_packed_plain",
     "fused_dwn_plain",
     "pack_table_words", "round_up",
 ]

@@ -1,5 +1,6 @@
 // LUT-layer evaluation for Hopper (sm_90a): one layer of LUTs on float32
-// bits (lut_eval_kernel) or on packed bits (lut_eval_packed_kernel).
+// bits (lut_eval_kernel) or on packed bits (lut_eval_packed_kernel, and
+// lut_eval_packed_rows_kernel for shapes its tiles do not take).
 //
 // Replaces the Pallas TPU kernels
 //   lut_eval        <- src/repro/kernels/lut_eval/kernel.py (_lut_eval_kernel)
@@ -44,16 +45,29 @@
 // What bounds it on an H100.  Per sample it reads W_in words and writes
 // m/32, and does m*n single-bit selects and m table reads; at lg width
 // (W_in=100, m=2400, n=6) and B=4096 that is 3.0 MB against 69 M
-// operations, so it is bound by operations: the random bit gathers and
-// the table reads.  The design keeps both on chip:
-//   * one warp owns one sample; its input row sits in the warp's own slice
-//     of shared memory, so every gather is a shared-memory read;
-//   * truth tables are stored one bit per entry (lg-2400: 18.75 KiB
-//     instead of 600 KiB as int32) and read through the read-only path, so
-//     they and the wire indices stay resident in L1/L2;
-//   * lane i evaluates LUT 32*w + i and __ballot_sync packs output word w
-//     in the repo's LSB-first order; lane j keeps word w0 + j of each run
-//     of 32, so the warp stores 32 words as one 128-byte transaction.
+// operations, so it is bound by operations.  The design is one
+// word-addressed layer of fused_dwn.cu's tile kernel (the rows kernel has
+// one warp a sample with lanes over LUTs, re-reading the wires and tables
+// for every sample through L1/L2 and packing each word with a ballot):
+//   * the layer is staged once per block in shared memory (tables with
+//     cp.async; each wire's word and bit made one 16-bit wire, w << 7 |
+//     ((b - k) & 31), while staging) and kept for every tile of 32
+//     samples the block takes (a persistent grid, the next tile's words
+//     arriving while one is computed);
+//   * lanes are samples: input words sit as [word][lane], so a wire is one
+//     conflict-free load, a funnel shift that brings its bit to place k
+//     and an and-or (wire_bit); every read of the layer is a broadcast,
+//     and at n = 6 LUTs go in pairs (three 8-byte and one 16-byte
+//     broadcast); a lane packs its 32 outputs of a word in a register;
+//   * the tile's words go back through a padded shared [word][33] tile,
+//     so that a warp's stores are whole rows, coalesced;
+//   * below 132 tiles the layer's words are split over slices (grid.y),
+//     and a slice of few words over parts of a word (OR-ed in shared
+//     memory), to fill the card;
+//   * rows too wide for two tiles in half a block (W_in > 454 words) and
+//     layers whose 32-LUT word fits no block (fan-in 16) take
+//     lut_eval_packed_rows_kernel, the port's first packed kernel, kept
+//     as it was.
 //
 // Interface: plain C functions (loaded with ctypes) that launch on the
 // caller's stream and return cudaGetLastError().
@@ -61,10 +75,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../csrc/tiles.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;  // packed: 8 warps, one sample each
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kThreads = 256;  // 8 warps (float; packed rows: one sample each)
+constexpr int kTileThreads = 512;  // lut_eval_packed_kernel: 16 warps
+constexpr int kMaxSmem = 232448;   // dynamic shared memory of a block
 constexpr int kRows = 8;       // float: rows one block stages and evaluates
 constexpr int kMaxFanIn = 8;   // float: 2^8 corners at most
 
@@ -139,7 +156,10 @@ cudaError_t launch_lut_eval(const float* bits, int B, int C,
   return cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(kThreads) lut_eval_packed_kernel(
+// The first packed kernel, kept for input rows too wide for
+// lut_eval_packed_kernel's tiles of 32 samples: one warp a sample, lanes
+// over LUTs.
+__global__ void __launch_bounds__(kThreads) lut_eval_packed_rows_kernel(
     const uint32_t* __restrict__ words, int B, int W_in,
     const int* __restrict__ widx, const int* __restrict__ boff,
     const uint32_t* __restrict__ tab, int m, int n, int tw,
@@ -171,6 +191,177 @@ __global__ void __launch_bounds__(kThreads) lut_eval_packed_kernel(
   }
 }
 
+__host__ __device__ size_t align16(size_t v) {
+  return (v + 15) & ~static_cast<size_t>(15);
+}
+
+// lut_eval_packed_kernel: one word-addressed layer over tiles of
+// kTileRows samples, one a lane, the layer's words split into slices of ws
+// (grid.y).
+constexpr int kTileRows = 32;
+
+struct PackedTiles {
+  const uint32_t* words;  // (B, W_in)
+  const int* widx;        // (m, n) input word of each wire
+  const int* boff;        // (m, n) its bit
+  const uint32_t* tab;    // (m, tw) one bit per entry
+  uint32_t* out;          // (B, W_out)
+  int B, W_in, n, tw, W_out;
+  int tiles, ws;          // tiles of kTileRows; output words per slice
+};
+
+// Shared-memory byte offsets of lut_eval_packed_kernel's parts: the
+// slice's wires (ws*32*n, 16 bits each), its tables (ws*32*tw words), its
+// output tile ([ws][kTileRows + 1] words: padded, so that writing it by
+// lane and reading it by word are both conflict-free) and two activation
+// buffers ([W_in][kTileRows] words each); off[4] is the total.
+__host__ __device__ void packed_tiles_layout(int W_in, int n, int tw, int ws,
+                                             size_t off[5]) {
+  off[0] = 0;
+  off[1] = align16((size_t)ws * 32 * n * 2);
+  off[2] = off[1] + align16((size_t)ws * 32 * tw * 4);
+  off[3] = off[2] + align16((size_t)ws * (kTileRows + 1) * 4);
+  off[4] = off[3] + 2 * (size_t)W_in * kTileRows * 4;
+}
+
+// Bit k of a LUT's address, from its staged wire k, v = w << 7 | ((b - k)
+// & 31) for input word w < 512, bit b: word w of the lane's sample is at
+// byte w * 128 of the [word][lane] activations (act_lane = act + lane), and
+// rotating it right by (b - k) & 31 brings bit b to position k (mask =
+// 1 << k).  One load, one funnel shift, one and-or.
+__device__ __forceinline__ uint32_t wire_bit(const char* act_lane,
+                                             uint32_t v, uint32_t mask) {
+  const uint32_t t =
+      *reinterpret_cast<const uint32_t*>(act_lane + (v & 0xff80u));
+  return __funnelshift_r(t, t, v) & mask;
+}
+
+// LUTs j0 .. j0 + span - 1 of a 32-LUT word of the layer for this lane's
+// sample, as fused_dwn.cu's word_luts, with 16-bit wires (wire_bit).  Fan-in
+// 6 takes LUTs in pairs: their 12 wires are three 8-byte broadcasts and
+// their tables one 16-byte one (j0 and span are even).
+__device__ __forceinline__ uint32_t layer_word(const uint32_t* act,
+                                               const uint16_t* wires,
+                                               const uint32_t* tab, int n,
+                                               int tw, int lane, int j0,
+                                               int span) {
+  const char* act_lane = reinterpret_cast<const char*>(act + lane);
+  uint32_t out = 0;
+  if (n == 6) {
+#pragma unroll 2
+    for (int j = j0; j < j0 + span; j += 2) {
+      const uint2* wp = reinterpret_cast<const uint2*>(wires + j * 6);
+      const uint2 a = wp[0], b = wp[1], c = wp[2];
+      const uint4 t = *reinterpret_cast<const uint4*>(tab + j * 2);
+      const uint32_t addr0 =
+          wire_bit(act_lane, a.x, 1u) | wire_bit(act_lane, a.x >> 16, 2u) |
+          wire_bit(act_lane, a.y, 4u) | wire_bit(act_lane, a.y >> 16, 8u) |
+          wire_bit(act_lane, b.x, 16u) | wire_bit(act_lane, b.x >> 16, 32u);
+      const uint32_t addr1 =
+          wire_bit(act_lane, b.y, 1u) | wire_bit(act_lane, b.y >> 16, 2u) |
+          wire_bit(act_lane, c.x, 4u) | wire_bit(act_lane, c.x >> 16, 8u) |
+          wire_bit(act_lane, c.y, 16u) | wire_bit(act_lane, c.y >> 16, 32u);
+      out |= (table6(t.x, t.y, addr0) | table6(t.z, t.w, addr1) << 1) << j;
+    }
+    return out;
+  }
+  for (int j = j0; j < j0 + span; ++j) {
+    const uint16_t* wl = wires + j * n;
+    uint32_t addr = 0;
+    for (int k = 0; k < n; ++k) addr |= wire_bit(act_lane, wl[k], 1u << k);
+    out |= table_bit<true>(tab + j * tw, n, addr) << j;
+  }
+  return out;
+}
+
+// Tile t's input words into act as [word][lane]; rows past B are zeros.
+__device__ void stage_acts(const PackedTiles& p, uint32_t* act, int t) {
+  const long long row0 = (long long)t * kTileRows;
+  const int n = kTileRows * p.W_in;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const int r = e / p.W_in, w = e - r * p.W_in;
+    uint32_t* d = act + w * kTileRows + r;
+    if (row0 + r < p.B)
+      cp_async4(d, p.words + (row0 + r) * p.W_in + w);
+    else
+      *d = 0u;
+  }
+}
+
+__global__ void __launch_bounds__(kTileThreads)
+    lut_eval_packed_kernel(const __grid_constant__ PackedTiles p) {
+  extern __shared__ __align__(16) unsigned char sm[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  // this block's slice: output words [w0, w0 + nws)
+  const int w0 = blockIdx.y * p.ws, nws = min(p.ws, p.W_out - w0);
+  size_t off[5];
+  packed_tiles_layout(p.W_in, p.n, p.tw, p.ws, off);
+  uint16_t* wires = reinterpret_cast<uint16_t*>(sm + off[0]);
+  uint32_t* tabs = reinterpret_cast<uint32_t*>(sm + off[1]);
+  uint32_t* outs = reinterpret_cast<uint32_t*>(sm + off[2]);
+  uint32_t* acts = reinterpret_cast<uint32_t*>(sm + off[3]);
+  const int a_words = p.W_in * kTileRows;
+  constexpr int kOut = kTileRows + 1;  // output tile row pitch
+
+  // the slice, once per block: tables copied, each wire's word and bit
+  // made one 16-bit wire (wire_bit); k = i % n, the wire's place in its
+  // LUT, is stepped along rather than divided out
+  stage(tabs, p.tab + (size_t)w0 * 32 * p.tw, nws * 32 * p.tw * 4);
+  const size_t wire0 = (size_t)w0 * 32 * p.n;
+  const int k_step = blockDim.x % p.n;
+  for (int i = tid, k = tid % p.n; i < nws * 32 * p.n; i += blockDim.x) {
+    wires[i] = static_cast<uint16_t>(__ldg(p.widx + wire0 + i) << 7 |
+                                     ((__ldg(p.boff + wire0 + i) - k) & 31));
+    k += k_step;
+    if (k >= p.n) k -= p.n;
+  }
+  int t = blockIdx.x;
+  if (t < p.tiles) stage_acts(p, acts, t);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  // a slice of few words still gives every warp work: each word in parts
+  // of 32 / parts LUTs (an even number: fan-in 6 takes pairs), OR-ed
+  // together
+  int parts = 1;
+  while (parts < 16 && nws * parts < nwarps) parts *= 2;
+  const int span = 32 / parts;
+  for (int it = 0; t < p.tiles; t += gridDim.x, ++it) {
+    const uint32_t* act = acts + (it & 1) * a_words;
+    const long long row0 = (long long)t * kTileRows;
+    const int rows = (int)min((long long)kTileRows, p.B - row0);
+    // the next tile's words arrive while this one is computed
+    if (t + (int)gridDim.x < p.tiles)
+      stage_acts(p, acts + ((it + 1) & 1) * a_words, t + gridDim.x);
+    cp_async_commit();
+    if (parts > 1) {
+      for (int i = tid; i < nws * kOut; i += blockDim.x) outs[i] = 0u;
+      __syncthreads();
+    }
+    for (int item = warp; item < nws * parts; item += nwarps) {
+      const int rel = item / parts, j0 = (item - rel * parts) * span;
+      const uint32_t word =
+          layer_word(act, wires + rel * 32 * p.n, tabs + rel * 32 * p.tw,
+                     p.n, p.tw, lane, j0, span);
+      if (parts == 1)
+        outs[rel * kOut + lane] = word;
+      else
+        atomicOr(outs + rel * kOut + lane, word);
+    }
+    __syncthreads();
+    // the tile back to (B, W_out) rows: neighbouring threads write
+    // neighbouring words of a row
+    for (int i = tid; i < rows * nws; i += blockDim.x) {
+      const int r = i / nws, w = i - r * nws;
+      p.out[(row0 + r) * p.W_out + w0 + w] = outs[w * kOut + r];
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+}
+
 }  // namespace
 
 // rows: rows per block, 1..kRows, with rows * C floats of shared memory.
@@ -197,22 +388,77 @@ extern "C" int lut_eval_launch(const void* bits, int B, int C,
   }
 }
 
+// K4 on tiles of 32 samples over S slices of ws output words each, on a
+// card of sms SMs; smem: the plan's dynamic shared memory in bytes
+// (kernel.py: plan_lut_eval_packed), which must be this layout's.
+// info: walkers (grid.x), blocks an SM holds.
 extern "C" int lut_eval_packed_launch(const void* words, int B, int W_in,
                                       const void* widx, const void* boff,
                                       const void* tab, int m, int n, int tw,
-                                      void* out, void* stream) {
+                                      void* out, int S, int ws, int sms,
+                                      int smem, int* info, void* stream) {
+  if (B <= 0 || W_in <= 0 || W_in > 511 || m <= 0 || m % 32 != 0 ||
+      n <= 0 || n > 31 || tw != ((1LL << n) + 31) / 32 || ws < 1 ||
+      S != (m / 32 + ws - 1) / ws || S > 65535 || sms < 1)
+    return (int)cudaErrorInvalidValue;
+  PackedTiles p = {};
+  p.words = static_cast<const uint32_t*>(words);
+  p.widx = static_cast<const int*>(widx);
+  p.boff = static_cast<const int*>(boff);
+  p.tab = static_cast<const uint32_t*>(tab);
+  p.out = static_cast<uint32_t*>(out);
+  p.B = B;
+  p.W_in = W_in;
+  p.n = n;
+  p.tw = tw;
+  p.W_out = m / 32;
+  p.tiles = (B + kTileRows - 1) / kTileRows;
+  p.ws = ws;
+  size_t off[5];
+  packed_tiles_layout(W_in, n, tw, ws, off);
+  if (off[4] != (size_t)smem || off[4] > (size_t)kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  int per_sm = 0;
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(lut_eval_packed_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, lut_eval_packed_kernel, kTileThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  // a persistent grid: each slice's tiles walked by as many blocks as
+  // the card holds beside the other slices'
+  const int walkers = min(p.tiles, max(1, sms * per_sm / S));
+  lut_eval_packed_kernel<<<dim3(walkers, S), kTileThreads, smem,
+                           (cudaStream_t)stream>>>(p);
+  info[0] = walkers;
+  info[1] = per_sm;
+  return (int)cudaGetLastError();
+}
+
+// The rows kernel: one warp a sample (rows of up to 7264 words).
+extern "C" int lut_eval_packed_rows_launch(const void* words, int B,
+                                           int W_in, const void* widx,
+                                           const void* boff, const void* tab,
+                                           int m, int n, int tw, void* out,
+                                           void* stream) {
   if (B <= 0 || W_in <= 0 || m <= 0 || m % 32 != 0 || n <= 0 || n > 31 ||
-      tw != ((1 << n) + 31) / 32)
+      tw != ((1LL << n) + 31) / 32)
     return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)(kThreads / 32) * W_in * sizeof(uint32_t);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        lut_eval_packed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        lut_eval_packed_rows_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int grid = (B + kThreads / 32 - 1) / (kThreads / 32);
-  lut_eval_packed_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  lut_eval_packed_rows_kernel<<<grid, kThreads, smem,
+                                (cudaStream_t)stream>>>(
       (const uint32_t*)words, B, W_in, (const int*)widx, (const int*)boff,
       (const uint32_t*)tab, m, n, tw, (uint32_t*)out);
   return (int)cudaGetLastError();

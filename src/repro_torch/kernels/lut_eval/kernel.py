@@ -3,6 +3,11 @@
 ``lut_eval_packed`` (packed words), the counterparts of the reference's
 Pallas kernels of the same names.
 
+``lut_eval_packed`` stages its layer once per CUDA block in shared memory
+and lets a warp's 32 lanes be 32 samples, so every read of the layer is a
+broadcast (``csrc/lut_eval.cu``); a launch's layout comes from
+:func:`plan_lut_eval_packed` and :func:`last_launch` reports it.
+
 For tensors on the CPU the wrapper runs its plain version (``ref.py``); for
 CUDA tensors it launches the kernel or raises — it never falls back.  Each
 launch adds one to the kernel's count in :func:`launch_counts`.
@@ -10,14 +15,21 @@ launch adds one to the kernel's count in :func:`launch_counts`.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+
 import torch
 
-from .._launch import I, LaunchCounts, P, bind, device_type, expect, launch
+from .._launch import (I, LaunchCounts, P, bind, device_type, expect,
+                       launch, sm_count)
 from .ref import lut_eval_packed_plain, lut_eval_plain
 
 LIBRARY = "lut_eval"
-#: threads per block (== kThreads in the source): 8 warps, one row each.
+#: threads per block of the packed rows kernel (== kThreads in the
+#: source): 8 warps, one row each.
 THREADS = 256
+#: samples of a tile of ``lut_eval_packed``: a warp's lanes, one each.
+TILE_ROWS = 32
 #: dynamic shared memory one block may use on an H100.
 MAX_SMEM_BYTES = 232_448
 #: rows one block of the float kernel stages (== kRows in the source).
@@ -29,7 +41,88 @@ _COUNTS = LaunchCounts("lut_eval", "lut_eval_packed")
 launch_counts = _COUNTS.get
 reset_launch_counts = _COUNTS.reset
 _SIGNATURES = {"lut_eval_launch": [P, I, I, P, P, I, I, I, P, P],
-               "lut_eval_packed_launch": [P, I, I, P, P, P, I, I, I, P, P]}
+               "lut_eval_packed_launch": [P, I, I, P, P, P, I, I, I, P, I,
+                                          I, I, I, P, P],
+               "lut_eval_packed_rows_launch": [P, I, I, P, P, P, I, I, I, P,
+                                               P]}
+#: the latest ``lut_eval_packed`` (see :func:`last_launch`)
+_LAST: dict = {}
+_LAUNCH_INFO = ("walkers", "blocks_per_sm")
+
+
+def last_launch() -> dict:
+    """The latest ``lut_eval_packed`` launch of this process: its
+    :class:`PackedPlan` fields and, on the ``"tiles"`` path, ``walkers``
+    (blocks that walk one slice's tiles) and ``blocks_per_sm`` as the
+    launch found them."""
+    return dict(_LAST)
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedPlan:
+    """How ``lut_eval_packed`` lays out one launch.
+
+    ``path`` is ``"tiles"`` (tiles of 32 samples, one a lane, the layer's
+    output words cut into ``slices`` slices of ``slice_words`` words, each
+    staged once per block) or ``"rows"`` (the port's first packed kernel,
+    one warp a sample, kept for input rows too wide for a tile).
+    """
+
+    path: str
+    slices: int
+    slice_words: int
+    smem_bytes: int
+
+
+def _align16(v: int) -> int:
+    return (v + 15) // 16 * 16
+
+
+def _tiles_smem_bytes(W_in: int, n: int, ws: int) -> int:
+    """Shared memory of a ``lut_eval_packed`` block (packed_tiles_layout
+    in the source): ``ws`` words of LUTs' wires (16 bits each) and tables,
+    the output tile and two activation buffers of a tile."""
+    tw = (2 ** n + 31) // 32
+    return (_align16(ws * 32 * n * 2) + _align16(ws * 32 * tw * 4)
+            + _align16(ws * (TILE_ROWS + 1) * 4) + 2 * W_in * TILE_ROWS * 4)
+
+
+def plan_lut_eval_packed(B: int, W_in: int, m: int, n: int,
+                         sms: int) -> PackedPlan:
+    """The layout of a ``lut_eval_packed`` launch of B >= 1 samples on a
+    card of ``sms`` SMs; raises ``ValueError`` where no block fits.
+
+    The m/32 output words are cut into slices as wide as fit a block's
+    shared memory beside two tiles of 32 samples' input words; with fewer
+    tiles than SMs, narrower, until tiles x slices fill the card.  Where
+    those two tiles take more than half a block (W_in > 454 words: each
+    slice would stage them again for a sliver of the layer), or not even
+    one word of LUTs fits beside them (fan-in 16), the rows kernel
+    takes the launch: rows of up to 7264 words, as before; wider ones are
+    refused.
+    """
+    W_out = max(1, m // 32)       # m = 0: the wrapper launches nothing
+    if _tiles_smem_bytes(W_in, n, 0) > MAX_SMEM_BYTES // 2 or \
+            _tiles_smem_bytes(W_in, n, 1) > MAX_SMEM_BYTES:
+        smem = THREADS // 32 * W_in * 4
+        if smem > MAX_SMEM_BYTES:
+            raise ValueError(f"lut_eval_packed: {smem} bytes of shared "
+                             f"memory per block exceed the card's "
+                             f"{MAX_SMEM_BYTES}")
+        return PackedPlan("rows", 1, W_out, smem)
+    lo, hi = 1, W_out + 1    # fits(lo); hi does not, or is past W_out
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if _tiles_smem_bytes(W_in, n, mid) <= MAX_SMEM_BYTES:
+            lo = mid
+        else:
+            hi = mid
+    tiles = -(-B // TILE_ROWS)
+    slices = max(-(-W_out // lo),
+                 min(W_out, max(1, (sms + tiles // 2) // tiles)))
+    ws = -(-W_out // slices)
+    return PackedPlan("tiles", -(-W_out // ws), ws,
+                      _tiles_smem_bytes(W_in, n, ws))
 
 
 def lut_eval(bits: torch.Tensor, mapping: torch.Tensor,
@@ -83,7 +176,9 @@ def lut_eval_packed(words: torch.Tensor, word_idx: torch.Tensor,
     checks the wires); table_words (m, ceil(2^n/32)) int32 truth-table
     words; m a multiple of 32.  Returns (B, m/32) words.  On CUDA every
     word tensor is an int32 bit pattern; on the CPU the plain version
-    takes either carrier and returns int64 carriers.
+    takes either carrier and returns int64 carriers.  Raises
+    ``ValueError`` for rows wider than the rows kernel takes (7264 words;
+    :func:`plan_lut_eval_packed`).
     """
     if device_type(words, "lut_eval_packed") == "cpu":
         return lut_eval_packed_plain(words, word_idx, bit_off, table_words)
@@ -101,21 +196,32 @@ def lut_eval_packed(words: torch.Tensor, word_idx: torch.Tensor,
             f"bit_off {tuple(bit_off.shape)}, table_words "
             f"{tuple(table_words.shape)} (m must be a multiple of 32 and "
             f"each LUT needs ceil(2^n/32) table words)")
-    smem = THREADS // 32 * W_in * 4
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"lut_eval_packed: {smem} bytes of shared memory "
-                         f"per block exceed the card's {MAX_SMEM_BYTES}")
+    sms = sm_count(dev)
+    plan = plan_lut_eval_packed(max(B, 1), W_in, m, n, sms)
     out = torch.empty((B, m // 32), dtype=torch.int32, device=dev)
     if out.numel() == 0:
         return out
     lib = bind(LIBRARY, _SIGNATURES)
+    _LAST.clear()
+    _LAST.update(dataclasses.asdict(plan))
+    ptrs = (words.data_ptr(), B, W_in, word_idx.data_ptr(),
+            bit_off.data_ptr(), table_words.data_ptr(), m, n,
+            table_words.shape[1], out.data_ptr())
+    if plan.path == "rows":
+        launch(lib, LIBRARY, "lut_eval_packed", dev,
+               lambda stream: lib.lut_eval_packed_rows_launch(*ptrs,
+                                                              stream),
+               _COUNTS)
+        return out
+    info = (ctypes.c_int * len(_LAUNCH_INFO))()
     launch(lib, LIBRARY, "lut_eval_packed", dev,
            lambda stream: lib.lut_eval_packed_launch(
-               words.data_ptr(), B, W_in, word_idx.data_ptr(),
-               bit_off.data_ptr(), table_words.data_ptr(), m, n,
-               table_words.shape[1], out.data_ptr(), stream), _COUNTS)
+               *ptrs, plan.slices, plan.slice_words, sms, plan.smem_bytes,
+               info, stream), _COUNTS)
+    _LAST.update(zip(_LAUNCH_INFO, info))
     return out
 
 
-__all__ = ["FLOAT_ROWS", "MAX_FAN_IN", "launch_counts", "lut_eval",
-           "lut_eval_packed", "reset_launch_counts"]
+__all__ = ["FLOAT_ROWS", "MAX_FAN_IN", "PackedPlan", "last_launch",
+           "launch_counts", "lut_eval", "lut_eval_packed",
+           "plan_lut_eval_packed", "reset_launch_counts"]

@@ -121,7 +121,8 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     _port(x, th, maps, tabs, 5, "batch-major", 8)
     junk = torch.arange(1, 40, dtype=torch.int32)
     assert K.fused_dwn_zero(junk) is junk and not junk.any()
-    assert K.launch_counts() == {"fused_dwn": 0, "fused_dwn_packed": 0,
+    assert K.launch_counts() == {"fused_dwn": 0, "fused_dwn_combine": 0,
+                                 "fused_dwn_packed": 0,
                                  "fused_dwn_batch_major": 0,
                                  "fused_dwn_zero": 0}
     ops = tops.prepare_operands(torch.from_numpy(th),

@@ -639,6 +639,152 @@ def test_cuda_float_wrappers_refuse_bad_operands():
                     5, block_m=900)
 
 
+def _replayed(fn):
+    """``fn()``'s outputs from one replay of a CUDA graph that captured
+    it, after a warm-up on a side stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+TILE_BATCHES = (1, 31, 33, 1000, 4096, 4097)
+#: (W_in words, LUTs, fan-in, path) of K4: lg width at fan-in 6, fan-in 1,
+#: 10 and 16 (a word of fan-in-16 LUTs does not fit a block: the rows
+#: kernel), the widest rows a tile takes and the widest the rows kernel
+#: takes
+K4_CASES = [(100, 2400, 6, "tiles"), (100, 480, 1, "tiles"),
+            (100, 480, 10, "tiles"), (100, 480, 16, "rows"),
+            (454, 256, 6, "tiles"), (7264, 256, 6, "rows")]
+
+
+@pytest.mark.parametrize("W_in,m,n,path", K4_CASES)
+def test_cuda_lut_eval_packed_tiles_match_plain(W_in, m, n, path):
+    """Exact: K4 equals its plain version at every B of TILE_BATCHES on
+    random words, through the planned path, with the pad bits past m
+    zero; one launch a call; a CUDA graph replay equals the eager call."""
+    _need_card()
+    rng = np.random.default_rng(W_in + n)
+    words = tbp.to_word_pattern(torch.from_numpy(rng.integers(
+        0, 2 ** 32, (max(TILE_BATCHES), W_in), dtype=np.uint64).astype(
+        np.int64))).cuda()
+    mp = torch.from_numpy(rng.integers(0, W_in * 32, (m, n)).astype(
+        np.int32)).cuda()
+    tb = torch.from_numpy(rng.integers(0, 2, (m, 2 ** n)).astype(
+        np.int32)).cuda()
+    layer = next(R.LayerStack.build([mp], [tb], W_in * 32, "cuda").layers())
+    for B in TILE_BATCHES:
+        before = KL.launch_counts()["lut_eval_packed"]
+        out = KL.lut_eval_packed(words[:B], *layer)
+        torch.cuda.synchronize()
+        assert KL.last_launch()["path"] == path, B
+        assert KL.launch_counts()["lut_eval_packed"] == before + 1
+        assert torch.equal(tbp.from_word_pattern(out),
+                           RL.lut_eval_packed_plain(words[:B], *layer)), B
+        assert not tbp.unpack_bits(out, out.shape[1] * 32)[:, m:].any(), B
+    assert torch.equal(_replayed(lambda: KL.lut_eval_packed(words, *layer)),
+                       out)
+
+
+#: (F, T, LUTs, fan-in, path) of K6: lg-2400, lg-2402 (two LUTs count for
+#: no class), every other fan-in from 1 to 8, and features too wide for a
+#: tile of 32 samples (the rows kernel)
+K6_CASES = [(16, 200, 2400, 6, "tiles"), (16, 200, 2402, 6, "tiles"),
+            *((16, 200, 1000, n, "tiles") for n in (1, 2, 3, 4, 5, 7, 8)),
+            (500, 4, 130, 6, "rows")]
+
+
+@pytest.mark.parametrize("F,T,m,n,path", K6_CASES)
+def test_cuda_fused_dwn_tiles_match_plain(F, T, m, n, path):
+    """K6 equals its plain version exactly on {0,1} tables at every B of
+    TILE_BATCHES through the planned path, one ``fused_dwn`` launch a call
+    (and one ``fused_dwn_combine`` on the tiles path); on float tables
+    within 1e-4, and bitwise the same in a second call and in a CUDA graph
+    replay."""
+    _need_card()
+    x, th, maps, tabs = _model(150 + n + m, F, T, (m,), n=n,
+                               B=max(TILE_BATCHES))
+    xd, thd = torch.from_numpy(x).cuda(), torch.from_numpy(th).cuda()
+    mp = torch.from_numpy(maps[0]).cuda()
+    tab = torch.from_numpy(tabs[0]).cuda().float()
+    for B in TILE_BATCHES:
+        before = K.launch_counts()
+        got = K.fused_dwn(xd[:B], thd, mp, tab, 5)
+        torch.cuda.synchronize()
+        assert K.last_float_launch()["path"] == path, B
+        after = K.launch_counts()
+        assert after["fused_dwn"] == before["fused_dwn"] + 1
+        assert after["fused_dwn_combine"] == \
+            before["fused_dwn_combine"] + (path == "tiles")
+        ref = R.fused_dwn_plain(xd[:B], thd, mp, tab, 5)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    ftab = torch.from_numpy(np.random.default_rng(n).uniform(
+        -1, 1, (m, 2 ** n)).astype(np.float32)).cuda()
+    got = K.fused_dwn(xd, thd, mp, ftab, 5)
+    ref = R.fused_dwn_plain(xd, thd, mp, ftab, 5)
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-4)
+    again = K.fused_dwn(xd, thd, mp, ftab, 5)
+    graphed = _replayed(lambda: K.fused_dwn(xd, thd, mp, ftab, 5))
+    for out in (again, graphed):
+        assert torch.equal(out[0], got[0]) and torch.equal(out[1], got[1])
+
+
+def test_cuda_fused_dwn_rounds_block_b_and_block_m():
+    """Any block_b, block_m >= 1 gives the plain version's counts on
+    {0,1} tables: tiles of a multiple of 32 samples (cut to what fits),
+    slices of whole 32-LUT chunks cut at class groups and to what fits a
+    block (764 LUTs: over a tile block, the most the rows kernel took),
+    or the rows kernel's refusal where block_m's LUTs alone fit no block;
+    ``forward`` carries a FusedConfig's block_b and block_m to the
+    kernel."""
+    _need_card()
+    x, th, maps, tabs = _model(170, 16, 200, (2400,), B=1000)
+    xd, thd = torch.from_numpy(x).cuda(), torch.from_numpy(th).cuda()
+    mp = torch.from_numpy(maps[0]).cuda()
+    tab = torch.from_numpy(tabs[0]).cuda().float()
+    ref = R.fused_dwn_plain(xd, thd, mp, tab, 5)
+    for bb, bm in ((1, 1), (7, 7), (33, 100), (64, 128), (4096, 480),
+                   (32, 764)):
+        got = K.fused_dwn(xd, thd, mp, tab, 5, block_b=bb, block_m=bm)
+        torch.cuda.synchronize()
+        lay = K.last_float_launch()
+        plan = K.plan_fused_dwn(1000, 16, 2400, 6, 5, bb, bm,
+                                torch.cuda.get_device_properties(
+                                    0).multi_processor_count)
+        assert lay["path"] == "tiles" and lay["tile_rows"] % 32 == 0
+        assert (lay["tile_rows"], lay["slices"], lay["cs"]) == \
+            (plan.tile_rows, plan.slices, plan.cs)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    with pytest.raises(ValueError, match="shared memory"):
+        K.fused_dwn(xd, thd, mp, tab, 5, block_m=2400)
+    got = tops.forward(xd, thd, mp, tab, 5,
+                       config=FusedConfig(block_b=64, block_m=256))
+    assert K.last_float_launch()["tile_rows"] == 64
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def test_cuda_fused_dwn_combine_matches_plain():
+    """Exact: the combine kernel alone adds each class's chunk sums in
+    the plain version's order (random float sums), first argmax."""
+    _need_card()
+    rng = np.random.default_rng(180)
+    for rows, C, B in ((75, 5, 4097), (30, 10, 1), (5, 5, 33)):
+        part = torch.from_numpy(rng.uniform(-16, 16, (rows, B)).astype(
+            np.float32)).cuda()
+        got = K.fused_dwn_combine(part, C)
+        torch.cuda.synchronize()
+        ref = R.fused_dwn_combine_plain(part, C)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+FLASH_TOL = 2e-2
 FLASH_TOL = 2e-2
 #: max |diff| over a query row's head dims over max |want| on that row:
 #: deep in a flat softmax |o| is far below FLASH_TOL, so the elementwise
