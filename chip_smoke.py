@@ -12,9 +12,9 @@ Phases, each printing one JSON line:
    power limit, and its largest SM clock (the operation bounds use it);
 2. build   — compiles every CUDA kernel source with nvcc (all at once),
    prints the assembler's register, shared-memory and spill lines and
-   the tile kernels' (K1, K2, K6 and its combine, K4, and the rows
-   kernels kept beside K6 and K4) registers and shared memory, and fails
-   if one of them spills;
+   the tile kernels' (K1, K2, K6 and its combine, K4, K8, K3, and the
+   rows kernels kept beside K6, K4 and K3) registers and shared memory,
+   and fails if one of them spills;
 3. kernels — at dwn-jsc-lg width (F=16, T=200, m=2400, n=6, 5 classes,
    operands from a numpy seed) holds K2 (packed) and K1 (batch-major)
    against their plain PyTorch versions on the card, bit for bit, at
@@ -34,20 +34,28 @@ Phases, each printing one JSON line:
    and 16; the LUT layer also on 7264-word input rows, the widest it
    takes, and 454-word ones, the widest a tile of 32 samples takes, and
    in a CUDA graph replay; each of its launches held to the path it must
-   take, the layer staged per block or the rows kernel); then
+   take, the layer staged per block or the rows kernel; the encode also
+   on NaN and denormal features, thresholds too large for one block, 500
+   features (its rows kernel) and in a graph replay, each launch's path
+   held likewise); then
    ``encode_packed`` ->
    ``evaluate_packed`` per layer -> ``classify_packed`` at B=4096, equal to
    the fused packed kernel and to the float oracle ``apply_hard``, with
    the launch counters showing one encode, one LUT launch per layer and one
    classify per pass; then each stage kernel, the staged total and the
    fused kernel timed in the same run, in CUDA graphs (the card's time)
-   and as a loop of wrapper calls (which includes the host's);
+   and as a loop of wrapper calls (which includes the host's), the
+   encode and the LUT layer also at the served buckets beside their
+   first designs (the kept rows kernels);
 5. float   — the float datapath at the same width: the float encode, the
    float LUT layer (multilinear table evaluation), the group popcount +
    classify and the float fused kernel, each held against its plain
    version (B = 4096, 4097, 1000, 33, 31, 1, the (120, 50) stack, PEN, a
    ragged F*T = 21, m = 2402 LUTs of which two count for no class, fan-in
-   1 to 8; the fused kernel also at several block_b and block_m) bit for
+   1 to 8; the fused kernel also at several block_b and block_m; the LUT
+   layer also on 3632-bit rows (the widest a tile takes), 3633-bit and
+   58,112-bit ones (its rows kernel; the widest it takes) and in a graph
+   replay, each launch's path held to the tiles or the rows kernel) bit for
    bit, and within a stated tolerance on soft bits and float tables (the
    fused kernel bitwise the same in two calls and in a CUDA graph replay;
    its combine kernel alone equal to its plain version); then
@@ -57,7 +65,8 @@ Phases, each printing one JSON line:
    encode, one LUT launch per layer and one classify per pass and one
    fused launch per ``forward``; then each float kernel, the float and
    packed staged totals and the three fused kernels timed in the same
-   run, the float fused kernel also at the served buckets and over its
+   run, the float fused kernel and the float LUT layer also at the served
+   buckets beside their first designs, and the fused kernel over its
    block_b (samples a tile) and block_m (most LUTs a slice);
 6. flash   — the flash-attention kernel against its plain version at the
    qwen3-8b head shape (32 query heads over 8 KV heads, head_dim 128, bf16
@@ -190,6 +199,22 @@ def time_ms(fn, iters: int, warmup: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_ms(fn, iters: int = 200, warmup: int = 10) -> float:
+    """Mean milliseconds of host time per call: the Python loop's wall
+    time before the card is waited for (fewer calls than the launch queue
+    holds, so the loop never waits for the card)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / iters
+
+
 def graph_ms(fn, iters: int = 100, replays: int = 5) -> float:
     """Mean milliseconds per call on the card with no Python between the
     launches: ``iters`` calls captured in one CUDA graph, replayed
@@ -281,8 +306,10 @@ def model_bytes_and_ops(variant, B, F, T, counts, n, C):
     reads per sample) or "popcount" (the last layer's C*W masked word
     popcounts per sample); or a kernel of the float datapath (float32 bits
     and tables, first layer of ``counts``): "float_thermometer" (F*T
-    compares, F*T floats written per sample), "float_lut_eval" (per LUT n
-    gathers and the 2^n - 1 lerps of its table, an add and an FMA each),
+    compares, F*T floats written per sample), "float_lut_eval" (per row
+    and LUT n gathers and the 2^n - 1 lerps of its table, an FMA each and
+    a subtraction each above the lowest level; the lowest level's 2^(n-1)
+    subtractions take table entries alone, so they count once per LUT),
     "float_popcount" (one float add per LUT output) or "float_fused" (per
     LUT n wired compares, one table read and one float class add).
     """
@@ -294,7 +321,8 @@ def model_bytes_and_ops(variant, B, F, T, counts, n, C):
                 {"int": B * F * T})
     if variant == "float_lut_eval":
         nbytes = B * F * T * 4 + m0 * n * 4 + m0 * A * 4 + B * m0 * 4
-        return nbytes, {"int": B * m0 * n, "fp32": B * m0 * 2 * (A - 1)}
+        lerps = B * m0 * ((A - 1) + (A // 2 - 1)) + m0 * (A // 2)
+        return nbytes, {"int": B * m0 * n, "fp32": lerps}
     if variant == "float_popcount":
         return (B * counts[-1] * 4 + B * C * 4 + B * 4,
                 {"fp32": B * counts[-1]})
@@ -366,15 +394,23 @@ TILE_SYMBOLS = (
     ("fused_dwn", "fused_dwn_rows_kernel", "fused_dwn, rows"),
     ("lut_eval", "lut_eval_packed_kernel", "lut_eval_packed"),
     ("lut_eval", "lut_eval_packed_rows_kernel",
-     "lut_eval_packed, rows"))
+     "lut_eval_packed, rows"),
+    *(("lut_eval", f"lut_eval_tiles_kernelILi{n}E", f"lut_eval, fan-in {n}")
+      for n in range(1, 9)),
+    ("thermometer", "thermometer_encode_packed_kernel",
+     "thermometer_encode_packed"),
+    ("thermometer", "thermometer_encode_packed_rows_kernel",
+     "thermometer_encode_packed, rows"))
 
 
 def phase_build():
     """Every kernel library built at once; returns name -> its ptxas
-    lines.  The tile kernels' (K1, K2, K6, K4 and their helpers)
+    lines.  The tile kernels' (K1, K2, K6, K4, K8, K3 and their helpers)
     registers, static shared memory and spills are printed (their dynamic
     shared memory is in the later phases, as each launch reports it); a
-    spill fails the run."""
+    spill fails the run.  The float LUT layer's kept first design
+    (``lut_eval_rows_kernel``) is not held to that: at fan-in 7 and 8 it
+    spilled before it was kept; its lines are in the libraries' own."""
     from repro_torch.kernels import _build
     res = _build.build_all()
     libs = {name: {"seconds": r["seconds"], "cached": r["cached"],
@@ -598,15 +634,22 @@ def _staged_pass(x, th, maps, tabs, C):
 #: staged per block; "rows": the rows kernel, for rows too wide for a tile
 #: or fan-in 16, whose word of LUTs does not fit a block)
 K4_PATHS = {"fan16-480": "rows", "wide-7264": "rows"}
+#: the packed encode's path on each staged case ("tiles" where not named:
+#: tiles of 32 samples, the slice's thresholds staged per block; "rows":
+#: the rows kernel, for features too many for a tile)
+K3_PATHS = {"wide-500x4": "rows"}
 
 
 def phase_staged(device, batches=(4096, 4097, 1000, 33, 31, 1),
                  time_batch=4096):
     """The three stage kernels equal to their plain versions (K4 also at
     fan-in 1, 10 and 16, on the widest input rows it takes and in a CUDA
-    graph replay, each launch's path held to :data:`K4_PATHS`); the
-    staged path equal to the fused kernel and the float oracle;
-    timings."""
+    graph replay, each launch's path held to :data:`K4_PATHS`; K3 also on
+    NaN and denormal features, thresholds too large for a block, features
+    too many for a tile and in a CUDA graph replay, each launch's path
+    held to :data:`K3_PATHS`); the staged path equal to the fused kernel
+    and the float oracle; timings, K3 and K4 also at the served buckets
+    beside their first designs."""
     import torch
     from repro_torch.core import bitpack as bp
     from repro_torch.core.classifier import predict
@@ -633,7 +676,7 @@ def phase_staged(device, batches=(4096, 4097, 1000, 33, 31, 1),
              ("fan10-480", F, T, (480,), 10, None, batches[2:4]),
              ("fan16-480", F, T, (480,), 16, None, batches[2:4])]
     checks, max_err, models = [], dict.fromkeys(STAGES, 0.0), {}
-    k4_paths = {}
+    k4_paths, k3_paths = {}, {}
 
     def held(name, case, B, got, ref, **extra):
         err = float((got.double() - ref.double()).abs().max()) if B else 0.0
@@ -645,6 +688,19 @@ def phase_staged(device, batches=(4096, 4097, 1000, 33, 31, 1),
             emit({"phase": "staged", "checks": checks})
             raise SystemExit(f"{name} differs from its plain version: "
                              f"{case}, B={B}, max |diff| {err}")
+
+    def k3_held(case, B, x, th_d):
+        words = KT.thermometer_encode_packed(x, th_d)
+        torch.cuda.synchronize()
+        path = KT.last_launch()["path"]
+        k3_paths[case] = path
+        held("thermometer_encode_packed", case, B,
+             bp.from_word_pattern(words),
+             RT.thermometer_packed_plain(x, th_d), path=path)
+        if path != K3_PATHS.get(case, "tiles"):
+            raise SystemExit(f"thermometer_encode_packed took the {path} "
+                             f"path on {case}, B={B}")
+        return words
 
     def k4_held(case, B, words, widx, boff, tab):
         out = KL.lut_eval_packed(words, widx, boff, tab)
@@ -679,11 +735,7 @@ def phase_staged(device, batches=(4096, 4097, 1000, 33, 31, 1),
             if frac is not None:
                 xb = quantize_fixed_point(xb, frac).astype(np.float32)
             x = torch.from_numpy(xb).to(device)
-            words = KT.thermometer_encode_packed(x, th_d)
-            torch.cuda.synchronize()
-            held("thermometer_encode_packed", case, B,
-                 bp.from_word_pattern(words),
-                 RT.thermometer_packed_plain(x, th_d))
+            words = k3_held(case, B, x, th_d)
             for widx, boff, tab in layers:
                 words = k4_held(case, B, words, widx, boff, tab)
             got_c, got_i = KP.popcount_classify_packed(words, masks)
@@ -705,17 +757,35 @@ def phase_staged(device, batches=(4096, 4097, 1000, 33, 31, 1),
         k4_held(case, B, words,
                 *next(FR.LayerStack.build([mp], [tb], W_in * 32,
                                           device).layers()))
+    # K3 alone, features from a generator of their own: NaN and denormal
+    # features (IEEE compares: NaN is false, a denormal above a 0.0
+    # threshold), thresholds too large for one block (16 x 4000, 250 KB:
+    # several slices at any B) and features too many for a tile (500: the
+    # rows kernel)
+    rng3 = np.random.default_rng(5)
+    for case, Fc, Tc in (("nan-denormal", F, T), ("th-16x4000", 16, 4000),
+                         ("wide-500x4", 500, 4)):
+        xs = rng3.uniform(-1, 1, (max(batches), Fc)).astype(np.float32)
+        ths = np.sort(rng3.uniform(-1, 1, (Fc, Tc)).astype(np.float32),
+                      axis=1)
+        if case == "nan-denormal":
+            xs[::7, 3] = np.nan
+            xs[1::7, 0], xs[2::7, 0], ths[0, 0] = 1e-40, -1e-40, 0.0
+        ths_d = torch.from_numpy(ths).to(device)
+        for B in batches:
+            k3_held(case, B, torch.from_numpy(xs[:B]).to(device), ths_d)
     # a CUDA graph replay equals the eager call (lg-2400, B = 4096)
     th_d, layers = models["lg-2400"][3], models["lg-2400"][6]
-    w0 = KT.thermometer_encode_packed(
-        torch.from_numpy(x_all[:time_batch]).to(device), th_d)
+    x = torch.from_numpy(x_all[:time_batch]).to(device)
+    w0 = KT.thermometer_encode_packed(x, th_d)
+    held("thermometer_encode_packed", "lg-2400-graph-replay", time_batch,
+         replayed(lambda: KT.thermometer_encode_packed(x, th_d)), w0)
     eager = KL.lut_eval_packed(w0, *layers[0])
     graphed = replayed(lambda: KL.lut_eval_packed(w0, *layers[0]))
     held("lut_eval_packed", "lg-2400-graph-replay", time_batch, graphed,
          eager)
 
     # the staged path end to end at dwn-jsc-lg width, then on the stack
-    x = torch.from_numpy(x_all[:time_batch]).to(device)
     launches = dict.fromkeys(STAGES, 0)
     passes = {}
     for case in ("lg-2400", "stack-120-50"):
@@ -790,6 +860,46 @@ def phase_staged(device, batches=(4096, 4097, 1000, 33, 31, 1),
     held("lut_eval_packed", "lg-2400-rows-kernel", time_batch,
          bp.from_word_pattern(out_rows),
          RL.lut_eval_packed_plain(w0, widx, boff, tab))
+    # K3 at the served buckets, with each launch's layout, beside its
+    # first design (one warp a sample's 32 words), kept as the rows kernel,
+    # whose output at time_batch is held to the plain version
+    k3 = timing["thermometer_encode_packed"]
+    k3["bucket_ms"] = {
+        B: graph_ms(lambda B=B: KT.thermometer_encode_packed(x[:B], th_d))
+        for B in SERVED_BUCKETS}
+    k3["bucket_layout"] = {
+        B: (KT.thermometer_encode_packed(x[:B], th_d), KT.last_launch())[1]
+        for B in SERVED_BUCKETS}
+    k3["bucket_bound_ms"] = {
+        B: _bound("thermometer", B, *shape[1:])["bound_ms"]
+        for B in SERVED_BUCKETS}
+    enc_rows = torch.empty_like(w0)
+
+    def k3_rows(B):
+        return rows_kernel(
+            KT.LIBRARY, KT._SIGNATURES,
+            "thermometer_encode_packed_rows_launch", x.data_ptr(),
+            th_d.data_ptr(), B, F, T, enc_rows.data_ptr())
+    k3["rows_kernel_bucket_ms"] = {B: graph_ms(k3_rows(B))
+                                   for B in SERVED_BUCKETS}
+    # the wrapper's own cost on each path in this call: loops of wrapper
+    # calls at time_batch with the plan the shapes give (tiles; its loop is
+    # "eager_ms") and with the rows plan put in its place
+    enc = kern["thermometer_encode_packed"][0]
+    k3["host_ms"] = host_ms(enc)
+    planner = KT.plan_thermometer_encode_packed
+    KT.plan_thermometer_encode_packed = \
+        lambda *a: KT.EncodePlan("rows", 1, w0.shape[1], 0)
+    try:
+        k3["rows_host_ms"] = host_ms(enc)
+        k3["rows_eager_ms"] = time_ms(enc, iters=200, warmup=10)
+    finally:
+        KT.plan_thermometer_encode_packed = planner
+    enc_rows.zero_()
+    k3_rows(time_batch)()
+    torch.cuda.synchronize()
+    held("thermometer_encode_packed", "lg-2400-rows-kernel", time_batch,
+         bp.from_word_pattern(enc_rows), RT.thermometer_packed_plain(x, th_d))
     fused = make_forward_packed(th_d, maps_d, tabs_d, C)
 
     def three():
@@ -808,6 +918,7 @@ def phase_staged(device, batches=(4096, 4097, 1000, 33, 31, 1),
     emit({"phase": "staged", "checks": len(checks),
           "all_equal": all(c["equal"] for c in checks),
           "lut_eval_packed_paths": k4_paths,
+          "thermometer_encode_packed_paths": k3_paths,
           "max_abs_err": max_err, "passes": passes,
           "timing_batch": time_batch, "timing": timing, "staged": staged})
     return max_err, timing, launches
@@ -858,6 +969,15 @@ WIDE_F = 500
 #: the float fused kernel's path on each float case ("tiles" where not
 #: named: the model's slice staged per block; "rows": the rows kernel)
 K6_PATHS = {"wide-500": "rows"}
+#: the float LUT layer's path on each float case ("tiles" where not named:
+#: tiles of 16 rows, lanes over LUTs; "rows": the rows kernel, for rows
+#: too wide for a tile, over 3632 bits)
+K8_PATHS = {"wide-3633": "rows", "wide-58112": "rows"}
+#: (case, C bits, LUTs, fan-in) of the float LUT layer alone, on random
+#: {0,1} bits: the widest rows a tile takes, the narrowest the rows kernel
+#: takes and the widest it takes
+WIDE_K8 = (("wide-3632", 3632, 300, 6), ("wide-3633", 3633, 300, 6),
+           ("wide-58112", 58_112, 64, 6))
 
 
 def _float_pass(x, th, maps, tabs, C):
@@ -898,9 +1018,12 @@ def phase_float(device, batches=(4096, 4097, 1000, 33, 31, 1),
     """The four float kernels equal to their plain versions (K6 at fan-in
     1 to 8, at every (block_b, block_m) of :data:`FUSED_DWN_CHECKED`,
     bitwise the same in two calls and in a CUDA graph replay on float
-    tables, its combine kernel alone); the float staged path equal to the
+    tables, its combine kernel alone; K8 at fan-in 1 to 8, on the widest
+    rows of each path and in a CUDA graph replay, each launch's path held
+    to :data:`K8_PATHS`); the float staged path equal to the
     float fused kernel, the packed staged path, the packed fused kernel
-    and the float oracle; timings."""
+    and the float oracle; timings, K6 and K8 also at the served buckets
+    beside their first designs."""
     import torch
     from repro_torch.core.classifier import predict
     from repro_torch.core.model import JSC_PRESETS, FrozenDWN, apply_hard
@@ -930,7 +1053,7 @@ def phase_float(device, batches=(4096, 4097, 1000, 33, 31, 1),
     x_wide = np.random.default_rng(3).uniform(
         -1, 1, (max(batches), WIDE_F)).astype(np.float32)
     checks, max_err, models = [], dict.fromkeys(FLOAT, 0.0), {}
-    k6_paths = {}
+    k6_paths, k8_paths = {}, {}
 
     def held(name, case, got, ref, atol=0.0, **extra):
         B = got.shape[0]
@@ -946,6 +1069,18 @@ def phase_float(device, batches=(4096, 4097, 1000, 33, 31, 1),
 
     def corner_major(tab):
         return tab.to(torch.float32).T.contiguous()
+
+    def k8_held(case, bits, mp, tb, atol=0.0):
+        out = KL.lut_eval(bits, mp, corner_major(tb))
+        torch.cuda.synchronize()
+        path = KL.last_float_launch()["path"]
+        k8_paths[case] = path
+        held("lut_eval", case, out, RL.lut_eval_plain(bits, mp, tb), atol,
+             path=path)
+        if path != K8_PATHS.get(case, "tiles"):
+            raise SystemExit(f"lut_eval took the {path} path on {case}, "
+                             f"B={bits.shape[0]}")
+        return out
 
     for case, Fc, Tc, counts, fan_in, frac, bs in cases:
         th, maps, tabs = make_model(rng, Fc, Tc, counts, fan_in, frac)
@@ -964,10 +1099,7 @@ def phase_float(device, batches=(4096, 4097, 1000, 33, 31, 1),
                  RT.thermometer_plain(x, th_d))
             bits = bits.reshape(B, Fc * Tc)
             for mp, tb in zip(maps_d, tabs_d):
-                out = KL.lut_eval(bits, mp, corner_major(tb))
-                torch.cuda.synchronize()
-                held("lut_eval", case, out, RL.lut_eval_plain(bits, mp, tb))
-                bits = out
+                bits = k8_held(case, bits, mp, tb)
             if bits.shape[1] % C == 0:
                 got_c, got_i = KP.popcount_classify(bits, C)
                 torch.cuda.synchronize()
@@ -1005,6 +1137,20 @@ def phase_float(device, batches=(4096, 4097, 1000, 33, 31, 1),
     held("thermometer_encode", "denormals", dn_bits.reshape(1, 6),
          torch.tensor([[1.0, 1.0, 0.0, 0.0, 0.0, 0.0]], device=device))
 
+    # the float LUT layer alone on random {0,1} bits from a generator of
+    # its own: the widest rows of each path
+    rng8 = np.random.default_rng(6)
+    for case, Cw, mw, nw in WIDE_K8:
+        bs = (1, 33, 100) if Cw > 3633 else (1, 33, 1000)
+        bw = torch.from_numpy((rng8.random((max(bs), Cw)) < 0.5).astype(
+            np.float32)).to(device)
+        mpw = torch.from_numpy(rng8.integers(0, Cw, (mw, nw)).astype(
+            np.int32)).to(device)
+        tbw = torch.from_numpy(rng8.integers(0, 2, (mw, 2 ** nw)).astype(
+            np.int32)).to(device)
+        for B in bs:
+            k8_held(case, bw[:B], mpw, tbw)
+
     # operands off {0,1}: soft bits into the LUT layer, float tables in
     # both; held within the stated tolerances
     th, maps, tabs, th_d, maps_d, tabs_d = models["lg-2400"]
@@ -1015,10 +1161,7 @@ def phase_float(device, batches=(4096, 4097, 1000, 33, 31, 1),
         np.float32)).to(device)
     for label, tb in (("binary-tables", tabs_d[0].to(torch.float32)),
                       ("float-tables", ftab)):
-        out = KL.lut_eval(soft, mp, corner_major(tb))
-        torch.cuda.synchronize()
-        held("lut_eval", f"soft-bits-{label}", out,
-             RL.lut_eval_plain(soft, mp, tb), atol=SOFT_BITS_ATOL)
+        k8_held(f"soft-bits-{label}", soft, mp, tb, atol=SOFT_BITS_ATOL)
     x = torch.from_numpy(x_all[:time_batch]).to(device)
     for B in (time_batch, 4097, 1000, 33, 1):
         xb = torch.from_numpy(x_all[:B]).to(device)
@@ -1088,6 +1231,8 @@ def phase_float(device, batches=(4096, 4097, 1000, 33, 31, 1),
     tab_t = corner_major(tab_f)
     bits = KT.thermometer_encode(x, th_d).reshape(B, -1)
     out = KL.lut_eval(bits, mp, tab_t)
+    held("lut_eval", "lg-2400-graph-replay",
+         replayed(lambda: KL.lut_eval(bits, mp, tab_t)), out)
     shape = (B, F, T, (m,), n, C)
     # name: (kernel, plain version, eager yardstick of two PyTorch calls
     # or None where no PyTorch call computes the function)
@@ -1120,6 +1265,33 @@ def phase_float(device, batches=(4096, 4097, 1000, 33, 31, 1),
             "plain_ms": time_ms(plain, iters=5, warmup=1),
             "library_ms": graph_ms(yardstick) if yardstick else None,
             **_bound(FLOAT[name][2], *shape)}
+    # K8 at the served buckets, with each launch's layout, beside its first
+    # design (8 rows a block, two blocks an SM), kept as the rows kernel,
+    # whose output at B is held to the plain version
+    k8 = timing["lut_eval"]
+    k8["bucket_ms"] = {b: graph_ms(lambda b=b: KL.lut_eval(bits[:b], mp,
+                                                           tab_t))
+                       for b in SERVED_BUCKETS}
+    k8["bucket_layout"] = {
+        b: (KL.lut_eval(bits[:b], mp, tab_t), KL.last_float_launch())[1]
+        for b in SERVED_BUCKETS}
+    k8["bucket_bound_ms"] = {
+        b: _bound("float_lut_eval", b, *shape[1:])["bound_ms"]
+        for b in SERVED_BUCKETS}
+    lut_rows = torch.empty_like(out)
+
+    def k8_rows(b):
+        return rows_kernel(
+            KL.LIBRARY, KL._SIGNATURES, "lut_eval_rows_launch",
+            bits.data_ptr(), b, F * T, mp.data_ptr(), tab_t.data_ptr(), m,
+            n, KL.FLOAT_ROWS, lut_rows.data_ptr())
+    k8["rows_kernel_bucket_ms"] = {b: graph_ms(k8_rows(b))
+                                   for b in SERVED_BUCKETS}
+    lut_rows.zero_()
+    k8_rows(B)()
+    torch.cuda.synchronize()
+    held("lut_eval", "lg-2400-rows-kernel", lut_rows,
+         RL.lut_eval_plain(bits, mp, tab_f))
     # K6 at the served buckets and over its tile parameters, each launch's
     # layout beside its time
     timing["fused_dwn"]["float_tables_ms"] = graph_ms(
@@ -1201,7 +1373,7 @@ def phase_float(device, batches=(4096, 4097, 1000, 33, 31, 1),
                                              / staged["fused_packed_ms"])
     emit({"phase": "float", "checks": len(checks),
           "all_ok": all(c["ok"] for c in checks),
-          "fused_dwn_paths": k6_paths,
+          "fused_dwn_paths": k6_paths, "lut_eval_paths": k8_paths,
           "max_abs_err": max_err, "passes": passes,
           "timing_batch": time_batch, "timing": timing, "staged": staged})
     return max_err, timing, launches
@@ -1857,8 +2029,9 @@ def main() -> int:
             "equal": True, "max_abs_err": stage_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
-            **{k: t[k] for k in ("bucket_ms", "rows_kernel_bucket_ms")
-               if k in t}})
+            **{k: t[k] for k in ("bucket_ms", "rows_kernel_bucket_ms",
+                                 "eager_ms", "host_ms", "rows_host_ms",
+                                 "rows_eager_ms") if k in t}})
     for name, (source, replaced, _) in FLOAT.items():
         t = float_timing[name]
         summary.append({

@@ -66,6 +66,12 @@ def replay(launches) -> None:
         counter.add(name, n)
 
 
+def align16(v: int) -> int:
+    """``v`` rounded up to a multiple of 16 (a shared-memory layout's
+    part boundary, as ``align16`` in ``csrc/tiles.cuh``)."""
+    return (v + 15) // 16 * 16
+
+
 def expect(t: torch.Tensor, name: str, dtype, ndim: int,
            device: torch.device) -> None:
     """Raise ``ValueError`` unless ``t`` is a contiguous ``ndim``-d
@@ -132,5 +138,5 @@ def launch(lib: ctypes.CDLL, library: str, name: str, device: torch.device,
     counts.add(name)
 
 
-__all__ = ["I", "LaunchCounts", "P", "bind", "device_type", "expect",
-           "launch", "recording", "replay", "sm_count"]
+__all__ = ["I", "LaunchCounts", "P", "align16", "bind", "device_type",
+           "expect", "launch", "recording", "replay", "sm_count"]

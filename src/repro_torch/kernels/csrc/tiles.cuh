@@ -1,9 +1,11 @@
 // Device helpers of the tile kernels, shared by fused/csrc/fused_dwn.cu
-// (K1, K2, the float fused K6) and lut_eval/csrc/lut_eval.cu (the packed
-// LUT layer, K4): asynchronous staging into shared memory and the reads
-// of a LUT's one-bit-per-entry table.  The build hashes this directory
-// into every library that includes it (kernels/_build.py), so an edit
-// rebuilds both.
+// (K1, K2, the float fused K6), lut_eval/csrc/lut_eval.cu (the LUT
+// layers, K4 and K8) and thermometer/csrc/thermometer.cu (the packed
+// encode, K3): asynchronous staging into shared memory, the reads of a
+// LUT's one-bit-per-entry table and the 16-byte rounding of the
+// shared-memory layouts (align16, mirrored by kernels/_launch.py).  The
+// build hashes this directory into every library that includes it
+// (kernels/_build.py), so an edit rebuilds all three.
 
 #pragma once
 
@@ -13,6 +15,12 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
+
+// v rounded up to a multiple of 16: where each part of a shared-memory
+// layout starts.
+__host__ __device__ inline size_t align16(size_t v) {
+  return (v + 15) & ~static_cast<size_t>(15);
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

@@ -778,8 +778,6 @@ cudaError_t launch_fused_dwn(const FloatTiles& p, int S, int C, int sms,
   return cudaGetLastError();
 }
 
-size_t align16(size_t v) { return (v + 15) & ~static_cast<size_t>(15); }
-
 template <typename Kernel>
 cudaError_t prepare_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;

@@ -1,5 +1,6 @@
 // LUT-layer evaluation for Hopper (sm_90a): one layer of LUTs on float32
-// bits (lut_eval_kernel) or on packed bits (lut_eval_packed_kernel, and
+// bits (lut_eval_tiles_kernel, and lut_eval_rows_kernel for rows its
+// tiles do not take) or on packed bits (lut_eval_packed_kernel, and
 // lut_eval_packed_rows_kernel for shapes its tiles do not take).
 //
 // Replaces the Pallas TPU kernels
@@ -7,8 +8,8 @@
 //   lut_eval_packed <- src/repro/kernels/lut_eval/kernel.py
 //                      (_lut_eval_packed_kernel)
 //
-// lut_eval_kernel.  With s_i = bits[b, mapping[l, i]] (i < n), LUT l of
-// row b outputs the multilinear function of its inputs,
+// lut_eval_tiles_kernel.  With s_i = bits[b, mapping[l, i]] (i < n), LUT
+// l of row b outputs the multilinear function of its inputs,
 //   out[b, l] = sum_a table[l, a] * prod_i (s_i if bit i of a else 1 - s_i),
 // which is table[l, addr] for bits in {0,1} (and finite tables) and
 // interpolates for bits in (0, 1).  The reference selects the wires with a
@@ -21,20 +22,39 @@
 // way, as s_i * (hi - lo) is exact for s_i in {0,1}.  The tree streams
 // over the corners a = 0, 1, ... like a binary counter, keeping one
 // pending value per level, so a LUT needs n registers, not 2^n.
-// What bounds it on an H100: per row it reads C floats and writes m; at
-// lg width (C=3200, m=2400, n=6) and B=4096 that is 92.4 MB (bits 52.4 MB,
-// output 39.3 MB, tables 0.6 MB) against 1.3 G operations, so it is bound
-// by bytes.  The design:
-//   * a block owns kRows rows and stages them in shared memory (8 x 12.8
-//     KB at lg width), so the random wire gathers are shared-memory reads
-//     and the bits are read from device memory once;
-//   * thread t of the block evaluates LUT l = t, t + kThreads, ... for all
-//     of the block's rows at once, so each table entry is loaded once per
-//     block and used kRows times;
-//   * tables arrive corner-major, (2^n, m), so lanes (consecutive LUTs)
-//     read one 128-byte line per corner, and write one per row.
-// The tables (614 KB) are read once per block from L2: 512 blocks at
-// B=4096 move 314 MB from L2, a known cost a later PR can cut.
+// What bounds it on an H100: per (row, LUT) 2^n - 1 lerps, each an FMA,
+// and a subtraction for each lerp above the lowest level (the lowest
+// level's 2^(n-1) differences are of table entries alone, once per LUT):
+// 94 float instructions at n = 6, with n gathers.  At lg width (C=3200,
+// m=2400) and B=4096 that is 0.98 G instructions, 0.029 ms at the issue
+// rate, against 92.4 MB (0.028 ms), so it is bound by operations.  The
+// first design (lanes over LUTs, 8 rows a block, two blocks an SM at 128
+// registers) ran at 0.094 ms: with its table loads replaced by constants
+// it took 0.056, with the lerps alone 0.041, and with every LUT reading
+// one of 64 tables that sit in L1 still 0.090 (a scratch A/B on the
+// card): a table load's latency, one per corner in the lerp chain, set
+// its pace, not L2's bandwidth.  The design:
+//   * a tile is 16 rows, staged with 16-byte cp.async copies (205 KB at
+//     lg width, one block an SM, so a thread may hold 255 registers);
+//   * lanes are LUTs and a thread evaluates its LUT for 8 rows; two warps
+//     share each 32 LUTs, one for each half of the tile, so a table entry
+//     is loaded once for 8 rows and leaves L2 once per 16 rows (the second
+//     warp finds it in L1), half what the first design read;
+//   * the table loads (coalesced, 128 bytes a warp) run ahead of the
+//     lerps: a pass's upper 32 corners load while its lower 32 fold, the
+//     next pass's lower 32 and wires while its upper ones fold; they
+//     carry an L2 evict-last policy and the outputs are streaming stores,
+//     so that the 614 KB of tables stay in L2 while 92 MB of rows and
+//     outputs pass;
+//   * a persistent grid walks the tiles, the next tile's rows prefetched
+//     into L2, and no barrier falls inside a tile's walk over its LUTs,
+//     128 a pass (19 passes at m = 2400, the last three-quarters full);
+//     below 132 tiles the passes are split over slices (grid.y);
+//   * rows too wide for a tile (C > 3632) take lut_eval_rows_kernel, the
+//     first design, kept as it was.
+// It runs at 3.0x the bound: beside 784 float instructions for 8 rows of
+// a LUT at n = 6 it issues about 650 others, mostly the corner-major
+// table's loads (one per corner and thread) and their addresses.
 //
 // lut_eval_packed_kernel.  Wire k of LUT l reads bit bit_off[l, k] of
 // input word word_idx[l, k] and is bit k of the LUT's address (weight
@@ -79,18 +99,25 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps (float; packed rows: one sample each)
+constexpr int kThreads = 256;  // 8 warps (float; packed rows: a sample each)
 constexpr int kTileThreads = 512;  // lut_eval_packed_kernel: 16 warps
 constexpr int kMaxSmem = 232448;   // dynamic shared memory of a block
-constexpr int kRows = 8;       // float: rows one block stages and evaluates
+constexpr int kRows = 8;       // float rows kernel: rows one block stages
 constexpr int kMaxFanIn = 8;   // float: 2^8 corners at most
+constexpr int kFloatTileRows = 16;  // float tiles: rows of a tile
+constexpr int kPassLuts = 128;  // float tiles: LUTs of a pass (4 warps' lanes)
+constexpr int kLutRows = 8;     // float tiles: rows a thread evaluates
+// float tiles: the tile's row groups, and a block's threads
+constexpr int kRowGroups = kFloatTileRows / kLutRows;
+constexpr int kFloatThreads = kPassLuts * kRowGroups;
 
-// rows_per_block: <= kRows, fewer when kRows rows of C floats would not
-// fit in shared memory; the last block may hold fewer still.
-// Two blocks per SM (at most 128 registers a thread): the fastest at lg
-// width of the row counts and register limits tried (PERF.md, PR 13).
+// The first float design, kept for rows too wide for a tile: a block
+// stages rows_per_block (<= kRows) rows in shared memory and thread t
+// evaluates LUT l = t, t + kThreads, ... for all of them, loading each
+// table entry once per block from global memory (corner-major, so lanes
+// read neighbouring LUTs); the last block may hold fewer rows.
 template <int N>
-__global__ void __launch_bounds__(kThreads, 2) lut_eval_kernel(
+__global__ void __launch_bounds__(kThreads, 2) lut_eval_rows_kernel(
     const float* __restrict__ bits, int B, int C,
     const int* __restrict__ mapping, const float* __restrict__ tab_t, int m,
     int rows_per_block, float* __restrict__ out) {
@@ -139,20 +166,291 @@ __global__ void __launch_bounds__(kThreads, 2) lut_eval_kernel(
 }
 
 template <int N>
-cudaError_t launch_lut_eval(const float* bits, int B, int C,
-                            const int* mapping, const float* tab_t, int m,
-                            int rows_per_block, float* out,
-                            cudaStream_t stream) {
+cudaError_t launch_lut_eval_rows(const float* bits, int B, int C,
+                                 const int* mapping, const float* tab_t,
+                                 int m, int rows_per_block, float* out,
+                                 cudaStream_t stream) {
   const size_t smem = (size_t)rows_per_block * C * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        lut_eval_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        lut_eval_rows_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
   }
   const int grid = (B + rows_per_block - 1) / rows_per_block;
-  lut_eval_kernel<N><<<grid, kThreads, smem, stream>>>(
+  lut_eval_rows_kernel<N><<<grid, kThreads, smem, stream>>>(
       bits, B, C, mapping, tab_t, m, rows_per_block, out);
+  return cudaGetLastError();
+}
+
+// lut_eval_tiles_kernel: tiles of kFloatTileRows rows, the layer's
+// passes of kPassLuts LUTs split into slices of cps passes (grid.y).
+struct FloatTiles {
+  const float* bits;   // (B, C)
+  const int* mapping;  // (m, n) wire indices
+  const float* tab_t;  // (2^n, m) tables, corner-major
+  float* out;          // (B, m)
+  int B, C, m;
+  int tiles, cps;      // tiles of kFloatTileRows; passes per slice
+};
+
+// A tile's row pitch in floats: C rounded up to 4, so that every row
+// starts 16-byte aligned.
+__host__ __device__ int row_pitch(int C) { return (C + 3) & ~3; }
+
+// Dynamic shared memory of lut_eval_tiles_kernel: the tile's rows.
+__host__ __device__ size_t float_tiles_bytes(int C) {
+  return align16((size_t)kFloatTileRows * row_pitch(C) * 4);
+}
+
+// Tile t's rows into rows_s, 16 bytes a copy where the rows allow it
+// (rows past B are zeros).
+__device__ void stage_float_rows(const FloatTiles& p, float* rows_s, int t) {
+  const long long row0 = (long long)t * kFloatTileRows;
+  const int rows = (int)min((long long)kFloatTileRows, p.B - row0);
+  const int pitch = row_pitch(p.C);
+  for (int r = 0; r < kFloatTileRows; ++r) {
+    if (r < rows) {
+      stage(rows_s + r * pitch, p.bits + (row0 + r) * p.C, p.C * 4);
+    } else {
+      for (int c = threadIdx.x; c < p.C; c += blockDim.x)
+        rows_s[r * pitch + c] = 0.0f;
+    }
+  }
+}
+
+// Tile t's rows into L2, one 128-byte line at a time.
+__device__ void prefetch_float_rows(const FloatTiles& p, int t) {
+  const long long row0 = (long long)t * kFloatTileRows;
+  const long long n = min((long long)kFloatTileRows, p.B - row0) * p.C;
+  const float* src = p.bits + row0 * p.C;
+  for (long long i = (long long)threadIdx.x * 32; i < n;
+       i += (long long)blockDim.x * 32)
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(src + i));
+}
+
+// The tables and wires stay in L2 across tiles while the rows and outputs
+// stream past them: their loads carry an evict-last policy.
+__device__ __forceinline__ uint64_t evict_last_policy() {
+  uint64_t pol;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
+               : "=l"(pol));
+  return pol;
+}
+
+__device__ __forceinline__ float ld_evict_last(const float* p,
+                                               uint64_t pol) {
+  float v;
+  asm("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;\n"
+      : "=f"(v)
+      : "l"(p), "l"(pol));
+  return v;
+}
+
+__device__ __forceinline__ int ld_evict_last(const int* p, uint64_t pol) {
+  int v;
+  asm("ld.global.nc.L2::cache_hint.s32 %0, [%1], %2;\n"
+      : "=r"(v)
+      : "l"(p), "l"(pol));
+  return v;
+}
+
+// Folds corner a's table value t into one row's lerp tree: v is the hi
+// side of each level whose bit of a is 1 (fmaf(s, hi - lo, lo), input 0
+// first), and waits as the lo side at the first level whose bit is 0;
+// after the last corner the whole tree has folded into res.
+template <int N>
+__device__ __forceinline__ void fold(float t, int a, const float* s,
+                                     float* pend, float& res) {
+  float v = t;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    if ((a >> k) & 1) {
+      v = fmaf(s[k], v - pend[k], pend[k]);
+    } else {
+      pend[k] = v;
+      return;
+    }
+  }
+  res = v;
+}
+
+// The same for corner h + a of a tree streamed in blocks of 2^LOGH
+// corners, a < 2^LOGH known at compile time and h (a multiple of 2^LOGH)
+// only at run time: the levels below LOGH fold as in fold<N>, and at a
+// block's last corner the levels above follow the bits of h.  The same
+// operations in the same order as fold<N>(t, h + a, ...).
+template <int N, int LOGH>
+__device__ __forceinline__ void fold_block(float t, int h, int a,
+                                           const float* s, float* pend,
+                                           float& res) {
+  float v = t;
+#pragma unroll
+  for (int k = 0; k < LOGH; ++k) {
+    if ((a >> k) & 1) {
+      v = fmaf(s[k], v - pend[k], pend[k]);
+    } else {
+      pend[k] = v;
+      return;
+    }
+  }
+  bool held = false;
+#pragma unroll
+  for (int k = LOGH; k < N; ++k) {
+    if (!held) {
+      if ((h >> k) & 1) {
+        v = fmaf(s[k], v - pend[k], pend[k]);
+      } else {
+        pend[k] = v;
+        held = true;
+      }
+    }
+  }
+  if (!held) res = v;
+}
+
+// Lanes are LUTs: warp w evaluates LUTs (w / G) * 32 + lane of each pass
+// of kPassLuts for the kLutRows rows from (w % G) * kLutRows of the tile
+// (G = kRowGroups), so that a table entry loaded once serves kLutRows
+// rows, and the G warps that load it read it from L2 once (the others
+// find it in L1).  Up to fan-in 6 the loads run ahead of the lerps: a
+// pass's corners from 32 on load while its first 32 fold, and the next
+// pass's first 32 corners and wires while its last ones fold (a lane past
+// m loads LUT m - 1 and stores nothing, so that every lane's pipeline
+// stays full).  At 7 and 8 the corners go in blocks of 32 through a loop
+// that is not unrolled, so that no register spills.  The outputs are
+// streaming stores, 128 bytes a warp and row.
+template <int N>
+__global__ void __launch_bounds__(kFloatThreads, 1)
+    lut_eval_tiles_kernel(const __grid_constant__ FloatTiles p) {
+  constexpr int A = 1 << N;
+  constexpr int LO = A < 32 ? A : 32;  // corners loaded a pass ahead
+  constexpr bool kAhead = N <= 6;
+  extern __shared__ __align__(16) float rows_s[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g0 = (warp % kRowGroups) * kLutRows;      // this warp's 1st row
+  const int lut = (warp / kRowGroups) * 32 + lane;    // its LUT in a pass
+  const int pitch = row_pitch(p.C);
+  const float* my_rows = rows_s + g0 * pitch;
+  const int passes = (p.m + kPassLuts - 1) / kPassLuts;
+  const int pa0 = blockIdx.y * p.cps, pa1 = min(passes, pa0 + p.cps);
+  const uint64_t keep = evict_last_policy();
+  // the LUT a lane loads in pass pa: its own, or the last one past m
+  auto lut_of = [&](int pa) { return min(pa * kPassLuts + lut, p.m - 1); };
+  float lo[LO];  // the first corners of the pass to come
+  int wn[N];     // and its wires
+  if constexpr (kAhead) {
+    const int l = lut_of(pa0);
+    const float* tp = p.tab_t + l;
+#pragma unroll
+    for (int a = 0; a < LO; ++a, tp += p.m) lo[a] = ld_evict_last(tp, keep);
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+      wn[k] = ld_evict_last(p.mapping + (size_t)l * N + k, keep);
+  }
+
+  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+    const long long row0 = (long long)t * kFloatTileRows;
+    // rows of this warp's group that lie before B
+    const int group_rows =
+        (int)min((long long)kFloatTileRows, p.B - row0) - g0;
+    __syncthreads();  // the last tile's rows are no longer read
+    stage_float_rows(p, rows_s, t);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    // the next tile's rows move to L2 while this one is evaluated
+    if (t + (int)gridDim.x < p.tiles) prefetch_float_rows(p, t + gridDim.x);
+    for (int pa = pa0; pa < pa1; ++pa) {
+      const int l = lut_of(pa);
+      float s[kLutRows][N], pend[kLutRows][N], res[kLutRows];
+      if constexpr (kAhead) {
+        float hi[A - LO + 1];
+        const float* tp = p.tab_t + (size_t)LO * p.m + l;
+#pragma unroll
+        for (int a = LO; a < A; ++a, tp += p.m)
+          hi[a - LO] = ld_evict_last(tp, keep);
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          const float* col = my_rows + wn[k];
+#pragma unroll
+          for (int r = 0; r < kLutRows; ++r, col += pitch) s[r][k] = *col;
+        }
+#pragma unroll
+        for (int a = 0; a < LO; ++a) {
+#pragma unroll
+          for (int r = 0; r < kLutRows; ++r)
+            fold<N>(lo[a], a, s[r], pend[r], res[r]);
+        }
+        // the next pass (or, after the last, this slice's first pass of
+        // the next tile): its first corners and wires
+        const int ln = lut_of(pa + 1 < pa1 ? pa + 1 : pa0);
+        const float* tn = p.tab_t + ln;
+#pragma unroll
+        for (int a = 0; a < LO; ++a, tn += p.m) lo[a] = ld_evict_last(tn, keep);
+#pragma unroll
+        for (int k = 0; k < N; ++k)
+          wn[k] = ld_evict_last(p.mapping + (size_t)ln * N + k, keep);
+#pragma unroll
+        for (int a = LO; a < A; ++a) {
+#pragma unroll
+          for (int r = 0; r < kLutRows; ++r)
+            fold<N>(hi[a - LO], a, s[r], pend[r], res[r]);
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          const float* col =
+              my_rows + ld_evict_last(p.mapping + (size_t)l * N + k, keep);
+#pragma unroll
+          for (int r = 0; r < kLutRows; ++r, col += pitch) s[r][k] = *col;
+        }
+#pragma unroll 1
+        for (int h = 0; h < A; h += 32) {
+          float tt[32];
+#pragma unroll
+          for (int a = 0; a < 32; ++a)
+            tt[a] = ld_evict_last(p.tab_t + (size_t)(h + a) * p.m + l, keep);
+#pragma unroll
+          for (int a = 0; a < 32; ++a) {
+#pragma unroll
+            for (int r = 0; r < kLutRows; ++r)
+              fold_block<N, 5>(tt[a], h, a, s[r], pend[r], res[r]);
+          }
+        }
+      }
+      if (pa * kPassLuts + lut < p.m) {
+#pragma unroll
+        for (int r = 0; r < kLutRows; ++r)
+          if (r < group_rows)
+            __stcs(p.out + (row0 + g0 + r) * p.m + l, res[r]);
+      }
+    }
+  }
+}
+
+template <int N>
+cudaError_t launch_lut_eval_tiles(const FloatTiles& p, int S, int sms,
+                                  int smem, int* info, cudaStream_t stream) {
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(lut_eval_tiles_kernel<N>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+  }
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, lut_eval_tiles_kernel<N>, kFloatThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  // a persistent grid: each slice's tiles walked by as many blocks as the
+  // card holds beside the other slices'
+  const int walkers = min(p.tiles, max(1, sms * per_sm / S));
+  lut_eval_tiles_kernel<N>
+      <<<dim3(walkers, S), kFloatThreads, smem, stream>>>(p);
+  info[0] = walkers;
+  info[1] = per_sm;
   return cudaGetLastError();
 }
 
@@ -189,10 +487,6 @@ __global__ void __launch_bounds__(kThreads) lut_eval_packed_rows_kernel(
     }
     if (lane < nw) o[w0 + lane] = mine;
   }
-}
-
-__host__ __device__ size_t align16(size_t v) {
-  return (v + 15) & ~static_cast<size_t>(15);
 }
 
 // lut_eval_packed_kernel: one word-addressed layer over tiles of
@@ -364,10 +658,52 @@ __global__ void __launch_bounds__(kTileThreads)
 
 }  // namespace
 
-// rows: rows per block, 1..kRows, with rows * C floats of shared memory.
+// K8 on tiles of 16 rows over S slices of cps 128-LUT passes each, on a
+// card of sms SMs; smem: the plan's dynamic shared memory in bytes
+// (kernel.py: plan_lut_eval), which must be this layout's.  info: walkers
+// (grid.x), blocks an SM holds.
 extern "C" int lut_eval_launch(const void* bits, int B, int C,
                                const void* mapping, const void* tab_t, int m,
-                               int n, int rows, void* out, void* stream) {
+                               int n, void* out, int S, int cps, int sms,
+                               int smem, int* info, void* stream) {
+  if (B <= 0 || C <= 0 || m <= 0 || n < 1 || n > kMaxFanIn || cps < 1 ||
+      sms < 1)
+    return (int)cudaErrorInvalidValue;
+  const int passes = (m + kPassLuts - 1) / kPassLuts;
+  if (S != (passes + cps - 1) / cps || S > 65535)
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes = float_tiles_bytes(C);
+  if (bytes != (size_t)smem || bytes > (size_t)kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  FloatTiles p = {};
+  p.bits = static_cast<const float*>(bits);
+  p.mapping = static_cast<const int*>(mapping);
+  p.tab_t = static_cast<const float*>(tab_t);
+  p.out = static_cast<float*>(out);
+  p.B = B;
+  p.C = C;
+  p.m = m;
+  p.tiles = (B + kFloatTileRows - 1) / kFloatTileRows;
+  p.cps = cps;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (n) {
+    case 1: return (int)launch_lut_eval_tiles<1>(p, S, sms, smem, info, st);
+    case 2: return (int)launch_lut_eval_tiles<2>(p, S, sms, smem, info, st);
+    case 3: return (int)launch_lut_eval_tiles<3>(p, S, sms, smem, info, st);
+    case 4: return (int)launch_lut_eval_tiles<4>(p, S, sms, smem, info, st);
+    case 5: return (int)launch_lut_eval_tiles<5>(p, S, sms, smem, info, st);
+    case 6: return (int)launch_lut_eval_tiles<6>(p, S, sms, smem, info, st);
+    case 7: return (int)launch_lut_eval_tiles<7>(p, S, sms, smem, info, st);
+    default: return (int)launch_lut_eval_tiles<8>(p, S, sms, smem, info, st);
+  }
+}
+
+// The float rows kernel; rows: rows per block, 1..kRows, with rows * C
+// floats of shared memory.
+extern "C" int lut_eval_rows_launch(const void* bits, int B, int C,
+                                    const void* mapping, const void* tab_t,
+                                    int m, int n, int rows, void* out,
+                                    void* stream) {
   if (B <= 0 || C <= 0 || m <= 0 || n < 1 || n > kMaxFanIn || rows < 1 ||
       rows > kRows)
     return (int)cudaErrorInvalidValue;
@@ -377,14 +713,15 @@ extern "C" int lut_eval_launch(const void* bits, int B, int C,
   float* o = (float*)out;
   cudaStream_t st = (cudaStream_t)stream;
   switch (n) {
-    case 1: return (int)launch_lut_eval<1>(b, B, C, mp, t, m, rows, o, st);
-    case 2: return (int)launch_lut_eval<2>(b, B, C, mp, t, m, rows, o, st);
-    case 3: return (int)launch_lut_eval<3>(b, B, C, mp, t, m, rows, o, st);
-    case 4: return (int)launch_lut_eval<4>(b, B, C, mp, t, m, rows, o, st);
-    case 5: return (int)launch_lut_eval<5>(b, B, C, mp, t, m, rows, o, st);
-    case 6: return (int)launch_lut_eval<6>(b, B, C, mp, t, m, rows, o, st);
-    case 7: return (int)launch_lut_eval<7>(b, B, C, mp, t, m, rows, o, st);
-    default: return (int)launch_lut_eval<8>(b, B, C, mp, t, m, rows, o, st);
+    case 1: return (int)launch_lut_eval_rows<1>(b, B, C, mp, t, m, rows, o, st);
+    case 2: return (int)launch_lut_eval_rows<2>(b, B, C, mp, t, m, rows, o, st);
+    case 3: return (int)launch_lut_eval_rows<3>(b, B, C, mp, t, m, rows, o, st);
+    case 4: return (int)launch_lut_eval_rows<4>(b, B, C, mp, t, m, rows, o, st);
+    case 5: return (int)launch_lut_eval_rows<5>(b, B, C, mp, t, m, rows, o, st);
+    case 6: return (int)launch_lut_eval_rows<6>(b, B, C, mp, t, m, rows, o, st);
+    case 7: return (int)launch_lut_eval_rows<7>(b, B, C, mp, t, m, rows, o, st);
+    default:
+      return (int)launch_lut_eval_rows<8>(b, B, C, mp, t, m, rows, o, st);
   }
 }
 

@@ -7,6 +7,9 @@ Pallas kernels of the same names.
 and lets a warp's 32 lanes be 32 samples, so every read of the layer is a
 broadcast (``csrc/lut_eval.cu``); a launch's layout comes from
 :func:`plan_lut_eval_packed` and :func:`last_launch` reports it.
+``lut_eval`` stages tiles of 16 rows and lets a warp's lanes be LUTs, 8
+rows a thread, each table entry loaded once for 8 rows; its layout comes
+from :func:`plan_lut_eval` and :func:`last_float_launch` reports it.
 
 For tensors on the CPU the wrapper runs its plain version (``ref.py``); for
 CUDA tensors it launches the kernel or raises — it never falls back.  Each
@@ -17,30 +20,38 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
-from .._launch import (I, LaunchCounts, P, bind, device_type, expect,
-                       launch, sm_count)
+from .._launch import (I, LaunchCounts, P, align16, bind, device_type,
+                       expect, launch, sm_count)
 from .ref import lut_eval_packed_plain, lut_eval_plain
 
 LIBRARY = "lut_eval"
-#: threads per block of the packed rows kernel (== kThreads in the
-#: source): 8 warps, one row each.
+#: threads per block of the packed rows kernel and of both float kernels
+#: (== kThreads in the source): 8 warps.
 THREADS = 256
 #: samples of a tile of ``lut_eval_packed``: a warp's lanes, one each.
 TILE_ROWS = 32
 #: dynamic shared memory one block may use on an H100.
 MAX_SMEM_BYTES = 232_448
-#: rows one block of the float kernel stages (== kRows in the source).
+#: rows one block of the float rows kernel stages (== kRows in the
+#: source).
 FLOAT_ROWS = 8
-#: widest fan-in the float kernel takes (== kMaxFanIn): 2^8 corners.
+#: rows of a tile of the float tile kernel (== kFloatTileRows).
+FLOAT_TILE_ROWS = 16
+#: LUTs of a pass of the float tile kernel (== kPassLuts): 4 warps' lanes.
+PASS_LUTS = 128
+#: widest fan-in the float kernels take (== kMaxFanIn): 2^8 corners.
 MAX_FAN_IN = 8
 _COUNTS = LaunchCounts("lut_eval", "lut_eval_packed")
 #: kernel name -> launches since the last :func:`reset_launch_counts`.
 launch_counts = _COUNTS.get
 reset_launch_counts = _COUNTS.reset
-_SIGNATURES = {"lut_eval_launch": [P, I, I, P, P, I, I, I, P, P],
+_SIGNATURES = {"lut_eval_launch": [P, I, I, P, P, I, I, P, I, I, I, I, P,
+                                   P],
+               "lut_eval_rows_launch": [P, I, I, P, P, I, I, I, P, P],
                "lut_eval_packed_launch": [P, I, I, P, P, P, I, I, I, P, I,
                                           I, I, I, P, P],
                "lut_eval_packed_rows_launch": [P, I, I, P, P, P, I, I, I, P,
@@ -48,6 +59,10 @@ _SIGNATURES = {"lut_eval_launch": [P, I, I, P, P, I, I, I, P, P],
 #: the latest ``lut_eval_packed`` (see :func:`last_launch`)
 _LAST: dict = {}
 _LAUNCH_INFO = ("walkers", "blocks_per_sm")
+#: what the C entry found at the latest ``lut_eval`` tiles launch
+_FLOAT_INFO = (ctypes.c_int * len(_LAUNCH_INFO))()
+#: the latest ``lut_eval`` plan (see :func:`last_float_launch`)
+_LAST_FLOAT: list = [None]
 
 
 def last_launch() -> dict:
@@ -56,6 +71,20 @@ def last_launch() -> dict:
     (blocks that walk one slice's tiles) and ``blocks_per_sm`` as the
     launch found them."""
     return dict(_LAST)
+
+
+def last_float_launch() -> dict:
+    """The latest ``lut_eval`` launch of this process: its
+    :class:`FloatPlan` fields and, on the ``"tiles"`` path, ``walkers``
+    and ``blocks_per_sm`` as the launch found them; empty before the
+    first launch."""
+    plan = _LAST_FLOAT[0]
+    if plan is None:
+        return {}
+    out = dataclasses.asdict(plan)
+    if plan.path == "tiles":
+        out.update(zip(_LAUNCH_INFO, _FLOAT_INFO))
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,17 +103,13 @@ class PackedPlan:
     smem_bytes: int
 
 
-def _align16(v: int) -> int:
-    return (v + 15) // 16 * 16
-
-
 def _tiles_smem_bytes(W_in: int, n: int, ws: int) -> int:
     """Shared memory of a ``lut_eval_packed`` block (packed_tiles_layout
     in the source): ``ws`` words of LUTs' wires (16 bits each) and tables,
     the output tile and two activation buffers of a tile."""
     tw = (2 ** n + 31) // 32
-    return (_align16(ws * 32 * n * 2) + _align16(ws * 32 * tw * 4)
-            + _align16(ws * (TILE_ROWS + 1) * 4) + 2 * W_in * TILE_ROWS * 4)
+    return (align16(ws * 32 * n * 2) + align16(ws * 32 * tw * 4)
+            + align16(ws * (TILE_ROWS + 1) * 4) + 2 * W_in * TILE_ROWS * 4)
 
 
 def plan_lut_eval_packed(B: int, W_in: int, m: int, n: int,
@@ -125,6 +150,58 @@ def plan_lut_eval_packed(B: int, W_in: int, m: int, n: int,
                       _tiles_smem_bytes(W_in, n, ws))
 
 
+@dataclasses.dataclass(frozen=True)
+class FloatPlan:
+    """How ``lut_eval`` lays out one launch.
+
+    ``path`` is ``"tiles"`` (tiles of ``rows`` = 16 rows, the layer's
+    128-LUT passes cut into ``slices`` slices of ``slice_passes`` passes)
+    or ``"rows"`` (the port's first float kernel, ``rows`` <= 8 rows a
+    block, kept for rows too wide for a tile).
+    """
+
+    path: str
+    slices: int
+    slice_passes: int
+    rows: int
+    smem_bytes: int
+
+
+def _float_tiles_smem_bytes(C: int) -> int:
+    """Shared memory of a ``lut_eval`` tile block (float_tiles_bytes in
+    the source): a tile of 16 rows of C floats, each padded to a multiple
+    of 4."""
+    return align16(FLOAT_TILE_ROWS * ((C + 3) // 4 * 4) * 4)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_lut_eval(B: int, C: int, m: int, sms: int) -> FloatPlan:
+    """The layout of a ``lut_eval`` launch of B >= 1 rows of C bits and m
+    LUTs (of any fan-in the kernels take), on a card of ``sms`` SMs;
+    raises ``ValueError`` where no block fits.
+
+    Where a tile of 16 rows fits a block (C <= 3632, any fan-in), the
+    tile kernel takes it, the ceil(m/128) passes cut into slices only
+    below 132 tiles, until tiles x slices fill the card.  Wider rows take
+    the rows kernel: as many rows a block as fit, up to 8, so rows of up
+    to 58,112 bits, as before; wider ones are refused.  Cached: a wrapper
+    call looks its plan up, it does not plan again.
+    """
+    smem = _float_tiles_smem_bytes(C)
+    passes = -(-max(m, 1) // PASS_LUTS)    # m = 0: nothing is launched
+    if smem > MAX_SMEM_BYTES:
+        rows = min(FLOAT_ROWS, MAX_SMEM_BYTES // (4 * max(C, 1)))
+        if rows < 1:
+            raise ValueError(f"lut_eval: a row of {C} bits does not fit in "
+                             f"the card's {MAX_SMEM_BYTES} bytes of shared "
+                             f"memory")
+        return FloatPlan("rows", 1, passes, rows, rows * C * 4)
+    tiles = -(-B // FLOAT_TILE_ROWS)
+    slices = min(passes, max(1, (sms + tiles // 2) // tiles))
+    per = -(-passes // slices)
+    return FloatPlan("tiles", -(-passes // per), per, FLOAT_TILE_ROWS, smem)
+
+
 def lut_eval(bits: torch.Tensor, mapping: torch.Tensor,
              tables_t: torch.Tensor) -> torch.Tensor:
     """One LUT layer on float32 bits: the multilinear table evaluation.
@@ -133,7 +210,9 @@ def lut_eval(bits: torch.Tensor, mapping: torch.Tensor,
     op checks them; the kernel does not); tables_t (2^n, m) float32, the
     tables corner-major (``tables.T``), so that neighbouring threads read
     neighbouring LUTs.  1 <= n <= :data:`MAX_FAN_IN`.  Returns (B, m)
-    float32: ``ref.lut_eval_plain(bits, mapping, tables_t.T)``.
+    float32: ``ref.lut_eval_plain(bits, mapping, tables_t.T)``.  Raises
+    ``ValueError`` for rows wider than the rows kernel takes (58,112
+    bits; :func:`plan_lut_eval`).
     """
     if device_type(bits, "lut_eval") == "cpu":
         return lut_eval_plain(bits, mapping, tables_t.T)
@@ -149,20 +228,25 @@ def lut_eval(bits: torch.Tensor, mapping: torch.Tensor,
     if tuple(tables_t.shape) != (2 ** n, m):
         raise ValueError(f"tables_t has shape {tuple(tables_t.shape)}; "
                          f"expected {(2 ** n, m)} (corner-major)")
-    rows = min(FLOAT_ROWS, MAX_SMEM_BYTES // (4 * max(C, 1)))
-    if rows < 1:
-        raise ValueError(f"lut_eval: a row of {C} bits does not fit in "
-                         f"the card's {MAX_SMEM_BYTES} bytes of shared "
-                         f"memory")
+    sms = sm_count(dev)
+    plan = plan_lut_eval(max(B, 1), C, m, sms)
     out = torch.empty((B, m), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     lib = bind(LIBRARY, _SIGNATURES)
-    launch(lib, LIBRARY, "lut_eval", dev,
-           lambda stream: lib.lut_eval_launch(
-               bits.data_ptr(), B, C, mapping.data_ptr(),
-               tables_t.data_ptr(), m, n, rows, out.data_ptr(), stream),
-           _COUNTS)
+    _LAST_FLOAT[0] = None
+    ptrs = (bits.data_ptr(), B, C, mapping.data_ptr(), tables_t.data_ptr(),
+            m, n)
+    if plan.path == "rows":
+        launch(lib, LIBRARY, "lut_eval", dev,
+               lambda stream: lib.lut_eval_rows_launch(
+                   *ptrs, plan.rows, out.data_ptr(), stream), _COUNTS)
+    else:
+        launch(lib, LIBRARY, "lut_eval", dev,
+               lambda stream: lib.lut_eval_launch(
+                   *ptrs, out.data_ptr(), plan.slices, plan.slice_passes,
+                   sms, plan.smem_bytes, _FLOAT_INFO, stream), _COUNTS)
+    _LAST_FLOAT[0] = plan
     return out
 
 
@@ -222,6 +306,7 @@ def lut_eval_packed(words: torch.Tensor, word_idx: torch.Tensor,
     return out
 
 
-__all__ = ["FLOAT_ROWS", "MAX_FAN_IN", "PackedPlan", "last_launch",
-           "launch_counts", "lut_eval", "lut_eval_packed",
+__all__ = ["FLOAT_ROWS", "FLOAT_TILE_ROWS", "FloatPlan", "MAX_FAN_IN",
+           "PASS_LUTS", "PackedPlan", "last_float_launch", "last_launch",
+           "launch_counts", "lut_eval", "lut_eval_packed", "plan_lut_eval",
            "plan_lut_eval_packed", "reset_launch_counts"]

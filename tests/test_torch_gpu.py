@@ -784,6 +784,88 @@ def test_cuda_fused_dwn_combine_matches_plain():
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
+#: (C bits, LUTs, fan-in, path) of K8: lg width at every fan-in from 1 to
+#: 8, the widest rows a tile takes, the narrowest the rows kernel takes
+#: and the widest it takes (one row a block)
+K8_CASES = [(3200, 2400, 6, "tiles"),
+            *((3200, 300, n, "tiles") for n in (1, 2, 3, 4, 5, 7, 8)),
+            (3632, 300, 6, "tiles"), (3633, 300, 6, "rows"),
+            (58_112, 64, 6, "rows")]
+
+
+@pytest.mark.parametrize("C,m,n,path", K8_CASES)
+def test_cuda_lut_eval_tiles_match_plain(C, m, n, path):
+    """K8 equals its plain version exactly on {0,1} bits and tables at
+    every B of TILE_BATCHES (fewer rows on the widest case) through the
+    planned path, one launch a call; on soft bits within 1e-5, with {0,1}
+    and with float tables; a CUDA graph replay equals the eager call."""
+    _need_card()
+    rng = np.random.default_rng(C + 10 * n)
+    batches = TILE_BATCHES if C <= 3633 else (1, 31, 33, 100)
+    Bmax = max(batches)
+    bits = torch.from_numpy((rng.random((Bmax, C)) < 0.5).astype(
+        np.float32)).cuda()
+    mp = torch.from_numpy(rng.integers(0, C, (m, n)).astype(np.int32)).cuda()
+    tab = torch.from_numpy(rng.integers(0, 2, (m, 2 ** n)).astype(
+        np.float32)).cuda()
+    tab_t = tab.T.contiguous()
+    for B in batches:
+        before = KL.launch_counts()["lut_eval"]
+        out = KL.lut_eval(bits[:B], mp, tab_t)
+        torch.cuda.synchronize()
+        assert KL.last_float_launch()["path"] == path, B
+        assert KL.launch_counts()["lut_eval"] == before + 1
+        assert torch.equal(out, RL.lut_eval_plain(bits[:B], mp, tab)), B
+    soft = torch.from_numpy(rng.uniform(0, 1, (min(Bmax, 300), C)).astype(
+        np.float32)).cuda()
+    ftab = torch.from_numpy(rng.uniform(-1, 1, (m, 2 ** n)).astype(
+        np.float32)).cuda()
+    for tb in (tab, ftab):
+        got = KL.lut_eval(soft, mp, tb.T.contiguous())
+        torch.testing.assert_close(got, RL.lut_eval_plain(soft, mp, tb),
+                                   rtol=0, atol=1e-5)
+    assert torch.equal(_replayed(lambda: KL.lut_eval(bits, mp, tab_t)), out)
+
+
+#: (F, T, PEN fraction bits, path) of K3: lg width, PEN ties, ragged
+#: words (F*T = 21 and 65), thresholds too large for one block (F*T =
+#: 64,000 bits: several slices at any B) and features too many for a tile
+#: (the rows kernel)
+K3_CASES = [(16, 200, None, "tiles"), (16, 200, 8, "tiles"),
+            (3, 7, None, "tiles"), (5, 13, None, "tiles"),
+            (16, 4000, None, "tiles"), (500, 4, None, "rows")]
+
+
+@pytest.mark.parametrize("F,T,frac,path", K3_CASES)
+def test_cuda_thermometer_encode_packed_tiles_match_plain(F, T, frac, path):
+    """K3 equals its plain version exactly at every B of TILE_BATCHES
+    through the planned path, one launch a call, pad bits zero; NaN
+    features compare false and denormal ones above a 0.0 threshold; a CUDA
+    graph replay equals the eager call."""
+    _need_card()
+    x, th, _, _ = _model(190 + F + T, F, T, (), B=max(TILE_BATCHES),
+                         pen_frac=frac)
+    x[5, : min(F, 3)] = np.nan
+    x[7, 0] = 1e-40
+    x[9, 0] = -1e-40
+    th[0, 0] = 0.0
+    xd, thd = torch.from_numpy(x).cuda(), torch.from_numpy(th).cuda()
+    for B in TILE_BATCHES:
+        before = KT.launch_counts()["thermometer_encode_packed"]
+        words = KT.thermometer_encode_packed(xd[:B], thd)
+        torch.cuda.synchronize()
+        assert KT.last_launch()["path"] == path, B
+        assert KT.launch_counts()["thermometer_encode_packed"] == before + 1
+        assert torch.equal(tbp.from_word_pattern(words),
+                           RT.thermometer_packed_plain(xd[:B], thd)), B
+    bits = tbp.unpack_bits(words, words.shape[1] * 32)
+    assert not bits[:, F * T:].any()
+    assert not bits[5, :min(F, 3) * T].any()           # NaN: all false
+    assert bool(bits[7, 0]) and not bool(bits[9, 0])   # denormals
+    assert torch.equal(_replayed(lambda: KT.thermometer_encode_packed(
+        xd, thd)), words)
+
+
 FLASH_TOL = 2e-2
 FLASH_TOL = 2e-2
 #: max |diff| over a query row's head dims over max |want| on that row:

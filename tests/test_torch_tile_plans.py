@@ -1,9 +1,10 @@
-"""Host-side layout of the tile kernels K6 (``fused_dwn``) and K4
-(``lut_eval_packed``): the slice plans, the choice between the tile
-kernels and the rows kernels kept for shapes a tile does not fit,
+"""Host-side layout of the tile kernels K6 (``fused_dwn``), K4
+(``lut_eval_packed``), K8 (``lut_eval``) and K3
+(``thermometer_encode_packed``): the slice plans, the choice between the
+tile kernels and the rows kernels kept for shapes a tile does not fit,
 the widths each wrapper accepts, the rounding of ``block_b`` and
 ``block_m``, the combine kernel's plain version and the build hash of the
-device code the two kernel libraries share.
+device code the kernel libraries share.
 
 Everything here runs on the CPU: the plans are plain Python that the
 wrappers compute before any launch, given the card's SM count.  The
@@ -23,6 +24,7 @@ from repro_torch.kernels.autotune import FusedConfig  # noqa: E402
 from repro_torch.kernels.fused import kernel as K  # noqa: E402
 from repro_torch.kernels.fused import ref as R  # noqa: E402
 from repro_torch.kernels.lut_eval import kernel as KL  # noqa: E402
+from repro_torch.kernels.thermometer import kernel as KT  # noqa: E402
 
 SMS = 132                      # an H100's streaming multiprocessors
 MAX = K.MAX_SMEM_BYTES
@@ -298,10 +300,11 @@ def test_packed_plan_splits_words_to_fill_the_card(B, slices):
 
 
 def test_shared_header_edits_rebuild_and_retune(monkeypatch):
-    """``kernels/csrc/tiles.cuh`` is device code both tile libraries
-    include: an edit to it changes both libraries' build hashes and the
-    fused tuner's kernel fingerprint, and no other library's hash; it is
-    not a library of its own."""
+    """``kernels/csrc/tiles.cuh`` is device code three kernel libraries
+    include (the fused kernels', the LUT layers' and the thermometer
+    encode's): an edit to it changes their build hashes and the fused
+    tuner's kernel fingerprint, and no other library's hash; it is not a
+    library of its own."""
     srcs = _build.sources()
     assert "tiles" not in srcs
     assert (_build.SHARED_DIR / "tiles.cuh").is_file()
@@ -319,7 +322,8 @@ def test_shared_header_edits_rebuild_and_retune(monkeypatch):
         after = {name: _build.library_path(srcs[name]) for name in before}
         assert after["fused_dwn"] != before["fused_dwn"]
         assert after["lut_eval"] != before["lut_eval"]
-        for name in ("thermometer", "popcount", "flash_attn"):
+        assert after["thermometer"] != before["thermometer"]
+        for name in ("popcount", "flash_attn"):
             assert after[name] == before[name], name
         assert autotune.kernel_fingerprint() != fp
     finally:
@@ -327,3 +331,179 @@ def test_shared_header_edits_rebuild_and_retune(monkeypatch):
         autotune.kernel_fingerprint.cache_clear()
     assert autotune.kernel_fingerprint() == fp
     assert _build.library_path(srcs["fused_dwn"]) == before["fused_dwn"]
+
+
+def _float_tile_bytes(C):
+    """lut_eval_tiles_kernel's shared memory (float_tiles_bytes in
+    ``lut_eval.cu``): 16 rows of C floats, each padded to a multiple of
+    4 floats."""
+    return 64 * (-(-C // 4) * 4)
+
+
+@pytest.mark.parametrize("C,path", [
+    (1, "tiles"), (21, "tiles"), (3200, "tiles"), (3629, "tiles"),
+    (3632, "tiles"), (3633, "rows"), (20_000, "rows"), (58_112, "rows")])
+def test_float_lut_plan_paths(C, path):
+    """K8 takes a tile of 16 rows where it fits a block, else the rows
+    kernel, whatever B and the fan-in are: the path follows C alone, and
+    the plan's bytes are the C layout's."""
+    for B in (1, 33, 1000, 4096, 4097):
+        plan = KL.plan_lut_eval(B, C, 2400, SMS)
+        assert plan.path == path, (B, plan)
+        assert plan.smem_bytes <= MAX
+        if path == "tiles":
+            assert plan.rows == 16
+            assert plan.smem_bytes == _float_tile_bytes(C)
+        else:
+            assert plan.rows == min(8, MAX // (4 * C))
+            assert plan.smem_bytes == plan.rows * C * 4
+
+
+def test_float_lut_plan_accepts_every_width_pr13_took():
+    """The first float kernel took rows of up to 58,112 bits (one row a
+    block); so does the plan, the tiles up to 3632 bits and the rows
+    kernel above, and it refuses wider rows as before."""
+    for C in (1, 100, 3200, 3632, 3633, 20_000, 29_056, 58_112):
+        plan = KL.plan_lut_eval(100, C, 300, SMS)
+        assert plan.path == ("tiles" if C <= 3632 else "rows"), C
+    assert KL.plan_lut_eval(7, 29_056, 64, SMS).rows == 2
+    assert KL.plan_lut_eval(7, 58_112, 64, SMS).rows == 1
+    with pytest.raises(ValueError, match="shared memory"):
+        KL.plan_lut_eval(7, 58_113, 64, SMS)
+
+
+@pytest.mark.parametrize("B,slices,per", [(1, 19, 1), (64, 19, 1),
+                                          (1024, 2, 10), (4096, 1, 19),
+                                          (4097, 1, 19)])
+def test_float_lut_plan_splits_passes_to_fill_the_card(B, slices, per):
+    """At lg-2400 (19 passes of 128 LUTs, the last three-quarters full) the
+    passes are split over slices only below 132 tiles of 16 rows, so that
+    tiles x slices fill the card; every pass lies in exactly one slice."""
+    plan = KL.plan_lut_eval(B, 3200, 2400, SMS)
+    assert (plan.path, plan.slices, plan.slice_passes) == \
+        ("tiles", slices, per)
+    assert (plan.slices - 1) * plan.slice_passes < 19 <= \
+        plan.slices * plan.slice_passes
+    tiles = -(-B // 16)
+    assert tiles * plan.slices >= min(SMS, tiles * 19) * 0.5
+
+
+def test_float_lut_plan_covers_every_pass_once():
+    """For any m the slices cover the ceil(m/128) passes exactly once, with
+    no slice empty (the C entry checks S == ceil(passes / per slice))."""
+    for B, m, sms in itertools.product((1, 17, 500, 5000),
+                                       (1, 127, 128, 129, 2400, 2402),
+                                       (1, 132)):
+        plan = KL.plan_lut_eval(B, 160, m, sms)
+        passes = -(-m // 128)
+        assert plan.slices == -(-passes // plan.slice_passes)
+        assert plan.slices <= passes
+
+
+def _encode_tile_bytes(F, ws):
+    """thermometer_encode_packed_kernel's shared memory
+    (encode_tiles_layout in ``thermometer.cu``): ws words of thresholds,
+    the [ws][33] output tile, both 16-byte aligned, and two [F][32]
+    feature buffers."""
+    def a16(v):
+        return (v + 15) // 16 * 16
+    return a16(ws * 128) + a16(ws * 33 * 4) + 2 * F * 32 * 4
+
+
+@pytest.mark.parametrize("B,slices,ws", [(1, 100, 1), (31, 100, 1),
+                                         (64, 50, 2), (1024, 4, 25),
+                                         (4096, 1, 100), (4097, 1, 100)])
+def test_encode_plan_splits_words_to_fill_the_card(B, slices, ws):
+    """K3 at lg width (F = 16, T = 200: 100 words) stages every threshold
+    in one slice from 132 tiles of 32 samples on; below, the words are
+    split so that tiles x slices fill the card."""
+    plan = KT.plan_thermometer_encode_packed(B, 16, 200, SMS)
+    assert (plan.path, plan.slices, plan.slice_words) == \
+        ("tiles", slices, ws)
+    assert plan.smem_bytes == _encode_tile_bytes(16, ws) <= MAX
+
+
+@pytest.mark.parametrize("F,T,path", [
+    (16, 200, "tiles"), (3, 7, "tiles"), (5, 13, "tiles"), (1, 1, "tiles"),
+    (454, 4, "tiles"), (455, 4, "rows"), (2000, 1, "rows"),
+    (16, 4000, "tiles"), (1, 2 ** 31 - 1, "rows")])
+def test_encode_plan_paths(F, T, path):
+    """K3 takes tiles of 32 samples where two tiles' features take at most
+    half a block (F <= 454), else the first design, kept; the path follows
+    F and T alone, and the plan's bytes are the C layout's."""
+    for B in (1, 33, 4096):
+        plan = KT.plan_thermometer_encode_packed(B, F, T, SMS)
+        assert plan.path == path, (B, plan)
+        if path == "tiles":
+            assert plan.smem_bytes == _encode_tile_bytes(
+                F, plan.slice_words) <= MAX
+
+
+def test_encode_plan_slices_thresholds_too_large_for_a_block():
+    """Thresholds of F*T = 64,000 bits (250 KB) do not fit one block: even
+    at B = 4096 the 2000 words go in slices that do, each staged once per
+    block; every word lies in exactly one slice."""
+    plan = KT.plan_thermometer_encode_packed(4096, 16, 4000, SMS)
+    W = 2000
+    assert plan.path == "tiles" and plan.slices >= 2
+    assert 4 * 16 * 4000 > MAX
+    assert (plan.slices - 1) * plan.slice_words < W <= \
+        plan.slices * plan.slice_words
+    assert plan.smem_bytes <= MAX
+
+
+def test_encode_plan_accepts_every_shape_pr12_took():
+    """The first packed encode took any F, T and B; every shape gets a
+    plan (the rows kernel where no tile fits), none raises."""
+    for B, F, T in itertools.product((1, 32, 33, 4097), (1, 16, 454, 455,
+                                                         5000),
+                                     (1, 7, 200, 10_000)):
+        plan = KT.plan_thermometer_encode_packed(B, F, T, SMS)
+        assert plan.path in ("tiles", "rows")
+        W = -(-F * T // 32)
+        assert plan.slices * plan.slice_words >= W
+
+
+def test_k8_and_k3_plans_are_made_once_per_shape():
+    """The K8 and K3 wrappers look their plan up on every call: a shape
+    planned before returns the same plan object, unplanned again."""
+    for plan in (lambda: KL.plan_lut_eval(4096, 3200, 2400, SMS),
+                 lambda: KT.plan_thermometer_encode_packed(4096, 16, 200,
+                                                           SMS)):
+        first = plan()
+        assert plan() is first
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("n", range(1, 9))
+def test_k8_bound_counts_the_lerp_trees_float_operations(n):
+    """K8's bound charges the float operations the lerp tree needs: walk
+    the tree of one LUT, each lerp fma(s, hi - lo, lo); a difference of two
+    table entries (the lowest level) is the LUT's alone, done once for all
+    rows, every other operation once per row."""
+    per_lut = per_row = 0
+    level = ["table"] * 2 ** n
+    while len(level) > 1:
+        nxt = []
+        for lo, hi in zip(level[::2], level[1::2]):
+            if lo == hi == "table":
+                per_lut += 1          # hi - lo
+            else:
+                per_row += 1
+            per_row += 1              # the FMA with the row's input
+            nxt.append("row")
+        level = nxt
+    B, m = 37, 50
+    _, ops = _chip_smoke().model_bytes_and_ops(
+        "float_lut_eval", B, 16, 200, (m,), n, 5)
+    assert ops["fp32"] == B * m * per_row + m * per_lut
+    assert ops["int"] == B * m * n
