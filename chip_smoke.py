@@ -12,9 +12,9 @@ Phases, each printing one JSON line:
    power limit, and its largest SM clock (the operation bounds use it);
 2. build   — compiles every CUDA kernel source with nvcc (all at once),
    prints the assembler's register, shared-memory and spill lines and
-   the tile kernels' (K1, K2, K6 and its combine, K4, K8, K3, and the
-   rows kernels kept beside K6, K4 and K3) registers and shared memory,
-   and fails if one of them spills;
+   the tile kernels' (K1, K2, K6 and its combine, K4, K8, K3, K5, and the
+   rows kernels kept beside K6, K4, K3 and K5) registers and shared
+   memory, and fails if one of them spills;
 3. kernels — at dwn-jsc-lg width (F=16, T=200, m=2400, n=6, 5 classes,
    operands from a numpy seed) holds K2 (packed) and K1 (batch-major)
    against their plain PyTorch versions on the card, bit for bit, at
@@ -37,7 +37,11 @@ Phases, each printing one JSON line:
    take, the layer staged per block or the rows kernel; the encode also
    on NaN and denormal features, thresholds too large for one block, 500
    features (its rows kernel) and in a graph replay, each launch's path
-   held likewise); then
+   held likewise; the classify on random, strided and all-zero-word
+   masks, MNIST-lg's 10 classes, the widest rows and the most classes a
+   tile takes, rows one word wider and 33 classes (its rows kernel),
+   all-zero words and in a graph replay, each launch's path held
+   likewise); then
    ``encode_packed`` ->
    ``evaluate_packed`` per layer -> ``classify_packed`` at B=4096, equal to
    the fused packed kernel and to the float oracle ``apply_hard``, with
@@ -45,8 +49,9 @@ Phases, each printing one JSON line:
    classify per pass; then each stage kernel, the staged total and the
    fused kernel timed in the same run, in CUDA graphs (the card's time)
    and as a loop of wrapper calls (which includes the host's), the
-   encode and the LUT layer also at the served buckets beside their
-   first designs (the kept rows kernels);
+   encode, the LUT layer and the classify also at the served buckets
+   beside their first designs (the kept rows kernels), and the launch
+   floor: one launch of the zero kernel on one element in a CUDA graph;
 5. float   — the float datapath at the same width: the float encode, the
    float LUT layer (multilinear table evaluation), the group popcount +
    classify and the float fused kernel, each held against its plain
@@ -262,10 +267,9 @@ def replayed(fn):
 
 
 def rows_kernel(library, signatures, fn, *args):
-    """A call that launches a kept rows kernel (the port's first design of
-    K6 or K4, which the wrappers take for shapes the tile kernels do not:
-    K6 features over 454, K4 rows over 454 words or fan-in 16) through its
-    C entry point ``fn(*args, stream)`` on the current stream, for a
+    """A call that launches a kept rows kernel (a kernel's first design,
+    which its wrapper takes for shapes its tile kernel does not) through
+    its C entry point ``fn(*args, stream)`` on the current stream, for a
     same-call comparison with the tile kernel at shapes the wrappers send
     to the tiles.  These launches are not counted: they are not the main
     path's."""
@@ -400,15 +404,19 @@ TILE_SYMBOLS = (
     ("thermometer", "thermometer_encode_packed_kernel",
      "thermometer_encode_packed"),
     ("thermometer", "thermometer_encode_packed_rows_kernel",
-     "thermometer_encode_packed, rows"))
+     "thermometer_encode_packed, rows"),
+    ("popcount", "popcount_classify_packed_kernel",
+     "popcount_classify_packed"),
+    ("popcount", "popcount_classify_packed_rows_kernel",
+     "popcount_classify_packed, rows"))
 
 
 def phase_build():
     """Every kernel library built at once; returns name -> its ptxas
-    lines.  The tile kernels' (K1, K2, K6, K4, K8, K3 and their helpers)
-    registers, static shared memory and spills are printed (their dynamic
-    shared memory is in the later phases, as each launch reports it); a
-    spill fails the run.  The float LUT layer's kept first design
+    lines.  The tile kernels' (K1, K2, K6, K4, K8, K3, K5 and their
+    helpers) registers, static shared memory and spills are printed (their
+    dynamic shared memory is in the later phases, as each launch reports
+    it); a spill fails the run.  The float LUT layer's kept first design
     (``lut_eval_rows_kernel``) is not held to that: at fan-in 7 and 8 it
     spilled before it was kept; its lines are in the libraries' own."""
     from repro_torch.kernels import _build
@@ -638,6 +646,42 @@ K4_PATHS = {"fan16-480": "rows", "wide-7264": "rows"}
 #: tiles of 32 samples, the slice's thresholds staged per block; "rows":
 #: the rows kernel, for features too many for a tile)
 K3_PATHS = {"wide-500x4": "rows"}
+#: the packed classify's path on each staged case ("tiles" where not
+#: named: a block a tile of 32 samples, the rows and the masks staged in
+#: shared memory; "rows": the rows kernel, for rows too wide for a tile
+#: and for more than 32 classes)
+K5_PATHS = {"wide-1566": "rows", "c33": "rows"}
+#: K5 alone: (case, W words, C classes, masks): random masks with all-zero
+#: and all-one words, strided masks (bit i to class i % C), MNIST-lg
+#: (2000 LUTs, 10 classes: 63 words), the widest row a tile takes at 5
+#: classes and one word wider, 32 classes (the most a tile takes) and 33,
+#: and all-zero words (every class ties, idx 0) under lg's class groups
+K5_CASES = (("random-masks", 75, 5, "random"), ("strided", 75, 5, "strided"),
+            ("mnist-lg-c10", 63, 10, "groups"),
+            ("wide-1565", 1565, 5, "random"),
+            ("wide-1566", 1566, 5, "random"), ("c32", 75, 32, "strided"),
+            ("c33", 75, 33, "random"), ("zero-words", 75, 5, "groups"))
+
+
+def _k5_operands(rng, case, W, C, kind, B, device):
+    """K5's words (B, W) and class masks (C, W), int32 bit patterns on
+    ``device``, for a case of :data:`K5_CASES`."""
+    import torch
+    from repro_torch.core import bitpack as bp
+    if kind == "groups":
+        masks = bp.group_masks_np(32 * W - 32 * W % C, C).astype(np.uint64)
+    elif kind == "strided":
+        masks = bp.pack_bits_np(np.arange(W * 32)[None] % C
+                                == np.arange(C)[:, None]).astype(np.uint64)
+    else:
+        masks = rng.integers(0, 2 ** 32, (C, W), dtype=np.uint64)
+        masks[:, ::5] = 0
+        masks[:, 1::7] = 2 ** 32 - 1
+    words = rng.integers(0, 2 ** 32, (B, W), dtype=np.uint64)
+    if case == "zero-words":
+        words[:] = 0
+    return tuple(bp.to_word_pattern(torch.from_numpy(a.astype(
+        np.int64))).to(device) for a in (words, masks))
 
 
 def phase_staged(device, batches=(4096, 4097, 1000, 33, 31, 1),
@@ -647,14 +691,17 @@ def phase_staged(device, batches=(4096, 4097, 1000, 33, 31, 1),
     graph replay, each launch's path held to :data:`K4_PATHS`; K3 also on
     NaN and denormal features, thresholds too large for a block, features
     too many for a tile and in a CUDA graph replay, each launch's path
-    held to :data:`K3_PATHS`); the staged path equal to the fused kernel
-    and the float oracle; timings, K3 and K4 also at the served buckets
-    beside their first designs."""
+    held to :data:`K3_PATHS`; K5 also on :data:`K5_CASES` and in a CUDA
+    graph replay, each launch's path held to :data:`K5_PATHS`); the staged
+    path equal to the fused kernel and the float oracle; timings, K3, K4
+    and K5 also at the served buckets beside their first designs, and the
+    launch floor (the zero kernel on one element in a CUDA graph)."""
     import torch
     from repro_torch.core import bitpack as bp
     from repro_torch.core.classifier import predict
     from repro_torch.core.model import JSC_PRESETS, FrozenDWN, apply_hard
     from repro_torch.core.thermometer import quantize_fixed_point
+    from repro_torch.kernels.fused import kernel as KF
     from repro_torch.kernels.fused import ref as FR
     from repro_torch.kernels.fused.ops import make_forward_packed
     from repro_torch.kernels.lut_eval import kernel as KL
@@ -676,7 +723,7 @@ def phase_staged(device, batches=(4096, 4097, 1000, 33, 31, 1),
              ("fan10-480", F, T, (480,), 10, None, batches[2:4]),
              ("fan16-480", F, T, (480,), 16, None, batches[2:4])]
     checks, max_err, models = [], dict.fromkeys(STAGES, 0.0), {}
-    k4_paths, k3_paths = {}, {}
+    k4_paths, k3_paths, k5_paths = {}, {}, {}
 
     def held(name, case, B, got, ref, **extra):
         err = float((got.double() - ref.double()).abs().max()) if B else 0.0
@@ -718,6 +765,19 @@ def phase_staged(device, batches=(4096, 4097, 1000, 33, 31, 1),
                              f"LUT {m_l}: {case}, B={B}")
         return out
 
+    def k5_held(case, B, words, masks):
+        got_c, got_i = KP.popcount_classify_packed(words, masks)
+        torch.cuda.synchronize()
+        path = KP.last_launch()["path"]
+        k5_paths[case] = path
+        ref_c, ref_i = RP.popcount_classify_packed_plain(words, masks)
+        held("popcount_classify_packed", case, B, got_c, ref_c, path=path)
+        held("popcount_classify_packed", case, B, got_i, ref_i, path=path)
+        if path != K5_PATHS.get(case, "tiles"):
+            raise SystemExit(f"popcount_classify_packed took the {path} "
+                             f"path on {case}, B={B}")
+        return got_c, got_i
+
     for case, Fc, Tc, counts, fan_in, frac, bs in cases:
         th, maps, tabs = make_model(rng, Fc, Tc, counts, fan_in, frac)
         th_d = torch.from_numpy(th).to(device)
@@ -738,11 +798,7 @@ def phase_staged(device, batches=(4096, 4097, 1000, 33, 31, 1),
             words = k3_held(case, B, x, th_d)
             for widx, boff, tab in layers:
                 words = k4_held(case, B, words, widx, boff, tab)
-            got_c, got_i = KP.popcount_classify_packed(words, masks)
-            torch.cuda.synchronize()
-            ref_c, ref_i = RP.popcount_classify_packed_plain(words, masks)
-            held("popcount_classify_packed", case, B, got_c, ref_c)
-            held("popcount_classify_packed", case, B, got_i, ref_i)
+            k5_held(case, B, words, masks)
 
     # K4 alone on the widest input rows the rows kernel takes (7264 words:
     # rows path) and on the widest a tile takes (454 words), random words
@@ -774,6 +830,16 @@ def phase_staged(device, batches=(4096, 4097, 1000, 33, 31, 1),
         ths_d = torch.from_numpy(ths).to(device)
         for B in batches:
             k3_held(case, B, torch.from_numpy(xs[:B]).to(device), ths_d)
+    # K5 alone (K5_CASES), operands from a generator of their own
+    rng5 = np.random.default_rng(6)
+    for case, W5, C5, kind in K5_CASES:
+        words, masks5 = _k5_operands(rng5, case, W5, C5, kind,
+                                     max(batches), device)
+        for B in batches:
+            got_c, got_i = k5_held(case, B, words[:B], masks5)
+            if case == "zero-words" and (got_c.any() or got_i.any()):
+                raise SystemExit(f"zero-words: a count or a class is not 0 "
+                                 f"at B={B}")
     # a CUDA graph replay equals the eager call (lg-2400, B = 4096)
     th_d, layers = models["lg-2400"][3], models["lg-2400"][6]
     x = torch.from_numpy(x_all[:time_batch]).to(device)
@@ -784,6 +850,11 @@ def phase_staged(device, batches=(4096, 4097, 1000, 33, 31, 1),
     graphed = replayed(lambda: KL.lut_eval_packed(w0, *layers[0]))
     held("lut_eval_packed", "lg-2400-graph-replay", time_batch, graphed,
          eager)
+    w1, masks = eager, models["lg-2400"][7]
+    replay = replayed(lambda: KP.popcount_classify_packed(w1, masks))
+    for got, want in zip(replay, KP.popcount_classify_packed(w1, masks)):
+        held("popcount_classify_packed", "lg-2400-graph-replay", time_batch,
+             got, want)
 
     # the staged path end to end at dwn-jsc-lg width, then on the stack
     launches = dict.fromkeys(STAGES, 0)
@@ -900,6 +971,45 @@ def phase_staged(device, batches=(4096, 4097, 1000, 33, 31, 1),
     torch.cuda.synchronize()
     held("thermometer_encode_packed", "lg-2400-rows-kernel", time_batch,
          bp.from_word_pattern(enc_rows), RT.thermometer_packed_plain(x, th_d))
+    # K5 likewise: at the served buckets with each launch's plan, beside its
+    # first design (one warp a sample), kept as the rows kernel, whose
+    # output at time_batch is held to the plain version; the wrapper's host
+    # time a call; and the launch floor, the least time one launch takes
+    # in a CUDA graph on this card: the zero kernel on one element
+    k5 = timing["popcount_classify_packed"]
+    k5["bucket_ms"] = {
+        B: graph_ms(lambda B=B: KP.popcount_classify_packed(w1[:B], masks))
+        for B in SERVED_BUCKETS}
+    k5["bucket_layout"] = {
+        B: (KP.popcount_classify_packed(w1[:B], masks), KP.last_launch())[1]
+        for B in SERVED_BUCKETS}
+    k5["bucket_bound_ms"] = {
+        B: _bound("popcount", B, *shape[1:])["bound_ms"]
+        for B in SERVED_BUCKETS}
+    k5["kernel"] = "popcount_classify_packed_kernel"
+    cls_rows = (torch.empty((time_batch, C), dtype=torch.float32,
+                            device=device),
+                torch.empty((time_batch,), dtype=torch.int32, device=device))
+
+    def k5_rows(B):
+        return rows_kernel(
+            KP.LIBRARY, KP._SIGNATURES,
+            "popcount_classify_packed_rows_launch", w1.data_ptr(), B,
+            w1.shape[1], masks.data_ptr(), C, cls_rows[0].data_ptr(),
+            cls_rows[1].data_ptr())
+    k5["rows_kernel_bucket_ms"] = {B: graph_ms(k5_rows(B))
+                                   for B in SERVED_BUCKETS}
+    k5["host_ms"] = host_ms(kern["popcount_classify_packed"][0])
+    one = torch.ones((1,), dtype=torch.int32, device=device)
+    k5["launch_floor_ms"] = graph_ms(lambda: KF.fused_dwn_zero(one))
+    cls_rows[0].fill_(-1.0)
+    cls_rows[1].fill_(-1)
+    k5_rows(time_batch)()
+    torch.cuda.synchronize()
+    for got, want in zip(cls_rows,
+                         RP.popcount_classify_packed_plain(w1, masks)):
+        held("popcount_classify_packed", "lg-2400-rows-kernel", time_batch,
+             got, want)
     fused = make_forward_packed(th_d, maps_d, tabs_d, C)
 
     def three():
@@ -919,6 +1029,7 @@ def phase_staged(device, batches=(4096, 4097, 1000, 33, 31, 1),
           "all_equal": all(c["equal"] for c in checks),
           "lut_eval_packed_paths": k4_paths,
           "thermometer_encode_packed_paths": k3_paths,
+          "popcount_classify_packed_paths": k5_paths,
           "max_abs_err": max_err, "passes": passes,
           "timing_batch": time_batch, "timing": timing, "staged": staged})
     return max_err, timing, launches
@@ -2029,9 +2140,10 @@ def main() -> int:
             "equal": True, "max_abs_err": stage_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
-            **{k: t[k] for k in ("bucket_ms", "rows_kernel_bucket_ms",
-                                 "eager_ms", "host_ms", "rows_host_ms",
-                                 "rows_eager_ms") if k in t}})
+            **{k: t[k] for k in ("kernel", "bucket_ms",
+                                 "rows_kernel_bucket_ms", "eager_ms",
+                                 "host_ms", "rows_host_ms", "rows_eager_ms",
+                                 "launch_floor_ms") if k in t}})
     for name, (source, replaced, _) in FLOAT.items():
         t = float_timing[name]
         summary.append({

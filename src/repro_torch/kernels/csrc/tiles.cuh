@@ -1,11 +1,12 @@
 // Device helpers of the tile kernels, shared by fused/csrc/fused_dwn.cu
 // (K1, K2, the float fused K6), lut_eval/csrc/lut_eval.cu (the LUT
-// layers, K4 and K8) and thermometer/csrc/thermometer.cu (the packed
-// encode, K3): asynchronous staging into shared memory, the reads of a
-// LUT's one-bit-per-entry table and the 16-byte rounding of the
-// shared-memory layouts (align16, mirrored by kernels/_launch.py).  The
-// build hashes this directory into every library that includes it
-// (kernels/_build.py), so an edit rebuilds all three.
+// layers, K4 and K8), thermometer/csrc/thermometer.cu (the packed
+// encode, K3) and popcount/csrc/popcount.cu (the packed classify, K5):
+// asynchronous staging into shared memory, the reads of a LUT's
+// one-bit-per-entry table and the 16-byte rounding of the shared-memory
+// layouts (align16, mirrored by kernels/_launch.py).  The build hashes
+// this directory into every library that includes it (kernels/_build.py),
+// so an edit rebuilds all four.
 
 #pragma once
 

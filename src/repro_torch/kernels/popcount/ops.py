@@ -3,6 +3,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ...core.bitpack import (PackedBits, device_words, group_masks,
@@ -27,6 +29,18 @@ def classify(bits, num_classes: int):
                              num_classes)
 
 
+@functools.lru_cache(maxsize=64)
+def class_masks(num_bits: int, num_classes: int,
+                device: torch.device) -> torch.Tensor:
+    """The class-group masks of m = ``num_bits`` layer outputs as int32
+    bit patterns on ``device``, made once per (num_bits, num_classes,
+    device), as the reference stages its masks once per model: a call
+    that finds them copies nothing to the device (a CUDA graph capture
+    would refuse the copy).  Shared by every caller: read, never write."""
+    return to_word_pattern(group_masks(num_bits, num_classes,
+                                       device)).contiguous()
+
+
 def classify_packed(packed: PackedBits, num_classes: int):
     """``PackedBits`` of m layer-output bits (either word carrier) ->
     (counts (B, classes) float32, idx (B,) int32).
@@ -35,15 +49,15 @@ def classify_packed(packed: PackedBits, num_classes: int):
     absorb any misalignment of groups and words, and zero pad bits count
     nothing.  ``idx`` is the first argmax (ties go to the lower class).
     Raises ``ValueError`` unless m splits into ``num_classes`` equal
-    groups.  One kernel launch on CUDA.
+    groups.  One kernel launch on CUDA; the masks are made on the first
+    call for a (num_bits, num_classes, device) (:func:`class_masks`).
     """
     if num_classes < 1:
         raise ValueError(f"num_classes must be at least 1, got "
                          f"{num_classes}")
     words = device_words(packed.words).contiguous()
-    masks = to_word_pattern(group_masks(packed.num_bits, num_classes,
-                                        words.device))
-    return popcount_classify_packed(words, masks.contiguous())
+    return popcount_classify_packed(
+        words, class_masks(packed.num_bits, num_classes, words.device))
 
 
-__all__ = ["classify", "classify_packed"]
+__all__ = ["class_masks", "classify", "classify_packed"]

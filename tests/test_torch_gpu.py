@@ -866,6 +866,79 @@ def test_cuda_thermometer_encode_packed_tiles_match_plain(F, T, frac, path):
         xd, thd)), words)
 
 
+#: (W words, C classes, masks, path) of K5: lg width (W = 75, C = 5) on
+#: contiguous class groups, random masks with all-zero and all-one words
+#: and strided masks (bit i to class i % C); MNIST-lg (2000 LUTs, 10
+#: classes: W = 63); the narrowest rows; the most classes a tile takes
+#: (32); the widest rows a tile takes at 5 classes; one word wider and 33
+#: classes (the rows kernel)
+K5_CASES = [(75, 5, "groups", "tiles"), (75, 5, "random", "tiles"),
+            (75, 5, "strided", "tiles"), (63, 10, "groups", "tiles"),
+            (2, 5, "random", "tiles"), (7, 10, "strided", "tiles"),
+            (75, 32, "random", "tiles"), (1565, 5, "random", "tiles"),
+            (1566, 5, "random", "rows"), (75, 33, "random", "rows")]
+
+
+def _k5_masks(kind, rng, W, C):
+    """(C, W) class masks as int32 bit patterns on the card."""
+    if kind == "groups":
+        masks = tbp.group_masks_np(32 * W - 32 * W % C, C)
+    elif kind == "strided":
+        bits = np.arange(W * 32)[None] % C == np.arange(C)[:, None]
+        masks = tbp.pack_bits_np(bits)
+    else:
+        masks = rng.integers(0, 2 ** 32, (C, W), dtype=np.uint64)
+        masks[:, ::5] = 0
+        masks[:, 1::7] = 2 ** 32 - 1
+    return tbp.to_word_pattern(torch.from_numpy(
+        np.asarray(masks).astype(np.int64))).cuda()
+
+
+@pytest.mark.parametrize("W,C,kind,path", K5_CASES)
+def test_cuda_popcount_classify_packed_tiles_match_plain(W, C, kind, path):
+    """K5 equals its plain version exactly at every B of TILE_BATCHES
+    through the planned path, one launch a call; all-zero rows tie every
+    class and give class 0; a CUDA graph replay equals the eager call."""
+    _need_card()
+    rng = np.random.default_rng(200 + W + C)
+    words = rng.integers(0, 2 ** 32, (max(TILE_BATCHES), W), dtype=np.uint64)
+    words[:3] = 0
+    words = tbp.to_word_pattern(torch.from_numpy(words.astype(
+        np.int64))).cuda()
+    masks = _k5_masks(kind, rng, W, C)
+    for B in TILE_BATCHES:
+        before = KP.launch_counts()["popcount_classify_packed"]
+        counts, idx = KP.popcount_classify_packed(words[:B], masks)
+        torch.cuda.synchronize()
+        assert KP.last_launch()["path"] == path, B
+        assert KP.launch_counts()["popcount_classify_packed"] == before + 1
+        ref_c, ref_i = RP.popcount_classify_packed_plain(words[:B], masks)
+        assert torch.equal(counts, ref_c) and torch.equal(idx, ref_i), B
+        assert not idx[:3].any() and not counts[:3].any()
+    graphed = _replayed(lambda: KP.popcount_classify_packed(words, masks))
+    assert torch.equal(graphed[0], counts) and torch.equal(graphed[1], idx)
+
+
+def test_classify_packed_replays_in_a_cuda_graph():
+    """``classify_packed`` makes its class masks once per (bits, classes,
+    device): a CUDA graph captures it (a host-to-device copy would be
+    refused) and its replay equals the eager call and the plain
+    version."""
+    _need_card()
+    bits = torch.from_numpy((np.random.default_rng(210).random(
+        (4096, 2400)) < 0.5).astype(np.float32))
+    packed = tbp.PackedBits(tbp.to_word_pattern(tbp.pack_bits(bits)).cuda(),
+                            2400)
+    OP.class_masks.cache_clear()
+    eager = OP.classify_packed(packed, 5)
+    graphed = _replayed(lambda: OP.classify_packed(packed, 5))
+    assert OP.class_masks.cache_info().misses == 1
+    ref = RP.popcount_classify_packed_plain(
+        packed.words, OP.class_masks(2400, 5, packed.words.device))
+    for out in (graphed, ref):
+        assert torch.equal(out[0], eager[0]) and torch.equal(out[1], eager[1])
+
+
 FLASH_TOL = 2e-2
 FLASH_TOL = 2e-2
 #: max |diff| over a query row's head dims over max |want| on that row:

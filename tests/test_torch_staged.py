@@ -23,6 +23,7 @@ from repro.core import bitpack as jbp  # noqa: E402
 from repro.core import model as jm  # noqa: E402
 from repro.data.jsc import load_jsc  # noqa: E402
 from repro.kernels.lut_eval import ops as jlut  # noqa: E402
+from repro.kernels.popcount import kernel as jpk  # noqa: E402
 from repro.kernels.popcount import ops as jpc  # noqa: E402
 from repro.kernels.thermometer import ops as jth  # noqa: E402
 from repro_torch.core import bitpack as tbp  # noqa: E402
@@ -137,6 +138,69 @@ def test_classify_packed_ties_go_to_lower_class():
         tbp.PackedBits.pack(torch.from_numpy(bits)), 3)
     np.testing.assert_array_equal(counts.numpy(), np.asarray(rc))
     assert int(idx[0]) == int(ri[0]) == 0
+
+
+def test_classify_packed_makes_its_masks_once(monkeypatch):
+    """Two calls on the same (bits, classes, device) build the class masks
+    once, as the reference stages its masks once per model; both calls
+    equal the reference's ``classify_packed``."""
+    built = []
+
+    def counted(*args):
+        built.append(args)
+        return tbp.group_masks(*args)
+    monkeypatch.setattr(tpc, "group_masks", counted)
+    tpc.class_masks.cache_clear()
+    bits = (np.random.default_rng(11).random((33, 5 * 72)) < 0.5).astype(
+        np.float32)
+    rc, ri = jpc.classify_packed(jbp.PackedBits.pack(jnp.asarray(bits)), 5,
+                                 interpret=True)
+    packed = tbp.PackedBits.pack(torch.from_numpy(bits))
+    for _ in range(2):
+        counts, idx = tpc.classify_packed(packed, 5)
+        np.testing.assert_array_equal(counts.numpy(), np.asarray(rc))
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(ri))
+    assert built == [(5 * 72, 5, torch.device("cpu"))]
+    tpc.class_masks.cache_clear()
+
+
+def _any_masks(kind, rng, W, C):
+    """(C, W) uint32 class masks that are not contiguous groups."""
+    if kind == "strided":          # bit i belongs to class i % C
+        bits = (np.arange(W * 32)[None] % C == np.arange(C)[:, None])
+        return jbp.pack_bits_np(bits.astype(np.uint8))
+    masks = rng.integers(0, 2 ** 32, (C, W), dtype=np.uint64).astype(
+        np.uint32)
+    masks[:, ::5] = 0              # all-zero words, every class
+    masks[:, 1::7] = 0xFFFFFFFF    # all-one words
+    if kind == "zero-classes":     # classes whose masks are all zero
+        masks[1::3] = 0
+    return masks
+
+
+@pytest.mark.parametrize("kind,W,C", [("random", 75, 5), ("strided", 75, 5),
+                                      ("zero-classes", 9, 7),
+                                      ("random", 63, 10),
+                                      ("strided", 3, 17)])
+def test_popcount_packed_plain_matches_reference_on_any_masks(kind, W, C):
+    """Exact: the plain version of K5 equals the reference's Pallas
+    ``popcount_classify_packed`` (interpret mode) on masks that are not
+    contiguous class groups, C = 10 and past the tile kernel's 16
+    classes included; all-zero rows tie every class and give class 0."""
+    rng = np.random.default_rng(W * C)
+    words = rng.integers(0, 2 ** 32, (40, W), dtype=np.uint64).astype(
+        np.uint32)
+    words[:3] = 0
+    masks = _any_masks(kind, rng, W, C)
+    rc, ri = jpk.popcount_classify_packed(jnp.asarray(words),
+                                          jnp.asarray(masks), block_b=40,
+                                          interpret=True)
+    counts, idx = KP.popcount_classify_packed(
+        torch.from_numpy(words.astype(np.int64)),
+        tbp.to_word_pattern(torch.from_numpy(masks.astype(np.int64))))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(rc))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ri))
+    assert not idx[:3].any()
 
 
 ROWS = load_jsc(2000, 64, seed=2)

@@ -1,6 +1,7 @@
 """Host-side layout of the tile kernels K6 (``fused_dwn``), K4
-(``lut_eval_packed``), K8 (``lut_eval``) and K3
-(``thermometer_encode_packed``): the slice plans, the choice between the
+(``lut_eval_packed``), K8 (``lut_eval``), K3
+(``thermometer_encode_packed``) and K5 (``popcount_classify_packed``):
+the slice plans, the choice between the
 tile kernels and the rows kernels kept for shapes a tile does not fit,
 the widths each wrapper accepts, the rounding of ``block_b`` and
 ``block_m``, the combine kernel's plain version and the build hash of the
@@ -24,6 +25,7 @@ from repro_torch.kernels.autotune import FusedConfig  # noqa: E402
 from repro_torch.kernels.fused import kernel as K  # noqa: E402
 from repro_torch.kernels.fused import ref as R  # noqa: E402
 from repro_torch.kernels.lut_eval import kernel as KL  # noqa: E402
+from repro_torch.kernels.popcount import kernel as KP  # noqa: E402
 from repro_torch.kernels.thermometer import kernel as KT  # noqa: E402
 
 SMS = 132                      # an H100's streaming multiprocessors
@@ -300,11 +302,11 @@ def test_packed_plan_splits_words_to_fill_the_card(B, slices):
 
 
 def test_shared_header_edits_rebuild_and_retune(monkeypatch):
-    """``kernels/csrc/tiles.cuh`` is device code three kernel libraries
-    include (the fused kernels', the LUT layers' and the thermometer
-    encode's): an edit to it changes their build hashes and the fused
-    tuner's kernel fingerprint, and no other library's hash; it is not a
-    library of its own."""
+    """``kernels/csrc/tiles.cuh`` is device code four kernel libraries
+    include (the fused kernels', the LUT layers', the thermometer
+    encode's and the popcount classify's): an edit to it changes their
+    build hashes and the fused tuner's kernel fingerprint, and no other
+    library's hash; it is not a library of its own."""
     srcs = _build.sources()
     assert "tiles" not in srcs
     assert (_build.SHARED_DIR / "tiles.cuh").is_file()
@@ -323,8 +325,8 @@ def test_shared_header_edits_rebuild_and_retune(monkeypatch):
         assert after["fused_dwn"] != before["fused_dwn"]
         assert after["lut_eval"] != before["lut_eval"]
         assert after["thermometer"] != before["thermometer"]
-        for name in ("popcount", "flash_attn"):
-            assert after[name] == before[name], name
+        assert after["popcount"] != before["popcount"]
+        assert after["flash_attn"] == before["flash_attn"]
         assert autotune.kernel_fingerprint() != fp
     finally:
         monkeypatch.undo()
@@ -472,6 +474,57 @@ def test_k8_and_k3_plans_are_made_once_per_shape():
                                                            SMS)):
         first = plan()
         assert plan() is first
+
+
+def _popcount_tile_bytes(W, C):
+    """popcount_classify_packed_kernel's shared memory
+    (popcount_tiles_layout in ``popcount.cu``): the [C][W] masks and 16
+    words of padding, rounded to 16 bytes, the tile's [C][32] counts and
+    32 rows of W | 1 words, 4 bytes each."""
+    return (-(-(C * W + 16) * 4 // 16) * 16 + 4 * C * 32
+            + 4 * 32 * (W | 1))
+
+
+@pytest.mark.parametrize("W,C,path,warps", [
+    (75, 5, "tiles", 8), (2, 5, "tiles", 1), (7, 10, "tiles", 1),
+    (63, 10, "tiles", 8), (17, 8, "tiles", 3), (0, 1, "tiles", 1),
+    (75, 17, "tiles", 8), (75, 32, "tiles", 8), (1565, 5, "tiles", 8),
+    (1566, 5, "rows", 0), (20_000, 5, "rows", 0), (75, 33, "rows", 0),
+    (2, 100, "rows", 0)])
+def test_popcount_plan_paths(W, C, path, warps):
+    """K5 takes tiles of 32 samples where a block's shared memory holds a
+    tile's rows beside the masks (W <= 1565 at C = 5) and C <= 32 (a
+    warp's classes with a non-zero mask word are one 32-bit set), with
+    one warp per 8 words up to 8; else the first design, kept; the plan's
+    bytes are the C layout's."""
+    plan = KP.plan_popcount_classify_packed(W, C)
+    assert (plan.path, plan.warps) == (path, warps)
+    if path == "tiles":
+        assert plan.smem_bytes == _popcount_tile_bytes(W, C) <= MAX
+        assert C <= KP.MAX_CLASSES
+    else:
+        assert plan.smem_bytes == 0
+        assert C > KP.MAX_CLASSES or _popcount_tile_bytes(W, C) > MAX
+
+
+def test_popcount_plan_accepts_every_shape_the_first_design_took():
+    """The first packed classify took any W >= 0 and C >= 1 (and any B:
+    the plan does not depend on it); every shape gets a plan, the tiles
+    exactly where they fit, none raises."""
+    for W, C in itertools.product((0, 1, 2, 31, 32, 75, 454, 1565, 1566,
+                                   5000, 70_000), (1, 2, 5, 8, 9, 10, 16,
+                                                   17, 32, 33, 1000)):
+        plan = KP.plan_popcount_classify_packed(W, C)
+        fits = C <= 32 and _popcount_tile_bytes(W, C) <= MAX
+        assert plan.path == ("tiles" if fits else "rows"), (W, C, plan)
+
+
+def test_k5_plan_is_made_once_per_shape():
+    """The K5 wrapper looks its plan up on every call: a shape planned
+    before returns the same plan object, unplanned again."""
+    first = KP.plan_popcount_classify_packed(75, 5)
+    assert KP.plan_popcount_classify_packed(75, 5) is first
+    assert KP.plan_popcount_classify_packed.cache_info().hits >= 1
 
 
 def _chip_smoke():
