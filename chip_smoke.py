@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port on one NVIDIA card and check it: its DWN
-serving path (tuned, CUDA-graph steps, artifacts), its staged packed and
-float datapaths, its flash-attention kernel and qwen3-8b serving at full
+training (each minibatch step a CUDA graph replay) and serving path
+(tuned, CUDA-graph steps, artifacts), its staged packed and float
+datapaths, its flash-attention kernel and qwen3-8b serving at full
 width.
 
     python3 chip_smoke.py
@@ -94,7 +95,22 @@ Phases, each printing one JSON line:
    bounds and a profiler split of a prefill and a decode step (it fails
    if the prefill's profile finds no time in K10 while its launches were
    counted);
-8. serve   — ``ServingEngine("dwn-jsc-lg", device="cuda")`` at full width,
+8. train   — DWN training at dwn-jsc-lg width (one layer of 2400 LUT6 over
+   3200 thermometer bits, 5 classes) on ``load_jsc(20000, 5000)``, the
+   paper protocol (batch 128, Adam lr 1e-3, StepLR(30, 0.1), clamp
+   (-1, 1)), with the library's float32 product settings: 4 steps on the
+   card (replays of the captured step) and on the CPU (the port's plain
+   path) from one numpy init, per-step losses within 1e-5, scores within
+   1e-4, table signs and wiring flips counted and named; the replayed
+   steps equal to the eager ones and two card runs equal, bit for bit;
+   one epoch and eval through ``ScanTrainer``, with epoch seconds,
+   steps/s, the step's ms replayed and eager beside its bound from
+   shapes (``train_bytes_and_ops``) and a ``torch.profiler`` split of a
+   step (softmax-STE elementwise work, the gb product, Adam, gathers,
+   the rest; idle shares); then ``DWNArtifact.train`` (one epoch) frozen,
+   packed and served through ``ServingEngine``, whose startup oracle
+   check must pass, every served count equal to ``apply_hard``'s;
+9. serve   — ``ServingEngine("dwn-jsc-lg", device="cuda")`` at full width,
    whose startup checks every backend against the float oracle and whose
    fused steps replay one CUDA graph per (bucket, tuned config); serves 16
    requests of 4096 rows on the packed kernel, the same stream on the
@@ -111,9 +127,11 @@ Phases, each printing one JSON line:
    per bucket (at most one) printed and every request held to the
    oracle; last the served artifact is saved, loaded back and served
    bit-exact;
-9. cli     — ``python -m repro_torch.launch.serve --arch dwn-jsc-lg`` with
-   four requests, the same with ``--backend auto``, and ``--arch
-   qwen3-8b --batch 2 --prompt-len 32 --gen 4``.
+10. cli    — ``python -m repro_torch.launch.serve --arch dwn-jsc-lg`` with
+   four requests, the same with ``--backend auto``, ``--arch
+   qwen3-8b --batch 2 --prompt-len 32 --gen 4``, and ``python -m
+   repro_torch.launch.train --arch dwn-jsc-lg --workload jsc --epochs
+   1``.
 
 Then it prints the kernels' summary line, nvidia-smi's line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -1949,6 +1967,321 @@ def _check_compiles(engine):
     return counts
 
 
+#: per-step losses of the card against the port's CPU steps, from one
+#: numpy init: float32 sums taken in other orders (the (m·n, B) x (B, C)
+#: product, the reductions over C) move a loss by ~1e-7
+TRAIN_LOSS_TOL = 1e-5
+#: scores after the steps, card against CPU: the reference's own bar for
+#: two orders of the same arithmetic (tests/test_training.py)
+TRAIN_SCORES_TOL = 1e-4
+#: minibatch steps compared between the card and the CPU
+TRAIN_STEPS = 4
+#: float32 scalar rate outside the tensor cores (NVIDIA data sheet, H100
+#: SXM): the softmax-STE product ``gb`` runs in full float32
+PEAK_FP32_OPS_PER_S = 67e12
+
+
+def train_bytes_and_ops(cfg, batch):
+    """What one minibatch step must move and compute, from the shapes.
+
+    ``bytes``: each input read once and each output written once: the
+    parameters and both Adam moments read and written, the batch's bit
+    rows and labels read, the loss written.  ``passes_bytes``: the
+    traffic of the step's unfused passes over the (m, n, C) scores, 18 of
+    them (2 forward: max, first argmax; 9 in the softmax-STE backward:
+    exp, its sum, the product out, the sum of e·gb, the final expression;
+    7 in Adam: read p, m, v, g, write p, m, v).  ``ops``: the gb product,
+    2·B·m·n·C float32 operations."""
+    layers = cfg.layer_specs()
+    params = sum(s.num_luts * s.fan_in * s.num_candidates
+                 + s.num_luts * s.table_size for s in layers)
+    scores = sum(s.num_luts * s.fan_in * s.num_candidates for s in layers)
+    rows = batch * layers[0].num_candidates + batch * 8
+    ops = sum(2 * batch * s.num_luts * s.fan_in * s.num_candidates
+              for s in layers)
+    nbytes = 2 * 3 * params * 4 + rows + 4
+    return {"bytes": nbytes, "ops": ops,
+            "bound_ms": max(nbytes / PEAK_BYTES_PER_S,
+                            ops / PEAK_FP32_OPS_PER_S) * 1e3,
+            "bound_by": ("bytes" if nbytes / PEAK_BYTES_PER_S
+                         >= ops / PEAK_FP32_OPS_PER_S else "operations"),
+            "passes_bytes": 18 * scores * 4,
+            "passes_bound_ms": 18 * scores * 4 / PEAK_BYTES_PER_S * 1e3}
+
+
+def _train_state(cfg, data, device):
+    """One numpy init (seed 0) as the port's params, Adam state, encoded
+    split and labels on ``device``."""
+    import torch
+    from repro_torch.core.model import params_from_numpy
+    from repro_torch.core.thermometer import fit_thresholds
+    from repro_torch.training.engine import encode_dataset
+    rng = np.random.default_rng(0)
+    layers = [{"scores": (rng.standard_normal(
+                   (s.num_luts, s.fan_in, s.num_candidates), np.float32)
+                   * np.float32(0.01)),
+               "tables": rng.uniform(-1, 1, (s.num_luts, s.table_size))
+               .astype(np.float32)} for s in cfg.layer_specs()]
+    th = fit_thresholds(data.x_train, cfg.thermometer)
+    params, buffers = params_from_numpy({"layers": layers},
+                                        {"thresholds": th}, device=device)
+    bits = encode_dataset(data.x_train, buffers["thresholds"])
+    y = torch.from_numpy(data.y_train.astype(np.int64)).to(device)
+    return params, buffers, bits, y
+
+
+def _run_steps(program, state, perm, steps, *, eager=False):
+    """``steps`` steps of ``program`` from ``state`` (params, buffers,
+    bits, y; not written): the per-step losses and the params after."""
+    import torch
+    from repro_torch.optim.adam import map_tree
+    params, _, bits, y = state
+    params = map_tree(torch.clone, params)
+    opt_state = program.opt.init(params)
+    program.load(params, opt_state, bits, y)
+    program.begin_epoch(perm)
+    for _ in range(steps):
+        program.step(eager=eager)
+    program.store(params, opt_state)
+    return program.losses[:steps].clone(), params
+
+
+def _wiring_flips(scores_a, scores_b):
+    """Where the first argmax of two score tensors differs: (lut, input,
+    wire here, wire there, the top two scores here)."""
+    import torch
+    wa = torch.argmax(scores_a, -1)
+    wb = torch.argmax(scores_b, -1)
+    out = []
+    for lut, inp in (wa != wb).nonzero().tolist()[:20]:
+        top = torch.topk(scores_a[lut, inp], 2).values.tolist()
+        out.append([lut, inp, int(wa[lut, inp]), int(wb[lut, inp]), top])
+    return int((wa != wb).sum()), out
+
+
+def _profiled(fn):
+    """``fn()`` once under ``torch.profiler``: the device's busy time (its
+    kernels', copies' and fills' own time, summed), that time split by
+    the ``record_function`` range named ``train.*`` whose host-side span
+    launched it (the nearest such ancestor of the launching op; the
+    range's device-side twin, which spans the gaps between its kernels,
+    is not counted), and the largest work no range holds, by launching
+    op, or by kernel name where the profiler tied it to no op."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == cuda and not e.is_user_annotation) / 1e3
+    ranges, rest, linked, on_device = {}, {}, {}, {}
+    for e in events:
+        if e.device_type == cuda:
+            if not e.is_user_annotation:
+                on_device[e.name] = on_device.get(e.name, 0.0) + \
+                    e.self_device_time_total / 1e3
+            continue
+        for k in e.kernels:
+            linked[k.name] = linked.get(k.name, 0.0) + k.duration / 1e3
+        if not e.kernels:
+            continue
+        ms = sum(k.duration for k in e.kernels) / 1e3
+        owner = e
+        while owner is not None and not owner.name.startswith("train."):
+            owner = owner.cpu_parent
+        into, key = (ranges, owner.name) if owner else (rest, e.name)
+        into[key] = into.get(key, 0.0) + ms
+    # device work the profiler tied to no host op (by kernel name)
+    for name, ms in on_device.items():
+        if ms - linked.get(name, 0.0) > 1e-6:
+            rest["unlinked: " + name[:80]] = ms - linked.get(name, 0.0)
+    top = sorted(rest.items(), key=lambda kv: -kv[1])[:8]
+    return busy, ranges, dict(top)
+
+
+def _wall_ms(fn, reps):
+    """Host milliseconds per call of ``fn`` over ``reps`` calls, waiting
+    for the card at the end (unprofiled)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _step_profile(program, perm, replays=20):
+    """The profiler's split of one eager step by the step's ranges (the
+    row gathers, the forward mapping and table read, the table's EFD
+    backward, the softmax-STE elementwise work, the gb product, Adam;
+    the rest is the loss and autograd's own work), and the device's
+    busy time over ``replays`` replays of the captured step; each idle
+    share against the same work's unprofiled wall time."""
+    program.begin_epoch(perm)
+    _profiled(lambda: program.step(eager=True))      # the profiler's setup
+    program.begin_epoch(perm)
+    wall = _wall_ms(lambda: program.step(eager=True), 10)
+    busy, ranges, rest = _profiled(lambda: program.step(eager=True))
+    named = {"softmax_ste_ms": ranges.get("train.ste", 0.0),
+             "gb_product_ms": ranges.get("train.gb", 0.0),
+             "adam_ms": ranges.get("train.adam", 0.0),
+             "gathers_ms": ranges.get("train.gather", 0.0)}
+    # the rest: the forward mapping, the table read and its EFD
+    # backward, the loss and autograd's own work
+    named["rest_ms"] = busy - sum(named.values())
+    out = {"eager": {"device_busy_ms": busy or None, "wall_ms": wall,
+                     "ranges_ms": ranges, **named,
+                     "outside_ranges_total_ms": busy - sum(ranges.values()),
+                     "outside_ranges_ms": rest,
+                     "device_idle_share": (max(0.0, 1 - busy / wall)
+                                           if busy else None)}}
+
+    def replay():
+        program.begin_epoch(perm)
+        for _ in range(replays):
+            program.step()
+    wall = _wall_ms(replay, 3)
+    busy, _, _ = _profiled(replay)
+    out["replayed"] = {"steps": replays, "device_busy_ms": busy or None,
+                       "wall_ms": wall,
+                       "device_idle_share": (max(0.0, 1 - busy / wall)
+                                             if busy else None)}
+    return out
+
+
+def phase_train(device, n_train=20000, n_test=5000, batch=128):
+    """DWN training at dwn-jsc-lg width (F=16, T=200, one layer of 2400
+    LUT6, 5 classes), the paper protocol (batch 128, Adam lr 1e-3,
+    StepLR(30, 0.1), clamp (-1, 1)), on ``load_jsc(20000, 5000)``: the
+    card's steps against the CPU's from one numpy init, a replay against
+    the eager step, two card runs bit for bit, one epoch and eval through
+    ``ScanTrainer`` timed beside the step's bound, a profiler split of the
+    step, then ``DWNArtifact.train`` frozen, packed and served through
+    ``ServingEngine`` bit-exact against ``apply_hard``."""
+    import torch
+    from repro_torch.core.model import JSC_PRESETS, apply_hard
+    from repro_torch.data.jsc import load_jsc
+    from repro_torch.dwn import DWNArtifact, get_spec
+    from repro_torch.serving import ServingEngine
+    from repro_torch.training import ScanTrainer, step_program
+    from repro_torch.training.engine import epoch_permutation
+    cfg = JSC_PRESETS["lg-2400"]
+    data = load_jsc(n_train, n_test, seed=0)
+    perm_np = epoch_permutation(n_train, n_train // batch, batch, seed=0,
+                                epoch=0).astype(np.int64)
+    key = (n_train, cfg.thermometer.total_bits, batch, 1e-3, "steplr")
+    torch.cuda.reset_peak_memory_stats()
+
+    # 1. TRAIN_STEPS steps on the card and on the CPU from one init
+    t0 = time.perf_counter()
+    card = _train_state(cfg, data, device)
+    prog = step_program(cfg, *key, device)
+    perm = torch.from_numpy(perm_np).to(device)
+    loss_r, params_r = _run_steps(prog, card, perm, TRAIN_STEPS)
+    capture_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = _train_state(cfg, data, "cpu")
+    loss_c, params_c = _run_steps(step_program(cfg, *key, "cpu"), host,
+                                  torch.from_numpy(perm_np), TRAIN_STEPS)
+    cpu_s = time.perf_counter() - t0
+    sc_r = params_r["layers"][0]["scores"].detach().cpu()
+    sc_c = params_c["layers"][0]["scores"].detach()
+    tab_r = params_r["layers"][0]["tables"].detach().cpu()
+    tab_c = params_c["layers"][0]["tables"].detach()
+    flips, flipped = _wiring_flips(sc_r, sc_c)
+    vs_cpu = {"steps": TRAIN_STEPS, "loss_card": loss_r.tolist(),
+              "loss_cpu": loss_c.tolist(),
+              "loss_max_abs": float((loss_r.cpu() - loss_c).abs().max()),
+              "loss_tol": TRAIN_LOSS_TOL,
+              "scores_max_abs": float((sc_r - sc_c).abs().max()),
+              "scores_tol": TRAIN_SCORES_TOL,
+              "table_signs_differ": int(((tab_r > 0) != (tab_c > 0)).sum()),
+              "wiring_flips": flips, "flipped": flipped,
+              "cpu_s": cpu_s}
+    if not (vs_cpu["loss_max_abs"] <= TRAIN_LOSS_TOL
+            and vs_cpu["scores_max_abs"] <= TRAIN_SCORES_TOL):
+        emit({"phase": "train", "vs_cpu": vs_cpu})
+        raise SystemExit("the card's training steps disagree with the CPU's")
+
+    # 2. a replay equals the eager step; two card runs are the same
+    loss_e, params_e = _run_steps(prog, card, perm, TRAIN_STEPS, eager=True)
+    loss_r2, params_r2 = _run_steps(prog, card, perm, TRAIN_STEPS)
+    same = {
+        "replay_vs_eager_losses": bool(torch.equal(loss_r, loss_e)),
+        "replay_vs_eager_params": all(
+            torch.equal(a, b) for a, b in zip(
+                _leaves(params_r), _leaves(params_e))),
+        "two_runs_losses": bool(torch.equal(loss_r, loss_r2)),
+        "two_runs_params": all(
+            torch.equal(a, b) for a, b in zip(
+                _leaves(params_r), _leaves(params_r2)))}
+    if not all(same.values()):
+        emit({"phase": "train", "vs_cpu": vs_cpu, "bitwise": same,
+              "replay_vs_eager_max_abs": float(
+                  (loss_r - loss_e).abs().max())})
+        raise SystemExit(f"training steps are not reproducible: {same}")
+
+    # 3-4. one epoch and eval through ScanTrainer; the step's times
+    params, buffers, _, _ = card
+    trainer = ScanTrainer(cfg, data, batch=batch, params=params,
+                          buffers=buffers, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = trainer.run_epochs(1)
+    epoch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    acc = trainer.evaluate()
+    eval_s = time.perf_counter() - t0
+    if not (np.isfinite(losses).all() and 0.2 < acc <= 1.0):
+        raise SystemExit(f"the epoch's losses or accuracy are off: "
+                         f"{losses.mean()} {acc}")
+    steps = trainer.steps_per_epoch
+    prog.begin_epoch(perm)
+    replay_ms = time_ms(prog.step, iters=100, warmup=0)
+    prog.begin_epoch(perm)
+    eager_ms = time_ms(lambda: prog.step(eager=True), iters=20, warmup=0)
+    profile_split = _step_profile(prog, perm)
+
+    # 6. DWNArtifact.train -> freeze -> pack -> serve, against apply_hard
+    art = DWNArtifact(get_spec("dwn-jsc-lg")).train(
+        data, epochs=1, seed=0, device=device)
+    engine = ServingEngine(art, device=device, max_bucket=4096,
+                           n_train=n_train, seed=0)
+    if not all(engine.bit_exact.values()):
+        raise SystemExit(f"the trained model fails the startup oracle "
+                         f"check: {engine.bit_exact}")
+    stream = [engine.make_request(4096, seed=3000 + i) for i in range(4)]
+    for r in stream:
+        engine.submit(r)
+    done = engine.drain()
+    for r in done:
+        x = torch.from_numpy(np.ascontiguousarray(r.payload)).to(device)
+        want = apply_hard(art.frozen, x).cpu().numpy()
+        if not np.array_equal(want, r.result[0]):
+            raise SystemExit(f"request {r.rid}: served counts differ from "
+                             f"apply_hard")
+    bound = train_bytes_and_ops(cfg, batch)
+    emit({"phase": "train", "arch": "dwn-jsc-lg", "n_train": n_train,
+          "batch": batch, "steps_per_epoch": steps,
+          "first_steps_s": capture_s, "vs_cpu": vs_cpu, "bitwise": same,
+          "epoch_s": epoch_s, "steps_per_s": steps / epoch_s,
+          "eval_s": eval_s, "epoch_loss": float(losses.mean()),
+          "soft_test_acc": acc, "step_ms_replayed": replay_ms,
+          "step_ms_eager": eager_ms, **bound,
+          "replayed_over_bound": replay_ms / bound["bound_ms"],
+          "profile": profile_split,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+          "artifact": {"calibration": art.calibration,
+                       "history": art.history, "stage": art.stage,
+                       "bit_exact_vs_oracle": engine.bit_exact,
+                       "served": sum(r.size for r in done)}})
+
+
 def phase_serve(device, batch=4096, requests=16, n_train=20000):
     """dwn-jsc-lg pinned to the fused backend (K2, then K1 per bucket),
     then ``backend="auto"`` (tuned, calibrated), each step a CUDA graph
@@ -2055,15 +2388,18 @@ def phase_serve(device, batch=4096, requests=16, n_train=20000):
 
 
 def phase_cli(device):
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     seconds = {}
-    for argv in (["--arch", "dwn-jsc-lg", "--requests", "4"],
-                 ["--arch", "dwn-jsc-lg", "--requests", "4", "--backend",
-                  "auto"],
-                 ["--arch", "qwen3-8b", "--batch", "2", "--prompt-len",
-                  "32", "--gen", "4"]):
+    for main, argv in (
+            (serve.main, ["--arch", "dwn-jsc-lg", "--requests", "4"]),
+            (serve.main, ["--arch", "dwn-jsc-lg", "--requests", "4",
+                          "--backend", "auto"]),
+            (serve.main, ["--arch", "qwen3-8b", "--batch", "2",
+                          "--prompt-len", "32", "--gen", "4"]),
+            (train.main, ["--arch", "dwn-jsc-lg", "--workload", "jsc",
+                          "--epochs", "1"])):
         t0 = time.perf_counter()
-        serve.main(argv + ["--device", device])
+        main(argv + ["--device", device])
         seconds[" ".join(argv)] = time.perf_counter() - t0
     emit({"phase": "cli", "seconds": seconds})
 
@@ -2103,6 +2439,15 @@ def main() -> int:
     float_err, float_timing, float_launches = phase_float("cuda")
     flash_err, flash_timing = phase_flash("cuda", ptxas["flash_attn"])
     flash_launches = phase_lm("cuda")
+    # training runs with the library's float32 product settings (its
+    # step forces full float32 itself), not with this script's
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    phase_train("cuda")
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32
     launches = phase_serve("cuda")
     phase_cli("cuda")
 

@@ -3,6 +3,8 @@
 The LUT-layer output bits split into ``classes`` contiguous groups of
 ``m // classes`` bits; each group's popcount is that class's score.
 Inference takes the first argmax, so ties go to the lower class index.
+Training divides the counts by a temperature τ and takes a softmax
+cross-entropy.
 """
 
 from __future__ import annotations
@@ -30,7 +32,17 @@ def group_popcount_packed(packed: PackedBits,
 
 
 def logits_from_counts(counts: torch.Tensor, tau: float) -> torch.Tensor:
-    return counts / tau
+    """counts / τ in float32.  τ is a tensor on the counts' device: CUDA
+    divides by a host scalar as a product with its reciprocal, which
+    rounds otherwise than the reference's division."""
+    return counts / torch.full((), tau, dtype=counts.dtype,
+                               device=counts.device)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean negative log-likelihood of ``labels`` under softmax(logits)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, labels.long()[..., None])[..., 0].mean()
 
 
 def predict(counts: torch.Tensor) -> torch.Tensor:
@@ -42,5 +54,5 @@ def accuracy(counts: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (predict(counts).long() == labels.long()).to(torch.float32).mean()
 
 
-__all__ = ["accuracy", "group_popcount", "group_popcount_packed",
-           "logits_from_counts", "predict"]
+__all__ = ["accuracy", "cross_entropy", "group_popcount",
+           "group_popcount_packed", "logits_from_counts", "predict"]

@@ -1,6 +1,7 @@
 """DWN model: thermometer encoder -> LUT layer stack -> popcount classifier.
 
-The PyTorch counterpart of ``repro.core.model`` (inference half).  The JSC
+The PyTorch counterpart of ``repro.core.model``: the differentiable
+training forward and loss, the frozen hardware model and its paths.  The JSC
 variants of the paper (one LUT layer each) are the presets:
 
     sm-10   m=10      sm-50   m=50
@@ -18,9 +19,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from .classifier import group_popcount, group_popcount_packed, predict
+from .classifier import (cross_entropy, group_popcount,
+                         group_popcount_packed, logits_from_counts, predict)
 from .lut_layer import (LUTLayerSpec, binarize_tables, finalize_mapping,
-                        init_lut_layer, lut_eval_hard, lut_eval_hard_packed)
+                        init_lut_layer, lut_eval_hard, lut_eval_hard_packed,
+                        lut_layer_apply, lut_layer_apply_stopgrad)
 from .thermometer import (ThermometerSpec, encode, encode_packed,
                           fit_thresholds, quantize_fixed_point)
 
@@ -70,6 +73,11 @@ JSC_PRESETS = {
 }
 
 
+# Baseline accuracies the paper holds PTQ to (§III).
+PAPER_BASELINE_ACC = {"sm-10": 0.711, "sm-50": 0.740, "md-360": 0.756,
+                      "lg-2400": 0.763}
+
+
 def init_dwn(generator: torch.Generator, cfg: DWNConfig,
              x_train: np.ndarray, *, device="cpu"):
     """Returns (params, buffers): params trainable, buffers = thresholds.
@@ -95,6 +103,44 @@ def params_from_numpy(params, buffers, *, device="cpu"):
     layers = [{"scores": t(l["scores"]), "tables": t(l["tables"])}
               for l in params["layers"]]
     return {"layers": layers}, {"thresholds": t(buffers["thresholds"])}
+
+
+def apply_train_from_bits(params, cfg: DWNConfig,
+                          bits: torch.Tensor) -> torch.Tensor:
+    """Differentiable forward from pre-encoded bits: (B, F*T) -> logits.
+
+    ``bits`` may be any dtype holding {0, 1} (the engine keeps uint8
+    rows); they are cast to float32 and take no gradient, since the
+    thermometer thresholds are never trained.
+    """
+    with torch.no_grad():
+        bits = bits.to(torch.float32)
+    for i, layer in enumerate(params["layers"]):
+        bits = (lut_layer_apply_stopgrad(layer, bits) if i == 0
+                else lut_layer_apply(layer, bits))
+    counts = group_popcount(bits, cfg.num_classes)
+    return logits_from_counts(counts, cfg.tau_value)
+
+
+def apply_train(params, buffers, cfg: DWNConfig,
+                x: torch.Tensor) -> torch.Tensor:
+    """Differentiable forward: raw features -> class logits."""
+    return apply_train_from_bits(params, cfg,
+                                 encode(x, buffers["thresholds"]))
+
+
+def loss_fn(params, buffers, cfg: DWNConfig, x: torch.Tensor,
+            y: torch.Tensor):
+    """(cross-entropy, logits) of features ``x`` against labels ``y``."""
+    logits = apply_train(params, buffers, cfg, x)
+    return cross_entropy(logits, y), logits
+
+
+def loss_fn_from_bits(params, cfg: DWNConfig, bits: torch.Tensor,
+                      y: torch.Tensor):
+    """Cross-entropy twin of :func:`loss_fn` over pre-encoded bits."""
+    logits = apply_train_from_bits(params, cfg, bits)
+    return cross_entropy(logits, y), logits
 
 
 @dataclasses.dataclass
@@ -193,7 +239,10 @@ def eval_accuracy_hard_packed(frozen: FrozenDWN, x: np.ndarray,
 
 
 __all__ = [
-    "DWNConfig", "FrozenDWN", "JSC_PRESETS", "apply_hard",
-    "apply_hard_packed", "eval_accuracy_hard", "eval_accuracy_hard_packed",
-    "freeze", "frozen_device", "init_dwn", "params_from_numpy",
+    "DWNConfig", "FrozenDWN", "JSC_PRESETS", "PAPER_BASELINE_ACC",
+    "apply_hard",
+    "apply_hard_packed", "apply_train", "apply_train_from_bits",
+    "eval_accuracy_hard", "eval_accuracy_hard_packed", "freeze",
+    "frozen_device", "init_dwn", "loss_fn", "loss_fn_from_bits",
+    "params_from_numpy",
 ]

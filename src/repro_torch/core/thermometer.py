@@ -150,6 +150,15 @@ def encode(x: torch.Tensor, thresholds: torch.Tensor, *,
     return bits
 
 
+def encode_np(x: np.ndarray, thresholds: np.ndarray, flatten: bool = True):
+    """NumPy twin of :func:`encode` (float32 {0, 1} bits) for host-side
+    preprocessing, such as the warm start's correlations."""
+    bits = (x[..., :, None] > thresholds).astype(np.float32)
+    if flatten:
+        bits = bits.reshape(*x.shape[:-1], -1)
+    return bits
+
+
 def encode_packed(x: torch.Tensor, thresholds: torch.Tensor) -> PackedBits:
     """Thermometer-encode straight into packed words: bit ``f*T + t`` of
     the flattened output is ``x_f > th[f, t]``.  Bit-exact with
@@ -177,7 +186,24 @@ def quantize_fixed_point(v, frac_bits: int):
     return np.clip(q, -1.0, (scale - 1.0) / scale)
 
 
+def total_bits_for_frac(frac_bits: int) -> int:
+    """Total fixed-point width (1 sign bit + ``frac_bits``)."""
+    return 1 + frac_bits
+
+
+def quantize_thresholds(thresholds, frac_bits: int):
+    """PTQ of encoder thresholds to (1, n) (paper §III).  Adjacent
+    thresholds may collide; the encode semantics are unchanged."""
+    return quantize_fixed_point(thresholds, frac_bits)
+
+
+def quantize_inputs(x, frac_bits: int):
+    """Quantize the PEN input features to the same (1, n) grid."""
+    return quantize_fixed_point(x, frac_bits)
+
+
 __all__ = [
-    "PLACEMENTS", "ThermometerSpec", "encode", "encode_packed",
+    "PLACEMENTS", "ThermometerSpec", "encode", "encode_np", "encode_packed",
     "fit_thresholds", "normalize_to_unit", "quantize_fixed_point",
+    "quantize_inputs", "quantize_thresholds", "total_bits_for_frac",
 ]

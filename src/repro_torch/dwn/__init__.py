@@ -6,12 +6,13 @@
 """
 
 from .artifact import DWNArtifact, LifecycleError, PackedOperands, STAGES
-from .spec import (DATAPATH_ALIASES, DWNSpec, GROUPINGS, VARIANTS,
-                   get_spec, has_spec, resolve_spec, serving_datapath,
-                   spec_presets)
+from .spec import (ARCH_SPECS, DATAPATH_ALIASES, DWNSpec, GROUPINGS,
+                   NOT_PORTED, VARIANTS, dwn_names, get_spec, has_spec,
+                   resolve_spec, serving_datapath, spec_presets)
 
 __all__ = [
-    "DATAPATH_ALIASES", "DWNArtifact", "DWNSpec", "GROUPINGS",
-    "LifecycleError", "PackedOperands", "STAGES", "VARIANTS", "get_spec",
-    "has_spec", "resolve_spec", "serving_datapath", "spec_presets",
+    "ARCH_SPECS", "DATAPATH_ALIASES", "DWNArtifact", "DWNSpec", "GROUPINGS",
+    "LifecycleError", "NOT_PORTED", "PackedOperands", "STAGES", "VARIANTS",
+    "dwn_names", "get_spec", "has_spec", "resolve_spec", "serving_datapath",
+    "spec_presets",
 ]

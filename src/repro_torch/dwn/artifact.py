@@ -1,15 +1,17 @@
 """DWNArtifact: the spec -> serve lifecycle in one object.
 
-The PyTorch counterpart of ``repro.dwn.artifact`` (serving stages)::
+The PyTorch counterpart of ``repro.dwn.artifact`` (training and serving
+stages)::
 
-    spec ──fit/adopt──▶ trained ──freeze()──▶ frozen ──pack()──▶ packed
-                                                                   │
-                                                           serving_model()
+    spec ──fit/train/adopt──▶ trained ──freeze()──▶ frozen ──pack()──▶ packed
+                                                                        │
+                                                                serving_model()
 
 * **trained** — ``params`` (LUT scores/tables) + ``buffers`` (thermometer
   thresholds fit on training features).  ``fit`` initializes without
-  gradient epochs; ``adopt`` accepts state trained elsewhere, such as the
-  reference's parameters carried across with
+  gradient epochs; ``train`` runs the paper-protocol trainer
+  (``core.training.train_dwn``); ``adopt`` accepts state trained
+  elsewhere, such as the reference's parameters carried across with
   ``core.model.params_from_numpy``.
 * **frozen** — hardware semantics (``core.model.FrozenDWN``): int32 wires,
   {0,1} tables, thresholds quantized to the spec's (1, n) grid for PEN.
@@ -66,8 +68,9 @@ class DWNArtifact:
       frozen: the hardware-semantics model (after :meth:`freeze`).
       packed: the operands staged on a device (after :meth:`pack`).
       calibration: provenance of the trained state (seed, epochs, fit
-        sample count; what trained it), as the reference records it; it
-        rides in checkpoints.
+        sample count, soft accuracy when trained; what trained it), as
+        the reference records it; it rides in checkpoints.
+      history: per-epoch training history (loss / accuracy rows).
     """
 
     spec: DWNSpec
@@ -76,6 +79,7 @@ class DWNArtifact:
     frozen: FrozenDWN | None = None
     packed: PackedOperands | None = None
     calibration: dict = dataclasses.field(default_factory=dict)
+    history: list = dataclasses.field(default_factory=list)
 
     @property
     def stage(self) -> str:
@@ -98,10 +102,13 @@ class DWNArtifact:
         self.frozen = None
         self.packed = None
 
-    def fit(self, x_train: np.ndarray, *, seed: int = 0) -> "DWNArtifact":
+    def fit(self, x_train: np.ndarray, *, seed: int = 0,
+            warmstart: bool = False, y_train: np.ndarray | None = None
+            ) -> "DWNArtifact":
         """Fit thresholds on ``x_train`` and initialize the LUT parameters
         from ``torch.Generator().manual_seed(seed)``, without gradient
-        epochs.
+        epochs; ``warmstart=True`` uses the correlation warm start
+        (``core.warmstart``; needs ``y_train``).
 
         The thresholds equal the reference's for the same rows, but the
         LUT parameters do not: torch's generator draws other numbers than
@@ -109,25 +116,74 @@ class DWNArtifact:
         reference's ``fit(seed=0)``.  :meth:`adopt` the reference's
         parameters to serve the same model.
         """
+        cfg = self.spec.dwn_config()
         gen = torch.Generator().manual_seed(seed)
-        self.params, self.buffers = init_dwn(gen, self.spec.dwn_config(),
-                                             x_train)
-        self.calibration = {"seed": seed, "epochs": 0, "warmstart": False,
+        if warmstart:
+            if y_train is None:
+                raise ValueError("fit(warmstart=True) needs y_train for "
+                                 "the correlation warm start")
+            from ..core.warmstart import warmstart_dwn
+            self.params, self.buffers = warmstart_dwn(gen, cfg, x_train,
+                                                      y_train)
+        else:
+            self.params, self.buffers = init_dwn(gen, cfg, x_train)
+        self.calibration = {"seed": seed, "epochs": 0,
+                            "warmstart": bool(warmstart),
                             "n_fit": int(np.asarray(x_train).shape[0])}
+        self.history = []
         self._invalidate_downstream()
         return self
 
-    def adopt(self, params, buffers) -> "DWNArtifact":
+    def train(self, data, *, epochs: int, batch: int = 128,
+              lr: float = 1e-3, seed: int = 0, warmstart: bool = False,
+              eval_every: int = 0, verbose: bool = False,
+              device=None) -> "DWNArtifact":
+        """Train on ``data`` with the paper-protocol trainer.
+
+        Args:
+          data: a split (``x_train`` / ``y_train`` / ``x_test`` /
+            ``y_test``), e.g. ``data.jsc.load_jsc``.
+          epochs: gradient epochs; 0 is :meth:`fit` alone.
+          batch / lr / seed: the protocol's training shape.
+          warmstart: the correlation warm start before training.
+          eval_every: eval cadence (0: after the last epoch only).
+          verbose: per-epoch prints.
+          device: where to train (default ``cuda``; raises without a
+            card); the trained state stays there.
+
+        Returns self (stage "trained"); later stages are invalidated.
+        """
+        if self.params is None:
+            self.fit(data.x_train, seed=seed, warmstart=warmstart,
+                     y_train=data.y_train)
+        if epochs > 0:
+            from ..core.training import train_dwn
+            res = train_dwn(self.spec.dwn_config(), data, epochs=epochs,
+                            batch=batch, lr=lr, seed=seed,
+                            params=self.params, buffers=self.buffers,
+                            eval_every=eval_every, verbose=verbose,
+                            device=device)
+            self.params, self.buffers = res.params, res.buffers
+            self.history = list(res.history)
+            self.calibration.update(
+                epochs=epochs, batch=batch, lr=lr,
+                soft_test_acc=round(float(res.soft_test_acc), 4))
+        self._invalidate_downstream()
+        return self
+
+    def adopt(self, params, buffers, *, note: str = "external"
+              ) -> "DWNArtifact":
         """Adopt externally trained state (port params and buffers)."""
         self.params, self.buffers = params, buffers
-        self.calibration.setdefault("trained_by", "external")
+        self.calibration.setdefault("trained_by", note)
+        self.history = []
         self._invalidate_downstream()
         return self
 
     def freeze(self) -> "DWNArtifact":
         """Freeze to hardware semantics; PEN specs quantize thresholds to
         the spec's (1, n) fixed-point grid."""
-        self._require("trained", "freeze", "fit()/adopt()")
+        self._require("trained", "freeze", "train()/fit()/adopt()")
         self.frozen = freeze_dwn(self.params, self.buffers,
                                  self.spec.dwn_config(),
                                  input_frac_bits=self.spec.frac_bits)

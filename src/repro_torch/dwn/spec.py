@@ -6,8 +6,10 @@ and the serving knobs live in one frozen dataclass validated at
 construction.  ``to_dict`` and ``fingerprint`` give the reference's values
 for the same spec, so a spec names the same build in both packages.
 
-The serving aliases ``dwn-jsc-{sm,md,lg}`` are registered here as named
-specs.
+The reference's JSC spec presets (the serving aliases ``dwn-jsc-{sm,md,lg}``,
+their ``-xla`` twins and ``dwn-jsc-sm-{uniform,gaussian}``) are registered
+here as named specs, and its other JSC DWN arch names resolve through a
+table (:data:`ARCH_SPECS`) to the specs the reference derives.
 """
 
 from __future__ import annotations
@@ -172,15 +174,51 @@ class DWNSpec:
 
 
 # ---------------------------------------------------------------------------
-# spec presets: the serving aliases
+# spec presets and the reference's other DWN arch names
 # ---------------------------------------------------------------------------
 
 #: name -> DWNSpec kwargs (validated into a DWNSpec on first access, since
-#: validation imports the serving registry).
+#: validation imports the serving registry): the reference's JSC spec
+#: presets, the serving aliases with their ``-xla`` twins and the sm
+#: tier's placement variants.
 _PRESETS: dict[str, "DWNSpec | dict"] = {
-    f"dwn-jsc-{tier}": {"preset": preset, "datapath": "fused-packed"}
-    for tier, preset in (("sm", "sm-50"), ("md", "md-360"),
-                         ("lg", "lg-2400"))
+    **{f"dwn-jsc-{tier}{suffix}": {"preset": preset, "datapath": datapath}
+       for tier, preset in (("sm", "sm-50"), ("md", "md-360"),
+                            ("lg", "lg-2400"))
+       for suffix, datapath in (("", "fused-packed"),
+                                ("-xla", "packed-xla"))},
+    **{f"dwn-jsc-sm-{pl}": {"preset": "sm-50", "placement": pl,
+                            "datapath": "fused-packed"}
+       for pl in ("uniform", "gaussian")},
+}
+
+#: the reference's other JSC DWN arch names -> the kwargs of the spec its
+#: ``DWNSpec.from_arch`` derives from each (datapaths that are not serving
+#: backends, such as ``gather``, become ``fused-packed``; ``-fused`` does
+#: not enter a spec).  A table, since the port imports nothing of the
+#: reference.
+ARCH_SPECS: dict[str, dict] = {
+    **{f"dwn-jsc-{name}{fused}": {"preset": preset}
+       for name, preset in (("sm10", "sm-10"), ("sm50", "sm-50"),
+                            ("md360", "md-360"), ("lg2400", "lg-2400"))
+       for fused in ("", "-fused")},
+    "dwn-jsc-lg2400-opt1": {"preset": "lg-2400"},
+    "dwn-jsc-lg2400-opt2": {"preset": "lg-2400", "grouping": "strided"},
+    "dwn-jsc-lg2400-opt3": {"preset": "lg-2400", "grouping": "strided"},
+    "dwn-jsc-lg2400-opt4": {"preset": "lg-2400", "bits": 170,
+                            "grouping": "strided"},
+    "dwn-jsc-md360-pruned": {"preset": "md-360", "bits": 78,
+                             "grouping": "strided"},
+    "dwn-jsc-sm50-pruned": {"preset": "sm-50", "bits": 14,
+                            "grouping": "strided"},
+}
+
+#: the reference's DWN names whose workloads the port does not run yet ->
+#: the ROADMAP.md item that ports them
+NOT_PORTED: dict[str, str] = {
+    **{f"dwn-mnist-{tier}{suffix}": "Queue 1 item 5"
+       for tier in ("sm", "md", "lg") for suffix in ("", "-xla")},
+    "dwn-lm-head": "Queue 1 item 8",
 }
 
 
@@ -188,12 +226,25 @@ def spec_presets() -> list[str]:
     return sorted(_PRESETS)
 
 
+def dwn_names() -> list[str]:
+    """Every DWN name :func:`resolve_spec` takes: the spec presets and the
+    reference's other JSC arch names."""
+    return sorted([*_PRESETS, *ARCH_SPECS])
+
+
 def has_spec(name: str) -> bool:
     return name in _PRESETS
 
 
+def _not_ported(name: str) -> KeyError:
+    return KeyError(f"DWN name {name!r} is not ported yet (ROADMAP.md "
+                    f"{NOT_PORTED[name]}); the port resolves {dwn_names()}")
+
+
 def get_spec(name: str) -> DWNSpec:
     """Resolve a registered spec preset by name."""
+    if name in NOT_PORTED:
+        raise _not_ported(name)
     if name not in _PRESETS:
         raise KeyError(f"unknown DWN spec preset {name!r}; registered: "
                        f"{sorted(_PRESETS)}")
@@ -204,13 +255,19 @@ def get_spec(name: str) -> DWNSpec:
 
 
 def resolve_spec(target) -> DWNSpec:
-    """A DWNSpec as-is, or a registered preset name as its spec."""
+    """A DWNSpec as-is, a spec preset's name as its spec, or one of the
+    reference's other JSC arch names as the spec the reference derives
+    from it.  ``KeyError`` for any other name, naming the ROADMAP item
+    for a DWN name the port does not run yet."""
     if isinstance(target, DWNSpec):
         return target
+    if target in ARCH_SPECS:
+        return DWNSpec(**ARCH_SPECS[target])
     return get_spec(target)
 
 
 __all__ = [
-    "DATAPATH_ALIASES", "DWNSpec", "GROUPINGS", "VARIANTS", "get_spec",
-    "has_spec", "resolve_spec", "serving_datapath", "spec_presets",
+    "ARCH_SPECS", "DATAPATH_ALIASES", "DWNSpec", "GROUPINGS", "NOT_PORTED",
+    "VARIANTS", "dwn_names", "get_spec", "has_spec", "resolve_spec",
+    "serving_datapath", "spec_presets",
 ]

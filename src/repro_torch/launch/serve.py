@@ -40,7 +40,7 @@ import sys
 import numpy as np
 
 from ..configs import get_arch, list_archs
-from ..dwn import DATAPATH_ALIASES, DWNSpec, spec_presets
+from ..dwn import DATAPATH_ALIASES, DWNSpec, dwn_names
 from ..serving import ServingEngine, available_backends
 from ..serving.scheduler import next_pow2
 
@@ -97,8 +97,8 @@ def lm_serve(args) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="",
-                    choices=[""] + spec_presets() + list_archs(),
-                    help="registered DWN spec preset or LM arch")
+                    choices=[""] + dwn_names() + list_archs(),
+                    help="DWN spec preset or arch name, or LM arch")
     ap.add_argument("--spec", default="",
                     help='a DWNSpec as JSON, e.g. \'{"preset": "sm-50", '
                          '"variant": "PEN", "input_bits": 9}\'')

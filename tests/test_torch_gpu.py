@@ -1086,3 +1086,102 @@ def test_flash_wrapper_refuses_bad_operands():
     torch.testing.assert_close(FK.flash_attention(q, k, v).float(),
                                v.expand_as(q).float(), atol=0, rtol=0)
     assert FK.launch_counts() == {"flash_attention": 1}
+
+
+# -- DWN training on the card ----------------------------------------------
+
+def _train_setup(luts, device, n=2000, seed=0):
+    """A numpy init of ``luts`` (seed 0) as params, Adam state, encoded
+    split and labels on ``device``, and the step program of that shape."""
+    from repro_torch.core.model import DWNConfig, params_from_numpy
+    from repro_torch.core.thermometer import fit_thresholds
+    from repro_torch.data.jsc import load_jsc
+    from repro_torch.training import encode_dataset, step_program
+    cfg = DWNConfig(lut_counts=luts)
+    data = load_jsc(n, 200, seed=seed)
+    rng = np.random.default_rng(seed)
+    layers = [{"scores": rng.normal(0, 0.01, (s.num_luts, s.fan_in,
+                                              s.num_candidates)),
+               "tables": rng.uniform(-1, 1, (s.num_luts, s.table_size))}
+              for s in cfg.layer_specs()]
+    params, buffers = params_from_numpy(
+        {"layers": layers},
+        {"thresholds": fit_thresholds(data.x_train, cfg.thermometer)},
+        device=device)
+    bits = encode_dataset(data.x_train, buffers["thresholds"])
+    y = torch.from_numpy(data.y_train.astype(np.int64)).to(device)
+    prog = step_program(cfg, n, bits.shape[1], 128, 1e-3, "steplr", device)
+    perm = torch.from_numpy(np.random.default_rng(1).permutation(n)[
+        :prog.steps * 128].astype(np.int64)).to(device)
+    return prog, (params, bits, y), perm
+
+
+def _steps(prog, state, perm, k, *, eager=False):
+    from repro_torch.optim.adam import leaves, map_tree
+    params, bits, y = state
+    params = map_tree(torch.clone, params)
+    opt_state = prog.opt.init(params)
+    prog.load(params, opt_state, bits, y)
+    prog.begin_epoch(perm)
+    for _ in range(k):
+        prog.step(eager=eager)
+    prog.store(params, opt_state)
+    return prog.losses[:k].clone(), leaves(params)
+
+
+@pytest.mark.parametrize("luts", [(360,), (120, 50)])
+def test_training_step_replays_equal_eager_steps(luts):
+    """Bitwise: 4 replays of the captured step give the eager steps'
+    losses and parameters, two card runs give the same, and a run with
+    TF32 allowed by the caller gives the same (the step forces full
+    float32 itself)."""
+    _need_card()
+    prog, state, perm = _train_setup(luts, "cuda")
+    loss_r, par_r = _steps(prog, state, perm, 4)
+    loss_e, par_e = _steps(prog, state, perm, 4, eager=True)
+    loss_2, par_2 = _steps(prog, state, perm, 4)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        loss_t, par_t = _steps(prog, state, perm, 4, eager=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for loss, par in ((loss_e, par_e), (loss_2, par_2), (loss_t, par_t)):
+        assert torch.equal(loss, loss_r)
+        assert all(torch.equal(a, b) for a, b in zip(par, par_r))
+
+
+@pytest.mark.parametrize("luts", [(360,), (120, 50)])
+def test_training_steps_on_the_card_match_the_cpu(luts):
+    """4 steps from one numpy init: per-step losses within 1e-5, scores
+    within 1e-4, table signs and the frozen wiring identical (the card
+    and the CPU sum in other orders)."""
+    _need_card()
+    prog_c, state_c, perm_c = _train_setup(luts, "cuda")
+    prog_h, state_h, perm_h = _train_setup(luts, "cpu")
+    loss_c, par_c = _steps(prog_c, state_c, perm_c, 4)
+    loss_h, par_h = _steps(prog_h, state_h, perm_h, 4)
+    assert float((loss_c.cpu() - loss_h).abs().max()) <= 1e-5
+    for i in range(0, len(par_c), 2):
+        sc, sh = par_c[i].cpu(), par_h[i]
+        assert float((sc - sh).abs().max()) <= 1e-4
+        assert torch.equal(sc.argmax(-1), sh.argmax(-1))
+        assert torch.equal(par_c[i + 1].cpu() > 0, par_h[i + 1] > 0)
+
+
+def test_scan_trainer_epoch_on_the_card():
+    """One epoch of ``ScanTrainer`` on the card: finite losses, the step
+    counter at steps_per_epoch, accuracy above chance; a second trainer
+    of the shape reuses the captured program."""
+    _need_card()
+    from repro_torch.core.model import JSC_PRESETS
+    from repro_torch.data.jsc import load_jsc
+    from repro_torch.training import ScanTrainer
+    data = load_jsc(2000, 500, seed=0)
+    tr = ScanTrainer(JSC_PRESETS["sm-50"], data, seed=0)
+    res = tr.train(1)
+    assert int(tr.opt_state.step) == tr.steps_per_epoch
+    assert np.isfinite(res.history[0]["loss"])
+    assert res.soft_test_acc > 0.3
+    tr2 = ScanTrainer(JSC_PRESETS["sm-50"], data, seed=1)
+    assert tr2.program is tr.program and tr.program.graph is not None

@@ -90,3 +90,79 @@ def test_freeze_helpers_and_group_popcount_match_reference():
     assert float(tcl.accuracy(torch.from_numpy(ref.copy()),
                               torch.from_numpy(labels))) == \
         float(jcl.accuracy(jnp.asarray(ref), jnp.asarray(labels)))
+
+
+# -- training: the EFD / softmax-STE layer against jax.grad ---------------
+
+GRAD_TOL = 1e-5
+
+
+@pytest.mark.parametrize("luts", [(50,), (360,), (120, 50)])
+def test_loss_and_gradients_match_jax_grad(luts):
+    """Forward bits, logits and loss exact; every gradient leaf of
+    ``loss_fn_from_bits`` within 1e-5 of its largest magnitude (float32
+    sums in another order), at sm-50 and md-360 width and on a (120, 50)
+    two-layer stack, whose second layer sends a bits gradient back
+    through the first.  Params are the reference's, carried across."""
+    from repro.core import model as jm
+    from repro.data.jsc import load_jsc
+    from repro_torch.core import model as tm
+    cfg_j, cfg_t = (jm.DWNConfig(lut_counts=luts),
+                    tm.DWNConfig(lut_counts=luts))
+    data = load_jsc(600, 100, seed=0)
+    p, b = jm.init_dwn(jax.random.PRNGKey(1), cfg_j, data.x_train)
+    rows = np.random.default_rng(0).permutation(600)[:128]
+    bits = np.asarray(jm.encode(jnp.asarray(data.x_train[rows]),
+                                b["thresholds"])).astype(np.uint8)
+    y = data.y_train[rows]
+    (loss_j, logits_j), grads_j = jax.value_and_grad(
+        jm.loss_fn_from_bits, has_aux=True)(p, cfg_j, jnp.asarray(bits),
+                                            jnp.asarray(y))
+    tp, _ = tm.params_from_numpy(p, b)
+    leaves = [layer[k].requires_grad_() for layer in tp["layers"]
+              for k in ("scores", "tables")]
+    loss_t, logits_t = tm.loss_fn_from_bits(
+        tp, cfg_t, torch.from_numpy(bits), torch.from_numpy(y))
+    grads_t = torch.autograd.grad(loss_t, leaves)
+    np.testing.assert_array_equal(logits_t.detach().numpy(),
+                                  np.asarray(logits_j))
+    assert float(loss_t.detach()) == float(loss_j)
+    want = [np.asarray(layer[k]) for layer in grads_j["layers"]
+            for k in ("scores", "tables")]
+    for got, ref in zip(grads_t, want):
+        assert got.shape == ref.shape
+        err = np.abs(got.numpy() - ref).max()
+        assert err <= GRAD_TOL * np.abs(ref).max(), err
+
+
+def test_lut_layer_vjp_matches_reference():
+    """Within 1e-5 of each cotangent's largest magnitude: the layer's
+    vector-Jacobian product for a random cotangent, bits gradient
+    included (``lut_layer_apply``), against ``jax.vjp``; the stop-gradient
+    twin returns no bits gradient and the same scores and tables ones."""
+    rng = np.random.default_rng(3)
+    B, C, m, n = 9, 40, 12, 4
+    bits = rng.integers(0, 2, (B, C)).astype(np.float32)
+    scores = rng.normal(0, 0.5, (m, n, C)).astype(np.float32)
+    tables = rng.uniform(-1.2, 1.2, (m, 2 ** n)).astype(np.float32)
+    cot = rng.normal(size=(B, m)).astype(np.float32)
+    out_j, vjp = jax.vjp(
+        lambda bt, s, t: jll.lut_layer_apply({"scores": s, "tables": t},
+                                             bt),
+        jnp.asarray(bits), jnp.asarray(scores), jnp.asarray(tables))
+    want = vjp(jnp.asarray(cot))
+    tb, ts, tt = (torch.from_numpy(a.copy()).requires_grad_()
+                  for a in (bits, scores, tables))
+    out_t = tll.lut_layer_apply({"scores": ts, "tables": tt}, tb)
+    np.testing.assert_array_equal(out_t.detach().numpy(), np.asarray(out_j))
+    got = torch.autograd.grad(out_t, (tb, ts, tt), torch.from_numpy(cot))
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert np.abs(g.numpy() - w).max() <= GRAD_TOL * np.abs(w).max()
+    ts2, tt2 = (torch.from_numpy(a.copy()).requires_grad_()
+                for a in (scores, tables))
+    out2 = tll.lut_layer_apply_stopgrad({"scores": ts2, "tables": tt2},
+                                        torch.from_numpy(bits))
+    g2 = torch.autograd.grad(out2, (ts2, tt2), torch.from_numpy(cot))
+    for a, b in zip(g2, got[1:]):
+        assert torch.equal(a, b)

@@ -48,6 +48,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "assert len(names) > 20, names\n"
         "assert 'repro_torch.runtime.checkpoint' in names, names\n"
         "assert 'repro_torch.kernels.graph' in names, names\n"
+        "assert 'repro_torch.training.engine' in names, names\n"
+        "assert 'repro_torch.launch.train' in names, names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -129,6 +129,56 @@ def test_specs_match_reference():
         DWNSpec(preset="sm-50", datapath="packed-xla-v2")
 
 
+def test_every_reference_jsc_dwn_name_resolves_to_its_fingerprint():
+    """Exact: each of the reference's 22 JSC DWN names (its spec presets
+    and its other arch names) resolves in the port to the spec the
+    reference resolves it to, fingerprint included (13 distinct); the
+    port's spec presets are the reference's JSC ones; MNIST and the LM
+    head raise, naming the ROADMAP items that port them."""
+    from repro.configs.registry import get_arch, list_archs
+    from repro.dwn import resolve_spec as jresolve
+    from repro.dwn import spec_presets as jpresets
+    from repro_torch.dwn import dwn_names, resolve_spec, spec_presets
+    dwn = [n for n in list_archs() if get_arch(n).family == "dwn"]
+    jsc = [n for n in dwn if jresolve(n).workload == "jsc"]
+    assert len(jsc) == 22 and sorted(jsc) == dwn_names()
+    fps = set()
+    for name in jsc:
+        got, want = resolve_spec(name), jresolve(name)
+        assert got.to_dict() == want.to_dict(), name
+        assert got.fingerprint() == want.fingerprint(), name
+        fps.add(got.fingerprint())
+    assert len(fps) == 13
+    assert resolve_spec("dwn-jsc-sm-gaussian").fingerprint() == \
+        "ded3a7ca71a42478"
+    assert resolve_spec("dwn-jsc-lg-xla").fingerprint() == "244cf67cce326ab0"
+    assert spec_presets() == sorted(n for n in jpresets()
+                                    if jresolve(n).workload == "jsc")
+    for name in set(dwn) - set(jsc):
+        item = "item 8" if name == "dwn-lm-head" else "item 5"
+        with pytest.raises(KeyError, match=f"Queue 1 {item}"):
+            resolve_spec(name)
+
+
+def test_serve_cli_resolves_a_placement_preset_on_cpu(capsys):
+    """Exact: ``--arch dwn-jsc-sm-gaussian`` serves bit-exact against the
+    oracle, with gaussian thresholds as the reference fits them."""
+    from repro.core.thermometer import ThermometerSpec, fit_thresholds
+    from repro_torch.launch import serve
+    assert serve.main(["--arch", "dwn-jsc-sm-gaussian", "--reduced",
+                       "--requests", "2", "--batch", "64", "--device",
+                       "cpu"]) == 0
+    rep = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rep["bit_exact_vs_oracle"] == {"fused-packed": True,
+                                          "packed-eager": True}
+    engine = ServingEngine("dwn-jsc-sm-gaussian", device="cpu",
+                           max_bucket=64)
+    x = load_workload("jsc", 2000, 512, seed=0).x_train
+    np.testing.assert_array_equal(
+        np.asarray(engine.artifact.frozen.thresholds),
+        fit_thresholds(x, ThermometerSpec(16, 200, "gaussian")))
+
+
 def test_serve_cli_on_cpu(capsys):
     """The CLI serves a ragged reduced stream and prints one JSON report."""
     import json
