@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port on one NVIDIA card and check it: its DWN
 training (each minibatch step a CUDA graph replay) and serving path
-(tuned, CUDA-graph steps, artifacts), its staged packed and float
-datapaths, its flash-attention kernel and qwen3-8b serving at full
-width.
+(tuned, CUDA-graph steps, artifacts), the paper's hardware model at
+MNIST and JSC width (cost report, RTL co-simulation against the served
+kernel's counts), its staged packed and float datapaths, its
+flash-attention kernel and qwen3-8b serving at full width.
 
     python3 chip_smoke.py
 
@@ -127,13 +128,38 @@ Phases, each printing one JSON line:
    per bucket (at most one) printed and every request held to the
    oracle; last the served artifact is saved, loaded back and served
    bit-exact;
-10. cli    — ``python -m repro_torch.launch.serve --arch dwn-jsc-lg`` with
+10. hw     — ``dwn-mnist-lg`` (F = 196 pooled pixels, T = 16: 3136 encoder
+   bits, 98 words a sample; one layer of 2000 LUT6, 10 classes) trained
+   one epoch on ``load_mnist(20000, 5000)`` on the card, frozen, packed
+   and served through ``ServingEngine``: 16 requests of 4096 rows pinned
+   to K2, the same pinned to K1, a ragged stream and ``backend="auto"``
+   (tuned at its own cache keys), then K2 again, every step a CUDA graph
+   replay and every served row equal to ``apply_hard``, with a 4096-row
+   step split into its copies and its replay; K1 and K2 at its shape held
+   to their plain versions and timed in CUDA graphs beside their bounds
+   (B = 4096 and the served buckets), and at the md and sm tiers' shapes
+   held to their plain versions (split over blocks at B = 1 and 33, one
+   slice at 4096);
+   its cost report, TEN and PEN at 9 bits on the same params, LUTs and
+   FFs per component with the encoder's share; ``verify_rtl`` (Python
+   evaluator, oracle on the card) on 256 test rows, the evaluator's
+   per-class counts equal to the counts K2 served for those rows; the
+   artifact saved, loaded and served again bit-exact; then the paper's
+   ``dwn-jsc-lg`` at PEN 9 bits from a warm start on the card: its cost
+   report and the same RTL check;
+11. cli    — ``python -m repro_torch.launch.serve --arch dwn-jsc-lg`` with
    four requests, the same with ``--backend auto``, ``--arch
-   qwen3-8b --batch 2 --prompt-len 32 --gen 4``, and ``python -m
+   qwen3-8b --batch 2 --prompt-len 32 --gen 4``, ``python -m
    repro_torch.launch.train --arch dwn-jsc-lg --workload jsc --epochs
-   1``.
+   1``, and two commands in their own processes that must exit 0:
+   ``python -m repro_torch.dwn.smoke --workload mnist --preset mnist-lg
+   --variant TEN --bits 16 --epochs 1`` (the lifecycle, bit-exact
+   roundtrip) and ``python -m repro_torch.hw.cosim --presets
+   dwn-jsc-lg,dwn-mnist-lg --n 256``.
 
-Then it prints the kernels' summary line, nvidia-smi's line and, last,
+Then it prints each phase's seconds, the kernels' summary line (K1's and
+K2's launches on each served path, their times at the mnist-lg shape
+beside their bounds), nvidia-smi's line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 so does a machine without a CUDA card, or a directory without the port.
 """
@@ -2387,6 +2413,295 @@ def phase_serve(device, batch=4096, requests=16, n_train=20000):
             "fused_dwn_zero": zeroed}
 
 
+#: dwn-mnist-lg's shape: 196 pooled pixels, T = 16 (3136 encoder bits, 98
+#: words a sample), one layer of 2000 LUT6, 10 classes
+MNIST_LG = dict(F=196, T=16, m=2000, n=6, C=10)
+#: the smaller MNIST tiers (T, LUTs) held against the plain kernels in the
+#: hw phase: md's groups of 50, sm's 100 LUTs (4 words of the last layer)
+MNIST_TIERS = {"mnist-md": (8, 500), "mnist-sm": (8, 100)}
+#: vectors of each RTL co-simulation in the hw phase
+RTL_ROWS = 256
+
+
+def _hw_dict(rep):
+    """A cost report's LUTs and FFs per component, totals, depth, the
+    estimates and the encoder's share of the LUTs."""
+    return {"variant": rep.variant, "input_bits": rep.input_bits,
+            "luts": dict(rep.luts), "ffs": dict(rep.ffs),
+            "total_luts": rep.total_luts, "total_ffs": rep.total_ffs,
+            "levels": rep.levels,
+            "distinct_comparators": rep.distinct_comparators,
+            "fmax_mhz": rep.fmax_mhz, "delay_ns": rep.delay_ns,
+            "area_delay": rep.area_delay,
+            "encoder_lut_share": rep.luts["encoder"] / rep.total_luts}
+
+
+def _rtl_against_k2(art, engine, x):
+    """``verify_rtl`` (Python evaluator, the oracle on the card) on the
+    rows ``x``, then the netlist evaluator's per-class counts and argmax
+    against the counts K2 served for the same rows through ``engine``
+    (pinned to the default config, so one CUDA graph of K2)."""
+    from repro_torch.core.thermometer import encode_np
+    from repro_torch.hw.cosim import evaluate_netlist
+    from repro_torch.kernels.fused.kernel import (launch_counts,
+                                                  reset_launch_counts)
+    t0 = time.perf_counter()
+    rep = art.verify_rtl(x, backend="python")
+    verify_s = time.perf_counter() - t0
+    engine.model.tuned_configs.clear()
+    reset_launch_counts()
+    engine.submit(x)
+    (served,) = engine.drain()
+    if not launch_counts()["fused_dwn_packed"]:
+        raise SystemExit(f"the RTL rows were not served by K2: "
+                         f"{launch_counts()}")
+    frozen = art.frozen
+    res = (evaluate_netlist(rep.src, x=x)
+           if frozen.input_frac_bits is not None else
+           evaluate_netlist(rep.src, ten_bits=encode_np(x, frozen.thresholds)))
+    counts, pred = served.result
+    if not (np.array_equal(res.class_counts, counts.astype(np.int64))
+            and np.array_equal(res.argmax_idx, pred.astype(np.int64))):
+        bad = np.nonzero((res.class_counts != counts).any(-1))[0]
+        raise SystemExit(f"{art.spec.label}: the RTL evaluator's counts "
+                         f"differ from K2's on {bad.size} of {len(x)} rows")
+    return {"spec": art.spec.label, "n_vectors": rep.n_vectors,
+            "backends": rep.backends, "counts_checked": rep.counts_checked,
+            "verify_s": verify_s, "evaluator_equals_k2": True,
+            "verilog_lines": rep.src.count("\n")}
+
+
+def _mnist_kernel_checks(device, batches=(1, 33, 4096)):
+    """K1 and K2 at the smaller MNIST tiers' shapes (random models from a
+    numpy seed) equal to their plain versions, each launch's layout held
+    to the planner's rule: a batch of at most 88 tiles of 32 samples
+    (here B = 1 and 33) splits the last layer's words over blocks, the
+    zero kernel first (sm's 4 words: 4 slices); 4096 rows (128 tiles)
+    take one slice, the model staged."""
+    import torch
+    from repro_torch.kernels.fused import kernel as K
+    from repro_torch.kernels.fused import ref as R
+    from repro_torch.kernels.fused.ops import prepare_operands
+    F, n, C = (MNIST_LG[k] for k in ("F", "n", "C"))
+    rng = np.random.default_rng(22)
+    x_all = torch.from_numpy(rng.uniform(
+        -1, 1, (max(batches), F)).astype(np.float32)).to(device)
+    layouts = {}
+    for tier, (T, m) in MNIST_TIERS.items():
+        th, maps, tabs = make_model(rng, F, T, (m,), n)
+        operands = [torch.from_numpy(a).to(device) for a in (th, *maps,
+                                                              *tabs)]
+        for variant, kern, plain in (
+                ("packed", K.fused_dwn_packed, R.fused_dwn_packed_plain),
+                ("batch-major", K.fused_dwn_batch_major,
+                 R.fused_dwn_batch_major_plain)):
+            ops = prepare_operands(operands[0], operands[1:2], operands[2:],
+                                   C, variant)
+            for B in batches:
+                got = kern(x_all[:B], *ops)
+                lay = K.last_launch()
+                want = plain(x_all[:B], *ops)
+                layouts[f"{tier} {variant} B={B}"] = lay
+                if not (torch.equal(got[0], want[0])
+                        and torch.equal(got[1], want[1])):
+                    raise SystemExit(f"{variant} differs from its plain "
+                                     f"version at {tier}, B={B}: {lay}")
+                split = B <= 33
+                if (lay["slices"] > 1) != split or \
+                        bool(lay["zeroed"]) != split or not lay["staged"]:
+                    raise SystemExit(f"{tier} {variant} at B={B} is not "
+                                     f"laid out as planned: {lay}")
+    return layouts
+
+
+def phase_hw(device, batch=4096, requests=16, n_train=20000, n_test=5000):
+    """The paper's hardware model at full width on the card:
+    ``dwn-mnist-lg`` trained one epoch on ``load_mnist(20000, 5000)``,
+    frozen, packed and served through K2, K1 (pinned) and
+    ``backend="auto"`` in CUDA graphs, every served row equal to
+    ``apply_hard``, K2 once more after auto and a 4096-row step's copies
+    and replay split; K1 and K2 at its shape timed beside their bounds (and
+    held to their plain versions at the md and sm tiers' shapes); its cost
+    report (TEN, and PEN at 9 bits on the same params); ``verify_rtl`` on
+    256 test rows, the evaluator's per-class counts equal to K2's; the
+    checkpoint saved, loaded and served again bit-exact; then the paper's
+    ``dwn-jsc-lg`` at PEN 9 bits from a warm start on the card: its cost
+    report and the same RTL check.  Returns the launches of K1, K2 and
+    the zero kernel on the served passes."""
+    import torch
+    from repro_torch.core.warmstart import warmstart_dwn
+    from repro_torch.data.jsc import load_jsc
+    from repro_torch.dwn import DWNArtifact, get_spec
+    from repro_torch.kernels.autotune import DEFAULT_CONFIG, FusedConfig
+    from repro_torch.kernels.fused import kernel as K
+    from repro_torch.kernels.fused import ref as R
+    from repro_torch.kernels.fused.ops import prepare_operands
+    from repro_torch.serving import ServingEngine
+    from repro_torch.workloads.mnist import load_mnist
+    seconds = {}
+    fused = ["fused_dwn_packed", "fused_dwn_batch_major"]
+
+    # 1. train, freeze, pack
+    t0 = time.perf_counter()
+    data = load_mnist(n_train, n_test, seed=0)
+    spec = get_spec("dwn-mnist-lg")
+    art = DWNArtifact(spec).train(data, epochs=1, seed=0, device=device)
+    art.freeze().pack(device)
+    seconds["train"] = time.perf_counter() - t0
+
+    # 2. serve the 4096-row and the ragged stream pinned to K2, pinned to
+    # K1, with backend="auto", then K2 again
+    t0 = time.perf_counter()
+    engine = ServingEngine(art, device=device, max_bucket=batch,
+                           n_train=n_train, seed=0)
+    if engine.bit_exact != {"fused-packed": True, "packed-eager": True}:
+        raise SystemExit(f"mnist-lg fails the startup oracle check: "
+                         f"{engine.bit_exact}")
+    stream = [engine.make_request(batch, seed=4000 + i)
+              for i in range(requests)]
+    rng = np.random.default_rng(8)
+    ragged = [engine.make_request(int(rng.integers(1, batch + 1)),
+                                  seed=5000 + i) for i in range(requests)]
+    auto = ServingEngine(art, device=device, backend="auto",
+                         max_bucket=batch, n_train=n_train, seed=0)
+    passes, done, launches = [], {}, {}
+    for mode, eng, kernels, variant in (
+            ("K2", engine, ["fused_dwn_packed"], None),
+            ("K1", engine, ["fused_dwn_batch_major"], "batch-major"),
+            ("auto", auto, fused, None),
+            ("K2 after auto", engine, ["fused_dwn_packed"], None)):
+        if eng is engine:
+            engine.model.tuned_configs.clear()
+            for bucket in engine.scheduler.buckets if variant else ():
+                engine.model.tuned_configs[bucket] = FusedConfig(
+                    variant, block_b=DEFAULT_CONFIG.block_b)
+        eng.warmup(batch)
+        for name, reqs in (("4096", stream), ("ragged", ragged)):
+            d, n, p = _serve_pass(eng, reqs, kernels)
+            passes.append(dict(p, mode=mode, stream=name))
+            done[mode, name] = d
+            launches[mode, name] = n
+            _same_results(done["K2", name], d, f"{mode} and K2 at mnist-lg")
+    compiles = _check_compiles(auto)
+    _check_against_oracle(auto, done["auto", "4096"] + done["auto", "ragged"])
+    _check_against_oracle(engine, [r for (mode, _), d in done.items()
+                                   if mode != "auto" for r in d])
+    # where a 4096-row step's time goes: the 3.2 MB of features copied
+    # in, the replay, the counts copied back
+    engine.model.tuned_configs.clear()
+    split_k2 = _replay_and_eager_split(engine, stream[0])
+    cache = json.loads(Path(os.environ["REPRO_AUTOTUNE_CACHE"]).read_text())
+    tuned = sorted(int(k.split(":")[1]) for k in cache["entries"]
+                   if k.startswith(spec.fingerprint() + ":"))
+    if tuned != sorted(auto.scheduler.buckets):
+        raise SystemExit(f"mnist-lg was not tuned at its own keys: {tuned}")
+    seconds["serve"] = time.perf_counter() - t0
+
+    # 3. K1 and K2 at the mnist-lg shape, B = 4096, in CUDA graphs
+    t0 = time.perf_counter()
+    F, T, m, n, C = (MNIST_LG[k] for k in ("F", "T", "m", "n", "C"))
+    x = torch.from_numpy(np.ascontiguousarray(data.x_test[:batch])).to(
+        device)
+    p = art.packed
+    timing, max_err = {}, {}
+    for variant, kern, plain in (
+            ("packed", K.fused_dwn_packed, R.fused_dwn_packed_plain),
+            ("batch-major", K.fused_dwn_batch_major,
+             R.fused_dwn_batch_major_plain)):
+        ops = prepare_operands(p.thresholds, p.mappings, p.tables, C,
+                               variant)
+        got, want = kern(x, *ops), plain(x, *ops)
+        torch.cuda.synchronize()
+        max_err[variant] = float((got[0] - want[0]).abs().max())
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                             want[1])):
+            raise SystemExit(f"{variant} differs from its plain version "
+                             f"at mnist-lg")
+        timing[variant] = {
+            "ms": graph_ms(lambda: kern(x, *ops)),
+            "plain_ms": time_ms(lambda: plain(x, *ops), iters=5, warmup=1),
+            **_bound(variant, batch, F, T, (m,), n, C),
+            "layout": K.last_launch(),
+            "bucket_ms": {B: graph_ms(lambda B=B: kern(x[:B], *ops))
+                          for B in SERVED_BUCKETS},
+            "bucket_layout": {B: (kern(x[:B], *ops), K.last_launch())[1]
+                              for B in SERVED_BUCKETS},
+            "bucket_bound_ms": {B: _bound(variant, B, F, T, (m,), n, C)[
+                "bound_ms"] for B in SERVED_BUCKETS}}
+    tier_layouts = _mnist_kernel_checks(device)
+    seconds["kernels"] = time.perf_counter() - t0
+
+    # 4. cost reports: TEN, and PEN at 9 bits on the same params
+    t0 = time.perf_counter()
+    pen = DWNArtifact(dataclasses.replace(
+        spec, variant="PEN", input_bits=9)).adopt(
+            art.params, art.buffers, note="hw phase").freeze()
+    hw = {"TEN": _hw_dict(art.hw_report()), "PEN-9": _hw_dict(
+        pen.hw_report())}
+    seconds["hw_report"] = time.perf_counter() - t0
+
+    # 5. the RTL against the oracle and against K2's served counts
+    t0 = time.perf_counter()
+    rtl = _rtl_against_k2(art, engine, data.x_test[:RTL_ROWS])
+    seconds["rtl"] = time.perf_counter() - t0
+
+    # 6. checkpoint, reload, re-serve bit-exact
+    t0 = time.perf_counter()
+    ckpt = ROOT / "build" / "chip_smoke_hw_artifact"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    art.save(ckpt)
+    loaded = DWNArtifact.load(ckpt, device=device)
+    again = ServingEngine(loaded, device=device, max_bucket=batch,
+                          n_train=n_train, seed=0)
+    done_l, _, pl = _serve_pass(again, stream[:4] + ragged[:4],
+                                ["fused_dwn_packed"])
+    _same_results(done["K2", "4096"][:4] + done["K2", "ragged"][:4], done_l,
+                  "the reloaded mnist-lg artifact and the served one")
+    if loaded.verilog() != art.verilog():
+        raise SystemExit("the reloaded artifact emits other RTL")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    seconds["checkpoint"] = time.perf_counter() - t0
+    emit({"phase": "hw", "arch": "dwn-mnist-lg", "shape": MNIST_LG,
+          "n_train": n_train, "calibration": art.calibration,
+          "bit_exact_vs_oracle": engine.bit_exact,
+          "passes": passes, "step_split_k2": split_k2,
+          "auto_choice": auto.report()["auto"]["choice"],
+          "auto_compiles": compiles, "tuned_buckets": tuned,
+          "kernels": timing, "max_abs_err": max_err,
+          "tier_layouts": tier_layouts, "hw": hw, "rtl": rtl,
+          "reloaded": {"stage": loaded.stage, "pass": pl},
+          "seconds": seconds})
+
+    # 7. the paper's model: dwn-jsc-lg, PEN at 9 bits, warm start
+    t0 = time.perf_counter()
+    jdata = load_jsc(n_train, n_test, seed=0)
+    jspec = dataclasses.replace(get_spec("dwn-jsc-lg"), variant="PEN",
+                                input_bits=9)
+    params, buffers = warmstart_dwn(torch.Generator().manual_seed(0),
+                                    jspec.dwn_config(), jdata.x_train,
+                                    jdata.y_train, device=device)
+    jart = DWNArtifact(jspec).adopt(params, buffers, note="warm start")
+    jart.freeze().pack(device)
+    jten = DWNArtifact(get_spec("dwn-jsc-lg")).adopt(
+        params, buffers, note="warm start").freeze()
+    jeng = ServingEngine(jart, device=device, max_bucket=RTL_ROWS,
+                         n_train=n_train, seed=0)
+    if jeng.bit_exact != {"fused-packed": True, "packed-eager": True}:
+        raise SystemExit(f"jsc-lg PEN-9 fails the startup oracle check: "
+                         f"{jeng.bit_exact}")
+    jrtl = _rtl_against_k2(jart, jeng, jdata.x_test[:RTL_ROWS])
+    emit({"phase": "hw", "arch": "dwn-jsc-lg", "spec": jspec.label,
+          "hw": {"TEN": _hw_dict(jten.hw_report()),
+                 "PEN-9": _hw_dict(jart.hw_report())},
+          "rtl": jrtl, "seconds": time.perf_counter() - t0})
+    zeroed = sum(n["fused_dwn_zero"] for n in launches.values())
+    if not zeroed:
+        raise SystemExit("fused_dwn_zero was not launched on the hw passes")
+    return {name: sum(n[name] for n in launches.values())
+            for name in ("fused_dwn_packed", "fused_dwn_batch_major",
+                         "fused_dwn_zero")}, timing
+
+
 def phase_cli(device):
     from repro_torch.launch import serve, train
     seconds = {}
@@ -2401,7 +2716,34 @@ def phase_cli(device):
         t0 = time.perf_counter()
         main(argv + ["--device", device])
         seconds[" ".join(argv)] = time.perf_counter() - t0
-    emit({"phase": "cli", "seconds": seconds})
+    # the lifecycle smoke and the co-simulation gate, as a user runs them
+    # (each on the card by default); both must exit 0
+    ckpt = ROOT / "build" / "chip_smoke_lifecycle"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    records = {}
+    for argv in (["-m", "repro_torch.dwn.smoke", "--workload", "mnist",
+                  "--preset", "mnist-lg", "--variant", "TEN", "--bits",
+                  "16", "--epochs", "1", "--ckpt-dir", str(ckpt)],
+                 ["-m", "repro_torch.hw.cosim", "--presets",
+                  "dwn-jsc-lg,dwn-mnist-lg", "--n", "256"]):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, *argv], cwd=ROOT,
+                             env=dict(os.environ, PYTHONPATH=str(SRC)),
+                             capture_output=True, text=True, timeout=600)
+        seconds[argv[1]] = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise SystemExit(f"python {' '.join(argv)} exited "
+                             f"{out.returncode}:\n{out.stdout[-2000:]}\n"
+                             f"{out.stderr[-4000:]}")
+        records[argv[1]] = out.stdout.strip().splitlines()[-4:]
+    shutil.rmtree(ckpt, ignore_errors=True)
+    smoke = json.loads(records["repro_torch.dwn.smoke"][-1])
+    if not smoke["roundtrip_bit_exact"]:
+        raise SystemExit(f"the lifecycle smoke is not bit-exact: {smoke}")
+    emit({"phase": "cli", "seconds": seconds,
+          "lifecycle": {k: smoke[k] for k in ("device", "hw", "serve",
+                                              "roundtrip_bit_exact")},
+          "cosim": records["repro_torch.hw.cosim"]})
 
 
 def main() -> int:
@@ -2433,23 +2775,37 @@ def main() -> int:
           "nvidia_smi": smi, "clocks_max_sm_hz": SM_CLOCK_HZ,
           "torch": torch.__version__,
           "cuda": torch.version.cuda})
-    ptxas = phase_build()
-    max_err, timing = phase_kernels("cuda")
-    stage_err, stage_timing, stage_launches = phase_staged("cuda")
-    float_err, float_timing, float_launches = phase_float("cuda")
-    flash_err, flash_timing = phase_flash("cuda", ptxas["flash_attn"])
-    flash_launches = phase_lm("cuda")
+    seconds = {}
+
+    def run(name, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    ptxas = run("build", phase_build)
+    max_err, timing = run("kernels", phase_kernels, "cuda")
+    stage_err, stage_timing, stage_launches = run("staged", phase_staged,
+                                                  "cuda")
+    float_err, float_timing, float_launches = run("float", phase_float,
+                                                  "cuda")
+    flash_err, flash_timing = run("flash", phase_flash, "cuda",
+                                  ptxas["flash_attn"])
+    flash_launches = run("lm", phase_lm, "cuda")
     # training runs with the library's float32 product settings (its
     # step forces full float32 itself), not with this script's
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True
-    phase_train("cuda")
+    run("train", phase_train, "cuda")
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = tf32
-    launches = phase_serve("cuda")
-    phase_cli("cuda")
+    launches = run("serve", phase_serve, "cuda")
+    hw_launches, hw_timing = run("hw", phase_hw, "cuda")
+    run("cli", phase_cli, "cuda")
+    emit({"phase": "seconds", "seconds": seconds,
+          "total": sum(seconds.values())})
 
     src = "src/repro_torch/kernels/fused/csrc/fused_dwn.cu"
     replaces = {"fused_dwn_packed": "src/repro/kernels/fused/kernel.py:189",
@@ -2457,22 +2813,32 @@ def main() -> int:
                     "src/repro/kernels/fused/kernel.py:286"}
     variant_of = {"fused_dwn_packed": "packed",
                   "fused_dwn_batch_major": "batch-major"}
+    # each main path's launches, counted from 0 over its own passes: the
+    # served dwn-jsc-lg (serve phase) and dwn-mnist-lg (hw phase)
+    by_path = {name: {"serve dwn-jsc-lg": launches[name],
+                      "hw dwn-mnist-lg": hw_launches[name]}
+               for name in launches}
     summary = []
     for name in ("fused_dwn_batch_major", "fused_dwn_packed"):
         t = timing[variant_of[name]]
+        mnist = hw_timing[variant_of[name]]
         summary.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces[name], "launches": launches[name],
+            "launches_by_path": by_path[name],
             "equal": True, "max_abs_err": max_err[variant_of[name]],
             "ms": t["ms"], "bucket_ms": t["bucket_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None})
+            "bound_by": t["bound_by"], "library_ms": None,
+            "mnist_lg": {k: mnist[k] for k in (
+                "ms", "bucket_ms", "plain_ms", "bound_ms", "bound_by")}})
     t = timing["zero"]
     summary.append({
         "name": "fused_dwn_zero", "route": "cuda", "source": src,
         "replaces": replaces["fused_dwn_packed"],
         "part_of": ["fused_dwn_packed", "fused_dwn_batch_major"],
-        "launches": launches["fused_dwn_zero"], "equal": True,
+        "launches": launches["fused_dwn_zero"],
+        "launches_by_path": by_path["fused_dwn_zero"], "equal": True,
         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],

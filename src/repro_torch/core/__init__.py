@@ -17,10 +17,12 @@ from .model import (DWNConfig, FrozenDWN, JSC_PRESETS, PAPER_BASELINE_ACC,
                     apply_hard_packed, apply_train, apply_train_from_bits,
                     eval_accuracy_hard, eval_accuracy_hard_packed, freeze,
                     init_dwn, loss_fn, loss_fn_from_bits, params_from_numpy)
-from .thermometer import (PLACEMENTS, ThermometerSpec, encode, encode_np,
+from .thermometer import (PLACEMENTS, ThermometerSpec,
+                          distinct_used_thresholds, encode, encode_np,
                           encode_packed, fit_thresholds, normalize_to_unit,
                           quantize_fixed_point, quantize_inputs,
-                          quantize_thresholds, total_bits_for_frac)
+                          quantize_thresholds, total_bits_for_frac,
+                          used_threshold_mask)
 from .training import TrainResult, eval_soft, train_dwn
 from .quantize import (FTResult, PTQResult, finetune_bitwidth_search,
                        ptq_bitwidth_search)

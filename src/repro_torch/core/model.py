@@ -25,7 +25,7 @@ from .lut_layer import (LUTLayerSpec, binarize_tables, finalize_mapping,
                         init_lut_layer, lut_eval_hard, lut_eval_hard_packed,
                         lut_layer_apply, lut_layer_apply_stopgrad)
 from .thermometer import (ThermometerSpec, encode, encode_packed,
-                          fit_thresholds, quantize_fixed_point)
+                          fit_thresholds, quantize_fixed_point, to_numpy)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,6 +174,15 @@ def frozen_device(frozen: FrozenDWN) -> torch.device:
     return th.device if isinstance(th, torch.Tensor) else torch.device("cpu")
 
 
+def host_frozen(frozen: FrozenDWN) -> FrozenDWN:
+    """``frozen`` with every array field as numpy on the host (tensors on
+    any device are copied; numpy fields are kept as they are)."""
+    return FrozenDWN(frozen.cfg, to_numpy(frozen.thresholds),
+                     [to_numpy(i) for i in frozen.mapping_idx],
+                     [to_numpy(t) for t in frozen.tables_bin],
+                     frozen.input_frac_bits)
+
+
 def _tensor(a, device, dtype=None) -> torch.Tensor:
     t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
     return t.to(device=device, dtype=dtype)
@@ -243,6 +252,6 @@ __all__ = [
     "apply_hard",
     "apply_hard_packed", "apply_train", "apply_train_from_bits",
     "eval_accuracy_hard", "eval_accuracy_hard_packed", "freeze",
-    "frozen_device", "init_dwn", "loss_fn", "loss_fn_from_bits",
-    "params_from_numpy",
+    "frozen_device", "host_frozen", "init_dwn", "loss_fn",
+    "loss_fn_from_bits", "params_from_numpy",
 ]

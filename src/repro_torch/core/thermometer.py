@@ -202,8 +202,52 @@ def quantize_inputs(x, frac_bits: int):
     return quantize_fixed_point(x, frac_bits)
 
 
+def to_numpy(a) -> np.ndarray:
+    """``a`` as numpy: a tensor on any device is copied to the host."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def used_threshold_mask(mapping_idx, spec: ThermometerSpec) -> np.ndarray:
+    """Which encoder output bits are wired into the first LUT layer.
+
+    Args:
+      mapping_idx: (m, n) int wire indices into the flattened (F*T) bits
+        (numpy or a tensor on any device).
+
+    Returns a boolean (F, T) numpy mask of the used thresholds; only these
+    comparators are emitted by the hardware generator (paper Fig. 3).
+    """
+    mask = np.zeros(spec.total_bits, dtype=bool)
+    flat = to_numpy(mapping_idx).reshape(-1)
+    flat = flat[(flat >= 0) & (flat < spec.total_bits)]
+    mask[flat] = True
+    return mask.reshape(spec.num_features, spec.bits_per_feature)
+
+
+def distinct_used_thresholds(thresholds, mask, frac_bits: int | None = None):
+    """Count distinct (feature, threshold value) comparators after CSE.
+
+    Quantization to the (1, ``frac_bits``) grid collapses nearby
+    thresholds onto one value; the generator emits one comparator per
+    distinct value per feature.  ``thresholds`` and ``mask`` are numpy or
+    tensors on any device.  Returns (count, per_feature_counts).
+    """
+    th = to_numpy(thresholds)
+    if frac_bits is not None:
+        th = np.asarray(quantize_fixed_point(th, frac_bits))
+    mask = to_numpy(mask)
+    per_feature = []
+    for f in range(th.shape[0]):
+        vals = th[f][np.asarray(mask[f], bool)]
+        per_feature.append(len(np.unique(vals)))
+    return int(np.sum(per_feature)), per_feature
+
+
 __all__ = [
-    "PLACEMENTS", "ThermometerSpec", "encode", "encode_np", "encode_packed",
-    "fit_thresholds", "normalize_to_unit", "quantize_fixed_point",
-    "quantize_inputs", "quantize_thresholds", "total_bits_for_frac",
+    "PLACEMENTS", "ThermometerSpec", "distinct_used_thresholds", "encode",
+    "encode_np", "encode_packed", "fit_thresholds", "normalize_to_unit",
+    "quantize_fixed_point", "quantize_inputs", "quantize_thresholds",
+    "total_bits_for_frac", "used_threshold_mask",
 ]

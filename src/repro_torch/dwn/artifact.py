@@ -1,7 +1,6 @@
 """DWNArtifact: the spec -> serve lifecycle in one object.
 
-The PyTorch counterpart of ``repro.dwn.artifact`` (training and serving
-stages)::
+The PyTorch counterpart of ``repro.dwn.artifact``::
 
     spec ──fit/train/adopt──▶ trained ──freeze()──▶ frozen ──pack()──▶ packed
                                                                         │
@@ -14,7 +13,9 @@ stages)::
   elsewhere, such as the reference's parameters carried across with
   ``core.model.params_from_numpy``.
 * **frozen** — hardware semantics (``core.model.FrozenDWN``): int32 wires,
-  {0,1} tables, thresholds quantized to the spec's (1, n) grid for PEN.
+  {0,1} tables, thresholds quantized to the spec's (1, n) grid for PEN;
+  its FPGA cost (``hw_report``), RTL (``verilog``) and the RTL's
+  co-simulation against the packed oracle (``verify_rtl``).
 * **packed** — the frozen operands staged on the serving device.
 
 ``save``/``load`` ride on ``runtime.checkpoint`` (atomic commit, sha256
@@ -218,6 +219,44 @@ class DWNArtifact:
             name=name or self.spec.label, dcfg=self.spec.dwn_config(),
             frozen=self.frozen, device=p.device, thresholds=p.thresholds,
             mappings=p.mappings, tables=p.tables)
+
+    # -- hardware ------------------------------------------------------
+
+    def hw_report(self, *, pipeline: bool = True):
+        """The FPGA cost report (``hw.cost.HWReport``) of the frozen
+        model at the spec's operating point."""
+        self._require("frozen", "hw_report", "freeze()")
+        from ..hw.cost import dwn_hw_report
+        return dwn_hw_report(self.frozen, variant=self.spec.variant,
+                             name=self.spec.preset,
+                             input_bits=self.spec.input_bits,
+                             pipeline=pipeline)
+
+    def verilog(self, *, name: str = "dwn_top",
+                pipeline: bool = True) -> str:
+        """Emit the synthesizable accelerator RTL for the frozen model."""
+        self._require("frozen", "verilog", "freeze()")
+        from ..hw.verilog import emit_dwn
+        return emit_dwn(self.frozen, name=name, pipeline=pipeline)
+
+    def verify_rtl(self, x=None, *, n: int = 256, backend: str = "auto",
+                   pipeline: bool = True, name: str = "dwn_top"):
+        """Co-simulate the emitted RTL against ``apply_hard_packed``, run
+        where the model is packed (else on the host).
+
+        Proves bit-exact agreement (argmax, winning count, and — on the
+        pure-Python evaluator path — per-class counts) on ``x``, by
+        default ``n`` test vectors of the spec's workload; raises
+        ``hw.cosim.RTLMismatch`` on any disagreement.  Returns the
+        ``hw.cosim.CosimReport`` and records it in
+        ``calibration["rtl_verified"]``.
+        """
+        self._require("frozen", "verify_rtl", "freeze()")
+        from ..hw.cosim import verify_rtl as _verify
+        report = _verify(self, x, n=n, backend=backend,
+                         pipeline=pipeline, name=name)
+        self.calibration["rtl_verified"] = report.to_dict()
+        return report
 
     # -- persistence ---------------------------------------------------
 

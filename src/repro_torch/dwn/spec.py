@@ -6,10 +6,12 @@ and the serving knobs live in one frozen dataclass validated at
 construction.  ``to_dict`` and ``fingerprint`` give the reference's values
 for the same spec, so a spec names the same build in both packages.
 
-The reference's JSC spec presets (the serving aliases ``dwn-jsc-{sm,md,lg}``,
-their ``-xla`` twins and ``dwn-jsc-sm-{uniform,gaussian}``) are registered
-here as named specs, and its other JSC DWN arch names resolve through a
-table (:data:`ARCH_SPECS`) to the specs the reference derives.
+The reference's spec presets (the JSC serving aliases
+``dwn-jsc-{sm,md,lg}``, their ``-xla`` twins and
+``dwn-jsc-sm-{uniform,gaussian}``; the MNIST tiers
+``dwn-mnist-{sm,md,lg}[-xla]``) are registered here as named specs, and
+its other JSC DWN arch names resolve through a table (:data:`ARCH_SPECS`)
+to the specs the reference derives.
 """
 
 from __future__ import annotations
@@ -70,7 +72,7 @@ class DWNSpec:
         :data:`DATAPATH_ALIASES`.  The name is kept as given, so the
         fingerprint is the reference's for every name both accept.
       grouping: popcount grouping ("contig" | "strided").
-      workload: registered workload name ("jsc").
+      workload: registered workload name ("jsc" | "mnist").
 
     Raises ``ValueError`` at construction for any invalid combination.
     """
@@ -177,10 +179,14 @@ class DWNSpec:
 # spec presets and the reference's other DWN arch names
 # ---------------------------------------------------------------------------
 
+#: MNIST tier -> (LUT-layer width m, default thermometer bits T), as the
+#: reference registers them (``repro/configs/dwn_mnist.py``).
+_MNIST_TIERS = {"sm": (100, 8), "md": (500, 8), "lg": (2000, 16)}
+
 #: name -> DWNSpec kwargs (validated into a DWNSpec on first access, since
-#: validation imports the serving registry): the reference's JSC spec
-#: presets, the serving aliases with their ``-xla`` twins and the sm
-#: tier's placement variants.
+#: validation imports the serving registry): the reference's spec presets,
+#: the JSC serving aliases with their ``-xla`` twins, the sm tier's
+#: placement variants and the MNIST tiers with their ``-xla`` twins.
 _PRESETS: dict[str, "DWNSpec | dict"] = {
     **{f"dwn-jsc-{tier}{suffix}": {"preset": preset, "datapath": datapath}
        for tier, preset in (("sm", "sm-50"), ("md", "md-360"),
@@ -190,6 +196,12 @@ _PRESETS: dict[str, "DWNSpec | dict"] = {
     **{f"dwn-jsc-sm-{pl}": {"preset": "sm-50", "placement": pl,
                             "datapath": "fused-packed"}
        for pl in ("uniform", "gaussian")},
+    **{f"dwn-mnist-{tier}{suffix}": {"preset": f"mnist-{tier}",
+                                     "workload": "mnist", "bits": bits,
+                                     "datapath": datapath}
+       for tier, (_, bits) in _MNIST_TIERS.items()
+       for suffix, datapath in (("", "fused-packed"),
+                                ("-xla", "packed-xla"))},
 }
 
 #: the reference's other JSC DWN arch names -> the kwargs of the spec its
@@ -215,11 +227,7 @@ ARCH_SPECS: dict[str, dict] = {
 
 #: the reference's DWN names whose workloads the port does not run yet ->
 #: the ROADMAP.md item that ports them
-NOT_PORTED: dict[str, str] = {
-    **{f"dwn-mnist-{tier}{suffix}": "Queue 1 item 5"
-       for tier in ("sm", "md", "lg") for suffix in ("", "-xla")},
-    "dwn-lm-head": "Queue 1 item 8",
-}
+NOT_PORTED: dict[str, str] = {"dwn-lm-head": "Queue 1 item 8"}
 
 
 def spec_presets() -> list[str]:
@@ -227,8 +235,8 @@ def spec_presets() -> list[str]:
 
 
 def dwn_names() -> list[str]:
-    """Every DWN name :func:`resolve_spec` takes: the spec presets and the
-    reference's other JSC arch names."""
+    """Every DWN name :func:`resolve_spec` takes: the spec presets (JSC and
+    MNIST) and the reference's other JSC arch names."""
     return sorted([*_PRESETS, *ARCH_SPECS])
 
 
@@ -255,10 +263,10 @@ def get_spec(name: str) -> DWNSpec:
 
 
 def resolve_spec(target) -> DWNSpec:
-    """A DWNSpec as-is, a spec preset's name as its spec, or one of the
-    reference's other JSC arch names as the spec the reference derives
-    from it.  ``KeyError`` for any other name, naming the ROADMAP item
-    for a DWN name the port does not run yet."""
+    """A DWNSpec as-is, a spec preset's name (JSC or MNIST) as its spec,
+    or one of the reference's other JSC arch names as the spec the
+    reference derives from it.  ``KeyError`` for any other name, naming
+    the ROADMAP item for a DWN name the port does not run yet."""
     if isinstance(target, DWNSpec):
         return target
     if target in ARCH_SPECS:

@@ -1,4 +1,5 @@
-"""Workload registry: the datasets the port serves (JSC only for now)."""
+"""Workload registry: the datasets the port trains and serves (JSC and
+MNIST; the reference's ``lm_head`` is ROADMAP.md Queue 1 item 8)."""
 
 from .base import (Workload, get_workload, list_workloads, load_workload,
                    register_workload)

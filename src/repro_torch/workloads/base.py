@@ -20,7 +20,7 @@ class Workload:
     """One registered dataset.
 
     Attributes:
-      name: registry key (``"jsc"``).
+      name: registry key (``"jsc"``, ``"mnist"``).
       num_features: feature count F the encoder sees.
       num_classes: label count C (``lut_counts[-1] % C == 0``).
       loader: ``(n_train, n_test, seed) -> split``, deterministic per
@@ -57,7 +57,7 @@ def register_workload(wl: Workload) -> Workload:
 
 
 def _ensure_loaded() -> None:
-    from . import jsc  # noqa: F401  (self-registers)
+    from . import jsc, mnist  # noqa: F401  (self-register)
 
 
 def get_workload(name: str) -> Workload:

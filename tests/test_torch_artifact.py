@@ -22,7 +22,8 @@ from repro.dwn import DWNArtifact as JArtifact  # noqa: E402
 from repro.dwn import DWNSpec as JSpec  # noqa: E402
 from repro.runtime import checkpoint as jckpt  # noqa: E402
 from repro_torch.core.model import apply_hard_packed  # noqa: E402
-from repro_torch.dwn import DWNArtifact, get_spec  # noqa: E402
+from repro_torch.dwn import DWNArtifact, DWNSpec  # noqa: E402
+from repro_torch.dwn import LifecycleError, get_spec  # noqa: E402
 from repro_torch.runtime import checkpoint as ckpt  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 
@@ -145,6 +146,46 @@ def test_frozen_stage_artifact_crosses(tmp_path, data):
     assert jckpt.load_artifact(tmp_path).stage == "frozen"
     np.testing.assert_array_equal(again.frozen.thresholds,
                                   art.frozen.thresholds)
+
+
+def test_hw_stages_need_a_frozen_artifact(data):
+    """``hw_report``, ``verilog`` and ``verify_rtl`` raise
+    ``LifecycleError`` before ``freeze()``; the bare functions refuse an
+    unfrozen artifact with ``ValueError``, and a bare frozen model needs
+    ``variant=`` and ``name=``."""
+    from repro_torch.hw import cosim as hw_cosim
+    from repro_torch.hw import cost as hw_cost
+    from repro_torch.hw import verilog as hw_verilog
+    art = DWNArtifact(DWNSpec(preset="sm-10", variant="PEN", input_bits=6))
+    for _ in ("spec", "trained"):
+        for method in (art.hw_report, art.verilog, art.verify_rtl):
+            with pytest.raises(LifecycleError, match="freeze"):
+                method()
+        for fn in (hw_cost.dwn_hw_report, hw_verilog.emit_dwn,
+                   hw_cosim.verify_rtl):
+            with pytest.raises(ValueError, match="freeze"):
+                fn(art)
+        art.fit(data.x_train)
+    art.freeze()
+    assert hw_cost.dwn_hw_report(art).luts == art.hw_report().luts
+    with pytest.raises(TypeError, match="variant"):
+        hw_cost.dwn_hw_report(art.frozen)
+
+
+def test_reference_saved_artifact_has_the_reference_hardware(trained):
+    """Exact: the reference's saved PEN artifact, loaded by the port, has
+    the reference's cost report and emits its Verilog byte for byte; its
+    RTL co-simulates against the port's oracle."""
+    jart, path = trained
+    art = DWNArtifact.load(path, device="cpu")
+    got, want = art.hw_report(), jart.hw_report()
+    for field in ("luts", "ffs", "levels", "distinct_comparators",
+                  "delay_ns", "fmax_mhz", "area_delay"):
+        assert getattr(got, field) == getattr(want, field), field
+    assert art.verilog() == jart.verilog()
+    x = load_jsc(512, 64, seed=1).x_test
+    assert art.verify_rtl(x, backend="python").counts_checked
+    assert art.calibration["rtl_verified"]["n_vectors"] == 64
 
 
 def test_load_artifact_refusals(tmp_path, trained):

@@ -1185,3 +1185,85 @@ def test_scan_trainer_epoch_on_the_card():
     assert res.soft_test_acc > 0.3
     tr2 = ScanTrainer(JSC_PRESETS["sm-50"], data, seed=1)
     assert tr2.program is tr.program and tr.program.graph is not None
+
+
+@pytest.mark.parametrize("name", ["dwn-mnist-sm", "dwn-mnist-lg"])
+@pytest.mark.parametrize("variant", ["packed", "batch-major"])
+def test_mnist_served_through_kernels_equals_plain_and_apply_hard(name,
+                                                                  variant):
+    """Exact: at MNIST width (F = 196, 10 classes; sm: 100 LUTs over T = 8,
+    lg: 2000 over T = 16) K2 and K1 equal their plain versions and
+    ``apply_hard`` at B = 1, 33 and 4096, one launch each, the model
+    staged; at B = 1 and 33 (far fewer tiles than SMs) the last layer's
+    words split over blocks, the zero kernel first, and at 4096 (128
+    tiles) they do not.  Then the engine, pinned
+    to the variant at every bucket, serves requests of 1, 33 and 4096
+    rows through CUDA graph replays that launch the variant, each equal
+    to ``apply_hard``."""
+    _need_card()
+    from repro_torch.core.model import apply_hard
+    from repro_torch.dwn import DWNArtifact, get_spec
+    from repro_torch.serving import ServingEngine
+    from repro_torch.workloads import load_workload
+    data = load_workload("mnist", 2000, 4096, seed=0)
+    art = DWNArtifact(get_spec(name)).fit(data.x_train, seed=0).freeze()
+    art.pack("cuda")
+    p = art.packed
+    kern, plain, count = _fused_kernel(variant)
+    ops = tops.prepare_operands(p.thresholds, p.mappings, p.tables, 10,
+                                variant)
+    for B in (1, 33, 4096):
+        x = torch.from_numpy(data.x_test[:B]).cuda()
+        K.reset_launch_counts()
+        got = kern(x, *ops)
+        torch.cuda.synchronize()
+        assert K.launch_counts()[count] == 1
+        lay = K.last_launch()
+        split = B <= 33
+        assert lay["staged"] and (lay["slices"] > 1) == split, (B, lay)
+        assert bool(lay["zeroed"]) == split, (B, lay)
+        want, oracle = plain(x, *ops), apply_hard(art.frozen, x)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(got[0], oracle), (B, lay)
+    eng = ServingEngine(art, device="cuda", max_bucket=4096, n_train=2000)
+    assert eng.bit_exact == {"fused-packed": True, "packed-eager": True}
+    for b in eng.scheduler.buckets:
+        eng.model.tuned_configs[b] = FusedConfig(variant, block_b=32)
+    K.reset_launch_counts()
+    for size in (1, 33, 4096):
+        eng.submit(eng.make_request(size, seed=size))
+    done = eng.drain()
+    assert K.launch_counts()[count] >= 3
+    for r in done:
+        x = torch.from_numpy(np.ascontiguousarray(r.payload)).cuda()
+        np.testing.assert_array_equal(r.result[0],
+                                      apply_hard(art.frozen, x).cpu().numpy())
+
+
+@pytest.mark.parametrize("variant,bits", [("TEN", None), ("PEN", 9)])
+def test_verify_rtl_on_a_frozen_model_of_cuda_tensors(variant, bits):
+    """A ``FrozenDWN`` whose arrays are tensors on the card: its cost
+    report and Verilog equal the host model's, and ``verify_rtl`` runs the
+    oracle on the card and passes on 256 vectors, per-class counts
+    included."""
+    _need_card()
+    import dataclasses
+    from repro_torch.dwn import DWNArtifact, get_spec
+    from repro_torch.hw import cost, cosim, verilog
+    from repro_torch.workloads import load_workload
+    data = load_workload("mnist", 2000, 256, seed=0)
+    spec = dataclasses.replace(get_spec("dwn-mnist-sm"), variant=variant,
+                               input_bits=bits)
+    f = DWNArtifact(spec).fit(data.x_train, seed=0).freeze().frozen
+    on_card = dataclasses.replace(
+        f, thresholds=torch.from_numpy(f.thresholds).cuda(),
+        mapping_idx=[torch.from_numpy(i).cuda() for i in f.mapping_idx],
+        tables_bin=[torch.from_numpy(t).cuda() for t in f.tables_bin])
+    assert cost.dwn_hw_report(on_card, variant=variant, name="mnist-sm",
+                              input_bits=bits).luts == \
+        cost.dwn_hw_report(f, variant=variant, name="mnist-sm",
+                           input_bits=bits).luts
+    assert verilog.emit_dwn(on_card) == verilog.emit_dwn(f)
+    rep = cosim.verify_rtl(on_card, data.x_test[:256], backend="python")
+    assert rep.counts_checked and rep.n_vectors == 256
+    assert rep.variant == variant

@@ -30,7 +30,7 @@ def test_data_loader_copy_gives_identical_rows(seed):
         for field in ("x_train", "y_train", "x_test", "y_test"):
             a, b = getattr(got, field), getattr(ref, field)
             assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
-    assert list_workloads() == ["jsc"]
+    assert list_workloads() == ["jsc", "mnist"]
     assert tjsc.bayes_accuracy(2000) == jjsc.bayes_accuracy(2000)
 
 
@@ -50,6 +50,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "assert 'repro_torch.kernels.graph' in names, names\n"
         "assert 'repro_torch.training.engine' in names, names\n"
         "assert 'repro_torch.launch.train' in names, names\n"
+        "for n in ('hw.cost', 'hw.verilog', 'hw.cosim', 'hw.report',\n"
+        "          'workloads.mnist', 'dwn.smoke'):\n"
+        "    assert 'repro_torch.' + n in names, names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

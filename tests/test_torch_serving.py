@@ -131,33 +131,38 @@ def test_specs_match_reference():
 
 def test_every_reference_jsc_dwn_name_resolves_to_its_fingerprint():
     """Exact: each of the reference's 22 JSC DWN names (its spec presets
-    and its other arch names) resolves in the port to the spec the
-    reference resolves it to, fingerprint included (13 distinct); the
-    port's spec presets are the reference's JSC ones; MNIST and the LM
-    head raise, naming the ROADMAP items that port them."""
+    and its other arch names) and its 6 MNIST names
+    (``dwn-mnist-{sm,md,lg}[-xla]``) resolves in the port to the spec the
+    reference resolves it to, ``to_dict`` and fingerprint included (13
+    distinct for JSC, 6 for MNIST); the port's spec presets are the
+    reference's JSC and MNIST ones; only the LM head raises, naming the
+    ROADMAP item that ports it."""
     from repro.configs.registry import get_arch, list_archs
     from repro.dwn import resolve_spec as jresolve
     from repro.dwn import spec_presets as jpresets
     from repro_torch.dwn import dwn_names, resolve_spec, spec_presets
     dwn = [n for n in list_archs() if get_arch(n).family == "dwn"]
     jsc = [n for n in dwn if jresolve(n).workload == "jsc"]
-    assert len(jsc) == 22 and sorted(jsc) == dwn_names()
-    fps = set()
-    for name in jsc:
-        got, want = resolve_spec(name), jresolve(name)
-        assert got.to_dict() == want.to_dict(), name
-        assert got.fingerprint() == want.fingerprint(), name
-        fps.add(got.fingerprint())
-    assert len(fps) == 13
+    mnist = [n for n in dwn if jresolve(n).workload == "mnist"]
+    assert len(jsc) == 22 and len(mnist) == 6
+    assert sorted(jsc + mnist) == dwn_names()
+    for names, distinct in ((jsc, 13), (mnist, 6)):
+        fps = set()
+        for name in names:
+            got, want = resolve_spec(name), jresolve(name)
+            assert got.to_dict() == want.to_dict(), name
+            assert got.fingerprint() == want.fingerprint(), name
+            fps.add(got.fingerprint())
+        assert len(fps) == distinct
     assert resolve_spec("dwn-jsc-sm-gaussian").fingerprint() == \
         "ded3a7ca71a42478"
     assert resolve_spec("dwn-jsc-lg-xla").fingerprint() == "244cf67cce326ab0"
+    assert resolve_spec("dwn-mnist-lg").fingerprint() == "effa26c02e9a97b2"
     assert spec_presets() == sorted(n for n in jpresets()
-                                    if jresolve(n).workload == "jsc")
-    for name in set(dwn) - set(jsc):
-        item = "item 8" if name == "dwn-lm-head" else "item 5"
-        with pytest.raises(KeyError, match=f"Queue 1 {item}"):
-            resolve_spec(name)
+                                    if jresolve(n).workload != "lm-head")
+    assert set(dwn) - set(jsc) - set(mnist) == {"dwn-lm-head"}
+    with pytest.raises(KeyError, match="Queue 1 item 8"):
+        resolve_spec("dwn-lm-head")
 
 
 def test_serve_cli_resolves_a_placement_preset_on_cpu(capsys):
