@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port on one NVIDIA card and check it: its DWN
 training (each minibatch step a CUDA graph replay) and serving path
-(tuned, CUDA-graph steps, artifacts), the paper's hardware model at
+(tuned, CUDA-graph steps, artifacts, the continuous-batching loop under
+open-loop load), the paper's hardware model at
 MNIST and JSC width (cost report, RTL co-simulation against the served
 kernel's counts), its staged packed and float datapaths, its
 flash-attention kernel and qwen3-8b serving at full width.
@@ -128,7 +129,33 @@ Phases, each printing one JSON line:
    per bucket (at most one) printed and every request held to the
    oracle; last the served artifact is saved, loaded back and served
    bit-exact;
-10. hw     — ``dwn-mnist-lg`` (F = 196 pooled pixels, T = 16: 3136 encoder
+10. load   — dwn-jsc-lg through the continuous-batching loop
+   (``serve()`` / ``submit_async``), pinned to K2 and with
+   ``backend="auto"``: a ragged stream of 40 requests of 1-4096 rows,
+   three of them 3 × 4096 + 17 rows (served in chunks), every result
+   ``ok`` and equal to the sync drain of the same payloads, which is held
+   to ``apply_hard``; every bucket's graph captured before the loop
+   starts and ``compile_counts()`` unchanged until it stops; the launch
+   counters, set to 0 once the loop runs, equal to what the session's
+   steps replay (K2 a step pinned, K1 or K2 under auto, the zero kernel
+   on split tiles).  Then the open-loop curve with ``launch.loadgen``:
+   ``SLOConfig(max_queue_samples=16 * 4096, submit_timeout_s=0)``,
+   Poisson arrivals of 256-4096 rows with 5 ms deadlines, seed 0, at 0.5,
+   1.0 and 1.3 of the closed-loop capacity (``measure_capacity``), 2 s
+   each, continuous and sync; then 1 s each, continuous only: a burst
+   level (0.5, 4× for 0.1 s every 0.5 s), the 1.0 level with Python's
+   garbage collector off (a diagnostic of its pauses), and dwn-jsc-lg
+   with dwn-mnist-lg at 0.5, each its own engine and loop thread at
+   once, weighted by capacity; every level's step estimates seeded anew
+   from the calibration; each level printing offered
+   and served samples/s, p50/p99/p999, the shed rate, rejections, the
+   producer's lag, steps and samples a step, the loop's busy share, the
+   step estimates and straggler events, and holding served + shed +
+   rejected = offered, every ok result on time and each engine's shed
+   count equal to its non-ok results; last one second at 1.0 under
+   ``torch.profiler``: the card's busy time (kernels, copies in, copies
+   out) and idle share beside the loop's busy share.  No speed is gated;
+11. hw     — ``dwn-mnist-lg`` (F = 196 pooled pixels, T = 16: 3136 encoder
    bits, 98 words a sample; one layer of 2000 LUT6, 10 classes) trained
    one epoch on ``load_mnist(20000, 5000)`` on the card, frozen, packed
    and served through ``ServingEngine``: 16 requests of 4096 rows pinned
@@ -147,18 +174,24 @@ Phases, each printing one JSON line:
    artifact saved, loaded and served again bit-exact; then the paper's
    ``dwn-jsc-lg`` at PEN 9 bits from a warm start on the card: its cost
    report and the same RTL check;
-11. cli    — ``python -m repro_torch.launch.serve --arch dwn-jsc-lg`` with
+12. cli    — ``python -m repro_torch.launch.serve --arch dwn-jsc-lg`` with
    four requests, the same with ``--backend auto``, ``--arch
    qwen3-8b --batch 2 --prompt-len 32 --gen 4``, ``python -m
    repro_torch.launch.train --arch dwn-jsc-lg --workload jsc --epochs
-   1``, and two commands in their own processes that must exit 0:
+   1``, and four commands in their own processes that must exit 0:
    ``python -m repro_torch.dwn.smoke --workload mnist --preset mnist-lg
    --variant TEN --bits 16 --epochs 1`` (the lifecycle, bit-exact
-   roundtrip) and ``python -m repro_torch.hw.cosim --presets
-   dwn-jsc-lg,dwn-mnist-lg --n 256``.
+   roundtrip), ``python -m repro_torch.hw.cosim --presets
+   dwn-jsc-lg,dwn-mnist-lg --n 256``, ``python -m
+   repro_torch.launch.serve --arch dwn-jsc-lg --continuous --deadline-ms
+   50`` (every request served or shed) and ``python -m
+   repro_torch.launch.loadgen --preset dwn-jsc-lg --max-bucket 4096
+   --levels 0.5 --duration 1 --mode both`` (every arrival accounted
+   for).
 
 Then it prints each phase's seconds, the kernels' summary line (K1's and
-K2's launches on each served path, their times at the mnist-lg shape
+K2's launches on each served path, the load phase's sessions among them,
+their times at the mnist-lg shape
 beside their bounds), nvidia-smi's line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 so does a machine without a CUDA card, or a directory without the port.
@@ -2413,6 +2446,371 @@ def phase_serve(device, batch=4096, requests=16, n_train=20000):
             "fused_dwn_zero": zeroed}
 
 
+#: the load phase's fixed parameters: the engine's ladder, the loop's SLO
+#: (queued samples; a submit that finds no room is rejected at once), the
+#: open-loop traffic (one tenant, Poisson, request sizes, deadline, seed),
+#: the offered levels as fractions of the closed-loop capacity and each
+#: level's length, the burst level and the correctness stream
+LOAD_BUCKET = 4096
+LOAD_QUEUE_SAMPLES = 16 * 4096
+LOAD_SIZES = (256, 4096)
+LOAD_DEADLINE_MS = 5.0
+LOAD_SEED = 0
+LOAD_LEVELS = (0.5, 1.0, 1.3)
+LOAD_DURATION_S = 2.0
+LOAD_BURST = dict(burst_factor=4.0, burst_every_s=0.5, burst_len_s=0.1)
+#: the burst, two-tenant and garbage-collector-off levels run 1 s, in
+#: continuous mode only, and so does the profiled one
+LOAD_SHORT_S = 1.0
+#: the gates' ragged stream: 40 requests of 1-4096 rows, three of them
+#: oversize (3 * 4096 + 17 rows, served in four chunks)
+LOAD_STREAM_REQUESTS = 40
+LOAD_OVERSIZE = 3 * LOAD_BUCKET + 17
+WAIT_S = 300.0
+
+
+class _Recorded:
+    """An engine as ``loadgen.run_async`` drives it, keeping every
+    request it admits so the level's results can be checked."""
+
+    def __init__(self, engine):
+        self.engine, self.reqs = engine, []
+
+    def start_serving(self, **kwargs):
+        self.engine.start_serving(**kwargs)
+
+    def stop_serving(self, **kwargs):
+        self.engine.stop_serving(**kwargs)
+
+    def submit_async(self, *args, **kwargs):
+        req = self.engine.submit_async(*args, **kwargs)
+        self.reqs.append(req)
+        return req
+
+
+def _gate_stream(engine):
+    rng = np.random.default_rng(LOAD_SEED)
+    sizes = [int(n) for n in rng.integers(1, LOAD_BUCKET + 1,
+                                          LOAD_STREAM_REQUESTS)]
+    for i in (5, 18, 31):
+        sizes[i] = LOAD_OVERSIZE
+    return [engine.make_request(n, seed=3000 + i)
+            for i, n in enumerate(sizes)]
+
+
+def _async_gate(engine, stream, pinned):
+    """The stream through the sync drain, then through ``serve()`` /
+    ``submit_async`` with the counts set to 0 once the session's loop
+    runs and read when it has stopped.  Holds every async result to the
+    sync drain's (which is held to ``apply_hard``), every bucket's step of
+    the served backend built when the loop starts, ``compile_counts()``
+    the same from the loop's start to its stop, and the launches
+    to what the session's steps replay: each step's bucket is tallied
+    (a wrapper on the engine's step) and each bucket's graph replayed
+    once after the session to read what one replay launches."""
+    import torch
+    from repro_torch.kernels.fused.kernel import (launch_counts,
+                                                  reset_launch_counts)
+    from repro_torch.serving import SLOConfig
+    for p in stream:
+        engine.submit(p)
+    sync = sorted(engine.drain(), key=lambda r: r.rid)
+    _check_against_oracle(engine, sync)
+    buckets = []
+    step = engine._dwn_step
+
+    def tallied(x):
+        buckets.append(x.shape[0])
+        return step(x)
+    engine._dwn_step = tallied
+    try:
+        with engine.serve(slo=SLOConfig(max_queue_samples=1 << 20)):
+            during = engine.compile_counts()
+            buckets.clear()               # the ladder's warm steps
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            reqs = [engine.submit_async(p) for p in stream]
+            results = [r.future.result(timeout=WAIT_S) for r in reqs]
+            wall = time.perf_counter() - t0
+        launches = launch_counts()
+    finally:
+        del engine._dwn_step
+    after = engine.compile_counts()
+    if during != after:
+        raise SystemExit(f"a step was built during the session: {during} "
+                         f"-> {after}")
+    served = ({b: engine.backend.name for b in engine.scheduler.buckets}
+              if pinned else engine.auto.choice)
+    unbuilt = [b for b, name in served.items()
+               if b not in during.get(name, {})]
+    if unbuilt:
+        raise SystemExit(f"buckets {unbuilt} had no step when the loop "
+                         f"started: {during}")
+    for res, want in zip(results, sync):
+        if not (res.ok and np.array_equal(res.value[0], want.result[0])
+                and np.array_equal(res.value[1], want.result[1])):
+            raise SystemExit(f"async request {res.rid} ({res.shed}) "
+                             f"differs from the sync drain")
+    counters = engine.report()["async"]
+    if len(buckets) != counters["steps"]:
+        raise SystemExit(f"{len(buckets)} steps tallied, the loop counted "
+                         f"{counters['steps']}")
+    per_bucket = {}
+    for b in sorted(set(buckets)):
+        reset_launch_counts()
+        engine._dwn_step(engine.data.x_test[:b])
+        torch.cuda.synchronize()
+        per_bucket[b] = launch_counts()
+    expected = {k: sum(per_bucket[b][k] for b in buckets) for k in launches}
+    fused = launches["fused_dwn_packed"] + launches["fused_dwn_batch_major"]
+    fused_steps = sum(served[b] == "fused-packed" for b in buckets)
+    if launches != expected or fused != fused_steps or (
+            pinned and (fused_steps != counters["steps"]
+                        or launches["fused_dwn_batch_major"])):
+        raise SystemExit(f"launches {launches} are not the session's "
+                         f"{counters['steps']} steps' {expected}")
+    return launches, {
+        "requests": len(stream), "rows": sum(len(p) for p in stream),
+        "oversize_requests": sum(len(p) > LOAD_BUCKET for p in stream),
+        "wall_s": wall, "steps": counters["steps"], "launches": launches,
+        "steps_by_bucket": {b: buckets.count(b) for b in sorted(set(buckets))},
+        "served_by": served, "compiles": after, "all_ok": True,
+        "equal_to_sync_and_oracle": True}
+
+
+def _tenant_rate(capacity, fraction):
+    """Requests a second that offer ``fraction`` of ``capacity`` samples a
+    second at the mean request size."""
+    return fraction * capacity / (sum(LOAD_SIZES) / 2)
+
+
+def _payloads(engines, arrivals, seed):
+    from repro_torch.launch import loadgen
+    return [loadgen._engine_for(engines, a).make_request(a.size,
+                                                         seed=seed + i)
+            for i, a in enumerate(arrivals)]
+
+
+def _continuous_level(engines, arrivals, payloads, slo, gc_off=False):
+    """One open-loop run through the continuous path, each engine's step
+    estimates seeded anew from its calibration (a level does not inherit
+    the last one's); holds every arrival served, shed or rejected, every
+    ok result on time, and each engine's shed count to its non-ok
+    results.  ``gc_off``: Python's garbage collector off for the run (a
+    diagnostic of what its pauses cost the loop)."""
+    import gc
+    from repro_torch.launch import loadgen
+    recorded = {p: _Recorded(e) for p, e in engines.items()}
+    before = {p: e.report() for p, e in engines.items()}
+    for e in engines.values():
+        e.estimator = None
+    if gc_off:
+        gc.disable()
+    try:
+        m = loadgen.run_async(recorded, arrivals, payloads, slo=slo)
+    finally:
+        gc.enable()
+    if m["served_requests"] + m["shed_requests"] != len(arrivals) or \
+            m["rejected_requests"] > m["shed_requests"]:
+        raise SystemExit(f"arrivals unaccounted for: {len(arrivals)}, {m}")
+    per_engine = {}
+    for p, rec in recorded.items():
+        results = [r.future.result(timeout=WAIT_S) for r in rec.reqs]
+        late_ok = [r.rid for r, res in zip(rec.reqs, results)
+                   if res.ok and r.deadline is not None
+                   and r.t_done > r.deadline]
+        if late_ok:
+            raise SystemExit(f"{p}: ok past the deadline: {late_ok[:8]}")
+        rep = engines[p].report()
+        not_ok = sum(not res.ok for res in results)
+        shed = rep["shed"]["requests"] - before[p]["shed"]["requests"]
+        if shed != not_ok:
+            raise SystemExit(f"{p}: report sheds {shed}, results {not_ok}")
+        c = rep["async"]
+        launched = sum(r.size for r, res in zip(rec.reqs, results)
+                       if res.value is not None)
+        per_engine[p] = {
+            "steps": c["steps"],
+            "samples_per_step": launched / c["steps"] if c["steps"] else 0,
+            "mean_step_ms": c["busy_s"] / c["steps"] * 1e3 if c["steps"]
+            else None,
+            "busy_share": c["busy_s"] / c["session_wall_s"],
+            "shed_by_reason": c["shed_by_reason"],
+            "queue_depth_max_samples": c["queue_depth_max_samples"],
+            "step_estimates_ms": c["step_estimates_ms"],
+            "straggler_events": rep["straggler"]["events"]
+            - before[p]["straggler"]["events"]}
+    return {**_level_numbers(m), "per_engine": per_engine}
+
+
+def _level_numbers(m):
+    keys = ("offered_samples_per_s", "throughput_samples_per_s",
+            "latency_ms_p50", "latency_ms_p99", "latency_ms_p999",
+            "shed_rate", "served_requests", "shed_requests",
+            "rejected_requests", "wall_s")
+    return {**{k: m.get(k) for k in keys},
+            "submit_lag_ms_p99": m["submit_lag_ms"].get("p99")}
+
+
+def _sync_level(engines, arrivals, payloads):
+    from repro_torch.launch import loadgen
+    m = loadgen.run_sync(engines, arrivals, payloads)
+    if m["served_requests"] != len(arrivals):
+        raise SystemExit(f"sync: arrivals unaccounted for: {m}")
+    return _level_numbers(m)
+
+
+def _load_level(name, engines, spec, slo, modes=("continuous", "sync"),
+                gc_off=False):
+    from repro_torch.launch import loadgen
+    arrivals = loadgen.make_arrivals(spec)
+    payloads = _payloads(engines, arrivals, spec.seed)
+    out = {"level": name, "rate_rps": spec.rate_rps,
+           "arrivals": len(arrivals), "duration_s": spec.duration_s}
+    if "continuous" in modes:
+        out["continuous"] = _continuous_level(engines, arrivals, payloads,
+                                              slo, gc_off=gc_off)
+    if "sync" in modes:
+        out["sync"] = _sync_level(engines, arrivals, payloads)
+    emit({"phase": "load", **out})
+    return out
+
+
+def _load_profile(engine, spec, slo):
+    """``torch.profiler`` over one continuous run: the card's busy time
+    split into the served kernels, the copies in and out and the rest,
+    against the run's wall; and the loop's own busy share of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import loadgen
+    arrivals = loadgen.make_arrivals(spec)
+    payloads = _payloads({"e": engine}, arrivals, spec.seed)
+    engine.estimator = None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        m = loadgen.run_async({"e": engine}, arrivals, payloads, slo=slo)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    split = {"kernels_ms": 0.0, "h2d_ms": 0.0, "d2h_ms": 0.0, "other_ms": 0.0}
+    launches = 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                e.self_device_time_total <= 0:
+            continue
+        ms = e.self_device_time_total / 1e3
+        key = ("h2d_ms" if "HtoD" in e.key else "d2h_ms" if "DtoH" in e.key
+               else "kernels_ms" if "fused" in e.key else "other_ms")
+        split[key] += ms
+        launches += e.count if key == "kernels_ms" else 0
+    busy = sum(split.values())
+    c = engine.report()["async"]
+    return {"arrivals": len(arrivals), "wall_ms": wall * 1e3,
+            "device_busy_ms": busy or None,
+            "device_idle_share": (1 - busy / (wall * 1e3)) if busy else None,
+            **split, "kernel_launches": launches, "steps": c["steps"],
+            "mean_step_ms": c["busy_s"] / c["steps"] * 1e3 if c["steps"]
+            else None,
+            "loop_busy_share": c["busy_s"] / c["session_wall_s"],
+            "throughput_samples_per_s": m["throughput_samples_per_s"],
+            "shed_rate": m["shed_rate"]}
+
+
+def phase_load(device, n_train=20000):
+    """dwn-jsc-lg through the continuous-batching loop: the gates (every
+    async result equal to the sync drain and ``apply_hard``, no capture
+    in a session, K1/K2 launches accounted for by the steps) pinned to
+    K2 and under ``backend="auto"``; then the open-loop latency-throughput
+    curve, a burst level, two engines in two loop threads at once
+    (dwn-jsc-lg and dwn-mnist-lg) and a profiled second at the capacity."""
+    from repro_torch.launch import loadgen
+    from repro_torch.serving import ServingEngine, SLOConfig
+    smi = nvidia_smi_line()
+    launches = {}
+    engines = {}
+    for backend in ("fused-packed", "auto"):
+        t0 = time.perf_counter()
+        engine = ServingEngine("dwn-jsc-lg", device=device, backend=backend,
+                               max_bucket=LOAD_BUCKET, min_bucket=8,
+                               n_train=n_train, seed=0)
+        startup_s = time.perf_counter() - t0
+        got, gate = _async_gate(engine, _gate_stream(engine),
+                                pinned=backend != "auto")
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        emit({"phase": "load", "gate": backend, "startup_s": startup_s,
+              **gate})
+        engines[backend] = engine
+    lg = engines["auto"]
+    del engines
+
+    slo = SLOConfig(max_queue_samples=LOAD_QUEUE_SAMPLES,
+                    submit_timeout_s=0.0)
+    sizes = f"uniform:{LOAD_SIZES[0]}:{LOAD_SIZES[1]}"
+    capacity = {"dwn-jsc-lg": loadgen.measure_capacity(lg)}
+    tenant = loadgen.Tenant(name="dwn-jsc-lg", size=sizes,
+                            deadline_ms=LOAD_DEADLINE_MS)
+    emit({"phase": "load", "nvidia_smi": smi, "engine": "dwn-jsc-lg auto",
+          "max_bucket": LOAD_BUCKET, "slo": dataclasses.asdict(slo),
+          "sizes": sizes, "deadline_ms": LOAD_DEADLINE_MS,
+          "capacity_samples_per_s": capacity["dwn-jsc-lg"]})
+    curve = []
+    for frac in LOAD_LEVELS:
+        spec = loadgen.LoadSpec(
+            rate_rps=_tenant_rate(capacity["dwn-jsc-lg"], frac),
+            duration_s=LOAD_DURATION_S, seed=LOAD_SEED, tenants=(tenant,))
+        curve.append(_load_level(f"poisson {frac}", {"dwn-jsc-lg": lg},
+                                 spec, slo))
+    spec = loadgen.LoadSpec(
+        rate_rps=_tenant_rate(capacity["dwn-jsc-lg"], 0.5),
+        duration_s=LOAD_SHORT_S, seed=LOAD_SEED, tenants=(tenant,),
+        **LOAD_BURST)
+    curve.append(_load_level("burst 0.5", {"dwn-jsc-lg": lg}, spec, slo,
+                             modes=("continuous",)))
+    spec = loadgen.LoadSpec(
+        rate_rps=_tenant_rate(capacity["dwn-jsc-lg"], 1.0),
+        duration_s=LOAD_SHORT_S, seed=LOAD_SEED, tenants=(tenant,))
+    curve.append(_load_level("poisson 1.0, gc off", {"dwn-jsc-lg": lg},
+                             spec, slo, modes=("continuous",), gc_off=True))
+
+    # two engines, each its own loop thread replaying its graphs, at once
+    mnist = ServingEngine("dwn-mnist-lg", device=device, backend="auto",
+                          max_bucket=LOAD_BUCKET, min_bucket=8,
+                          n_train=n_train, seed=0)
+    capacity["dwn-mnist-lg"] = loadgen.measure_capacity(mnist)
+    pair = {"dwn-jsc-lg": lg, "dwn-mnist-lg": mnist}
+    tenants = tuple(loadgen.Tenant(name=p, weight=capacity[p], size=sizes,
+                                   deadline_ms=LOAD_DEADLINE_MS, preset=p)
+                    for p in pair)
+    spec = loadgen.LoadSpec(rate_rps=_tenant_rate(sum(capacity.values()),
+                                                  0.5),
+                            duration_s=LOAD_SHORT_S, seed=LOAD_SEED,
+                            tenants=tenants)
+    curve.append(_load_level("two tenants 0.5", pair, spec, slo,
+                             modes=("continuous",)))
+    compiles = {p: e.compile_counts() for p, e in pair.items()}
+
+    spec = loadgen.LoadSpec(rate_rps=_tenant_rate(capacity["dwn-jsc-lg"],
+                                                  1.0),
+                            duration_s=LOAD_SHORT_S, seed=LOAD_SEED + 1,
+                            tenants=(tenant,))
+    prof = _load_profile(lg, spec, slo)
+    if {p: e.compile_counts() for p, e in pair.items()} != compiles:
+        raise SystemExit("a step was built during the profiled run")
+    emit({"phase": "load", "profile": "poisson 1.0", "nvidia_smi": smi,
+          **prof})
+    emit({"phase": "load", "capacity_samples_per_s": capacity,
+          "curve": [{"level": c["level"],
+                     **{m: {k: c[m][k] for k in (
+                         "offered_samples_per_s", "throughput_samples_per_s",
+                         "latency_ms_p99", "shed_rate")}
+                        for m in ("continuous", "sync") if m in c}}
+                    for c in curve]})
+    return launches
+
+
 #: dwn-mnist-lg's shape: 196 pooled pixels, T = 16 (3136 encoder bits, 98
 #: words a sample), one layer of 2000 LUT6, 10 classes
 MNIST_LG = dict(F=196, T=16, m=2000, n=6, C=10)
@@ -2705,6 +3103,7 @@ def phase_hw(device, batch=4096, requests=16, n_train=20000, n_test=5000):
 def phase_cli(device):
     from repro_torch.launch import serve, train
     seconds = {}
+    records = {}
     for main, argv in (
             (serve.main, ["--arch", "dwn-jsc-lg", "--requests", "4"]),
             (serve.main, ["--arch", "dwn-jsc-lg", "--requests", "4",
@@ -2720,12 +3119,16 @@ def phase_cli(device):
     # (each on the card by default); both must exit 0
     ckpt = ROOT / "build" / "chip_smoke_lifecycle"
     shutil.rmtree(ckpt, ignore_errors=True)
-    records = {}
     for argv in (["-m", "repro_torch.dwn.smoke", "--workload", "mnist",
                   "--preset", "mnist-lg", "--variant", "TEN", "--bits",
                   "16", "--epochs", "1", "--ckpt-dir", str(ckpt)],
                  ["-m", "repro_torch.hw.cosim", "--presets",
-                  "dwn-jsc-lg,dwn-mnist-lg", "--n", "256"]):
+                  "dwn-jsc-lg,dwn-mnist-lg", "--n", "256"],
+                 ["-m", "repro_torch.launch.serve", "--arch", "dwn-jsc-lg",
+                  "--continuous", "--deadline-ms", "50"],
+                 ["-m", "repro_torch.launch.loadgen", "--preset",
+                  "dwn-jsc-lg", "--max-bucket", "4096", "--levels", "0.5",
+                  "--duration", "1", "--mode", "both"]):
         t0 = time.perf_counter()
         out = subprocess.run([sys.executable, *argv], cwd=ROOT,
                              env=dict(os.environ, PYTHONPATH=str(SRC)),
@@ -2740,10 +3143,25 @@ def phase_cli(device):
     smoke = json.loads(records["repro_torch.dwn.smoke"][-1])
     if not smoke["roundtrip_bit_exact"]:
         raise SystemExit(f"the lifecycle smoke is not bit-exact: {smoke}")
+    cont = json.loads(records["repro_torch.launch.serve"][-1])
+    if not (cont["continuous"] and cont["device"] == "cuda" and
+            cont["requests"] + cont["shed"]["requests"] == 64):
+        raise SystemExit(f"serve --continuous: requests unaccounted for: "
+                         f"{cont}")
+    level = json.loads(records["repro_torch.launch.loadgen"][-1])
+    for mode in ("continuous", "sync"):
+        m = level[mode]
+        if m["served_requests"] + m["shed_requests"] != level["arrivals"]:
+            raise SystemExit(f"loadgen {mode}: arrivals unaccounted for: "
+                             f"{level}")
     emit({"phase": "cli", "seconds": seconds,
           "lifecycle": {k: smoke[k] for k in ("device", "hw", "serve",
                                               "roundtrip_bit_exact")},
-          "cosim": records["repro_torch.hw.cosim"]})
+          "cosim": records["repro_torch.hw.cosim"],
+          "serve_continuous": {k: cont[k] for k in (
+              "requests", "served", "shed", "throughput_samples_per_s",
+              "latency_ms_p50", "latency_ms_p99", "async")},
+          "loadgen": level})
 
 
 def main() -> int:
@@ -2802,6 +3220,7 @@ def main() -> int:
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = tf32
     launches = run("serve", phase_serve, "cuda")
+    load_launches = run("load", phase_load, "cuda")
     hw_launches, hw_timing = run("hw", phase_hw, "cuda")
     run("cli", phase_cli, "cuda")
     emit({"phase": "seconds", "seconds": seconds,
@@ -2814,8 +3233,10 @@ def main() -> int:
     variant_of = {"fused_dwn_packed": "packed",
                   "fused_dwn_batch_major": "batch-major"}
     # each main path's launches, counted from 0 over its own passes: the
-    # served dwn-jsc-lg (serve phase) and dwn-mnist-lg (hw phase)
+    # served dwn-jsc-lg (serve phase), its continuous-batching sessions
+    # (load phase) and dwn-mnist-lg (hw phase)
     by_path = {name: {"serve dwn-jsc-lg": launches[name],
+                      "load dwn-jsc-lg": load_launches[name],
                       "hw dwn-mnist-lg": hw_launches[name]}
                for name in launches}
     summary = []

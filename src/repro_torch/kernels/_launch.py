@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import threading
 
 import torch
 
@@ -21,42 +22,59 @@ class LaunchCounts:
     nowhere else, so the counts show which kernels a run went through.
     The launches a wrapper makes while a CUDA graph is being captured are
     held back instead: the capture runs nothing, and every replay of the
-    graph adds them (:func:`recording`, ``kernels.graph``).
+    graph adds them (:func:`recording`, ``kernels.graph``).  Serving loops
+    launch from their own threads, so a recording holds only its own
+    thread's launches and the counts take a lock.
     """
 
     def __init__(self, *names: str):
         self._n = dict.fromkeys(names, 0)
+        self._lock = threading.Lock()
 
     def add(self, name: str, n: int = 1) -> None:
-        if _RECORDING:
-            _RECORDING[-1].append((self, name, n))
+        stack = _recording_stack()
+        if stack:
+            stack[-1].append((self, name, n))
         else:
-            self._n[name] += n
+            with self._lock:
+                self._n[name] += n
 
     def get(self) -> dict[str, int]:
-        return dict(self._n)
+        with self._lock:
+            return dict(self._n)
 
     def reset(self) -> None:
-        for name in self._n:
-            self._n[name] = 0
+        with self._lock:
+            for name in self._n:
+                self._n[name] = 0
 
 
-#: open :func:`recording` blocks, innermost last
-_RECORDING: list[list] = []
+#: per thread, its open :func:`recording` blocks, innermost last: a
+#: capture in one thread must not take the launches another thread's
+#: replays make meanwhile
+_RECORDING = threading.local()
+
+
+def _recording_stack() -> list[list]:
+    stack = getattr(_RECORDING, "stack", None)
+    if stack is None:
+        stack = _RECORDING.stack = []
+    return stack
 
 
 @contextlib.contextmanager
 def recording():
-    """Inside the block, the wrappers' launches are recorded, not counted
-    (a CUDA graph capture launches nothing).  Yields the list of
+    """Inside the block, the calling thread's launches are recorded, not
+    counted (a CUDA graph capture launches nothing).  Yields the list of
     ``(counter, name, n)`` the block recorded; :func:`replay` adds them
     where the captured kernels really run."""
     launches: list = []
-    _RECORDING.append(launches)
+    stack = _recording_stack()
+    stack.append(launches)
     try:
         yield launches
     finally:
-        _RECORDING.pop()
+        stack.pop()
 
 
 def replay(launches) -> None:

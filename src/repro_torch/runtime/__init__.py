@@ -1,1 +1,6 @@
-"""Runtime services: checkpoints on the reference's on-disk layout."""
+"""Runtime services: checkpoints on the reference's on-disk layout and the
+straggler monitor."""
+
+from .straggler import StragglerEvent, StragglerMonitor
+
+__all__ = ["StragglerEvent", "StragglerMonitor"]

@@ -20,7 +20,8 @@ captured on first use and replayed after (``kernels.graph``), the
 counterpart of the reference's one ``jax.jit`` entry per bucket.
 ``compiles`` counts them.  ``AutoSelector`` serves each bucket on the
 fastest bit-exact backend (``backend="auto"``); ``autotune_model`` tunes
-the fused kernel per bucket (``kernels.autotune``).
+the fused kernel per bucket (``kernels.autotune``); ``StepTimeEstimator``
+is the continuous-batching loop's model of a step's time.
 """
 
 from __future__ import annotations
@@ -344,6 +345,84 @@ class AutoSelector:
 
 
 # ---------------------------------------------------------------------------
+# per-bucket step-time estimates (admission control's model of the device)
+# ---------------------------------------------------------------------------
+
+class StepTimeEstimator:
+    """Per-bucket step wall-time estimates for SLO-aware admission.
+
+    The continuous-batching loop needs to answer "how long until this
+    request could complete?" *before* serving it.  The estimate has two
+    sources, in order of freshness:
+
+    * a **seed** from startup calibration — ``AutoSelector`` already
+      times every backend at every bucket for ``backend="auto"``, so the
+      winning backend's time per bucket is free; pinned backends seed
+      from one ``time_backend_step`` probe at ``max_bucket`` (step time
+      is overhead-dominated at these model sizes, so one bucket's time
+      is a usable prior for the whole ladder).  On the card both are
+      graph replays fed from host rows: they leave out the copy of the
+      results back and the batch's assembly on the host, so the seed is
+      optimistic, as admission wants it;
+    * an **online EWMA** over the actual step times the loop observes
+      (``update`` after every step), which quickly overrides the seed
+      and tracks drift (clocks, contention, host load).
+
+    ``estimate`` returns seconds or None when nothing is known for the
+    bucket (or any larger one — a larger bucket's time upper-bounds a
+    smaller one's here, so it stands in rather than admit blindly).
+    """
+
+    def __init__(self, *, alpha: float = 0.25):
+        self.alpha = alpha
+        self._seed: dict[int, float] = {}
+        self._ewma: dict[int, float] = {}
+        self.updates = 0
+
+    def seed(self, bucket: int, seconds: float) -> None:
+        """Install a calibration prior (ignored once EWMA data exists)."""
+        self._seed[int(bucket)] = float(seconds)
+
+    def update(self, bucket: int, seconds: float) -> None:
+        """Fold one observed step time into the bucket's EWMA."""
+        b = int(bucket)
+        prev = self._ewma.get(b)
+        self._ewma[b] = (seconds if prev is None
+                         else prev + self.alpha * (seconds - prev))
+        self.updates += 1
+
+    def estimate(self, bucket: int) -> float | None:
+        """Best current estimate (s) for one step at ``bucket``, or None."""
+        b = int(bucket)
+        for table in (self._ewma, self._seed):
+            if b in table:
+                return table[b]
+        # fall back to the nearest known larger bucket (upper bound)
+        for table in (self._ewma, self._seed):
+            larger = [v for k, v in table.items() if k > b]
+            if larger:
+                return min(larger)
+        return None
+
+    def snapshot(self) -> dict:
+        """JSON-able {bucket: est_ms} view for reports."""
+        buckets = sorted(set(self._seed) | set(self._ewma))
+        return {int(b): round((self.estimate(b) or 0.0) * 1e3, 4)
+                for b in buckets}
+
+
+def estimator_from_calibration(auto: "AutoSelector") -> StepTimeEstimator:
+    """Seed an estimator from an ``AutoSelector``'s startup calibration:
+    each bucket's prior is the *chosen* backend's measured step time."""
+    est = StepTimeEstimator()
+    for bucket, times in auto.timings.items():
+        choice = auto.choice.get(bucket)
+        if choice in times:
+            est.seed(bucket, times[choice])
+    return est
+
+
+# ---------------------------------------------------------------------------
 # startup cross-check
 # ---------------------------------------------------------------------------
 
@@ -388,6 +467,7 @@ def verify_backends(model: DWNModelBundle,
 
 __all__ = [
     "AutoSelector", "Backend", "BoundBackend", "DWNModelBundle",
-    "autotune_model", "available_backends", "get_backend",
-    "register_backend", "time_backend_step", "verify_backends",
+    "StepTimeEstimator", "autotune_model", "available_backends",
+    "estimator_from_calibration", "get_backend", "register_backend",
+    "time_backend_step", "verify_backends",
 ]

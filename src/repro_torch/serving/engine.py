@@ -17,6 +17,19 @@ serve prefill and greedy token-by-token decode against a KV cache, one
 request per step, through the same queue and latency accounting.  With
 ``attn_impl="pallas"`` prefill attention runs the flash-attention kernel.
 
+DWN engines have two serving modes over the same datapath and step cache:
+
+* **sync facade** (``submit`` + ``drain``): closed-loop, admission-order
+  microbatching;
+* **continuous batching** (``serve()`` / ``submit_async``): a scheduler
+  thread keeps steps in flight while requests stream in, results complete
+  out of order through per-request futures, deadlines are enforced by
+  SLO-aware admission control, and a bounded queue exerts backpressure
+  (``serving.continuous``).  Before the thread starts, every bucket of
+  the ladder has its step built (on the card, its CUDA graph captured):
+  a capture while another thread launches work on the card would fail,
+  so no capture happens during a session.
+
 The engine runs on ``cuda`` unless ``device="cpu"`` is passed; without a
 card it raises rather than fall back.
 
@@ -34,10 +47,17 @@ Usage:
                        prompt_len=2048, gen=16)
     lm.submit(lm.make_request(4))
     tokens = lm.drain()[0].result["tokens"]         # (4, 16)
+
+Usage (continuous):
+    with engine.serve(slo=SLOConfig(max_queue_samples=16 * 4096)):
+        futs = [engine.submit_async(xb, deadline_ms=5).future
+                for xb in request_stream]
+        results = [f.result() for f in futs]   # ServeResult: ok or shed
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Any
@@ -50,10 +70,13 @@ from ..configs.registry import NOT_PORTED
 from ..device import resolve_device
 from ..dwn import DWNArtifact, resolve_spec, serving_datapath
 from ..models import api
+from ..runtime.straggler import StragglerMonitor
 from ..workloads import load_workload
 from .backends import (AutoSelector, BoundBackend, DWNModelBundle,
-                       autotune_model, available_backends, get_backend,
-                       verify_backends)
+                       StepTimeEstimator, autotune_model, available_backends,
+                       estimator_from_calibration, get_backend,
+                       time_backend_step, verify_backends)
+from .continuous import AsyncRequest, ContinuousScheduler, SLOConfig
 from .scheduler import MicrobatchScheduler, Request, latency_stats
 
 
@@ -113,6 +136,15 @@ class ServingEngine:
         self.scheduler = MicrobatchScheduler(
             max_bucket=max_bucket, min_bucket=min(min_bucket, max_bucket))
         self._drain_wall = 0.0
+        #: anomalous step times surface as counters in report(); fed by
+        #: both the sync drain loop and the continuous-batching loop
+        self.straggler = StragglerMonitor()
+        self._cont: ContinuousScheduler | None = None
+        self.estimator: StepTimeEstimator | None = None
+        #: slim async requests from finished serve() sessions + the last
+        #: session's loop counters (report() merges the live session in)
+        self._async_done: list[AsyncRequest] = []
+        self._async_counters: dict = {}
         cfg = _lm_config(arch)
         self.family = "dwn" if cfg is None else "lm"
         if cfg is None:
@@ -320,9 +352,118 @@ class ServingEngine:
                                    r.result["decode_s_per_tok"])
                                   for r in done)
         else:
-            done = self.scheduler.drain_batched(self._dwn_step)
+            done = self.scheduler.drain_batched(self._monitored_step)
         self._drain_wall += time.perf_counter() - t0
         return done
+
+    def _monitored_step(self, x: np.ndarray):
+        """The DWN step with its wall time fed to the straggler monitor
+        (the sync drain's half; the continuous loop reports through the
+        same monitor)."""
+        t0 = time.perf_counter()
+        out = self._dwn_step(x)
+        self.straggler.report(time.perf_counter() - t0)
+        return out
+
+    # ------------------------------------------------------------------
+    # continuous-batching async API (DWN only)
+    # ------------------------------------------------------------------
+
+    def start_serving(self, *, slo: SLOConfig | None = None) -> None:
+        """Start the continuous-batching loop (a dedicated thread).
+
+        Requests then stream in through :meth:`submit_async` and complete
+        out of order via their futures; batch formation happens at step
+        boundaries over the same bucket ladder (step cache and tuned
+        configs shared with the sync facade).  Admission control's
+        step-time estimates seed from the ``AutoSelector`` calibration
+        when ``backend="auto"``, else from one probe of the active backend
+        at ``max_bucket``; every step refines them online.
+
+        Every bucket of the ladder is stepped once on the served backend
+        first, so that each step the session runs is built before the
+        thread starts: on the card, each CUDA graph it replays is
+        captured (a capture fails if another thread launches work
+        meanwhile).  Do not change a tuned config during a session: the
+        next step at that bucket would capture.
+        """
+        if self.family != "dwn":
+            raise ValueError("continuous batching is the DWN path")
+        if self._cont is not None:
+            raise RuntimeError("serving loop already running")
+        probe = self.data.x_test[:self.scheduler.max_bucket]
+        for bucket in self.scheduler.buckets:
+            self._dwn_step(probe[:bucket])
+        if self.estimator is None:
+            if self.auto is not None:
+                self.estimator = estimator_from_calibration(self.auto)
+            else:
+                self.estimator = StepTimeEstimator()
+                self.estimator.seed(
+                    self.scheduler.max_bucket,
+                    time_backend_step(self.backend, torch.from_numpy(
+                        np.ascontiguousarray(probe, np.float32)), iters=2))
+        self._cont = self._continuous(slo)
+        self._cont.start()
+
+    def _continuous(self, slo: SLOConfig | None, *,
+                    timer=time.perf_counter) -> ContinuousScheduler:
+        """The session's loop over this engine's DWN step, estimator and
+        straggler monitor (``timer``: the loop's clock)."""
+        return ContinuousScheduler(
+            self._dwn_step, max_bucket=self.scheduler.max_bucket,
+            min_bucket=self.scheduler.min_bucket, slo=slo,
+            estimator=self.estimator, monitor=self.straggler, timer=timer)
+
+    def stop_serving(self, *, drain: bool = True) -> None:
+        """Stop the loop; ``drain=True`` serves the queue first.  Loop
+        counters survive in :meth:`report` (sessions accumulate).  Raises
+        if a step failed during the session."""
+        if self._cont is None:
+            raise RuntimeError("serving loop not running")
+        cont, self._cont = self._cont, None
+        try:
+            cont.stop(drain=drain)
+        finally:
+            self._end_session(cont)
+
+    def _end_session(self, cont: ContinuousScheduler) -> None:
+        self._async_done.extend(cont.completed)
+        self._async_counters = cont.counters()
+
+    @contextlib.contextmanager
+    def serve(self, *, slo: SLOConfig | None = None):
+        """Context manager over one continuous-batching session::
+
+            with engine.serve(slo=SLOConfig(deadline_default_ms=50)):
+                req = engine.submit_async(xb, deadline_ms=20)
+                res = req.future.result()      # ServeResult
+        """
+        self.start_serving(slo=slo)
+        try:
+            yield self
+        finally:
+            self.stop_serving()
+
+    def submit_async(self, payload: Any, *,
+                     deadline_ms: float | None = None, priority: int = 0,
+                     timeout: float | None = None) -> AsyncRequest:
+        """Admit one request into the continuous-batching loop.
+
+        Requires :meth:`start_serving` / :meth:`serve`.  Returns the
+        :class:`AsyncRequest`; its ``future`` resolves to a
+        ``ServeResult`` — ``ok`` with ``value == (counts, pred)``, or
+        typed shed when the deadline was unmeetable (admission), expired
+        in queue, or missed at completion.  Raises ``QueueFull`` after
+        ``timeout`` when backpressure applies.
+        """
+        if self._cont is None:
+            raise RuntimeError("submit_async needs the serving loop: use "
+                               "engine.serve()")
+        payload = np.asarray(payload)
+        return self._cont.submit(payload, payload.shape[0],
+                                 deadline_ms=deadline_ms,
+                                 priority=priority, timeout=timeout)
 
     def compile_counts(self) -> dict[str, dict[int, int]]:
         """Per-backend {bucket: steps built} (CUDA graphs captured on the
@@ -336,13 +477,29 @@ class ServingEngine:
         """JSON-able serving report over everything served so far.
 
         ``throughput_samples_per_s`` is samples (DWN) or sequences (LM) per
-        wall-clock second of draining; ``latency.{queue,compute,total}_ms``
-        are per-request millisecond percentiles; LM ``prefill_s`` and
+        wall-clock second (sync drains + async session wall);
+        ``latency.{queue,compute,total}_ms`` are per-request millisecond
+        percentiles (p50/p99/p999) over *served* requests — shed requests
+        are excluded from latency and counted in ``shed``;
+        ``queue_depth`` / ``shed`` / ``straggler`` cover both serving
+        modes; ``async`` holds the last session's loop counters with the
+        estimator's per-bucket ``step_estimates_ms``; LM ``prefill_s`` and
         ``decode_s_per_tok`` are seconds.
         """
-        reqs = list(self.scheduler.completed)
+        async_all = list(self._async_done)
+        async_counters = dict(self._async_counters)
+        if self._cont is not None:
+            async_all += list(self._cont.completed)
+            async_counters = self._cont.counters()
+        async_ok = [r for r in async_all if r.shed is None]
+        shed = [r for r in async_all if r.shed is not None]
+        reqs = list(self.scheduler.completed) + async_ok
         served = sum(r.size for r in reqs)
-        wall = self._drain_wall
+        wall = self._drain_wall + async_counters.get("session_wall_s", 0.0)
+        shed_by: dict[str, int] = {}
+        for r in shed:
+            shed_by[r.shed] = shed_by.get(r.shed, 0) + 1
+        finished = len(reqs) + len(shed)
         out = {
             "arch": self.name,
             "device": str(self.device),
@@ -353,9 +510,31 @@ class ServingEngine:
             "throughput_samples_per_s":
                 round(served / wall, 1) if wall else 0.0,
             "latency": latency_stats(reqs),
-            "queue_depth": {"pending": self.scheduler.pending,
-                            "max_requests": self.scheduler.max_pending},
+            "queue_depth": {
+                "pending": self.scheduler.pending
+                + (self._cont.pending if self._cont is not None else 0),
+                "max_requests": max(
+                    self.scheduler.max_pending,
+                    async_counters.get("queue_depth_max_requests", 0)),
+            },
+            "shed": {
+                "requests": len(shed),
+                "rate": round(len(shed) / finished, 4) if finished
+                else 0.0,
+                "by_reason": shed_by,
+            },
+            "straggler": {
+                "window": len(self.straggler.times),
+                "events": len(self.straggler.events),
+                "last_z": round(self.straggler.events[-1].z, 2)
+                if self.straggler.events else None,
+            },
         }
+        if async_counters:
+            out["async"] = async_counters
+            if self.estimator is not None:
+                out["async"]["step_estimates_ms"] = \
+                    self.estimator.snapshot()
         if self.family == "lm":
             out.update({
                 "family": self.cfg.family,

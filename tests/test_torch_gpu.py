@@ -245,6 +245,41 @@ def test_engine_serves_through_both_kernels_on_card():
             np.testing.assert_array_equal(r.result[1], p)
 
 
+def test_async_serving_equals_sync_and_captures_nothing_in_session():
+    """Exact: dwn-jsc-sm at max_bucket 256 on the card, ragged and
+    oversize requests through ``serve()`` / ``submit_async`` equal the
+    sync drain of the same payloads; every graph is captured before the
+    loop starts (``compile_counts()`` unchanged by the session) and each
+    step replays one K2 launch."""
+    _need_card()
+    from repro_torch.serving import ServingEngine, SLOConfig
+    eng = ServingEngine("dwn-jsc-sm", max_bucket=256, n_train=2000)
+    sizes = (5, 17, 256, 700, 3, 100, 1)
+    payloads = [eng.make_request(n, seed=n) for n in sizes]
+    for p in payloads:
+        eng.submit(p)
+    sync = sorted(eng.drain(), key=lambda r: r.rid)
+    eng.start_serving(slo=SLOConfig(max_queue_samples=1 << 16))
+    try:
+        compiles = eng.compile_counts()
+        assert sorted(compiles["fused-packed"]) == list(
+            eng.scheduler.buckets)
+        K.reset_launch_counts()
+        reqs = [eng.submit_async(p) for p in payloads]
+        results = [r.future.result(timeout=120) for r in reqs]
+    finally:
+        eng.stop_serving()
+    launched = K.launch_counts()
+    assert eng.compile_counts() == compiles
+    steps = eng.report()["async"]["steps"]
+    assert launched["fused_dwn_packed"] == steps > 0
+    assert launched["fused_dwn_batch_major"] == 0
+    for res, want in zip(results, sync):
+        assert res.ok
+        np.testing.assert_array_equal(res.value[0], want.result[0])
+        np.testing.assert_array_equal(res.value[1], want.result[1])
+
+
 LADDER = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 
 

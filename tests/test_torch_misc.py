@@ -51,7 +51,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "assert 'repro_torch.training.engine' in names, names\n"
         "assert 'repro_torch.launch.train' in names, names\n"
         "for n in ('hw.cost', 'hw.verilog', 'hw.cosim', 'hw.report',\n"
-        "          'workloads.mnist', 'dwn.smoke'):\n"
+        "          'workloads.mnist', 'dwn.smoke', 'serving.continuous',\n"
+        "          'runtime.straggler', 'launch.loadgen'):\n"
         "    assert 'repro_torch.' + n in names, names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
@@ -111,9 +112,10 @@ def test_captured_step_needs_a_cuda_device():
 
 def test_entry_points_raise_without_a_card(monkeypatch):
     """With no card and no CPU request, the engine, the artifact's pack,
-    and the serve CLI raise; they never fall back to the CPU."""
+    the serve CLI (sync and continuous) and the load generator raise; they
+    never fall back to the CPU."""
     from repro_torch.dwn import DWNArtifact, get_spec
-    from repro_torch.launch import serve
+    from repro_torch.launch import loadgen, serve
     from repro_torch.serving import ServingEngine
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -122,6 +124,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         ServingEngine("dwn-jsc-sm", device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "dwn-jsc-sm", "--reduced"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "dwn-jsc-sm", "--reduced", "--continuous"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loadgen.main(["--preset", "dwn-jsc-sm"])
     art = DWNArtifact(get_spec("dwn-jsc-sm"))
     art.fit(tjsc.load_jsc(300, 10).x_train).freeze()
     with pytest.raises(RuntimeError, match="no CUDA device"):
