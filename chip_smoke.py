@@ -4,7 +4,9 @@ training (each minibatch step a CUDA graph replay) and serving path
 (tuned, CUDA-graph steps, artifacts, the continuous-batching loop under
 open-loop load), the paper's hardware model at
 MNIST and JSC width (cost report, RTL co-simulation against the served
-kernel's counts), its staged packed and float datapaths, its
+kernel's counts), the encoding design-space sweep over the paper's grid
+(cost, accuracy, K2 time, served samples/s, cache, worker processes,
+autodesign), its staged packed and float datapaths, its
 flash-attention kernel and qwen3-8b serving at full width.
 
     python3 chip_smoke.py
@@ -174,7 +176,24 @@ Phases, each printing one JSON line:
    artifact saved, loaded and served again bit-exact; then the paper's
    ``dwn-jsc-lg`` at PEN 9 bits from a warm start on the card: its cost
    report and the same RTL check;
-12. cli    — ``python -m repro_torch.launch.serve --arch dwn-jsc-lg`` with
+12. sweep  — the encoding design-space sweep: ``run_grid("paper",
+   SweepSettings(device="cuda", kernel=True, serve=True))`` at the
+   reference's defaults (n_train 4000, n_test 2000; the four presets, TEN
+   and PEN at Table I's fine-tuned widths, lg-2400 at full width) into a
+   fresh cache: each point's cost report, packed hard accuracy, K2 timed
+   on 256 rows (best of 3 eager calls, each ending in a synchronize) and
+   2 requests of 64 rows served through the engine's CUDA graphs; the
+   Table I TEN check must pass, each point's timed calls must launch K2
+   once a call (plus the zero kernel where the launch split) and its
+   served steps K2 and never K1; the same grid on the CPU equal point for
+   point on every hardware field and the accuracy; lg-2400's two points
+   served again under ``serve_backend="auto"`` (K1 against K2 tuned per
+   bucket, each step one of them); the rerun all cache
+   hits; the ``tiny`` grid through ``run_grid_parallel`` with two worker
+   processes sharing the card equal to the serial run; ``choose_design``
+   at an accuracy floor between the grid's lowest and highest and
+   ``emit_verified`` on 256 vectors (oracle on the card);
+13. cli    — ``python -m repro_torch.launch.serve --arch dwn-jsc-lg`` with
    four requests, the same with ``--backend auto``, ``--arch
    qwen3-8b --batch 2 --prompt-len 32 --gen 4``, ``python -m
    repro_torch.launch.train --arch dwn-jsc-lg --workload jsc --epochs
@@ -187,10 +206,13 @@ Phases, each printing one JSON line:
    50`` (every request served or shed) and ``python -m
    repro_torch.launch.loadgen --preset dwn-jsc-lg --max-bucket 4096
    --levels 0.5 --duration 1 --mode both`` (every arrival accounted
-   for).
+   for); then ``python -m repro_torch.launch.sweep --grid paper --fresh``
+   (exit 0: Table I within tolerance) and the same with ``--workers 2
+   --no-kernel --no-serve``, equal on every hardware field and accuracy.
 
 Then it prints each phase's seconds, the kernels' summary line (K1's and
-K2's launches on each served path, the load phase's sessions among them,
+K2's launches on each served path, the load phase's sessions and the
+sweep's paper grid among them,
 their times at the mnist-lg shape
 beside their bounds), nvidia-smi's line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -199,6 +221,7 @@ so does a machine without a CUDA card, or a directory without the port.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -3100,6 +3123,332 @@ def phase_hw(device, batch=4096, requests=16, n_train=20000, n_test=5000):
                          "fused_dwn_zero")}, timing
 
 
+SWEEP_RTL_ROWS = 256
+
+
+def _sweep_rows_equal(got, want, what):
+    """Raise unless two lists of sweep rows hold the same points with
+    equal hardware fields and accuracies."""
+    from repro_torch.sweep.results import EXACT_FIELDS
+    if [r.point for r in got] != [r.point for r in want]:
+        raise SystemExit(f"{what}: the grids differ")
+    for a, b in zip(got, want):
+        diff = {f: (getattr(a, f), getattr(b, f)) for f in EXACT_FIELDS
+                if getattr(a, f) != getattr(b, f)}
+        if diff or a.failed or b.failed:
+            raise SystemExit(f"{what}: {a.point.label} differs: {diff} "
+                             f"(failed: {a.error} / {b.error})")
+
+
+@contextlib.contextmanager
+def _recording_drains():
+    """Record every ``ServingEngine.drain`` in the block: each kernel's
+    launches during it, and each step it served as (backend, bucket,
+    step) through ``BoundBackend.step_for``.  Yields the list of
+    records, one per drain."""
+    from repro_torch.serving import backends, engine
+    drain, step_for = engine.ServingEngine.drain, \
+        backends.BoundBackend.step_for
+    drains: list = []
+    open_steps: list = []
+
+    def rec_step_for(self, bucket):
+        step = step_for(self, bucket)
+        if open_steps:
+            open_steps[-1].append((self.name, bucket, step))
+        return step
+
+    def rec_drain(self):
+        before = _all_launch_counts()
+        open_steps.append([])
+        try:
+            out = drain(self)
+        finally:
+            steps = open_steps.pop()
+        after = _all_launch_counts()
+        drains.append({"launched": {k: after[k] - before[k] for k in after
+                                    if after[k] != before[k]},
+                       "steps": steps})
+        return out
+
+    engine.ServingEngine.drain = rec_drain
+    backends.BoundBackend.step_for = rec_step_for
+    try:
+        yield drains
+    finally:
+        engine.ServingEngine.drain = drain
+        backends.BoundBackend.step_for = step_for
+
+
+def _all_launch_counts() -> dict:
+    return {name: n for K in _kernel_modules()
+            for name, n in K.launch_counts().items()}
+
+
+def _served_on_fused(what, drain, kernels):
+    """Raise unless every step of one recorded drain ran on
+    ``fused-packed`` and replayed a captured graph of exactly one of
+    ``kernels`` (and the zero kernel where the launch split), and the
+    launches during the drain are exactly those replays.  Returns
+    {kernel: steps} and {bucket: kernel}."""
+    per_kernel: dict = {}
+    by_bucket: dict = {}
+    want: dict = {}
+    for backend, bucket, step in drain["steps"]:
+        launches = getattr(step, "launches", {})
+        main = set(launches) - {"fused_dwn_zero"}
+        if backend != "fused-packed" or len(main) != 1 or \
+                not main <= set(kernels) or launches[next(iter(main))] != 1:
+            raise SystemExit(f"{what}: a served step at bucket {bucket} ran "
+                             f"on {backend} launching {launches}, not one "
+                             f"of {kernels} replayed")
+        kernel = next(iter(main))
+        per_kernel[kernel] = per_kernel.get(kernel, 0) + 1
+        by_bucket[bucket] = kernel
+        for name, n in launches.items():
+            want[name] = want.get(name, 0) + n
+    if not drain["steps"] or drain["launched"] != want:
+        raise SystemExit(f"{what}: the drain launched {drain['launched']}, "
+                         f"not its steps' replays {want}")
+    return per_kernel, by_bucket
+
+
+def phase_sweep(device):
+    """The encoding design-space sweep on the card: ``run_grid("paper")``
+    at the reference's defaults (n_train 4000, n_test 2000, 256-row K2
+    calls, 2 served requests of 64 rows) into a fresh cache, every point's
+    timed calls and served steps counted per point (each timed call one K2
+    launch, plus the zero kernel where the launch split; the launches
+    during each drain exactly the served steps' replays of K2, never K1);
+    the Table I check; the same grid on the CPU equal point for point;
+    lg-2400's points served under ``backend="auto"`` (the launches during
+    each drain exactly the served steps' replays, each of the kernel the
+    tuner chose for its bucket, K1 or K2); the rerun all cache hits; the
+    ``tiny`` grid through two worker processes equal to the serial run;
+    autodesign's RTL verified on the card.  Returns the K1, K2 and
+    zero-kernel launches of the paper grid and of the auto serve axis."""
+    import io
+    from repro_torch.kernels.fused import kernel as K
+    from repro_torch.launch.sweep import check_paper_points
+    from repro_torch.sweep import (ExecutorSettings, SweepSettings,
+                                   choose_design, emit_verified, pipeline,
+                                   run_grid, run_grid_parallel)
+    seconds = {}
+    build = ROOT / "build"
+    cache = build / "chip_smoke_sweep_cache"
+    shutil.rmtree(cache, ignore_errors=True)
+    card = SweepSettings(device=device, kernel=True, serve=True)
+
+    # 1. the paper grid on the card, each point's launches counted
+    per_point: dict = {}
+    runner_cls = pipeline.SweepRunner
+    time_kernel, serve_point = runner_cls._time_kernel, \
+        runner_cls._serve_point
+
+    def counted(axis, fn, label_of):
+        def wrapped(self, arg):
+            before = K.launch_counts()
+            out = fn(self, arg)
+            after = K.launch_counts()
+            per_point.setdefault(label_of(arg), {})[axis] = {
+                k: after[k] - before[k] for k in after}
+            if axis == "kernel":
+                per_point[label_of(arg)]["zeroed"] = \
+                    bool(K.last_launch()["zeroed"])
+            return out
+        return wrapped
+
+    runner_cls._time_kernel = counted("kernel", time_kernel,
+                                      lambda art: art.spec.label)
+    runner_cls._serve_point = counted("serve", serve_point,
+                                      lambda pt: pt.label)
+    t0 = time.perf_counter()
+    try:
+        _reset_counts()
+        with _recording_drains() as drains:
+            res = run_grid("paper", card, cache_dir=str(cache))
+        launched = {name: n for name, n in _all_launch_counts().items()
+                    if n}
+    finally:
+        runner_cls._time_kernel, runner_cls._serve_point = \
+            time_kernel, serve_point
+    seconds["card"] = time.perf_counter() - t0
+    table1 = io.StringIO()
+    with contextlib.redirect_stdout(table1):
+        failures = check_paper_points(res)
+    if failures:
+        raise SystemExit(f"Table I TEN outside tolerance: {failures}")
+    calls = 1 + card.kernel_iters                # the untimed first call
+    for r in res.points:
+        got = per_point.get(r.point.label, {})
+        k, s = got.get("kernel", {}), got.get("serve", {})
+        want_k = {"fused_dwn_packed": calls,
+                  "fused_dwn_zero": calls if got.get("zeroed") else 0}
+        if {n: k.get(n, 0) for n in want_k} != want_k or \
+                sum(k.values()) != calls + want_k["fused_dwn_zero"]:
+            raise SystemExit(f"{r.point.label}: the timed calls launched "
+                             f"{k}, not {want_k}")
+        if s.get("fused_dwn_batch_major", 0):
+            raise SystemExit(f"{r.point.label}: the serve axis launched "
+                             f"{s}, not K2 alone")
+        if not (r.kernel_us > 0 and r.serve_throughput > 0):
+            raise SystemExit(f"{r.point.label}: an axis was not measured")
+    if len(drains) != len(res.points):
+        raise SystemExit(f"{len(drains)} drains served the "
+                         f"{len(res.points)} points")
+    for r, drain in zip(res.points, drains):
+        served, _ = _served_on_fused(f"{r.point.label} served", drain,
+                                     ("fused_dwn_packed",))
+        if served != {"fused_dwn_packed": card.serve_requests}:
+            raise SystemExit(f"{r.point.label}: served {served}, not "
+                             f"{card.serve_requests} steps of K2")
+        per_point[r.point.label]["served"] = drain["launched"]
+
+    # 2. the same grid on the CPU: equal point for point
+    t0 = time.perf_counter()
+    cpu = run_grid("paper", SweepSettings(device="cpu", kernel=False,
+                                          serve=False), cache_dir=None)
+    _sweep_rows_equal(res.points, cpu.points, "paper grid, card against CPU")
+    seconds["cpu"] = time.perf_counter() - t0
+
+    # 2b. lg-2400's points served under backend="auto": the tuner races K1
+    # against K2 per bucket and each served step replays the choice
+    t0 = time.perf_counter()
+    lg = [r for r in res.points if r.point.preset == "lg-2400"]
+    _reset_counts()
+    with _recording_drains() as auto_drains:
+        auto = run_grid([r.point for r in lg],
+                        dataclasses.replace(card, kernel=False,
+                                            serve_backend="auto"),
+                        cache_dir=None)
+    auto_launched = {name: n for name, n in _all_launch_counts().items()
+                     if n}
+    _sweep_rows_equal(auto.points, lg, "lg-2400 served under auto")
+    if set(auto_launched) - {"fused_dwn_packed", "fused_dwn_batch_major",
+                             "fused_dwn_zero"} or \
+            len(auto_drains) != len(lg):
+        raise SystemExit(f"the auto serve axis launched {auto_launched} "
+                         f"in {len(auto_drains)} drains")
+    auto_served = []
+    for r, drain in zip(auto.points, auto_drains):
+        served, chose = _served_on_fused(
+            f"{r.point.label} served under auto", drain,
+            ("fused_dwn_packed", "fused_dwn_batch_major"))
+        if sum(served.values()) != card.serve_requests:
+            raise SystemExit(f"{r.point.label}: served {served} under "
+                             f"auto, not {card.serve_requests} steps")
+        auto_served.append({"steps": served, "kernel_by_bucket": chose,
+                            "launched": drain["launched"]})
+    seconds["auto"] = time.perf_counter() - t0
+
+    # 3. the rerun: every point from the cache
+    t0 = time.perf_counter()
+    again = run_grid("paper", card, cache_dir=str(cache))
+    ex = again.executor
+    if (ex["computed"], ex["cache_hits"]) != (0, len(res.points)):
+        raise SystemExit(f"the rerun computed points: {ex}")
+    seconds["rerun"] = time.perf_counter() - t0
+
+    # 4. the tiny grid through two worker processes sharing the card
+    t0 = time.perf_counter()
+    light = SweepSettings(device=device, kernel=False, serve=False)
+    wcache = build / "chip_smoke_sweep_workers"
+    shutil.rmtree(wcache, ignore_errors=True)
+    par = run_grid_parallel("tiny", light, cache_dir=str(wcache),
+                            executor=ExecutorSettings(workers=2))
+    serial = run_grid("tiny", light, cache_dir=None)
+    _sweep_rows_equal(par.points, serial.points,
+                      "tiny grid, two workers against serial")
+    if par.executor["computed"] != len(serial.points) or \
+            par.executor["failed"]:
+        raise SystemExit(f"the executor did not compute every point: "
+                         f"{par.executor}")
+    shutil.rmtree(wcache, ignore_errors=True)
+    seconds["executor"] = time.perf_counter() - t0
+
+    # 5. autodesign: a floor between the grid's accuracies, RTL verified
+    t0 = time.perf_counter()
+    accs = sorted(r.accuracy for r in res.points)
+    floor = (accs[0] + accs[-1]) / 2
+    choice = choose_design(res, acc_floor=floor)
+    out_dir = build / "chip_smoke_autodesign"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    summary = emit_verified(choice, card, out_dir=out_dir,
+                            n_vectors=SWEEP_RTL_ROWS, log=None)
+    ver = summary["verification"]
+    if ver["n_vectors"] != SWEEP_RTL_ROWS or not ver["counts_checked"] \
+            or not (out_dir / "dwn_autodesign.v").exists():
+        raise SystemExit(f"autodesign's RTL was not verified: {ver}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    seconds["autodesign"] = time.perf_counter() - t0
+    shutil.rmtree(cache, ignore_errors=True)
+
+    emit({"phase": "sweep", "grid": "paper", "settings": res.settings,
+          "points": [{
+              "label": r.point.label, "total_luts": r.total_luts,
+              "luts": r.luts, "paper_luts": r.paper_luts,
+              "lut_error_pct": r.lut_error_pct,
+              "encoder_share": r.encoder_share, "accuracy": r.accuracy,
+              "kernel_us": r.kernel_us, "kernel_batch": r.kernel_batch,
+              "serve_samples_per_s": r.serve_throughput,
+              "serve_p50_ms": r.serve_p50_ms,
+              "launches": per_point[r.point.label]} for r in res.points],
+          "table1": table1.getvalue().strip().splitlines(),
+          "cpu_equal": True,
+          "auto": [{"label": r.point.label,
+                    "serve_samples_per_s": r.serve_throughput,
+                    "serve_p50_ms": r.serve_p50_ms, "served": served}
+                   for r, served in zip(auto.points, auto_served)],
+          "auto_launches": auto_launched,
+          "rerun": {k: ex[k] for k in (
+              "computed", "cache_hits", "wall_s")},
+          "executor": par.executor, "executor_serial_equal": True,
+          "autodesign": {"objective": choice.objective,
+                         "chosen": choice.point.label,
+                         "total_luts": choice.result.total_luts,
+                         "accuracy": choice.result.accuracy,
+                         "verification": {k: ver[k] for k in (
+                             "n_vectors", "backends", "counts_checked")}},
+          "launches": launched, "seconds": seconds})
+    names = ("fused_dwn_packed", "fused_dwn_batch_major", "fused_dwn_zero")
+    return {"sweep paper": {n: launched.get(n, 0) for n in names},
+            "sweep auto lg-2400": {n: auto_launched.get(n, 0)
+                                   for n in names}}
+
+
+def _cli_sweeps(seconds):
+    """``python -m repro_torch.launch.sweep --grid paper --fresh`` on the
+    card (K2 timed and served; exit 0 means Table I within tolerance),
+    then the same grid through two worker processes sharing the card
+    without the kernel and serve axes; the two equal on every hardware
+    field and accuracy.  Returns both results."""
+    from repro_torch.sweep import SweepResult
+    sweep_cache = ROOT / "build" / "sweep_cache_smoke"
+    sweeps = {}
+    for name, extra in (("serial", []),
+                        ("workers", ["--workers", "2", "--no-kernel",
+                                     "--no-serve"])):
+        out_json = ROOT / "build" / f"sweep_paper_{name}.json"
+        argv = ["-m", "repro_torch.launch.sweep", "--grid", "paper",
+                "--fresh", "--cache-dir", str(sweep_cache), "--out",
+                str(out_json), *extra]
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, *argv], cwd=ROOT,
+                             env=dict(os.environ, PYTHONPATH=str(SRC)),
+                             capture_output=True, text=True, timeout=600)
+        seconds[f"sweep {name}"] = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise SystemExit(f"python {' '.join(argv)} exited "
+                             f"{out.returncode}:\n{out.stdout[-3000:]}\n"
+                             f"{out.stderr[-4000:]}")
+        sweeps[name] = SweepResult.load(out_json)
+        out_json.unlink()
+    shutil.rmtree(sweep_cache, ignore_errors=True)
+    _sweep_rows_equal(sweeps["workers"].points, sweeps["serial"].points,
+                      "sweep --workers 2 against the serial CLI run")
+    return sweeps
+
+
 def phase_cli(device):
     from repro_torch.launch import serve, train
     seconds = {}
@@ -3140,6 +3489,7 @@ def phase_cli(device):
                              f"{out.stderr[-4000:]}")
         records[argv[1]] = out.stdout.strip().splitlines()[-4:]
     shutil.rmtree(ckpt, ignore_errors=True)
+    sweeps = _cli_sweeps(seconds)
     smoke = json.loads(records["repro_torch.dwn.smoke"][-1])
     if not smoke["roundtrip_bit_exact"]:
         raise SystemExit(f"the lifecycle smoke is not bit-exact: {smoke}")
@@ -3161,7 +3511,12 @@ def phase_cli(device):
           "serve_continuous": {k: cont[k] for k in (
               "requests", "served", "shed", "throughput_samples_per_s",
               "latency_ms_p50", "latency_ms_p99", "async")},
-          "loadgen": level})
+          "loadgen": level,
+          "sweep": {name: {"executor": r.executor, "points": [
+              {"point": p.point.to_dict(), "total_luts": p.total_luts,
+               "accuracy": p.accuracy, "kernel_us": p.kernel_us,
+               "serve_samples_per_s": p.serve_throughput}
+              for p in r.points]} for name, r in sweeps.items()}})
 
 
 def main() -> int:
@@ -3222,6 +3577,7 @@ def main() -> int:
     launches = run("serve", phase_serve, "cuda")
     load_launches = run("load", phase_load, "cuda")
     hw_launches, hw_timing = run("hw", phase_hw, "cuda")
+    sweep_launches = run("sweep", phase_sweep, "cuda")
     run("cli", phase_cli, "cuda")
     emit({"phase": "seconds", "seconds": seconds,
           "total": sum(seconds.values())})
@@ -3234,10 +3590,13 @@ def main() -> int:
                   "fused_dwn_batch_major": "batch-major"}
     # each main path's launches, counted from 0 over its own passes: the
     # served dwn-jsc-lg (serve phase), its continuous-batching sessions
-    # (load phase) and dwn-mnist-lg (hw phase)
+    # (load phase), dwn-mnist-lg (hw phase) and the paper grid's timed
+    # calls and served steps (sweep phase)
     by_path = {name: {"serve dwn-jsc-lg": launches[name],
                       "load dwn-jsc-lg": load_launches[name],
-                      "hw dwn-mnist-lg": hw_launches[name]}
+                      "hw dwn-mnist-lg": hw_launches[name],
+                      **{path: n[name] for path, n in
+                         sweep_launches.items()}}
                for name in launches}
     summary = []
     for name in ("fused_dwn_batch_major", "fused_dwn_packed"):

@@ -219,13 +219,13 @@ def apply_hard_packed(frozen: FrozenDWN, x: torch.Tensor) -> torch.Tensor:
     return group_popcount_packed(packed, frozen.cfg.num_classes)
 
 
-def _eval_accuracy(fn, x: np.ndarray, y: np.ndarray, batch: int,
-                   device) -> float:
+def _eval_accuracy(fn, x, y: np.ndarray, batch: int, device) -> float:
     hits = 0
     for i in range(0, x.shape[0], batch):
-        xb = torch.from_numpy(np.ascontiguousarray(x[i:i + batch],
-                                                   np.float32)).to(device)
-        pred = predict(fn(xb)).cpu().numpy()
+        xb = x[i:i + batch]
+        if not isinstance(xb, torch.Tensor):
+            xb = torch.from_numpy(np.ascontiguousarray(xb, np.float32))
+        pred = predict(fn(xb.to(device))).cpu().numpy()
         hits += int((pred == y[i:i + batch]).sum())
     return hits / x.shape[0]
 
@@ -233,8 +233,8 @@ def _eval_accuracy(fn, x: np.ndarray, y: np.ndarray, batch: int,
 def eval_accuracy_hard(frozen: FrozenDWN, x: np.ndarray, y: np.ndarray,
                        batch: int = 4096, *, device=None) -> float:
     """Streaming hard-path accuracy (hardware semantics) in [0, 1].  The
-    rows go to ``device``, by default where the frozen model lives
-    (:func:`frozen_device`)."""
+    rows (numpy, or a float32 tensor) go to ``device``, by default where
+    the frozen model lives (:func:`frozen_device`)."""
     return _eval_accuracy(lambda xb: apply_hard(frozen, xb), x, y, batch,
                           device or frozen_device(frozen))
 

@@ -168,6 +168,17 @@ class DWNSpec:
     def from_dict(cls, d: dict) -> "DWNSpec":
         return cls(**d)
 
+    @classmethod
+    def from_point(cls, point, *, datapath: str = "fused-packed",
+                   grouping: str = "contig") -> "DWNSpec":
+        """The spec of one ``repro_torch.sweep.grid.SweepPoint`` (adds the
+        serving knobs a grid point does not carry)."""
+        return cls(preset=point.preset, variant=point.variant,
+                   bits=point.bits, placement=point.placement,
+                   input_bits=point.input_bits, datapath=datapath,
+                   grouping=grouping,
+                   workload=getattr(point, "workload", "jsc"))
+
     def fingerprint(self) -> str:
         """Stable 16-hex-char content hash of the spec."""
         blob = json.dumps(self.to_dict(), sort_keys=True,

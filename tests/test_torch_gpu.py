@@ -1302,3 +1302,63 @@ def test_verify_rtl_on_a_frozen_model_of_cuda_tensors(variant, bits):
     rep = cosim.verify_rtl(on_card, data.x_test[:256], backend="python")
     assert rep.counts_checked and rep.n_vectors == 256
     assert rep.variant == variant
+
+
+def test_supervisor_resumes_card_state_on_the_card(tmp_path):
+    """A supervised run whose state lives on the card, with one injected
+    crash: every step, the restored ones included, sees the state on the
+    card, and the result equals the clean run's."""
+    _need_card()
+    from repro_torch.runtime.fault import (FaultInjector, RestartPolicy,
+                                           Supervisor)
+
+    def run(d, crash_steps):
+        inj, devices = FaultInjector(crash_steps), []
+
+        def step(handle):
+            inj.maybe_crash(handle.step)
+            devices.append(handle.state["w"].device.type)
+            handle.state = {"w": handle.state["w"] * 2 + 1}
+            handle.step += 1
+            return handle
+        sup = Supervisor(str(d), save_every=2,
+                         policy=RestartPolicy(max_restarts=3, backoff_s=0))
+        h = sup.run(step, init_state={"w": torch.arange(4.0, device="cuda")},
+                    total_steps=7)
+        return h, sup.restarts, devices
+
+    clean, _, _ = run(tmp_path / "clean", set())
+    h, restarts, devices = run(tmp_path / "faulty", {5})
+    assert restarts == 1 and h.step == clean.step == 7
+    assert set(devices) == {"cuda"} and h.state["w"].is_cuda
+    assert torch.equal(h.state["w"], clean.state["w"])
+
+
+def test_sweep_tiny_grid_on_the_card_equals_the_cpu():
+    """The ``tiny`` grid on the card with the kernel and serve axes: every
+    hardware field and the accuracy equal the CPU run's; ``kernel_us`` and
+    the served samples/s are positive; the timed calls and served steps
+    launched K2 (one launch per timed call, the first untimed one
+    included, plus the served steps' replays)."""
+    _need_card()
+    import dataclasses
+    from repro_torch.sweep import SweepSettings, run_grid
+    from repro_torch.sweep.results import EXACT_FIELDS
+    card = SweepSettings(n_train=512, n_test=256, kernel=True, serve=True,
+                         kernel_iters=2, serve_batch=32)
+    cpu = dataclasses.replace(card, device="cpu", kernel=False,
+                              serve=False)
+    K.reset_launch_counts()
+    got = run_grid("tiny", card, cache_dir=None)
+    launched = K.launch_counts()
+    want = run_grid("tiny", cpu, cache_dir=None)
+    for a, b in zip(got.points, want.points):
+        assert a.point == b.point
+        for f in EXACT_FIELDS:
+            assert getattr(a, f) == getattr(b, f), (a.point.label, f)
+        assert a.kernel_us > 0 and a.kernel_batch == 256
+        assert a.serve_throughput > 0 and a.serve_backend == "fused-packed"
+    n = len(got.points)
+    assert launched["fused_dwn_packed"] >= n * (1 + card.kernel_iters
+                                                + card.serve_requests)
+    assert got.settings["device"] == "cuda"

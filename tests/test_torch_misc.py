@@ -52,7 +52,10 @@ def test_port_imports_neither_jax_nor_the_reference():
         "assert 'repro_torch.launch.train' in names, names\n"
         "for n in ('hw.cost', 'hw.verilog', 'hw.cosim', 'hw.report',\n"
         "          'workloads.mnist', 'dwn.smoke', 'serving.continuous',\n"
-        "          'runtime.straggler', 'launch.loadgen'):\n"
+        "          'runtime.straggler', 'launch.loadgen', 'runtime.fault',\n"
+        "          'sweep', 'sweep.grid', 'sweep.results', 'sweep.cache',\n"
+        "          'sweep.artifacts', 'sweep.pipeline', 'sweep.executor',\n"
+        "          'sweep.autodesign', 'launch.sweep'):\n"
         "    assert 'repro_torch.' + n in names, names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
