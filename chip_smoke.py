@@ -7,7 +7,8 @@ MNIST and JSC width (cost report, RTL co-simulation against the served
 kernel's counts), the encoding design-space sweep over the paper's grid
 (cost, accuracy, K2 time, served samples/s, cache, worker processes,
 autodesign), its staged packed and float datapaths, its
-flash-attention kernel and qwen3-8b serving at full width.
+flash-attention kernel, qwen3-8b serving at full width with a DWN head
+on its backbone, and qwen3-8b training.
 
     python3 chip_smoke.py
 
@@ -99,7 +100,32 @@ Phases, each printing one JSON line:
    bounds and a profiler split of a prefill and a decode step (it fails
    if the prefill's profile finds no time in K10 while its launches were
    counted);
-8. train   — DWN training at dwn-jsc-lg width (one layer of 2400 LUT6 over
+8. lm_head — the DWN head on the LM backbone: an ``lm-head`` split (1024
+   / 512 sequences through the reduced backbone) made on the card,
+   ``dwn-lm-head`` trained one epoch there, frozen and packed, then
+   ``ServingEngine(qwen3-8b with attn_impl="pallas", dwn_head=art)`` at
+   full width (36 layers, weights from a seed), whose startup gate holds
+   the head's K2 counts to ``apply_hard``, serving 2 LM requests (4 x
+   2048 tokens, 16 generated) and 2 classify requests (8 x 2048 tokens) in
+   one drain: 36 K10 launches a forward, K2 once a classify request (a
+   replay of the captured step), every returned count equal to
+   ``apply_hard`` on the returned features; a classify request's time
+   split into the backbone forward, the pooling and K2; the 16-column
+   unembedding's features against the full one's; then ``python -m
+   repro_torch.launch.serve --arch qwen3-8b --dwn-head dwn-lm-head``;
+9. lm_train — LM training: four steps of the reduced qwen3-8b on the card
+   equal to the CPU's from one init (loss within 1e-3, grad norm within
+   5e-3, params within 3 * lr * steps); then qwen3-8b at full width with
+   its layers cut to what the card holds beside float32 weights,
+   gradients and two Adam moments, 11 steps of 8 x 128 and 11 of 2 x 2048
+   ``TokenStream`` tokens (the loss must fall and stay finite), each
+   step's ms by CUDA events beside its bound, a profiler split of one
+   step of each (attention, cross-entropy, Adam, the clip, the other
+   products, the rest) and the peak memory; the train CLI with
+   ``--ckpt-dir`` crashed once and resumed on the card, equal to an
+   uninterrupted run; ``python -m repro_torch.launch.train --arch
+   qwen3-8b --reduced --steps 20``;
+10. train  — DWN training at dwn-jsc-lg width (one layer of 2400 LUT6 over
    3200 thermometer bits, 5 classes) on ``load_jsc(20000, 5000)``, the
    paper protocol (batch 128, Adam lr 1e-3, StepLR(30, 0.1), clamp
    (-1, 1)), with the library's float32 product settings: 4 steps on the
@@ -114,7 +140,7 @@ Phases, each printing one JSON line:
    the rest; idle shares); then ``DWNArtifact.train`` (one epoch) frozen,
    packed and served through ``ServingEngine``, whose startup oracle
    check must pass, every served count equal to ``apply_hard``'s;
-9. serve   — ``ServingEngine("dwn-jsc-lg", device="cuda")`` at full width,
+11. serve  — ``ServingEngine("dwn-jsc-lg", device="cuda")`` at full width,
    whose startup checks every backend against the float oracle and whose
    fused steps replay one CUDA graph per (bucket, tuned config); serves 16
    requests of 4096 rows on the packed kernel, the same stream on the
@@ -131,7 +157,7 @@ Phases, each printing one JSON line:
    per bucket (at most one) printed and every request held to the
    oracle; last the served artifact is saved, loaded back and served
    bit-exact;
-10. load   — dwn-jsc-lg through the continuous-batching loop
+12. load   — dwn-jsc-lg through the continuous-batching loop
    (``serve()`` / ``submit_async``), pinned to K2 and with
    ``backend="auto"``: a ragged stream of 40 requests of 1-4096 rows,
    three of them 3 × 4096 + 17 rows (served in chunks), every result
@@ -157,7 +183,7 @@ Phases, each printing one JSON line:
    count equal to its non-ok results; last one second at 1.0 under
    ``torch.profiler``: the card's busy time (kernels, copies in, copies
    out) and idle share beside the loop's busy share.  No speed is gated;
-11. hw     — ``dwn-mnist-lg`` (F = 196 pooled pixels, T = 16: 3136 encoder
+13. hw     — ``dwn-mnist-lg`` (F = 196 pooled pixels, T = 16: 3136 encoder
    bits, 98 words a sample; one layer of 2000 LUT6, 10 classes) trained
    one epoch on ``load_mnist(20000, 5000)`` on the card, frozen, packed
    and served through ``ServingEngine``: 16 requests of 4096 rows pinned
@@ -176,7 +202,7 @@ Phases, each printing one JSON line:
    artifact saved, loaded and served again bit-exact; then the paper's
    ``dwn-jsc-lg`` at PEN 9 bits from a warm start on the card: its cost
    report and the same RTL check;
-12. sweep  — the encoding design-space sweep: ``run_grid("paper",
+14. sweep  — the encoding design-space sweep: ``run_grid("paper",
    SweepSettings(device="cuda", kernel=True, serve=True))`` at the
    reference's defaults (n_train 4000, n_test 2000; the four presets, TEN
    and PEN at Table I's fine-tuned widths, lg-2400 at full width) into a
@@ -193,7 +219,7 @@ Phases, each printing one JSON line:
    processes sharing the card equal to the serial run; ``choose_design``
    at an accuracy floor between the grid's lowest and highest and
    ``emit_verified`` on 256 vectors (oracle on the card);
-13. cli    — ``python -m repro_torch.launch.serve --arch dwn-jsc-lg`` with
+15. cli    — ``python -m repro_torch.launch.serve --arch dwn-jsc-lg`` with
    four requests, the same with ``--backend auto``, ``--arch
    qwen3-8b --batch 2 --prompt-len 32 --gen 4``, ``python -m
    repro_torch.launch.train --arch dwn-jsc-lg --workload jsc --epochs
@@ -211,8 +237,9 @@ Phases, each printing one JSON line:
    --no-kernel --no-serve``, equal on every hardware field and accuracy.
 
 Then it prints each phase's seconds, the kernels' summary line (K1's and
-K2's launches on each served path, the load phase's sessions and the
-sweep's paper grid among them,
+K2's launches on each served path, the load phase's sessions, the
+sweep's paper grid and the DWN head among them, K10's on the LM and the
+head paths,
 their times at the mnist-lg shape
 beside their bounds), nvidia-smi's line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -2063,6 +2090,484 @@ TRAIN_STEPS = 4
 PEAK_FP32_OPS_PER_S = 67e12
 
 
+# ---------------------------------------------------------------------------
+# LM training and the DWN head on the LM backbone
+# ---------------------------------------------------------------------------
+
+#: the reduced qwen3-8b's four card steps against the CPU's from one init:
+#: bf16 products on another device round otherwise, and the step's
+#: arithmetic carries that into the loss and the gradient norm
+LM_TRAIN_LOSS_REL, LM_TRAIN_GNORM_REL = 1e-3, 5e-3
+#: bytes of the card the full-width training state leaves free: a step's
+#: activations (one residual a layer, one layer recomputed at a time),
+#: the cross-entropy over 152,064 padded logits a position (float32, with
+#: its gradient) and Adam's per-leaf temporaries (the largest leaf, the
+#: embedding table, is 2.49 GB).  At 12 layers the 2 x 2048 step peaked
+#: at 64.7 GB of the H100's 85.0 (NVIDIA H100 80GB HBM3, 700 W), 21.9 GB
+#: above its 42.7 GB of weights and moments; 20 GB leaves 14 layers
+LM_TRAIN_HEADROOM_BYTES = 20e9
+#: the DWN head's features from the narrow unembedding (16 columns)
+#: against the full one's on the card: about two bf16 ulps of a pooled
+#: logit mean times 0.3
+HEAD_FEAT_TOL = 5e-3
+
+
+def lm_param_counts(cfg):
+    """(parameters of one layer, of the embedding table, of everything
+    else outside the layers: the unembedding and the final norm)."""
+    D, F, hd = cfg.d_model, cfg.d_ff, cfg.head_dim_
+    H, KH, V = cfg.num_heads, cfg.num_kv_heads, cfg.vocab_padded(1)
+    layer = D * hd * (H + 2 * KH) + H * hd * D + 3 * D * F + 2 * D + 2 * hd
+    return layer, V * D, V * D + D
+
+
+def lm_train_layers(cfg, total_bytes):
+    """The most layers whose float32 weights, gradients and two Adam
+    moments (16 B a parameter) leave LM_TRAIN_HEADROOM_BYTES free."""
+    layer, table, other = lm_param_counts(cfg)
+    fit = (total_bytes - LM_TRAIN_HEADROOM_BYTES - 16 * (table + other)) \
+        // (16 * layer)
+    return int(max(1, min(cfg.num_layers, fit)))
+
+
+def lm_train_bound(cfg, tokens):
+    """Least time of one training step, the larger of 6 * parameters *
+    tokens (every parameter but the embedding table's lookups) at the
+    bf16 tensor-core peak and Adam's bytes (read the weight, gradient and
+    two moments, write the weight and moments: 28 B a parameter) at the
+    memory peak."""
+    layer, table, other = lm_param_counts(cfg)
+    n = cfg.num_layers * layer + table + other
+    ops = 6 * (n - table) * tokens
+    by_ops, by_bytes = ops / PEAK_BF16_OPS_PER_S, 28 * n / PEAK_BYTES_PER_S
+    return {"bound_ms": max(by_ops, by_bytes) * 1e3,
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+            "operations": ops, "adam_bytes": 28 * n, "params": n}
+
+
+def _lm_steps(cfg, init, device, batches):
+    """``make_train_step`` over ``batches`` from a copy of ``init`` on
+    ``device``: (params, [(loss, grad norm)])."""
+    import torch
+    from repro_torch.models import api
+    from repro_torch.optim.adam import map_tree
+    step, opt = api.make_train_step(cfg)
+    params = map_tree(lambda t: t.to(device, copy=True), init)
+    state = opt.init(params)
+    hist = []
+    for raw in batches:
+        batch = {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
+        params, state, m = step(params, state, batch)
+        hist.append((float(m["loss"]), float(m["grad_norm"])))
+    return params, hist
+
+
+def _lm_step_profile(step, params, state, batch):
+    """One training step under ``torch.profiler``: the device's busy time
+    split into the attention (its ``lm.attention`` ranges, the layers'
+    recomputation included, and the backward of every op they ran), the
+    cross-entropy (likewise), Adam and the clip (their ranges), the other
+    matrix products (cuBLAS kernels) and the rest (norms, RoPE, SiLU,
+    casts, the embedding's gather and its backward, autograd's own
+    work).  A backward op belongs to the range of the forward op that
+    made it (the profiler's forward thread and sequence number)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = step(params, state, batch)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+
+    def owner(e):
+        while e is not None:
+            if e.name.startswith("lm."):
+                return e.name
+            e = e.cpu_parent
+        return None
+
+    made_by = {}
+    for e in events:
+        if e.device_type != cuda and e.sequence_nr >= 0 and owner(e):
+            made_by[(e.thread, e.sequence_nr)] = owner(e)
+    split = {"attention_ms": 0.0, "cross_entropy_ms": 0.0, "adam_ms": 0.0,
+             "clip_ms": 0.0, "matmul_ms": 0.0, "other_ms": 0.0}
+    key_of = {"lm.attention": "attention_ms",
+              "lm.cross_entropy": "cross_entropy_ms",
+              "lm.adam": "adam_ms", "lm.clip": "clip_ms"}
+    linked = 0.0
+    for e in events:
+        if e.device_type == cuda or not e.kernels:
+            continue
+        name = owner(e)
+        a = e
+        while name is None and a is not None:
+            if a.name.startswith("autograd::engine::evaluate_function"):
+                name = made_by.get((a.fwd_thread, a.sequence_nr))
+            a = a.cpu_parent
+        for k in e.kernels:
+            ms = k.duration / 1e3
+            linked += ms
+            if name in key_of:
+                split[key_of[name]] += ms
+            elif any(g in k.name for g in GEMM_KERNELS):
+                split["matmul_ms"] += ms
+            else:
+                split["other_ms"] += ms
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == cuda and not e.is_user_annotation) / 1e3
+    split["other_ms"] += max(0.0, busy - linked)     # tied to no host op
+    return out, {"device_busy_ms": busy or None, "wall_ms": wall,
+                 "device_idle_share": (max(0.0, 1 - busy / wall)
+                                       if busy else None), **split}
+
+
+def _train_cli(argv):
+    """``repro_torch.launch.train`` in this process: its last JSON line."""
+    import io
+    from repro_torch.launch import train
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        if train.main(argv) != 0:
+            raise SystemExit(f"launch.train {argv} did not exit 0")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def _lm_restart(device, steps=6, crash_at=5):
+    """The train CLI with ``--ckpt-dir`` on the card (reduced qwen3-8b, a
+    checkpoint every 2 steps) run whole and with one injected crash at
+    ``crash_at``: the crashed run resumes from its step-4 checkpoint on
+    the card and ends equal to the whole run within 3 * lr * steps."""
+    import torch
+    from repro_torch.models import api
+    from repro_torch.runtime import checkpoint as ck
+    from repro_torch.runtime import fault
+    base = ROOT / "build" / "chip_smoke_lm_ckpt"
+    shutil.rmtree(base, ignore_errors=True)
+    argv = ["--arch", "qwen3-8b", "--reduced", "--steps", str(steps),
+            "--save-every", "2", "--log-every", "100", "--device", device]
+    whole = _train_cli(argv + ["--ckpt-dir", str(base / "whole")])
+    make, injector, seen = api.make_train_step, fault.FaultInjector(
+        {crash_at}), set()
+
+    def crashing(*a, **kw):
+        step, opt = make(*a, **kw)
+
+        def wrapped(params, state, batch):
+            seen.add(params["embed"]["table"].device.type)
+            injector.maybe_crash(int(state.step) + 1)
+            return step(params, state, batch)
+        return wrapped, opt
+
+    api.make_train_step = crashing
+    try:
+        crashed = _train_cli(argv + ["--ckpt-dir", str(base / "crashed")])
+    finally:
+        api.make_train_step = make
+    extra, trees = None, {}
+    for name in ("whole", "crashed"):
+        d = base / name
+        manifest = json.loads((d / f"step_{steps:08d}" / "manifest.json")
+                              .read_text())
+        trees[name] = {k: torch.from_numpy(np.load(
+            d / f"step_{steps:08d}" / v["file"]))
+            for k, v in manifest["leaves"].items()}
+        extra = manifest["extra"]
+    diff = max(float((trees["whole"][k].double()
+                      - trees["crashed"][k].double()).abs().max())
+               for k in trees["whole"])
+    bar = 3 * 3e-4 * steps
+    out = {"steps": steps, "crash_at": crash_at, "fired": injector.fired,
+           "devices_seen": sorted(seen), "whole": whole, "crashed": crashed,
+           "extra": extra, "max_abs_diff": diff, "tolerance": bar,
+           "bit_exact": diff == 0.0,
+           "latest_steps": [ck.latest_step(base / n)
+                            for n in ("whole", "crashed")]}
+    shutil.rmtree(base, ignore_errors=True)
+    if not (injector.fired == 1 and seen == {device} and diff <= bar
+            and crashed["steps"] == whole["steps"] == steps
+            and extra == {"data": {"step": steps}}):
+        emit({"phase": "lm_train", "restart": out})
+        raise SystemExit(f"the crashed LM run did not resume to the whole "
+                         f"run's state: {out}")
+    return out
+
+
+def phase_lm_train(device, shapes=((8, 128, 10), (2, 2048, 10))):
+    """LM training of qwen3-8b on the card: the reduced model's steps equal
+    to the CPU's, then the full width (the layers cut to what the card
+    holds) for ``shapes`` (batch, sequence, steps) of ``TokenStream``
+    batches with step times, the bound, a profiler split and peak memory;
+    a crashed and resumed run; the train CLI."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import api, transformer
+    torch.cuda.empty_cache()
+    # the gate: four steps of the reduced model, card against CPU
+    small = get_arch("qwen3-8b").reduced()
+    init = transformer.init_params(small, seed=0, dtype=torch.float32)
+    stream = TokenStream(small.vocab_size, 128, 8, seed=0)
+    batches = [stream.next_batch() for _ in range(4)]
+    _reset_counts()
+    cpu_p, cpu_h = _lm_steps(small, init, "cpu", batches)
+    card_p, card_h = _lm_steps(small, init, device, batches)
+    torch.cuda.synchronize()
+    _expect_launches("LM training", {})
+    from repro_torch.optim.adam import leaves
+    param_diff = max(float((a - b.cpu()).abs().max())
+                     for a, b in zip(leaves(cpu_p), leaves(card_p)))
+    gate = {"cpu": cpu_h, "card": card_h, "param_max_abs_diff": param_diff,
+            "loss_rel": LM_TRAIN_LOSS_REL, "gnorm_rel": LM_TRAIN_GNORM_REL,
+            "param_tolerance": 3 * 3e-4 * 4}
+    ok = all(abs(g[0] - c[0]) <= LM_TRAIN_LOSS_REL * c[0]
+             and abs(g[1] - c[1]) <= LM_TRAIN_GNORM_REL * c[1]
+             for c, g in zip(cpu_h, card_h)) and param_diff <= 3 * 3e-4 * 4
+    if not ok:
+        emit({"phase": "lm_train", "gate": gate})
+        raise SystemExit("the card's LM train steps disagree with the CPU's")
+    del cpu_p, card_p
+
+    # full width, depth cut to what the card holds
+    total = torch.cuda.get_device_properties(0).total_memory
+    full = get_arch("qwen3-8b")
+    cfg = dataclasses.replace(full, num_layers=lm_train_layers(full, total))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=0, device=device,
+                                     dtype=torch.float32)
+    step, opt = api.make_train_step(cfg)
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_bytes = 3 * sum(t.numel() * 4 for t in leaves(params))
+    runs = []
+    _reset_counts()
+    for B, S, n in shapes:
+        stream = TokenStream(cfg.vocab_size, S, B, seed=0)
+        losses, gnorms, step_ms = [], [], []
+        for _ in range(n):
+            raw = stream.next_batch()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            batch = {k: torch.from_numpy(v).to(device)
+                     for k, v in raw.items()}
+            params, state, m = step(params, state, batch)
+            end.record()
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            torch.cuda.synchronize()
+            step_ms.append(start.elapsed_time(end))
+        raw = stream.next_batch()
+        batch = {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
+        (params, state, m), profile = _lm_step_profile(step, params, state,
+                                                      batch)
+        runs.append({"batch": B, "seq": S, "steps": n + 1,
+                     "losses": losses + [float(m["loss"])],
+                     "grad_norms": gnorms + [float(m["grad_norm"])],
+                     "step_ms": step_ms,
+                     "step_ms_median": float(np.median(step_ms[1:])),
+                     # the caching allocator's retries (a cudaFree of its
+                     # cache and a synchronize each) so far in the phase
+                     "alloc_retries": torch.cuda.memory_stats().get(
+                         "num_alloc_retries"),
+                     "bound": lm_train_bound(cfg, B * S),
+                     "profile": profile})
+    torch.cuda.synchronize()
+    launches = _expect_launches("full-width LM training", {})
+    peak = torch.cuda.max_memory_allocated()
+    for r in runs:
+        r["over_bound"] = r["step_ms_median"] / r["bound"]["bound_ms"]
+        # the profiler slows the host: the idle share against an
+        # unprofiled step's time
+        busy = r["profile"]["device_busy_ms"]
+        r["profile"]["device_idle_share_of_step_ms"] = (
+            max(0.0, 1 - busy / r["step_ms_median"]) if busy else None)
+        ls = r["losses"]
+        if not (np.isfinite(ls).all() and np.isfinite(r["grad_norms"]).all()
+                and ls[-1] < ls[0]):
+            emit({"phase": "lm_train", "runs": runs})
+            raise SystemExit(f"the full-width loss did not fall or is not "
+                             f"finite at {r['batch']} x {r['seq']}: {ls}")
+    del params, state, step, opt, m, batch
+    torch.cuda.empty_cache()
+
+    restart = _lm_restart(device)
+    t0 = time.perf_counter()
+    cli = _train_cli(["--arch", "qwen3-8b", "--reduced", "--steps", "20"])
+    cli_s = time.perf_counter() - t0
+    if not (cli["device"] == "cuda" and cli["steps"] == 20
+            and cli["last_loss"] < cli["first_loss"]):
+        raise SystemExit(f"launch.train --arch qwen3-8b: {cli}")
+    layer, table, other = lm_param_counts(cfg)
+    emit({"phase": "lm_train", "gate": gate,
+          "full_width": {"arch": cfg.name, "layers": cfg.num_layers,
+                         "layers_of_the_model": full.num_layers,
+                         "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+                         "heads": [cfg.num_heads, cfg.num_kv_heads],
+                         "vocab": cfg.vocab_size,
+                         "attn_impl": cfg.attn_impl, "remat": cfg.remat,
+                         "params": cfg.num_layers * layer + table + other,
+                         "state_bytes_weights_and_moments": state_bytes,
+                         "card_bytes": total,
+                         "headroom_bytes": LM_TRAIN_HEADROOM_BYTES,
+                         "init_s": init_s, "peak_memory_bytes": peak,
+                         "launches": launches, "runs": runs},
+          "restart": restart, "cli": cli, "cli_s": cli_s})
+    return {"layers": cfg.num_layers, "peak_memory_bytes": peak}
+
+
+def phase_lm_head(device, batch=4, classify_batch=8, requests=2,
+                  prompt_len=2048, gen=16):
+    """The DWN head on the LM backbone at full width: an lm-head split made
+    on the card, dwn-lm-head trained one epoch there, frozen and packed,
+    then ``ServingEngine(qwen3-8b with attn_impl="pallas", dwn_head=art)``
+    serving LM and classify requests in one drain through K10 and K2,
+    every head count against ``apply_hard``; a classify request's time
+    split; the serve CLI's ``--dwn-head dwn-lm-head``."""
+    import gc
+    import io
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.model import apply_hard
+    from repro_torch.dwn import DWNArtifact, resolve_spec
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    from repro_torch.serving import ServingEngine
+    from repro_torch.workloads import load_workload
+    from repro_torch.workloads.lm_head import FEATS, pool_features
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    data = load_workload("lm-head", 1024, 512, seed=0, device=device)
+    split_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    art = DWNArtifact(resolve_spec("dwn-lm-head")).train(
+        data, epochs=1, device=device)
+    art.freeze().pack(device)
+    train_s = time.perf_counter() - t0
+    x_test = torch.from_numpy(data.x_test).to(device)
+    test_acc = float((apply_hard(art.frozen, x_test).argmax(-1).cpu()
+                      .numpy() == data.y_test).mean())
+
+    cfg = dataclasses.replace(get_arch("qwen3-8b"), attn_impl="pallas")
+    _reset_counts()
+    t0 = time.perf_counter()
+    engine = ServingEngine(cfg, prompt_len=prompt_len, gen=gen,
+                           device=device, seed=0, dwn_head=art)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    startup = {name: n for K in _kernel_modules()
+               for name, n in K.launch_counts().items() if n}
+    if engine.head_bit_exact is not True:
+        raise SystemExit("the DWN head's startup gate did not pass")
+    if startup.get("flash_attention") != cfg.num_layers:
+        raise SystemExit(f"the head's startup gate launched {startup}, not "
+                         f"{cfg.num_layers} flash attentions")
+    lm_reqs = [engine.make_request(batch, seed=100 + i)
+               for i in range(requests)]
+    cls_reqs = [engine.make_request(classify_batch, seed=200 + i,
+                                    classify=True) for i in range(requests)]
+    step = engine._head_backend.step_for(classify_batch)
+    per_replay = step.launches
+    _reset_counts()
+    for lm_req, cls_req in zip(lm_reqs, cls_reqs):
+        engine.submit(lm_req)
+        engine.submit(cls_req)
+    done = engine.drain()
+    torch.cuda.synchronize()
+    want = {"flash_attention": cfg.num_layers * 2 * requests,
+            **{name: n * requests for name, n in per_replay.items()}}
+    launches = _expect_launches("the LM + DWN-head drain", want)
+    heads = [r for r in done if "pred" in r.result]
+    lms = [r for r in done if "tokens" in r.result]
+    if len(heads) != requests or len(lms) != requests:
+        raise SystemExit(f"the drain served {len(lms)} LM and {len(heads)} "
+                         f"classify requests, not {requests} each")
+    for r in lms:
+        toks = r.result["tokens"]
+        if toks.shape != (batch, gen) or not (
+                (toks >= 0) & (toks < cfg.vocab_size)).all():
+            raise SystemExit(f"LM request {r.rid}: tokens {toks.shape}")
+    for r in heads:
+        feats = torch.from_numpy(r.result["features"]).to(device)
+        want_counts = apply_hard(art.frozen, feats).cpu().numpy()
+        if not (np.array_equal(r.result["counts"], want_counts) and
+                np.array_equal(r.result["pred"], want_counts.argmax(-1))):
+            raise SystemExit(f"classify request {r.rid}: K2's counts differ "
+                             f"from apply_hard on its features")
+
+    # a classify request's time, split
+    toks = torch.from_numpy(cls_reqs[0]["tokens"]).to(device)
+    mod = api.module_for(cfg)
+    with torch.no_grad():
+        backbone = lambda: mod.forward(  # noqa: E731
+            engine.params, cfg, {"tokens": toks}, vocab_cols=FEATS)[0]
+        logits16 = backbone()
+        feats = pool_features(logits16)
+        split = {"backbone_forward_ms": time_ms(backbone, 3, 1),
+                 "pooling_ms": time_ms(lambda: pool_features(logits16), 20,
+                                       3),
+                 "k2_ms": time_ms(lambda: step(feats), 20, 3)}
+        t0 = time.perf_counter()
+        for _ in range(3):
+            engine._head_step(cls_reqs[0])
+        split["classify_request_wall_ms"] = \
+            (time.perf_counter() - t0) * 1e3 / 3
+        # the narrow unembedding against the full one, one sequence
+        full = mod.forward(engine.params, cfg, {"tokens": toks[:1]})[0]
+        narrow_diff = float((pool_features(full)
+                             - pool_features(logits16[:1])).abs().max())
+        del full
+    narrow = {"max_abs_diff": narrow_diff, "tolerance": HEAD_FEAT_TOL,
+              "equal": narrow_diff == 0.0}
+    if not narrow_diff <= HEAD_FEAT_TOL:
+        raise SystemExit(f"the 16-column unembedding's features differ from "
+                         f"the full one's by {narrow_diff}")
+    rep = engine.report()
+    if not (rep["dwn_head"]["bit_exact_vs_oracle"] and
+            rep["dwn_head"]["served"] == classify_batch * (requests + 3)):
+        raise SystemExit(f"report dwn_head: {rep['dwn_head']}")
+    report = {k: rep[k] for k in ("dwn_head", "prefill_s",
+                                  "decode_s_per_tok", "served", "latency")}
+    del engine, step, logits16, feats, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the CLI, as a user runs it (the arch's own masked attention)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        serve.main(["--arch", "qwen3-8b", "--dwn-head", "dwn-lm-head",
+                    "--device", device])
+    cli_s = time.perf_counter() - t0
+    cli = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if not (cli["dwn_head"]["bit_exact_vs_oracle"] and
+            len(cli["head_sample"]) == 4 and cli["device"] == "cuda"):
+        raise SystemExit(f"serve --dwn-head: {cli}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_head", "split_s": split_s, "head_train_s": train_s,
+          "head_test_accuracy": test_acc,
+          "head_calibration": art.calibration,
+          "arch": cfg.name, "layers": cfg.num_layers,
+          "attn_impl": cfg.attn_impl, "init_s": init_s,
+          "startup_launches": startup, "launches": launches,
+          "k2_launches_per_classify_request": per_replay,
+          "lm_requests": [batch, prompt_len, gen],
+          "classify_requests": [classify_batch, prompt_len],
+          "classify_split": split, "narrow_unembed": narrow,
+          "report": report, "cli_s": cli_s,
+          "cli": {k: cli[k] for k in ("dwn_head", "head_sample", "sample",
+                                      "prefill_s", "decode_s_per_tok")}})
+    return launches
+
+
 def train_bytes_and_ops(cfg, batch):
     """What one minibatch step must move and compute, from the shapes.
 
@@ -3565,6 +4070,8 @@ def main() -> int:
     flash_err, flash_timing = run("flash", phase_flash, "cuda",
                                   ptxas["flash_attn"])
     flash_launches = run("lm", phase_lm, "cuda")
+    head_launches = run("lm_head", phase_lm_head, "cuda")
+    run("lm_train", phase_lm_train, "cuda")
     # training runs with the library's float32 product settings (its
     # step forces full float32 itself), not with this script's
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
@@ -3596,7 +4103,9 @@ def main() -> int:
                       "load dwn-jsc-lg": load_launches[name],
                       "hw dwn-mnist-lg": hw_launches[name],
                       **{path: n[name] for path, n in
-                         sweep_launches.items()}}
+                         sweep_launches.items()},
+                      "lm_head dwn-lm-head on qwen3-8b":
+                          head_launches.get(name, 0)}
                for name in launches}
     summary = []
     for name in ("fused_dwn_batch_major", "fused_dwn_packed"):
@@ -3653,6 +4162,10 @@ def main() -> int:
     summary.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH[0],
         "replaces": FLASH[1], "launches": flash_launches["flash_attention"],
+        "launches_by_path": {
+            "lm qwen3-8b": flash_launches["flash_attention"],
+            "lm_head dwn-lm-head on qwen3-8b":
+                head_launches["flash_attention"]},
         "equal": False, "tolerance": FLASH_TOL,
         "row_tolerance": FLASH_ROW_REL, **flash_err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -1,1 +1,2 @@
-"""Datasets: the seeded synthetic JSC loader."""
+"""Datasets: the seeded synthetic JSC loader and the synthetic LM token
+stream."""

@@ -48,7 +48,8 @@ def run(spec: DWNSpec, *, epochs: int, n_train: int, n_test: int,
     device = resolve_device(device)
     out: dict = {"spec": spec.to_dict(), "fingerprint": spec.fingerprint(),
                  "workload": spec.workload, "device": str(device)}
-    data = load_workload(spec.workload, n_train, n_test, seed=seed)
+    data = load_workload(spec.workload, n_train, n_test, seed=seed,
+                         device=device)
 
     log(f"[1/6] train: {spec.label}, {epochs} epoch(s)")
     art = DWNArtifact(spec).train(data, epochs=epochs, batch=batch,

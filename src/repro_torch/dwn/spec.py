@@ -9,7 +9,8 @@ for the same spec, so a spec names the same build in both packages.
 The reference's spec presets (the JSC serving aliases
 ``dwn-jsc-{sm,md,lg}``, their ``-xla`` twins and
 ``dwn-jsc-sm-{uniform,gaussian}``; the MNIST tiers
-``dwn-mnist-{sm,md,lg}[-xla]``) are registered here as named specs, and
+``dwn-mnist-{sm,md,lg}[-xla]``; ``dwn-lm-head``, the DWN head on the
+qwen3-8b backbone) are registered here as named specs, and
 its other JSC DWN arch names resolve through a table (:data:`ARCH_SPECS`)
 to the specs the reference derives.
 """
@@ -72,7 +73,10 @@ class DWNSpec:
         :data:`DATAPATH_ALIASES`.  The name is kept as given, so the
         fingerprint is the reference's for every name both accept.
       grouping: popcount grouping ("contig" | "strided").
-      workload: registered workload name ("jsc" | "mnist").
+      workload: registered workload name ("jsc" | "mnist" | "lm-head").
+      backbone: arch name of a feature-extractor backbone stage, for
+        specs whose features come from a model (the DWN head on an LM);
+        None inherits the workload's backbone (None for plain datasets).
 
     Raises ``ValueError`` at construction for any invalid combination.
     """
@@ -85,6 +89,7 @@ class DWNSpec:
     datapath: str = "fused-packed"
     grouping: str = "contig"
     workload: str = "jsc"
+    backbone: str | None = None
 
     def __post_init__(self):
         try:
@@ -150,6 +155,15 @@ class DWNSpec:
         return (f"{wl}{self.preset}/{self.variant}{b}/T{self.bits}/"
                 f"{self.placement}")
 
+    @property
+    def effective_backbone(self) -> str | None:
+        """The backbone arch: the ``backbone`` field, else the workload's
+        registered backbone, else None (a plain dataset)."""
+        if self.backbone is not None:
+            return self.backbone
+        from ..workloads import get_workload
+        return get_workload(self.workload).backbone
+
     def dwn_config(self) -> DWNConfig:
         """The core model config this spec builds."""
         return dataclasses.replace(
@@ -158,10 +172,12 @@ class DWNSpec:
 
     def to_dict(self) -> dict:
         d = dataclasses.asdict(self)
-        # the default workload is omitted, as in the reference, so a spec
-        # fingerprints the same in both packages
+        # the default workload and backbone are omitted, as in the
+        # reference, so a spec fingerprints the same in both packages
         if d["workload"] == "jsc":
             del d["workload"]
+        if d["backbone"] is None:
+            del d["backbone"]
         return d
 
     @classmethod
@@ -213,6 +229,9 @@ _PRESETS: dict[str, "DWNSpec | dict"] = {
        for tier, (_, bits) in _MNIST_TIERS.items()
        for suffix, datapath in (("", "fused-packed"),
                                 ("-xla", "packed-xla"))},
+    "dwn-lm-head": {"preset": "lm-head-50", "workload": "lm-head",
+                    "bits": 64, "placement": "uniform",
+                    "backbone": "qwen3-8b", "datapath": "fused-packed"},
 }
 
 #: the reference's other JSC DWN arch names -> the kwargs of the spec its
@@ -237,8 +256,8 @@ ARCH_SPECS: dict[str, dict] = {
 }
 
 #: the reference's DWN names whose workloads the port does not run yet ->
-#: the ROADMAP.md item that ports them
-NOT_PORTED: dict[str, str] = {"dwn-lm-head": "Queue 1 item 8"}
+#: the ROADMAP.md item that ports them (none since ``dwn-lm-head``)
+NOT_PORTED: dict[str, str] = {}
 
 
 def spec_presets() -> list[str]:
@@ -246,8 +265,8 @@ def spec_presets() -> list[str]:
 
 
 def dwn_names() -> list[str]:
-    """Every DWN name :func:`resolve_spec` takes: the spec presets (JSC and
-    MNIST) and the reference's other JSC arch names."""
+    """Every DWN name :func:`resolve_spec` takes: the spec presets (JSC,
+    MNIST and the LM head) and the reference's other JSC arch names."""
     return sorted([*_PRESETS, *ARCH_SPECS])
 
 
@@ -274,9 +293,9 @@ def get_spec(name: str) -> DWNSpec:
 
 
 def resolve_spec(target) -> DWNSpec:
-    """A DWNSpec as-is, a spec preset's name (JSC or MNIST) as its spec,
-    or one of the reference's other JSC arch names as the spec the
-    reference derives from it.  ``KeyError`` for any other name, naming
+    """A DWNSpec as-is, a spec preset's name (JSC, MNIST or the LM head)
+    as its spec, or one of the reference's other JSC arch names as the
+    spec the reference derives from it.  ``KeyError`` for any other name, naming
     the ROADMAP item for a DWN name the port does not run yet."""
     if isinstance(target, DWNSpec):
         return target

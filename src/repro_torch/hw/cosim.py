@@ -661,7 +661,7 @@ def verify_rtl(target, x=None, *, n: int = 256, backend: str = "auto",
             # artifact: real test vectors of the spec's own workload
             from ..workloads import load_workload
             x = load_workload(target.spec.workload, 512, max(n, 1),
-                              seed=seed).x_test[:n]
+                              seed=seed, device=device).x_test[:n]
         elif frozen.cfg.num_features == 16:
             # bare FrozenDWN at the JSC geometry: the legacy default
             from ..data.jsc import load_jsc

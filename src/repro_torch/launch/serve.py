@@ -19,7 +19,11 @@ of ``--prompt-len`` tokens, prefilled and decoded greedily for ``--gen``
 tokens; ``--reduced`` serves the tiny same-family variant.  The arch's
 ``attn_impl`` decides prefill attention (qwen3-8b: ``masked``; the
 engine takes an ``ArchConfig`` with ``attn_impl="pallas"`` for the
-flash-attention kernel).
+flash-attention kernel).  ``--dwn-head`` (a spec preset name such as
+``dwn-lm-head`` or a ``DWNArtifact`` checkpoint path) attaches a DWN
+classification head on the backbone's pooled features: the same drain
+then serves the LM request and one ``classify`` request of ``--batch``
+prompts, and the report carries ``dwn_head``.
 
 Runs on the CUDA card unless ``--device cpu`` is given.
 
@@ -34,6 +38,7 @@ Usage:
     python -m repro_torch.launch.serve --arch qwen3-8b
     python -m repro_torch.launch.serve --arch qwen3-8b --reduced \\
         --device cpu --prompt-len 8 --gen 2
+    python -m repro_torch.launch.serve --arch qwen3-8b --dwn-head dwn-lm-head
 
 Prints one JSON report line.
 """
@@ -107,18 +112,19 @@ def dwn_serve(target, args) -> dict:
 
 
 def lm_serve(args) -> dict:
-    """Prefill + greedy decode of one request of ``--batch`` prompts;
-    returns the engine's report."""
-    if args.dwn_head:
-        raise NotImplementedError(
-            "--dwn-head: the port has no DWN head on an LM backbone yet "
-            "(ROADMAP Queue 1 item 8)")
+    """Prefill + greedy decode of one request of ``--batch`` prompts, and
+    with ``--dwn-head`` one classify request of as many; returns the
+    engine's report."""
     engine = ServingEngine(get_arch(args.arch), reduced=args.reduced,
                            prompt_len=args.prompt_len, gen=args.gen,
                            seed=args.seed, device=args.device,
-                           model_parallel=args.model_parallel)
+                           model_parallel=args.model_parallel,
+                           dwn_head=args.dwn_head or None)
     B = args.batch or 4
     engine.submit(engine.make_request(B, seed=args.seed))
+    if args.dwn_head:
+        engine.submit(engine.make_request(B, seed=args.seed + 1,
+                                          classify=True))
     done = engine.drain()
     rep = engine.report()
     tokens = done[0].result["tokens"]
@@ -127,6 +133,11 @@ def lm_serve(args) -> dict:
                            f"not {(B, args.gen)}")
     rep["batch"] = B
     rep["sample"] = tokens[0, :8].tolist()
+    if args.dwn_head:
+        head = [r for r in done if "pred" in r.result]
+        if not head or head[0].result["pred"].shape != (B,):
+            raise RuntimeError("the classify request was not served")
+        rep["head_sample"] = head[0].result["pred"][:8].tolist()
     return rep
 
 
@@ -139,11 +150,13 @@ def main(argv=None) -> int:
                     help='a DWNSpec as JSON, e.g. \'{"preset": "sm-50", '
                          '"variant": "PEN", "input_bits": 9}\'')
     ap.add_argument("--workload", default=None,
-                    help="DWN: registered workload to serve (jsc | mnist; "
-                         "default: the spec's own)")
+                    help="DWN: registered workload to serve (jsc | mnist "
+                         "| lm-head; default: the spec's own)")
     ap.add_argument("--dwn-head", default="",
-                    help="LM: a DWN classification head on the backbone "
-                         "(not ported yet: raises)")
+                    help="LM: attach a packed DWN classification head (a "
+                         "DWNArtifact checkpoint path or a spec preset "
+                         "name, e.g. dwn-lm-head) and serve a classify "
+                         "request beside the LM one in the same engine")
     ap.add_argument("--reduced", action="store_true",
                     help="DWN: fewer, smaller requests (the model keeps "
                          "its width); LM: the tiny same-family model")

@@ -1,4 +1,13 @@
-"""Training CLI: the DWN branch of the reference's ``launch/train.py``.
+"""Training CLI: the reference's ``launch/train.py``, LM and DWN branches.
+
+LM archs (``--arch qwen3-8b``): the dense transformer trained on the
+synthetic ``TokenStream`` (``--batch`` sequences of ``--seq`` tokens a
+step) with the reference's AdamW and global-norm clipping
+(``models.api.make_train_step``), from float32 master weights, with the
+straggler monitor and, given ``--ckpt-dir``, the checkpoint-restart
+``Supervisor`` (the token stream's position rides in the checkpoint).
+Prints one JSON line with the reference's keys, plus the device.  One
+card: ``--model-parallel`` above 1 raises (ROADMAP.md Queue 1 item 9).
 
 DWN archs (``--arch dwn-jsc-lg`` or any name ``dwn.resolve_spec`` takes):
 the arch resolves to a ``DWNSpec``, ``--workload`` (or the spec's own)
@@ -8,11 +17,12 @@ it; several ``--seeds`` train one after another on the card
 keys, plus the device.  With ``--artifact-dir`` each trained model is
 frozen, packed and saved as a ``DWNArtifact``.
 
-LM archs are not trained by the port yet (ROADMAP.md Queue 1 item 8).
-
 Runs on the CUDA card unless ``--device cpu`` is given.
 
 Usage:
+    python -m repro_torch.launch.train --arch qwen3-8b --reduced --steps 20
+    python -m repro_torch.launch.train --arch qwen3-8b --reduced \\
+        --steps 20 --device cpu [--ckpt-dir /tmp/ckpt]
     python -m repro_torch.launch.train --arch dwn-jsc-lg --workload jsc
     python -m repro_torch.launch.train --arch dwn-jsc-sm --reduced \\
         --epochs 1 --device cpu
@@ -30,9 +40,79 @@ import warnings
 
 import numpy as np
 
-from ..configs import list_archs
+from ..configs import get_arch, list_archs
 from ..configs.registry import NOT_PORTED as LM_NOT_PORTED
 from ..device import resolve_device
+
+
+def lm_train(args) -> dict:
+    """Train the LM ``args.arch`` for ``args.steps`` steps; returns the
+    report."""
+    import torch
+
+    from ..data.tokens import TokenStream
+    from ..models import api
+    from ..runtime.fault import PreemptionHandler, Supervisor, TrainHandle
+    from ..runtime.straggler import StragglerMonitor
+
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.model_parallel != 1:
+        raise NotImplementedError(
+            f"--model-parallel {args.model_parallel}: the port trains on "
+            f"one card (multi-card training is ROADMAP.md Queue 1 item 9)")
+    device = resolve_device(args.device)
+    mod = api.module_for(cfg)
+    step_fn, opt = api.make_train_step(cfg, opt=api.make_optimizer(args.lr))
+    stream = TokenStream(cfg.vocab_size, args.seq, args.batch,
+                         seed=args.seed)
+    monitor = StragglerMonitor()
+    losses = []
+
+    def make_batch(raw):
+        return {k: torch.from_numpy(raw[k]).to(device)
+                for k in ("tokens", "labels")}
+
+    def step_once(handle):
+        params, opt_state = handle.state
+        stream.restore(handle.extra.get("data", {"step": handle.step}))
+        raw = stream.next_batch()
+        monitor.step_start()
+        params, opt_state, metrics = step_fn(params, opt_state,
+                                             make_batch(raw))
+        loss = float(metrics["loss"])
+        monitor.step_end()
+        losses.append(loss)
+        handle.state = (params, opt_state)
+        handle.step += 1
+        handle.extra["data"] = stream.state()
+        if handle.step % args.log_every == 0:
+            print(f"step {handle.step:5d} loss={loss:.4f} "
+                  f"gnorm={float(metrics['grad_norm']):.3f}", flush=True)
+        return handle
+
+    def init():
+        params = mod.init_params(cfg, seed=args.seed, device=device,
+                                 dtype=torch.float32)
+        return params, opt.init(params)
+
+    if args.ckpt_dir:
+        # the steps update the state in place: a restart with no
+        # checkpoint yet makes a fresh one
+        sup = Supervisor(args.ckpt_dir, save_every=args.save_every,
+                         preemption=PreemptionHandler(), device=device)
+        handle = sup.run(step_once, init_state=init,
+                         total_steps=args.steps)
+    else:
+        handle = TrainHandle(init(), 0, {})
+        while handle.step < args.steps:
+            handle = step_once(handle)
+    return {"arch": cfg.name, "steps": handle.step,
+            "first_loss": losses[0] if losses else None,
+            "last_loss": float(np.mean(losses[-5:])) if losses else None,
+            "straggler_events": len(monitor.events),
+            "device": str(device)}
 
 
 def dwn_train(args) -> dict:
@@ -42,6 +122,8 @@ def dwn_train(args) -> dict:
     from ..workloads import get_workload
 
     device = resolve_device(args.device)
+    if args.lr is None:
+        args.lr = 1e-3       # the paper protocol
     spec = resolve_spec(args.arch)
     if args.workload is None:
         if spec.workload == "jsc":
@@ -114,37 +196,61 @@ def dwn_train(args) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True,
-                    help="DWN spec preset or arch name")
+                    help="LM arch, or DWN spec preset or arch name")
     ap.add_argument("--workload", default=None,
-                    help="registered workload to train on (default: the "
-                         "spec's own; omitting it for a JSC spec warns)")
+                    help="DWN: registered workload to train on (default: "
+                         "the spec's own; omitting it for a JSC spec warns)")
     ap.add_argument("--reduced", action="store_true",
-                    help="4000 training rows instead of 20000 (the model "
-                         "keeps its width)")
+                    help="LM: the tiny same-family model; DWN: 4000 "
+                         "training rows instead of 20000 (the model keeps "
+                         "its width)")
+    ap.add_argument("--steps", type=int, default=100,
+                    help="LM: optimizer steps")
     ap.add_argument("--batch", type=int, default=0,
-                    help="batch size (default 128, the paper protocol)")
-    ap.add_argument("--lr", type=float, default=1e-3,
-                    help="learning rate (default 1e-3, the paper protocol)")
+                    help="batch size (default: 8 for LM archs, 128 for "
+                         "DWN archs, the paper protocol)")
+    ap.add_argument("--seq", type=int, default=128,
+                    help="LM: tokens a sequence")
+    ap.add_argument("--lr", type=float, default=None,
+                    help="learning rate (default: 3e-4 for LM archs, 1e-3 "
+                         "for DWN archs, the paper protocol)")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="LM: tensor-parallel degree (the port trains on "
+                         "one card: only 1)")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="LM: checkpoint under this directory and resume "
+                         "from its latest step (Supervisor)")
+    ap.add_argument("--save-every", type=int, default=50,
+                    help="LM: checkpoint cadence in steps")
+    ap.add_argument("--log-every", type=int, default=10,
+                    help="LM: print the loss every this many steps")
     ap.add_argument("--seed", type=int, default=0,
-                    help="the dataset's seed")
-    ap.add_argument("--epochs", type=int, default=4)
+                    help="LM: the init and token stream's seed; DWN: the "
+                         "dataset's seed")
+    ap.add_argument("--epochs", type=int, default=4,
+                    help="DWN: training epochs")
     ap.add_argument("--seeds", default="0",
-                    help="comma-separated seeds; more than one trains them "
-                         "one after another")
+                    help="DWN: comma-separated seeds; more than one trains "
+                         "them one after another")
     ap.add_argument("--eval-every", type=int, default=1,
-                    help="eval cadence (0 = after the last epoch only)")
+                    help="DWN: eval cadence (0 = after the last epoch only)")
     ap.add_argument("--artifact-dir", default="",
-                    help="checkpoint each trained model as a DWNArtifact "
-                         "(freeze + pack + save) under <dir>/seed<N>")
+                    help="DWN: checkpoint each trained model as a "
+                         "DWNArtifact (freeze + pack + save) under "
+                         "<dir>/seed<N>")
     ap.add_argument("--quiet", action="store_true")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where to train (default cuda; never falls back)")
     args = ap.parse_args(argv)
     if args.arch in list_archs() or args.arch in LM_NOT_PORTED:
-        raise NotImplementedError(
-            f"{args.arch} is an LM arch; the port trains DWNs only (LM "
-            f"training is ROADMAP.md Queue 1 item 8)")
-    print(json.dumps(dwn_train(args)))
+        if args.lr is None:
+            args.lr = 3e-4
+        if args.batch <= 0:
+            args.batch = 8
+        rep = lm_train(args)
+    else:
+        rep = dwn_train(args)
+    print(json.dumps(rep))
     return 0
 
 

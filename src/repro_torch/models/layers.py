@@ -8,10 +8,12 @@ Conventions, as in the reference:
   operands and accumulate in float32 (the reference's
   ``preferred_element_type``): the operands are cast to float32 first,
   which keeps every product of two bf16 values exact.
-* Params are plain dicts of tensors.  Matrix weights are stored in bf16
-  and norm scales in float32: the reference keeps float32 params but casts
-  every matrix operand to bf16, so the products see the same values at
-  half the memory.
+* Params are plain dicts of tensors.  Norm scales are float32.  Matrix
+  weights come in two forms (each ``init_*`` takes ``dtype``): bf16 for
+  serving, where the products see the reference's values at half the
+  memory, and float32 for training, the reference's ``PARAM_DTYPE``
+  master weights.  Every product casts its operands to bf16, so the
+  gradients of a float32 leaf are float32.
 * ``HeadLayout`` pads attention heads for tensor parallelism.  The port
   runs on one card (tp = 1), where the layout neither pads query heads
   nor repeats KV heads, so ``qkv_project`` does neither; the layout gives
@@ -112,10 +114,11 @@ def _normal(gen: torch.Generator, shape, std: float, device) -> torch.Tensor:
 
 
 def init_attention(gen: torch.Generator, d_model: int, layout: HeadLayout,
-                   head_dim: int, *, qk_norm: bool = False, device=None):
-    """Attention params in the padded layout, the reference's stds.  Dead
-    q heads (slots beyond the real group size) are zero, including their
-    o-proj rows."""
+                   head_dim: int, *, qk_norm: bool = False, device=None,
+                   dtype: torch.dtype = COMPUTE_DTYPE):
+    """Attention params in the padded layout, the reference's stds, the
+    matrices in ``dtype``.  Dead q heads (slots beyond the real group
+    size) are zero, including their o-proj rows."""
     std = d_model ** -0.5
     H, K, s = layout.q_padded, layout.num_kv, layout.slots
     gs = layout.num_q // layout.num_kv
@@ -124,7 +127,7 @@ def init_attention(gen: torch.Generator, d_model: int, layout: HeadLayout,
         alive = (heads < layout.num_q).to(PARAM_DTYPE)
     else:                                      # GQA: slot-in-group >= gs dead
         alive = ((heads % s) < gs).to(PARAM_DTYPE)
-    cd = COMPUTE_DTYPE
+    cd = dtype
     p = {
         "wq": (_normal(gen, (d_model, H, head_dim), std, device)
                * alive[None, :, None]).to(cd),
@@ -248,9 +251,9 @@ def attn_output(p, o: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int, *,
-                device=None):
+                device=None, dtype: torch.dtype = COMPUTE_DTYPE):
     std_in, std_out = d_model ** -0.5, d_ff ** -0.5
-    cd = COMPUTE_DTYPE
+    cd = dtype
     return {"w_gate": _normal(gen, (d_model, d_ff), std_in, device).to(cd),
             "w_up": _normal(gen, (d_model, d_ff), std_in, device).to(cd),
             "w_down": _normal(gen, (d_ff, d_model), std_out, device).to(cd)}
@@ -270,9 +273,9 @@ def swiglu(p, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_embedding(gen: torch.Generator, vocab_padded: int, d_model: int, *,
-                   device=None):
+                   device=None, dtype: torch.dtype = COMPUTE_DTYPE):
     return {"table": _normal(gen, (vocab_padded, d_model), 0.01,
-                             device).to(COMPUTE_DTYPE)}
+                             device).to(dtype)}
 
 
 def embed(p, tokens: torch.Tensor) -> torch.Tensor:
@@ -280,18 +283,50 @@ def embed(p, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def init_unembed(gen: torch.Generator, d_model: int, vocab_padded: int, *,
-                 device=None):
+                 device=None, dtype: torch.dtype = COMPUTE_DTYPE):
     return {"w": _normal(gen, (d_model, vocab_padded), d_model ** -0.5,
-                         device).to(COMPUTE_DTYPE)}
+                         device).to(dtype)}
 
 
-def unembed(p, x: torch.Tensor) -> torch.Tensor:
-    return x.to(COMPUTE_DTYPE) @ p["w"].to(COMPUTE_DTYPE)
+def unembed(p, x: torch.Tensor, cols: int | None = None) -> torch.Tensor:
+    """x (..., D) -> logits (..., Vp) bf16; with ``cols``, only the first
+    ``cols`` vocabulary columns (the same dot products)."""
+    w = p["w"] if cols is None else p["w"][:, :cols]
+    return x.to(COMPUTE_DTYPE) @ w.to(COMPUTE_DTYPE)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
+                       vocab_real: int, z_loss: float = 1e-4
+                       ) -> torch.Tensor:
+    """Next-token cross-entropy with padded-vocab masking and z-loss, the
+    reference's expression.
+
+    logits: (B, S, Vp) (bf16 ok); labels: (B, S) integer (-1 = ignore).
+    Returns the float32 mean over the labelled positions of
+    ``logsumexp - picked`` plus ``z_loss`` times the mean of
+    ``logsumexp ** 2``.
+    """
+    Vp = logits.shape[-1]
+    lf = logits.float()
+    if vocab_real < Vp:
+        mask = torch.arange(Vp, device=lf.device) < vocab_real
+        lf = torch.where(mask, lf, -1e30)
+    lse = torch.logsumexp(lf, dim=-1)
+    labels = labels.to(lf.device)
+    lab = torch.clamp(labels, 0, Vp - 1).long()
+    picked = torch.take_along_dim(lf, lab[..., None], dim=-1)[..., 0]
+    nll = lse - picked
+    valid = (labels >= 0).float()
+    nll = nll * valid
+    z = (lse ** 2) * valid
+    denom = torch.clamp(valid.sum(), min=1.0)
+    return (nll.sum() + z_loss * z.sum()) / denom
 
 
 __all__ = [
     "COMPUTE_DTYPE", "HeadLayout", "PARAM_DTYPE", "apply_rope",
-    "attention_chunked", "attention_decode", "attn_output", "embed",
+    "attention_chunked", "attention_decode", "attn_output",
+    "cross_entropy_loss", "embed",
     "init_attention", "init_embedding", "init_swiglu", "init_unembed",
     "make_head_layout", "qkv_project", "rms_norm", "rope_frequencies",
     "swiglu", "unembed",

@@ -10,11 +10,22 @@ reference's ``repro.models.transformer``.
   cache in plain PyTorch.
 * One card: there is no tensor parallelism, so the head layout is the
   reference's at tp = 1.
+* Params come in two forms: bf16 matrices for serving and float32
+  matrices (``dtype=torch.float32``), the reference's master weights,
+  for training.  With ``cfg.remat`` and gradients on, each layer runs
+  under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``),
+  so a training step keeps one (B, S, D) residual per layer.
+* Training runs ``attn_impl="masked"``.  The flash-attention kernel has
+  no backward (neither has the reference's Pallas kernel: ``jax.grad``
+  through it fails), so a forward under ``"pallas"`` whose inputs need
+  gradients raises.
 
 Interface:
-    init_params(cfg, *, seed, device)        -> params
-    params_from_numpy(tree, cfg, *, device)  -> params (reference init)
-    forward(params, cfg, batch, *, collect_kv) -> (logits, aux, kv)
+    init_params(cfg, *, seed, device, dtype) -> params
+    params_from_numpy(tree, cfg, *, device, dtype) -> params (reference init)
+    forward(params, cfg, batch, *, collect_kv, vocab_cols)
+                                             -> (logits, aux, kv)
+    loss_fn(params, cfg, batch)              -> scalar loss
     prefill(params, cfg, batch, *, cache_len)  -> (last logits, cache)
     init_cache(cfg, batch_size, cache_len, *, device) -> cache (zeros)
     decode_step(params, cfg, cache, tokens)  -> (logits, cache)
@@ -24,9 +35,11 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..configs.base import ArchConfig
 from ..kernels.flash_attn import ops as flash
+from ..optim.adam import leaves
 from . import layers as L
 
 ATTN_IMPLS = ("masked", "pallas")
@@ -61,12 +74,15 @@ def _layout(cfg: ArchConfig) -> L.HeadLayout:
 # params
 # ---------------------------------------------------------------------------
 
-def init_params(cfg: ArchConfig, *, seed: int = 0, device=None):
+def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
+                dtype: torch.dtype = L.COMPUTE_DTYPE):
     """Random params from a ``torch.Generator`` on ``device`` with the
-    reference's stds and dead-slot zeroing (matrix weights bf16, norm
-    scales float32).  ``torch`` and ``jax.random`` give different numbers
-    from one seed: to compute what the reference computes, carry its
-    params across with :func:`params_from_numpy`."""
+    reference's stds and dead-slot zeroing: matrix weights in ``dtype``
+    (bf16, the serving form; float32, the training form, whose bf16
+    rounding is the serving form of the same seed), norm scales float32.
+    ``torch`` and ``jax.random`` give different numbers from one seed: to
+    compute what the reference computes, carry its params across with
+    :func:`params_from_numpy`."""
     check_supported(cfg)
     dev = torch.device("cpu" if device is None else device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -75,20 +91,24 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None):
     ones = lambda: {"scale": torch.ones(D, device=dev)}  # noqa: E731
     layers = [{"ln1": ones(),
                "attn": L.init_attention(gen, D, layout, cfg.head_dim_,
-                                        qk_norm=cfg.qk_norm, device=dev),
+                                        qk_norm=cfg.qk_norm, device=dev,
+                                        dtype=dtype),
                "ln2": ones(),
-               "mlp": L.init_swiglu(gen, D, cfg.d_ff, device=dev)}
+               "mlp": L.init_swiglu(gen, D, cfg.d_ff, device=dev,
+                                    dtype=dtype)}
               for _ in range(cfg.num_layers)]
-    return {"embed": L.init_embedding(gen, V, D, device=dev),
+    return {"embed": L.init_embedding(gen, V, D, device=dev, dtype=dtype),
             "layers": layers,
             "final_norm": ones(),
-            "unembed": L.init_unembed(gen, D, V, device=dev)}
+            "unembed": L.init_unembed(gen, D, V, device=dev, dtype=dtype)}
 
 
-def params_from_numpy(tree, cfg: ArchConfig, *, device=None):
+def params_from_numpy(tree, cfg: ArchConfig, *, device=None,
+                      dtype: torch.dtype = L.COMPUTE_DTYPE):
     """The reference's dense param tree (``init_params(key, cfg, tp=1)``
     as numpy arrays, layers stacked on a leading axis) as the port's
-    params: matrix weights to bf16, norm scales float32, the layer axis
+    params: matrix weights to ``dtype`` (bf16 to serve; float32, the
+    reference's own values, to train), norm scales float32, the layer axis
     split into a list."""
     check_supported(cfg)
     dev = torch.device("cpu" if device is None else device)
@@ -96,7 +116,7 @@ def params_from_numpy(tree, cfg: ArchConfig, *, device=None):
     def leaf(a, name):
         t = torch.from_numpy(np.array(a, np.float32))
         if not (name == "scale" or name.endswith("_norm")):
-            t = t.to(L.COMPUTE_DTYPE)
+            t = t.to(dtype)
         return t.to(dev)
 
     def convert(node, i=None):
@@ -122,15 +142,23 @@ def _block_apply(lp, cfg: ArchConfig, layout: L.HeadLayout,
     q, k, v = L.qkv_project(lp["attn"], h, positions=positions,
                             rope_theta=cfg.rope_theta or None,
                             qk_norm_eps=cfg.norm_eps)
-    if cfg.attn_impl == "pallas":
-        # K10 keeps its scores in float32 whatever attn_scores_bf16 says,
-        # as the reference's pallas path does
-        o = flash.attend(q, k, v, causal=True,
-                         block=min(cfg.attn_chunk, q.shape[1]))
-    else:
-        sdt = torch.bfloat16 if cfg.attn_scores_bf16 else torch.float32
-        o = L.attention_chunked(q, k, v, layout, causal=True,
-                                kv_chunk=cfg.attn_chunk, scores_dtype=sdt)
+    if cfg.attn_impl == "pallas" and q.requires_grad:
+        raise NotImplementedError(
+            f"{cfg.name}: attn_impl='pallas' has no backward (the "
+            f"flash-attention kernel is forward only, as the reference's "
+            f"Pallas kernel is); train with attn_impl='masked'")
+    # the profiler's range: a training step's split reads it
+    with torch.profiler.record_function("lm.attention"):
+        if cfg.attn_impl == "pallas":
+            # K10 keeps its scores in float32 whatever attn_scores_bf16
+            # says, as the reference's pallas path does
+            o = flash.attend(q, k, v, causal=True,
+                             block=min(cfg.attn_chunk, q.shape[1]))
+        else:
+            sdt = torch.bfloat16 if cfg.attn_scores_bf16 else torch.float32
+            o = L.attention_chunked(q, k, v, layout, causal=True,
+                                    kv_chunk=cfg.attn_chunk,
+                                    scores_dtype=sdt)
     x = x + L.attn_output(lp["attn"], o)
     h = L.rms_norm(x, lp["ln2"]["scale"], cfg.norm_eps)
     return x + L.swiglu(lp["mlp"], h), k, v
@@ -143,39 +171,65 @@ def _tokens(batch, device) -> torch.Tensor:
     return toks.to(device=device, dtype=torch.long)
 
 
-def _layers(params, cfg: ArchConfig, tokens: torch.Tensor, cache=None):
+def _layers(params, cfg: ArchConfig, tokens: torch.Tensor, cache=None, *,
+            collect_kv: bool = False):
     """Embed and run every layer -> the last hidden state (B, S, D); each
     layer's k/v is written into ``cache`` (positions [0, S)) when given,
-    else collected and returned stacked."""
+    and collected and returned with ``collect_kv``.  With ``cfg.remat``
+    and gradients on, each layer is recomputed in the backward pass
+    instead of keeping its activations."""
     check_supported(cfg)
     layout = _layout(cfg)
     x = L.embed(params["embed"], tokens)
     B, S = tokens.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
+    remat = cfg.remat and torch.is_grad_enabled() and any(
+        t.requires_grad for t in leaves(params))
     ks, vs = [], []
     for i, lp in enumerate(params["layers"]):
-        x, k, v = _block_apply(lp, cfg, layout, x, positions)
+        if remat:
+            x, k, v = torch.utils.checkpoint.checkpoint(
+                _block_apply, lp, cfg, layout, x, positions,
+                use_reentrant=False)
+        else:
+            x, k, v = _block_apply(lp, cfg, layout, x, positions)
         if cache is not None:
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
-        else:
+        if collect_kv:
             ks.append(k)
             vs.append(v)
     return x, ks, vs
 
 
-def _logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+def _logits(params, cfg: ArchConfig, x: torch.Tensor,
+            cols: int | None = None) -> torch.Tensor:
     x = L.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    return L.unembed(params["unembed"], x)
+    return L.unembed(params["unembed"], x, cols)
 
 
-def forward(params, cfg: ArchConfig, batch, *, collect_kv: bool = False):
+def forward(params, cfg: ArchConfig, batch, *, collect_kv: bool = False,
+            vocab_cols: int | None = None):
     """Full-sequence forward -> (logits (B, S, Vp) bf16, aux 0.0, (k, v)
-    stacked over layers (L, B, S, Kp, hd) or None)."""
+    stacked over layers (L, B, S, Kp, hd) or None).  ``vocab_cols``
+    unembeds only the first that many vocabulary columns (the DWN head's
+    pooled features read 16 of them)."""
     tokens = _tokens(batch, params["embed"]["table"].device)
-    x, ks, vs = _layers(params, cfg, tokens)
+    x, ks, vs = _layers(params, cfg, tokens, collect_kv=collect_kv)
     kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
-    return _logits(params, cfg, x), 0.0, kvs
+    return _logits(params, cfg, x, vocab_cols), 0.0, kvs
+
+
+def loss_fn(params, cfg: ArchConfig, batch) -> torch.Tensor:
+    """Next-token loss of ``batch`` ({"tokens", "labels"}, (B, S) each):
+    the cross-entropy of positions [0, S-1) against labels [1, S), plus
+    0.01 times the dense family's aux of 0.0, as the reference adds it."""
+    logits, aux, _ = forward(params, cfg, batch)
+    labels = _tokens({"tokens": batch["labels"]}, logits.device)
+    with torch.profiler.record_function("lm.cross_entropy"):
+        ce = L.cross_entropy_loss(logits[:, :-1], labels[:, 1:],
+                                  vocab_real=cfg.vocab_size)
+    return ce + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------
@@ -251,5 +305,6 @@ def decode_step(params, cfg: ArchConfig, cache, tokens):
 
 __all__ = [
     "ATTN_IMPLS", "cache_len_for", "check_supported", "decode_step",
-    "forward", "init_cache", "init_params", "params_from_numpy", "prefill",
+    "forward", "init_cache", "init_params", "loss_fn", "params_from_numpy",
+    "prefill",
 ]

@@ -10,10 +10,11 @@ the other::
         <leafpath>.npy    # one file per tree leaf, "/" written as "__"
     <dir>/step_<N:08d>.COMMITTED   # commit marker, written last
 
-A tree is nested dicts and lists whose leaves are tensors or arrays.  Its
-leaf paths are the reference's: dict keys in sorted order (as
-``jax.tree_util`` flattens them), list items by index, joined by "/"
-(``params/layers/0/scores``).  Writes go to ``step_<N>.tmp-<pid>`` and are
+A tree is nested dicts, lists, tuples and named tuples whose leaves are
+tensors or arrays.  Its leaf paths are the reference's: dict keys in
+sorted order (as ``jax.tree_util`` flattens them), list and tuple items
+by index, named-tuple fields as ``.<field>``, joined by "/"
+(``params/layers/0/scores``; an ``AdamState``'s ``1/.mu/embed/table``).  Writes go to ``step_<N>.tmp-<pid>`` and are
 renamed before the marker is written, so a writer cut off mid-way never
 leaves a committed but partial checkpoint.  ``restore`` verifies every
 leaf's sha256 and shape.
@@ -37,10 +38,16 @@ import numpy as np
 import torch
 
 
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
 def _leaf_paths(tree, prefix: str = "") -> list[tuple[str, Any]]:
     """``(path, leaf)`` of every leaf, in the reference's order."""
     if isinstance(tree, dict):
         items = sorted(tree.items())
+    elif _is_namedtuple(tree):
+        items = [(f".{f}", v) for f, v in zip(tree._fields, tree)]
     elif isinstance(tree, (list, tuple)):
         items = list(enumerate(tree))
     else:
@@ -56,6 +63,10 @@ def _rebuild(tree, leaves: dict, prefix: str = ""):
     if isinstance(tree, dict):
         return {k: _rebuild(v, leaves, f"{prefix}/{k}" if prefix else str(k))
                 for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(
+            _rebuild(v, leaves, f"{prefix}/.{f}" if prefix else f".{f}")
+            for f, v in zip(tree._fields, tree)))
     if isinstance(tree, (list, tuple)):
         return type(tree)(
             _rebuild(v, leaves, f"{prefix}/{i}" if prefix else str(i))

@@ -6,7 +6,11 @@ reference restores a checkpoint onto ``shardings``, the port's
 ``Supervisor`` restores its leaves as tensors on ``device``: by default
 the device of ``init_state``'s tensors, so a run on the card resumes on
 the card; with no tensor there, the card (``resolve_device``).  Pass
-``device="cpu"`` to restore on the CPU.
+``device="cpu"`` to restore on the CPU.  The port's train steps update
+their state in place, so ``Supervisor.run`` also takes ``init_state`` as
+a callable that makes the step-0 state: a restart that finds no
+checkpoint then starts from a fresh one, where a state passed as a value
+would already hold the steps run before the crash.
 
 At datacenter scale the failure domains are: worker process crash, node
 loss (checkpoint/restart), and preemption notice (drain + final
@@ -122,11 +126,12 @@ class Supervisor:
         return resolve_device(None)
 
     def _restore_or(self, init_state, init_extra) -> TrainHandle:
+        state = init_state() if callable(init_state) else init_state
         step, tree, extra = ckpt.restore_latest(
-            self.ckpt_dir, init_state,
-            device=self._state_device(init_state))
+            self.ckpt_dir, state, device=self._state_device(state))
         if step is None:
-            return TrainHandle(init_state, 0, dict(init_extra))
+            return TrainHandle(state, 0, dict(init_extra))
+        del state
         logger.info("restored checkpoint step %d", step)
         return TrainHandle(tree, step, extra or {})
 
@@ -163,6 +168,7 @@ class Supervisor:
                     logger.error("restart budget exhausted; aborting")
                     raise
                 time.sleep(self.policy.backoff_s)
+                handle = None            # the failed state, before a new one
                 handle = self._restore_or(init_state, init_extra or {})
                 continue
             if handle.step % self.save_every == 0:

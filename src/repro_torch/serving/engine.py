@@ -16,6 +16,12 @@ LM archs (``configs.registry``; the port serves the dense ``qwen3-8b``)
 serve prefill and greedy token-by-token decode against a KV cache, one
 request per step, through the same queue and latency accounting.  With
 ``attn_impl="pallas"`` prefill attention runs the flash-attention kernel.
+With ``dwn_head=`` an LM engine also serves a packed DWN classification
+head on its own backbone's pooled features (``classify`` requests,
+``workloads.lm_head.pool_features``): one engine, both request kinds.
+The head's counts go through its spec's serving backend (``fused-packed``:
+K2, a CUDA graph replay per request size on the card), checked at startup
+against the ``apply_hard`` oracle on this backbone's features.
 
 DWN engines have two serving modes over the same datapath and step cache:
 
@@ -48,6 +54,12 @@ Usage:
     lm.submit(lm.make_request(4))
     tokens = lm.drain()[0].result["tokens"]         # (4, 16)
 
+    head = ServingEngine("qwen3-8b", reduced=True, dwn_head="dwn-lm-head")
+    head.submit(head.make_request(4))                       # LM
+    head.submit(head.make_request(8, seed=1, classify=True))  # the head
+    lm_req, cls_req = head.drain()      # cls_req.result: counts, pred,
+                                        # features
+
 Usage (continuous):
     with engine.serve(slo=SLOConfig(max_queue_samples=16 * 4096)):
         futs = [engine.submit_async(xb, deadline_ms=5).future
@@ -60,6 +72,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+from pathlib import Path
 from typing import Any
 
 import numpy as np
@@ -67,6 +80,7 @@ import torch
 
 from ..configs import ArchConfig, get_arch, list_archs
 from ..configs.registry import NOT_PORTED
+from ..core.model import apply_hard
 from ..device import resolve_device
 from ..dwn import DWNArtifact, resolve_spec, serving_datapath
 from ..models import api
@@ -123,6 +137,13 @@ class ServingEngine:
       prompt_len / gen: LM: prompt tokens per sequence and tokens generated
         per request.
       model_parallel: LM: must be 1 — the port serves on one card.
+      dwn_head: LM only — a packed DWN classification head on the
+        backbone's pooled features: a ``DWNArtifact``, a checkpoint path
+        or a spec preset name such as ``"dwn-lm-head"`` (fitted on 512
+        rows of its workload, untrained, as the reference does).
+        ``classify`` requests then serve through the same queue; with
+        ``verify`` its counts are checked against ``apply_hard`` at
+        startup (``head_bit_exact``).
     """
 
     def __init__(self, arch, *, backend: str | None = None,
@@ -130,7 +151,7 @@ class ServingEngine:
                  verify: bool = True, autotune: bool | None = None,
                  n_train: int = 2000, seed: int = 0,
                  device=None, reduced: bool = False, prompt_len: int = 32,
-                 gen: int = 16, model_parallel: int = 1):
+                 gen: int = 16, model_parallel: int = 1, dwn_head=None):
         self.device = resolve_device(device)
         self.seed = seed
         self.scheduler = MicrobatchScheduler(
@@ -145,13 +166,22 @@ class ServingEngine:
         #: session's loop counters (report() merges the live session in)
         self._async_done: list[AsyncRequest] = []
         self._async_counters: dict = {}
+        self.head_artifact: DWNArtifact | None = None
+        self.head_bit_exact: bool | None = None
+        self._head_served = 0
         cfg = _lm_config(arch)
         self.family = "dwn" if cfg is None else "lm"
         if cfg is None:
+            if dwn_head is not None:
+                raise ValueError(
+                    "dwn_head attaches to an LM engine (the head rides the "
+                    "backbone); DWN archs already serve classification")
             self._init_dwn(arch, backend, verify, autotune, n_train)
         else:
             self._init_lm(cfg.reduced() if reduced else cfg, prompt_len,
                           gen, model_parallel)
+            if dwn_head is not None:
+                self._init_dwn_head(dwn_head, verify)
 
     # ------------------------------------------------------------------
     # DWN classification path
@@ -170,7 +200,7 @@ class ServingEngine:
         self.tuned_configs: dict = {}
         self.data = load_workload(self.spec.workload, n_train,
                                   max(self.scheduler.max_bucket, 512),
-                                  seed=self.seed)
+                                  seed=self.seed, device=self.device)
         if art.stage == "spec":
             art.fit(self.data.x_train, seed=self.seed)
         if art.stage == "trained":
@@ -283,6 +313,78 @@ class ServingEngine:
         self.params = api.module_for(cfg).init_params(
             cfg, seed=self.seed, device=self.device)
 
+    # ------------------------------------------------------------------
+    # DWN head on the LM backbone (dwn_head=)
+    # ------------------------------------------------------------------
+
+    def _init_dwn_head(self, head, verify: bool) -> None:
+        """Attach a packed DWN head on this engine's backbone: its pooled
+        features (``workloads.lm_head.pool_features``, the pooling the
+        head trained on) feed the head spec's serving backend, bound to
+        the head's staged operands; ``verify`` checks its counts against
+        ``apply_hard`` on the features of 8 seeded prompts."""
+        from ..runtime.checkpoint import load_artifact
+        if isinstance(head, DWNArtifact):
+            art = head
+        elif Path(str(head)).exists():
+            art = load_artifact(head, device=self.device)
+        else:
+            art = DWNArtifact(resolve_spec(head))
+        if art.stage == "spec":
+            data = load_workload(art.spec.workload, 512, 64, seed=self.seed,
+                                 device=self.device)
+            art.fit(data.x_train, seed=self.seed)
+        if art.stage == "trained":
+            art.freeze()
+        art.pack(self.device)
+        name = serving_datapath(art.spec.datapath)
+        if name not in available_backends():
+            raise ValueError(f"a DWN head serves on one backend, not "
+                             f"{art.spec.datapath!r}; registered: "
+                             f"{available_backends()}")
+        self.head_artifact = art
+        self._head_backend = BoundBackend(get_backend(name),
+                                          art.serving_model())
+        if verify:
+            rng = np.random.default_rng(self.seed)
+            toks = rng.integers(0, self.cfg.vocab_size,
+                                (8, self.prompt_len)).astype(np.int32)
+            feats, counts, _ = self._head_forward(toks)
+            oracle = apply_hard(art.frozen, feats)
+            self.head_bit_exact = bool(torch.equal(counts.float(),
+                                                   oracle.float()))
+            if not self.head_bit_exact:
+                raise RuntimeError(
+                    f"the {name} DWN head disagrees with the apply_hard "
+                    f"oracle on this backbone's features; refusing to serve")
+
+    @torch.no_grad()
+    def _head_forward(self, tokens):
+        """tokens (B, S) -> (features (B, 16) float32, counts, pred) on the
+        device; on the card counts and pred are the step's graph outputs,
+        which its next replay overwrites."""
+        from ..workloads.lm_head import head_features
+        toks = torch.as_tensor(np.asarray(tokens)).to(self.device)
+        feats = head_features(self.params, self.cfg, toks)
+        counts, pred = self._head_backend(feats)
+        return feats, counts, pred
+
+    def _head_step(self, batch: dict) -> dict:
+        """One classify request: tokens -> backbone features -> the DWN
+        head -> {"counts", "pred", "features"} on the host."""
+        if self.head_artifact is None:
+            raise ValueError("no DWN head attached: construct with "
+                             "dwn_head=...")
+        feats, counts, pred = self._head_forward(batch["tokens"])
+        self._head_served += int(feats.shape[0])
+        return {"counts": counts.cpu().numpy(), "pred": pred.cpu().numpy(),
+                "features": feats.cpu().numpy()}
+
+    def _lm_or_head_step(self, batch: dict) -> dict:
+        if isinstance(batch, dict) and batch.get("classify"):
+            return self._head_step(batch)
+        return self._lm_step(batch)
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -317,17 +419,26 @@ class ServingEngine:
     # unified submit / drain API
     # ------------------------------------------------------------------
 
-    def make_request(self, size: int, seed: int = 0):
+    def make_request(self, size: int, seed: int = 0, *,
+                     classify: bool = False):
         """One request payload, drawn with ``numpy.random.default_rng
         (seed)``: DWN, ``size`` feature rows of the test split; LM, a batch
         ``{"tokens": (size, prompt_len) int32}`` of uniform token ids (the
         reference draws them with ``jax.random``, which torch cannot
-        reproduce)."""
+        reproduce; a ``classify`` request draws them as the reference
+        does, with numpy).  ``classify``: LM engines with a ``dwn_head``,
+        a request for the head instead of prefill and decode."""
         rng = np.random.default_rng(seed)
+        if classify and self.head_artifact is None:
+            raise ValueError("classify requests need dwn_head= at "
+                             "construction")
         if self.family == "lm":
-            return {"tokens": rng.integers(
+            batch = {"tokens": rng.integers(
                 0, self.cfg.vocab_size,
                 (size, self.prompt_len)).astype(np.int32)}
+            if classify:
+                batch["classify"] = True
+            return batch
         sel = rng.integers(0, self.data.x_test.shape[0], size)
         return self.data.x_test[sel]
 
@@ -344,13 +455,14 @@ class ServingEngine:
     def drain(self) -> list[Request]:
         """Serve every queued request; blocks until all results are on the
         host.  A DWN request's ``result`` is (counts, pred); an LM
-        request's is the dict of :meth:`_lm_step`."""
+        request's is the dict of :meth:`_lm_step`, a classify request's
+        that of :meth:`_head_step`."""
         t0 = time.perf_counter()
         if self.family == "lm":
-            done = self.scheduler.drain_serial(self._lm_step)
+            done = self.scheduler.drain_serial(self._lm_or_head_step)
             self._lm_stats.extend((r.result["prefill_s"],
                                    r.result["decode_s_per_tok"])
-                                  for r in done)
+                                  for r in done if "prefill_s" in r.result)
         else:
             done = self.scheduler.drain_batched(self._monitored_step)
         self._drain_wall += time.perf_counter() - t0
@@ -549,6 +661,17 @@ class ServingEngine:
                     float(np.mean([s[0] for s in self._lm_stats])), 3)
                 out["decode_s_per_tok"] = round(
                     float(np.mean([s[1] for s in self._lm_stats])), 4)
+            if self.head_artifact is not None:
+                out["dwn_head"] = {
+                    "spec": self.head_artifact.spec.to_dict(),
+                    "spec_fingerprint":
+                        self.head_artifact.spec.fingerprint(),
+                    "artifact_stage": self.head_artifact.stage,
+                    "bit_exact_vs_oracle": self.head_bit_exact,
+                    "served": self._head_served,
+                    "datapath": self._head_backend.name,
+                    "cuda_graphs": self._head_backend.graphed,
+                }
             return out
         out.update({
             "mode": "dwn-classify",

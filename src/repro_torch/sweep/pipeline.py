@@ -128,7 +128,8 @@ class SweepRunner:
             from ..workloads import load_workload
             s = self.settings
             self._data[workload] = load_workload(
-                workload, s.n_train, s.n_test, seed=s.data_seed)
+                workload, s.n_train, s.n_test, seed=s.data_seed,
+                device=self.device)
         return self._data[workload]
 
     @property

@@ -1,5 +1,5 @@
-"""Workload registry: the datasets the port trains and serves (JSC and
-MNIST; the reference's ``lm_head`` is ROADMAP.md Queue 1 item 8)."""
+"""Workload registry: the datasets the port trains and serves (JSC, MNIST
+and the LM-backbone features of ``lm-head``)."""
 
 from .base import (Workload, get_workload, list_workloads, load_workload,
                    register_workload)

@@ -27,6 +27,12 @@ class Workload:
         arguments.
       presets: tier name -> base :class:`DWNConfig`.
       description: one-line provenance note.
+      backbone: arch name of a feature-extractor backbone, when features
+        are produced by a model rather than generated or read (the
+        ``lm-head`` workload); None for plain datasets.
+      cap_train / cap_test: optional caps on split sizes (a backbone
+        workload caps how much it runs its extractor); loaders receive
+        the capped sizes.
     """
 
     name: str
@@ -35,8 +41,22 @@ class Workload:
     loader: Callable
     presets: dict[str, DWNConfig]
     description: str = ""
+    backbone: str | None = None
+    cap_train: int | None = None
+    cap_test: int | None = None
 
-    def load(self, n_train: int, n_test: int, seed: int = 0):
+    def load(self, n_train: int, n_test: int, seed: int = 0, *,
+             device=None):
+        """The split (the workload's size caps applied).  ``device``: where
+        a backbone workload runs its extractor (default the card, raising
+        without one); plain datasets are made on the host and ignore
+        it."""
+        if self.cap_train is not None:
+            n_train = min(n_train, self.cap_train)
+        if self.cap_test is not None:
+            n_test = min(n_test, self.cap_test)
+        if self.backbone is not None:
+            return self.loader(n_train, n_test, seed, device=device)
         return self.loader(n_train, n_test, seed)
 
 
@@ -57,7 +77,7 @@ def register_workload(wl: Workload) -> Workload:
 
 
 def _ensure_loaded() -> None:
-    from . import jsc, mnist  # noqa: F401  (self-register)
+    from . import jsc, lm_head, mnist  # noqa: F401  (self-register)
 
 
 def get_workload(name: str) -> Workload:
@@ -74,9 +94,10 @@ def list_workloads() -> list[str]:
     return sorted(_REGISTRY)
 
 
-def load_workload(name: str, n_train: int, n_test: int, seed: int = 0):
+def load_workload(name: str, n_train: int, n_test: int, seed: int = 0, *,
+                  device=None):
     """One-call split loader: ``get_workload(name).load(...)``."""
-    return get_workload(name).load(n_train, n_test, seed)
+    return get_workload(name).load(n_train, n_test, seed, device=device)
 
 
 __all__ = [

@@ -1362,3 +1362,69 @@ def test_sweep_tiny_grid_on_the_card_equals_the_cpu():
     assert launched["fused_dwn_packed"] >= n * (1 + card.kernel_iters
                                                 + card.serve_requests)
     assert got.settings["device"] == "cuda"
+
+
+def test_lm_train_steps_on_the_card_match_the_cpu():
+    """Three ``make_train_step`` steps of the reduced qwen3-8b (float32
+    master weights, ``masked`` attention) on the card from the CPU's init
+    and ``TokenStream`` batches: per-step loss within 1e-3 and grad norm
+    within 5e-3 relative of the CPU's (bf16 products on another device
+    round differently), every parameter within 3 * lr * steps of the
+    CPU's, all on the card and finite."""
+    _need_card()
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import api, transformer
+    from repro_torch.optim.adam import leaves, map_tree
+    cfg = get_arch("qwen3-8b").reduced()
+    init = transformer.init_params(cfg, seed=0, dtype=torch.float32)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        step, opt = api.make_train_step(cfg)
+        params = map_tree(lambda t: t.to(dev, copy=True), init)
+        state = opt.init(params)
+        stream, hist = TokenStream(cfg.vocab_size, 32, 4, seed=0), []
+        for _ in range(3):
+            raw = stream.next_batch()
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+            params, state, m = step(params, state, batch)
+            hist.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[dev] = (params, hist)
+    (cp, ch), (gp, gh) = runs["cpu"], runs["cuda"]
+    for (cl, cn), (gl, gn) in zip(ch, gh):
+        assert abs(gl - cl) <= 1e-3 * cl and abs(gn - cn) <= 5e-3 * cn
+    for a, b in zip(leaves(cp), leaves(gp)):
+        assert b.is_cuda and bool(torch.isfinite(b).all())
+        assert float((a - b.cpu()).abs().max()) <= 3 * 3e-4 * 3
+
+
+def test_dwn_head_on_the_card_is_bit_exact_to_apply_hard():
+    """dwn-lm-head fitted on an lm-head split made on the card, served as
+    the head of a reduced qwen3-8b engine on the card: the startup gate
+    holds, a classify request's counts equal ``apply_hard`` on the
+    features it returned, and the head ran K2 once a request (replays of
+    the 8-row step the startup gate captured)."""
+    _need_card()
+    from repro_torch.core.model import apply_hard
+    from repro_torch.dwn import DWNArtifact, resolve_spec
+    from repro_torch.serving import ServingEngine
+    from repro_torch.workloads import load_workload
+    data = load_workload("lm-head", 96, 32, seed=0, device="cuda")
+    art = DWNArtifact(resolve_spec("dwn-lm-head")).fit(data.x_train)
+    art.freeze().pack("cuda")
+    eng = ServingEngine("qwen3-8b", reduced=True, prompt_len=8, gen=2,
+                        device="cuda", dwn_head=art)
+    assert eng.head_bit_exact is True
+    K.reset_launch_counts()
+    for seed in (1, 2):
+        eng.submit(eng.make_request(8, seed=seed, classify=True))
+    eng.submit(eng.make_request(2, seed=3))
+    done = eng.drain()
+    assert K.launch_counts()["fused_dwn_packed"] == 2
+    for r in done[:2]:
+        feats = torch.from_numpy(r.result["features"]).cuda()
+        want = apply_hard(art.frozen, feats).cpu().numpy()
+        np.testing.assert_array_equal(r.result["counts"], want)
+        np.testing.assert_array_equal(r.result["pred"], want.argmax(-1))
+    rep = eng.report()["dwn_head"]
+    assert rep["served"] == 16 and rep["cuda_graphs"] is True

@@ -228,7 +228,8 @@ def _port_sources():
                     input_bits=None if variant == "TEN" else 8)
                 key = (spec.workload, spec.preset, spec.bits, placement)
                 if key not in fits:
-                    data = load_workload(spec.workload, 256, 16, seed=0)
+                    data = load_workload(spec.workload, 256, 16, seed=0,
+                                         device="cpu")
                     ten = dataclasses.replace(spec, variant="TEN",
                                               input_bits=None)
                     a = DWNArtifact(ten).fit(data.x_train, seed=0)
@@ -238,9 +239,10 @@ def _port_sources():
 
 
 def test_well_formed_on_every_registered_preset():
-    """Every preset the port registers (JSC and MNIST) x TEN/PEN x the
-    three placements emits well-formed RTL that the netlist parser takes
-    whole, as the reference's own test requires of its presets."""
+    """Every preset the port registers (JSC, MNIST and the LM head) x
+    TEN/PEN x the three placements emits well-formed RTL that the netlist
+    parser takes whole, as the reference's own test requires of its
+    presets."""
     seen = 0
     for name, spec, src in _port_sources():
         assert verilog.well_formed(src), f"{name} {spec.label}"
@@ -248,7 +250,7 @@ def test_well_formed_on_every_registered_preset():
         assert net.pen == (spec.variant == "PEN"), spec.label
         assert net.meta == jcosim.parse_netlist(src).meta
         seen += 1
-    assert seen == 14 * 2 * 3
+    assert seen == 15 * 2 * 3
     src = verilog.emit_dwn(_golden_frozen(DWNConfig, FrozenDWN))
     for bad in (src.replace("endmodule", ""),
                 src.replace("always @* begin", "always @*"),

@@ -114,13 +114,18 @@ def test_head_layout_matches_reference(q, kv, tp):
 
 def test_unported_options_raise():
     """Families, attention variants and options the port does not run
-    raise ``NotImplementedError`` naming the ROADMAP item."""
+    raise ``NotImplementedError`` naming the ROADMAP item, in the serving
+    form and in the float32 training form; the dense model trains."""
     cfg = _cfg()
     for bad in (dict(attn_impl="tri"), dict(swa_window=16),
                 dict(family="moe"), dict(qkv_bias=True),
                 dict(tie_embeddings=True)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            TT.init_params(dataclasses.replace(cfg, **bad))
+        for dtype in (torch.bfloat16, torch.float32):
+            with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+                TT.init_params(dataclasses.replace(cfg, **bad), dtype=dtype)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        api.make_train_step(dataclasses.replace(cfg, family="moe"))
+    assert callable(api.make_train_step(cfg)[0])
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         api.module_for(dataclasses.replace(cfg, family="ssm"))
 

@@ -22,7 +22,8 @@ ROOT = Path(__file__).resolve().parents[1]
 @pytest.mark.parametrize("seed", [0, 3])
 def test_data_loader_copy_gives_identical_rows(seed):
     """Exact: the same seed gives byte-identical splits in both packages,
-    also through the port's workload registry."""
+    also through the port's workload registry, which registers the
+    reference's workloads."""
     from repro_torch.workloads import get_workload, list_workloads
     ref = jjsc.load_jsc(700, 300, seed=seed)
     for got in (tjsc.load_jsc(700, 300, seed=seed),
@@ -30,7 +31,9 @@ def test_data_loader_copy_gives_identical_rows(seed):
         for field in ("x_train", "y_train", "x_test", "y_test"):
             a, b = getattr(got, field), getattr(ref, field)
             assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
-    assert list_workloads() == ["jsc", "mnist"]
+    from repro.workloads import list_workloads as jlist_workloads
+    assert list_workloads() == jlist_workloads() == ["jsc", "lm-head",
+                                                     "mnist"]
     assert tjsc.bayes_accuracy(2000) == jjsc.bayes_accuracy(2000)
 
 
@@ -55,7 +58,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "          'runtime.straggler', 'launch.loadgen', 'runtime.fault',\n"
         "          'sweep', 'sweep.grid', 'sweep.results', 'sweep.cache',\n"
         "          'sweep.artifacts', 'sweep.pipeline', 'sweep.executor',\n"
-        "          'sweep.autodesign', 'launch.sweep'):\n"
+        "          'sweep.autodesign', 'launch.sweep', 'data.tokens',\n"
+        "          'optim.grad', 'workloads.lm_head'):\n"
         "    assert 'repro_torch.' + n in names, names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
@@ -139,11 +143,13 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 def test_lm_entry_points_raise_without_a_card(monkeypatch):
-    """The LM engine (by name and by config) and ``--arch qwen3-8b`` raise
-    with no card and no CPU request, before building a parameter."""
+    """The LM engine (by name and by config, with a DWN head too), ``--arch
+    qwen3-8b`` of the serve and train CLIs and the ``lm-head`` workload's
+    loader raise with no card and no CPU request, before building a
+    parameter."""
     import dataclasses
     from repro_torch.configs import get_arch
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.serving import ServingEngine
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = dataclasses.replace(get_arch("qwen3-8b"), attn_impl="pallas")
@@ -154,6 +160,16 @@ def test_lm_entry_points_raise_without_a_card(monkeypatch):
         serve.main(["--arch", "qwen3-8b"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "qwen3-8b", "--reduced", "--batch", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "qwen3-8b", "--reduced", "--dwn-head",
+                    "dwn-lm-head"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "qwen3-8b"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "qwen3-8b", "--reduced", "--steps", "1"])
+    from repro_torch.workloads import load_workload
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_workload("lm-head", 8, 8)
 
 
 def test_chip_smoke_refuses_to_run_without_a_card_or_the_port(tmp_path):

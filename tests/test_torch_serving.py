@@ -131,22 +131,24 @@ def test_specs_match_reference():
 
 def test_every_reference_jsc_dwn_name_resolves_to_its_fingerprint():
     """Exact: each of the reference's 22 JSC DWN names (its spec presets
-    and its other arch names) and its 6 MNIST names
-    (``dwn-mnist-{sm,md,lg}[-xla]``) resolves in the port to the spec the
-    reference resolves it to, ``to_dict`` and fingerprint included (13
-    distinct for JSC, 6 for MNIST); the port's spec presets are the
-    reference's JSC and MNIST ones; only the LM head raises, naming the
-    ROADMAP item that ports it."""
+    and its other arch names), its 6 MNIST names
+    (``dwn-mnist-{sm,md,lg}[-xla]``) and ``dwn-lm-head`` resolves in the
+    port to the spec the reference resolves it to, ``to_dict`` and
+    fingerprint included (13 distinct for JSC, 6 for MNIST, the LM head's
+    with its workload and backbone); the port's spec presets are the
+    reference's, and no DWN name is left unported."""
     from repro.configs.registry import get_arch, list_archs
     from repro.dwn import resolve_spec as jresolve
     from repro.dwn import spec_presets as jpresets
     from repro_torch.dwn import dwn_names, resolve_spec, spec_presets
+    from repro_torch.dwn.spec import NOT_PORTED
     dwn = [n for n in list_archs() if get_arch(n).family == "dwn"]
     jsc = [n for n in dwn if jresolve(n).workload == "jsc"]
     mnist = [n for n in dwn if jresolve(n).workload == "mnist"]
     assert len(jsc) == 22 and len(mnist) == 6
-    assert sorted(jsc + mnist) == dwn_names()
-    for names, distinct in ((jsc, 13), (mnist, 6)):
+    assert set(dwn) - set(jsc) - set(mnist) == {"dwn-lm-head"}
+    assert sorted(dwn) == dwn_names()
+    for names, distinct in ((jsc, 13), (mnist, 6), (["dwn-lm-head"], 1)):
         fps = set()
         for name in names:
             got, want = resolve_spec(name), jresolve(name)
@@ -158,11 +160,12 @@ def test_every_reference_jsc_dwn_name_resolves_to_its_fingerprint():
         "ded3a7ca71a42478"
     assert resolve_spec("dwn-jsc-lg-xla").fingerprint() == "244cf67cce326ab0"
     assert resolve_spec("dwn-mnist-lg").fingerprint() == "effa26c02e9a97b2"
-    assert spec_presets() == sorted(n for n in jpresets()
-                                    if jresolve(n).workload != "lm-head")
-    assert set(dwn) - set(jsc) - set(mnist) == {"dwn-lm-head"}
-    with pytest.raises(KeyError, match="Queue 1 item 8"):
-        resolve_spec("dwn-lm-head")
+    assert spec_presets() == sorted(jpresets())
+    head = resolve_spec("dwn-lm-head")
+    assert head.fingerprint() == "45d5bf86faeb3b92"
+    assert (head.workload, head.backbone, head.effective_backbone,
+            head.luts) == ("lm-head", "qwen3-8b", "qwen3-8b", 50)
+    assert NOT_PORTED == {}
 
 
 def test_serve_cli_resolves_a_placement_preset_on_cpu(capsys):

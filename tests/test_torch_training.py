@@ -276,8 +276,9 @@ def test_finetune_search_runs_and_matches_reference(engine_pair, data):
 def test_launch_train_prints_the_reference_report(capsys, tmp_path):
     """The CLI (``--reduced --epochs 1 --device cpu``) prints the
     reference's report keys, plus the device, for one seed and for two
-    (with artifacts); an LM arch raises naming ROADMAP.md Queue 1 item
-    8."""
+    (with artifacts); an LM arch trains through the LM branch (the same
+    CLI, ``--reduced --steps 2 --device cpu``), and an LM arch the port
+    does not run raises naming ROADMAP.md Queue 1 item 8."""
     from repro.launch import train as jtrain
     from repro_torch.launch import train as ttrain
     reports = {}
@@ -299,8 +300,14 @@ def test_launch_train_prints_the_reference_report(capsys, tmp_path):
         assert [a["stage"] for a in port["artifacts"]] == \
             [a["stage"] for a in ref["artifacts"]]
     assert reports["port", "0,1"]["vmapped"] is False
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        ttrain.main(["--arch", "qwen3-8b", "--device", "cpu"])
+    assert ttrain.main(["--arch", "qwen3-8b", "--reduced", "--steps", "2",
+                        "--seq", "16", "--device", "cpu"]) == 0
+    lm = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (lm["arch"], lm["steps"], lm["device"]) == \
+        ("qwen3-8b-reduced", 2, "cpu")
+    assert np.isfinite(lm["first_loss"]) and np.isfinite(lm["last_loss"])
+    with pytest.raises(KeyError, match="Queue 1 item 8"):
+        ttrain.main(["--arch", "mixtral-8x7b", "--device", "cpu"])
 
 
 def test_trained_artifact_saves_loads_and_serves_bit_exact(data, tmp_path):
