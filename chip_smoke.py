@@ -8,7 +8,8 @@ kernel's counts), the encoding design-space sweep over the paper's grid
 (cost, accuracy, K2 time, served samples/s, cache, worker processes,
 autodesign), its staged packed and float datapaths, its
 flash-attention kernel, qwen3-8b serving at full width with a DWN head
-on its backbone, and qwen3-8b training.
+on its backbone, the LM zoo's dense and MoE archs served at full width
+(mixtral's depth cut to the card), and qwen3-8b training.
 
     python3 chip_smoke.py
 
@@ -84,12 +85,17 @@ Phases, each printing one JSON line:
    from a numpy seed) for (B, S) in (1, 1), (2, 33), (1, 129), (2, 255),
    (4, 512), (4, 2048), causal and not, for a flat and a peaked softmax,
    within 2e-2 elementwise and within 1e-2 of each query row's largest
-   value; then timed at B=4, S=2048 in a CUDA graph beside its plain
-   version and one ``scaled_dot_product_attention`` call (a yardstick the
-   port never calls), with its TFLOP/s, the bound counted from shapes and
-   the share of it reached, and the Hopper kernel's registers, shared
-   memory and spills from ptxas (it fails if the kernel spills or ptxas
-   serialised its wgmmas);
+   value; the same at the LM zoo's head shapes (qwen2-7b's 28 over 4 and
+   qwen3-14b's 40 over 8 at hd 128, phi3-mini's 32 over 32 at hd 96,
+   granite-moe's 24 over 8 at hd 64) for (B, S) in (1, 1), (2, 63), (1,
+   65), (2, 97), (1, 129), (4, 2048); then each head shape timed at B=4,
+   S=2048 in a CUDA graph beside its plain version and one
+   ``scaled_dot_product_attention`` call (a yardstick the port never
+   calls), with its TFLOP/s, the bound counted from shapes and the share
+   of it reached, and the registers, shared memory and spills from ptxas
+   of the Hopper kernel (hd 128) and of the hd-64 and hd-96 mma.sync
+   instances (it fails if one spills or ptxas serialised the Hopper
+   kernel's wgmmas);
 7. lm      — ``ServingEngine(qwen3-8b with attn_impl="pallas",
    prompt_len=2048, gen=16, device="cuda")`` at full width (36 layers,
    weights from a seed): serves 2 requests of 4 prompts with the launch
@@ -100,7 +106,24 @@ Phases, each printing one JSON line:
    bounds and a profiler split of a prefill and a decode step (it fails
    if the prefill's profile finds no time in K10 while its launches were
    counted);
-8. lm_head — the DWN head on the LM backbone: an ``lm-head`` split (1024
+8. lm_zoo  — the LM zoo's dense and MoE archs at full width through
+   ``ServingEngine``, weights from a seed, each freed before the next:
+   qwen2-7b (q/k/v biases), qwen3-14b, phi3-mini-3.8b (hd 96) and
+   granite-moe-3b-a800m (hd 64, 40 experts top-8, tied embeddings) under
+   ``attn_impl="pallas"``, 2 requests of 4 x 2048-token prompts, 16 greedy
+   tokens each, every prefill launching K10 once a layer; mixtral-8x7b
+   (8 experts top-2, a 4096-token sliding window, so the masked path and
+   no K10) cut to the layers whose bf16 weights leave 20 GB of the card
+   free, 2 requests of 2 x 6144 tokens (the ring wraps unaligned); each
+   arch's parameter count held to the count from its shapes, its
+   prefill's last logits held to the masked path's (pallas archs), a
+   prefill of S tokens and one decode step held to ``forward`` on S + 1
+   (B = 1, S = 2048, mixtral 5000; MoE at capacity factor 8), qwen2-7b's
+   ``tri`` prefill of 8192 tokens held to ``masked``, all within 0.05 of
+   the largest logit; prefill and decode times beside their bounds, a
+   profiler split of a prefill, peak memory and, for the MoE archs, the
+   share of (token, k) slots a prefill drops at capacity factor 1.25;
+9. lm_head — the DWN head on the LM backbone: an ``lm-head`` split (1024
    / 512 sequences through the reduced backbone) made on the card,
    ``dwn-lm-head`` trained one epoch there, frozen and packed, then
    ``ServingEngine(qwen3-8b with attn_impl="pallas", dwn_head=art)`` at
@@ -113,7 +136,7 @@ Phases, each printing one JSON line:
    split into the backbone forward, the pooling and K2; the 16-column
    unembedding's features against the full one's; then ``python -m
    repro_torch.launch.serve --arch qwen3-8b --dwn-head dwn-lm-head``;
-9. lm_train — LM training: four steps of the reduced qwen3-8b on the card
+10. lm_train — LM training: four steps of the reduced qwen3-8b on the card
    equal to the CPU's from one init (loss within 1e-3, grad norm within
    5e-3, params within 3 * lr * steps); then qwen3-8b at full width with
    its layers cut to what the card holds beside float32 weights,
@@ -125,7 +148,7 @@ Phases, each printing one JSON line:
    ``--ckpt-dir`` crashed once and resumed on the card, equal to an
    uninterrupted run; ``python -m repro_torch.launch.train --arch
    qwen3-8b --reduced --steps 20``;
-10. train  — DWN training at dwn-jsc-lg width (one layer of 2400 LUT6 over
+11. train  — DWN training at dwn-jsc-lg width (one layer of 2400 LUT6 over
    3200 thermometer bits, 5 classes) on ``load_jsc(20000, 5000)``, the
    paper protocol (batch 128, Adam lr 1e-3, StepLR(30, 0.1), clamp
    (-1, 1)), with the library's float32 product settings: 4 steps on the
@@ -140,7 +163,7 @@ Phases, each printing one JSON line:
    the rest; idle shares); then ``DWNArtifact.train`` (one epoch) frozen,
    packed and served through ``ServingEngine``, whose startup oracle
    check must pass, every served count equal to ``apply_hard``'s;
-11. serve  — ``ServingEngine("dwn-jsc-lg", device="cuda")`` at full width,
+12. serve  — ``ServingEngine("dwn-jsc-lg", device="cuda")`` at full width,
    whose startup checks every backend against the float oracle and whose
    fused steps replay one CUDA graph per (bucket, tuned config); serves 16
    requests of 4096 rows on the packed kernel, the same stream on the
@@ -157,7 +180,7 @@ Phases, each printing one JSON line:
    per bucket (at most one) printed and every request held to the
    oracle; last the served artifact is saved, loaded back and served
    bit-exact;
-12. load   — dwn-jsc-lg through the continuous-batching loop
+13. load   — dwn-jsc-lg through the continuous-batching loop
    (``serve()`` / ``submit_async``), pinned to K2 and with
    ``backend="auto"``: a ragged stream of 40 requests of 1-4096 rows,
    three of them 3 × 4096 + 17 rows (served in chunks), every result
@@ -183,7 +206,7 @@ Phases, each printing one JSON line:
    count equal to its non-ok results; last one second at 1.0 under
    ``torch.profiler``: the card's busy time (kernels, copies in, copies
    out) and idle share beside the loop's busy share.  No speed is gated;
-13. hw     — ``dwn-mnist-lg`` (F = 196 pooled pixels, T = 16: 3136 encoder
+14. hw     — ``dwn-mnist-lg`` (F = 196 pooled pixels, T = 16: 3136 encoder
    bits, 98 words a sample; one layer of 2000 LUT6, 10 classes) trained
    one epoch on ``load_mnist(20000, 5000)`` on the card, frozen, packed
    and served through ``ServingEngine``: 16 requests of 4096 rows pinned
@@ -202,7 +225,7 @@ Phases, each printing one JSON line:
    artifact saved, loaded and served again bit-exact; then the paper's
    ``dwn-jsc-lg`` at PEN 9 bits from a warm start on the card: its cost
    report and the same RTL check;
-14. sweep  — the encoding design-space sweep: ``run_grid("paper",
+15. sweep  — the encoding design-space sweep: ``run_grid("paper",
    SweepSettings(device="cuda", kernel=True, serve=True))`` at the
    reference's defaults (n_train 4000, n_test 2000; the four presets, TEN
    and PEN at Table I's fine-tuned widths, lg-2400 at full width) into a
@@ -219,7 +242,7 @@ Phases, each printing one JSON line:
    processes sharing the card equal to the serial run; ``choose_design``
    at an accuracy floor between the grid's lowest and highest and
    ``emit_verified`` on 256 vectors (oracle on the card);
-15. cli    — ``python -m repro_torch.launch.serve --arch dwn-jsc-lg`` with
+16. cli    — ``python -m repro_torch.launch.serve --arch dwn-jsc-lg`` with
    four requests, the same with ``--backend auto``, ``--arch
    qwen3-8b --batch 2 --prompt-len 32 --gen 4``, ``python -m
    repro_torch.launch.train --arch dwn-jsc-lg --workload jsc --epochs
@@ -238,8 +261,8 @@ Phases, each printing one JSON line:
 
 Then it prints each phase's seconds, the kernels' summary line (K1's and
 K2's launches on each served path, the load phase's sessions, the
-sweep's paper grid and the DWN head among them, K10's on the LM and the
-head paths,
+sweep's paper grid and the DWN head among them, K10's on every LM path,
+its hd-64 and hd-96 instances as entries of their own,
 their times at the mnist-lg shape
 beside their bounds), nvidia-smi's line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -1624,9 +1647,19 @@ FLASH = ("src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
 FLASH_SYMBOL = "flash_attn_kernel"
 #: the qwen3-8b attention head shape: query heads, KV heads, head_dim
 QWEN_HEADS = (32, 8, 128)
-#: the symbol of the Hopper design (hd 128), whose ptxas lines are held to
-#: no spills and no wgmma serialisation
+#: the other head shapes the LM zoo's pallas archs give K10: two more at
+#: hd 128 on the Hopper design, hd 64 and 96 on the mma.sync instances
+ZOO_HEADS = {"qwen2-7b": (28, 4, 128), "qwen3-14b": (40, 8, 128),
+             "phi3-mini-3.8b": (32, 32, 96),
+             "granite-moe-3b-a800m": (24, 8, 64)}
+#: (B, S) checked at the zoo's head shapes: S on either side of the
+#: mma.sync instances' 64-row blocks and the Hopper design's 96-key tiles
+ZOO_FLASH_SIZES = ((1, 1), (2, 63), (1, 65), (2, 97), (1, 129), (4, 2048))
+#: the symbols of the Hopper design (hd 128) and of the mma.sync
+#: instances the zoo launches, whose ptxas lines are held to no spills
+#: (and the Hopper design's to no wgmma serialisation)
 FLASH_WS_SYMBOL = FLASH_SYMBOL + "_ws"
+FLASH_MMA_SYMBOLS = {hd: f"{FLASH_SYMBOL}_mmaILi{hd}E" for hd in (64, 96)}
 #: flash attention (bf16 out, P rounded to bf16) against its float32
 #: plain version: the reference's bf16 bar (tests/test_flash_kernel.py:41),
 #: absolute and relative, as torch.testing.assert_close applies them
@@ -1704,38 +1737,27 @@ def flash_errors(got, want):
             "ok": ok}
 
 
-def phase_flash(device, ptxas=(), sizes=((1, 1), (2, 33), (1, 129),
-                                         (2, 255), (4, 512), (4, 2048)),
-                time_shape=(4, 2048)):
-    """K10 within FLASH_TOL and FLASH_ROW_REL of its plain version at the
-    qwen3-8b head shape (sizes that straddle its 128-row query blocks and
-    96-key tiles among them, q at each of FLASH_Q_SCALES); K10, its plain
-    version and the SDPA yardstick timed; the Hopper kernel's registers,
-    shared memory and spills as ptxas reported them, none spilled."""
+def _flash_checks(device, rng, heads, sizes, checks):
+    """K10 against its plain version at one head shape over ``sizes``,
+    each q scale of FLASH_Q_SCALES, causal and not; appends each check to
+    ``checks`` and raises on the first outside FLASH_TOL / FLASH_ROW_REL.
+    Returns (largest |diff|, largest per-row relative error)."""
     import torch
-    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attn import kernel as KA
     from repro_torch.kernels.flash_attn.ref import attention_ref
-    H, KH, hd = QWEN_HEADS
-    rng = np.random.default_rng(3)
-
-    def operands(B, S, q_scale=0.5):
-        return [torch.from_numpy(
-            rng.standard_normal((B, S, h, hd)).astype(np.float32) * sc).to(
-                device).bfloat16() for h, sc in ((H, q_scale), (KH, 1.0),
-                                                 (KH, 1.0))]
-    checks, max_err, row_rel = [], 0.0, 0.0
+    H, KH, hd = heads
+    max_err = row_rel = 0.0
     for B, S in sizes:
         for q_scale in FLASH_Q_SCALES:
-            q, k, v = operands(B, S, q_scale)
+            q, k, v = _flash_operands(device, rng, B, S, heads, q_scale)
             for causal in (True, False):
                 got = KA.flash_attention(q, k, v, causal=causal)
                 torch.cuda.synchronize()
                 want = attention_ref(q.float(), k.float(), v.float(),
                                      causal=causal)
                 res = flash_errors(got, want)
-                checks.append({"B": B, "S": S, "q_scale": q_scale,
-                               "causal": causal, **res})
+                checks.append({"H": H, "KH": KH, "hd": hd, "B": B, "S": S,
+                               "q_scale": q_scale, "causal": causal, **res})
                 max_err = max(max_err, res["max_abs_err"])
                 row_rel = max(row_rel, res["row_rel_err"])
                 if not res["ok"]:
@@ -1743,15 +1765,31 @@ def phase_flash(device, ptxas=(), sizes=((1, 1), (2, 33), (1, 129),
                     raise SystemExit(
                         f"flash_attention differs from its plain version "
                         f"beyond {FLASH_TOL} elementwise or {FLASH_ROW_REL} "
-                        f"per row: B={B}, S={S}, q_scale={q_scale}, "
-                        f"causal={causal}, {res}")
-    smem_bytes = _build.load(KA.LIBRARY).flash_attn_smem_bytes
-    smem_bytes.argtypes, smem_bytes.restype = [ctypes.c_int], ctypes.c_int
-    B, S = time_shape
-    q, k, v = operands(B, S)
+                        f"per row: H={H}, KH={KH}, hd={hd}, B={B}, S={S}, "
+                        f"q_scale={q_scale}, causal={causal}, {res}")
+    return max_err, row_rel
+
+
+def _flash_operands(device, rng, B, S, heads, q_scale=0.5):
+    import torch
+    H, KH, hd = heads
+    return [torch.from_numpy(
+        rng.standard_normal((B, S, h, hd)).astype(np.float32) * sc).to(
+            device).bfloat16() for h, sc in ((H, q_scale), (KH, 1.0),
+                                             (KH, 1.0))]
+
+
+def _flash_timing(device, rng, heads, B, S):
+    """K10 at (B, S) and one head shape in a CUDA graph and eagerly, its
+    plain version, the SDPA yardstick and the bound from shapes."""
+    import torch
+    from repro_torch.kernels.flash_attn import kernel as KA
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+    q, k, v = _flash_operands(device, rng, B, S, heads)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     timing = {
+        "B": B, "S": S, "H": heads[0], "KH": heads[1], "hd": heads[2],
         "ms": graph_ms(lambda: KA.flash_attention(q, k, v, causal=True),
                        iters=20),
         "eager_ms": time_ms(lambda: KA.flash_attention(q, k, v, causal=True),
@@ -1760,42 +1798,122 @@ def phase_flash(device, ptxas=(), sizes=((1, 1), (2, 33), (1, 129),
                             iters=3, warmup=1),
         "library_ms": graph_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
                                             enable_gqa=True), iters=20),
-        **_bf16_bound(*flash_bytes_and_ops(B, S, H, KH, hd))}
+        **_bf16_bound(*flash_bytes_and_ops(B, S, *heads))}
     timing["tflops"] = timing["operations"] / timing["ms"] / 1e9
     timing["bound_share"] = timing["bound_ms"] / timing["ms"]
+    return timing
+
+
+def phase_flash(device, ptxas=(), sizes=((1, 1), (2, 33), (1, 129),
+                                         (2, 255), (4, 512), (4, 2048)),
+                time_shape=(4, 2048)):
+    """K10 within FLASH_TOL and FLASH_ROW_REL of its plain version at the
+    qwen3-8b head shape (sizes that straddle its 128-row query blocks and
+    96-key tiles among them, q at each of FLASH_Q_SCALES) and at the LM
+    zoo's head shapes (ZOO_HEADS over ZOO_FLASH_SIZES); K10, its plain
+    version and the SDPA yardstick timed at each head shape; the Hopper
+    kernel's and the hd-64 and hd-96 instances' registers, shared memory
+    and spills as ptxas reported them, none spilled."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attn import kernel as KA
+    rng = np.random.default_rng(3)
+    checks = []
+    max_err, row_rel = _flash_checks(device, rng, QWEN_HEADS, sizes, checks)
+    per_hd = {}
+    for heads in ZOO_HEADS.values():
+        err = _flash_checks(device, rng, heads, ZOO_FLASH_SIZES, checks)
+        hd_err = per_hd.setdefault(heads[2], [0.0, 0.0])
+        hd_err[:] = [max(a, b) for a, b in zip(hd_err, err)]
+    smem_bytes = _build.load(KA.LIBRARY).flash_attn_smem_bytes
+    smem_bytes.argtypes, smem_bytes.restype = [ctypes.c_int], ctypes.c_int
+    timing = _flash_timing(device, rng, QWEN_HEADS, *time_shape)
+    zoo = {name: _flash_timing(device, rng, heads, *time_shape)
+           for name, heads in ZOO_HEADS.items()}
+    lines = list(ptxas)
+    resources = {"hd128": {**_ptxas_resources(lines, FLASH_WS_SYMBOL),
+                           "dynamic_smem_bytes": smem_bytes(128)}}
+    for hd, symbol in FLASH_MMA_SYMBOLS.items():
+        resources[f"hd{hd}"] = {**_ptxas_resources(lines, symbol),
+                                "dynamic_smem_bytes": smem_bytes(hd)}
+    B, S = time_shape
+    H, KH, hd = QWEN_HEADS
     emit({"phase": "flash", "checks": checks, "tolerance": FLASH_TOL,
           "row_tolerance": FLASH_ROW_REL, "max_abs_err": max_err,
           "row_rel_err": row_rel,
+          "max_abs_err_by_hd": {hd: e[0] for hd, e in per_hd.items()},
           "timing_shape": {"B": B, "S": S, "H": H, "KH": KH, "hd": hd},
-          "timing": timing,
-          "ptxas": {**_ptxas_resources(list(ptxas), FLASH_WS_SYMBOL),
-                    "dynamic_smem_bytes": smem_bytes(hd)}})
-    return {"max_abs_err": max_err, "row_rel_err": row_rel}, timing
+          "timing": timing, "zoo_timing": zoo, "ptxas": resources})
+    errs = {"max_abs_err": max_err, "row_rel_err": row_rel}
+    by_hd = {hd: {"max_abs_err": e[0], "row_rel_err": e[1]}
+             for hd, e in per_hd.items()}
+    return errs, timing, by_hd, zoo
+
+
+def _ffn_params(cfg):
+    """Parameters of one layer's FFN: SwiGLU, or every expert's and the
+    router."""
+    D, F = cfg.d_model, cfg.d_ff
+    if cfg.family == "moe":
+        return cfg.num_experts * 3 * D * F + D * cfg.num_experts
+    return 3 * D * F
+
+
+def _ffn_ops(cfg, B, S):
+    """Matrix operations of one layer's FFN over B rows of S tokens, as
+    the reference computes it: SwiGLU on every token, or the router on
+    every token and all E experts over ``cap`` slots a row (empty slots
+    included)."""
+    from repro_torch.models.layers import moe_capacity
+    D, F = cfg.d_model, cfg.d_ff
+    if cfg.family != "moe":
+        return 2 * 3 * D * F * B * S
+    E = cfg.num_experts
+    cap = moe_capacity(S, cfg.top_k, E, cfg.capacity_factor)
+    return 2 * 3 * D * F * E * cap * B + 2 * D * E * B * S
 
 
 def lm_bounds(cfg, B, S, gen):
     """Least times of one prefill of B x S tokens and of one decode step,
     counted from the shapes: prefill by its bf16 matrix and attention
-    operations (the last position only is unembedded), decode by the
-    bytes of every matrix weight, the token rows of the embedding and the
-    valid KV cache at the middle step."""
-    D, F, L = cfg.d_model, cfg.d_ff, cfg.num_layers
+    operations (the last position only is unembedded; attention over the
+    keys each query sees, at most a sliding window's), decode by the
+    bytes of every
+    matrix weight (every expert's), the unembedding (the embedding table
+    when tied), the token rows of the embedding and the valid KV cache at
+    the middle step."""
+    D, L = cfg.d_model, cfg.num_layers
     H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     V = cfg.vocab_padded(1)
-    per_layer = D * hd * (H + 2 * KH) + H * hd * D + 3 * D * F
-    attn_ops = L * flash_bytes_and_ops(B, S, H, KH, hd)[1]
-    prefill_ops = 2 * per_layer * L * B * S + attn_ops + 2 * B * D * V
+    attn = D * hd * (H + 2 * KH) + H * hd * D
+    per_layer = attn + _ffn_params(cfg)
+    W = cfg.swa_window or S
+    pairs = (min(S, W) * (min(S, W) + 1) // 2 + max(S - W, 0) * W)
+    attn_ops = L * 4 * B * H * hd * pairs
+    prefill_ops = (2 * attn * L * B * S + L * _ffn_ops(cfg, B, S)
+                   + attn_ops + 2 * B * D * V)
     prefill_bytes = 2 * (per_layer * L + D * V)
-    kv_bytes = 2 * 2 * L * B * (S + gen // 2) * KH * hd
+    kv = S + gen // 2
+    if cfg.swa_window is not None:
+        kv = min(kv, cfg.swa_window)
+    kv_bytes = 2 * 2 * L * B * kv * KH * hd
     decode_bytes = 2 * (per_layer * L + D * V + B * D) + kv_bytes
-    decode_ops = 2 * (per_layer * L + D * V) * B
+    decode_ops = (2 * (attn * L + D * V) * B + L * _ffn_ops(cfg, B, 1))
     return ({"prefill": _bf16_bound(prefill_bytes, prefill_ops),
              "decode_step": _bf16_bound(decode_bytes, decode_ops)})
 
 
+def flash_per_prefill(cfg):
+    """K10's launches in one prefill: one a layer under ``pallas``, none
+    under a sliding window (the reference's pallas path skips the kernel
+    there) or another attn_impl."""
+    on = cfg.attn_impl == "pallas" and cfg.swa_window is None
+    return cfg.num_layers if on else 0
+
+
 def _lm_pass(engine, stream):
     """Counts set to 0, the stream served, counts read: every prefill
-    launches flash attention once per layer, nothing else launches."""
+    launches flash attention ``flash_per_prefill`` times, nothing else
+    launches."""
     import torch
     _reset_counts()
     for p in stream:
@@ -1803,7 +1921,7 @@ def _lm_pass(engine, stream):
     done = engine.drain()
     torch.cuda.synchronize()
     launches = _expect_launches("lm pass", {
-        "flash_attention": engine.cfg.num_layers * len(stream)})
+        "flash_attention": flash_per_prefill(engine.cfg) * len(stream)})
     return done, launches
 
 
@@ -1927,6 +2045,184 @@ def phase_lm(device, batch=4, requests=2, prompt_len=2048, gen=16):
     return launches
 
 
+#: the LM zoo served at full width in phase lm_zoo: arch -> (attn_impl,
+#: prompts a request, prompt tokens, the teacher-forced gate's prompt).
+#: mixtral's window skips K10 (as the reference's pallas path does), so it
+#: runs the masked path, on prompts longer than its 4096-token window and
+#: no multiple of it, so that the ring wraps unaligned (fault 10)
+ZOO = {"qwen2-7b": ("pallas", 4, 2048, 2048),
+       "qwen3-14b": ("pallas", 4, 2048, 2048),
+       "phi3-mini-3.8b": ("pallas", 4, 2048, 2048),
+       "granite-moe-3b-a800m": ("pallas", 4, 2048, 2048),
+       "mixtral-8x7b": ("masked", 2, 6144, 5000)}
+#: bytes of the card a served model's bf16 weights leave free: the masked
+#: attention's float32 scores at 2 x 6144 tokens (1.6 GB a 1024-key chunk,
+#: several temporaries) and the teacher-forced gate's expert products at
+#: capacity factor 8 (mixtral: 10,002 slots an expert, 2.3 GB each of
+#: g, u and h in bf16 beside 4.6 GB of float32 SiLU input)
+LM_SERVE_HEADROOM_BYTES = 20e9
+#: the capacity factor of the teacher-forced gate's MoE archs, as
+#: tests/test_decode_consistency.py sets it: the S and S + 1 passes then
+#: drop nothing, so they route alike
+TEACHER_CAPACITY = 8.0
+#: the tri-against-masked gate: one prompt of 8192 tokens on qwen2-7b,
+#: twice the recursion's 4096-token leaf
+TRI_ARCH, TRI_TOKENS = "qwen2-7b", 8192
+
+
+def lm_serve_layers(cfg, total_bytes):
+    """The most layers whose bf16 weights leave LM_SERVE_HEADROOM_BYTES
+    free, as :func:`lm_train_layers` picks its depth."""
+    layer, table, other = lm_param_counts(cfg)
+    fit = (total_bytes - LM_SERVE_HEADROOM_BYTES - 2 * (table + other)) \
+        // (2 * layer)
+    return int(max(1, min(cfg.num_layers, fit)))
+
+
+def _teacher_forced(params, cfg, S, seed=7):
+    """A prefill of S tokens (B = 1) and one decode step against the last
+    logits of ``forward`` on the S + 1 tokens: their relative error."""
+    import torch
+    from repro_torch.models import transformer
+    dev = params["embed"]["table"].device
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, S + 1))).to(dev)
+    full, _, _ = transformer.forward(params, cfg, {"tokens": toks})
+    want = full[:, -1].clone()
+    del full
+    _, cache = transformer.prefill(params, cfg, {"tokens": toks[:, :S]},
+                                   cache_len=S + 1)
+    got, _ = transformer.decode_step(params, cfg, cache, toks[:, S:])
+    return _rel(got, want)
+
+
+def _lm_zoo_arch(device, arch, requests, gen, total_bytes):
+    """One arch of the LM zoo served at full width (its depth cut to what
+    the card holds, recorded as ``reduced``); its gates; its line."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import api, layers, transformer
+    from repro_torch.serving import ServingEngine
+    impl, batch, prompt_len, tf_len = ZOO[arch]
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full, attn_impl=impl)
+    depth = lm_serve_layers(cfg, total_bytes)
+    reduced = None
+    if depth < cfg.num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=depth)
+        reduced = {"num_layers": [depth, full.num_layers],
+                   "why": f"bf16 weights of {full.num_layers} layers exceed "
+                          f"the card; {depth} leave "
+                          f"{LM_SERVE_HEADROOM_BYTES / 1e9:.0f} GB free"}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = ServingEngine(cfg, prompt_len=prompt_len, gen=gen,
+                           device=device, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = engine.params
+    n_params = sum(t.numel() for t in _leaves(params))
+    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    layer, table, other = lm_param_counts(cfg)
+    if n_params != cfg.num_layers * layer + table + other:
+        raise SystemExit(f"{arch}: {n_params} parameters, lm_param_counts "
+                         f"says {cfg.num_layers * layer + table + other}")
+    engine.warmup(batch)
+    stream = [engine.make_request(batch, seed=100 + i)
+              for i in range(requests)]
+    done, launches = _lm_pass(engine, stream)
+    for r in done:
+        toks = r.result["tokens"]
+        if toks.shape != (batch, gen) or not (
+                (toks >= 0) & (toks < cfg.vocab_size)).all():
+            raise SystemExit(f"{arch} request {r.rid}: tokens {toks.shape}")
+    prefill = api.make_prefill(cfg, cache_len=prompt_len + gen)
+    batch0 = stream[0]
+    check = {"tolerance": LOGITS_REL}
+    _reset_counts()
+    if cfg.family == "moe":
+        with layers.count_moe_slots() as slots:
+            logits, _ = prefill(params, batch0)
+        kept, routed = (sum(c) for c in zip(*slots))
+        moe = {"capacity_factor": cfg.capacity_factor,
+               "slots_routed": routed, "slots_kept": kept,
+               "dropped_share": 1 - kept / routed}
+    else:
+        logits, _ = prefill(params, batch0)
+        moe = None
+    torch.cuda.synchronize()
+    per_prefill = _expect_launches(f"{arch} prefill", {
+        "flash_attention": flash_per_prefill(cfg)})
+    if impl == "pallas":
+        masked = dataclasses.replace(cfg, attn_impl="masked")
+        m_logits, _ = api.make_prefill(masked, cache_len=prompt_len + gen)(
+            params, batch0)
+        check["pallas_vs_masked_rel"] = _rel(logits, m_logits)
+        del m_logits
+    del logits
+    tf_cfg = (dataclasses.replace(cfg, capacity_factor=TEACHER_CAPACITY)
+              if cfg.family == "moe" else cfg)
+    check["teacher_forced_rel"] = _teacher_forced(params, tf_cfg, tf_len)
+    check["teacher_forced_prompt"] = tf_len
+    if arch == TRI_ARCH:
+        toks = {"tokens": torch.from_numpy(np.random.default_rng(8).integers(
+            0, cfg.vocab_size, (1, TRI_TOKENS))).to(device)}
+        tri, _ = transformer.prefill(
+            params, dataclasses.replace(cfg, attn_impl="tri"), toks)
+        ref, _ = transformer.prefill(
+            params, dataclasses.replace(cfg, attn_impl="masked"), toks)
+        check["tri_vs_masked_rel"] = _rel(tri, ref)
+        check["tri_tokens"] = TRI_TOKENS
+        del tri, ref
+    worst = max(v for k, v in check.items() if k.endswith("_rel"))
+    if not worst < LOGITS_REL:
+        emit({"phase": "lm_zoo", "arch": arch, "check": check})
+        raise SystemExit(f"{arch}: a logits gate failed: {check}")
+    profile = device_profile(lambda: prefill(params, batch0),
+                             min(r.result["prefill_s"] for r in done))
+    bounds = lm_bounds(cfg, batch, prompt_len, gen)
+    out = {"phase": "lm_zoo", "arch": arch, "source": full.source,
+           "family": cfg.family, "attn_impl": impl,
+           "layers": cfg.num_layers, "reduced": reduced,
+           "d_model": cfg.d_model,
+           "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_],
+           "params": n_params, "param_bytes": param_bytes,
+           "batch": batch, "prompt_len": prompt_len, "gen": gen,
+           "requests": requests, "init_s": init_s,
+           "launches": launches, "launches_per_prefill": per_prefill,
+           "prefill_s": [r.result["prefill_s"] for r in done],
+           "decode_s_per_tok": [r.result["decode_s_per_tok"] for r in done],
+           "bounds": bounds, "prefill_profile": profile, "moe": moe,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "check": check, "sample": done[0].result["tokens"][0].tolist()}
+    out["prefill_s_over_bound"] = (min(out["prefill_s"])
+                                   / (bounds["prefill"]["bound_ms"] / 1e3))
+    out["decode_over_bound"] = (min(out["decode_s_per_tok"])
+                                / (bounds["decode_step"]["bound_ms"] / 1e3))
+    emit(out)
+    return launches.get("flash_attention", 0)
+
+
+def phase_lm_zoo(device, requests=2, gen=16):
+    """The LM zoo's dense and MoE archs at full width through
+    ``ServingEngine`` (ZOO): each serves ``requests`` requests of greedy
+    ``gen`` tokens through K10 (none under mixtral's window), and is held
+    to the masked path, to its own forward (a teacher-forced decode step)
+    and, for qwen2-7b, ``tri`` to ``masked``; each model is freed before
+    the next.  Returns each arch's K10 launches on its served pass."""
+    import gc
+
+    import torch
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = {}
+    for arch in ZOO:
+        out[arch] = _lm_zoo_arch(device, arch, requests, gen, total)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 #: substrings of the names of cuBLAS's matrix-product kernels on Hopper
 GEMM_KERNELS = ("gemm", "nvjet", "xmma", "cutlass")
 
@@ -1945,10 +2241,14 @@ def device_profile(fn, wall_s, top=6):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    # a record_function range (the model's "lm.attention") shows on the
+    # device timeline too, spanning its kernels: not a kernel of its own
     rows = sorted(((e.self_device_time_total / 1e3, e.key, e.count)
                    for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
+                   and e.self_device_time_total > 0
+                   and not getattr(e, "is_user_annotation", False)),
+                  reverse=True)
     if not rows:
         return {"device_busy_ms": None, "device_idle_share": None}
     busy = sum(r[0] for r in rows)
@@ -2114,11 +2414,14 @@ HEAD_FEAT_TOL = 5e-3
 
 def lm_param_counts(cfg):
     """(parameters of one layer, of the embedding table, of everything
-    else outside the layers: the unembedding and the final norm)."""
-    D, F, hd = cfg.d_model, cfg.d_ff, cfg.head_dim_
+    else outside the layers: the unembedding, none when tied, and the
+    final norm)."""
+    D, hd = cfg.d_model, cfg.head_dim_
     H, KH, V = cfg.num_heads, cfg.num_kv_heads, cfg.vocab_padded(1)
-    layer = D * hd * (H + 2 * KH) + H * hd * D + 3 * D * F + 2 * D + 2 * hd
-    return layer, V * D, V * D + D
+    layer = (D * hd * (H + 2 * KH) + H * hd * D + _ffn_params(cfg) + 2 * D
+             + (2 * hd if cfg.qk_norm else 0)
+             + ((H + 2 * KH) * hd if cfg.qkv_bias else 0))
+    return layer, V * D, (0 if cfg.tie_embeddings else V * D) + D
 
 
 def lm_train_layers(cfg, total_bytes):
@@ -4067,9 +4370,10 @@ def main() -> int:
                                                   "cuda")
     float_err, float_timing, float_launches = run("float", phase_float,
                                                   "cuda")
-    flash_err, flash_timing = run("flash", phase_flash, "cuda",
-                                  ptxas["flash_attn"])
+    flash_err, flash_timing, flash_err_by_hd, zoo_timing = run(
+        "flash", phase_flash, "cuda", ptxas["flash_attn"])
     flash_launches = run("lm", phase_lm, "cuda")
+    zoo_launches = run("lm_zoo", phase_lm_zoo, "cuda")
     head_launches = run("lm_head", phase_lm_head, "cuda")
     run("lm_train", phase_lm_train, "cuda")
     # training runs with the library's float32 product settings (its
@@ -4158,19 +4462,46 @@ def main() -> int:
                if k in t},
             **({"part_of": ["fused_dwn"]} if name == "fused_dwn_combine"
                else {})})
+    # K10's launches on every LM path, counted from 0 over each path's
+    # served pass; hd 128 times at the qwen3-8b head shape (the zoo's
+    # other hd-128 shapes under "head_shapes"), the hd-64 and hd-96
+    # instances their own entries at the one arch that launches each
+    flash_paths = {"lm qwen3-8b": flash_launches["flash_attention"],
+                   "lm_head dwn-lm-head on qwen3-8b":
+                       head_launches["flash_attention"],
+                   **{f"lm_zoo {a}": n for a, n in zoo_launches.items()}}
     t = flash_timing
     summary.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH[0],
         "replaces": FLASH[1], "launches": flash_launches["flash_attention"],
-        "launches_by_path": {
-            "lm qwen3-8b": flash_launches["flash_attention"],
-            "lm_head dwn-lm-head on qwen3-8b":
-                head_launches["flash_attention"]},
+        "launches_by_path": flash_paths, "head_dim": 128,
         "equal": False, "tolerance": FLASH_TOL,
         "row_tolerance": FLASH_ROW_REL, **flash_err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-        "library": "scaled_dot_product_attention"})
+        "library": "scaled_dot_product_attention",
+        "head_shapes": {a: {k: zoo_timing[a][k] for k in (
+            "H", "KH", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")} for a, (_, _, hd) in ZOO_HEADS.items()
+            if hd == 128}})
+    for arch, (_, _, hd) in ZOO_HEADS.items():
+        if hd == 128:
+            continue
+        t = zoo_timing[arch]
+        summary.append({
+            "name": f"flash_attention hd{hd}", "route": "cuda",
+            "source": FLASH[0], "replaces": FLASH[1],
+            "launches": zoo_launches[arch],
+            "launches_by_path": {f"lm_zoo {arch}": zoo_launches[arch]},
+            "head_dim": hd, "heads": [t["H"], t["KH"]], "equal": False,
+            "tolerance": FLASH_TOL, "row_tolerance": FLASH_ROW_REL,
+            **flash_err_by_hd[hd], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library": "scaled_dot_product_attention"})
+        if not zoo_launches[arch]:
+            raise SystemExit(f"K10 at hd {hd} launched no time on the "
+                             f"{arch} path")
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -12,9 +12,8 @@ from .base import ArchConfig
 _REGISTRY: dict[str, ArchConfig] = {}
 
 #: the reference's LM archs whose families the port does not run yet
-NOT_PORTED = ("granite-moe-3b-a800m", "llava-next-34b", "mamba2-1.3b",
-              "mixtral-8x7b", "phi3-mini-3.8b", "qwen2-7b", "qwen3-14b",
-              "recurrentgemma-2b", "whisper-large-v3")
+NOT_PORTED = ("llava-next-34b", "mamba2-1.3b", "recurrentgemma-2b",
+              "whisper-large-v3")
 
 
 def register(cfg: ArchConfig) -> ArchConfig:
@@ -40,7 +39,9 @@ def list_archs() -> list[str]:
 
 
 def _load_all() -> None:
-    from . import qwen3_8b  # noqa: F401  (registers on import)
+    from . import (granite_moe_3b_a800m, mixtral_8x7b,  # noqa: F401
+                   phi3_mini_3_8b, qwen2_7b, qwen3_8b,
+                   qwen3_14b)  # (each registers on import)
 
 
 __all__ = ["NOT_PORTED", "get_arch", "list_archs", "register"]

@@ -80,11 +80,18 @@
 // with the overlap inside each consumer 0.262-0.265 (about 520 TFLOP/s,
 // 1.9x the bound; scaled_dot_product_attention 0.252 there).
 
-// hd = 16 (the reduced qwen3-8b that the card tests use) keeps the first
-// design, namespace mma: 4 warps of mma.sync m16n8k16 over 64 query rows,
-// K and V double-buffered with cp.async, both products fed by ldmatrix
-// (hd = 16 rows are 32 bytes, below the 128-byte swizzle span of the
-// Hopper design).
+// hd = 16 (the reduced archs that the card tests use), 64 (granite-moe)
+// and 96 (phi3-mini) keep the first design, namespace mma: 4 warps of
+// mma.sync m16n8k16 over 64 query rows, K and V double-buffered with
+// cp.async, both products fed by ldmatrix (hd = 16 rows are 32 bytes,
+// below the 128-byte swizzle span of the Hopper design; a 192-byte hd-96
+// row spans one and a half, and that design's boxes are cut for 128).
+// Rows are padded by 8 bf16 (16 bytes), so the eight row addresses of an
+// ldmatrix fall in distinct bank groups at every hd.  Shared memory: two
+// K and two V stages of 64 x (hd + 8) bf16, 12,288 B at hd 16, 36,864 at
+// 64 and 53,248 at 96.  A thread holds hd / 8 output n-tiles, hd / 2
+// float accumulators (48 at hd 96), beside hd / 4 registers of Q
+// fragments and 32 scores.
 //
 // Interface: a plain C function (loaded with ctypes) that launches on the
 // caller's stream and returns cudaGetLastError().
@@ -944,8 +951,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 }  // namespace
 
 // q (B, S, H, hd), k and v (B, S, KH, hd), o (B, S, H, hd): bf16,
-// contiguous, 16-byte aligned.  hd is 16 or 128; H % KH == 0; B * H <=
-// 65535 at hd 16, S <= 128 * 65535 at hd 128.
+// contiguous, 16-byte aligned.  hd is 16, 64, 96 or 128; H % KH == 0;
+// B * H <= 65535 at hd 16, 64 and 96, S <= 128 * 65535 at hd 128.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  void* o, int B, int S, int H, int KH, int hd,
                                  int causal, void* stream) {
@@ -957,6 +964,10 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
   switch (hd) {
     case 16:
       return mma::launch<16>(q, k, v, o, B, S, H, KH, causal, scale_log2, st);
+    case 64:
+      return mma::launch<64>(q, k, v, o, B, S, H, KH, causal, scale_log2, st);
+    case 96:
+      return mma::launch<96>(q, k, v, o, B, S, H, KH, causal, scale_log2, st);
     case 128:
       return ws::launch(q, k, v, o, B, S, H, KH, causal, scale_log2, st);
     default:
@@ -967,8 +978,18 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
 // the dynamic shared memory a launch at head dim hd asks for, -1 for a
 // head dim without an instance
 extern "C" int flash_attn_smem_bytes(int hd) {
-  return hd == 128 ? ws::kSmemBytes
-                   : hd == 16 ? mma::Tile<16>::kSmemBytes : -1;
+  switch (hd) {
+    case 16:
+      return mma::Tile<16>::kSmemBytes;
+    case 64:
+      return mma::Tile<64>::kSmemBytes;
+    case 96:
+      return mma::Tile<96>::kSmemBytes;
+    case 128:
+      return ws::kSmemBytes;
+    default:
+      return -1;
+  }
 }
 
 extern "C" const char* flash_attn_error_string(int err) {

@@ -20,10 +20,12 @@ _COUNTS = LaunchCounts("flash_attention")
 launch_counts = _COUNTS.get
 reset_launch_counts = _COUNTS.reset
 _SIGNATURES = {"flash_attn_launch": [P, P, P, P, I, I, I, I, I, I, P]}
-#: head dims the kernel is instantiated for (qwen3-8b's and its reduced
-#: variant's); the plain version takes any
-HEAD_DIMS = (16, 128)
-#: the grid's y extent: the hd-16 instance puts batch x query heads on
+#: head dims the kernel is instantiated for: 128 (qwen3-8b, qwen3-14b,
+#: qwen2-7b, mixtral) on the Hopper design, 16 (the reduced archs), 64
+#: (granite-moe) and 96 (phi3-mini) on the mma.sync one; the plain version
+#: takes any
+HEAD_DIMS = (16, 64, 96, 128)
+#: the grid's y extent: the mma.sync instances put batch x query heads on
 #: blockIdx.y, the hd-128 one its 128-row query blocks (batch x query heads
 #: go on blockIdx.x, which no real shape fills)
 _MAX_GRID_Y = 65535
@@ -64,9 +66,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} has no kernel instance; the "
                          f"kernel takes {HEAD_DIMS}")
-    if hd == 16 and B * H > _MAX_GRID_Y:
+    if hd != 128 and B * H > _MAX_GRID_Y:
         raise ValueError(f"batch x heads = {B * H} exceeds {_MAX_GRID_Y} "
-                         f"at head_dim 16")
+                         f"at head_dim {hd}")
     if hd == 128 and S > _HD128_ROWS * _MAX_GRID_Y:
         raise ValueError(f"S = {S} exceeds {_HD128_ROWS * _MAX_GRID_Y} at "
                          f"head_dim 128")

@@ -18,7 +18,7 @@ from ..optim.adam import Adam, leaves
 from ..optim.grad import accumulate_grads, clip_by_global_norm, value_and_grad
 from . import transformer
 
-MODULES = {"dense": transformer}
+MODULES = {"dense": transformer, "moe": transformer}
 
 
 def module_for(cfg: ArchConfig):

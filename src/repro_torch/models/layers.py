@@ -1,5 +1,6 @@
-"""Building blocks of the dense transformer, the port's counterpart of the
-dense subset of the reference's ``repro.models.layers``.
+"""Building blocks of the dense and MoE transformer, the port's
+counterpart of the reference's ``repro.models.layers`` (its attention,
+SwiGLU, MoE, embedding and loss parts).
 
 Conventions, as in the reference:
 
@@ -22,8 +23,10 @@ Conventions, as in the reference:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 
 import torch
 
@@ -114,11 +117,13 @@ def _normal(gen: torch.Generator, shape, std: float, device) -> torch.Tensor:
 
 
 def init_attention(gen: torch.Generator, d_model: int, layout: HeadLayout,
-                   head_dim: int, *, qk_norm: bool = False, device=None,
+                   head_dim: int, *, qkv_bias: bool = False,
+                   qk_norm: bool = False, device=None,
                    dtype: torch.dtype = COMPUTE_DTYPE):
     """Attention params in the padded layout, the reference's stds, the
-    matrices in ``dtype``.  Dead q heads (slots beyond the real group
-    size) are zero, including their o-proj rows."""
+    matrices (and the q/k/v biases, zero as the reference's) in ``dtype``.
+    Dead q heads (slots beyond the real group size) are zero, including
+    their o-proj rows."""
     std = d_model ** -0.5
     H, K, s = layout.q_padded, layout.num_kv, layout.slots
     gs = layout.num_q // layout.num_kv
@@ -136,6 +141,10 @@ def init_attention(gen: torch.Generator, d_model: int, layout: HeadLayout,
         "wo": (_normal(gen, (H, head_dim, d_model), std, device)
                * alive[:, None, None]).to(cd),
     }
+    if qkv_bias:
+        p["bq"] = torch.zeros((H, head_dim), dtype=cd, device=device)
+        p["bk"] = torch.zeros((K, head_dim), dtype=cd, device=device)
+        p["bv"] = torch.zeros((K, head_dim), dtype=cd, device=device)
     if qk_norm:
         p["q_norm"] = torch.ones((head_dim,), dtype=PARAM_DTYPE, device=device)
         p["k_norm"] = torch.ones((head_dim,), dtype=PARAM_DTYPE, device=device)
@@ -152,8 +161,13 @@ def qkv_project(p, x: torch.Tensor, *, positions: torch.Tensor | None,
                 rope_theta: float | None, qk_norm_eps: float = 1e-6):
     """x (B, S, D) -> q (B, S, H, hd), k/v (B, S, K, hd) in bf16 (the
     reference's at tp = 1, where its padded layout repeats and pads
-    nothing)."""
+    nothing).  The biases, where there are any, are added in bf16 before
+    the qk-norm and RoPE."""
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if "bq" in p:
+        q = q + p["bq"].to(COMPUTE_DTYPE)
+        k = k + p["bk"].to(COMPUTE_DTYPE)
+        v = v + p["bv"].to(COMPUTE_DTYPE)
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"], qk_norm_eps)
         k = rms_norm(k, p["k_norm"], qk_norm_eps)
@@ -163,21 +177,23 @@ def qkv_project(p, x: torch.Tensor, *, positions: torch.Tensor | None,
     return q, k, v
 
 
-def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      layout: HeadLayout, *, causal: bool,
-                      kv_chunk: int = 1024,
-                      scores_dtype: torch.dtype = torch.float32
-                      ) -> torch.Tensor:
-    """Online-softmax attention over KV chunks, plain PyTorch (the
-    reference's ``attn_impl="masked"`` path).
+def _attn_parts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                layout: HeadLayout, *, causal: bool, window: int | None = None,
+                q_offset: int = 0, kv_offset: int = 0, kv_chunk: int = 1024,
+                scores_dtype: torch.dtype = torch.float32):
+    """The online softmax over KV chunks, unnormalised: (o (B, Sq, Kp, g,
+    hd), m, l (B, Sq, Kp, g)) float32, so that parts over disjoint KV
+    ranges combine (:func:`_combine_parts`).
 
-    q: (B, Sq, Hp, hd); k/v: (B, Skv, Kp, hd) (already padded layout).
-    ``scores_dtype`` is the type the score product Q K^T is rounded to
-    before it is taken back to float32 and scaled (the reference's
-    ``preferred_element_type``): float32, or bf16 for ``attn_scores_bf16``.
-    Returns (B, Sq, Hp, hd) bf16.  The last chunk is taken short instead
-    of zero-padded: its missing keys are masked in the reference, so the
-    two agree.
+    q: (B, Sq, Hp, hd) at positions ``q_offset + i``; k/v: (B, Skv, Kp,
+    hd) at ``kv_offset + j`` (already padded layout).  A key is masked
+    when it lies after the query (``causal``) or ``window`` or more
+    positions before it.  ``scores_dtype`` is the type the score product
+    Q K^T is rounded to before it is taken back to float32 and scaled (the
+    reference's ``preferred_element_type``): float32, or bf16 for
+    ``attn_scores_bf16``.  The last chunk is taken short instead of
+    zero-padded: its missing keys are masked in the reference, so the two
+    agree.
     """
     B, Sq, Hp, hd = q.shape
     Skv = k.shape[1]
@@ -186,42 +202,114 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = hd ** -0.5
     dev = q.device
     qg = q.reshape(B, Sq, Kp, g, hd).to(COMPUTE_DTYPE).float()
-    q_pos = torch.arange(Sq, device=dev)
+    q_pos = q_offset + torch.arange(Sq, device=dev)
     o = torch.zeros((B, Sq, Kp, g, hd), dtype=torch.float32, device=dev)
     m = torch.full((B, Sq, Kp, g), float("-inf"), device=dev)
     l = torch.zeros((B, Sq, Kp, g), dtype=torch.float32, device=dev)
     for c0 in range(0, Skv, kv_chunk):
         kci = k[:, c0:c0 + kv_chunk].to(COMPUTE_DTYPE).float()
         vci = v[:, c0:c0 + kv_chunk].to(COMPUTE_DTYPE).float()
-        kv_pos = c0 + torch.arange(kci.shape[1], device=dev)
+        kv_pos = kv_offset + c0 + torch.arange(kci.shape[1], device=dev)
         s = torch.einsum("bqkgd,bckd->bqkgc", qg, kci).to(
             scores_dtype).float() * scale
+        mask = None
         if causal:
-            mask = (q_pos[:, None] >= kv_pos[None, :])[None, :, None, None]
+            mask = q_pos[:, None] >= kv_pos[None, :]
+        if window is not None:
+            near = q_pos[:, None] - kv_pos[None, :] < window
+            mask = near if mask is None else mask & near
+        if mask is not None:
+            mask = mask[None, :, None, None]
             s = s.masked_fill(~mask, float("-inf"))
         m_new = torch.maximum(m, s.amax(dim=-1))
         # guard all-masked rows (m_new = -inf): keep them neutral
         m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
         p = torch.exp(s - m_safe[..., None])
-        if causal:
+        if mask is not None:
             p = p.masked_fill(~mask, 0.0)
         alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
         l = l * alpha + p.sum(dim=-1)
         o = o * alpha[..., None] + torch.einsum(
             "bqkgc,bckd->bqkgd", p.to(COMPUTE_DTYPE).float(), vci)
         m = m_new
-    o = o / torch.clamp(l[..., None], min=1e-30)
-    return o.reshape(B, Sq, Hp, hd).to(COMPUTE_DTYPE)
+    return o, m, l
+
+
+def _combine_parts(a, b):
+    """Merge two online-softmax parts over disjoint KV ranges."""
+    o1, m1, l1 = a
+    o2, m2, l2 = b
+    m = torch.maximum(m1, m2)
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    a1 = torch.where(torch.isfinite(m1), torch.exp(m1 - m_safe), 0.0)
+    a2 = torch.where(torch.isfinite(m2), torch.exp(m2 - m_safe), 0.0)
+    return (o1 * a1[..., None] + o2 * a2[..., None], m, l1 * a1 + l2 * a2)
+
+
+def _normalise(parts, shape) -> torch.Tensor:
+    o, _, l = parts
+    return (o / torch.clamp(l[..., None], min=1e-30)).reshape(shape).to(
+        COMPUTE_DTYPE)
+
+
+def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      layout: HeadLayout, *, causal: bool,
+                      window: int | None = None, kv_chunk: int = 1024,
+                      scores_dtype: torch.dtype = torch.float32
+                      ) -> torch.Tensor:
+    """Online-softmax attention over KV chunks, plain PyTorch (the
+    reference's ``attn_impl="masked"`` path), with an optional sliding
+    ``window``: q: (B, Sq, Hp, hd); k/v: (B, Skv, Kp, hd) -> (B, Sq, Hp,
+    hd) bf16.  Arguments as :func:`_attn_parts`."""
+    return _normalise(_attn_parts(q, k, v, layout, causal=causal,
+                                  window=window, kv_chunk=kv_chunk,
+                                  scores_dtype=scores_dtype), q.shape)
+
+
+def attention_causal_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         layout: HeadLayout, *, kv_chunk: int = 1024,
+                         leaf: int = 4096,
+                         scores_dtype: torch.dtype = torch.float32
+                         ) -> torch.Tensor:
+    """Block-triangular causal attention (the reference's
+    ``attn_impl="tri"``): a sequence longer than ``leaf`` splits in half;
+    the block above the diagonal is never computed, the block below it is
+    dense (no mask) and the two diagonal blocks recurse.  Parts merge with
+    the online-softmax algebra, so the result is the chunked path's up to
+    the order of the sums."""
+
+    def rec(q_, k_, v_, off):
+        Sq = q_.shape[1]
+        if Sq <= leaf:
+            return _attn_parts(q_, k_, v_, layout, causal=True,
+                               q_offset=off, kv_offset=off,
+                               kv_chunk=min(kv_chunk, Sq),
+                               scores_dtype=scores_dtype)
+        half = Sq // 2
+        top = rec(q_[:, :half], k_[:, :half], v_[:, :half], off)
+        cross = _attn_parts(q_[:, half:], k_[:, :half], v_[:, :half],
+                            layout, causal=False, q_offset=off + half,
+                            kv_offset=off, kv_chunk=kv_chunk,
+                            scores_dtype=scores_dtype)
+        diag = rec(q_[:, half:], k_[:, half:], v_[:, half:], off + half)
+        bottom = _combine_parts(cross, diag)
+        return tuple(torch.cat([t, b], dim=1) for t, b in zip(top, bottom))
+
+    return _normalise(rec(q, k, v, 0), q.shape)
 
 
 def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, layout: HeadLayout, *,
-                     cur_len: int) -> torch.Tensor:
+                     cur_len: int, window: int | None = None
+                     ) -> torch.Tensor:
     """Single-token attention against a cache.
 
-    q: (B, 1, Hp, hd); caches: (B, Skv, Kp, hd); ``cur_len`` valid cache
-    entries (the new token's k/v already written).  Returns (B, 1, Hp, hd)
-    bf16.
+    q: (B, 1, Hp, hd); caches: (B, Skv, Kp, hd); ``cur_len`` tokens written
+    so far (the new token's k/v already written).  Without a window the
+    first ``cur_len`` slots are valid.  With one the cache is a ring whose
+    slot ``p % Skv`` holds position p (the reference's semantics): slots
+    below ``cur_len`` and at most ``window`` back are valid, and every slot
+    once the ring has wrapped.  Returns (B, 1, Hp, hd) bf16.
     """
     B, _, Hp, hd = q.shape
     Skv, Kp = k_cache.shape[1], k_cache.shape[2]
@@ -229,7 +317,10 @@ def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
     qg = q.reshape(B, Kp, g, hd).to(COMPUTE_DTYPE).float()
     s = torch.einsum("bkgd,bckd->bkgc", qg,
                      k_cache.to(COMPUTE_DTYPE).float()) * (hd ** -0.5)
-    valid = torch.arange(Skv, device=q.device) < cur_len
+    slots = torch.arange(Skv, device=q.device)
+    valid = slots < cur_len
+    if window is not None:
+        valid = (valid & (slots >= cur_len - window)) | (cur_len > Skv)
     s = s.masked_fill(~valid, float("-inf"))
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
@@ -266,6 +357,170 @@ def swiglu(p, x: torch.Tensor) -> torch.Tensor:
     u = xc @ p["w_up"].to(cd)
     h = torch.nn.functional.silu(g.float()).to(cd) * u
     return h @ p["w_down"].to(cd)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts (GShard-style capacity routing, per batch row)
+# ---------------------------------------------------------------------------
+
+def init_moe(gen: torch.Generator, d_model: int, d_ff: int,
+             num_experts: int, *, pad_to: int = 0, device=None,
+             dtype: torch.dtype = COMPUTE_DTYPE):
+    """The reference's MoE params: the router (D, E) float32 whatever
+    ``dtype`` (it routes in float32, and rounding its weights would move
+    near-tied choices), the expert matrices (E, D, F) / (E, F, D) in
+    ``dtype``.  ``pad_to`` > ``num_experts`` adds dead experts, which
+    ``moe_apply`` masks out of the router."""
+    std_in, std_out = d_model ** -0.5, d_ff ** -0.5
+    E = max(num_experts, pad_to)
+    return {
+        "router": _normal(gen, (d_model, E), std_in, device),
+        "w_gate": _normal(gen, (E, d_model, d_ff), std_in, device).to(dtype),
+        "w_up": _normal(gen, (E, d_model, d_ff), std_in, device).to(dtype),
+        "w_down": _normal(gen, (E, d_ff, d_model), std_out,
+                          device).to(dtype),
+    }
+
+
+#: per thread, the list ``moe_apply`` adds its (kept, routed) slot counts
+#: to while :func:`count_moe_slots` is open there
+_SLOT_COUNTS = threading.local()
+
+
+@contextlib.contextmanager
+def count_moe_slots():
+    """Collect each ``moe_apply`` call's (kept, routed) (token, k) slot
+    counts in this thread into the yielded list while the block runs
+    (each call then waits for the device to read its count)."""
+    prev = getattr(_SLOT_COUNTS, "counts", None)
+    _SLOT_COUNTS.counts = counts = []
+    try:
+        yield counts
+    finally:
+        _SLOT_COUNTS.counts = prev
+
+
+def moe_capacity(S: int, top_k: int, num_experts: int,
+                 capacity_factor: float, min_capacity: int = 4) -> int:
+    """Slots an expert takes a batch row: ``max(min_capacity, ceil(S k /
+    E cf))`` capped at S k."""
+    cap = max(min_capacity,
+              int(math.ceil(S * top_k / num_experts * capacity_factor)))
+    return min(cap, S * top_k)
+
+
+def moe_apply(p, x: torch.Tensor, *, top_k: int,
+              capacity_factor: float = 1.25, min_capacity: int = 4,
+              num_real_experts: int = 0, ep: bool = False):
+    """Token-choice top-k MoE with a per-row capacity, the reference's
+    arithmetic -> (y (B, S, D) in x's dtype, the Switch aux loss).
+
+    The router runs in float32; its top k probabilities (ties to the lower
+    expert, as ``lax.top_k``) are renormalised into gates.  Each (token,
+    k) pair takes the next slot of its expert in token-major order; pairs
+    past the row's capacity are dropped (they read the zero row S).  The
+    expert products are bf16 with SiLU in float32; each kept pair reads
+    its slot's output back, weighted by its gate.  The aux loss is E times
+    the sum over experts of the share of first choices and the mean
+    probability.  ``ep=True`` (expert parallelism) is a sharding layout of
+    the same function, not ported.
+    """
+    if ep:
+        raise NotImplementedError(
+            "moe_ep=True (experts sharded over the model axis) is not "
+            "ported yet (ROADMAP Queue 1 item 9); the port runs experts "
+            "unsharded on one card")
+    B, S, D = x.shape
+    E = p["router"].shape[-1]
+    E_real = num_real_experts or E
+    cap = moe_capacity(S, top_k, E_real, capacity_factor, min_capacity)
+    dev = x.device
+
+    logits = x.float() @ p["router"].float()                  # (B, S, E)
+    if E_real < E:
+        logits = logits.masked_fill(torch.arange(E, device=dev) >= E_real,
+                                    -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    # a stable descending sort keeps equal probabilities in index order
+    gate_vals, expert_idx = torch.sort(probs, dim=-1, descending=True,
+                                       stable=True)
+    gate_vals, expert_idx = gate_vals[..., :top_k], expert_idx[..., :top_k]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+
+    # position of each (token, k) within its expert, token-major order: a
+    # running count over the pairs, one row an expert (a scan along the
+    # last dimension; along the pairs of a (B, T, E) one-hot it is slow)
+    T = S * top_k
+    flat_e = expert_idx.reshape(B, T)
+    mine = flat_e[:, None, :] == torch.arange(E, device=dev)[:, None]
+    pos_in_e = torch.gather(mine.long().cumsum(dim=-1), 1,
+                            flat_e[:, None, :])[:, 0] - 1     # (B, T)
+    keep = pos_in_e < cap
+    counts = getattr(_SLOT_COUNTS, "counts", None)
+    if counts is not None:
+        counts.append((int(keep.sum()), keep.numel()))
+
+    # the token each (expert, slot) reads; S (the zero row) where empty.
+    # Dropped pairs write to a spare column ``cap``, cut off after.
+    tok_idx = (torch.arange(T, device=dev) // top_k).expand(B, T)
+    cols = torch.where(keep, pos_in_e, cap)
+    slot_tok = torch.full((B, E * (cap + 1)), S, dtype=torch.long,
+                          device=dev)
+    slot_tok.scatter_(1, flat_e * (cap + 1) + cols, tok_idx)
+    slot_tok = slot_tok.view(B, E, cap + 1)[..., :cap]
+
+    xpad = torch.cat([x, x.new_zeros(B, 1, D)], dim=1)        # (B, S+1, D)
+    ye = _expert_ffn(p, _gather_slots(xpad, slot_tok))       # (B,E,cap,D)
+
+    # combine: each (token, k) reads its slot if kept
+    flat_slot = flat_e * cap + torch.where(keep, pos_in_e, 0)
+    yk = _gather_slots(ye.reshape(B, E * cap, D),
+                       flat_slot.reshape(B, S, top_k))       # (B,S,k,D)
+    w = (gate_vals * keep.reshape(B, S, top_k)).float()
+    y = torch.einsum("bskd,bsk->bsd", yk.float(), w)
+
+    # load-balance auxiliary loss (Switch-style) over the first choices
+    frac_tokens = torch.nn.functional.one_hot(
+        expert_idx[..., 0], E).float().mean(dim=(0, 1))
+    frac_probs = probs.mean(dim=(0, 1))
+    aux = E * torch.sum(frac_tokens * frac_probs)
+    return y.to(x.dtype), aux
+
+
+#: the most bytes of float32 SiLU input one expert product holds: larger
+#: slot sets (mixtral at capacity factor 8 over 5000 tokens: 4.6 GB for
+#: its 8 experts) run a few experts at a time, each product the same
+_EXPERT_CHUNK_BYTES = 1 << 30
+
+
+def _expert_ffn(p, xe: torch.Tensor) -> torch.Tensor:
+    """Every expert's SwiGLU on its slots: xe (B, E, cap, D) bf16 -> (B, E,
+    cap, D) bf16, products in bf16 and SiLU in float32, over as few
+    chunks of experts as keep each chunk's float32 intermediate under
+    ``_EXPERT_CHUNK_BYTES``."""
+    B, E, cap, _ = xe.shape
+    per = max(1, _EXPERT_CHUNK_BYTES // max(1, 4 * B * cap
+                                            * p["w_gate"].shape[-1]))
+    cd = COMPUTE_DTYPE
+    out = []
+    for e in range(0, E, per):
+        x = xe[:, e:e + per]
+        g = torch.einsum("becd,edf->becf", x, p["w_gate"][e:e + per].to(cd))
+        u = torch.einsum("becd,edf->becf", x, p["w_up"][e:e + per].to(cd))
+        h = torch.nn.functional.silu(g.float()).to(cd) * u
+        out.append(torch.einsum("becf,efd->becd", h,
+                                p["w_down"][e:e + per].to(cd)))
+    return out[0] if len(out) == 1 else torch.cat(out, dim=1)
+
+
+def _gather_slots(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """src (B, N, D), idx (B, ...) -> (B, ..., D) bf16, row b's entries
+    of src[b]."""
+    B, N, D = src.shape
+    flat = idx.reshape(B, -1, 1).expand(-1, -1, D)
+    out = torch.gather(src.to(COMPUTE_DTYPE), 1, flat)
+    return out.reshape(*idx.shape, D)
 
 
 # ---------------------------------------------------------------------------
@@ -325,9 +580,9 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
 
 __all__ = [
     "COMPUTE_DTYPE", "HeadLayout", "PARAM_DTYPE", "apply_rope",
-    "attention_chunked", "attention_decode", "attn_output",
-    "cross_entropy_loss", "embed",
-    "init_attention", "init_embedding", "init_swiglu", "init_unembed",
-    "make_head_layout", "qkv_project", "rms_norm", "rope_frequencies",
-    "swiglu", "unembed",
+    "attention_causal_tri", "attention_chunked", "attention_decode",
+    "attn_output", "count_moe_slots", "cross_entropy_loss", "embed",
+    "init_attention", "init_embedding", "init_moe", "init_swiglu",
+    "init_unembed", "make_head_layout", "moe_apply", "moe_capacity",
+    "qkv_project", "rms_norm", "rope_frequencies", "swiglu", "unembed",
 ]

@@ -1,15 +1,24 @@
-"""Decoder-only transformer LM, dense family: the port's counterpart of the
-reference's ``repro.models.transformer``.
+"""Decoder-only transformer LM, dense and MoE families: the port's
+counterpart of the reference's ``repro.models.transformer``.
 
 * A Python loop over the layers (the reference scans over stacked
   params); params are a dict whose ``"layers"`` entry is a list of
   per-layer dicts.
 * Prefill attention goes through the flash-attention kernel
-  (``kernels/flash_attn``) when ``cfg.attn_impl == "pallas"`` and through
-  the plain chunked attention for ``"masked"``; decode attends to the KV
-  cache in plain PyTorch.
+  (``kernels/flash_attn``) when ``cfg.attn_impl == "pallas"`` and no
+  sliding window is set, through the block-triangular recursion for
+  ``"tri"`` without a window, and through the plain chunked attention
+  otherwise (with the window's mask); decode attends to the KV cache in
+  plain PyTorch.
+* Options, as the reference's: q/k/v biases (``qkv_bias``), qk-norm,
+  tied embeddings (the unembedding reads the embedding table), a sliding
+  window (``swa_window``: the KV cache is a ring of at most the window's
+  length, position p in slot p % length) and the capacity-routed MoE
+  FFN (``family="moe"``), whose aux loss ``forward`` sums over the
+  layers.
 * One card: there is no tensor parallelism, so the head layout is the
-  reference's at tp = 1.
+  reference's at tp = 1, and experts are not sharded (``moe_ep=True``
+  raises).
 * Params come in two forms: bf16 matrices for serving and float32
   matrices (``dtype=torch.float32``), the reference's master weights,
   for training.  With ``cfg.remat`` and gradients on, each layer runs
@@ -42,28 +51,29 @@ from ..kernels.flash_attn import ops as flash
 from ..optim.adam import leaves
 from . import layers as L
 
-ATTN_IMPLS = ("masked", "pallas")
+ATTN_IMPLS = ("masked", "pallas", "tri")
+FAMILIES = ("dense", "moe")
 
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for what the port's transformer does
-    not run yet (ROADMAP Queue 1 item 8)."""
+    not run yet: other families (ROADMAP Queue 1 item 8) and experts
+    sharded over a model axis (item 9)."""
     missing = []
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         missing.append(f"family {cfg.family!r}")
     if cfg.attn_impl not in ATTN_IMPLS:
         missing.append(f"attn_impl {cfg.attn_impl!r}")
-    if cfg.swa_window is not None:
-        missing.append("sliding-window attention")
-    if cfg.qkv_bias:
-        missing.append("qkv bias")
-    if cfg.tie_embeddings:
-        missing.append("tied embeddings")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP "
-            f"Queue 1 item 8); the port runs dense models with attn_impl "
-            f"in {ATTN_IMPLS}")
+            f"Queue 1 item 8); the port runs families {FAMILIES} with "
+            f"attn_impl in {ATTN_IMPLS}")
+    if cfg.moe_ep:
+        raise NotImplementedError(
+            f"{cfg.name}: moe_ep=True (experts sharded over the model "
+            f"axis) is not ported yet (ROADMAP Queue 1 item 9); the port "
+            f"runs experts unsharded on one card")
 
 
 def _layout(cfg: ArchConfig) -> L.HeadLayout:
@@ -89,33 +99,43 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
     layout = _layout(cfg)
     D, V = cfg.d_model, cfg.vocab_padded(1)
     ones = lambda: {"scale": torch.ones(D, device=dev)}  # noqa: E731
-    layers = [{"ln1": ones(),
-               "attn": L.init_attention(gen, D, layout, cfg.head_dim_,
-                                        qk_norm=cfg.qk_norm, device=dev,
-                                        dtype=dtype),
-               "ln2": ones(),
-               "mlp": L.init_swiglu(gen, D, cfg.d_ff, device=dev,
-                                    dtype=dtype)}
-              for _ in range(cfg.num_layers)]
-    return {"embed": L.init_embedding(gen, V, D, device=dev, dtype=dtype),
-            "layers": layers,
-            "final_norm": ones(),
-            "unembed": L.init_unembed(gen, D, V, device=dev, dtype=dtype)}
+    layers = []
+    for _ in range(cfg.num_layers):
+        lp = {"ln1": ones(),
+              "attn": L.init_attention(gen, D, layout, cfg.head_dim_,
+                                       qkv_bias=cfg.qkv_bias,
+                                       qk_norm=cfg.qk_norm, device=dev,
+                                       dtype=dtype),
+              "ln2": ones()}
+        if cfg.family == "moe":
+            lp["moe"] = L.init_moe(gen, D, cfg.d_ff, cfg.num_experts,
+                                   device=dev, dtype=dtype)
+        else:
+            lp["mlp"] = L.init_swiglu(gen, D, cfg.d_ff, device=dev,
+                                      dtype=dtype)
+        layers.append(lp)
+    params = {"embed": L.init_embedding(gen, V, D, device=dev, dtype=dtype),
+              "layers": layers,
+              "final_norm": ones()}
+    if not cfg.tie_embeddings:
+        params["unembed"] = L.init_unembed(gen, D, V, device=dev,
+                                           dtype=dtype)
+    return params
 
 
 def params_from_numpy(tree, cfg: ArchConfig, *, device=None,
                       dtype: torch.dtype = L.COMPUTE_DTYPE):
-    """The reference's dense param tree (``init_params(key, cfg, tp=1)``
-    as numpy arrays, layers stacked on a leading axis) as the port's
-    params: matrix weights to ``dtype`` (bf16 to serve; float32, the
-    reference's own values, to train), norm scales float32, the layer axis
-    split into a list."""
+    """The reference's param tree (``init_params(key, cfg, tp=1)`` as
+    numpy arrays, layers stacked on a leading axis) as the port's params:
+    matrix weights and biases to ``dtype`` (bf16 to serve; float32, the
+    reference's own values, to train), norm scales and the MoE router
+    float32, the layer axis split into a list."""
     check_supported(cfg)
     dev = torch.device("cpu" if device is None else device)
 
     def leaf(a, name):
         t = torch.from_numpy(np.array(a, np.float32))
-        if not (name == "scale" or name.endswith("_norm")):
+        if not (name in ("scale", "router") or name.endswith("_norm")):
             t = t.to(dtype)
         return t.to(dev)
 
@@ -125,43 +145,57 @@ def params_from_numpy(tree, cfg: ArchConfig, *, device=None,
                 for k, v in node.items()}
 
     stacked = tree["layers"]
-    return {"embed": convert(tree["embed"]),
-            "layers": [convert(stacked, i) for i in range(cfg.num_layers)],
-            "final_norm": convert(tree["final_norm"]),
-            "unembed": convert(tree["unembed"])}
+    return {k: ([convert(stacked, i) for i in range(cfg.num_layers)]
+                if k == "layers" else convert(v)) for k, v in tree.items()}
 
 
 # ---------------------------------------------------------------------------
 # forward (prefill)
 # ---------------------------------------------------------------------------
 
+def _ffn(lp, cfg: ArchConfig, h: torch.Tensor):
+    """The layer's FFN on h (B, S, D) -> (y, aux): SwiGLU (aux 0.0) or
+    the MoE at ``cfg``'s routing."""
+    if cfg.family == "moe":
+        return L.moe_apply(lp["moe"], h, top_k=cfg.top_k,
+                           capacity_factor=cfg.capacity_factor,
+                           num_real_experts=cfg.num_experts, ep=cfg.moe_ep)
+    return L.swiglu(lp["mlp"], h), 0.0
+
+
 def _block_apply(lp, cfg: ArchConfig, layout: L.HeadLayout,
                  x: torch.Tensor, positions: torch.Tensor):
-    """One layer over the whole sequence -> (x, k, v)."""
+    """One layer over the whole sequence -> (x, aux, k, v)."""
     h = L.rms_norm(x, lp["ln1"]["scale"], cfg.norm_eps)
     q, k, v = L.qkv_project(lp["attn"], h, positions=positions,
                             rope_theta=cfg.rope_theta or None,
                             qk_norm_eps=cfg.norm_eps)
-    if cfg.attn_impl == "pallas" and q.requires_grad:
+    flash_path = cfg.attn_impl == "pallas" and cfg.swa_window is None
+    if flash_path and q.requires_grad:
         raise NotImplementedError(
             f"{cfg.name}: attn_impl='pallas' has no backward (the "
             f"flash-attention kernel is forward only, as the reference's "
             f"Pallas kernel is); train with attn_impl='masked'")
+    sdt = torch.bfloat16 if cfg.attn_scores_bf16 else torch.float32
     # the profiler's range: a training step's split reads it
     with torch.profiler.record_function("lm.attention"):
-        if cfg.attn_impl == "pallas":
+        if flash_path:
             # K10 keeps its scores in float32 whatever attn_scores_bf16
             # says, as the reference's pallas path does
             o = flash.attend(q, k, v, causal=True,
                              block=min(cfg.attn_chunk, q.shape[1]))
+        elif cfg.attn_impl == "tri" and cfg.swa_window is None:
+            o = L.attention_causal_tri(q, k, v, layout,
+                                       kv_chunk=cfg.attn_chunk,
+                                       scores_dtype=sdt)
         else:
-            sdt = torch.bfloat16 if cfg.attn_scores_bf16 else torch.float32
             o = L.attention_chunked(q, k, v, layout, causal=True,
+                                    window=cfg.swa_window,
                                     kv_chunk=cfg.attn_chunk,
                                     scores_dtype=sdt)
     x = x + L.attn_output(lp["attn"], o)
-    h = L.rms_norm(x, lp["ln2"]["scale"], cfg.norm_eps)
-    return x + L.swiglu(lp["mlp"], h), k, v
+    y, aux = _ffn(lp, cfg, L.rms_norm(x, lp["ln2"]["scale"], cfg.norm_eps))
+    return x + y, aux, k, v
 
 
 def _tokens(batch, device) -> torch.Tensor:
@@ -171,13 +205,29 @@ def _tokens(batch, device) -> torch.Tensor:
     return toks.to(device=device, dtype=torch.long)
 
 
+def _write_prompt_kv(cache, i: int, k: torch.Tensor, v: torch.Tensor):
+    """Layer i's prompt k/v (B, S, Kp, hd) into the cache: slots [0, S)
+    when they fit, else (a sliding window's ring, shorter than the
+    prompt) the last Skv positions, position p in slot p % Skv, the slot
+    ``decode_step`` writes p to."""
+    S, Skv = k.shape[1], cache["k"].shape[2]
+    if S <= Skv:
+        cache["k"][i, :, :S] = k
+        cache["v"][i, :, :S] = v
+    else:
+        shift = (S - Skv) % Skv
+        cache["k"][i] = torch.roll(k[:, S - Skv:], shift, dims=1)
+        cache["v"][i] = torch.roll(v[:, S - Skv:], shift, dims=1)
+
+
 def _layers(params, cfg: ArchConfig, tokens: torch.Tensor, cache=None, *,
             collect_kv: bool = False):
-    """Embed and run every layer -> the last hidden state (B, S, D); each
-    layer's k/v is written into ``cache`` (positions [0, S)) when given,
-    and collected and returned with ``collect_kv``.  With ``cfg.remat``
-    and gradients on, each layer is recomputed in the backward pass
-    instead of keeping its activations."""
+    """Embed and run every layer -> (the last hidden state (B, S, D), the
+    summed aux loss, ks, vs); each layer's k/v is written into ``cache``
+    when given (:func:`_write_prompt_kv`), and collected and returned with
+    ``collect_kv``.  With ``cfg.remat`` and gradients on, each layer is
+    recomputed in the backward pass instead of keeping its
+    activations."""
     check_supported(cfg)
     layout = _layout(cfg)
     x = L.embed(params["embed"], tokens)
@@ -185,45 +235,53 @@ def _layers(params, cfg: ArchConfig, tokens: torch.Tensor, cache=None, *,
     positions = torch.arange(S, device=x.device).expand(B, S)
     remat = cfg.remat and torch.is_grad_enabled() and any(
         t.requires_grad for t in leaves(params))
-    ks, vs = [], []
+    aux, ks, vs = 0.0, [], []
     for i, lp in enumerate(params["layers"]):
         if remat:
-            x, k, v = torch.utils.checkpoint.checkpoint(
+            x, a, k, v = torch.utils.checkpoint.checkpoint(
                 _block_apply, lp, cfg, layout, x, positions,
                 use_reentrant=False)
         else:
-            x, k, v = _block_apply(lp, cfg, layout, x, positions)
+            x, a, k, v = _block_apply(lp, cfg, layout, x, positions)
+        aux = aux + a
         if cache is not None:
-            cache["k"][i, :, :S] = k
-            cache["v"][i, :, :S] = v
+            _write_prompt_kv(cache, i, k, v)
         if collect_kv:
             ks.append(k)
             vs.append(v)
-    return x, ks, vs
+    return x, aux, ks, vs
 
 
 def _logits(params, cfg: ArchConfig, x: torch.Tensor,
             cols: int | None = None) -> torch.Tensor:
+    """Final norm and unembedding: through the embedding table when
+    ``cfg.tie_embeddings``; ``cols`` unembeds only the first that many
+    vocabulary columns."""
     x = L.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        table = params["embed"]["table"]
+        table = table if cols is None else table[:cols]
+        return x.to(L.COMPUTE_DTYPE) @ table.to(L.COMPUTE_DTYPE).t()
     return L.unembed(params["unembed"], x, cols)
 
 
 def forward(params, cfg: ArchConfig, batch, *, collect_kv: bool = False,
             vocab_cols: int | None = None):
-    """Full-sequence forward -> (logits (B, S, Vp) bf16, aux 0.0, (k, v)
-    stacked over layers (L, B, S, Kp, hd) or None).  ``vocab_cols``
-    unembeds only the first that many vocabulary columns (the DWN head's
-    pooled features read 16 of them)."""
+    """Full-sequence forward -> (logits (B, S, Vp) bf16, aux (the MoE's
+    load-balance loss summed over the layers, a float32 scalar; 0.0 for
+    the dense family), (k, v) stacked over layers (L, B, S, Kp, hd) or
+    None).  ``vocab_cols`` unembeds only the first that many vocabulary
+    columns (the DWN head's pooled features read 16 of them)."""
     tokens = _tokens(batch, params["embed"]["table"].device)
-    x, ks, vs = _layers(params, cfg, tokens, collect_kv=collect_kv)
+    x, aux, ks, vs = _layers(params, cfg, tokens, collect_kv=collect_kv)
     kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
-    return _logits(params, cfg, x, vocab_cols), 0.0, kvs
+    return _logits(params, cfg, x, vocab_cols), aux, kvs
 
 
 def loss_fn(params, cfg: ArchConfig, batch) -> torch.Tensor:
     """Next-token loss of ``batch`` ({"tokens", "labels"}, (B, S) each):
     the cross-entropy of positions [0, S-1) against labels [1, S), plus
-    0.01 times the dense family's aux of 0.0, as the reference adds it."""
+    0.01 times the summed aux loss, as the reference adds it."""
     logits, aux, _ = forward(params, cfg, batch)
     labels = _tokens({"tokens": batch["labels"]}, logits.device)
     with torch.profiler.record_function("lm.cross_entropy"):
@@ -237,9 +295,11 @@ def loss_fn(params, cfg: ArchConfig, batch) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def cache_len_for(cfg: ArchConfig, seq_len: int) -> int:
-    """KV-cache length for ``seq_len`` tokens (the dense family keeps
-    every position)."""
+    """KV-cache length for ``seq_len`` tokens: every position, or at most
+    the sliding window's."""
     check_supported(cfg)
+    if cfg.swa_window is not None:
+        return min(seq_len, cfg.swa_window)
     return seq_len
 
 
@@ -257,10 +317,15 @@ def init_cache(cfg: ArchConfig, batch_size: int, cache_len: int, *,
 def prefill(params, cfg: ArchConfig, batch, *, cache_len: int | None = None):
     """Process the whole prompt -> (last-token logits (B, Vp), cache).
 
-    The cache has ``cache_len`` positions (default: the prompt's; fewer
-    than the prompt's raise ``ValueError``) and holds the prompt's k/v.
-    Only the last position is unembedded: the reference computes every
-    position's logits and keeps the last."""
+    The cache has ``cache_len_for(cfg, cache_len)`` positions
+    (``cache_len`` defaults to the prompt's; shorter than the prompt
+    raises ``ValueError``) and holds the prompt's k/v; under a sliding
+    window shorter than the prompt it holds the last window, position p
+    in slot p % window (the reference keeps the last window in order, so
+    its first decode step overwrites a position still in the window
+    whenever the prompt is no multiple of it).  Only the last position is
+    unembedded: the reference computes every position's logits and keeps
+    the last."""
     dev = params["embed"]["table"].device
     tokens = _tokens(batch, dev)
     B, S = tokens.shape
@@ -269,7 +334,7 @@ def prefill(params, cfg: ArchConfig, batch, *, cache_len: int | None = None):
         raise ValueError(f"cache_len {cache_len} is shorter than the "
                          f"{S}-token prompt")
     cache = init_cache(cfg, B, cache_len, device=dev)
-    x, _, _ = _layers(params, cfg, tokens, cache)
+    x, _, _, _ = _layers(params, cfg, tokens, cache)
     cache["pos"] = S
     return _logits(params, cfg, x[:, -1:])[:, 0], cache
 
@@ -277,15 +342,28 @@ def prefill(params, cfg: ArchConfig, batch, *, cache_len: int | None = None):
 def decode_step(params, cfg: ArchConfig, cache, tokens):
     """One decode step: tokens (B, 1) against the cache -> (logits (B, Vp),
     cache).  The cache is updated in place (the reference returns a new
-    one) and returned."""
+    one) and returned.  Under a sliding window the new position p goes to
+    slot p % Skv; a ring shorter than the window that is full raises
+    ``ValueError``, since that slot still holds a position the window
+    reads."""
     check_supported(cfg)
     layout = _layout(cfg)
     dev = params["embed"]["table"].device
     x = L.embed(params["embed"], _tokens({"tokens": tokens}, dev))
     pos = int(cache["pos"])
     Skv = cache["k"].shape[2]
-    slot = min(pos, Skv - 1)
-    cur = min(pos + 1, Skv)
+    window = cfg.swa_window
+    if window is None:
+        slot, cur = min(pos, Skv - 1), min(pos + 1, Skv)
+    else:
+        if pos >= Skv and Skv < window:
+            raise ValueError(
+                f"{cfg.name}: the KV ring of {Skv} slots is shorter than "
+                f"the {window}-token window and full: position {pos} would "
+                f"overwrite position {pos - Skv}, which the window still "
+                f"reads; prefill with a cache_len of at least "
+                f"{min(pos + 1, window)}")
+        slot, cur = pos % Skv, pos + 1
     positions = torch.full((x.shape[0], 1), pos, device=dev)
     for i, lp in enumerate(params["layers"]):
         hn = L.rms_norm(x, lp["ln1"]["scale"], cfg.norm_eps)
@@ -295,16 +373,16 @@ def decode_step(params, cfg: ArchConfig, cache, tokens):
         cache["k"][i, :, slot] = k[:, 0]
         cache["v"][i, :, slot] = v[:, 0]
         o = L.attention_decode(q, cache["k"][i], cache["v"][i], layout,
-                               cur_len=cur)
+                               cur_len=cur, window=window)
         x = x + L.attn_output(lp["attn"], o)
-        hn = L.rms_norm(x, lp["ln2"]["scale"], cfg.norm_eps)
-        x = x + L.swiglu(lp["mlp"], hn)
+        y, _ = _ffn(lp, cfg, L.rms_norm(x, lp["ln2"]["scale"], cfg.norm_eps))
+        x = x + y
     cache["pos"] = pos + 1
     return _logits(params, cfg, x)[:, 0], cache
 
 
 __all__ = [
-    "ATTN_IMPLS", "cache_len_for", "check_supported", "decode_step",
+    "ATTN_IMPLS", "FAMILIES", "cache_len_for", "check_supported", "decode_step",
     "forward", "init_cache", "init_params", "loss_fn", "params_from_numpy",
     "prefill",
 ]

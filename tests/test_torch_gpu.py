@@ -1037,6 +1037,45 @@ def test_flash_attention_matches_plain_on_card():
         rtol=FLASH_TOL)
 
 
+#: sequence lengths around the mma.sync instances' 64-row query blocks and
+#: 64-key tiles
+MMA_EDGES = (1, 63, 64, 65, 127, 129, 200, 1024)
+
+
+@pytest.mark.parametrize("H,KH,hd", [(24, 8, 64), (32, 32, 96),
+                                     (28, 4, 128), (40, 8, 128)])
+def test_flash_attention_lm_zoo_head_shapes_match_plain_on_card(H, KH, hd):
+    """The head shapes of the LM zoo: hd 64 (granite-moe, 24 query heads
+    over 8 KV heads) and hd 96 (phi3-mini, MHA) on the mma.sync instances
+    at sequence lengths on either side of their 64-row blocks, and hd 128
+    at qwen2-7b's (28 over 4) and qwen3-14b's (40 over 8) head shapes;
+    causal and not, flat and peaked softmax: within 2e-2 of the plain
+    version in bf16 and each query row within 1e-2 of its largest value
+    in float32, one launch counted a call."""
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+    _need_card()
+    for i, S in enumerate(MMA_EDGES):
+        B = 1 + S % 2
+        for q_scale in (0.5, 4.0):
+            q, k, v = (t.bfloat16() for t in
+                       _attn_operands(100 + i, B, S, H, KH, hd, q_scale))
+            for causal in (True, False):
+                before = FK.launch_counts()["flash_attention"]
+                got = FK.flash_attention(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                assert FK.launch_counts()["flash_attention"] == before + 1
+                torch.testing.assert_close(
+                    got.float(), attention_ref(q, k, v, causal=causal).float(),
+                    atol=FLASH_TOL, rtol=FLASH_TOL)
+                exact = attention_ref(q.float(), k.float(), v.float(),
+                                      causal=causal)
+                row = ((got.float() - exact).abs().amax(-1)
+                       / exact.abs().amax(-1).clamp_min(1e-30))
+                assert float(row.max()) <= FLASH_ROW_REL, (
+                    S, q_scale, causal, float(row.max()))
+
+
 def test_flash_attention_graph_replay_equals_eager():
     """The launch captured in a CUDA graph (its tensor maps are kernel
     parameters, captured by value) replays to the eager call's output bit
@@ -1063,7 +1102,8 @@ def test_flash_attention_graph_replay_equals_eager():
 
 def test_prefill_launches_flash_once_per_layer():
     """Reduced qwen3-8b on the card with ``attn_impl="pallas"``, at its
-    head_dim 16 and at qwen3-8b's 128 (the served design): one
+    head_dim 16, at granite-moe's 64, phi3-mini's 96 and at qwen3-8b's
+    128 (the served design): one
     flash-attention launch per layer in prefill, none in decode; the last
     logits within 0.05 relative of the ``masked`` path on the same
     params."""
@@ -1072,7 +1112,7 @@ def test_prefill_launches_flash_once_per_layer():
     from repro_torch.kernels.flash_attn import kernel as FK
     from repro_torch.models import transformer as TT
     _need_card()
-    for head_dim in (16, 128):      # hd 128 runs the served design
+    for head_dim in (16, 64, 96, 128):  # hd 128 runs the served design
         cfg = dataclasses.replace(get_arch("qwen3-8b").reduced(),
                                   attn_impl="pallas", head_dim=head_dim)
         params = TT.init_params(cfg, seed=0, device="cuda")
@@ -1088,6 +1128,40 @@ def test_prefill_launches_flash_once_per_layer():
         ref, _ = TT.prefill(params, masked, {"tokens": toks}, cache_len=44)
         err = (lg.float() - ref.float()).abs().max() / ref.float().abs().max()
         assert float(err) < 0.05, (head_dim, float(err))
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "qwen3-14b", "phi3-mini-3.8b",
+                                  "granite-moe-3b-a800m", "mixtral-8x7b"])
+def test_lm_zoo_reduced_on_the_card_matches_the_cpu(arch):
+    """Each dense and MoE arch, reduced, with ``attn_impl="pallas"``: the
+    card's prefill (one flash launch a layer; none under mixtral's window)
+    and a decode step past the window's ring, within 0.05 relative of the
+    same params on the CPU (its plain versions)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim.adam import map_tree
+    _need_card()
+    cfg = dataclasses.replace(get_arch(arch).reduced(), attn_impl="pallas")
+    cpu = TT.init_params(cfg, seed=0)
+    card = map_tree(lambda t: t.cuda(), cpu)
+    toks = torch.randint(0, cfg.vocab_size, (2, 37),
+                         generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev, params in (("cpu", cpu), ("cuda", card)):
+        FK.reset_launch_counts()
+        lg, cache = TT.prefill(params, cfg, {"tokens": toks[:, :36].to(dev)},
+                               cache_len=40)
+        step, _ = TT.decode_step(params, cfg, cache, toks[:, 36:].to(dev))
+        torch.cuda.synchronize()
+        out[dev] = (lg.float().cpu(), step.float().cpu(),
+                    FK.launch_counts()["flash_attention"])
+    flash = cfg.num_layers if cfg.swa_window is None else 0
+    assert out["cpu"][2] == 0 and out["cuda"][2] == flash
+    for got, want in zip(out["cuda"][:2], out["cpu"][:2]):
+        err = (got - want).abs().max() / want.abs().max()
+        assert float(err) < 0.05, (arch, float(err))
 
 
 def test_flash_wrapper_refuses_bad_operands():

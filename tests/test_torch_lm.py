@@ -88,17 +88,22 @@ def _scaled_close(got, want):
 def test_config_copy_and_registry():
     """Exact: the port's qwen3-8b and its reduced variant equal the
     reference's field for field, with the same parameter count and padded
-    vocab; only qwen3-8b is registered, the reference's other LM archs
-    raise ``KeyError`` naming the ROADMAP item, unknown names raise."""
+    vocab; the dense and MoE archs are registered, the reference's other
+    LM archs raise ``KeyError`` naming the ROADMAP item, unknown names
+    raise."""
     for mk in (lambda g: g("qwen3-8b"), lambda g: g("qwen3-8b").reduced()):
         mine, ref = mk(get_arch), mk(jget_arch)
         assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
         assert mine.num_params() == ref.num_params()
         assert mine.vocab_padded(1) == ref.vocab_padded(1)
         assert mine.head_dim_ == ref.head_dim_
-    assert list_archs() == ["qwen3-8b"]
-    with pytest.raises(KeyError, match="Queue 1 item 8"):
-        get_arch("mixtral-8x7b")
+    assert list_archs() == ["granite-moe-3b-a800m", "mixtral-8x7b",
+                            "phi3-mini-3.8b", "qwen2-7b", "qwen3-14b",
+                            "qwen3-8b"]
+    for name in ("llava-next-34b", "mamba2-1.3b", "recurrentgemma-2b",
+                 "whisper-large-v3"):
+        with pytest.raises(KeyError, match="Queue 1 item 8"):
+            get_arch(name)
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("no-such-arch")
     assert round(get_arch("qwen3-8b").num_params() / 1e9, 2) == 8.19
@@ -113,18 +118,22 @@ def test_head_layout_matches_reference(q, kv, tp):
 
 
 def test_unported_options_raise():
-    """Families, attention variants and options the port does not run
-    raise ``NotImplementedError`` naming the ROADMAP item, in the serving
-    form and in the float32 training form; the dense model trains."""
+    """Families and options the port does not run raise
+    ``NotImplementedError`` naming the ROADMAP item, in the serving form
+    and in the float32 training form: the SSM, hybrid, enc-dec and VLM
+    families (item 8) and experts sharded over the model axis (item 9);
+    the dense model trains."""
     cfg = _cfg()
-    for bad in (dict(attn_impl="tri"), dict(swa_window=16),
-                dict(family="moe"), dict(qkv_bias=True),
-                dict(tie_embeddings=True)):
+    for bad, item in ((dict(family="ssm"), 8), (dict(family="hybrid"), 8),
+                      (dict(family="encdec"), 8), (dict(family="vlm"), 8),
+                      (dict(family="moe", num_experts=4, top_k=2,
+                            moe_ep=True), 9)):
         for dtype in (torch.bfloat16, torch.float32):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+            with pytest.raises(NotImplementedError,
+                               match=f"Queue 1 item {item}"):
                 TT.init_params(dataclasses.replace(cfg, **bad), dtype=dtype)
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        api.make_train_step(dataclasses.replace(cfg, family="moe"))
+        api.make_train_step(dataclasses.replace(cfg, family="vlm"))
     assert callable(api.make_train_step(cfg)[0])
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         api.module_for(dataclasses.replace(cfg, family="ssm"))

@@ -307,7 +307,7 @@ def test_launch_train_prints_the_reference_report(capsys, tmp_path):
         ("qwen3-8b-reduced", 2, "cpu")
     assert np.isfinite(lm["first_loss"]) and np.isfinite(lm["last_loss"])
     with pytest.raises(KeyError, match="Queue 1 item 8"):
-        ttrain.main(["--arch", "mixtral-8x7b", "--device", "cpu"])
+        ttrain.main(["--arch", "mamba2-1.3b", "--device", "cpu"])
 
 
 def test_trained_artifact_saves_loads_and_serves_bit_exact(data, tmp_path):
