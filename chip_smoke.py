@@ -87,15 +87,20 @@ Phases, each printing one JSON line:
    within 2e-2 elementwise and within 1e-2 of each query row's largest
    value; the same at the LM zoo's head shapes (qwen2-7b's 28 over 4 and
    qwen3-14b's 40 over 8 at hd 128, phi3-mini's 32 over 32 at hd 96,
-   granite-moe's 24 over 8 at hd 64) for (B, S) in (1, 1), (2, 63), (1,
-   65), (2, 97), (1, 129), (4, 2048); then each head shape timed at B=4,
-   S=2048 in a CUDA graph beside its plain version and one
-   ``scaled_dot_product_attention`` call (a yardstick the port never
-   calls), with its TFLOP/s, the bound counted from shapes and the share
-   of it reached, and the registers, shared memory and spills from ptxas
-   of the Hopper kernel (hd 128) and of the hd-64 and hd-96 mma.sync
-   instances (it fails if one spills or ptxas serialised the Hopper
-   kernel's wgmmas);
+   granite-moe's 24 over 8 at hd 64, all on the Hopper design) for (B, S)
+   in ZOO_FLASH_SIZES (S on either side of its query blocks and key
+   tiles), and qwen3-8b's at 8 x 2048 and granite-moe's at 10 x 2048,
+   where K and V pass 40 MB but, with several query heads a KV head, the
+   blocks keep the order by query block (FLASH_GQA_PAST_L2_SIZES); then
+   each head shape timed at B=4, S=2048 in a CUDA graph
+   beside its plain version and one ``scaled_dot_product_attention`` call
+   (a yardstick the port never calls), hd 64 and 96 also beside their
+   kept first designs (mma.sync, ``flash_attn_mma_launch``, uncounted),
+   with its TFLOP/s, the bound counted from shapes and the share of it
+   reached, and the registers, shared memory and spills from ptxas of the
+   Hopper design's hd-64, hd-96 and hd-128 instances and of the first
+   designs (it fails if one spills or ptxas serialised a Hopper
+   instance's wgmmas);
 7. lm      — ``ServingEngine(qwen3-8b with attn_impl="pallas",
    prompt_len=2048, gen=16, device="cuda")`` at full width (36 layers,
    weights from a seed): serves 2 requests of 4 prompts with the launch
@@ -262,7 +267,8 @@ Phases, each printing one JSON line:
 Then it prints each phase's seconds, the kernels' summary line (K1's and
 K2's launches on each served path, the load phase's sessions, the
 sweep's paper grid and the DWN head among them, K10's on every LM path,
-its hd-64 and hd-96 instances as entries of their own,
+its hd-64 and hd-96 instances as entries of their own with their first
+designs' times,
 their times at the mnist-lg shape
 beside their bounds), nvidia-smi's line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -1648,17 +1654,29 @@ FLASH_SYMBOL = "flash_attn_kernel"
 #: the qwen3-8b attention head shape: query heads, KV heads, head_dim
 QWEN_HEADS = (32, 8, 128)
 #: the other head shapes the LM zoo's pallas archs give K10: two more at
-#: hd 128 on the Hopper design, hd 64 and 96 on the mma.sync instances
+#: hd 128, hd 96 and hd 64, all on the Hopper design
 ZOO_HEADS = {"qwen2-7b": (28, 4, 128), "qwen3-14b": (40, 8, 128),
              "phi3-mini-3.8b": (32, 32, 96),
              "granite-moe-3b-a800m": (24, 8, 64)}
 #: (B, S) checked at the zoo's head shapes: S on either side of the
-#: mma.sync instances' 64-row blocks and the Hopper design's 96-key tiles
-ZOO_FLASH_SIZES = ((1, 1), (2, 63), (1, 65), (2, 97), (1, 129), (4, 2048))
-#: the symbols of the Hopper design (hd 128) and of the mma.sync
-#: instances the zoo launches, whose ptxas lines are held to no spills
-#: (and the Hopper design's to no wgmma serialisation)
-FLASH_WS_SYMBOL = FLASH_SYMBOL + "_ws"
+#: Hopper design's 128-row query blocks and of its 96-key (hd 96, 128) and
+#: 128-key (hd 64) tiles, and of the first design's 64-row blocks; at
+#: (3, 2000) and (4, 2048) phi3-mini's K and V (74 and 101 MB) run in
+#: groups of 13 and 12 (b, h) pairs (``head_group``)
+ZOO_FLASH_SIZES = ((1, 1), (2, 63), (1, 65), (1, 95), (2, 97), (1, 127),
+                   (1, 129), (2, 191), (1, 193), (2, 255), (1, 257),
+                   (3, 2000), (4, 2048))
+#: (B, S) at which K and V pass head_group's 40 MB at a head shape with
+#: several query heads a KV head, where the blocks still run by query
+#: block alone: qwen3-8b's at 8 x 2048, the lm_head phase's classify
+#: requests (67 MB), and granite-moe's at 10 x 2048 (42 MB)
+FLASH_GQA_PAST_L2_SIZES = {QWEN_HEADS: ((8, 2048),),
+                           (24, 8, 64): ((10, 2048),)}
+#: the symbols of the Hopper design's instances, whose ptxas lines are
+#: held to no spills and no wgmma serialisation, and of the kept first
+#: designs at hd 64 and 96 (timed beside them, held to no spills); one
+#: symbol an instance, since a template's name holds every instance's
+FLASH_WS_SYMBOLS = {hd: f"{FLASH_SYMBOL}_wsILi{hd}E" for hd in (64, 96, 128)}
 FLASH_MMA_SYMBOLS = {hd: f"{FLASH_SYMBOL}_mmaILi{hd}E" for hd in (64, 96)}
 #: flash attention (bf16 out, P rounded to bf16) against its float32
 #: plain version: the reference's bf16 bar (tests/test_flash_kernel.py:41),
@@ -1694,12 +1712,10 @@ def _bf16_bound(nbytes, nops):
             "bytes": nbytes, "operations": nops}
 
 
-def _ptxas_resources(lines, symbol):
+def ptxas_entry(lines, symbol):
     """Registers, shared memory and spill bytes of the kernel whose mangled
     name holds ``symbol``, from ptxas's -v lines (an entry's lines follow
-    its "Compiling entry" line), and any wgmma serialisation warning.
-    Raises if the kernel's lines are missing, if it spills or if ptxas
-    serialised its wgmmas."""
+    its "Compiling entry" line), and any wgmma serialisation warning."""
     out = {"warnings": [line for line in lines
                         if "Performance Loss" in line and symbol in line]}
     inside = False
@@ -1714,6 +1730,13 @@ def _ptxas_resources(lines, symbol):
                                              line).group(1))
             smem = re.search(r"(\d+) bytes smem", line)
             out["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    return out
+
+
+def _ptxas_resources(lines, symbol):
+    """:func:`ptxas_entry`, raising if the kernel's lines are missing, if
+    it spills or if ptxas serialised its wgmmas."""
+    out = ptxas_entry(lines, symbol)
     if "registers" not in out or "spill_bytes" not in out:
         raise SystemExit(f"ptxas reported no registers or spills for "
                          f"{symbol!r}: {out}")
@@ -1781,13 +1804,32 @@ def _flash_operands(device, rng, B, S, heads, q_scale=0.5):
 
 def _flash_timing(device, rng, heads, B, S):
     """K10 at (B, S) and one head shape in a CUDA graph and eagerly, its
-    plain version, the SDPA yardstick and the bound from shapes."""
+    plain version, the SDPA yardstick and the bound from shapes; at hd 64
+    and 96 also the kept first design (mma.sync) in a CUDA graph, through
+    ``flash_attn_mma_launch``, uncounted, its output held to the plain
+    version."""
     import torch
     from repro_torch.kernels.flash_attn import kernel as KA
     from repro_torch.kernels.flash_attn.ref import attention_ref
     q, k, v = _flash_operands(device, rng, B, S, heads)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    H, KH, hd = heads
+    first = {}
+    if hd in FLASH_MMA_SYMBOLS:
+        out = torch.zeros_like(q)
+        mma = rows_kernel(KA.LIBRARY, KA._SIGNATURES, "flash_attn_mma_launch",
+                          q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          out.data_ptr(), B, S, H, KH, hd, 1)
+        mma()
+        torch.cuda.synchronize()
+        res = flash_errors(out, attention_ref(q.float(), k.float(),
+                                              v.float(), causal=True))
+        if not res["ok"]:
+            raise SystemExit(f"K10's first design at hd {hd} differs from "
+                             f"its plain version: {res}")
+        first = {"first_design_ms": graph_ms(mma, iters=20),
+                 "first_design_max_abs_err": res["max_abs_err"]}
     timing = {
         "B": B, "S": S, "H": heads[0], "KH": heads[1], "hd": heads[2],
         "ms": graph_ms(lambda: KA.flash_attention(q, k, v, causal=True),
@@ -1798,7 +1840,7 @@ def _flash_timing(device, rng, heads, B, S):
                             iters=3, warmup=1),
         "library_ms": graph_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
                                             enable_gqa=True), iters=20),
-        **_bf16_bound(*flash_bytes_and_ops(B, S, *heads))}
+        **first, **_bf16_bound(*flash_bytes_and_ops(B, S, *heads))}
     timing["tflops"] = timing["operations"] / timing["ms"] / 1e9
     timing["bound_share"] = timing["bound_ms"] / timing["ms"]
     return timing
@@ -1810,18 +1852,24 @@ def phase_flash(device, ptxas=(), sizes=((1, 1), (2, 33), (1, 129),
     """K10 within FLASH_TOL and FLASH_ROW_REL of its plain version at the
     qwen3-8b head shape (sizes that straddle its 128-row query blocks and
     96-key tiles among them, q at each of FLASH_Q_SCALES) and at the LM
-    zoo's head shapes (ZOO_HEADS over ZOO_FLASH_SIZES); K10, its plain
-    version and the SDPA yardstick timed at each head shape; the Hopper
-    kernel's and the hd-64 and hd-96 instances' registers, shared memory
-    and spills as ptxas reported them, none spilled."""
+    zoo's head shapes (ZOO_HEADS over ZOO_FLASH_SIZES), and where GQA
+    heads' K and V pass 40 MB (FLASH_GQA_PAST_L2_SIZES); K10, its plain
+    version and the SDPA yardstick timed at each head shape, with the kept
+    first design at hd 64 and 96; the Hopper design's instances' and the
+    first designs' registers, shared memory and spills as ptxas reported
+    them, none spilled and no wgmma serialised."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attn import kernel as KA
     rng = np.random.default_rng(3)
     checks = []
-    max_err, row_rel = _flash_checks(device, rng, QWEN_HEADS, sizes, checks)
+    max_err, row_rel = _flash_checks(
+        device, rng, QWEN_HEADS,
+        tuple(sizes) + FLASH_GQA_PAST_L2_SIZES[QWEN_HEADS], checks)
     per_hd = {}
     for heads in ZOO_HEADS.values():
-        err = _flash_checks(device, rng, heads, ZOO_FLASH_SIZES, checks)
+        err = _flash_checks(device, rng, heads, ZOO_FLASH_SIZES
+                            + FLASH_GQA_PAST_L2_SIZES.get(heads, ()),
+                            checks)
         hd_err = per_hd.setdefault(heads[2], [0.0, 0.0])
         hd_err[:] = [max(a, b) for a, b in zip(hd_err, err)]
     smem_bytes = _build.load(KA.LIBRARY).flash_attn_smem_bytes
@@ -1830,11 +1878,11 @@ def phase_flash(device, ptxas=(), sizes=((1, 1), (2, 33), (1, 129),
     zoo = {name: _flash_timing(device, rng, heads, *time_shape)
            for name, heads in ZOO_HEADS.items()}
     lines = list(ptxas)
-    resources = {"hd128": {**_ptxas_resources(lines, FLASH_WS_SYMBOL),
-                           "dynamic_smem_bytes": smem_bytes(128)}}
+    resources = {f"hd{hd}": {**_ptxas_resources(lines, symbol),
+                             "dynamic_smem_bytes": smem_bytes(hd)}
+                 for hd, symbol in FLASH_WS_SYMBOLS.items()}
     for hd, symbol in FLASH_MMA_SYMBOLS.items():
-        resources[f"hd{hd}"] = {**_ptxas_resources(lines, symbol),
-                                "dynamic_smem_bytes": smem_bytes(hd)}
+        resources[f"hd{hd} first design"] = _ptxas_resources(lines, symbol)
     B, S = time_shape
     H, KH, hd = QWEN_HEADS
     emit({"phase": "flash", "checks": checks, "tolerance": FLASH_TOL,
@@ -4498,7 +4546,9 @@ def main() -> int:
             **flash_err_by_hd[hd], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
-            "library": "scaled_dot_product_attention"})
+            "library": "scaled_dot_product_attention",
+            **{k: t[k] for k in ("eager_ms", "tflops", "bound_share",
+                                 "first_design_ms")}})
         if not zoo_launches[arch]:
             raise SystemExit(f"K10 at hd {hd} launched no time on the "
                              f"{arch} path")

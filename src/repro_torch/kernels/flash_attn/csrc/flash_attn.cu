@@ -22,76 +22,118 @@
 // KH=8, hd=128) a causal launch does 2*B*H*S*(S+1)*hd = 1.375e11
 // tensor-core operations (the two products over the lower triangle)
 // against 168 MB of q, k, v and o (0.050 ms at 3.35 TB/s), so it is bound
-// by operations: 0.139 ms at the published 989 TFLOP/s bf16.
+// by operations: 0.139 ms at the published 989 TFLOP/s bf16.  So are
+// granite-moe's (H=24, KH=8, hd=64: 5.16e10 operations, 0.052 ms) and
+// phi3-mini's (H=KH=32, hd=96: 1.03e11, 0.104 ms).  At hd 64 a score's
+// ex2 (16 a clock an SM) costs as much SM time as its 256 tensor-core
+// operations (4096 a clock), so the softmax, not the products, sets the
+// pace there.
 //
-// hd = 128 (qwen3-8b's heads) runs the Hopper design, namespace ws:
+// hd = 64 (granite-moe), 96 (phi3-mini) and 128 (qwen3-8b, qwen3-14b,
+// qwen2-7b, mixtral) run the Hopper design, namespace ws, a template on
+// hd:
 //   * one block of 288 threads owns 128 query rows of one (b, h): two
 //     consumer warpgroups (warps 0-7) of 64 rows each and one producer
 //     warp (warp 8), one thread of which issues every TMA copy.  288
 //     threads leave 224 registers to each; a full producer warpgroup with
-//     setmaxnreg (384 threads) was tried first, but ptxas (CUDA 12.9) kept
-//     the consumers' code near the launch bound's 168 registers and
-//     serialised the wgmmas;
-//   * shared memory: Q's 128 x 128 tile (32 KB, loaded once) and a ring of
-//     2 stages of K and of V tiles of 96 keys (24 KB each), 129 KB in all,
-//     one block per SM.  Each tile has a full mbarrier (TMA completes its
-//     bytes) and an empty one (each consumer warp arrives once it has read
-//     it).  K and V are released apart: K as soon as Q K^T has landed, V
-//     after P V, and the producer issues K_j before V_{j-1}, the order in
-//     which the consumers need them (one empty barrier per stage for both
-//     held each stage a product longer: 0.54 against 0.43 ms at 2 stages);
+//     setmaxnreg (384 threads) was tried first at hd 128, but ptxas (CUDA
+//     12.9) kept the consumers' code near the launch bound's 168 registers
+//     and serialised the wgmmas;
+//   * shared memory: Q's 128 x hd tile (loaded once) and a ring of K and of
+//     V tiles (Shape<hd>: keys a tile, stages); at hd 128 32 KB of Q and 2
+//     stages of 96-key tiles (24 KB each), 129 KB in all, one block per SM.
+//     Each tile has a full mbarrier (TMA completes its bytes) and an empty
+//     one (each consumer warp arrives once it has read it).  K and V are
+//     released apart: K as soon as Q K^T has landed, V after P V, and the
+//     producer issues K_j before V_{j-1}, the order in which the consumers
+//     need them (one empty barrier per stage for both held each stage a
+//     product longer: 0.54 against 0.43 ms at 2 stages, hd 128);
 //   * TMA reads the model's layout in place through 4-d tensor maps: q and
 //     o over (hd, H, S, B), k and v over (hd, KH, S, B), boxes of 64
 //     head-dim columns (128 bytes, the largest inner box of the 128-byte
-//     swizzle), so each tile is two boxes.  The maps are encoded on the
-//     host at every launch (cuTensorMapEncodeTiled, found through
+//     swizzle), so a tile is (hd + 63) / 64 boxes: one at hd 64, two at
+//     128, and two at hd 96, whose second box's columns 96-127 lie past the
+//     map's hd and arrive as zeros.  A barrier expects every box's whole
+//     bytes, zeros included, as for rows past S.  The maps are encoded on
+//     the host at every launch (cuTensorMapEncodeTiled, found through
 //     cudaGetDriverEntryPoint[ByVersion]) and passed by value as
 //     __grid_constant__ parameters, which a CUDA graph captures.  Rows past
-//     S arrive as zeros; the score mask above still applies;
-//   * S = Q K^T runs on wgmma m64n96k16 with both operands in shared
+//     S arrive as zeros; the score mask below still applies;
+//   * S = Q K^T runs on wgmma m64n{keys}k16 with both operands in shared
 //     memory, K-major as TMA stores them (128-byte swizzle descriptors,
-//     8-row groups 1024 bytes apart, k-steps 32 bytes into the span);
+//     8-row groups 1024 bytes apart, k-steps 32 bytes into the span, four
+//     a box): hd / 16 k-steps, 6 at hd 96, which never reach the zeros;
 //   * the softmax runs in registers in the log2 domain, one FFMA and one
 //     ex2.approx.ftz per score: the accumulator gives each row to one quad
 //     of lanes, so a row's max is two shuffles; tiles that cross S or the
 //     consumer's diagonal are masked with one compare per score against a
 //     per-row limit (a per-score key test compiled to a branch per score
-//     and cost a third of the kernel's time);
-//   * O += P V runs on wgmma m64n128k16 with P from registers (the score
+//     and cost a third of the kernel's time at hd 128);
+//   * O += P V runs on wgmma m64n{hd}k16 with P from registers (the score
 //     fragment rounded to bf16 pairs is the A fragment) and V MN-major in
-//     shared memory (transpose-B bit set; lbo = the 64-column halves'
-//     distance, sbo = 1024);
+//     shared memory (transpose-B bit set; lbo = the 64-column boxes'
+//     distance, so hd 96's columns 64-95 come from the second box, sbo =
+//     1024);
 //   * overlap: within a consumer, Q K^T of tile j is issued together with
 //     P V of tile j - 1 and the softmax of tile j runs while P V does; the
 //     two consumers take turns issuing (named barriers 1 and 2), so one's
-//     softmax runs while the other's products do.  96-key tiles are the
-//     largest at which S, P and O in flight together (136 registers)
-//     compile without spills; at 112 and 128 keys ptxas spilled P and
-//     serialised the wgmmas;
+//     softmax runs while the other's products do.  At hd 128, 96-key tiles
+//     are the largest at which S, P and O in flight together (48 + 24 + 64
+//     = 136 registers) compile without spills; at 112 and 128 keys ptxas
+//     spilled P and serialised the wgmmas.  hd 96 and 64 hold 48 and 32
+//     floats of O, which leaves room for larger key tiles (shapes tried
+//     below);
 //   * epilogue: each consumer normalises its rows, writes them as bf16 in
-//     the swizzled layout into its half of Q's buffer and stores them with
-//     two TMA boxes; the map clips rows past S;
-//   * causal blocks run the heaviest query blocks first (blockIdx.y walks
-//     query blocks from the last, blockIdx.x the (b, h)), and KV tiles
-//     wholly above the diagonal are never loaded.
-// Measured at the served shape in CUDA graphs on an NVIDIA H100 80GB HBM3
-// at 700 W, each step against the first design's 0.70 ms in the same run:
-// producer/consumer split alone 0.284 ms, with the consumers' turns 0.271,
-// with the overlap inside each consumer 0.262-0.265 (about 520 TFLOP/s,
-// 1.9x the bound; scaled_dot_product_attention 0.252 there).
+//     the swizzled layout into its part of Q's buffer and stores them with
+//     one TMA box per 64 columns; the map clips rows past S (and hd 96's
+//     columns 96-127);
+//   * causal blocks run the heaviest query blocks first, and KV tiles
+//     wholly above the diagonal are never loaded.  The grid is one block
+//     a (query block, b, h), walked query block by query block over groups
+//     of (b, h) pairs; a group holds every pair unless the launch's K and
+//     V exceed 40 MB of the 50 MB L2 and each KV head serves one query head
+//     (head_group), as phi3-mini's 32 do, where each query block would
+//     otherwise read its keys from device memory again.
+// Measured at hd 128, B=4, S=2048, H=32, KH=8 in CUDA graphs on an NVIDIA
+// H100 80GB HBM3 at 700 W, each step against the first design's 0.70 ms
+// in the same run: producer/consumer split alone 0.284 ms, with the
+// consumers' turns 0.271, with the overlap inside each consumer
+// 0.262-0.265 (about 520 TFLOP/s, 1.9x the bound;
+// scaled_dot_product_attention 0.252 there).
+// Shapes tried at hd 64 (B=4, S=2048, H=24, KH=8) and hd 96 (B=4, S=2048,
+// H=KH=32), causal, in CUDA graphs on the same card, four calls of
+// scripts/k10_tiles.py, each shape twice in turns (ms; registers a thread;
+// none spilled unless said):
+//   hd 64: 128 keys, 2 stages 0.147-0.150 (154 registers, kept); 128 keys,
+//     3 stages 0.147-0.151, 4 stages 0.148; 112 keys 0.152-0.166 (142); 96
+//     keys 0.153-0.157 (130), 3 stages 0.155.  The first design 0.350-0.386,
+//     scaled_dot_product_attention 0.137-0.165.
+//   hd 96: 96 keys, 2 stages 0.241-0.246 (146, kept); 112 keys 0.239-0.248
+//     (158); 96 keys, 3 stages 0.241-0.259; 112 keys, 3 stages 0.249-0.263;
+//     128 keys spilled 48 bytes (166 registers) and serialised the wgmmas.
+//     Ordered by query block alone (before head_group) every shape took
+//     0.331-0.368; groups of 12 pairs 0.241-0.263, of 3 0.258-0.268, of 24
+//     and 48 0.257-0.270.  The first design 0.635-0.658, SDPA 0.249-0.256.
+//   GQA in groups of whole KV heads: hd 64 in groups of 12-48 pairs
+//     0.141-0.144, by query block 0.145-0.150; hd 128 at 4 x 2048 0.266-0.291
+//     against 0.262-0.296, at 8 x 2048 in groups of 36 0.572-0.584 against
+//     0.534-0.599.
+//   Two identical launches (hd 96 in groups of 12) differed by 9 % with
+//     their place in the turns, so shapes and orders within that of each
+//     other are not told apart: the first shapes stay, and GQA launches
+//     keep the order by query block.
 
-// hd = 16 (the reduced archs that the card tests use), 64 (granite-moe)
-// and 96 (phi3-mini) keep the first design, namespace mma: 4 warps of
-// mma.sync m16n8k16 over 64 query rows, K and V double-buffered with
-// cp.async, both products fed by ldmatrix (hd = 16 rows are 32 bytes,
-// below the 128-byte swizzle span of the Hopper design; a 192-byte hd-96
-// row spans one and a half, and that design's boxes are cut for 128).
-// Rows are padded by 8 bf16 (16 bytes), so the eight row addresses of an
-// ldmatrix fall in distinct bank groups at every hd.  Shared memory: two
-// K and two V stages of 64 x (hd + 8) bf16, 12,288 B at hd 16, 36,864 at
-// 64 and 53,248 at 96.  A thread holds hd / 8 output n-tiles, hd / 2
-// float accumulators (48 at hd 96), beside hd / 4 registers of Q
-// fragments and 32 scores.
+// hd = 16 (the reduced archs that the card tests use) runs the first
+// design, namespace mma: 4 warps of mma.sync m16n8k16 over 64 query rows,
+// K and V double-buffered with cp.async, both products fed by ldmatrix
+// (hd 16 rows are 32 bytes, below the 128-byte swizzle span of the Hopper
+// design).  Its hd-64 and hd-96 instances are kept behind
+// flash_attn_mma_launch, for a same-call comparison only.  Rows are padded
+// by 8 bf16 (16 bytes), so the eight row addresses of an ldmatrix fall in
+// distinct bank groups at every hd.  Shared memory: two K and two V stages
+// of 64 x (hd + 8) bf16, 12,288 B at hd 16, 36,864 at 64 and 53,248 at 96.
+// A thread holds hd / 8 output n-tiles, hd / 2 float accumulators (48 at
+// hd 96), beside hd / 4 registers of Q fragments and 32 scores.
 //
 // Interface: a plain C function (loaded with ctypes) that launches on the
 // caller's stream and returns cudaGetLastError().
@@ -119,7 +161,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // ---------------------------------------------------------------------------
-// hd = 16: the first design, mma.sync with cp.async double buffering
+// hd = 16, and 64 and 96 for comparison: the first design, mma.sync with
+// cp.async double buffering
 // ---------------------------------------------------------------------------
 namespace mma {
 
@@ -389,14 +432,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 }  // namespace mma
 
 // ---------------------------------------------------------------------------
-// hd = 128: TMA, wgmma and a warp-specialised pipeline
+// hd = 64, 96 and 128: TMA, wgmma and a warp-specialised pipeline
 // ---------------------------------------------------------------------------
 namespace ws {
 
-constexpr int kHD = 128;
 constexpr int kBQ = 128;          // query rows per block, 64 per consumer
-constexpr int kBK = 96;           // keys per K/V tile
-constexpr int kStages = 2;        // K and V tiles in the ring
 constexpr int kConsumers = 2;
 // two consumer warpgroups (warps 0-7) and one producer warp (warp 8): 288
 // threads, so the launch bounds give every thread 224 registers
@@ -404,28 +444,55 @@ constexpr int kThreads = 128 * kConsumers + 32;
 constexpr int kProducerWarp = 4 * kConsumers;
 constexpr int kBoxCols = 64;            // head-dim columns per TMA box
 constexpr int kRowBytes = kBoxCols * 2;  // 128: the swizzle span
-constexpr int kQHalf = kBQ * kRowBytes;  // one 64-column half of Q
-constexpr int kKVHalf = kBK * kRowBytes;
-constexpr int kQBytes = 2 * kQHalf;
-constexpr int kKVBytes = 2 * kKVHalf;
 constexpr int kOutRows = kBQ / kConsumers;  // 64: one consumer's rows
-constexpr int kS = kBK / 2;                 // score floats per thread
-constexpr int kO = kHD / 2;                 // output floats per thread
-constexpr int kPSteps = kBK / 16;           // k-steps of P V
-// byte offsets from the 1024-aligned base of dynamic shared memory
-constexpr int kOffK = kQBytes;
-constexpr int kOffV = kOffK + kStages * kKVBytes;
-constexpr int kOffBar = kOffV + kStages * kKVBytes;
-// mbarriers: Q full, then K full, V full, K empty and V empty per stage
-constexpr int kBarBytes = 8 * (1 + 4 * kStages);
-constexpr int kSmemBytes = kOffBar + kBarBytes + 1024;  // + alignment slack
 // named barriers (0 is __syncthreads): 1 + c is consumer c's turn to
 // issue, 3 + c its epilogue
 constexpr int kTurnBar = 1;
 constexpr int kStoreBar = 3;
 
-static_assert(kS == 48, "Q K^T is instantiated as m64n96k16");
-static_assert(kSmemBytes <= 232448, "more shared memory than a block has");
+// keys per K/V tile and tiles in the ring, per head dim (the shapes tried
+// are in the header)
+template <int HD>
+struct Shape;
+template <>
+struct Shape<64> {
+  static constexpr int kBK = 128, kStages = 2;
+};
+template <>
+struct Shape<96> {
+  static constexpr int kBK = 96, kStages = 2;
+};
+template <>
+struct Shape<128> {
+  static constexpr int kBK = 96, kStages = 2;
+};
+
+template <int HD>
+struct Cfg {
+  static constexpr int kBK = Shape<HD>::kBK;
+  static constexpr int kStages = Shape<HD>::kStages;
+  // 64-column boxes a tile: hd 96's second box is half out of bounds
+  static constexpr int kBoxes = (HD + kBoxCols - 1) / kBoxCols;
+  static constexpr int kQHalf = kBQ * kRowBytes;  // one 64-column box of Q
+  static constexpr int kKVHalf = kBK * kRowBytes;
+  // whole boxes: TMA counts the zeros it writes out of bounds
+  static constexpr int kQBytes = kBoxes * kQHalf;
+  static constexpr int kKVBytes = kBoxes * kKVHalf;
+  static constexpr int kS = kBK / 2;     // score floats per thread
+  static constexpr int kO = HD / 2;      // output floats per thread
+  static constexpr int kPSteps = kBK / 16;  // k-steps of P V
+  // byte offsets from the 1024-aligned base of dynamic shared memory
+  static constexpr int kOffK = kQBytes;
+  static constexpr int kOffV = kOffK + kStages * kKVBytes;
+  static constexpr int kOffBar = kOffV + kStages * kKVBytes;
+  // mbarriers: Q full, then K full, V full, K empty and V empty per stage
+  static constexpr int kBarBytes = 8 * (1 + 4 * kStages);
+  static constexpr int kSmemBytes = kOffBar + kBarBytes + 1024;  // + slack
+
+  static_assert(HD % 16 == 0 && HD <= 128, "Q K^T takes 16 columns a step");
+  static_assert(kBK % 16 == 0 && kBK <= 256, "P V takes 16 keys a step");
+  static_assert(kSmemBytes <= 232448, "more shared memory than a block has");
+};
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
@@ -468,8 +535,8 @@ __device__ __forceinline__ void bar_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-// one box of a 4-d tensor map into shared memory; rows out of bounds
-// arrive as zeros and count towards the barrier's bytes
+// one box of a 4-d tensor map into shared memory; rows and columns out of
+// bounds arrive as zeros and count towards the barrier's bytes
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int c0, int c1, int c2,
                                          int c3) {
@@ -481,8 +548,8 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// one box from shared memory to a 4-d tensor map; rows out of bounds are
-// not written
+// one box from shared memory to a 4-d tensor map; rows and columns out of
+// bounds are not written
 __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
                                           int c0, int c1, int c2, int c3) {
   asm volatile(
@@ -529,105 +596,105 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-// d (64 x 96 f32, wgmma layout) (+)= A (64 x 16, shared) . B (16 x 96,
-// shared, K-major); scale_d 0 overwrites d
-__device__ __forceinline__ void wgmma_ss_n96(float (&d)[48], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47"
-      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
+// the accumulator operands of an m64nN product: N / 2 floats a thread
+#define WG_REGS32                                                            \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31"
+#define WG_REGS48                                                            \
+  WG_REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+            "%44, %45, %46, %47"
+#define WG_REGS56 WG_REGS48 ", %48, %49, %50, %51, %52, %53, %54, %55"
+#define WG_REGS64 WG_REGS56 ", %56, %57, %58, %59, %60, %61, %62, %63"
+#define WG_D8(i)                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_D32 WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+#define WG_D48 WG_D32, WG_D8(32), WG_D8(40)
+#define WG_D56 WG_D48, WG_D8(48)
+#define WG_D64 WG_D56, WG_D8(56)
 
-// d (64 x 128 f32) += A (64 x 16 bf16, registers) . B (16 x 128, shared,
+// d (64 x N f32, wgmma layout) (+)= A (64 x 16, shared) . B (16 x N,
+// shared, K-major); scale_d 0 overwrites d
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d);
+// d (64 x N f32) += A (64 x 16 bf16, registers) . B (16 x N, shared,
 // MN-major: the transpose-B bit is set)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db);
+
+// the operands after the accumulators are numbered from N / 2
+#define WG_SS(N, A, B, P, REGS, D)                                          \
+  template <>                                                               \
+  __device__ __forceinline__ void wgmma_ss<N>(float (&d)[N / 2], uint64_t da, \
+                                              uint64_t db, int scale_d) {   \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"          \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" \
+                 REGS "}, %" #A ", %" #B ", p, 1, 1, 0, 0;\n}\n"            \
+                 : D                                                        \
+                 : "l"(da), "l"(db), "r"(scale_d));                         \
+  }
+#define WG_RS(N, A0, A1, A2, A3, B, P, REGS, D)                              \
+  template <>                                                                \
+  __device__ __forceinline__ void wgmma_rs<N>(                               \
+      float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {              \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"           \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" \
+                 REGS "}, {%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #B    \
+                 ", p, 1, 1, 1;\n}\n"                                        \
+                 : D                                                         \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),      \
+                   "r"(1));                                                  \
+  }
+WG_SS(96, 48, 49, 50, WG_REGS48, WG_D48)
+WG_SS(128, 64, 65, 66, WG_REGS64, WG_D64)
+WG_RS(64, 32, 33, 34, 35, 36, 37, WG_REGS32, WG_D32)
+WG_RS(96, 48, 49, 50, 51, 52, 53, WG_REGS48, WG_D48)
+WG_RS(128, 64, 65, 66, 67, 68, 69, WG_REGS64, WG_D64)
+#undef WG_SS
+#undef WG_RS
 
 // S (64 x kBK) = Q K^T from the descriptors of this consumer's 64 rows of
-// Q and of the K tile, both K-major: 8 k-steps of 16 head-dim columns, each
-// 32 bytes into a 128-byte swizzle span, the second four in the second
-// 64-column half (the address field counts 16-byte units)
-__device__ __forceinline__ void issue_qk(float (&s)[kS], uint64_t dq,
+// Q and of the K tile, both K-major: HD / 16 k-steps of 16 head-dim
+// columns, each 32 bytes into a 128-byte swizzle span, four a 64-column box
+// (the address field counts 16-byte units)
+template <int HD>
+__device__ __forceinline__ void issue_qk(float (&s)[Cfg<HD>::kS], uint64_t dq,
                                          uint64_t dk) {
+  using C = Cfg<HD>;
   wgmma_fence();
 #pragma unroll
-  for (int ks = 0; ks < kHD / 16; ++ks) {
+  for (int ks = 0; ks < HD / 16; ++ks) {
     const int off = (ks % 4) * 2;
-    wgmma_ss_n96(s, dq + (ks / 4) * (kQHalf / 16) + off,
-                 dk + (ks / 4) * (kKVHalf / 16) + off, ks > 0);
+    wgmma_ss<C::kBK>(s, dq + (ks / 4) * (C::kQHalf / 16) + off,
+                     dk + (ks / 4) * (C::kKVHalf / 16) + off, ks > 0);
   }
   wgmma_commit();
 }
 
-// O (64 x 128) += P V: P from registers, V MN-major from its descriptor;
-// k-step kk takes keys 16 kk .. 16 kk + 15, two 8-row groups
-__device__ __forceinline__ void issue_pv(float (&o)[kO],
-                                         const uint32_t (&pf)[kPSteps][4],
-                                         uint64_t dv) {
+// O (64 x HD) += P V: P from registers, V MN-major from its descriptor
+// (lbo the boxes' distance: at hd 96 columns 64-95 are the second box's
+// first half); k-step kk takes keys 16 kk .. 16 kk + 15, two 8-row groups
+template <int HD>
+__device__ __forceinline__ void issue_pv(
+    float (&o)[Cfg<HD>::kO], const uint32_t (&pf)[Cfg<HD>::kPSteps][4],
+    uint64_t dv) {
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kPSteps; ++kk)
-    wgmma_rs_n128(o, pf[kk], dv + kk * (16 * kRowBytes / 16));
+  for (int kk = 0; kk < Cfg<HD>::kPSteps; ++kk)
+    wgmma_rs<HD>(o, pf[kk], dv + kk * (16 * kRowBytes / 16));
   wgmma_commit();
 }
 
 // P's bf16 A fragments from the probabilities in the accumulator layout:
 // k-step kk holds score columns 8 kk .. 8 kk + 7 of this thread
-__device__ __forceinline__ void pack_p(uint32_t (&pf)[kPSteps][4],
-                                       const float (&p)[kS]) {
+template <int BK>
+__device__ __forceinline__ void pack_p(uint32_t (&pf)[BK / 16][4],
+                                       const float (&p)[BK / 2]) {
 #pragma unroll
-  for (int kk = 0; kk < kPSteps; ++kk) {
+  for (int kk = 0; kk < BK / 16; ++kk) {
 #pragma unroll
     for (int a = 0; a < 4; ++a)
       pf[kk][a] = pack_bf16(p[8 * kk + 2 * a], p[8 * kk + 2 * a + 1]);
@@ -641,9 +708,11 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // the online softmax of one consumer thread's two rows (row_lo and
-// row_lo + 8), in the log2 domain: p = 2^(s * scale_log2 - m * scale_log2)
-// with one FFMA and one ex2 per score
+// row_lo + 8) over tiles of BK keys, in the log2 domain: p = 2^(s *
+// scale_log2 - m * scale_log2) with one FFMA and one ex2 per score
+template <int BK>
 struct Softmax {
+  static constexpr int kS = BK / 2;
   int S, causal, row0, row_lo, quad;
   float scale_log2;
   float m[2] = {kNegInf, kNegInf};  // running max of each row's scores
@@ -661,7 +730,7 @@ struct Softmax {
   // is 0); sums them in float32 before P is rounded to bf16; returns each
   // row's rescale factor for O
   __device__ __forceinline__ float2 tile(float (&s)[kS], int key0) {
-    if (key0 + kBK > S || (causal && key0 + kBK - 1 > row0)) {
+    if (key0 + BK > S || (causal && key0 + BK - 1 > row0)) {
       // score i of this thread is key key0 + 2 quad + c(i), c(i) = 8 (i / 4)
       // + i % 2; row r keeps the keys below lim[r] + key0 + 2 quad
       int lim[2];
@@ -714,27 +783,37 @@ struct Softmax {
   }
 };
 
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attn_kernel_ws(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
                          const __grid_constant__ CUtensorMap to, int S, int H,
-                         int KH, int causal, float scale_log2) {
+                         int KH, int causal, float scale_log2, int group) {
+  using C = Cfg<HD>;
+  constexpr int kBK = C::kBK, kStages = C::kStages, kBoxes = C::kBoxes;
+  constexpr int kQHalf = C::kQHalf, kKVHalf = C::kKVHalf;
+  constexpr int kKVBytes = C::kKVBytes, kO = C::kO;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;  // the swizzle's alignment
   unsigned char* smem = smem_raw + (base - raw);
-  const uint32_t sQ = base, sK = base + kOffK, sV = base + kOffV;
-  const uint32_t bar_q = base + kOffBar;
+  const uint32_t sQ = base, sK = base + C::kOffK, sV = base + C::kOffV;
+  const uint32_t bar_q = base + C::kOffBar;
   // full barriers complete when TMA has written a tile; empty ones when
   // every consumer warp has read it
   const uint32_t bar_k = bar_q + 8, bar_v = bar_k + 8 * kStages,
                  bar_ek = bar_v + 8 * kStages, bar_ev = bar_ek + 8 * kStages;
 
-  // heaviest query blocks first: blockIdx.y walks them, x the (b, h)
-  const int nq = gridDim.y;
-  const int qb = causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y;
-  const int bh = blockIdx.x;
+  // the block's query block and (b, h): the (b, h) pairs run in groups of
+  // `group`, one group after another; in a group the query blocks run
+  // heaviest first (when causal) and the group's pairs fastest
+  const int nq = (S + kBQ - 1) / kBQ;
+  const int g0 = (int)blockIdx.x / (group * nq) * group;  // its first pair
+  const int gn = min(group, (int)gridDim.x / nq - g0);    // its pairs
+  const int r = (int)blockIdx.x - g0 * nq;
+  const int qb = causal ? nq - 1 - r / gn : r / gn;
+  const int bh = g0 + r % gn;
   const int b = bh / H, h = bh % H;
   const int kvh = h / (H / KH);
   const int q0 = qb * kBQ;
@@ -765,9 +844,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       prefetch_map(&tk);
       prefetch_map(&tv);
       prefetch_map(&to);
-      mbar_expect_tx(bar_q, kQBytes);
-      tma_load(sQ, &tq, bar_q, 0, h, q0, b);
-      tma_load(sQ + kQHalf, &tq, bar_q, kBoxCols, h, q0, b);
+      mbar_expect_tx(bar_q, C::kQBytes);
+#pragma unroll
+      for (int x = 0; x < kBoxes; ++x)
+        tma_load(sQ + x * kQHalf, &tq, bar_q, x * kBoxCols, h, q0, b);
       // tile j of K or V into its stage, once both consumers have released
       // the tile kStages before it
       auto load = [&](uint32_t dst, const CUtensorMap* map, uint32_t full,
@@ -776,9 +856,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (j >= kStages) mbar_wait(empty + 8 * st, (j / kStages - 1) & 1);
         dst += st * kKVBytes;
         mbar_expect_tx(full + 8 * st, kKVBytes);
-        tma_load(dst, map, full + 8 * st, 0, kvh, j * kBK, b);
-        tma_load(dst + kKVHalf, map, full + 8 * st, kBoxCols, kvh, j * kBK,
-                 b);
+#pragma unroll
+        for (int x = 0; x < kBoxes; ++x)
+          tma_load(dst + x * kKVHalf, map, full + 8 * st, x * kBoxCols, kvh,
+                   j * kBK, b);
       };
       // the consumers need K_j together with V_{j-1}
       load(sK, &tk, bar_k, bar_ek, 0);
@@ -805,9 +886,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     float o[kO];
 #pragma unroll
     for (int i = 0; i < kO; ++i) o[i] = 0.0f;
-    Softmax sm(S, causal, row0, row_lo, quad, scale_log2);
-    float s[kS];
-    uint32_t pf[kPSteps][4];  // P of the last tile, bf16 A fragments
+    Softmax<kBK> sm(S, causal, row0, row_lo, quad, scale_log2);
+    float s[C::kS];
+    uint32_t pf[C::kPSteps][4];  // P of the last tile, bf16 A fragments
 
     if (c == 1) bar_arrive(kTurnBar, 256);  // consumer 0 issues first
     mbar_wait(bar_q, 0);
@@ -815,13 +896,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     // tile 0: S_0 = Q K_0^T and its softmax
     mbar_wait(bar_k, 0);
     bar_sync(kTurnBar + c, 256);
-    issue_qk(s, dq, dk);
+    issue_qk<HD>(s, dq, dk);
     bar_arrive(kTurnBar + 1 - c, 256);
     wgmma_wait<0>();
     fence_regs(s);
     if (lane == 0) mbar_arrive(bar_ek);  // K_0 released
     sm.tile(s, 0);
-    pack_p(pf, s);
+    pack_p<kBK>(pf, s);
 
     // tile j: S_j is issued with O += P_{j-1} V_{j-1}; the softmax of S_j
     // runs while P V does
@@ -829,9 +910,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int st = j % kStages, sp = (j - 1) % kStages;
       mbar_wait(bar_k + 8 * st, (j / kStages) & 1);
       bar_sync(kTurnBar + c, 256);
-      issue_qk(s, dq, dk + st * (kKVBytes / 16));
+      issue_qk<HD>(s, dq, dk + st * (kKVBytes / 16));
       mbar_wait(bar_v + 8 * sp, ((j - 1) / kStages) & 1);
-      issue_pv(o, pf, dv + sp * (kKVBytes / 16));
+      issue_pv<HD>(o, pf, dv + sp * (kKVBytes / 16));
       bar_arrive(kTurnBar + 1 - c, 256);
       wgmma_wait<1>();  // S_j has landed; P V may still run
       fence_regs(s);
@@ -841,7 +922,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs(o);
 #pragma unroll
       for (int i = 0; i < kO; ++i) o[i] *= (i & 2) ? alpha.y : alpha.x;
-      pack_p(pf, s);
+      pack_p<kBK>(pf, s);
       if (lane == 0) mbar_arrive(bar_ev + 8 * sp);  // V_{j-1} released
     }
 
@@ -849,18 +930,19 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int last = n_tiles - 1;
     mbar_wait(bar_v + 8 * (last % kStages), (last / kStages) & 1);
     bar_sync(kTurnBar + c, 256);
-    issue_pv(o, pf, dv + (last % kStages) * (kKVBytes / 16));
+    issue_pv<HD>(o, pf, dv + (last % kStages) * (kKVBytes / 16));
     if (c == 0) bar_arrive(kTurnBar + 1, 256);  // one turn per sync
     wgmma_wait<0>();
     fence_regs(o);
 
     // epilogue: normalise, stage bf16 rows in this consumer's part of Q's
-    // buffer in the swizzled layout, and store them with TMA
+    // buffer in the swizzled layout, and store them with one TMA box per
+    // 64 columns (the map clips rows past S and hd 96's columns 96-127)
     const float2 inv = sm.inverse_sums();
     unsigned char* out = smem + (qa - base);
 #pragma unroll
     for (int i = 0; i < kO; i += 2) {
-      const int r = (i >> 1) & 1, col8 = i >> 2;  // 8-column group 0..15
+      const int r = (i >> 1) & 1, col8 = i >> 2;  // 8-column group
       const int row = warp * 16 + grp + r * 8;
       unsigned char* dst = out + (col8 / 8) * kQHalf + row * kRowBytes +
                            (((col8 % 8) ^ (row % 8)) * 16) + quad * 4;
@@ -871,8 +953,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     bar_sync(kStoreBar + c, 128);
     if (t == 0 && row0 < S) {
-      tma_store(&to, qa, 0, h, row0, b);
-      tma_store(&to, qa + kQHalf, kBoxCols, h, row0, b);
+#pragma unroll
+      for (int x = 0; x < kBoxes; ++x)
+        tma_store(&to, qa + x * kQHalf, x * kBoxCols, h, row0, b);
       asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
       asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
     }
@@ -906,12 +989,12 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a 4-d map over (hd, heads, S, B) of a contiguous bf16 (B, S, heads, 128)
+// a 4-d map over (hd, heads, S, B) of a contiguous bf16 (B, S, heads, hd)
 // tensor, box (64, 1, rows, 1), 128-byte swizzle, zeros out of bounds
 bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int B,
-              int S, int heads, int rows) {
-  const cuuint64_t row = (cuuint64_t)kHD * sizeof(bf16);
-  const cuuint64_t dims[4] = {(cuuint64_t)kHD, (cuuint64_t)heads,
+              int S, int heads, int hd, int rows) {
+  const cuuint64_t row = (cuuint64_t)hd * sizeof(bf16);
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
                               (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
   const cuuint32_t box[4] = {(cuuint32_t)kBoxCols, 1, (cuuint32_t)rows, 1};
@@ -923,70 +1006,123 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// K and V bytes that the blocks in flight may keep in L2 (50 MB)
+constexpr double kKVInL2 = 40e6;
+
+// the (b, h) pairs a group of blocks walks together (see the kernel).  All
+// of them, so that the blocks run by query block alone, unless the
+// launch's K and V pass kKVInL2 and each KV head serves one query head.
+// There (phi3-mini's 32 KV heads at S = 2048: 100 MB) the 132 blocks in
+// flight read the K and V of 132 heads, and every query block of a pair
+// would read its key prefix from device memory again: 2.3x the products'
+// time, since the re-read bytes grow with KH and the products with H.
+// Groups of heads that bring in a quarter of kKVInL2 keep the two groups
+// in flight in L2 (hd 96 at 4 x 2048: 0.336 -> 0.244 ms).  With H / KH
+// query heads a KV head the re-reads are H / KH times fewer for the same
+// products and hide under them: at qwen3-8b's 8 x 2048 (67 MB) groups of
+// 9 KV heads took 0.572-0.584 ms and the order by query block 0.534-0.599,
+// in the same turns on an H100 (scripts/k10_tiles.py), so GQA launches
+// keep that order.
+int head_group(int B, int S, int H, int KH, int hd) {
+  const double kv = 4.0 * S * hd;  // K and V bytes of one head
+  if (H != KH || B * KH * kv <= kKVInL2) return B * H;
+  return max(1, (int)(kKVInL2 / 4 / kv));
+}
+
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
            int H, int KH, int causal, float scale_log2, cudaStream_t stream) {
-  // grid x holds batch x query heads, y the query blocks
-  if ((long long)B * H > 0x7fffffff || (S + kBQ - 1) / kBQ > 65535)
-    return (int)cudaErrorInvalidValue;
+  using C = Cfg<HD>;
+  // one block a (query block, b, h)
+  const long long blocks = (long long)B * H * ((S + kBQ - 1) / kBQ);
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv, to;
-  if (!make_map(&tq, encode, q, B, S, H, kBQ) ||
-      !make_map(&tk, encode, k, B, S, KH, kBK) ||
-      !make_map(&tv, encode, v, B, S, KH, kBK) ||
-      !make_map(&to, encode, o, B, S, H, kOutRows))
+  if (!make_map(&tq, encode, q, B, S, H, HD, kBQ) ||
+      !make_map(&tk, encode, k, B, S, KH, HD, C::kBK) ||
+      !make_map(&tv, encode, v, B, S, KH, HD, C::kBK) ||
+      !make_map(&to, encode, o, B, S, H, HD, kOutRows))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attn_kernel_ws, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
+      flash_attn_kernel_ws<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
-  flash_attn_kernel_ws<<<grid, kThreads, kSmemBytes, stream>>>(
-      tq, tk, tv, to, S, H, KH, causal, scale_log2);
+  flash_attn_kernel_ws<HD><<<(unsigned)blocks, kThreads, C::kSmemBytes,
+                             stream>>>(tq, tk, tv, to, S, H, KH, causal,
+                                       scale_log2,
+                                       head_group(B, S, H, KH, HD));
   return (int)cudaGetLastError();
 }
 
 }  // namespace ws
 
+// the launch's arguments checked, and hd^-0.5 in the log2 domain of exp2f
+bool valid_args(int B, int S, int H, int KH, int hd, float* scale_log2) {
+  *scale_log2 = kLog2e / sqrtf((float)hd);
+  return B > 0 && S > 0 && H > 0 && KH > 0 && H % KH == 0;
+}
+
 }  // namespace
 
 // q (B, S, H, hd), k and v (B, S, KH, hd), o (B, S, H, hd): bf16,
 // contiguous, 16-byte aligned.  hd is 16, 64, 96 or 128; H % KH == 0;
-// B * H <= 65535 at hd 16, 64 and 96, S <= 128 * 65535 at hd 128.
+// B * H <= 65535 at hd 16, B * H * ceil(S / 128) < 2^31 at hd 64, 96 and
+// 128.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  void* o, int B, int S, int H, int KH, int hd,
                                  int causal, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || KH <= 0 || H % KH != 0)
+  float scale_log2;
+  if (!valid_args(B, S, H, KH, hd, &scale_log2))
     return (int)cudaErrorInvalidValue;
-  // hd^-0.5 in the log2 domain of exp2f
-  const float scale_log2 = kLog2e / sqrtf((float)hd);
   cudaStream_t st = (cudaStream_t)stream;
   switch (hd) {
     case 16:
       return mma::launch<16>(q, k, v, o, B, S, H, KH, causal, scale_log2, st);
     case 64:
-      return mma::launch<64>(q, k, v, o, B, S, H, KH, causal, scale_log2, st);
+      return ws::launch<64>(q, k, v, o, B, S, H, KH, causal, scale_log2, st);
     case 96:
-      return mma::launch<96>(q, k, v, o, B, S, H, KH, causal, scale_log2, st);
+      return ws::launch<96>(q, k, v, o, B, S, H, KH, causal, scale_log2, st);
     case 128:
-      return ws::launch(q, k, v, o, B, S, H, KH, causal, scale_log2, st);
+      return ws::launch<128>(q, k, v, o, B, S, H, KH, causal, scale_log2, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// the dynamic shared memory a launch at head dim hd asks for, -1 for a
-// head dim without an instance
+// the first design (mma.sync) at hd 64 and 96, with flash_attn_launch's
+// arguments: kept for a same-call comparison with the Hopper design, which
+// flash_attn_launch runs at those head dims; B * H <= 65535
+extern "C" int flash_attn_mma_launch(const void* q, const void* k,
+                                     const void* v, void* o, int B, int S,
+                                     int H, int KH, int hd, int causal,
+                                     void* stream) {
+  float scale_log2;
+  if (!valid_args(B, S, H, KH, hd, &scale_log2))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (hd) {
+    case 64:
+      return mma::launch<64>(q, k, v, o, B, S, H, KH, causal, scale_log2, st);
+    case 96:
+      return mma::launch<96>(q, k, v, o, B, S, H, KH, causal, scale_log2, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// the dynamic shared memory a flash_attn_launch at head dim hd asks for,
+// -1 for a head dim without an instance
 extern "C" int flash_attn_smem_bytes(int hd) {
   switch (hd) {
     case 16:
       return mma::Tile<16>::kSmemBytes;
     case 64:
-      return mma::Tile<64>::kSmemBytes;
+      return ws::Cfg<64>::kSmemBytes;
     case 96:
-      return mma::Tile<96>::kSmemBytes;
+      return ws::Cfg<96>::kSmemBytes;
     case 128:
-      return ws::kSmemBytes;
+      return ws::Cfg<128>::kSmemBytes;
     default:
       return -1;
   }

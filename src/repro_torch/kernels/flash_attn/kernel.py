@@ -19,17 +19,23 @@ _COUNTS = LaunchCounts("flash_attention")
 #: kernel name -> launches since the last :func:`reset_launch_counts`.
 launch_counts = _COUNTS.get
 reset_launch_counts = _COUNTS.reset
-_SIGNATURES = {"flash_attn_launch": [P, P, P, P, I, I, I, I, I, I, P]}
-#: head dims the kernel is instantiated for: 128 (qwen3-8b, qwen3-14b,
-#: qwen2-7b, mixtral) on the Hopper design, 16 (the reduced archs), 64
-#: (granite-moe) and 96 (phi3-mini) on the mma.sync one; the plain version
-#: takes any
+#: flash_attn_mma_launch runs the first design at hd 64 and 96, for a
+#: same-call comparison on the card only: the wrapper never calls it
+_SIGNATURES = {fn: [P, P, P, P, I, I, I, I, I, I, P]
+               for fn in ("flash_attn_launch", "flash_attn_mma_launch")}
+#: head dims the kernel is instantiated for: 64 (granite-moe), 96
+#: (phi3-mini) and 128 (qwen3-8b, qwen3-14b, qwen2-7b, mixtral) on the
+#: Hopper design, 16 (the reduced archs) on the mma.sync one; the plain
+#: version takes any
 HEAD_DIMS = (16, 64, 96, 128)
-#: the grid's y extent: the mma.sync instances put batch x query heads on
-#: blockIdx.y, the hd-128 one its 128-row query blocks (batch x query heads
-#: go on blockIdx.x, which no real shape fills)
+#: the head dim on the mma.sync design
+_MMA_HD = 16
+#: the grids' extents: the mma.sync instance puts batch x query heads on
+#: blockIdx.y; the Hopper design has one block a (128-row query block, b,
+#: h), all on blockIdx.x
 _MAX_GRID_Y = 65535
-_HD128_ROWS = 128
+_MAX_GRID_X = 2 ** 31 - 1
+_WS_ROWS = 128
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -66,12 +72,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} has no kernel instance; the "
                          f"kernel takes {HEAD_DIMS}")
-    if hd != 128 and B * H > _MAX_GRID_Y:
+    if hd == _MMA_HD and B * H > _MAX_GRID_Y:
         raise ValueError(f"batch x heads = {B * H} exceeds {_MAX_GRID_Y} "
                          f"at head_dim {hd}")
-    if hd == 128 and S > _HD128_ROWS * _MAX_GRID_Y:
-        raise ValueError(f"S = {S} exceeds {_HD128_ROWS * _MAX_GRID_Y} at "
-                         f"head_dim 128")
+    if hd != _MMA_HD and B * H * -(-S // _WS_ROWS) > _MAX_GRID_X:
+        raise ValueError(f"batch x heads x query blocks of {_WS_ROWS} rows "
+                         f"exceeds {_MAX_GRID_X} at head_dim {hd}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must be 16-byte aligned")
     out = torch.empty_like(q)

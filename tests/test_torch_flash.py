@@ -51,17 +51,28 @@ def _fold_j(t, g):
     return t.transpose(0, 2, 1, 3).reshape(B * H, S, hd)
 
 
-@pytest.mark.parametrize("S", [1, 8, 33, 56, 64])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_attend_matches_reference_kernel_op_and_oracle(dtype, S):
-    """Causal, GQA 4:2 and 4:4: the port's ``attend`` against the
-    reference's ``ops.attend`` in interpret mode (which pads S to its
-    block) and against ``attention_ref``; the port's plain version in the
-    reference's (BH, S, hd) layout against the reference's Pallas kernel
-    in interpret mode and its oracle.  Output dtype is q's."""
+def _attend_cases():
+    """(dtype, S, hd) over the head dims the card kernel is instantiated
+    for; hd 16's ids name no head dim."""
+    for hd in K.HEAD_DIMS:
+        for dtype in ("float32", "bfloat16"):
+            for S in (1, 8, 33, 56, 64):
+                yield pytest.param(dtype, S, hd, id=f"{dtype}-{S}" + (
+                    "" if hd == 16 else f"-hd{hd}"))
+
+
+@pytest.mark.parametrize("dtype,S,hd", list(_attend_cases()))
+def test_attend_matches_reference_kernel_op_and_oracle(dtype, S, hd):
+    """Causal, GQA 4:2 and 4:4, at each head dim of ``HEAD_DIMS`` (16,
+    the reduced archs'; 64, 96 and 128, the LM zoo's on the Hopper
+    design): the port's ``attend`` against the reference's ``ops.attend``
+    in interpret mode (which pads S to its block) and against
+    ``attention_ref``; the port's plain version in the reference's (BH,
+    S, hd) layout against the reference's Pallas kernel in interpret mode
+    and its oracle.  Output dtype is q's."""
     tol = TOL[dtype]
     for i, (H, KH) in enumerate([(4, 2), (4, 4)]):
-        (jq, jk, jv), (tq, tk, tv) = _qkv(S + 10 * i, 2, S, H, KH, 16, dtype)
+        (jq, jk, jv), (tq, tk, tv) = _qkv(S + 10 * i, 2, S, H, KH, hd, dtype)
         got = tops.attend(tq, tk, tv, causal=True, block=8)
         assert got.dtype == TDT[dtype] and got.shape == tq.shape
         _close(got, jops.attend(jq, jk, jv, causal=True, block=8,
@@ -69,7 +80,7 @@ def test_attend_matches_reference_kernel_op_and_oracle(dtype, S):
         g = H // KH
         want = jref(_fold_j(jq, 1), _fold_j(jk, g), _fold_j(jv, g),
                     causal=True)
-        _close(got.transpose(1, 2).reshape(2 * H, S, 16), want, tol)
+        _close(got.transpose(1, 2).reshape(2 * H, S, hd), want, tol)
     # the reference kernel's own layout, one (b, h) per row
     fq, fk, fv = (_fold_j(t, 1) for t in (jq, jk, jv))
     got = tref(*(torch.from_numpy(np.asarray(t, np.float32)).to(TDT[dtype])

@@ -999,8 +999,12 @@ def test_flash_attention_matches_plain_on_card():
     (32 query heads over 8 KV heads, hd 128) with S = 1, ragged S, S on
     either side of the query-block and key-tile edges and a few tiles,
     and with as many KV heads as query heads, causal and not, for a flat
-    and a peaked softmax (q scaled by 0.5 and 4); hd 16; the reference's
-    (BH, S, hd) layout.  Each query row within 1e-2 of its largest value
+    and a peaked softmax (q scaled by 0.5 and 4); hd 16; GQA launches
+    whose K and V pass the 40 MB past which MHA blocks run in groups
+    (``head_group``), where GQA keeps the order by query block: qwen3-8b's
+    heads at 8 x 2048, the lm_head phase's classify requests (67 MB), and
+    granite-moe's at 10 x 2048 (42 MB); the reference's (BH, S, hd)
+    layout.  Each query row within 1e-2 of its largest value
     against the plain version in float32.  One launch counted per
     call."""
     from repro_torch.kernels.flash_attn import kernel as FK
@@ -1010,6 +1014,7 @@ def test_flash_attention_matches_plain_on_card():
              (2, 100, 4, 2, 16), (1, 77, 4, 4, 16), (2, 200, 8, 8, 128),
              (1, 1024, 32, 8, 128)]
     cases += [(1 + S % 2, S, 32, 8, 128) for S in TILE_EDGES]
+    cases += [(8, 2048, 32, 8, 128), (10, 2048, 24, 8, 64)]
     for i, (B, S, H, KH, hd) in enumerate(cases):
         for q_scale in (0.5, 4.0):
             q, k, v = (t.bfloat16() for t in
@@ -1037,26 +1042,39 @@ def test_flash_attention_matches_plain_on_card():
         rtol=FLASH_TOL)
 
 
-#: sequence lengths around the mma.sync instances' 64-row query blocks and
-#: 64-key tiles
-MMA_EDGES = (1, 63, 64, 65, 127, 129, 200, 1024)
+#: sequence lengths around the Hopper design's 128-row query blocks, its
+#: 96-key (hd 96 and 128) and 128-key (hd 64) tiles, and a few tiles
+WS_EDGES = (1, 63, 95, 96, 97, 127, 128, 129, 191, 192, 193, 255, 256, 257,
+            1024)
+
+
+def _row_rel(got, q, k, v, causal):
+    """The largest over query rows of max |got - exact| over the row's
+    largest |exact|, the exact output in float32."""
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+    exact = attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    row = ((got.float() - exact).abs().amax(-1)
+           / exact.abs().amax(-1).clamp_min(1e-30))
+    return float(row.max())
 
 
 @pytest.mark.parametrize("H,KH,hd", [(24, 8, 64), (32, 32, 96),
                                      (28, 4, 128), (40, 8, 128)])
 def test_flash_attention_lm_zoo_head_shapes_match_plain_on_card(H, KH, hd):
-    """The head shapes of the LM zoo: hd 64 (granite-moe, 24 query heads
-    over 8 KV heads) and hd 96 (phi3-mini, MHA) on the mma.sync instances
-    at sequence lengths on either side of their 64-row blocks, and hd 128
-    at qwen2-7b's (28 over 4) and qwen3-14b's (40 over 8) head shapes;
-    causal and not, flat and peaked softmax: within 2e-2 of the plain
-    version in bf16 and each query row within 1e-2 of its largest value
-    in float32, one launch counted a call."""
+    """The head shapes of the LM zoo on the Hopper design: hd 64
+    (granite-moe, 24 query heads over 8 KV heads), hd 96 (phi3-mini, MHA)
+    and hd 128 at qwen2-7b's (28 over 4) and qwen3-14b's (40 over 8) head
+    shapes, at sequence lengths on either side of its query blocks and key
+    tiles (WS_EDGES) and at B = 3, S = 2000, where phi3-mini's K and V run
+    in groups of 13 (b, h) pairs, the last of 5; causal and not, flat and
+    peaked softmax: within 2e-2 of the plain version in bf16 and each
+    query row within 1e-2 of its largest value in float32, one launch
+    counted a call."""
     from repro_torch.kernels.flash_attn import kernel as FK
     from repro_torch.kernels.flash_attn.ref import attention_ref
     _need_card()
-    for i, S in enumerate(MMA_EDGES):
-        B = 1 + S % 2
+    sizes = [(1 + S % 2, S) for S in WS_EDGES] + [(3, 2000)]
+    for i, (B, S) in enumerate(sizes):
         for q_scale in (0.5, 4.0):
             q, k, v = (t.bfloat16() for t in
                        _attn_operands(100 + i, B, S, H, KH, hd, q_scale))
@@ -1068,12 +1086,42 @@ def test_flash_attention_lm_zoo_head_shapes_match_plain_on_card(H, KH, hd):
                 torch.testing.assert_close(
                     got.float(), attention_ref(q, k, v, causal=causal).float(),
                     atol=FLASH_TOL, rtol=FLASH_TOL)
-                exact = attention_ref(q.float(), k.float(), v.float(),
-                                      causal=causal)
-                row = ((got.float() - exact).abs().amax(-1)
-                       / exact.abs().amax(-1).clamp_min(1e-30))
-                assert float(row.max()) <= FLASH_ROW_REL, (
-                    S, q_scale, causal, float(row.max()))
+                row = _row_rel(got, q, k, v, causal)
+                assert row <= FLASH_ROW_REL, (B, S, q_scale, causal, row)
+
+
+@pytest.mark.parametrize("H,KH,hd", [(24, 8, 64), (32, 32, 96)])
+def test_flash_attention_first_design_matches_plain_on_card(H, KH, hd):
+    """The first design (mma.sync) at hd 64 and 96, kept behind
+    ``flash_attn_mma_launch`` for chip_smoke.py's same-call comparison:
+    within 2e-2 of the plain version and each query row within 1e-2,
+    causal and not, flat and peaked softmax, at sequence lengths around
+    its 64-row blocks; the wrapper's launch count does not move."""
+    from repro_torch.kernels._launch import bind
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+    _need_card()
+    lib = bind(FK.LIBRARY, FK._SIGNATURES)
+    before = FK.launch_counts()
+    for i, S in enumerate((1, 63, 64, 65, 127, 129, 200, 1024)):
+        B = 1 + S % 2
+        for q_scale in (0.5, 4.0):
+            q, k, v = (t.bfloat16() for t in
+                       _attn_operands(200 + i, B, S, H, KH, hd, q_scale))
+            for causal in (True, False):
+                got = torch.empty_like(q)
+                err = lib.flash_attn_mma_launch(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), got.data_ptr(),
+                    B, S, H, KH, hd, int(causal),
+                    torch.cuda.current_stream().cuda_stream)
+                assert err == 0
+                torch.cuda.synchronize()
+                torch.testing.assert_close(
+                    got.float(), attention_ref(q, k, v, causal=causal).float(),
+                    atol=FLASH_TOL, rtol=FLASH_TOL)
+                row = _row_rel(got, q, k, v, causal)
+                assert row <= FLASH_ROW_REL, (B, S, q_scale, causal, row)
+    assert FK.launch_counts() == before
 
 
 def test_flash_attention_graph_replay_equals_eager():
@@ -1102,8 +1150,8 @@ def test_flash_attention_graph_replay_equals_eager():
 
 def test_prefill_launches_flash_once_per_layer():
     """Reduced qwen3-8b on the card with ``attn_impl="pallas"``, at its
-    head_dim 16, at granite-moe's 64, phi3-mini's 96 and at qwen3-8b's
-    128 (the served design): one
+    head_dim 16 (the mma.sync design), at granite-moe's 64, phi3-mini's
+    96 and at qwen3-8b's 128 (the Hopper design): one
     flash-attention launch per layer in prefill, none in decode; the last
     logits within 0.05 relative of the ``masked`` path on the same
     params."""
@@ -1112,7 +1160,7 @@ def test_prefill_launches_flash_once_per_layer():
     from repro_torch.kernels.flash_attn import kernel as FK
     from repro_torch.models import transformer as TT
     _need_card()
-    for head_dim in (16, 64, 96, 128):  # hd 128 runs the served design
+    for head_dim in (16, 64, 96, 128):
         cfg = dataclasses.replace(get_arch("qwen3-8b").reduced(),
                                   attn_impl="pallas", head_dim=head_dim)
         params = TT.init_params(cfg, seed=0, device="cuda")
@@ -1185,8 +1233,9 @@ def test_flash_wrapper_refuses_bad_operands():
         FK.flash_attention(q.transpose(1, 2), k, v)
     with pytest.raises(ValueError, match="is on"):
         FK.flash_attention(q, k.cpu(), v)
-    # hd 16 puts batch x heads on the grid's y (at most 65535); hd 128 puts
-    # them on x, so the same count launches there
+    # hd 16 puts batch x heads on the grid's y (at most 65535); the Hopper
+    # design (hd 128) one block a (query block, b, h) on x, so the same
+    # count launches there
     q, k, v = (t.bfloat16() for t in _attn_operands(0, 1, 1, 65536, 1, 16))
     with pytest.raises(ValueError, match="batch x heads"):
         FK.flash_attention(q, k, v)
