@@ -8,8 +8,9 @@ kernel's counts), the encoding design-space sweep over the paper's grid
 (cost, accuracy, K2 time, served samples/s, cache, worker processes,
 autodesign), its staged packed and float datapaths, its
 flash-attention kernel, qwen3-8b serving at full width with a DWN head
-on its backbone, the LM zoo's dense and MoE archs served at full width
-(mixtral's depth cut to the card), and qwen3-8b training.
+on its backbone, the LM zoo's ten archs served at full width (dense,
+MoE, VLM, SSM, hybrid and encoder-decoder; mixtral's depth cut to the
+card), and qwen3-8b training.
 
     python3 chip_smoke.py
 
@@ -85,11 +86,13 @@ Phases, each printing one JSON line:
    from a numpy seed) for (B, S) in (1, 1), (2, 33), (1, 129), (2, 255),
    (4, 512), (4, 2048), causal and not, for a flat and a peaked softmax,
    within 2e-2 elementwise and within 1e-2 of each query row's largest
-   value; the same at the LM zoo's head shapes (qwen2-7b's 28 over 4 and
-   qwen3-14b's 40 over 8 at hd 128, phi3-mini's 32 over 32 at hd 96,
-   granite-moe's 24 over 8 at hd 64, all on the Hopper design) for (B, S)
-   in ZOO_FLASH_SIZES (S on either side of its query blocks and key
-   tiles), and qwen3-8b's at 8 x 2048 and granite-moe's at 10 x 2048,
+   value; the same at the LM zoo's head shapes (qwen2-7b's 28 over 4,
+   qwen3-14b's 40 over 8 and llava-next-34b's 56 over 8 at hd 128,
+   phi3-mini's 32 over 32 at hd 96, granite-moe's 24 over 8 at hd 64, all
+   on the Hopper design) for (B, S) in ZOO_FLASH_SIZES (S on either side
+   of its query blocks and key tiles), llava's at its served 2 x 3904
+   (a ragged last query block; FLASH_SERVED_SIZES, also timed), and
+   qwen3-8b's at 8 x 2048 and granite-moe's at 10 x 2048,
    where K and V pass 40 MB but, with several query heads a KV head, the
    blocks keep the order by query block (FLASH_GQA_PAST_L2_SIZES); then
    each head shape timed at B=4, S=2048 in a CUDA graph
@@ -111,23 +114,30 @@ Phases, each printing one JSON line:
    bounds and a profiler split of a prefill and a decode step (it fails
    if the prefill's profile finds no time in K10 while its launches were
    counted);
-8. lm_zoo  — the LM zoo's dense and MoE archs at full width through
-   ``ServingEngine``, weights from a seed, each freed before the next:
-   qwen2-7b (q/k/v biases), qwen3-14b, phi3-mini-3.8b (hd 96) and
+8. lm_zoo  — the LM zoo's ten archs at full width through
+   ``ServingEngine``, weights from a seed, each freed before the next
+   (ZOO): qwen2-7b (q/k/v biases), qwen3-14b, phi3-mini-3.8b (hd 96) and
    granite-moe-3b-a800m (hd 64, 40 experts top-8, tied embeddings) under
    ``attn_impl="pallas"``, 2 requests of 4 x 2048-token prompts, 16 greedy
    tokens each, every prefill launching K10 once a layer; mixtral-8x7b
    (8 experts top-2, a 4096-token sliding window, so the masked path and
    no K10) cut to the layers whose bf16 weights leave 20 GB of the card
-   free, 2 requests of 2 x 6144 tokens (the ring wraps unaligned); each
-   arch's parameter count held to the count from its shapes, its
-   prefill's last logits held to the masked path's (pallas archs), a
+   free, 2 requests of 2 x 6144 tokens (the ring wraps unaligned);
+   llava-next-34b (VLM, all 60 layers, 14 GB left) under pallas, 2
+   requests of 2 x (2880 patch embeddings + 1024 tokens), 8 tokens each,
+   K10 at 56 query heads over 8; mamba2-1.3b (SSD prefill, recurrent
+   decode) 2 x 4 x 2048; recurrentgemma-2b (RG-LRU and a 2048-token local
+   window) 2 x 4 x 3000, the ring wrapped unaligned; whisper-large-v3
+   (1500 frame embeddings, 432 + 16 text tokens) 2 x 4; each arch's
+   parameter count held to the count from its shapes, its prefill's last
+   logits held to the masked path's (pallas archs; llava at B = 1), a
    prefill of S tokens and one decode step held to ``forward`` on S + 1
-   (B = 1, S = 2048, mixtral 5000; MoE at capacity factor 8), qwen2-7b's
-   ``tri`` prefill of 8192 tokens held to ``masked``, all within 0.05 of
-   the largest logit; prefill and decode times beside their bounds, a
-   profiler split of a prefill, peak memory and, for the MoE archs, the
-   share of (token, k) slots a prefill drops at capacity factor 1.25;
+   (B = 1, S = the prompt, mixtral 5000; MoE at capacity factor 8),
+   qwen2-7b's ``tri`` prefill of 8192 tokens held to ``masked``, all
+   within 0.05 of the largest logit; prefill and decode times beside
+   their bounds, a profiler split of a prefill, peak memory and, for the
+   MoE archs, the share of (token, k) slots a prefill drops at capacity
+   factor 1.25;
 9. lm_head — the DWN head on the LM backbone: an ``lm-head`` split (1024
    / 512 sequences through the reduced backbone) made on the card,
    ``dwn-lm-head`` trained one epoch there, frozen and packed, then
@@ -248,8 +258,10 @@ Phases, each printing one JSON line:
    at an accuracy floor between the grid's lowest and highest and
    ``emit_verified`` on 256 vectors (oracle on the card);
 16. cli    — ``python -m repro_torch.launch.serve --arch dwn-jsc-lg`` with
-   four requests, the same with ``--backend auto``, ``--arch
-   qwen3-8b --batch 2 --prompt-len 32 --gen 4``, ``python -m
+   four requests, the same with ``--backend auto``, ``--arch <arch>
+   --batch 2 --prompt-len 32 --gen 4`` for qwen3-8b, llava-next-34b
+   (with its 2880 patches, masked), mamba2-1.3b, recurrentgemma-2b and
+   whisper-large-v3 at full width, ``python -m
    repro_torch.launch.train --arch dwn-jsc-lg --workload jsc --epochs
    1``, and four commands in their own processes that must exit 0:
    ``python -m repro_torch.dwn.smoke --workload mnist --preset mnist-lg
@@ -288,6 +300,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -1653,11 +1666,17 @@ FLASH = ("src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
 FLASH_SYMBOL = "flash_attn_kernel"
 #: the qwen3-8b attention head shape: query heads, KV heads, head_dim
 QWEN_HEADS = (32, 8, 128)
-#: the other head shapes the LM zoo's pallas archs give K10: two more at
-#: hd 128, hd 96 and hd 64, all on the Hopper design
+#: the other head shapes the LM zoo's pallas archs give K10: three more
+#: at hd 128 (llava-next-34b's 56 query heads over 8, groups of 7), hd 96
+#: and hd 64, all on the Hopper design
 ZOO_HEADS = {"qwen2-7b": (28, 4, 128), "qwen3-14b": (40, 8, 128),
              "phi3-mini-3.8b": (32, 32, 96),
-             "granite-moe-3b-a800m": (24, 8, 64)}
+             "granite-moe-3b-a800m": (24, 8, 64),
+             "llava-next-34b": (56, 8, 128)}
+#: (B, S) of an arch's served prefill, checked and timed beside the zoo's
+#: sizes: llava's 2 x (2880 patches + 1024 text tokens), whose last
+#: 128-row query block holds 64 rows and whose last 96-key tile 64 keys
+FLASH_SERVED_SIZES = {"llava-next-34b": (2, 3904)}
 #: (B, S) checked at the zoo's head shapes: S on either side of the
 #: Hopper design's 128-row query blocks and of its 96-key (hd 96, 128) and
 #: 128-key (hd 64) tiles, and of the first design's 64-row blocks; at
@@ -1866,10 +1885,11 @@ def phase_flash(device, ptxas=(), sizes=((1, 1), (2, 33), (1, 129),
         device, rng, QWEN_HEADS,
         tuple(sizes) + FLASH_GQA_PAST_L2_SIZES[QWEN_HEADS], checks)
     per_hd = {}
-    for heads in ZOO_HEADS.values():
+    for name, heads in ZOO_HEADS.items():
+        served = FLASH_SERVED_SIZES.get(name)
         err = _flash_checks(device, rng, heads, ZOO_FLASH_SIZES
-                            + FLASH_GQA_PAST_L2_SIZES.get(heads, ()),
-                            checks)
+                            + FLASH_GQA_PAST_L2_SIZES.get(heads, ())
+                            + ((served,) if served else ()), checks)
         hd_err = per_hd.setdefault(heads[2], [0.0, 0.0])
         hd_err[:] = [max(a, b) for a, b in zip(hd_err, err)]
     smem_bytes = _build.load(KA.LIBRARY).flash_attn_smem_bytes
@@ -1877,6 +1897,8 @@ def phase_flash(device, ptxas=(), sizes=((1, 1), (2, 33), (1, 129),
     timing = _flash_timing(device, rng, QWEN_HEADS, *time_shape)
     zoo = {name: _flash_timing(device, rng, heads, *time_shape)
            for name, heads in ZOO_HEADS.items()}
+    served = {name: _flash_timing(device, rng, ZOO_HEADS[name], *shape)
+              for name, shape in FLASH_SERVED_SIZES.items()}
     lines = list(ptxas)
     resources = {f"hd{hd}": {**_ptxas_resources(lines, symbol),
                              "dynamic_smem_bytes": smem_bytes(hd)}
@@ -1890,11 +1912,12 @@ def phase_flash(device, ptxas=(), sizes=((1, 1), (2, 33), (1, 129),
           "row_rel_err": row_rel,
           "max_abs_err_by_hd": {hd: e[0] for hd, e in per_hd.items()},
           "timing_shape": {"B": B, "S": S, "H": H, "KH": KH, "hd": hd},
-          "timing": timing, "zoo_timing": zoo, "ptxas": resources})
+          "timing": timing, "zoo_timing": zoo, "served_timing": served,
+          "ptxas": resources})
     errs = {"max_abs_err": max_err, "row_rel_err": row_rel}
     by_hd = {hd: {"max_abs_err": e[0], "row_rel_err": e[1]}
              for hd, e in per_hd.items()}
-    return errs, timing, by_hd, zoo
+    return errs, timing, by_hd, zoo, served
 
 
 def _ffn_params(cfg):
@@ -1920,41 +1943,114 @@ def _ffn_ops(cfg, B, S):
     return 2 * 3 * D * F * E * cap * B + 2 * D * E * B * S
 
 
+def _pairs(S, W=None):
+    """(query, key) pairs a causal attention over S positions scores,
+    keys at most W back where W is given."""
+    W = min(S, W or S)
+    return W * (W + 1) // 2 + (S - W) * W
+
+
+def _mixed_bound(nbytes, bf16_ops, fp32_ops=0):
+    """The least time of work moving ``nbytes`` and doing ``bf16_ops`` on
+    the tensor cores and ``fp32_ops`` float32 operations outside them
+    (each at its own peak, one after the other)."""
+    by_bytes = nbytes / PEAK_BYTES_PER_S
+    by_ops = bf16_ops / PEAK_BF16_OPS_PER_S + fp32_ops / PEAK_FP32_OPS_PER_S
+    return {"bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes, "operations": bf16_ops + fp32_ops,
+            "fp32_operations": fp32_ops}
+
+
 def lm_bounds(cfg, B, S, gen):
     """Least times of one prefill of B x S tokens and of one decode step,
-    counted from the shapes: prefill by its bf16 matrix and attention
-    operations (the last position only is unembedded; attention over the
-    keys each query sees, at most a sliding window's), decode by the
-    bytes of every
-    matrix weight (every expert's), the unembedding (the embedding table
-    when tied), the token rows of the embedding and the valid KV cache at
-    the middle step."""
-    D, L = cfg.d_model, cfg.num_layers
+    counted from the shapes (:func:`_mixed_bound`): prefill by its matrix
+    operations as the reference types them (bf16 operands on the tensor
+    cores; the RG-LRU gates' float32 products outside them), attention
+    over the keys each query sees (at most a window's; a VLM's patch
+    positions count in S; the SSD's chunk products as the port computes
+    them), the last position alone unembedded; decode by the bytes of
+    every weight (every expert's), the token rows of the embedding, the
+    valid KV cache at the middle step (cross K/V over the frames), and
+    the recurrent state read and written."""
+    D, L, V = cfg.d_model, cfg.num_layers, cfg.vocab_padded(1)
     H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
-    V = cfg.vocab_padded(1)
     attn = D * hd * (H + 2 * KH) + H * hd * D
-    per_layer = attn + _ffn_params(cfg)
-    W = cfg.swa_window or S
-    pairs = (min(S, W) * (min(S, W) + 1) // 2 + max(S - W, 0) * W)
-    attn_ops = L * 4 * B * H * hd * pairs
-    prefill_ops = (2 * attn * L * B * S + L * _ffn_ops(cfg, B, S)
-                   + attn_ops + 2 * B * D * V)
-    prefill_bytes = 2 * (per_layer * L + D * V)
-    kv = S + gen // 2
-    if cfg.swa_window is not None:
-        kv = min(kv, cfg.swa_window)
-    kv_bytes = 2 * 2 * L * B * kv * KH * hd
-    decode_bytes = 2 * (per_layer * L + D * V + B * D) + kv_bytes
-    decode_ops = (2 * (attn * L + D * V) * B + L * _ffn_ops(cfg, B, 1))
-    return ({"prefill": _bf16_bound(prefill_bytes, prefill_ops),
-             "decode_step": _bf16_bound(decode_bytes, decode_ops)})
+    n = lm_params_total(cfg)
+    unembed = 2 * B * D * V
+
+    def kv_bytes(layers, kv):
+        return 2 * 2 * layers * B * kv * KH * hd
+
+    fp32 = fp32_step = state = 0
+    if cfg.family in ("dense", "moe", "vlm"):
+        S = S + (cfg.num_patches if cfg.family == "vlm" else 0)
+        pf = (2 * attn * L * B * S + L * _ffn_ops(cfg, B, S)
+              + L * 4 * B * H * hd * _pairs(S, cfg.swa_window) + unembed)
+        kv = min(S + gen // 2, cfg.swa_window or S + gen)
+        state = kv_bytes(L, kv)
+        step = 2 * (attn * L + D * V) * B + L * _ffn_ops(cfg, B, 1)
+    elif cfg.family == "ssm":
+        di = cfg.ssm_expand * D
+        Hs, P, G, N = di // cfg.ssm_headdim, cfg.ssm_headdim, \
+            cfg.ssm_ngroups, cfg.ssm_state
+        per_tok = D * (2 * di + 2 * G * N + Hs) + di * D
+        Q = min(cfg.ssm_chunk, S)
+        nc = -(-S // Q)
+        ssd = 2 * B * nc * (G * Q * Q * N + Hs * Q * Q * P
+                            + 2 * Q * Hs * P * N)
+        pf = 2 * per_tok * L * B * S + L * ssd + unembed
+        state = 2 * 4 * L * B * Hs * P * N \
+            + 2 * 2 * L * B * (cfg.ssm_conv - 1) * (di + 2 * G * N)
+        step = 2 * (per_tok * L + D * V) * B
+    elif cfg.family == "hybrid":
+        W, F = cfg.lru_width, cfg.d_ff
+        n_attn = cfg.num_layers // 3
+        n_rec = L - n_attn
+        rec_tok, attn_tok = 3 * D * W + 3 * D * F, attn + 3 * D * F
+        pf = (2 * B * S * (n_rec * rec_tok + n_attn * attn_tok)
+              + n_attn * 4 * B * H * hd * _pairs(S, cfg.local_window)
+              + unembed)
+        fp32 = 2 * B * S * n_rec * 2 * W * W
+        kv = min(S + gen // 2, cfg.local_window)
+        state = (kv_bytes(n_attn, kv) + 2 * 4 * n_rec * B * W
+                 + 2 * 2 * n_rec * B * 3 * W)
+        step = 2 * B * (n_rec * rec_tok + n_attn * attn_tok + D * V) \
+            + n_attn * 4 * B * H * hd * kv
+        fp32_step = 2 * B * n_rec * 2 * W * W
+        n += n_rec * 2 * W * W           # wa, wx in float32: 4 bytes
+    elif cfg.family == "encdec":
+        F, Fr, Le = cfg.d_ff, cfg.enc_frames, cfg.enc_layers
+        enc_tok = attn + 2 * D * F
+        dec_tok = attn + 2 * H * hd * D + 2 * D * F
+        pf = (2 * B * Fr * Le * enc_tok + Le * 4 * B * H * hd * Fr * Fr
+              + 2 * B * Fr * L * 2 * D * KH * hd
+              + 2 * B * S * L * dec_tok
+              + L * 4 * B * H * hd * (_pairs(S) + S * Fr) + unembed)
+        kv = S + gen // 2
+        state = kv_bytes(L, kv) + kv_bytes(L, Fr)
+        step = 2 * B * (L * dec_tok + D * V) \
+            + L * 4 * B * H * hd * (kv + Fr)
+        n -= Le * whisper_counts(cfg)[0] + 2 * D    # the encoder's
+    else:
+        raise ValueError(f"no bounds for family {cfg.family!r}")
+    if not _tied(cfg):               # decode reads B rows of the table
+        n -= V * D
+    prefill_bytes = 2 * lm_params_total(cfg)
+    decode_bytes = 2 * n + 2 * B * D + state
+    if cfg.family == "hybrid":
+        prefill_bytes += 2 * n_rec * 2 * W * W
+    return {"prefill": _mixed_bound(prefill_bytes, pf, fp32),
+            "decode_step": _mixed_bound(decode_bytes, step, fp32_step)}
 
 
 def flash_per_prefill(cfg):
-    """K10's launches in one prefill: one a layer under ``pallas``, none
-    under a sliding window (the reference's pallas path skips the kernel
-    there) or another attn_impl."""
-    on = cfg.attn_impl == "pallas" and cfg.swa_window is None
+    """K10's launches in one prefill: one a layer of the transformer under
+    ``pallas``, none under a sliding window (the reference's pallas path
+    skips the kernel there), another attn_impl or another family's
+    module (the SSM, hybrid and encoder-decoder models call no kernel)."""
+    on = (cfg.attn_impl == "pallas" and cfg.swa_window is None
+          and cfg.family in ("dense", "moe", "vlm"))
     return cfg.num_layers if on else 0
 
 
@@ -2093,22 +2189,54 @@ def phase_lm(device, batch=4, requests=2, prompt_len=2048, gen=16):
     return launches
 
 
-#: the LM zoo served at full width in phase lm_zoo: arch -> (attn_impl,
-#: prompts a request, prompt tokens, the teacher-forced gate's prompt).
-#: mixtral's window skips K10 (as the reference's pallas path does), so it
-#: runs the masked path, on prompts longer than its 4096-token window and
-#: no multiple of it, so that the ring wraps unaligned (fault 10)
-ZOO = {"qwen2-7b": ("pallas", 4, 2048, 2048),
-       "qwen3-14b": ("pallas", 4, 2048, 2048),
-       "phi3-mini-3.8b": ("pallas", 4, 2048, 2048),
-       "granite-moe-3b-a800m": ("pallas", 4, 2048, 2048),
-       "mixtral-8x7b": ("masked", 2, 6144, 5000)}
 #: bytes of the card a served model's bf16 weights leave free: the masked
 #: attention's float32 scores at 2 x 6144 tokens (1.6 GB a 1024-key chunk,
 #: several temporaries) and the teacher-forced gate's expert products at
 #: capacity factor 8 (mixtral: 10,002 slots an expert, 2.3 GB each of
 #: g, u and h in bf16 beside 4.6 GB of float32 SiLU input)
 LM_SERVE_HEADROOM_BYTES = 20e9
+#: llava-next-34b's own: under pallas at 2 x (2880 + 1024) positions its
+#: KV cache is 1.9 GB and a layer's FFN temporaries (bf16 g, u and h,
+#: float32 SiLU input) 1.6 GB; the masked check at B = 1 holds about 4 GB
+#: of float32 scores a 1024-key chunk and the teacher-forced forward 0.5
+#: GB of logits; 14 GB leave all 60 layers (68.8 GB) on an 85 GB card
+LLAVA_HEADROOM_BYTES = 14e9
+
+
+class ZooCell(NamedTuple):
+    """One arch of phase lm_zoo: its attn_impl, prompts a request, prompt
+    tokens (text; a VLM's patches come on top), the teacher-forced gate's
+    prompt (B = 1), the bytes its weights leave free, the batch of the
+    pallas-against-masked check (None: the request's) and the tokens
+    generated a request."""
+    impl: str
+    batch: int
+    prompt_len: int
+    tf_len: int
+    headroom: float = LM_SERVE_HEADROOM_BYTES
+    check_batch: int | None = None
+    gen: int = 16
+
+
+#: the LM zoo served at full width in phase lm_zoo.  mixtral's window
+#: skips K10 (as the reference's pallas path does), so it runs the masked
+#: path, on prompts longer than its 4096-token window and no multiple of
+#: it, so that the ring wraps unaligned (fault 10); llava prefills 2880
+#: patch positions and 1024 text tokens through K10 at 56 query heads over
+#: 8, its last 128-row query block ragged (3904 = 30.5 x 128);
+#: recurrentgemma's 3000 tokens wrap its 2048-token local window
+#: unaligned (fault 11); whisper's 432 + 16 tokens are its 448-token text
+#: context; the SSM, hybrid and encoder-decoder models call no kernel
+ZOO = {"qwen2-7b": ZooCell("pallas", 4, 2048, 2048),
+       "qwen3-14b": ZooCell("pallas", 4, 2048, 2048),
+       "phi3-mini-3.8b": ZooCell("pallas", 4, 2048, 2048),
+       "granite-moe-3b-a800m": ZooCell("pallas", 4, 2048, 2048),
+       "mixtral-8x7b": ZooCell("masked", 2, 6144, 5000),
+       "llava-next-34b": ZooCell("pallas", 2, 1024, 1024,
+                                 LLAVA_HEADROOM_BYTES, check_batch=1, gen=8),
+       "mamba2-1.3b": ZooCell("masked", 4, 2048, 2048),
+       "recurrentgemma-2b": ZooCell("masked", 4, 3000, 3000),
+       "whisper-large-v3": ZooCell("masked", 4, 432, 432)}
 #: the capacity factor of the teacher-forced gate's MoE archs, as
 #: tests/test_decode_consistency.py sets it: the S and S + 1 passes then
 #: drop nothing, so they route alike
@@ -2118,50 +2246,58 @@ TEACHER_CAPACITY = 8.0
 TRI_ARCH, TRI_TOKENS = "qwen2-7b", 8192
 
 
-def lm_serve_layers(cfg, total_bytes):
-    """The most layers whose bf16 weights leave LM_SERVE_HEADROOM_BYTES
-    free, as :func:`lm_train_layers` picks its depth."""
+def lm_serve_layers(cfg, total_bytes, headroom=LM_SERVE_HEADROOM_BYTES):
+    """The most layers of a transformer whose bf16 weights leave
+    ``headroom`` bytes free, as :func:`lm_train_layers` picks its depth."""
     layer, table, other = lm_param_counts(cfg)
-    fit = (total_bytes - LM_SERVE_HEADROOM_BYTES - 2 * (table + other)) \
-        // (2 * layer)
+    fit = (total_bytes - headroom - 2 * (table + other)) // (2 * layer)
     return int(max(1, min(cfg.num_layers, fit)))
 
 
 def _teacher_forced(params, cfg, S, seed=7):
-    """A prefill of S tokens (B = 1) and one decode step against the last
-    logits of ``forward`` on the S + 1 tokens: their relative error."""
+    """A prefill of S tokens (B = 1, with the stub frontend's inputs) and
+    one decode step against the last logits of ``forward`` on the S + 1
+    tokens: their relative error."""
     import torch
-    from repro_torch.models import transformer
+    from repro_torch.models import api
+    from repro_torch.serving.engine import stub_inputs
+    mod = api.module_for(cfg)
     dev = params["embed"]["table"].device
-    toks = torch.from_numpy(np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (1, S + 1))).to(dev)
-    full, _, _ = transformer.forward(params, cfg, {"tokens": toks})
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, S + 1))).to(
+        dev)
+    stub = stub_inputs(cfg, rng, 1, dev)
+    full = mod.forward(params, cfg, {"tokens": toks, **stub})[0]
     want = full[:, -1].clone()
     del full
-    _, cache = transformer.prefill(params, cfg, {"tokens": toks[:, :S]},
-                                   cache_len=S + 1)
-    got, _ = transformer.decode_step(params, cfg, cache, toks[:, S:])
+    _, cache = mod.prefill(params, cfg, {"tokens": toks[:, :S], **stub},
+                           cache_len=S + 1)
+    got, _ = mod.decode_step(params, cfg, cache, toks[:, S:])
     return _rel(got, want)
 
 
-def _lm_zoo_arch(device, arch, requests, gen, total_bytes):
-    """One arch of the LM zoo served at full width (its depth cut to what
-    the card holds, recorded as ``reduced``); its gates; its line."""
+def _lm_zoo_arch(device, arch, requests, total_bytes):
+    """One arch of the LM zoo served at full width (a transformer's depth
+    cut to what the card holds, recorded as ``reduced``); its gates; its
+    line."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import api, layers, transformer
     from repro_torch.serving import ServingEngine
-    impl, batch, prompt_len, tf_len = ZOO[arch]
+    cell = ZOO[arch]
+    impl, batch, prompt_len, tf_len = cell[:4]
+    gen = cell.gen
     full = get_arch(arch)
     cfg = dataclasses.replace(full, attn_impl=impl)
-    depth = lm_serve_layers(cfg, total_bytes)
     reduced = None
-    if depth < cfg.num_layers:
-        cfg = dataclasses.replace(cfg, num_layers=depth)
-        reduced = {"num_layers": [depth, full.num_layers],
-                   "why": f"bf16 weights of {full.num_layers} layers exceed "
-                          f"the card; {depth} leave "
-                          f"{LM_SERVE_HEADROOM_BYTES / 1e9:.0f} GB free"}
+    if cfg.family in transformer.FAMILIES:
+        depth = lm_serve_layers(cfg, total_bytes, cell.headroom)
+        if depth < cfg.num_layers:
+            cfg = dataclasses.replace(cfg, num_layers=depth)
+            reduced = {"num_layers": [depth, full.num_layers],
+                       "why": f"bf16 weights of {full.num_layers} layers "
+                              f"exceed the card; {depth} leave "
+                              f"{cell.headroom / 1e9:.0f} GB free"}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2172,10 +2308,9 @@ def _lm_zoo_arch(device, arch, requests, gen, total_bytes):
     params = engine.params
     n_params = sum(t.numel() for t in _leaves(params))
     param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    layer, table, other = lm_param_counts(cfg)
-    if n_params != cfg.num_layers * layer + table + other:
-        raise SystemExit(f"{arch}: {n_params} parameters, lm_param_counts "
-                         f"says {cfg.num_layers * layer + table + other}")
+    if n_params != lm_params_total(cfg):
+        raise SystemExit(f"{arch}: {n_params} parameters, lm_params_total "
+                         f"says {lm_params_total(cfg)}")
     engine.warmup(batch)
     stream = [engine.make_request(batch, seed=100 + i)
               for i in range(requests)]
@@ -2203,10 +2338,17 @@ def _lm_zoo_arch(device, arch, requests, gen, total_bytes):
     per_prefill = _expect_launches(f"{arch} prefill", {
         "flash_attention": flash_per_prefill(cfg)})
     if impl == "pallas":
+        # on the request's first check_batch prompts where the masked
+        # path's float32 scores would not fit beside the request's
+        rows = cell.check_batch or batch
+        sub = {k: v[:rows] for k, v in batch0.items()}
+        if rows < batch:
+            logits, _ = prefill(params, sub)
         masked = dataclasses.replace(cfg, attn_impl="masked")
         m_logits, _ = api.make_prefill(masked, cache_len=prompt_len + gen)(
-            params, batch0)
+            params, sub)
         check["pallas_vs_masked_rel"] = _rel(logits, m_logits)
+        check["pallas_vs_masked_batch"] = rows
         del m_logits
     del logits
     tf_cfg = (dataclasses.replace(cfg, capacity_factor=TEACHER_CAPACITY)
@@ -2232,6 +2374,8 @@ def _lm_zoo_arch(device, arch, requests, gen, total_bytes):
     bounds = lm_bounds(cfg, batch, prompt_len, gen)
     out = {"phase": "lm_zoo", "arch": arch, "source": full.source,
            "family": cfg.family, "attn_impl": impl,
+           "positions": prompt_len + (cfg.num_patches
+                                      if cfg.family == "vlm" else 0),
            "layers": cfg.num_layers, "reduced": reduced,
            "d_model": cfg.d_model,
            "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_],
@@ -2252,20 +2396,24 @@ def _lm_zoo_arch(device, arch, requests, gen, total_bytes):
     return launches.get("flash_attention", 0)
 
 
-def phase_lm_zoo(device, requests=2, gen=16):
-    """The LM zoo's dense and MoE archs at full width through
-    ``ServingEngine`` (ZOO): each serves ``requests`` requests of greedy
-    ``gen`` tokens through K10 (none under mixtral's window), and is held
-    to the masked path, to its own forward (a teacher-forced decode step)
-    and, for qwen2-7b, ``tri`` to ``masked``; each model is freed before
-    the next.  Returns each arch's K10 launches on its served pass."""
+def phase_lm_zoo(device, requests=2):
+    """The LM zoo's ten archs at full width through ``ServingEngine``
+    (ZOO): each serves ``requests`` requests of greedy tokens, the
+    pallas archs through K10 (none under mixtral's window; the SSM, hybrid
+    and encoder-decoder modules call no kernel), and is held to the
+    masked path (pallas archs), to its own forward (a teacher-forced
+    decode step) and, for qwen2-7b, ``tri`` to ``masked``; each model is
+    freed before the next.  Fails unless every pallas arch launched K10
+    on its served pass.  Returns each arch's K10 launches there."""
     import gc
 
     import torch
     total = torch.cuda.get_device_properties(0).total_memory
     out = {}
-    for arch in ZOO:
-        out[arch] = _lm_zoo_arch(device, arch, requests, gen, total)
+    for arch, cell in ZOO.items():
+        out[arch] = _lm_zoo_arch(device, arch, requests, total)
+        if cell.impl == "pallas" and not out[arch]:
+            raise SystemExit(f"{arch}'s served pass launched no K10")
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -2470,6 +2618,52 @@ def lm_param_counts(cfg):
              + (2 * hd if cfg.qk_norm else 0)
              + ((H + 2 * KH) * hd if cfg.qkv_bias else 0))
     return layer, V * D, (0 if cfg.tie_embeddings else V * D) + D
+
+
+def whisper_counts(cfg):
+    """(parameters of one encoder layer, of one decoder layer) of the
+    encoder-decoder family: LayerNorms with biases, attention with q/k/v
+    and output biases, GELU MLPs with biases."""
+    D, F, hd = cfg.d_model, cfg.d_ff, cfg.head_dim_
+    H, KH = cfg.num_heads, cfg.num_kv_heads
+    attn = D * hd * (H + 2 * KH) + H * hd * D + (H + 2 * KH) * hd + D
+    mlp = 2 * D * F + F + D
+    return 4 * D + attn + mlp, 6 * D + 2 * attn + mlp
+
+
+def _tied(cfg):
+    """Whether the unembedding reads the embedding table (whisper's always
+    does, whatever its config's flag says)."""
+    return cfg.tie_embeddings or cfg.family == "encdec"
+
+
+def lm_params_total(cfg):
+    """Every parameter of the port's model of ``cfg``, counted from the
+    shapes, for every family (the transformer's from
+    :func:`lm_param_counts`)."""
+    D, V, L = cfg.d_model, cfg.vocab_padded(1), cfg.num_layers
+    if cfg.family in ("dense", "moe", "vlm"):
+        layer, table, other = lm_param_counts(cfg)
+        return L * layer + table + other
+    table = V * D * (1 if _tied(cfg) else 2)
+    if cfg.family == "ssm":
+        di = cfg.ssm_expand * D
+        H, G, N = di // cfg.ssm_headdim, cfg.ssm_ngroups, cfg.ssm_state
+        conv = di + 2 * G * N
+        layer = (D + D * (2 * di + 2 * G * N + H) + 3 * H
+                 + (cfg.ssm_conv + 1) * conv + di + di * D)
+        return L * layer + table + D
+    if cfg.family == "hybrid":
+        W, F, hd = cfg.lru_width, cfg.d_ff, cfg.head_dim_
+        H, KH = cfg.num_heads, cfg.num_kv_heads
+        rec = 2 * D + 3 * D * W + 2 * W * W + 8 * W + 3 * D * F
+        attn = 2 * D + D * hd * (H + 2 * KH) + H * hd * D + 3 * D * F
+        n_attn = L // 3
+        return (L - n_attn) * rec + n_attn * attn + table + D
+    if cfg.family == "encdec":
+        enc, dec = whisper_counts(cfg)
+        return cfg.enc_layers * enc + L * dec + table + 4 * D
+    raise ValueError(f"no parameter count for family {cfg.family!r}")
 
 
 def lm_train_layers(cfg, total_bytes):
@@ -4306,17 +4500,28 @@ def _cli_sweeps(seconds):
 
 
 def phase_cli(device):
+    import gc
+
+    import torch
     from repro_torch.launch import serve, train
     seconds = {}
     records = {}
+    # every LM family through the serve CLI at full width (the arch's own
+    # attn_impl; llava's 2 x (2880 patches + 32 tokens) masked), each
+    # model freed before the next
+    lm = [(serve.main, ["--arch", arch, "--batch", "2", "--prompt-len",
+                        "32", "--gen", "4"])
+          for arch in ("qwen3-8b", "llava-next-34b", "mamba2-1.3b",
+                       "recurrentgemma-2b", "whisper-large-v3")]
     for main, argv in (
             (serve.main, ["--arch", "dwn-jsc-lg", "--requests", "4"]),
             (serve.main, ["--arch", "dwn-jsc-lg", "--requests", "4",
                           "--backend", "auto"]),
-            (serve.main, ["--arch", "qwen3-8b", "--batch", "2",
-                          "--prompt-len", "32", "--gen", "4"]),
+            *lm,
             (train.main, ["--arch", "dwn-jsc-lg", "--workload", "jsc",
                           "--epochs", "1"])):
+        gc.collect()
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         main(argv + ["--device", device])
         seconds[" ".join(argv)] = time.perf_counter() - t0
@@ -4418,8 +4623,8 @@ def main() -> int:
                                                   "cuda")
     float_err, float_timing, float_launches = run("float", phase_float,
                                                   "cuda")
-    flash_err, flash_timing, flash_err_by_hd, zoo_timing = run(
-        "flash", phase_flash, "cuda", ptxas["flash_attn"])
+    (flash_err, flash_timing, flash_err_by_hd, zoo_timing,
+     served_timing) = run("flash", phase_flash, "cuda", ptxas["flash_attn"])
     flash_launches = run("lm", phase_lm, "cuda")
     zoo_launches = run("lm_zoo", phase_lm_zoo, "cuda")
     head_launches = run("lm_head", phase_lm_head, "cuda")
@@ -4531,7 +4736,11 @@ def main() -> int:
         "head_shapes": {a: {k: zoo_timing[a][k] for k in (
             "H", "KH", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")} for a, (_, _, hd) in ZOO_HEADS.items()
-            if hd == 128}})
+            if hd == 128},
+        "served_shapes": {a: {k: t[k] for k in (
+            "B", "S", "H", "KH", "ms", "eager_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "tflops", "bound_share")}
+            for a, t in served_timing.items()}})
     for arch, (_, _, hd) in ZOO_HEADS.items():
         if hd == 128:
             continue

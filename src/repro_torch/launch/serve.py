@@ -14,9 +14,12 @@ facade.  ``--workload`` serves a spec preset on another registered
 workload; ``--no-data-parallel`` is accepted for the reference's
 command lines (the port serves on one device).
 
-LM archs (``--arch qwen3-8b``): one request of ``--batch`` random prompts
-of ``--prompt-len`` tokens, prefilled and decoded greedily for ``--gen``
-tokens; ``--reduced`` serves the tiny same-family variant.  The arch's
+LM archs (``--arch qwen3-8b``, or any of the reference's ten LM archs:
+dense, MoE, VLM, SSM, hybrid, encoder-decoder): one request of
+``--batch`` random prompts of ``--prompt-len`` tokens (with the stub
+frontends' patch or frame embeddings for llava-next-34b and
+whisper-large-v3), prefilled and decoded greedily for ``--gen`` tokens;
+``--reduced`` serves the tiny same-family variant.  The arch's
 ``attn_impl`` decides prefill attention (qwen3-8b: ``masked``; the
 engine takes an ``ArchConfig`` with ``attn_impl="pallas"`` for the
 flash-attention kernel).  ``--dwn-head`` (a spec preset name such as
@@ -39,6 +42,8 @@ Usage:
     python -m repro_torch.launch.serve --arch qwen3-8b --reduced \\
         --device cpu --prompt-len 8 --gen 2
     python -m repro_torch.launch.serve --arch qwen3-8b --dwn-head dwn-lm-head
+    python -m repro_torch.launch.serve --arch whisper-large-v3 --reduced \
+        --device cpu --prompt-len 8 --gen 2
 
 Prints one JSON report line.
 """

@@ -1,7 +1,7 @@
 """Training CLI: the reference's ``launch/train.py``, LM and DWN branches.
 
-LM archs (``--arch qwen3-8b``): the dense transformer trained on the
-synthetic ``TokenStream`` (``--batch`` sequences of ``--seq`` tokens a
+LM archs (``--arch qwen3-8b``, any registered LM arch): the model trained
+on the synthetic ``TokenStream`` (``--batch`` sequences of ``--seq`` tokens a
 step) with the reference's AdamW and global-norm clipping
 (``models.api.make_train_step``), from float32 master weights, with the
 straggler monitor and, given ``--ckpt-dir``, the checkpoint-restart
@@ -70,9 +70,18 @@ def lm_train(args) -> dict:
     monitor = StragglerMonitor()
     losses = []
 
+    # the stub frontends' inputs are zeros, as the reference's CLI feeds
+    stub = {"encdec": ("frames", cfg.enc_frames),
+            "vlm": ("patches", cfg.num_patches)}.get(cfg.family)
+
     def make_batch(raw):
-        return {k: torch.from_numpy(raw[k]).to(device)
-                for k in ("tokens", "labels")}
+        batch = {k: torch.from_numpy(raw[k]).to(device)
+                 for k in ("tokens", "labels")}
+        if stub is not None:
+            batch[stub[0]] = torch.zeros(
+                (args.batch, stub[1], cfg.d_model), dtype=torch.bfloat16,
+                device=device)
+        return batch
 
     def step_once(handle):
         params, opt_state = handle.state

@@ -7,6 +7,11 @@ serving engine and the train CLI call (the reference's
                                       -> (step(params, opt, batch), opt)
     make_prefill(cfg, cache_len=None) -> fn(params, batch)
     make_decode_step(cfg)             -> fn(params, cache, batch)
+
+Families: dense, MoE and VLM (``transformer``), SSM (``mamba2``), hybrid
+(``rglru``) and encoder-decoder (``whisper``).  A batch carries
+``tokens`` and ``labels``, plus ``patches`` (VLM) or ``frames``
+(encoder-decoder).
 """
 
 from __future__ import annotations
@@ -16,18 +21,25 @@ import torch
 from ..configs.base import ArchConfig
 from ..optim.adam import Adam, leaves
 from ..optim.grad import accumulate_grads, clip_by_global_norm, value_and_grad
-from . import transformer
+from . import mamba2, rglru, transformer, whisper
 
-MODULES = {"dense": transformer, "moe": transformer}
+MODULES = {"dense": transformer, "moe": transformer, "vlm": transformer,
+           "ssm": mamba2, "hybrid": rglru, "encdec": whisper}
 
 
 def module_for(cfg: ArchConfig):
-    """The model module of ``cfg.family``; ``NotImplementedError`` for a
-    family the port does not run yet (ROADMAP Queue 1 item 8)."""
+    """The model module of ``cfg.family``; ``NotImplementedError`` for the
+    DWN behind the LM interface (``family="dwn"``, ROADMAP Queue 1 item
+    8.5) and any other family."""
+    if cfg.family == "dwn":
+        raise NotImplementedError(
+            f"{cfg.name}: the DWN behind the LM-zoo interface (dwn_arch) "
+            f"is not ported yet (ROADMAP Queue 1 item 8.5); serve and "
+            f"train DWNs by spec (repro_torch.dwn)")
     if cfg.family not in MODULES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-            f"Queue 1 item 8); the port runs {sorted(MODULES)}")
+            f"{cfg.name}: no model module for family {cfg.family!r}; the "
+            f"port runs {sorted(MODULES)}")
     return MODULES[cfg.family]
 
 

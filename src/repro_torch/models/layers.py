@@ -1,6 +1,8 @@
-"""Building blocks of the dense and MoE transformer, the port's
-counterpart of the reference's ``repro.models.layers`` (its attention,
-SwiGLU, MoE, embedding and loss parts).
+"""Building blocks of the LM zoo's models, the port's counterpart of the
+reference's ``repro.models.layers``: norms (RMS and layer norm), RoPE,
+attention, the SwiGLU and GELU MLPs, the MoE, the depthwise causal
+convolution of the SSM and hybrid blocks, embedding and loss, and the
+carrying of the reference's param trees across (:func:`tree_from_numpy`).
 
 Conventions, as in the reference:
 
@@ -28,7 +30,9 @@ import dataclasses
 import math
 import threading
 
+import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..configs.base import round_up
 
@@ -88,6 +92,23 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return out.to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with scale and bias, in float32, cast back to x's dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    out = out * scale.float() + bias.float()
+    return out.to(x.dtype)
+
+
+def init_layer_norm(d: int, *, device=None):
+    """Float32 scale ones and bias zeros, as the reference's."""
+    return {"scale": torch.ones(d, device=device),
+            "bias": torch.zeros(d, device=device)}
+
+
 def rope_frequencies(head_dim: int, theta: float,
                      device=None) -> torch.Tensor:
     half = head_dim // 2
@@ -118,12 +139,12 @@ def _normal(gen: torch.Generator, shape, std: float, device) -> torch.Tensor:
 
 def init_attention(gen: torch.Generator, d_model: int, layout: HeadLayout,
                    head_dim: int, *, qkv_bias: bool = False,
-                   qk_norm: bool = False, device=None,
-                   dtype: torch.dtype = COMPUTE_DTYPE):
+                   qk_norm: bool = False, out_bias: bool = False,
+                   device=None, dtype: torch.dtype = COMPUTE_DTYPE):
     """Attention params in the padded layout, the reference's stds, the
-    matrices (and the q/k/v biases, zero as the reference's) in ``dtype``.
-    Dead q heads (slots beyond the real group size) are zero, including
-    their o-proj rows."""
+    matrices (and the q/k/v and output biases, zero as the reference's) in
+    ``dtype``.  Dead q heads (slots beyond the real group size) are zero,
+    including their o-proj rows."""
     std = d_model ** -0.5
     H, K, s = layout.q_padded, layout.num_kv, layout.slots
     gs = layout.num_q // layout.num_kv
@@ -145,13 +166,15 @@ def init_attention(gen: torch.Generator, d_model: int, layout: HeadLayout,
         p["bq"] = torch.zeros((H, head_dim), dtype=cd, device=device)
         p["bk"] = torch.zeros((K, head_dim), dtype=cd, device=device)
         p["bv"] = torch.zeros((K, head_dim), dtype=cd, device=device)
+    if out_bias:
+        p["bo"] = torch.zeros((d_model,), dtype=cd, device=device)
     if qk_norm:
         p["q_norm"] = torch.ones((head_dim,), dtype=PARAM_DTYPE, device=device)
         p["k_norm"] = torch.ones((head_dim,), dtype=PARAM_DTYPE, device=device)
     return p
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (B, S, D) @ w (D, *out) -> (B, S, *out), bf16."""
     out = x.to(COMPUTE_DTYPE) @ w.reshape(w.shape[0], -1).to(COMPUTE_DTYPE)
     return out.reshape(*x.shape[:-1], *w.shape[1:])
@@ -163,7 +186,7 @@ def qkv_project(p, x: torch.Tensor, *, positions: torch.Tensor | None,
     reference's at tp = 1, where its padded layout repeats and pads
     nothing).  The biases, where there are any, are added in bf16 before
     the qk-norm and RoPE."""
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    q, k, v = proj(x, p["wq"]), proj(x, p["wk"]), proj(x, p["wv"])
     if "bq" in p:
         q = q + p["bq"].to(COMPUTE_DTYPE)
         k = k + p["bk"].to(COMPUTE_DTYPE)
@@ -330,11 +353,43 @@ def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def attn_output(p, o: torch.Tensor) -> torch.Tensor:
-    """o (B, S, Hp, hd) -> (B, S, D) bf16."""
+    """o (B, S, Hp, hd) -> (B, S, D) bf16, plus the output bias where
+    there is one."""
     B, S = o.shape[:2]
     wo = p["wo"]
-    return (o.reshape(B, S, -1).to(COMPUTE_DTYPE)
-            @ wo.reshape(-1, wo.shape[-1]).to(COMPUTE_DTYPE))
+    y = (o.reshape(B, S, -1).to(COMPUTE_DTYPE)
+         @ wo.reshape(-1, wo.shape[-1]).to(COMPUTE_DTYPE))
+    if "bo" in p:
+        y = y + p["bo"].to(COMPUTE_DTYPE)
+    return y
+
+
+def write_prompt_kv(cache, i: int, k: torch.Tensor, v: torch.Tensor):
+    """Layer i's prompt k/v (B, S, Kp, hd) into ``cache["k"]/["v"]`` (L,
+    B, Skv, Kp, hd): slots [0, S) when they fit, else (a sliding or local
+    window's ring, shorter than the prompt) the last Skv positions,
+    position p in slot p % Skv, the slot a decode step writes p to."""
+    S, Skv = k.shape[1], cache["k"].shape[2]
+    if S <= Skv:
+        cache["k"][i, :, :S] = k
+        cache["v"][i, :, :S] = v
+    else:
+        shift = (S - Skv) % Skv
+        cache["k"][i] = torch.roll(k[:, S - Skv:], shift, dims=1)
+        cache["v"][i] = torch.roll(v[:, S - Skv:], shift, dims=1)
+
+
+def check_ring(name: str, pos: int, Skv: int, window: int) -> None:
+    """Raise ``ValueError`` where a decode step at ``pos`` would overwrite
+    a position its ``window`` still reads: a full ring of ``Skv`` slots
+    shorter than the window."""
+    if pos >= Skv and Skv < window:
+        raise ValueError(
+            f"{name}: the KV ring of {Skv} slots is shorter than the "
+            f"{window}-token window and full: position {pos} would "
+            f"overwrite position {pos - Skv}, which the window still "
+            f"reads; prefill with a cache_len of at least "
+            f"{min(pos + 1, window)}")
 
 
 # ---------------------------------------------------------------------------
@@ -357,6 +412,70 @@ def swiglu(p, x: torch.Tensor) -> torch.Tensor:
     u = xc @ p["w_up"].to(cd)
     h = torch.nn.functional.silu(g.float()).to(cd) * u
     return h @ p["w_down"].to(cd)
+
+
+def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int, *,
+                  bias: bool = True, device=None,
+                  dtype: torch.dtype = COMPUTE_DTYPE):
+    """The reference's GELU MLP: w_in (D, F), w_out (F, D) and, with
+    ``bias``, zero b_in (F,) and b_out (D,), all in ``dtype``."""
+    p = {"w_in": _normal(gen, (d_model, d_ff), d_model ** -0.5,
+                         device).to(dtype),
+         "w_out": _normal(gen, (d_ff, d_model), d_ff ** -0.5,
+                          device).to(dtype)}
+    if bias:
+        p["b_in"] = torch.zeros((d_ff,), dtype=dtype, device=device)
+        p["b_out"] = torch.zeros((d_model,), dtype=dtype, device=device)
+    return p
+
+
+def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
+    """x @ w_in (+ b_in), GELU (tanh approximation) in float32, @ w_out (+
+    b_out): bf16 products and bias adds, as the reference's."""
+    cd = COMPUTE_DTYPE
+    h = x.to(cd) @ p["w_in"].to(cd)
+    if "b_in" in p:
+        h = h + p["b_in"].to(cd)
+    h = torch.nn.functional.gelu(h.float(), approximate="tanh").to(cd)
+    y = h @ p["w_out"].to(cd)
+    if "b_out" in p:
+        y = y + p["b_out"].to(cd)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Depthwise causal convolution (the SSM and hybrid blocks)
+# ---------------------------------------------------------------------------
+
+def run_block(remat: bool, fn, *args):
+    """``fn(*args)``; with ``remat``, under ``torch.utils.checkpoint`` (the
+    reference's ``jax.checkpoint``): recomputed in the backward pass
+    instead of keeping its activations."""
+    if remat:
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal convolution along S: x (B, S, C), w (K, C) stored
+    newest-first (tap j multiplies x_{t-j}), b (C,); float32 sums of the
+    K taps in the reference's order, cast back to x's dtype."""
+    K, S = w.shape[0], x.shape[1]
+    pad = torch.nn.functional.pad(x, (0, 0, K - 1, 0))
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(K):
+        out = out + pad[:, i:i + S].float() * w[K - 1 - i].float()
+    return (out + b.float()).to(x.dtype)
+
+
+def conv_tail(x: torch.Tensor, K: int) -> torch.Tensor:
+    """The last K - 1 rows of x (B, S, C), left-padded with zeros when S is
+    shorter: the convolution state a decode step continues from (the
+    causal convolution pads with zeros, so the padding is exact)."""
+    tail = x[:, -(K - 1):]
+    return torch.nn.functional.pad(tail, (0, 0, K - 1 - tail.shape[1], 0))
 
 
 # ---------------------------------------------------------------------------
@@ -533,6 +652,13 @@ def init_embedding(gen: torch.Generator, vocab_padded: int, d_model: int, *,
                              device).to(dtype)}
 
 
+def token_ids(tokens, device) -> torch.Tensor:
+    """Token ids (a tensor or an array) as a long tensor on ``device``."""
+    if not isinstance(tokens, torch.Tensor):
+        tokens = torch.from_numpy(np.array(tokens))
+    return tokens.to(device=device, dtype=torch.long)
+
+
 def embed(p, tokens: torch.Tensor) -> torch.Tensor:
     return p["table"][tokens].to(COMPUTE_DTYPE)
 
@@ -548,6 +674,25 @@ def unembed(p, x: torch.Tensor, cols: int | None = None) -> torch.Tensor:
     ``cols`` vocabulary columns (the same dot products)."""
     w = p["w"] if cols is None else p["w"][:, :cols]
     return x.to(COMPUTE_DTYPE) @ w.to(COMPUTE_DTYPE)
+
+
+def tied_logits(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """x (..., D) against the embedding table (Vp, D): the tied
+    unembedding, bf16."""
+    return x.to(COMPUTE_DTYPE) @ table.to(COMPUTE_DTYPE).t()
+
+
+def lm_logits(params, cfg, x: torch.Tensor,
+              cols: int | None = None) -> torch.Tensor:
+    """The final RMS norm (``params["final_norm"]``) and unembedding of x:
+    through the embedding table when ``cfg.tie_embeddings``, else
+    ``params["unembed"]``; ``cols`` unembeds only the first that many
+    vocabulary columns."""
+    x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        table = params["embed"]["table"]
+        return tied_logits(table if cols is None else table[:cols], x)
+    return unembed(params["unembed"], x, cols)
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
@@ -578,11 +723,43 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
     return (nll.sum() + z_loss * z.sum()) / denom
 
 
+# ---------------------------------------------------------------------------
+# The reference's param trees, carried across
+# ---------------------------------------------------------------------------
+
+def tree_from_numpy(node, *, f32, dtype: torch.dtype, device,
+                    index: int | None = None):
+    """A nested dict of numpy arrays (the reference's params) as tensors on
+    ``device``: a leaf whose name is in ``f32`` float32, every other in
+    ``dtype``; with ``index``, entry ``index`` of each leaf's leading
+    (stacked-layers) axis."""
+    out = {}
+    for k, v in node.items():
+        if isinstance(v, dict):
+            out[k] = tree_from_numpy(v, f32=f32, dtype=dtype, device=device,
+                                     index=index)
+            continue
+        t = torch.from_numpy(np.array(v if index is None else v[index],
+                                      np.float32))
+        out[k] = (t if k in f32 else t.to(dtype)).to(device)
+    return out
+
+
+def layers_from_numpy(stacked, n: int, **kw) -> list:
+    """A stacked layer tree (leading axis ``n``) as a list of ``n``
+    per-layer trees (:func:`tree_from_numpy`'s arguments)."""
+    return [tree_from_numpy(stacked, index=i, **kw) for i in range(n)]
+
+
 __all__ = [
     "COMPUTE_DTYPE", "HeadLayout", "PARAM_DTYPE", "apply_rope",
     "attention_causal_tri", "attention_chunked", "attention_decode",
-    "attn_output", "count_moe_slots", "cross_entropy_loss", "embed",
-    "init_attention", "init_embedding", "init_moe", "init_swiglu",
-    "init_unembed", "make_head_layout", "moe_apply", "moe_capacity",
-    "qkv_project", "rms_norm", "rope_frequencies", "swiglu", "unembed",
+    "attn_output", "causal_conv", "check_ring", "conv_tail",
+    "count_moe_slots", "cross_entropy_loss", "embed", "gelu_mlp",
+    "init_attention", "init_embedding", "init_gelu_mlp", "init_layer_norm",
+    "init_moe", "init_swiglu", "init_unembed", "layer_norm",
+    "layers_from_numpy", "lm_logits", "make_head_layout", "moe_apply",
+    "moe_capacity", "proj", "qkv_project", "rms_norm", "rope_frequencies",
+    "run_block", "swiglu", "tied_logits", "token_ids", "tree_from_numpy",
+    "unembed", "write_prompt_kv",
 ]

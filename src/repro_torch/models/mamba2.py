@@ -1,0 +1,325 @@
+"""Mamba-2 (SSD, state-space duality), the attention-free LM: the port's
+counterpart of the reference's ``repro.models.mamba2``.
+
+* Prefill and training run the chunked SSD of Dao & Gu (arXiv:2405.21060)
+  in plain PyTorch, as the reference runs it in plain jnp (no Pallas
+  kernel): within a chunk of ``cfg.ssm_chunk`` positions the outputs are
+  matrix products (C B^T ⊙ decay mask) (dt·X); across chunks a loop
+  carries the (B, H, P, N) float32 state.  A sequence that is no multiple
+  of the chunk is padded with dt = 0 (decay 1, no input).
+* Products take bf16 operands and accumulate in float32 (the operands
+  are cast to float32, which keeps each product of two bf16 values
+  exact), as the reference's ``preferred_element_type``.  With one group
+  (``ssm_ngroups``), C B^T is computed once a group and scaled per head.
+* Decode is the SSM recurrence h = a·h + (dt·x) B^T, y = C·h + D·x, with
+  the depthwise convolution's last ``ssm_conv - 1`` inputs kept in the
+  cache.  After a prompt shorter than that, the kept inputs are padded
+  with zeros in front (exact: the causal convolution pads with zeros);
+  the reference keeps the short tail and its first decode step raises
+  (ROADMAP fault 12).
+* Params: a dict whose ``"layers"`` entry is a list of per-layer dicts;
+  the matrices in ``dtype`` (bf16 to serve, float32 to train), every leaf
+  the reference reads in float32 (norm scales, the convolution, the step
+  and decay parameters, the skip) float32 in either form.
+
+Interface (the transformer's):
+    init_params(cfg, *, seed, device, dtype) -> params
+    params_from_numpy(tree, cfg, *, device, dtype) -> params
+    forward(params, cfg, batch) -> (logits (B, S, Vp), h_last per layer)
+    loss_fn(params, cfg, batch) -> scalar loss
+    init_cache(cfg, batch_size, cache_len, *, device) -> cache
+    prefill(params, cfg, batch, *, cache_len) -> (last logits, cache)
+    decode_step(params, cfg, cache, tokens) -> (logits, cache)
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ArchConfig
+from . import layers as L
+
+#: leaves kept float32 in either param form
+F32_LEAVES = ("scale", "dt_bias", "A_log", "D_skip", "conv_w", "conv_b")
+
+
+def _dims(cfg: ArchConfig) -> tuple[int, int]:
+    d_inner = cfg.ssm_expand * cfg.d_model
+    return d_inner, d_inner // cfg.ssm_headdim
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+
+def _init_block(gen, cfg: ArchConfig, dev, dtype):
+    d_inner, H = _dims(cfg)
+    D, N, G, K = cfg.d_model, cfg.ssm_state, cfg.ssm_ngroups, cfg.ssm_conv
+    std = D ** -0.5
+
+    def normal(shape, s):
+        return torch.randn(shape, generator=gen, device=dev) * s
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    return {
+        "ln": {"scale": torch.ones(D, device=dev)},
+        "w_z": normal((D, d_inner), std).to(dtype),
+        "w_x": normal((D, d_inner), std).to(dtype),
+        "w_bc": normal((D, 2 * G * N), std).to(dtype),
+        "w_dt": normal((D, H), std).to(dtype),
+        "dt_bias": torch.log(torch.expm1(torch.linspace(1e-3, 0.1, H,
+                                                        **f32))),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, H, **f32)),
+        "D_skip": torch.ones(H, **f32),
+        "conv_w": normal((K, d_inner + 2 * G * N), K ** -0.5),
+        "conv_b": torch.zeros(d_inner + 2 * G * N, **f32),
+        "out_norm": {"scale": torch.ones(d_inner, device=dev)},
+        "w_out": normal((d_inner, D), d_inner ** -0.5).to(dtype),
+    }
+
+
+def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
+                dtype: torch.dtype = L.COMPUTE_DTYPE):
+    """Random params from a ``torch.Generator`` on ``device`` with the
+    reference's stds and its deterministic step, decay and skip
+    initialisations (see the module's docstring for the dtypes)."""
+    dev = torch.device("cpu" if device is None else device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    V = cfg.vocab_padded(1)
+    params = {
+        "embed": L.init_embedding(gen, V, cfg.d_model, device=dev,
+                                  dtype=dtype),
+        "layers": [_init_block(gen, cfg, dev, dtype)
+                   for _ in range(cfg.num_layers)],
+        "final_norm": {"scale": torch.ones(cfg.d_model, device=dev)},
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = L.init_unembed(gen, cfg.d_model, V, device=dev,
+                                           dtype=dtype)
+    return params
+
+
+def params_from_numpy(tree, cfg: ArchConfig, *, device=None,
+                      dtype: torch.dtype = L.COMPUTE_DTYPE):
+    """The reference's tree (``init_params(key, cfg, tp=1)`` as numpy,
+    layers stacked) as the port's params."""
+    kw = dict(f32=F32_LEAVES, dtype=dtype,
+              device=torch.device("cpu" if device is None else device))
+    return {k: (L.layers_from_numpy(v, cfg.num_layers, **kw)
+                if k == "layers" else L.tree_from_numpy(v, **kw))
+            for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# chunked SSD
+# ---------------------------------------------------------------------------
+
+def _bf(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16 and taken back to float32: a product's operand."""
+    return t.to(L.COMPUTE_DTYPE).float()
+
+
+def _segsum(a: torch.Tensor) -> torch.Tensor:
+    """a (..., Q) log-decays -> (..., Q, Q): out[..., i, j] = sum of a[k]
+    for k in (j, i] where i >= j, -inf above the diagonal."""
+    Q = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=a.device))
+    return diff.masked_fill(~mask, float("-inf"))
+
+
+def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 B: torch.Tensor, C: torch.Tensor, chunk: int,
+                 h0: torch.Tensor | None = None):
+    """Chunked SSD scan.
+
+    x (Bt, S, H, P) value channels, dt (Bt, S, H) positive steps, A (H,)
+    positive decay rates (a_t = exp(-dt A)), B and C (Bt, S, G, N) input
+    and output projections (group g serves heads [g H/G, (g+1) H/G)), h0
+    an optional initial state (Bt, H, P, N).  Returns (y (Bt, S, H, P)
+    bf16, the last state (Bt, H, P, N) float32).
+    """
+    Bt, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    if S % chunk:                       # pad: dt = 0 -> a = 1, no input
+        n = chunk - S % chunk
+
+        def pad(t):                     # n zero rows after axis 1's
+            return F.pad(t, (0,) * (2 * (t.dim() - 2)) + (0, n))
+        y, h_last = _ssd_chunked(pad(x), pad(dt), A, pad(B), pad(C), chunk,
+                                 h0=h0)
+        return y[:, :S], h_last
+    nc, Q, rep = S // chunk, chunk, H // G
+
+    def chunks(t):
+        return t.reshape(Bt, nc, Q, *t.shape[2:])
+
+    xc, dtc, Bc, Cc = chunks(x), chunks(dt), chunks(B), chunks(C)
+    la = (-dtc * A).float()                                 # (Bt,nc,Q,H)
+    decay = torch.exp(_segsum(la.transpose(2, 3)))           # (Bt,nc,H,Q,Q)
+
+    # intra-chunk: Y = ((C B^T) ⊙ M) (dt X); C B^T once a group
+    cb = torch.einsum("bcqgn,bckgn->bcgqk", _bf(Cc), _bf(Bc))
+    scores = (cb[:, :, :, None] * decay.view(Bt, nc, G, rep, Q, Q)).view(
+        Bt, nc, H, Q, Q)
+    xdt = xc * dtc[..., None]
+    y = torch.einsum("bchqk,bckhp->bcqhp", _bf(scores), _bf(xdt))
+
+    # each chunk's contribution to the state at its end
+    la_cum = torch.cumsum(la, dim=2)                          # (Bt,nc,Q,H)
+    la_tot = la_cum[:, :, -1]                                 # (Bt,nc,H)
+    to_end = dtc * torch.exp(la_tot[:, :, None] - la_cum)    # (Bt,nc,Q,H)
+    Bh = Bc.repeat_interleave(rep, dim=3)                     # (Bt,nc,Q,H,N)
+    states = torch.einsum("bcqhn,bcqhp->bchpn", _bf(Bh * to_end[..., None]),
+                          _bf(xc))
+    del Bh
+
+    # across chunks: the state entering each chunk
+    h = (torch.zeros((Bt, H, P, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = h * torch.exp(la_tot[:, c])[:, :, None, None] + states[:, c]
+    h_in = torch.stack(h_in, dim=1).view(Bt, nc, G, rep, P, N)
+
+    # inter-chunk: y += C · (the incoming state, decayed to each position)
+    y_inter = torch.einsum("bcqgn,bcgrpn->bcqgrp", _bf(Cc), _bf(h_in))
+    y = y + y_inter.reshape(Bt, nc, Q, H, P) * torch.exp(la_cum)[..., None]
+    return y.reshape(Bt, S, H, P).to(L.COMPUTE_DTYPE), h
+
+
+def _block_apply(lp, cfg: ArchConfig, x: torch.Tensor, state=None):
+    """One SSD block over the whole sequence x (B, S, D) -> (x + out, the
+    last SSM state (B, H, P, N) float32, the convolution's input (B, S,
+    conv channels) bf16)."""
+    d_inner, H = _dims(cfg)
+    G, N, P = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_headdim
+    cd = L.COMPUTE_DTYPE
+    h = L.rms_norm(x, lp["ln"]["scale"], cfg.norm_eps)
+    z = L.proj(h, lp["w_z"])
+    conv_in = torch.cat([L.proj(h, lp["w_x"]), L.proj(h, lp["w_bc"])], -1)
+    dt_raw = L.proj(h, lp["w_dt"])
+    conv = L.causal_conv(conv_in, lp["conv_w"], lp["conv_b"])
+    conv = F.silu(conv.float()).to(cd)
+    Bt, S = x.shape[:2]
+    xh = conv[..., :d_inner].reshape(Bt, S, H, P)
+    Bg = conv[..., d_inner:d_inner + G * N].reshape(Bt, S, G, N)
+    Cg = conv[..., d_inner + G * N:].reshape(Bt, S, G, N)
+    dt = F.softplus(dt_raw.float() + lp["dt_bias"].float())
+    A = torch.exp(lp["A_log"].float())
+    y, h_last = _ssd_chunked(xh, dt, A, Bg, Cg, min(cfg.ssm_chunk, S),
+                             h0=state)
+    y = y + xh * lp["D_skip"].to(cd)[None, None, :, None]
+    y = y.reshape(Bt, S, d_inner) * F.silu(z.float()).to(cd)
+    y = L.rms_norm(y, lp["out_norm"]["scale"], cfg.norm_eps)
+    return x + L.proj(y, lp["w_out"]), h_last, conv_in
+
+
+def _run(params, cfg: ArchConfig, tokens: torch.Tensor, cache=None):
+    """Embed and run every block -> (the last hidden state, each block's
+    last SSM state); with ``cache``, each block's state and convolution
+    tail are written there."""
+    x = L.embed(params["embed"], tokens)
+    states = []
+    for i, lp in enumerate(params["layers"]):
+        x, st, conv_in = L.run_block(cfg.remat and x.requires_grad,
+                                     _block_apply, lp, cfg, x)
+        states.append(st)
+        if cache is not None:
+            cache["ssm"][i] = st
+            cache["conv"][i] = L.conv_tail(conv_in, cfg.ssm_conv)
+    return x, states
+
+
+def forward(params, cfg: ArchConfig, batch):
+    """Full-sequence forward -> (logits (B, S, Vp) bf16, each block's
+    last SSM state)."""
+    tokens = L.token_ids(batch["tokens"], params["embed"]["table"].device)
+    x, states = _run(params, cfg, tokens)
+    return L.lm_logits(params, cfg, x), states
+
+
+def loss_fn(params, cfg: ArchConfig, batch) -> torch.Tensor:
+    """Cross-entropy of positions [0, S-1) against labels [1, S)."""
+    logits, _ = forward(params, cfg, batch)
+    labels = L.token_ids(batch["labels"], logits.device)
+    return L.cross_entropy_loss(logits[:, :-1], labels[:, 1:],
+                                vocab_real=cfg.vocab_size)
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ArchConfig, batch_size: int, cache_len: int = 0, *,
+               device=None):
+    """Each block's SSM state (L, B, H, P, N) float32 and last
+    ``ssm_conv - 1`` convolution inputs (L, B, K-1, C) bf16: O(1) in the
+    sequence, so ``cache_len`` is unused."""
+    del cache_len
+    d_inner, H = _dims(cfg)
+    G, N, P = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_headdim
+    dev = torch.device("cpu" if device is None else device)
+    Lc = cfg.num_layers
+    return {"ssm": torch.zeros((Lc, batch_size, H, P, N), device=dev),
+            "conv": torch.zeros((Lc, batch_size, cfg.ssm_conv - 1,
+                                 d_inner + 2 * G * N), dtype=L.COMPUTE_DTYPE,
+                                device=dev),
+            "pos": 0}
+
+
+def prefill(params, cfg: ArchConfig, batch, *, cache_len: int | None = None):
+    """The whole prompt -> (last-token logits (B, Vp), cache); only the
+    last position is unembedded."""
+    dev = params["embed"]["table"].device
+    tokens = L.token_ids(batch["tokens"], dev)
+    cache = init_cache(cfg, tokens.shape[0], device=dev)
+    x, _ = _run(params, cfg, tokens, cache)
+    cache["pos"] = tokens.shape[1]
+    return L.lm_logits(params, cfg, x[:, -1:])[:, 0], cache
+
+
+def decode_step(params, cfg: ArchConfig, cache, tokens):
+    """One token (B, 1) through the recurrence -> (logits (B, Vp), cache),
+    the cache updated in place."""
+    d_inner, H = _dims(cfg)
+    G, N, P = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_headdim
+    cd = L.COMPUTE_DTYPE
+    dev = params["embed"]["table"].device
+    x = L.embed(params["embed"], L.token_ids(tokens, dev))
+    for i, lp in enumerate(params["layers"]):
+        hn = L.rms_norm(x, lp["ln"]["scale"], cfg.norm_eps)
+        z = L.proj(hn, lp["w_z"])
+        cin = torch.cat([L.proj(hn, lp["w_x"]), L.proj(hn, lp["w_bc"])], -1)
+        dt_raw = L.proj(hn, lp["w_dt"])
+        # the window [kept inputs, this token]: oldest first, so the taps
+        # (stored newest-first) run reversed
+        win = torch.cat([cache["conv"][i], cin], dim=1)        # (B, K, C)
+        w = lp["conv_w"].float().flip(0)
+        cout = (win.float() * w).sum(1) + lp["conv_b"].float()
+        cout = F.silu(cout).to(cd)
+        xs = cout[:, :d_inner].reshape(-1, H, P).float()
+        Bh = cout[:, d_inner:d_inner + G * N].reshape(-1, G, N)
+        Ch = cout[:, d_inner + G * N:].reshape(-1, G, N)
+        Bh = Bh.repeat_interleave(H // G, dim=1).float()       # (B, H, N)
+        Ch = Ch.repeat_interleave(H // G, dim=1).float()
+        dt = F.softplus(dt_raw[:, 0].float() + lp["dt_bias"].float())
+        a = torch.exp(-dt * torch.exp(lp["A_log"].float()))
+        upd = torch.einsum("bhn,bhp->bhpn", Bh, xs * dt[..., None])
+        ssm = cache["ssm"][i] * a[..., None, None] + upd
+        y = torch.einsum("bhn,bhpn->bhp", Ch, ssm)
+        y = y + xs * lp["D_skip"].float()[None, :, None]
+        y = y.reshape(-1, 1, d_inner).to(cd) * F.silu(z.float()).to(cd)
+        y = L.rms_norm(y, lp["out_norm"]["scale"], cfg.norm_eps)
+        x = x + L.proj(y, lp["w_out"])
+        cache["ssm"][i] = ssm
+        cache["conv"][i] = win[:, 1:]
+    cache["pos"] = int(cache["pos"]) + 1
+    return L.lm_logits(params, cfg, x)[:, 0], cache
+
+
+__all__ = ["F32_LEAVES", "decode_step", "forward", "init_cache",
+           "init_params", "loss_fn", "params_from_numpy", "prefill"]

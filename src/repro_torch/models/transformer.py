@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense and MoE families: the port's
+"""Decoder-only transformer LM, dense, MoE and VLM families: the port's
 counterpart of the reference's ``repro.models.transformer``.
 
 * A Python loop over the layers (the reference scans over stacked
@@ -16,6 +16,10 @@ counterpart of the reference's ``repro.models.transformer``.
   length, position p in slot p % length) and the capacity-routed MoE
   FFN (``family="moe"``), whose aux loss ``forward`` sums over the
   layers.
+* VLM (``family="vlm"``, llava-next): the batch's precomputed patch
+  embeddings (B, P, D) are prepended to the token embeddings; the KV
+  cache holds P more positions, prefill's position counts them, and
+  ``loss_fn`` labels the text positions only.
 * One card: there is no tensor parallelism, so the head layout is the
   reference's at tp = 1, and experts are not sharded (``moe_ep=True``
   raises).
@@ -42,9 +46,7 @@ Interface:
 
 from __future__ import annotations
 
-import numpy as np
 import torch
-import torch.utils.checkpoint
 
 from ..configs.base import ArchConfig
 from ..kernels.flash_attn import ops as flash
@@ -52,13 +54,16 @@ from ..optim.adam import leaves
 from . import layers as L
 
 ATTN_IMPLS = ("masked", "pallas", "tri")
-FAMILIES = ("dense", "moe")
+#: the leaves kept float32 in either param form: norm scales and the MoE
+#: router (it routes in float32)
+F32_LEAVES = ("scale", "router", "q_norm", "k_norm")
+FAMILIES = ("dense", "moe", "vlm")
 
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for what the port's transformer does
-    not run yet: other families (ROADMAP Queue 1 item 8) and experts
-    sharded over a model axis (item 9)."""
+    not run: the families of the other modules (``models.api``) and
+    experts sharded over a model axis (ROADMAP Queue 1 item 9)."""
     missing = []
     if cfg.family not in FAMILIES:
         missing.append(f"family {cfg.family!r}")
@@ -66,9 +71,9 @@ def check_supported(cfg: ArchConfig) -> None:
         missing.append(f"attn_impl {cfg.attn_impl!r}")
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP "
-            f"Queue 1 item 8); the port runs families {FAMILIES} with "
-            f"attn_impl in {ATTN_IMPLS}")
+            f"{cfg.name}: {', '.join(missing)} not run by the "
+            f"transformer, which runs families {FAMILIES} with attn_impl "
+            f"in {ATTN_IMPLS}")
     if cfg.moe_ep:
         raise NotImplementedError(
             f"{cfg.name}: moe_ep=True (experts sharded over the model "
@@ -131,22 +136,11 @@ def params_from_numpy(tree, cfg: ArchConfig, *, device=None,
     reference's own values, to train), norm scales and the MoE router
     float32, the layer axis split into a list."""
     check_supported(cfg)
-    dev = torch.device("cpu" if device is None else device)
-
-    def leaf(a, name):
-        t = torch.from_numpy(np.array(a, np.float32))
-        if not (name in ("scale", "router") or name.endswith("_norm")):
-            t = t.to(dtype)
-        return t.to(dev)
-
-    def convert(node, i=None):
-        return {k: (convert(v, i) if isinstance(v, dict)
-                    else leaf(v if i is None else v[i], k))
-                for k, v in node.items()}
-
-    stacked = tree["layers"]
-    return {k: ([convert(stacked, i) for i in range(cfg.num_layers)]
-                if k == "layers" else convert(v)) for k, v in tree.items()}
+    kw = dict(f32=F32_LEAVES, dtype=dtype,
+              device=torch.device("cpu" if device is None else device))
+    return {k: (L.layers_from_numpy(v, cfg.num_layers, **kw)
+                if k == "layers" else L.tree_from_numpy(v, **kw))
+            for k, v in tree.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -198,71 +192,43 @@ def _block_apply(lp, cfg: ArchConfig, layout: L.HeadLayout,
     return x + y, aux, k, v
 
 
-def _tokens(batch, device) -> torch.Tensor:
-    toks = batch["tokens"]
-    if not isinstance(toks, torch.Tensor):
-        toks = torch.from_numpy(np.asarray(toks))
-    return toks.to(device=device, dtype=torch.long)
-
-
-def _write_prompt_kv(cache, i: int, k: torch.Tensor, v: torch.Tensor):
-    """Layer i's prompt k/v (B, S, Kp, hd) into the cache: slots [0, S)
-    when they fit, else (a sliding window's ring, shorter than the
-    prompt) the last Skv positions, position p in slot p % Skv, the slot
-    ``decode_step`` writes p to."""
-    S, Skv = k.shape[1], cache["k"].shape[2]
-    if S <= Skv:
-        cache["k"][i, :, :S] = k
-        cache["v"][i, :, :S] = v
-    else:
-        shift = (S - Skv) % Skv
-        cache["k"][i] = torch.roll(k[:, S - Skv:], shift, dims=1)
-        cache["v"][i] = torch.roll(v[:, S - Skv:], shift, dims=1)
+def _patches(cfg: ArchConfig, batch, device) -> torch.Tensor | None:
+    """The batch's patch embeddings (B, P, D) on ``device``, or None: only
+    the VLM family reads them."""
+    if cfg.family != "vlm" or batch.get("patches") is None:
+        return None
+    return torch.as_tensor(batch["patches"]).to(device)
 
 
 def _layers(params, cfg: ArchConfig, tokens: torch.Tensor, cache=None, *,
-            collect_kv: bool = False):
-    """Embed and run every layer -> (the last hidden state (B, S, D), the
-    summed aux loss, ks, vs); each layer's k/v is written into ``cache``
-    when given (:func:`_write_prompt_kv`), and collected and returned with
+            collect_kv: bool = False, patches: torch.Tensor | None = None):
+    """Embed (``patches`` (B, P, D) before the tokens' embeddings) and run
+    every layer -> (the last hidden state (B, P + S, D), the summed aux
+    loss, ks, vs); each layer's k/v is written into ``cache`` when given
+    (``layers.write_prompt_kv``), and collected and returned with
     ``collect_kv``.  With ``cfg.remat`` and gradients on, each layer is
     recomputed in the backward pass instead of keeping its
     activations."""
     check_supported(cfg)
     layout = _layout(cfg)
     x = L.embed(params["embed"], tokens)
-    B, S = tokens.shape
+    if patches is not None:
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
+    B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).expand(B, S)
     remat = cfg.remat and torch.is_grad_enabled() and any(
         t.requires_grad for t in leaves(params))
     aux, ks, vs = 0.0, [], []
     for i, lp in enumerate(params["layers"]):
-        if remat:
-            x, a, k, v = torch.utils.checkpoint.checkpoint(
-                _block_apply, lp, cfg, layout, x, positions,
-                use_reentrant=False)
-        else:
-            x, a, k, v = _block_apply(lp, cfg, layout, x, positions)
+        x, a, k, v = L.run_block(remat, _block_apply, lp, cfg, layout, x,
+                                 positions)
         aux = aux + a
         if cache is not None:
-            _write_prompt_kv(cache, i, k, v)
+            L.write_prompt_kv(cache, i, k, v)
         if collect_kv:
             ks.append(k)
             vs.append(v)
     return x, aux, ks, vs
-
-
-def _logits(params, cfg: ArchConfig, x: torch.Tensor,
-            cols: int | None = None) -> torch.Tensor:
-    """Final norm and unembedding: through the embedding table when
-    ``cfg.tie_embeddings``; ``cols`` unembeds only the first that many
-    vocabulary columns."""
-    x = L.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    if cfg.tie_embeddings:
-        table = params["embed"]["table"]
-        table = table if cols is None else table[:cols]
-        return x.to(L.COMPUTE_DTYPE) @ table.to(L.COMPUTE_DTYPE).t()
-    return L.unembed(params["unembed"], x, cols)
 
 
 def forward(params, cfg: ArchConfig, batch, *, collect_kv: bool = False,
@@ -270,20 +236,26 @@ def forward(params, cfg: ArchConfig, batch, *, collect_kv: bool = False,
     """Full-sequence forward -> (logits (B, S, Vp) bf16, aux (the MoE's
     load-balance loss summed over the layers, a float32 scalar; 0.0 for
     the dense family), (k, v) stacked over layers (L, B, S, Kp, hd) or
-    None).  ``vocab_cols`` unembeds only the first that many vocabulary
+    None).  A VLM batch's ``patches`` (B, P, D) come first, so S counts
+    them.  ``vocab_cols`` unembeds only the first that many vocabulary
     columns (the DWN head's pooled features read 16 of them)."""
-    tokens = _tokens(batch, params["embed"]["table"].device)
-    x, aux, ks, vs = _layers(params, cfg, tokens, collect_kv=collect_kv)
+    dev = params["embed"]["table"].device
+    tokens = L.token_ids(batch["tokens"], dev)
+    x, aux, ks, vs = _layers(params, cfg, tokens, collect_kv=collect_kv,
+                             patches=_patches(cfg, batch, dev))
     kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
-    return _logits(params, cfg, x, vocab_cols), aux, kvs
+    return L.lm_logits(params, cfg, x, vocab_cols), aux, kvs
 
 
 def loss_fn(params, cfg: ArchConfig, batch) -> torch.Tensor:
     """Next-token loss of ``batch`` ({"tokens", "labels"}, (B, S) each):
     the cross-entropy of positions [0, S-1) against labels [1, S), plus
-    0.01 times the summed aux loss, as the reference adds it."""
+    0.01 times the summed aux loss, as the reference adds it.  A VLM
+    batch's patch positions carry no label and are dropped."""
     logits, aux, _ = forward(params, cfg, batch)
-    labels = _tokens({"tokens": batch["labels"]}, logits.device)
+    if cfg.family == "vlm" and batch.get("patches") is not None:
+        logits = logits[:, batch["patches"].shape[1]:]
+    labels = L.token_ids(batch["labels"], logits.device)
     with torch.profiler.record_function("lm.cross_entropy"):
         ce = L.cross_entropy_loss(logits[:, :-1], labels[:, 1:],
                                   vocab_real=cfg.vocab_size)
@@ -295,9 +267,12 @@ def loss_fn(params, cfg: ArchConfig, batch) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def cache_len_for(cfg: ArchConfig, seq_len: int) -> int:
-    """KV-cache length for ``seq_len`` tokens: every position, or at most
-    the sliding window's."""
+    """KV-cache length for ``seq_len`` tokens: every position (a VLM's
+    ``num_patches`` image positions ahead of the text included), or at
+    most the sliding window's."""
     check_supported(cfg)
+    if cfg.family == "vlm":
+        seq_len = seq_len + cfg.num_patches
     if cfg.swa_window is not None:
         return min(seq_len, cfg.swa_window)
     return seq_len
@@ -319,7 +294,9 @@ def prefill(params, cfg: ArchConfig, batch, *, cache_len: int | None = None):
 
     The cache has ``cache_len_for(cfg, cache_len)`` positions
     (``cache_len`` defaults to the prompt's; shorter than the prompt
-    raises ``ValueError``) and holds the prompt's k/v; under a sliding
+    raises ``ValueError``; a VLM's P patch positions are added to it and
+    counted in the cache's position) and holds the prompt's k/v; under a
+    sliding
     window shorter than the prompt it holds the last window, position p
     in slot p % window (the reference keeps the last window in order, so
     its first decode step overwrites a position still in the window
@@ -327,16 +304,17 @@ def prefill(params, cfg: ArchConfig, batch, *, cache_len: int | None = None):
     unembedded: the reference computes every position's logits and keeps
     the last."""
     dev = params["embed"]["table"].device
-    tokens = _tokens(batch, dev)
+    tokens = L.token_ids(batch["tokens"], dev)
     B, S = tokens.shape
     cache_len = cache_len or S
     if cache_len < S:
         raise ValueError(f"cache_len {cache_len} is shorter than the "
                          f"{S}-token prompt")
     cache = init_cache(cfg, B, cache_len, device=dev)
-    x, _, _, _ = _layers(params, cfg, tokens, cache)
-    cache["pos"] = S
-    return _logits(params, cfg, x[:, -1:])[:, 0], cache
+    x, _, _, _ = _layers(params, cfg, tokens, cache,
+                         patches=_patches(cfg, batch, dev))
+    cache["pos"] = x.shape[1]
+    return L.lm_logits(params, cfg, x[:, -1:])[:, 0], cache
 
 
 def decode_step(params, cfg: ArchConfig, cache, tokens):
@@ -349,20 +327,14 @@ def decode_step(params, cfg: ArchConfig, cache, tokens):
     check_supported(cfg)
     layout = _layout(cfg)
     dev = params["embed"]["table"].device
-    x = L.embed(params["embed"], _tokens({"tokens": tokens}, dev))
+    x = L.embed(params["embed"], L.token_ids(tokens, dev))
     pos = int(cache["pos"])
     Skv = cache["k"].shape[2]
     window = cfg.swa_window
     if window is None:
         slot, cur = min(pos, Skv - 1), min(pos + 1, Skv)
     else:
-        if pos >= Skv and Skv < window:
-            raise ValueError(
-                f"{cfg.name}: the KV ring of {Skv} slots is shorter than "
-                f"the {window}-token window and full: position {pos} would "
-                f"overwrite position {pos - Skv}, which the window still "
-                f"reads; prefill with a cache_len of at least "
-                f"{min(pos + 1, window)}")
+        L.check_ring(cfg.name, pos, Skv, window)
         slot, cur = pos % Skv, pos + 1
     positions = torch.full((x.shape[0], 1), pos, device=dev)
     for i, lp in enumerate(params["layers"]):
@@ -378,11 +350,12 @@ def decode_step(params, cfg: ArchConfig, cache, tokens):
         y, _ = _ffn(lp, cfg, L.rms_norm(x, lp["ln2"]["scale"], cfg.norm_eps))
         x = x + y
     cache["pos"] = pos + 1
-    return _logits(params, cfg, x)[:, 0], cache
+    return L.lm_logits(params, cfg, x)[:, 0], cache
 
 
 __all__ = [
-    "ATTN_IMPLS", "FAMILIES", "cache_len_for", "check_supported", "decode_step",
+    "ATTN_IMPLS", "F32_LEAVES", "FAMILIES", "cache_len_for",
+    "check_supported", "decode_step",
     "forward", "init_cache", "init_params", "loss_fn", "params_from_numpy",
     "prefill",
 ]

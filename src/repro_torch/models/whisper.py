@@ -1,0 +1,287 @@
+"""Whisper-large-v3's backbone, the encoder-decoder LM: the port's
+counterpart of the reference's ``repro.models.whisper``.
+
+* The audio frontend is a stub, as in the reference: a batch carries
+  precomputed frame embeddings ``frames`` (B, enc_frames, D).  Sinusoidal
+  positions are added to them, a non-causal MHA encoder runs over them,
+  and a causal decoder with cross-attention to the encoder's states runs
+  over the text tokens (sinusoidal positions too).
+* LayerNorms with bias, GELU MLPs with biases, attention with q/k/v and
+  output biases; the unembedding is tied to the token embedding.
+* Serving: prefill runs the encoder once and the decoder over the prompt;
+  the cache holds the decoder's self-attention K/V and each decoder
+  layer's cross-attention K/V of the encoder states (``xk``/``xv``),
+  computed once.  A decode step adds the current token's sinusoidal
+  position (clamped to the cache's length, as the reference's).
+* Params: ``{"embed", "enc_layers": list, "enc_ln", "dec_layers": list,
+  "dec_ln"}``; matrices and their biases in ``dtype``, norm scales and
+  biases float32.
+
+Interface (the transformer's, plus the encoder's parts):
+    init_params(cfg, *, seed, device, dtype) -> params
+    params_from_numpy(tree, cfg, *, device, dtype) -> params
+    encode(params, cfg, frames) -> encoder states (B, F, D)
+    cross_kv(params, cfg, enc_states) -> ([k], [v]) a decoder layer
+    decode_train(params, cfg, tokens, enc_states) -> logits (B, S, Vp)
+    forward(params, cfg, batch) -> (logits, 0.0)
+    loss_fn(params, cfg, batch) -> scalar loss
+    init_cache(cfg, batch_size, cache_len, *, device) -> cache
+    prefill(params, cfg, batch, *, cache_len) -> (last logits, cache)
+    decode_step(params, cfg, cache, tokens) -> (logits, cache)
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..configs.base import ArchConfig
+from . import layers as L
+
+#: leaves kept float32 in either param form: the LayerNorms'
+F32_LEAVES = ("scale", "bias")
+
+
+def _layout(cfg: ArchConfig) -> L.HeadLayout:
+    return L.make_head_layout(cfg.num_heads, cfg.num_kv_heads, 1)
+
+
+def sinusoid_positions(length: int, dim: int, start: int = 0) -> np.ndarray:
+    """(length, dim) float32 sinusoidal positions of ``start + p``: sines
+    of pos / 10000^(2i/dim) over the first half, cosines over the second
+    (the reference's table; ``start`` gives its rows from there)."""
+    pos = np.arange(start, start + length)[:, None].astype(np.float32)
+    i = np.arange(dim // 2)[None, :].astype(np.float32)
+    angle = pos / np.power(10000.0, 2 * i / dim)
+    return np.concatenate([np.sin(angle), np.cos(angle)],
+                          -1).astype(np.float32)
+
+
+def _positions(length, dim, device, start=0) -> torch.Tensor:
+    return torch.from_numpy(sinusoid_positions(length, dim, start)).to(
+        device=device, dtype=L.COMPUTE_DTYPE)
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+
+def _attn(gen, cfg, dev, dtype):
+    return L.init_attention(gen, cfg.d_model, _layout(cfg), cfg.head_dim_,
+                            qkv_bias=True, out_bias=True, device=dev,
+                            dtype=dtype)
+
+
+def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
+                dtype: torch.dtype = L.COMPUTE_DTYPE):
+    """Random params from a ``torch.Generator`` on ``device`` with the
+    reference's stds (see the module's docstring for the dtypes)."""
+    dev = torch.device("cpu" if device is None else device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    D = cfg.d_model
+    ln = lambda: L.init_layer_norm(D, device=dev)  # noqa: E731
+    mlp = lambda: L.init_gelu_mlp(gen, D, cfg.d_ff, device=dev,  # noqa: E731
+                                  dtype=dtype)
+    return {
+        "embed": L.init_embedding(gen, cfg.vocab_padded(1), D, device=dev,
+                                  dtype=dtype),
+        "enc_layers": [{"ln1": ln(), "attn": _attn(gen, cfg, dev, dtype),
+                        "ln2": ln(), "mlp": mlp()}
+                       for _ in range(cfg.enc_layers)],
+        "enc_ln": ln(),
+        "dec_layers": [{"ln1": ln(),
+                        "self_attn": _attn(gen, cfg, dev, dtype),
+                        "ln_x": ln(),
+                        "cross_attn": _attn(gen, cfg, dev, dtype),
+                        "ln2": ln(), "mlp": mlp()}
+                       for _ in range(cfg.num_layers)],
+        "dec_ln": ln(),
+    }
+
+
+def params_from_numpy(tree, cfg: ArchConfig, *, device=None,
+                      dtype: torch.dtype = L.COMPUTE_DTYPE):
+    """The reference's tree (``init_params(key, cfg, tp=1)`` as numpy, the
+    encoder's and decoder's layers stacked) as the port's params."""
+    kw = dict(f32=F32_LEAVES, dtype=dtype,
+              device=torch.device("cpu" if device is None else device))
+    depth = {"enc_layers": cfg.enc_layers, "dec_layers": cfg.num_layers}
+    return {k: (L.layers_from_numpy(v, depth[k], **kw) if k in depth
+                else L.tree_from_numpy(v, **kw))
+            for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# encoder / decoder
+# ---------------------------------------------------------------------------
+
+def _ln(p, x, cfg):
+    return L.layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
+
+
+def _enc_block(lp, cfg: ArchConfig, h: torch.Tensor):
+    q, k, v = L.qkv_project(lp["attn"], _ln(lp["ln1"], h, cfg),
+                            positions=None, rope_theta=None)
+    with torch.profiler.record_function("lm.attention"):
+        o = L.attention_chunked(q, k, v, _layout(cfg), causal=False,
+                                kv_chunk=cfg.attn_chunk)
+    h = h + L.attn_output(lp["attn"], o)
+    return h + L.gelu_mlp(lp["mlp"], _ln(lp["ln2"], h, cfg))
+
+
+def encode(params, cfg: ArchConfig, frames) -> torch.Tensor:
+    """frames (B, F, D) stub embeddings -> encoder states (B, F, D) bf16."""
+    dev = params["embed"]["table"].device
+    frames = torch.as_tensor(frames).to(dev)
+    B, Fr, D = frames.shape
+    h = frames.to(L.COMPUTE_DTYPE) + _positions(Fr, D, dev)
+    for lp in params["enc_layers"]:
+        h = L.run_block(cfg.remat and h.requires_grad, _enc_block, lp, cfg,
+                        h)
+    return _ln(params["enc_ln"], h, cfg)
+
+
+def cross_kv(params, cfg: ArchConfig, enc_states: torch.Tensor):
+    """Each decoder layer's cross-attention K and V of the encoder states:
+    two lists of (B, F, H, hd) bf16."""
+    ks, vs = [], []
+    for lp in params["dec_layers"]:
+        ca = lp["cross_attn"]
+        ks.append(L.proj(enc_states, ca["wk"]) + ca["bk"].to(L.COMPUTE_DTYPE))
+        vs.append(L.proj(enc_states, ca["wv"]) + ca["bv"].to(L.COMPUTE_DTYPE))
+    return ks, vs
+
+
+def _cross_q(lp, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    ca = lp["cross_attn"]
+    return (L.proj(_ln(lp["ln_x"], x, cfg), ca["wq"])
+            + ca["bq"].to(L.COMPUTE_DTYPE))
+
+
+def _dec_block(lp, cfg: ArchConfig, x, positions, k_enc, v_enc):
+    """Causal self-attention, cross-attention to (k_enc, v_enc), GELU MLP
+    over x (B, S, D) -> (x, k, v)."""
+    layout = _layout(cfg)
+    q, k, v = L.qkv_project(lp["self_attn"], _ln(lp["ln1"], x, cfg),
+                            positions=positions, rope_theta=None)
+    with torch.profiler.record_function("lm.attention"):
+        o = L.attention_chunked(q, k, v, layout, causal=True,
+                                kv_chunk=cfg.attn_chunk)
+    x = x + L.attn_output(lp["self_attn"], o)
+    with torch.profiler.record_function("lm.attention"):
+        ox = L.attention_chunked(_cross_q(lp, cfg, x), k_enc, v_enc, layout,
+                                 causal=False, kv_chunk=cfg.attn_chunk)
+    x = x + L.attn_output(lp["cross_attn"], ox)
+    return x + L.gelu_mlp(lp["mlp"], _ln(lp["ln2"], x, cfg)), k, v
+
+
+def _decoder(params, cfg: ArchConfig, tokens, enc_states, cache=None):
+    """The decoder over ``tokens`` (B, S) -> its last hidden state after
+    ``dec_ln``; with ``cache``, each layer's k/v goes to slots [0, S) and
+    its cross K/V to ``xk``/``xv``."""
+    dev = enc_states.device
+    B, S = tokens.shape
+    x = L.embed(params["embed"], tokens) + _positions(S, cfg.d_model, dev)
+    positions = torch.arange(S, device=dev).expand(B, S)
+    xks, xvs = cross_kv(params, cfg, enc_states)
+    for i, lp in enumerate(params["dec_layers"]):
+        x, k, v = L.run_block(cfg.remat and x.requires_grad, _dec_block, lp,
+                              cfg, x, positions, xks[i], xvs[i])
+        if cache is not None:
+            L.write_prompt_kv(cache, i, k, v)
+            cache["xk"][i], cache["xv"][i] = xks[i], xvs[i]
+    return _ln(params["dec_ln"], x, cfg)
+
+
+def decode_train(params, cfg: ArchConfig, tokens, enc_states):
+    """Teacher-forced decoder logits (B, S, Vp) bf16 of ``tokens`` over
+    ``enc_states``."""
+    tokens = L.token_ids(tokens, enc_states.device)
+    return L.tied_logits(params["embed"]["table"],
+                         _decoder(params, cfg, tokens, enc_states))
+
+
+def forward(params, cfg: ArchConfig, batch):
+    """Encoder over ``batch["frames"]``, decoder over ``batch["tokens"]``
+    -> (logits (B, S, Vp) bf16, 0.0)."""
+    enc = encode(params, cfg, batch["frames"])
+    return decode_train(params, cfg, batch["tokens"], enc), 0.0
+
+
+def loss_fn(params, cfg: ArchConfig, batch) -> torch.Tensor:
+    """Cross-entropy of positions [0, S-1) against labels [1, S)."""
+    logits, _ = forward(params, cfg, batch)
+    labels = L.token_ids(batch["labels"], logits.device)
+    return L.cross_entropy_loss(logits[:, :-1], labels[:, 1:],
+                                vocab_real=cfg.vocab_size)
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ArchConfig, batch_size: int, cache_len: int, *,
+               device=None):
+    """Self-attention K/V (L, B, cache_len, H, hd) and cross K/V (L, B,
+    enc_frames, H, hd), bf16 zeros."""
+    layout = _layout(cfg)
+    dev = torch.device("cpu" if device is None else device)
+
+    def zeros(n):
+        return torch.zeros((cfg.num_layers, batch_size, n, layout.kv_padded,
+                            cfg.head_dim_), dtype=L.COMPUTE_DTYPE, device=dev)
+    return {"k": zeros(cache_len), "v": zeros(cache_len),
+            "xk": zeros(cfg.enc_frames), "xv": zeros(cfg.enc_frames),
+            "pos": 0}
+
+
+def prefill(params, cfg: ArchConfig, batch, *, cache_len: int | None = None):
+    """Encoder and the decoder over the prompt -> (last-token logits (B,
+    Vp), cache).  ``cache_len`` defaults to the prompt's; shorter raises
+    ``ValueError``."""
+    dev = params["embed"]["table"].device
+    tokens = L.token_ids(batch["tokens"], dev)
+    B, S = tokens.shape
+    cache_len = cache_len or S
+    if cache_len < S:
+        raise ValueError(f"cache_len {cache_len} is shorter than the "
+                         f"{S}-token prompt")
+    enc = encode(params, cfg, batch["frames"])
+    cache = init_cache(cfg, B, cache_len, device=dev)
+    x = _decoder(params, cfg, tokens, enc, cache)
+    cache["pos"] = S
+    return L.tied_logits(params["embed"]["table"], x[:, -1]), cache
+
+
+def decode_step(params, cfg: ArchConfig, cache, tokens):
+    """One decoder token (B, 1) -> (logits (B, Vp), cache), the cache
+    updated in place: slot min(pos, Skv - 1) of the self-attention cache,
+    the token's position min(pos, Skv), as the reference's."""
+    layout = _layout(cfg)
+    dev = params["embed"]["table"].device
+    pos = int(cache["pos"])
+    Skv = cache["k"].shape[2]
+    x = (L.embed(params["embed"], L.token_ids(tokens, dev))
+         + _positions(1, cfg.d_model, dev, start=min(pos, Skv)))
+    slot, cur = min(pos, Skv - 1), min(pos + 1, Skv)
+    for i, lp in enumerate(params["dec_layers"]):
+        q, k, v = L.qkv_project(lp["self_attn"], _ln(lp["ln1"], x, cfg),
+                                positions=None, rope_theta=None)
+        cache["k"][i, :, slot] = k[:, 0]
+        cache["v"][i, :, slot] = v[:, 0]
+        o = L.attention_decode(q, cache["k"][i], cache["v"][i], layout,
+                               cur_len=cur)
+        x = x + L.attn_output(lp["self_attn"], o)
+        ox = L.attention_decode(_cross_q(lp, cfg, x), cache["xk"][i],
+                                cache["xv"][i], layout,
+                                cur_len=cache["xk"].shape[2])
+        x = x + L.attn_output(lp["cross_attn"], ox)
+        x = x + L.gelu_mlp(lp["mlp"], _ln(lp["ln2"], x, cfg))
+    cache["pos"] = pos + 1
+    x = _ln(params["dec_ln"], x, cfg)
+    return L.tied_logits(params["embed"]["table"], x)[:, 0], cache
+
+
+__all__ = ["F32_LEAVES", "cross_kv", "decode_step", "decode_train", "encode",
+           "forward", "init_cache", "init_params", "loss_fn",
+           "params_from_numpy", "prefill", "sinusoid_positions"]

@@ -12,10 +12,13 @@ engine refuses to construct a broken datapath.  ``backend="auto"`` tunes
 the fused kernel per bucket (``kernels.autotune``) and serves each bucket
 on the fastest bit-exact backend (``backends.AutoSelector``).
 
-LM archs (``configs.registry``; the port serves the dense ``qwen3-8b``)
-serve prefill and greedy token-by-token decode against a KV cache, one
-request per step, through the same queue and latency accounting.  With
-``attn_impl="pallas"`` prefill attention runs the flash-attention kernel.
+LM archs (``configs.registry``: the dense, MoE, VLM, SSM, hybrid and
+encoder-decoder families) serve prefill and greedy token-by-token decode
+against a cache (KV, or the recurrent state), one request per step,
+through the same queue and latency accounting.  A VLM request carries
+patch embeddings and an encoder-decoder one frame embeddings (the
+reference's stubs).  With ``attn_impl="pallas"`` the transformer's
+prefill attention runs the flash-attention kernel.
 With ``dwn_head=`` an LM engine also serves a packed DWN classification
 head on its own backbone's pooled features (``classify`` requests,
 ``workloads.lm_head.pool_features``): one engine, both request kinds.
@@ -80,6 +83,7 @@ import torch
 
 from ..configs import ArchConfig, get_arch, list_archs
 from ..configs.registry import NOT_PORTED
+from ..models.transformer import FAMILIES as TRANSFORMER_FAMILIES
 from ..core.model import apply_hard
 from ..device import resolve_device
 from ..dwn import DWNArtifact, resolve_spec, serving_datapath
@@ -92,6 +96,22 @@ from .backends import (AutoSelector, BoundBackend, DWNModelBundle,
                        time_backend_step, verify_backends)
 from .continuous import AsyncRequest, ContinuousScheduler, SLOConfig
 from .scheduler import MicrobatchScheduler, Request, latency_stats
+
+
+def stub_inputs(cfg: ArchConfig, rng: np.random.Generator, size: int,
+                device) -> dict:
+    """The stub frontends' embeddings of ``size`` sequences, drawn as the
+    reference's engine draws them (normal, times 0.02 for a VLM's
+    ``patches`` (size, num_patches, D), 0.1 for an encoder-decoder's
+    ``frames`` (size, enc_frames, D)), bf16 on ``device``; empty for the
+    other families."""
+    stub = {"vlm": ("patches", cfg.num_patches, 0.02),
+            "encdec": ("frames", cfg.enc_frames, 0.1)}.get(cfg.family)
+    if stub is None:
+        return {}
+    name, n, scale = stub
+    x = rng.standard_normal((size, n, cfg.d_model), dtype=np.float32) * scale
+    return {name: torch.from_numpy(x).to(device, torch.bfloat16)}
 
 
 def _lm_config(arch) -> ArchConfig | None:
@@ -322,8 +342,15 @@ class ServingEngine:
         features (``workloads.lm_head.pool_features``, the pooling the
         head trained on) feed the head spec's serving backend, bound to
         the head's staged operands; ``verify`` checks its counts against
-        ``apply_hard`` on the features of 8 seeded prompts."""
+        ``apply_hard`` on the features of 8 seeded prompts.  The pooled
+        features read the transformer's logits: other families raise
+        ``ValueError``."""
         from ..runtime.checkpoint import load_artifact
+        if self.cfg.family not in TRANSFORMER_FAMILIES:
+            raise ValueError(
+                f"{self.cfg.name}: a DWN head pools the transformer's "
+                f"logits (families {TRANSFORMER_FAMILIES}), not a "
+                f"{self.cfg.family!r} model's")
         if isinstance(head, DWNArtifact):
             art = head
         elif Path(str(head)).exists():
@@ -426,19 +453,22 @@ class ServingEngine:
         ``{"tokens": (size, prompt_len) int32}`` of uniform token ids (the
         reference draws them with ``jax.random``, which torch cannot
         reproduce; a ``classify`` request draws them as the reference
-        does, with numpy).  ``classify``: LM engines with a ``dwn_head``,
+        does, with numpy), with a VLM's ``patches`` (size, num_patches, D)
+        or an encoder-decoder's ``frames`` (size, enc_frames, D), bf16 on
+        the engine's device.  ``classify``: LM engines with a ``dwn_head``,
         a request for the head instead of prefill and decode."""
         rng = np.random.default_rng(seed)
         if classify and self.head_artifact is None:
             raise ValueError("classify requests need dwn_head= at "
                              "construction")
         if self.family == "lm":
+            cfg = self.cfg
             batch = {"tokens": rng.integers(
-                0, self.cfg.vocab_size,
-                (size, self.prompt_len)).astype(np.int32)}
+                0, cfg.vocab_size, (size, self.prompt_len)).astype(np.int32)}
             if classify:
                 batch["classify"] = True
-            return batch
+                return batch
+            return {**batch, **stub_inputs(cfg, rng, size, self.device)}
         sel = rng.integers(0, self.data.x_test.shape[0], size)
         return self.data.x_test[sel]
 

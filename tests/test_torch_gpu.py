@@ -1059,12 +1059,13 @@ def _row_rel(got, q, k, v, causal):
 
 
 @pytest.mark.parametrize("H,KH,hd", [(24, 8, 64), (32, 32, 96),
-                                     (28, 4, 128), (40, 8, 128)])
+                                     (28, 4, 128), (40, 8, 128),
+                                     (56, 8, 128)])
 def test_flash_attention_lm_zoo_head_shapes_match_plain_on_card(H, KH, hd):
     """The head shapes of the LM zoo on the Hopper design: hd 64
     (granite-moe, 24 query heads over 8 KV heads), hd 96 (phi3-mini, MHA)
-    and hd 128 at qwen2-7b's (28 over 4) and qwen3-14b's (40 over 8) head
-    shapes, at sequence lengths on either side of its query blocks and key
+    and hd 128 at qwen2-7b's (28 over 4), qwen3-14b's (40 over 8) and
+    llava-next-34b's (56 over 8) head shapes, at sequence lengths on either side of its query blocks and key
     tiles (WS_EDGES) and at B = 3, S = 2000, where phi3-mini's K and V run
     in groups of 13 (b, h) pairs, the last of 5; causal and not, flat and
     peaked softmax: within 2e-2 of the plain version in bf16 and each
@@ -1122,6 +1123,30 @@ def test_flash_attention_first_design_matches_plain_on_card(H, KH, hd):
                 row = _row_rel(got, q, k, v, causal)
                 assert row <= FLASH_ROW_REL, (B, S, q_scale, causal, row)
     assert FK.launch_counts() == before
+
+
+def test_flash_attention_at_llavas_served_shape_matches_plain_on_card():
+    """llava-next-34b's served prefill: B = 2, S = 2880 patch positions +
+    1024 tokens = 3904 (its last 128-row query block holds 64 rows, its
+    last 96-key tile 64 keys), 56 query heads over 8 KV heads, hd 128;
+    causal and not, flat and peaked softmax: within 2e-2 of the plain
+    version and each query row within 1e-2 of its largest value."""
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+    _need_card()
+    for q_scale in (0.5, 4.0):
+        q, k, v = (t.bfloat16() for t in
+                   _attn_operands(300, 2, 3904, 56, 8, 128, q_scale))
+        for causal in (True, False):
+            got = FK.flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(
+                got.float(), attention_ref(q, k, v, causal=causal).float(),
+                atol=FLASH_TOL, rtol=FLASH_TOL)
+            row = _row_rel(got, q, k, v, causal)
+            assert row <= FLASH_ROW_REL, (q_scale, causal, row)
+            del got
+            torch.cuda.empty_cache()
 
 
 def test_flash_attention_graph_replay_equals_eager():
@@ -1208,6 +1233,55 @@ def test_lm_zoo_reduced_on_the_card_matches_the_cpu(arch):
     flash = cfg.num_layers if cfg.swa_window is None else 0
     assert out["cpu"][2] == 0 and out["cuda"][2] == flash
     for got, want in zip(out["cuda"][:2], out["cpu"][:2]):
+        err = (got - want).abs().max() / want.abs().max()
+        assert float(err) < 0.05, (arch, float(err))
+
+
+@pytest.mark.parametrize("arch", ["llava-next-34b", "mamba2-1.3b",
+                                  "recurrentgemma-2b", "whisper-large-v3"])
+def test_lm_families_reduced_on_the_card_match_the_cpu(arch):
+    """The VLM (under ``attn_impl="pallas"``), SSM, hybrid and
+    encoder-decoder archs, reduced, with their stub frontend's inputs:
+    the card's prefill of 36 tokens (one flash launch a layer for llava,
+    none for the others) and two decode steps (the hybrid's 8-slot ring
+    wrapped unaligned), within 0.05 relative of the same params on the
+    CPU."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.models import api
+    from repro_torch.optim.adam import map_tree
+    _need_card()
+    cfg = dataclasses.replace(get_arch(arch).reduced(), attn_impl="pallas")
+    mod = api.module_for(cfg)
+    cpu = mod.init_params(cfg, seed=0)
+    card = map_tree(lambda t: t.cuda(), cpu)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 38), generator=g)
+    stub = {}
+    if cfg.family == "vlm":
+        stub["patches"] = torch.randn((2, cfg.num_patches, cfg.d_model),
+                                      generator=g) * 0.02
+    if cfg.family == "encdec":
+        stub["frames"] = torch.randn((2, cfg.enc_frames, cfg.d_model),
+                                     generator=g) * 0.1
+    out = {}
+    for dev, params in (("cpu", cpu), ("cuda", card)):
+        FK.reset_launch_counts()
+        batch = {"tokens": toks[:, :36].to(dev),
+                 **{k: v.to(dev, torch.bfloat16) for k, v in stub.items()}}
+        lg, cache = mod.prefill(params, cfg, batch, cache_len=40)
+        steps = [lg]
+        for t in (36, 37):
+            step, cache = mod.decode_step(params, cfg, cache,
+                                          toks[:, t:t + 1].to(dev))
+            steps.append(step)
+        torch.cuda.synchronize()
+        out[dev] = ([x.float().cpu() for x in steps],
+                    FK.launch_counts()["flash_attention"])
+    flash = cfg.num_layers if cfg.family == "vlm" else 0
+    assert out["cpu"][1] == 0 and out["cuda"][1] == flash
+    for got, want in zip(out["cuda"][0], out["cpu"][0]):
         err = (got - want).abs().max() / want.abs().max()
         assert float(err) < 0.05, (arch, float(err))
 

@@ -88,22 +88,24 @@ def _scaled_close(got, want):
 def test_config_copy_and_registry():
     """Exact: the port's qwen3-8b and its reduced variant equal the
     reference's field for field, with the same parameter count and padded
-    vocab; the dense and MoE archs are registered, the reference's other
-    LM archs raise ``KeyError`` naming the ROADMAP item, unknown names
-    raise."""
+    vocab; all ten of the reference's LM archs are registered (the VLM,
+    SSM, hybrid and encoder-decoder ones among them) and resolve to
+    their family, unknown names raise."""
     for mk in (lambda g: g("qwen3-8b"), lambda g: g("qwen3-8b").reduced()):
         mine, ref = mk(get_arch), mk(jget_arch)
         assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
         assert mine.num_params() == ref.num_params()
         assert mine.vocab_padded(1) == ref.vocab_padded(1)
         assert mine.head_dim_ == ref.head_dim_
-    assert list_archs() == ["granite-moe-3b-a800m", "mixtral-8x7b",
-                            "phi3-mini-3.8b", "qwen2-7b", "qwen3-14b",
-                            "qwen3-8b"]
-    for name in ("llava-next-34b", "mamba2-1.3b", "recurrentgemma-2b",
-                 "whisper-large-v3"):
-        with pytest.raises(KeyError, match="Queue 1 item 8"):
-            get_arch(name)
+    from repro.configs.registry import assigned_archs
+    assert list_archs() == assigned_archs() == [
+        "granite-moe-3b-a800m", "llava-next-34b", "mamba2-1.3b",
+        "mixtral-8x7b", "phi3-mini-3.8b", "qwen2-7b", "qwen3-14b",
+        "qwen3-8b", "recurrentgemma-2b", "whisper-large-v3"]
+    for name, family in (("llava-next-34b", "vlm"), ("mamba2-1.3b", "ssm"),
+                         ("recurrentgemma-2b", "hybrid"),
+                         ("whisper-large-v3", "encdec")):
+        assert get_arch(name).family == family
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("no-such-arch")
     assert round(get_arch("qwen3-8b").num_params() / 1e9, 2) == 8.19
@@ -118,25 +120,35 @@ def test_head_layout_matches_reference(q, kv, tp):
 
 
 def test_unported_options_raise():
-    """Families and options the port does not run raise
-    ``NotImplementedError`` naming the ROADMAP item, in the serving form
-    and in the float32 training form: the SSM, hybrid, enc-dec and VLM
-    families (item 8) and experts sharded over the model axis (item 9);
-    the dense model trains."""
+    """What the port does not run raises ``NotImplementedError``, in the
+    serving form and in the float32 training form: the transformer refuses
+    the SSM, hybrid and enc-dec families, naming them (``api.module_for``
+    sends them to their own modules), and experts sharded over the model
+    axis (item 9); the DWN behind the LM interface (``family="dwn"``)
+    raises naming item 8.5 through ``module_for`` and
+    ``make_train_step``; the dense and VLM models train."""
     cfg = _cfg()
-    for bad, item in ((dict(family="ssm"), 8), (dict(family="hybrid"), 8),
-                      (dict(family="encdec"), 8), (dict(family="vlm"), 8),
-                      (dict(family="moe", num_experts=4, top_k=2,
-                            moe_ep=True), 9)):
+    for bad, match in ((dict(family="ssm"), "family 'ssm'"),
+                       (dict(family="hybrid"), "family 'hybrid'"),
+                       (dict(family="encdec"), "family 'encdec'"),
+                       (dict(family="moe", num_experts=4, top_k=2,
+                             moe_ep=True), "Queue 1 item 9")):
         for dtype in (torch.bfloat16, torch.float32):
-            with pytest.raises(NotImplementedError,
-                               match=f"Queue 1 item {item}"):
+            with pytest.raises(NotImplementedError, match=match):
                 TT.init_params(dataclasses.replace(cfg, **bad), dtype=dtype)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        api.make_train_step(dataclasses.replace(cfg, family="vlm"))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8.5"):
+        api.make_train_step(dataclasses.replace(cfg, family="dwn"))
     assert callable(api.make_train_step(cfg)[0])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        api.module_for(dataclasses.replace(cfg, family="ssm"))
+    assert callable(api.make_train_step(
+        dataclasses.replace(cfg, family="vlm"))[0])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8.5"):
+        api.module_for(dataclasses.replace(cfg, family="dwn"))
+    assert {f: api.module_for(dataclasses.replace(cfg, family=f)).__name__
+            for f in ("ssm", "hybrid", "encdec", "vlm")} == {
+        "ssm": "repro_torch.models.mamba2",
+        "hybrid": "repro_torch.models.rglru",
+        "encdec": "repro_torch.models.whisper",
+        "vlm": "repro_torch.models.transformer"}
 
 
 # ---------------------------------------------------------------------------

@@ -276,9 +276,10 @@ def test_finetune_search_runs_and_matches_reference(engine_pair, data):
 def test_launch_train_prints_the_reference_report(capsys, tmp_path):
     """The CLI (``--reduced --epochs 1 --device cpu``) prints the
     reference's report keys, plus the device, for one seed and for two
-    (with artifacts); an LM arch trains through the LM branch (the same
-    CLI, ``--reduced --steps 2 --device cpu``), and an LM arch the port
-    does not run raises naming ROADMAP.md Queue 1 item 8."""
+    (with artifacts); LM archs train through the LM branch (the same
+    CLI, ``--reduced --steps 2 --device cpu``): the dense qwen3-8b and,
+    since the SSM family is ported, the reduced mamba2-1.3b, with finite
+    losses."""
     from repro.launch import train as jtrain
     from repro_torch.launch import train as ttrain
     reports = {}
@@ -306,8 +307,11 @@ def test_launch_train_prints_the_reference_report(capsys, tmp_path):
     assert (lm["arch"], lm["steps"], lm["device"]) == \
         ("qwen3-8b-reduced", 2, "cpu")
     assert np.isfinite(lm["first_loss"]) and np.isfinite(lm["last_loss"])
-    with pytest.raises(KeyError, match="Queue 1 item 8"):
-        ttrain.main(["--arch", "mamba2-1.3b", "--device", "cpu"])
+    assert ttrain.main(["--arch", "mamba2-1.3b", "--reduced", "--steps", "2",
+                        "--seq", "16", "--device", "cpu"]) == 0
+    ssm = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (ssm["arch"], ssm["steps"]) == ("mamba2-1.3b-reduced", 2)
+    assert np.isfinite(ssm["first_loss"]) and np.isfinite(ssm["last_loss"])
 
 
 def test_trained_artifact_saves_loads_and_serves_bit_exact(data, tmp_path):
