@@ -10,7 +10,9 @@ autodesign), its staged packed and float datapaths, its
 flash-attention kernel, qwen3-8b serving at full width with a DWN head
 on its backbone, the LM zoo's ten archs served at full width (dense,
 MoE, VLM, SSM, hybrid and encoder-decoder; mixtral's depth cut to the
-card), and qwen3-8b training.
+card), qwen3-8b training, and the DWN behind the model zoo's interface
+(``models.dwn_arch``: prefill variants against K2, the whole
+dwn_serve_1m shape, train steps, data-parallel serving at one rank).
 
     python3 chip_smoke.py
 
@@ -274,13 +276,35 @@ Phases, each printing one JSON line:
    --levels 0.5 --duration 1 --mode both`` (every arrival accounted
    for); then ``python -m repro_torch.launch.sweep --grid paper --fresh``
    (exit 0: Table I within tolerance) and the same with ``--workers 2
-   --no-kernel --no-serve``, equal on every hardware field and accuracy.
+   --no-kernel --no-serve``, equal on every hardware field and accuracy;
+17. dwn_arch — ``api.make_prefill`` of every registered DWN arch whose
+   datapath ``models.dwn_arch`` runs (dwn-jsc-lg2400 corner/contig,
+   -opt1 gather, -opt2 gather/strided, -opt3 gather/strided/fused, -opt4
+   at 170 bits, md360-pruned at 78, sm50-pruned at 14; params from a
+   seed) on 4096 samples, one card's share of dwn_serve_1m on the
+   256-card mesh: its counts equal, bit for bit, K2's for the same params
+   frozen by ``dwn_arch.artifact`` (first argmax wiring, tables > 0, the
+   thresholds, strided groups reordered) and served through the spec's
+   fused-packed CUDA graph, and the corner and gather datapaths agree;
+   each variant's ms beside its bound (what these inputs need: reads,
+   compares, bit selects, table reads; the reference's dense one-hot
+   product's own bound printed beside it); then -opt3 at the whole
+   dwn_serve_1m shape (1,048,576 samples made on the card, 16 blocks of
+   65,536), its ms, samples/s and peak memory beside its bound, its
+   counts equal K2's; then ``api.make_train_step(num_micro=4)`` on
+   dwn-jsc-lg2400, 3 steps of 4 x 1024 samples whose losses are within
+   1e-5 of the same steps on the CPU, and 3 of 4 x 16,384 with each
+   step's ms and the peak memory; last ``ServingEngine("dwn-jsc-lg")``
+   under a one-rank NCCL process group, which by the reference's rule is
+   not data parallel (``devices`` 1), serving 4 x 4096 rows through K2,
+   each equal to ``apply_hard``.
 
 Then it prints each phase's seconds, the kernels' summary line (K1's and
 K2's launches on each served path, the load phase's sessions, the
 sweep's paper grid and the DWN head among them, K10's on every LM path,
 its hd-64 and hd-96 instances as entries of their own with their first
-designs' times,
+designs' times, K2's launches in the dwn_arch phase's one-rank engine
+and, apart, in its cross-check replays,
 their times at the mnist-lg shape
 beside their bounds), nvidia-smi's line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -4580,6 +4604,261 @@ def phase_cli(device):
               for p in r.points]} for name, r in sweeps.items()}})
 
 
+#: the registered DWN archs whose prefill datapaths ``dwn_arch`` runs
+#: (corner/contig, gather, strided, fused, pruned encoders), each at 4096
+#: samples: one card's share of dwn_serve_1m on the 256-card mesh
+DWN_ARCH_NAMES = ("dwn-jsc-lg2400", "dwn-jsc-lg2400-opt1",
+                  "dwn-jsc-lg2400-opt2", "dwn-jsc-lg2400-opt3",
+                  "dwn-jsc-lg2400-opt4", "dwn-jsc-md360-pruned",
+                  "dwn-jsc-sm50-pruned")
+DWN_ARCH_ROWS = 4096
+#: the arch run at the whole dwn_serve_1m shape: 4096 x 256 samples in the
+#: fused variant's 16 blocks
+DWN_ARCH_FULL = "dwn-jsc-lg2400-opt3"
+#: (microbatches, samples a microbatch) of the train steps: one card's
+#: share of dwn_train_1m, held to the CPU, then 16 times that, timed
+DWN_TRAIN_CHECKED = (4, 1024)
+DWN_TRAIN_TIMED = (4, 16384)
+DWN_TRAIN_STEPS = 3
+DWN_TRAIN_TOL = 1e-5
+
+
+def dwn_prefill_bound(cfg, B):
+    """Least time of ``dwn_arch.prefill`` on B samples, counting what these
+    inputs need: the features, thresholds, scores and tables read once and
+    the counts written once; the wiring's first argmax over the scores
+    (m n F T compares), and per sample the F T threshold compares, m n bit
+    selects and m table reads (``int``) and m class adds (``fp32``), as
+    :func:`model_bytes_and_ops` counts K2's.  ``dense_product_bound_ms``
+    is the least time of the reference's algorithm alone, its dense
+    one-hot selection product (2 B (m n) (F T) bf16 tensor-core
+    operations); it is not the function's bound."""
+    F, T, m, C = cfg.d_model, cfg.dwn_bits, cfg.dwn_luts, cfg.vocab_size
+    n = 6                                   # dwn_arch's LUT fan-in
+    nbytes = 4 * (B * F + F * T + m * n * F * T + m * 2 ** n + B * C)
+    ops = {"int": m * n * F * T + B * (F * T + m * n + m), "fp32": B * m}
+    by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S, ops_seconds(ops)
+    return {"bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes, "operations": sum(ops.values()),
+            "dense_product_bound_ms":
+                2 * B * m * n * F * T / PEAK_BF16_OPS_PER_S * 1e3}
+
+
+def _dwn_features(rng, B, device):
+    import torch
+    x = rng.standard_normal((B, 16), dtype=np.float32) * 0.7
+    return torch.from_numpy(x).to(device)
+
+
+def _k2_counts(params, cfg, x):
+    """``dwn_arch``'s params frozen (``dwn_arch.artifact``) and served at
+    x's rows through the spec's fused-packed backend: one CUDA graph of
+    K2, captured by a first call, then replayed with the counts set to 0
+    just before and read just after.  Returns the counts and the
+    replay's launches."""
+    from repro_torch.kernels.fused.kernel import (launch_counts,
+                                                  reset_launch_counts)
+    from repro_torch.models import dwn_arch
+    from repro_torch.serving.backends import BoundBackend, get_backend
+    art = dwn_arch.artifact(params, cfg).pack(x.device)
+    bound = BoundBackend(get_backend("fused-packed"), art.serving_model())
+    if not bound.graphed:
+        raise SystemExit("the fused-packed backend does not replay a graph")
+    bound(x)
+    reset_launch_counts()
+    counts, _ = bound(x)
+    counts = counts.clone()
+    launches = launch_counts()
+    if launches["fused_dwn_packed"] != 1 or launches["fused_dwn_batch_major"]:
+        raise SystemExit(f"{cfg.name}: K2 did not carry the check: "
+                         f"{launches}")
+    return counts, launches
+
+
+def _dwn_train_steps(cfg, params, batches, device):
+    """``api.make_train_step(num_micro)`` steps from a copy of ``params``
+    on ``device``: the losses, each step's ms by CUDA events on the card,
+    and the last params."""
+    import torch
+    from repro_torch.models import api
+    p = {k: v.to(device).clone() for k, v in params.items()}
+    step, opt = api.make_train_step(cfg, num_micro=batches[0][0].shape[0])
+    state = opt.init(p)
+    losses, ms = [], []
+    for x, y in batches:
+        b = {"features": x.to(device), "labels": y.to(device)}
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        p, state, m = step(p, state, b)
+        losses.append(float(m["loss"]))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms, p
+
+
+def _dwn_batches(rng, cfg, micro, rows, steps):
+    import torch
+    out = []
+    for _ in range(steps):
+        x = rng.standard_normal((micro, rows, cfg.d_model),
+                                dtype=np.float32) * 0.7
+        y = rng.integers(0, cfg.vocab_size, (micro, rows)).astype(np.int32)
+        out.append((torch.from_numpy(x), torch.from_numpy(y)))
+    return out
+
+
+def _dp_world_one(device, rng):
+    """``ServingEngine(dwn-jsc-lg)`` under a one-rank NCCL process group:
+    the reference's rule leaves it alone (``devices`` 1, not data
+    parallel); 4 requests of 4096 rows served through K2, each equal to
+    ``apply_hard``."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.model import apply_hard
+    from repro_torch.serving import ServingEngine
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        engine = ServingEngine("dwn-jsc-lg", device=device, max_bucket=4096,
+                               n_train=2000, seed=0)
+        rep = engine.report()
+        if (rep["devices"], rep["data_parallel"]) != (1, False):
+            raise SystemExit(f"one rank: devices {rep['devices']}, data "
+                             f"parallel {rep['data_parallel']}")
+        stream = [engine.make_request(4096, seed=int(rng.integers(1 << 30)))
+                  for _ in range(4)]
+        engine.warmup(4096)
+        done, launches, stats = _serve_pass(engine, stream,
+                                            ["fused_dwn_packed"])
+        for r in done:
+            want = apply_hard(engine.artifact.frozen, torch.from_numpy(
+                np.ascontiguousarray(r.payload)).to(device))
+            if not np.array_equal(want.cpu().numpy(), r.result[0]):
+                raise SystemExit(f"request {r.rid}: counts differ from "
+                                 f"apply_hard")
+        return {"world": dist.get_world_size(), "backend":
+                dist.get_backend(), "devices": rep["devices"],
+                "data_parallel": rep["data_parallel"],
+                "served": stats["served"]}, launches
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dwn_arch(device):
+    """The DWN behind the model zoo's interface (``models.dwn_arch`` via
+    ``models.api``) on the card: every variant's prefill of 4096 samples
+    against K2 serving the same params, corner against gather, the whole
+    dwn_serve_1m shape, train steps against the CPU, and data-parallel
+    serving under a one-rank process group."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch.configs import DWN_SHAPES, get_arch
+    from repro_torch.models import api, dwn_arch
+    dev = torch.device(device)
+    rng = np.random.default_rng(29)
+    x = _dwn_features(rng, DWN_ARCH_ROWS, dev)
+    k2 = {"fused_dwn_packed": 0, "fused_dwn_zero": 0}
+    variants = []
+    for i, name in enumerate(DWN_ARCH_NAMES):
+        cfg = get_arch(name)
+        params = dwn_arch.init_params(torch.Generator().manual_seed(i), cfg,
+                                      device=dev)
+        prefill = api.make_prefill(cfg)
+        counts, _ = prefill(params, {"features": x})
+        other = dc.replace(cfg, dwn_datapath="gather"
+                           if cfg.dwn_datapath == "corner" else "corner")
+        counts_other, _ = api.make_prefill(other)(params, {"features": x})
+        want, launches = _k2_counts(params, cfg, x)
+        if not torch.equal(counts, want):
+            raise SystemExit(f"{name}: prefill counts differ from K2's in "
+                             f"{int((counts != want).any(1).sum())} rows")
+        if not torch.equal(counts, counts_other):
+            raise SystemExit(f"{name}: corner and gather disagree")
+        for k in k2:
+            k2[k] += launches[k]
+        ms = time_ms(lambda: prefill(params, {"features": x}), 3, 1)
+        variants.append({"arch": name, "datapath": cfg.dwn_datapath,
+                         "grouping": cfg.dwn_grouping,
+                         "fused": cfg.dwn_fused, "bits": cfg.dwn_bits,
+                         "luts": cfg.dwn_luts, "ms": ms,
+                         **dwn_prefill_bound(cfg, DWN_ARCH_ROWS),
+                         "k2_launches": launches["fused_dwn_packed"]})
+        emit({"phase": "dwn_arch", "variant": variants[-1]})
+        del params
+    # the whole dwn_serve_1m shape, features made on the card
+    shape = DWN_SHAPES["dwn_serve_1m"]
+    cfg = get_arch(DWN_ARCH_FULL)
+    B = shape.global_batch * shape.seq_len
+    params = dwn_arch.init_params(torch.Generator().manual_seed(99), cfg,
+                                  device=dev)
+    gen = torch.Generator(device=dev).manual_seed(99)
+    xf = torch.randn((B, cfg.d_model), generator=gen, device=dev) * 0.7
+    prefill = api.make_prefill(cfg)
+    prefill(params, {"features": xf[:DWN_ARCH_ROWS * 16]})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    full_ms = time_ms(lambda: prefill(params, {"features": xf}), 2, 0)
+    peak = torch.cuda.max_memory_allocated() - base
+    counts, _ = prefill(params, {"features": xf})
+    want, launches = _k2_counts(params, cfg, xf)
+    if counts.shape != (B, cfg.vocab_size) or not torch.equal(counts, want):
+        raise SystemExit(f"{cfg.name} at {B} samples: prefill differs "
+                         f"from K2")
+    for k in k2:
+        k2[k] += launches[k]
+    full = {"arch": cfg.name, "shape": shape.name, "samples": B,
+            "blocks": dwn_arch.FUSED_BLOCKS, "ms": full_ms,
+            "samples_per_s": B / full_ms * 1e3,
+            "peak_bytes_above_inputs": peak,
+            **dwn_prefill_bound(cfg, B)}
+    emit({"phase": "dwn_arch", "full_shape": full})
+    del params, xf, counts, want
+    # training: the card's steps against the CPU's, then 16 times the rows
+    cfg = get_arch("dwn-jsc-lg2400")
+    params = dwn_arch.init_params(torch.Generator().manual_seed(7), cfg)
+    batches = _dwn_batches(rng, cfg, *DWN_TRAIN_CHECKED, DWN_TRAIN_STEPS)
+    cpu_losses, _, _ = _dwn_train_steps(cfg, params, batches,
+                                        torch.device("cpu"))
+    card_losses, card_ms, _ = _dwn_train_steps(cfg, params, batches, dev)
+    diff = max(abs(a - b) for a, b in zip(card_losses, cpu_losses))
+    if not diff < DWN_TRAIN_TOL:
+        raise SystemExit(f"train steps: card {card_losses} against CPU "
+                         f"{cpu_losses}")
+    batches = _dwn_batches(rng, cfg, *DWN_TRAIN_TIMED, DWN_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    big_losses, big_ms, _ = _dwn_train_steps(cfg, params, batches, dev)
+    peak = torch.cuda.max_memory_allocated() - base
+    if not all(np.isfinite(big_losses)):
+        raise SystemExit(f"train steps: {big_losses}")
+    train = {"arch": cfg.name, "checked": {
+                 "micro": DWN_TRAIN_CHECKED, "losses_card": card_losses,
+                 "losses_cpu": cpu_losses, "max_abs_diff": diff,
+                 "tolerance": DWN_TRAIN_TOL, "step_ms": card_ms},
+             "timed": {"micro": DWN_TRAIN_TIMED, "losses": big_losses,
+                       "step_ms": big_ms, "peak_bytes": peak}}
+    emit({"phase": "dwn_arch", "train": train})
+    dp, launches = _dp_world_one(dev, rng)
+    emit({"phase": "dwn_arch", "data_parallel": dp,
+          "launches": {k: launches[k] for k in k2}})
+    # K2's replays above only cross-check dwn_arch's counts; the engine's
+    # launches are a serving path's
+    return {"variants": variants, "full_shape": full, "train": train,
+            "data_parallel": dp, "check_launches": k2,
+            "dp_launches": {k: launches[k] for k in k2}}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {__file__}",
@@ -4643,6 +4922,7 @@ def main() -> int:
     hw_launches, hw_timing = run("hw", phase_hw, "cuda")
     sweep_launches = run("sweep", phase_sweep, "cuda")
     run("cli", phase_cli, "cuda")
+    dwn_arch = run("dwn_arch", phase_dwn_arch, "cuda")
     emit({"phase": "seconds", "seconds": seconds,
           "total": sum(seconds.values())})
 
@@ -4662,7 +4942,11 @@ def main() -> int:
                       **{path: n[name] for path, n in
                          sweep_launches.items()},
                       "lm_head dwn-lm-head on qwen3-8b":
-                          head_launches.get(name, 0)}
+                          head_launches.get(name, 0),
+                      "dwn_arch cross-check: K2 replays of its frozen "
+                      "params": dwn_arch["check_launches"].get(name, 0),
+                      "dp serving dwn-jsc-lg at world 1":
+                          dwn_arch["dp_launches"].get(name, 0)}
                for name in launches}
     summary = []
     for name in ("fused_dwn_batch_major", "fused_dwn_packed"):

@@ -1,9 +1,12 @@
-"""Config system: one frozen dataclass describing an architecture.
+"""Config system: one frozen dataclass describing an architecture, and
+the input shapes of the model zoo.
 
 The port's own copy of the reference's ``ArchConfig`` (all fields, so a
-config crosses between the two packages field for field) and
-``round_up``.  ``reduced()`` derives the CPU test variant of the same
-family (same code paths, tiny dims).
+config crosses between the two packages field for field),
+``round_up``, ``ShapeConfig`` with the LM shapes (``SHAPES``) and the
+DWN ones (``DWN_SHAPES``), and ``cell_supported``.  ``reduced()``
+derives the CPU test variant of the same family (same code paths, tiny
+dims).
 """
 
 from __future__ import annotations
@@ -186,4 +189,43 @@ class ArchConfig:
         )
 
 
-__all__ = ["ArchConfig", "round_up"]
+# ---------------------------------------------------------------------------
+# Input shapes assigned to the LM pool (seq_len x global_batch).
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+    num_microbatches: int = 1        # gradient-accumulation (train only)
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+#: shapes of the paper's own DWN models (family="dwn"): samples =
+#: seq_len x global_batch feature vectors; the FPGA accelerator's
+#: one-sample-per-cycle throughput maps to huge-batch streaming.
+DWN_SHAPES = {
+    "dwn_train_1m": ShapeConfig("dwn_train_1m", 4096, 256, "train",
+                                num_microbatches=4),
+    "dwn_serve_1m": ShapeConfig("dwn_serve_1m", 4096, 256, "prefill"),
+}
+
+
+def cell_supported(cfg: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Is (arch x shape) a valid cell?  Returns (ok, reason)."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("full-attention arch: 524k dense KV decode is the "
+                       "quadratic regime this shape excludes (DESIGN.md §6)")
+    return True, ""
+
+
+__all__ = ["ArchConfig", "DWN_SHAPES", "SHAPES", "ShapeConfig",
+           "cell_supported", "round_up"]

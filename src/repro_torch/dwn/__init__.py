@@ -6,12 +6,12 @@
 """
 
 from .artifact import DWNArtifact, LifecycleError, PackedOperands, STAGES
-from .spec import (ARCH_SPECS, DATAPATH_ALIASES, DWNSpec, GROUPINGS,
+from .spec import (DATAPATH_ALIASES, DWNSpec, GROUPINGS,
                    NOT_PORTED, VARIANTS, dwn_names, get_spec, has_spec,
                    resolve_spec, serving_datapath, spec_presets)
 
 __all__ = [
-    "ARCH_SPECS", "DATAPATH_ALIASES", "DWNArtifact", "DWNSpec", "GROUPINGS",
+    "DATAPATH_ALIASES", "DWNArtifact", "DWNSpec", "GROUPINGS",
     "LifecycleError", "NOT_PORTED", "PackedOperands", "STAGES", "VARIANTS",
     "dwn_names", "get_spec", "has_spec", "resolve_spec", "serving_datapath",
     "spec_presets",

@@ -10,9 +10,10 @@ The reference's spec presets (the JSC serving aliases
 ``dwn-jsc-{sm,md,lg}``, their ``-xla`` twins and
 ``dwn-jsc-sm-{uniform,gaussian}``; the MNIST tiers
 ``dwn-mnist-{sm,md,lg}[-xla]``; ``dwn-lm-head``, the DWN head on the
-qwen3-8b backbone) are registered here as named specs, and
-its other JSC DWN arch names resolve through a table (:data:`ARCH_SPECS`)
-to the specs the reference derives.
+qwen3-8b backbone) are registered here as named specs.  Every other
+DWN arch of the registry (``configs.dwn_jsc``) resolves to the spec
+:meth:`DWNSpec.from_arch` derives from its config, as in the reference;
+:meth:`DWNSpec.arch_config` is the way back.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ import dataclasses
 import hashlib
 import json
 
-from ..core.model import DWNConfig
+from ..configs.base import ArchConfig
+from ..core.model import DWNConfig, JSC_PRESETS
 from ..core.thermometer import PLACEMENTS
 
 #: encoding variants: TEN receives pre-encoded thermometer bits, PEN
@@ -31,6 +33,11 @@ VARIANTS = ("TEN", "PEN")
 #: popcount grouping modes (contig = paper Fig. 1; strided = the
 #: shard-aligned variant).
 GROUPINGS = ("contig", "strided")
+
+#: JSC tier -> LUT-layer width m
+TIERS = {name: cfg.lut_counts[-1] for name, cfg in JSC_PRESETS.items()}
+
+_LUTS_TO_TIER = {m: name for name, m in TIERS.items()}
 
 
 def _workload_presets(workload: str):
@@ -184,6 +191,50 @@ class DWNSpec:
     def from_dict(cls, d: dict) -> "DWNSpec":
         return cls(**d)
 
+    def arch_config(self, name: str | None = None) -> ArchConfig:
+        """A servable (unregistered) ArchConfig view of this spec, for
+        code that speaks ``ArchConfig`` (engine reports, the model zoo's
+        shapes)."""
+        cfg = self.dwn_config()
+        return ArchConfig(
+            name=name or f"dwn-{self.preset}-T{self.bits}-{self.placement}",
+            family="dwn",
+            num_layers=1, d_model=cfg.num_features,
+            num_heads=0, num_kv_heads=0, d_ff=0,
+            vocab_size=cfg.num_classes,
+            dwn_luts=self.luts, dwn_bits=self.bits,
+            dwn_encoding=self.placement, dwn_fused=True,
+            dwn_datapath=self.datapath, dwn_grouping=self.grouping,
+            source="repro.dwn.DWNSpec")
+
+    @classmethod
+    def from_arch(cls, cfg: ArchConfig, *, variant: str = "TEN",
+                  input_bits: int | None = None) -> "DWNSpec":
+        """The spec of a DWN ``ArchConfig`` of a JSC tier width.
+
+        ``dwn_datapath`` values that are not serving backends (the
+        prefill variants ``corner`` / ``gather`` of ``models.dwn_arch``)
+        become ``fused-packed``, as in the reference.
+        """
+        if cfg.family != "dwn":
+            raise ValueError(f"arch {cfg.name!r} is family={cfg.family!r}, "
+                             f"not a DWN — no spec can be derived")
+        preset = _LUTS_TO_TIER.get(cfg.dwn_luts)
+        if preset is None:
+            raise ValueError(
+                f"arch {cfg.name!r} has dwn_luts={cfg.dwn_luts}, which is "
+                f"not a JSC tier width ({sorted(_LUTS_TO_TIER)}); register "
+                f"a preset tier first")
+        datapath = cfg.dwn_datapath
+        if datapath not in (_serving_datapaths() + ["auto"]
+                            + list(DATAPATH_ALIASES)):
+            datapath = "fused-packed"
+        grouping = cfg.dwn_grouping if cfg.dwn_grouping in GROUPINGS \
+            else "contig"
+        return cls(preset=preset, variant=variant, bits=cfg.dwn_bits,
+                   placement=cfg.dwn_encoding, input_bits=input_bits,
+                   datapath=datapath, grouping=grouping)
+
     @classmethod
     def from_point(cls, point, *, datapath: str = "fused-packed",
                    grouping: str = "contig") -> "DWNSpec":
@@ -234,27 +285,6 @@ _PRESETS: dict[str, "DWNSpec | dict"] = {
                     "backbone": "qwen3-8b", "datapath": "fused-packed"},
 }
 
-#: the reference's other JSC DWN arch names -> the kwargs of the spec its
-#: ``DWNSpec.from_arch`` derives from each (datapaths that are not serving
-#: backends, such as ``gather``, become ``fused-packed``; ``-fused`` does
-#: not enter a spec).  A table, since the port imports nothing of the
-#: reference.
-ARCH_SPECS: dict[str, dict] = {
-    **{f"dwn-jsc-{name}{fused}": {"preset": preset}
-       for name, preset in (("sm10", "sm-10"), ("sm50", "sm-50"),
-                            ("md360", "md-360"), ("lg2400", "lg-2400"))
-       for fused in ("", "-fused")},
-    "dwn-jsc-lg2400-opt1": {"preset": "lg-2400"},
-    "dwn-jsc-lg2400-opt2": {"preset": "lg-2400", "grouping": "strided"},
-    "dwn-jsc-lg2400-opt3": {"preset": "lg-2400", "grouping": "strided"},
-    "dwn-jsc-lg2400-opt4": {"preset": "lg-2400", "bits": 170,
-                            "grouping": "strided"},
-    "dwn-jsc-md360-pruned": {"preset": "md-360", "bits": 78,
-                             "grouping": "strided"},
-    "dwn-jsc-sm50-pruned": {"preset": "sm-50", "bits": 14,
-                            "grouping": "strided"},
-}
-
 #: the reference's DWN names whose workloads the port does not run yet ->
 #: the ROADMAP.md item that ports them (none since ``dwn-lm-head``)
 NOT_PORTED: dict[str, str] = {}
@@ -264,10 +294,15 @@ def spec_presets() -> list[str]:
     return sorted(_PRESETS)
 
 
+def _dwn_archs() -> list[str]:
+    from ..configs import get_arch, list_archs
+    return [n for n in list_archs() if get_arch(n).family == "dwn"]
+
+
 def dwn_names() -> list[str]:
     """Every DWN name :func:`resolve_spec` takes: the spec presets (JSC,
-    MNIST and the LM head) and the reference's other JSC arch names."""
-    return sorted([*_PRESETS, *ARCH_SPECS])
+    MNIST and the LM head) and the registered DWN archs."""
+    return sorted({*_PRESETS, *_dwn_archs()})
 
 
 def has_spec(name: str) -> bool:
@@ -293,19 +328,30 @@ def get_spec(name: str) -> DWNSpec:
 
 
 def resolve_spec(target) -> DWNSpec:
-    """A DWNSpec as-is, a spec preset's name (JSC, MNIST or the LM head)
-    as its spec, or one of the reference's other JSC arch names as the
-    spec the reference derives from it.  ``KeyError`` for any other name, naming
-    the ROADMAP item for a DWN name the port does not run yet."""
+    """A DWNSpec as-is; a spec preset's name (JSC, MNIST or the LM head)
+    as its spec; a registered DWN arch name or a DWN ``ArchConfig`` as
+    the spec :meth:`DWNSpec.from_arch` derives from the config (a config
+    that shadows a spec preset resolves to the preset).  ``KeyError`` for
+    an unknown name, naming the ROADMAP item for a DWN name the port does
+    not run yet; ``ValueError`` for an arch that is not a DWN."""
     if isinstance(target, DWNSpec):
         return target
-    if target in ARCH_SPECS:
-        return DWNSpec(**ARCH_SPECS[target])
-    return get_spec(target)
+    if isinstance(target, str):
+        if has_spec(target) or target in NOT_PORTED:
+            return get_spec(target)
+        from ..configs import get_arch
+        try:
+            target = get_arch(target)
+        except KeyError:
+            raise KeyError(f"unknown DWN name {target!r}; the port "
+                           f"resolves {dwn_names()}") from None
+    if has_spec(target.name):
+        return get_spec(target.name)
+    return DWNSpec.from_arch(target)
 
 
 __all__ = [
-    "ARCH_SPECS", "DATAPATH_ALIASES", "DWNSpec", "GROUPINGS", "NOT_PORTED",
+    "DATAPATH_ALIASES", "DWNSpec", "GROUPINGS", "NOT_PORTED", "TIERS",
     "VARIANTS", "dwn_names", "get_spec", "has_spec", "resolve_spec",
     "serving_datapath", "spec_presets",
 ]

@@ -1,0 +1,89 @@
+"""Meshes: the production layouts and the meshes over this process group.
+
+The PyTorch counterpart of the reference's ``repro.launch.mesh``.
+Functions, not module-level constants: importing this module touches no
+device and no process group.
+
+Production topology (abstract: axis names and sizes, for specs only):
+    single pod : (16, 16)    axes ("data", "model")          = 256 cards
+    two pods   : (2, 16, 16) axes ("pod", "data", "model")   = 512 cards
+
+"pod" composes with "data" for DP/FSDP; "model" carries TP/EP.
+
+``make_host_mesh`` and ``make_data_mesh`` build ``DeviceMesh``es over
+the world of the initialised ``torch.distributed`` process group (the
+caller gives ``init_process_group`` its address, world size and rank);
+without one they return a one-device :class:`AbstractMesh` and
+initialise nothing.
+"""
+
+from __future__ import annotations
+
+from ..sharding.partition import AbstractMesh
+
+
+def init_from_env(device_type: str) -> bool:
+    """Join the process group a launcher such as ``torchrun`` describes
+    (``WORLD_SIZE`` above 1, with ``RANK`` and ``MASTER_ADDR`` /
+    ``MASTER_PORT`` in the environment): NCCL for ``cuda``, gloo
+    otherwise.  Returns whether a group of several ranks is up."""
+    import os
+
+    import torch.distributed as dist
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return False
+    if not dist.is_initialized():
+        dist.init_process_group(
+            "nccl" if device_type == "cuda" else "gloo")
+    return dist.get_world_size() > 1
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return AbstractMesh(axes, shape)
+
+
+def _world() -> int:
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 0
+
+
+def make_host_mesh(model_parallel: int = 1, *, device_type: str = "cuda"):
+    """("data", "model") mesh over the process group's ranks, ``model``
+    of size ``model_parallel`` (cut to the world); one device without a
+    process group."""
+    n = _world()
+    if not n:
+        return AbstractMesh(("data", "model"), (1, 1))
+    from torch.distributed.device_mesh import init_device_mesh
+    mp = max(1, min(model_parallel, n))
+    return init_device_mesh(device_type, (n // mp, mp),
+                            mesh_dim_names=("data", "model"))
+
+
+def make_data_mesh(*, device_type: str = "cuda"):
+    """1-D ("data",) mesh over every rank of the process group.
+
+    The DWN classify path is embarrassingly data-parallel (the whole
+    frozen model fits any single device), so serving shards only the
+    batch axis: ``ServingEngine(data_parallel=True)`` splits a bucket's
+    rows over this mesh.
+    """
+    n = _world()
+    if not n:
+        return AbstractMesh(("data",), (1,))
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(device_type, (n,), mesh_dim_names=("data",))
+
+
+# Hardware constants for bounds, per card: NVIDIA H100 SXM5 80GB HBM3
+# at its 700 W limit (NVIDIA data sheet).
+PEAK_FLOPS_BF16 = 989e12          # dense bf16 FLOP/s
+HBM_BW = 3.35e12                  # HBM3 bytes/s
+NVLINK_BW = 450e9                 # NVLink bytes/s per direction
+
+__all__ = ["HBM_BW", "NVLINK_BW", "PEAK_FLOPS_BF16", "init_from_env",
+           "make_data_mesh", "make_host_mesh", "make_production_mesh"]

@@ -11,8 +11,10 @@ coalescing and padding run.  ``--continuous`` serves the same stream
 through the continuous-batching loop (scheduler thread, out-of-order
 futures, optional ``--deadline-ms`` SLO) instead of the sync submit/drain
 facade.  ``--workload`` serves a spec preset on another registered
-workload; ``--no-data-parallel`` is accepted for the reference's
-command lines (the port serves on one device).
+workload; under ``torchrun`` (``WORLD_SIZE`` above 1: the CLI joins the
+process group, NCCL on the card, gloo on the CPU) every rank serves the
+stream and buckets split by rows over the ranks, unless
+``--no-data-parallel`` is given (the continuous loop needs it).
 
 LM archs (``--arch qwen3-8b``, or any of the reference's ten LM archs:
 dense, MoE, VLM, SSM, hybrid, encoder-decoder): one request of
@@ -36,6 +38,8 @@ Usage:
     python -m repro_torch.launch.serve --arch dwn-jsc-sm --reduced --ragged
     python -m repro_torch.launch.serve --arch dwn-jsc-lg --continuous \\
         --deadline-ms 50
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
+        --arch dwn-jsc-sm --reduced --device cpu
     python -m repro_torch.launch.serve --reduced --device cpu \\
         --spec '{"preset": "sm-50", "variant": "PEN", "input_bits": 9}'
     python -m repro_torch.launch.serve --arch qwen3-8b
@@ -57,8 +61,9 @@ import sys
 
 import numpy as np
 
-from ..configs import get_arch, list_archs
+from ..configs import assigned_archs, get_arch
 from ..dwn import DATAPATH_ALIASES, DWNSpec, dwn_names, resolve_spec
+from .mesh import init_from_env
 from ..serving import ServingEngine, available_backends
 from ..serving.scheduler import next_pow2
 
@@ -80,7 +85,7 @@ def dwn_serve(target, args) -> dict:
     engine = ServingEngine(
         target, backend=args.backend or None, max_bucket=max_bucket,
         min_bucket=min(8, max_bucket), n_train=n_train, seed=args.seed,
-        device=args.device)
+        device=args.device, data_parallel=not args.no_data_parallel)
     engine.warmup(batch)
     rng = np.random.default_rng(args.seed)
     payloads = []
@@ -149,7 +154,7 @@ def lm_serve(args) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="",
-                    choices=[""] + dwn_names() + list_archs(),
+                    choices=[""] + dwn_names() + assigned_archs(),
                     help="DWN spec preset or arch name, or LM arch")
     ap.add_argument("--spec", default="",
                     help='a DWNSpec as JSON, e.g. \'{"preset": "sm-50", '
@@ -193,8 +198,8 @@ def main(argv=None) -> int:
     ap.add_argument("--gen", type=int, default=16,
                     help="LM: tokens generated per sequence")
     ap.add_argument("--no-data-parallel", action="store_true",
-                    help="DWN: no data parallelism (the port serves on one "
-                         "device either way)")
+                    help="DWN: serve alone on each rank even under an "
+                         "initialised process group of several ranks")
     ap.add_argument("--model-parallel", type=int, default=1,
                     help="LM: tensor-parallel degree (the port serves on "
                          "one card: only 1)")
@@ -206,10 +211,12 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if bool(args.arch) == bool(args.spec):
         ap.error("give exactly one of --arch or --spec")
-    if args.arch in list_archs():
+    if args.arch in assigned_archs():
         rep = lm_serve(args)
     else:
         target = DWNSpec(**json.loads(args.spec)) if args.spec else args.arch
+        if not args.no_data_parallel:
+            init_from_env(args.device)
         rep = dwn_serve(target, args)
     print(json.dumps(rep))
     return 0

@@ -7,7 +7,7 @@ step) with the reference's AdamW and global-norm clipping
 straggler monitor and, given ``--ckpt-dir``, the checkpoint-restart
 ``Supervisor`` (the token stream's position rides in the checkpoint).
 Prints one JSON line with the reference's keys, plus the device.  One
-card: ``--model-parallel`` above 1 raises (ROADMAP.md Queue 1 item 9).
+card: ``--model-parallel`` above 1 raises (ROADMAP.md Queue 1 item 9b).
 
 DWN archs (``--arch dwn-jsc-lg`` or any name ``dwn.resolve_spec`` takes):
 the arch resolves to a ``DWNSpec``, ``--workload`` (or the spec's own)
@@ -40,7 +40,7 @@ import warnings
 
 import numpy as np
 
-from ..configs import get_arch, list_archs
+from ..configs import assigned_archs, get_arch
 from ..configs.registry import NOT_PORTED as LM_NOT_PORTED
 from ..device import resolve_device
 
@@ -61,7 +61,8 @@ def lm_train(args) -> dict:
     if args.model_parallel != 1:
         raise NotImplementedError(
             f"--model-parallel {args.model_parallel}: the port trains on "
-            f"one card (multi-card training is ROADMAP.md Queue 1 item 9)")
+            f"one card (multi-card LM training is ROADMAP.md Queue 1 "
+            f"item 9b)")
     device = resolve_device(args.device)
     mod = api.module_for(cfg)
     step_fn, opt = api.make_train_step(cfg, opt=api.make_optimizer(args.lr))
@@ -251,7 +252,7 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where to train (default cuda; never falls back)")
     args = ap.parse_args(argv)
-    if args.arch in list_archs() or args.arch in LM_NOT_PORTED:
+    if args.arch in assigned_archs() or args.arch in LM_NOT_PORTED:
         if args.lr is None:
             args.lr = 3e-4
         if args.batch <= 0:

@@ -7,41 +7,159 @@ serving engine and the train CLI call (the reference's
                                       -> (step(params, opt, batch), opt)
     make_prefill(cfg, cache_len=None) -> fn(params, batch)
     make_decode_step(cfg)             -> fn(params, cache, batch)
+    abstract_params(cfg, tp)          -> the params on the ``meta`` device
+    param_axes(cfg)                   -> their logical axes
+    batch_specs(cfg, shape, micro=)   -> one step's batch on ``meta``
+    batch_axes(cfg, shape, micro=)    -> its logical axes
+    abstract_cache(cfg, shape, tp)    -> the cache on ``meta``
+    cache_axes(cfg, shape)            -> its logical axes
 
 Families: dense, MoE and VLM (``transformer``), SSM (``mamba2``), hybrid
-(``rglru``) and encoder-decoder (``whisper``).  A batch carries
-``tokens`` and ``labels``, plus ``patches`` (VLM) or ``frames``
-(encoder-decoder).
+(``rglru``), encoder-decoder (``whisper``) and the paper's DWN
+(``dwn_arch``).  An LM batch carries ``tokens`` and ``labels``, plus
+``patches`` (VLM) or ``frames`` (encoder-decoder); a DWN batch carries
+``features`` (B, F) and ``labels`` (B,).
+
+The abstract trees are the reference's shapes (a ``meta`` tensor where
+the reference has a ``ShapeDtypeStruct``; the layers of an LM are a list
+where the reference stacks them).  LM params and caches exist at tp = 1
+only: tensor parallelism is ROADMAP Queue 1 item 9b.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShapeConfig
 from ..optim.adam import Adam, leaves
 from ..optim.grad import accumulate_grads, clip_by_global_norm, value_and_grad
-from . import mamba2, rglru, transformer, whisper
+from ..sharding.partition import logical
+from . import dwn_arch, mamba2, rglru, transformer, whisper
+from . import layers as L
 
 MODULES = {"dense": transformer, "moe": transformer, "vlm": transformer,
-           "ssm": mamba2, "hybrid": rglru, "encdec": whisper}
+           "ssm": mamba2, "hybrid": rglru, "encdec": whisper,
+           "dwn": dwn_arch}
+
+META = torch.device("meta")
 
 
 def module_for(cfg: ArchConfig):
-    """The model module of ``cfg.family``; ``NotImplementedError`` for the
-    DWN behind the LM interface (``family="dwn"``, ROADMAP Queue 1 item
-    8.5) and any other family."""
-    if cfg.family == "dwn":
-        raise NotImplementedError(
-            f"{cfg.name}: the DWN behind the LM-zoo interface (dwn_arch) "
-            f"is not ported yet (ROADMAP Queue 1 item 8.5); serve and "
-            f"train DWNs by spec (repro_torch.dwn)")
+    """The model module of ``cfg.family``; ``NotImplementedError`` for a
+    family the port does not have."""
     if cfg.family not in MODULES:
         raise NotImplementedError(
             f"{cfg.name}: no model module for family {cfg.family!r}; the "
             f"port runs {sorted(MODULES)}")
     return MODULES[cfg.family]
 
+
+# ---------------------------------------------------------------------------
+# abstract params / batches / caches (shapes on the meta device)
+# ---------------------------------------------------------------------------
+
+def _check_tp(cfg: ArchConfig, tp: int) -> None:
+    if cfg.family != "dwn" and tp != 1:
+        raise NotImplementedError(
+            f"{cfg.name}: tp={tp}: LM params are laid out for one device; "
+            f"tensor parallelism (heads and vocab padded to tp) is ROADMAP "
+            f"Queue 1 item 9b")
+
+
+def abstract_params(cfg: ArchConfig, tp: int = 16):
+    """The params of ``cfg`` on the ``meta`` device: shapes and dtypes,
+    nothing allocated or drawn (the float32 training form)."""
+    _check_tp(cfg, tp)
+    if cfg.family == "dwn":
+        return dwn_arch.init_params(torch.Generator(), cfg, tp, device=META)
+    return module_for(cfg).init_params(cfg, device=META, dtype=torch.float32)
+
+
+def param_axes(cfg: ArchConfig):
+    return module_for(cfg).param_axes(cfg)
+
+
+def batch_specs(cfg: ArchConfig, shape: ShapeConfig, *,
+                micro: bool = False) -> dict:
+    """One step's data batch as ``meta`` tensors.
+
+    For train shapes with gradient accumulation, ``micro=True`` prepends
+    the (num_micro, batch/num_micro, ...) microbatch axes.
+    """
+    def spec(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device=META)
+
+    B, S = shape.global_batch, shape.seq_len
+    lead: tuple = (B,)
+    if micro and shape.num_microbatches > 1:
+        m = shape.num_microbatches
+        if B % m:
+            raise ValueError(f"{B} sequences do not split into {m} "
+                             f"microbatches")
+        lead = (m, B // m)
+    i32 = torch.int32
+    if cfg.family == "dwn":
+        # samples = global_batch x seq_len (feature vectors, not tokens)
+        n = shape.global_batch * shape.seq_len
+        rows = (n,)
+        if micro and shape.num_microbatches > 1:
+            m = shape.num_microbatches
+            rows = (m, n // m)
+        batch = {"features": spec(rows + (cfg.d_model,), torch.float32)}
+        if shape.kind == "train":
+            batch["labels"] = spec(rows, i32)
+        return batch
+    if shape.kind == "decode":
+        return {"tokens": spec(lead + (1,), i32)}
+    batch = {"tokens": spec(lead + (S,), i32)}
+    if shape.kind == "train":
+        batch["labels"] = spec(lead + (S,), i32)
+    if cfg.family == "encdec":
+        batch["frames"] = spec(lead + (cfg.enc_frames, cfg.d_model),
+                               L.COMPUTE_DTYPE)
+    if cfg.family == "vlm":
+        batch["patches"] = spec(lead + (cfg.num_patches, cfg.d_model),
+                                L.COMPUTE_DTYPE)
+    return batch
+
+
+def batch_axes(cfg: ArchConfig, shape: ShapeConfig, *, micro: bool = False):
+    """Logical axes of the batch (``sharding.partition.DEFAULT_RULES``)."""
+    lead = ("micro", "batch") if (micro and shape.num_microbatches > 1) \
+        else ("batch",)
+    if cfg.family == "dwn":
+        ax = {"features": logical(*lead, None, name="batch.features")}
+        if shape.kind == "train":
+            ax["labels"] = logical(*lead, name="batch.labels")
+        return ax
+    seq = "seq_sp" if shape.global_batch == 1 else None   # SP for B=1
+    ax = {"tokens": logical(*lead, None if shape.kind == "decode" else seq,
+                            name="batch.tokens")}
+    if shape.kind == "train":
+        ax["labels"] = logical(*lead, seq, name="batch.labels")
+    if cfg.family == "encdec" and shape.kind != "decode":
+        ax["frames"] = logical(*lead, None, None, name="batch.frames")
+    if cfg.family == "vlm" and shape.kind != "decode":
+        ax["patches"] = logical(*lead, None, None, name="batch.patches")
+    return ax
+
+
+def abstract_cache(cfg: ArchConfig, shape: ShapeConfig, tp: int = 16):
+    """The cache of ``shape`` on the ``meta`` device (``pos`` is the int
+    an LM cache starts from, a 0-d int32 tensor for the DWN)."""
+    _check_tp(cfg, tp)
+    return module_for(cfg).init_cache(cfg, shape.global_batch,
+                                      shape.seq_len, device=META)
+
+
+def cache_axes(cfg: ArchConfig, shape: ShapeConfig):
+    seq_shard = shape.global_batch == 1          # SP for long-context B=1
+    return module_for(cfg).cache_axes(cfg, seq_shard=seq_shard)
+
+
+# ---------------------------------------------------------------------------
+# steps
+# ---------------------------------------------------------------------------
 
 def make_optimizer(lr: float = 3e-4) -> Adam:
     return Adam(lr=lr, b1=0.9, b2=0.95, weight_decay=0.1)
@@ -108,5 +226,6 @@ def make_decode_step(cfg: ArchConfig):
     return fn
 
 
-__all__ = ["MODULES", "make_decode_step", "make_optimizer", "make_prefill",
-           "make_train_step", "module_for"]
+__all__ = ["MODULES", "abstract_cache", "abstract_params", "batch_axes",
+           "batch_specs", "cache_axes", "make_decode_step", "make_optimizer",
+           "make_prefill", "make_train_step", "module_for", "param_axes"]

@@ -35,6 +35,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..configs.base import round_up
+from ..sharding.partition import logical
 
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32
@@ -131,6 +132,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
+
+def init_generator(device, seed: int) -> torch.Generator:
+    """The init's generator: on ``device``, seeded with ``seed``; on the
+    ``meta`` device (shapes only, nothing is drawn) one on the CPU, which
+    draws on ``meta`` accept."""
+    dev = torch.device(device)
+    return torch.Generator(
+        device="cpu" if dev.type == "meta" else dev).manual_seed(seed)
+
 
 def _normal(gen: torch.Generator, shape, std: float, device) -> torch.Tensor:
     return torch.randn(shape, generator=gen, dtype=PARAM_DTYPE,
@@ -547,7 +557,7 @@ def moe_apply(p, x: torch.Tensor, *, top_k: int,
     if ep:
         raise NotImplementedError(
             "moe_ep=True (experts sharded over the model axis) is not "
-            "ported yet (ROADMAP Queue 1 item 9); the port runs experts "
+            "ported yet (ROADMAP Queue 1 item 9b); the port runs experts "
             "unsharded on one card")
     B, S, D = x.shape
     E = p["router"].shape[-1]
@@ -751,12 +761,90 @@ def layers_from_numpy(stacked, n: int, **kw) -> list:
     return [tree_from_numpy(stacked, index=i, **kw) for i in range(n)]
 
 
+
+# ---------------------------------------------------------------------------
+# logical axes of the params (sharding.partition), keyed like the params
+# ---------------------------------------------------------------------------
+
+def axes_rms_norm():
+    return {"scale": logical("norm", name="norm.scale")}
+
+
+def axes_layer_norm():
+    return {"scale": logical("norm", name="ln.scale"),
+            "bias": logical("norm", name="ln.bias")}
+
+
+def axes_attention(*, qkv_bias: bool = False, qk_norm: bool = False,
+                   out_bias: bool = False):
+    a = {
+        "wq": logical("embed", "q_heads", "head_dim", name="attn.wq"),
+        "wk": logical("embed", None, "head_dim", name="attn.wk"),
+        "wv": logical("embed", None, "head_dim", name="attn.wv"),
+        "wo": logical("q_heads", "head_dim", "embed", name="attn.wo"),
+    }
+    if qkv_bias:
+        a["bq"] = logical("q_heads", "head_dim", name="attn.bq")
+        a["bk"] = logical(None, "head_dim", name="attn.bk")
+        a["bv"] = logical(None, "head_dim", name="attn.bv")
+    if out_bias:
+        a["bo"] = logical(None, name="attn.bo")
+    if qk_norm:
+        a["q_norm"] = logical("norm", name="attn.q_norm")
+        a["k_norm"] = logical("norm", name="attn.k_norm")
+    return a
+
+
+def axes_swiglu():
+    return {"w_gate": logical("embed", "ff", name="mlp.w_gate"),
+            "w_up": logical("embed", "ff", name="mlp.w_up"),
+            "w_down": logical("ff", "embed", name="mlp.w_down")}
+
+
+def axes_gelu_mlp(*, bias: bool = True):
+    a = {"w_in": logical("embed", "ff", name="mlp.w_in"),
+         "w_out": logical("ff", "embed", name="mlp.w_out")}
+    if bias:
+        a["b_in"] = logical("ff", name="mlp.b_in")
+        a["b_out"] = logical(None, name="mlp.b_out")
+    return a
+
+
+def axes_moe(*, ep: bool = False):
+    """ep=False: TP over the expert hidden dim; ep=True: experts over
+    "model", the hidden dim whole on each shard."""
+    e_ax = "experts_ep" if ep else "experts"
+    f_ax = None if ep else "ff"
+    return {
+        "router": logical("embed", None, name="moe.router"),
+        "w_gate": logical(e_ax, "embed", f_ax, name="moe.w_gate"),
+        "w_up": logical(e_ax, "embed", f_ax, name="moe.w_up"),
+        "w_down": logical(e_ax, f_ax, "embed", name="moe.w_down"),
+    }
+
+
+def axes_embedding():
+    return {"table": logical("vocab", "embed", name="embed.table")}
+
+
+def axes_unembed():
+    return {"w": logical("embed", "vocab", name="unembed.w")}
+
+
+def axes_layers(fn, n: int) -> list:
+    """The axes of ``n`` layers, a list as the params keep them (the
+    reference stacks them on a leading "layers" axis, never sharded)."""
+    return [fn() for _ in range(n)]
+
+
 __all__ = [
     "COMPUTE_DTYPE", "HeadLayout", "PARAM_DTYPE", "apply_rope",
     "attention_causal_tri", "attention_chunked", "attention_decode",
-    "attn_output", "causal_conv", "check_ring", "conv_tail",
+    "attn_output", "axes_attention", "axes_embedding", "axes_gelu_mlp",
+    "axes_layer_norm", "axes_layers", "axes_moe", "axes_rms_norm",
+    "axes_swiglu", "axes_unembed", "causal_conv", "check_ring", "conv_tail",
     "count_moe_slots", "cross_entropy_loss", "embed", "gelu_mlp",
-    "init_attention", "init_embedding", "init_gelu_mlp", "init_layer_norm",
+    "init_attention", "init_embedding", "init_generator", "init_gelu_mlp", "init_layer_norm",
     "init_moe", "init_swiglu", "init_unembed", "layer_norm",
     "layers_from_numpy", "lm_logits", "make_head_layout", "moe_apply",
     "moe_capacity", "proj", "qkv_project", "rms_norm", "rope_frequencies",

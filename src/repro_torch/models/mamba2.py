@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..sharding.partition import logical
 from . import layers as L
 
 #: leaves kept float32 in either param form
@@ -85,7 +86,7 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
     reference's stds and its deterministic step, decay and skip
     initialisations (see the module's docstring for the dtypes)."""
     dev = torch.device("cpu" if device is None else device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = L.init_generator(dev, seed)
     V = cfg.vocab_padded(1)
     params = {
         "embed": L.init_embedding(gen, V, cfg.d_model, device=dev,
@@ -98,6 +99,33 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
         params["unembed"] = L.init_unembed(gen, cfg.d_model, V, device=dev,
                                            dtype=dtype)
     return params
+
+
+def _block_axes(cfg: ArchConfig):
+    return {
+        "ln": L.axes_rms_norm(),
+        "w_z": logical("embed", "conv_dim", name="ssm.w_z"),
+        "w_x": logical("embed", "conv_dim", name="ssm.w_x"),
+        "w_bc": logical("embed", None, name="ssm.w_bc"),
+        "w_dt": logical("embed", "ssm_heads", name="ssm.w_dt"),
+        "dt_bias": logical("ssm_heads", name="ssm.dt_bias"),
+        "A_log": logical("ssm_heads", name="ssm.A_log"),
+        "D_skip": logical("ssm_heads", name="ssm.D_skip"),
+        "conv_w": logical(None, "conv_dim", name="ssm.conv_w"),
+        "conv_b": logical("conv_dim", name="ssm.conv_b"),
+        "out_norm": {"scale": logical("conv_dim", name="ssm.out_norm")},
+        "w_out": logical("conv_dim", "embed", name="ssm.w_out"),
+    }
+
+
+def param_axes(cfg: ArchConfig):
+    """Logical axes of :func:`init_params`'s tree (``sharding``)."""
+    a = {"embed": L.axes_embedding(),
+         "layers": L.axes_layers(lambda: _block_axes(cfg), cfg.num_layers),
+         "final_norm": L.axes_rms_norm()}
+    if not cfg.tie_embeddings:
+        a["unembed"] = L.axes_unembed()
+    return a
 
 
 def params_from_numpy(tree, cfg: ArchConfig, *, device=None,
@@ -271,6 +299,16 @@ def init_cache(cfg: ArchConfig, batch_size: int, cache_len: int = 0, *,
             "pos": 0}
 
 
+def cache_axes(cfg: ArchConfig, *, seq_shard: bool = False):
+    return {
+        "ssm": logical("layers", "batch", "ssm_heads", None, None,
+                       name="cache.ssm"),
+        "conv": logical("layers", "batch", None, "conv_dim",
+                        name="cache.conv"),
+        "pos": logical(name="cache.pos"),
+    }
+
+
 def prefill(params, cfg: ArchConfig, batch, *, cache_len: int | None = None):
     """The whole prompt -> (last-token logits (B, Vp), cache); only the
     last position is unembedded."""
@@ -321,5 +359,6 @@ def decode_step(params, cfg: ArchConfig, cache, tokens):
     return L.lm_logits(params, cfg, x)[:, 0], cache
 
 
-__all__ = ["F32_LEAVES", "decode_step", "forward", "init_cache",
-           "init_params", "loss_fn", "params_from_numpy", "prefill"]
+__all__ = ["F32_LEAVES", "cache_axes", "decode_step", "forward",
+           "init_cache", "init_params", "loss_fn", "param_axes",
+           "params_from_numpy", "prefill"]

@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..sharding.partition import logical
 from . import layers as L
 
 LRU_C = 8.0
@@ -108,7 +109,7 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
     reference's stds and Lambda grid (see the module's docstring for the
     dtypes)."""
     dev = torch.device("cpu" if device is None else device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = L.init_generator(dev, seed)
     ns, nt = _num_super(cfg)
     V = cfg.vocab_padded(1)
     rec = lambda: _init_rec_layer(gen, cfg, dev, dtype)  # noqa: E731
@@ -127,6 +128,44 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
         params["unembed"] = L.init_unembed(gen, cfg.d_model, V, device=dev,
                                            dtype=dtype)
     return params
+
+
+def _axes_rec_layer():
+    return {
+        "ln1": L.axes_rms_norm(),
+        "w_gate": logical("embed", "lru", name="rec.w_gate"),
+        "w_in": logical("embed", "lru", name="rec.w_in"),
+        "conv_w": logical(None, "lru", name="rec.conv_w"),
+        "conv_b": logical("lru", name="rec.conv_b"),
+        "wa": logical(None, "lru", name="rec.wa"),
+        "ba": logical("lru", name="rec.ba"),
+        "wx": logical(None, "lru", name="rec.wx"),
+        "bx": logical("lru", name="rec.bx"),
+        "lam": logical("lru", name="rec.lam"),
+        "w_out": logical("lru", "embed", name="rec.w_out"),
+        "ln2": L.axes_rms_norm(),
+        "mlp": L.axes_swiglu(),
+    }
+
+
+def _axes_attn_layer():
+    return {"ln1": L.axes_rms_norm(), "attn": L.axes_attention(),
+            "ln2": L.axes_rms_norm(), "mlp": L.axes_swiglu()}
+
+
+def param_axes(cfg: ArchConfig):
+    """Logical axes of :func:`init_params`'s tree (``sharding``)."""
+    ns, nt = _num_super(cfg)
+    a = {"embed": L.axes_embedding(),
+         "super": {"rec1": L.axes_layers(_axes_rec_layer, ns),
+                   "rec2": L.axes_layers(_axes_rec_layer, ns),
+                   "attn": L.axes_layers(_axes_attn_layer, ns)},
+         "final_norm": L.axes_rms_norm()}
+    if nt:
+        a["tail"] = L.axes_layers(_axes_rec_layer, nt)
+    if not cfg.tie_embeddings:
+        a["unembed"] = L.axes_unembed()
+    return a
 
 
 def params_from_numpy(tree, cfg: ArchConfig, *, device=None,
@@ -296,6 +335,16 @@ def init_cache(cfg: ArchConfig, batch_size: int, cache_len: int, *,
             "pos": 0}
 
 
+def cache_axes(cfg: ArchConfig, *, seq_shard: bool = False):
+    kv = logical("layers", "batch", None, "kv_heads", "head_dim",
+                 name="cache.kv")
+    lru = logical("layers", "batch", "lru", name="cache.lru")
+    conv = logical("layers", "batch", None, "lru", name="cache.conv")
+    return {"lru1": lru, "conv1": conv, "lru2": lru, "conv2": conv,
+            "k": kv, "v": kv, "lru_t": lru, "conv_t": conv,
+            "pos": logical(name="cache.pos")}
+
+
 def prefill(params, cfg: ArchConfig, batch, *, cache_len: int | None = None):
     """The whole prompt -> (last-token logits (B, Vp), cache); the KV ring
     holds the prompt's last min(cache_len, window) positions, position p
@@ -353,6 +402,6 @@ def decode_step(params, cfg: ArchConfig, cache, tokens):
     return L.lm_logits(params, cfg, x)[:, 0], cache
 
 
-__all__ = ["F32_LEAVES", "block_pattern", "decode_step", "forward",
-           "init_cache", "init_params", "loss_fn", "params_from_numpy",
-           "prefill"]
+__all__ = ["F32_LEAVES", "block_pattern", "cache_axes", "decode_step",
+           "forward", "init_cache", "init_params", "loss_fn", "param_axes",
+           "params_from_numpy", "prefill"]

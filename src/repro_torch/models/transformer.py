@@ -51,6 +51,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..kernels.flash_attn import ops as flash
 from ..optim.adam import leaves
+from ..sharding.partition import logical
 from . import layers as L
 
 ATTN_IMPLS = ("masked", "pallas", "tri")
@@ -63,7 +64,7 @@ FAMILIES = ("dense", "moe", "vlm")
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for what the port's transformer does
     not run: the families of the other modules (``models.api``) and
-    experts sharded over a model axis (ROADMAP Queue 1 item 9)."""
+    experts sharded over a model axis (ROADMAP Queue 1 item 9b)."""
     missing = []
     if cfg.family not in FAMILIES:
         missing.append(f"family {cfg.family!r}")
@@ -77,7 +78,7 @@ def check_supported(cfg: ArchConfig) -> None:
     if cfg.moe_ep:
         raise NotImplementedError(
             f"{cfg.name}: moe_ep=True (experts sharded over the model "
-            f"axis) is not ported yet (ROADMAP Queue 1 item 9); the port "
+            f"axis) is not ported yet (ROADMAP Queue 1 item 9b); the port "
             f"runs experts unsharded on one card")
 
 
@@ -100,7 +101,7 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
     :func:`params_from_numpy`."""
     check_supported(cfg)
     dev = torch.device("cpu" if device is None else device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = L.init_generator(dev, seed)
     layout = _layout(cfg)
     D, V = cfg.d_model, cfg.vocab_padded(1)
     ones = lambda: {"scale": torch.ones(D, device=dev)}  # noqa: E731
@@ -126,6 +127,27 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
         params["unembed"] = L.init_unembed(gen, D, V, device=dev,
                                            dtype=dtype)
     return params
+
+
+def _block_axes(cfg: ArchConfig):
+    a = {"ln1": L.axes_rms_norm(),
+         "attn": L.axes_attention(qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm),
+         "ln2": L.axes_rms_norm()}
+    if cfg.family == "moe":
+        a["moe"] = L.axes_moe(ep=cfg.moe_ep)
+    else:
+        a["mlp"] = L.axes_swiglu()
+    return a
+
+
+def param_axes(cfg: ArchConfig):
+    """Logical axes of :func:`init_params`'s tree (``sharding``)."""
+    a = {"embed": L.axes_embedding(),
+         "layers": L.axes_layers(lambda: _block_axes(cfg), cfg.num_layers),
+         "final_norm": L.axes_rms_norm()}
+    if not cfg.tie_embeddings:
+        a["unembed"] = L.axes_unembed()
+    return a
 
 
 def params_from_numpy(tree, cfg: ArchConfig, *, device=None,
@@ -289,6 +311,13 @@ def init_cache(cfg: ArchConfig, batch_size: int, cache_len: int, *,
             "pos": 0}                           # tokens written so far
 
 
+def cache_axes(cfg: ArchConfig, *, seq_shard: bool = False):
+    seq_ax = "kv_seq_sp" if seq_shard else None
+    kv = logical("layers", "batch", seq_ax, "kv_heads", "head_dim",
+                 name="cache.kv")
+    return {"k": kv, "v": kv, "pos": logical(name="cache.pos")}
+
+
 def prefill(params, cfg: ArchConfig, batch, *, cache_len: int | None = None):
     """Process the whole prompt -> (last-token logits (B, Vp), cache).
 
@@ -354,8 +383,7 @@ def decode_step(params, cfg: ArchConfig, cache, tokens):
 
 
 __all__ = [
-    "ATTN_IMPLS", "F32_LEAVES", "FAMILIES", "cache_len_for",
-    "check_supported", "decode_step",
-    "forward", "init_cache", "init_params", "loss_fn", "params_from_numpy",
-    "prefill",
+    "ATTN_IMPLS", "F32_LEAVES", "FAMILIES", "cache_axes", "cache_len_for",
+    "check_supported", "decode_step", "forward", "init_cache",
+    "init_params", "loss_fn", "param_axes", "params_from_numpy", "prefill",
 ]

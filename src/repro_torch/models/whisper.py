@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
+from ..sharding.partition import logical
 from . import layers as L
 
 #: leaves kept float32 in either param form: the LayerNorms'
@@ -77,7 +78,7 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
     """Random params from a ``torch.Generator`` on ``device`` with the
     reference's stds (see the module's docstring for the dtypes)."""
     dev = torch.device("cpu" if device is None else device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = L.init_generator(dev, seed)
     D = cfg.d_model
     ln = lambda: L.init_layer_norm(D, device=dev)  # noqa: E731
     mlp = lambda: L.init_gelu_mlp(gen, D, cfg.d_ff, device=dev,  # noqa: E731
@@ -97,6 +98,29 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
                        for _ in range(cfg.num_layers)],
         "dec_ln": ln(),
     }
+
+
+def _axes_enc_layer():
+    return {"ln1": L.axes_layer_norm(),
+            "attn": L.axes_attention(qkv_bias=True, out_bias=True),
+            "ln2": L.axes_layer_norm(), "mlp": L.axes_gelu_mlp()}
+
+
+def _axes_dec_layer():
+    return {"ln1": L.axes_layer_norm(),
+            "self_attn": L.axes_attention(qkv_bias=True, out_bias=True),
+            "ln_x": L.axes_layer_norm(),
+            "cross_attn": L.axes_attention(qkv_bias=True, out_bias=True),
+            "ln2": L.axes_layer_norm(), "mlp": L.axes_gelu_mlp()}
+
+
+def param_axes(cfg: ArchConfig):
+    """Logical axes of :func:`init_params`'s tree (``sharding``)."""
+    return {"embed": L.axes_embedding(),
+            "enc_layers": L.axes_layers(_axes_enc_layer, cfg.enc_layers),
+            "enc_ln": L.axes_layer_norm(),
+            "dec_layers": L.axes_layers(_axes_dec_layer, cfg.num_layers),
+            "dec_ln": L.axes_layer_norm()}
 
 
 def params_from_numpy(tree, cfg: ArchConfig, *, device=None,
@@ -235,6 +259,13 @@ def init_cache(cfg: ArchConfig, batch_size: int, cache_len: int, *,
             "pos": 0}
 
 
+def cache_axes(cfg: ArchConfig, *, seq_shard: bool = False):
+    kv = logical("layers", "batch", None, "kv_heads", "head_dim",
+                 name="cache.kv")
+    return {"k": kv, "v": kv, "xk": kv, "xv": kv,
+            "pos": logical(name="cache.pos")}
+
+
 def prefill(params, cfg: ArchConfig, batch, *, cache_len: int | None = None):
     """Encoder and the decoder over the prompt -> (last-token logits (B,
     Vp), cache).  ``cache_len`` defaults to the prompt's; shorter raises
@@ -282,6 +313,7 @@ def decode_step(params, cfg: ArchConfig, cache, tokens):
     return L.tied_logits(params["embed"]["table"], x)[:, 0], cache
 
 
-__all__ = ["F32_LEAVES", "cross_kv", "decode_step", "decode_train", "encode",
-           "forward", "init_cache", "init_params", "loss_fn",
-           "params_from_numpy", "prefill", "sinusoid_positions"]
+__all__ = ["F32_LEAVES", "cache_axes", "cross_kv", "decode_step",
+           "decode_train", "encode", "forward", "init_cache", "init_params",
+           "loss_fn", "param_axes", "params_from_numpy", "prefill",
+           "sinusoid_positions"]

@@ -42,6 +42,17 @@ DWN engines have two serving modes over the same datapath and step cache:
 The engine runs on ``cuda`` unless ``device="cpu"`` is passed; without a
 card it raises rather than fall back.
 
+Data-parallel DWN serving (``data_parallel=True``, the default, as in the
+reference) takes effect when ``torch.distributed`` is initialised with
+more than one rank: every rank runs the engine on the same requests, a
+bucket that the ranks divide is split by rows, each rank runs its rows
+through its backend step (a CUDA graph of K2/K1 on a card) and an
+all-gather into one tensor assembles the counts and predictions in row
+order over the ``("data",)`` mesh (``launch.mesh.make_data_mesh``).  A
+bucket the ranks do not divide runs whole on every rank.  A
+data-parallel engine serves through ``submit``/``drain`` only: the
+continuous loop refuses it.
+
 Usage:
     engine = ServingEngine("dwn-jsc-lg", max_bucket=4096, backend="auto")
     # or a trained artifact, as either package saved it:
@@ -81,14 +92,16 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..configs import ArchConfig, get_arch, list_archs
+from ..configs import ArchConfig, assigned_archs, get_arch
 from ..configs.registry import NOT_PORTED
 from ..models.transformer import FAMILIES as TRANSFORMER_FAMILIES
 from ..core.model import apply_hard
 from ..device import resolve_device
 from ..dwn import DWNArtifact, resolve_spec, serving_datapath
+from ..launch.mesh import make_data_mesh
 from ..models import api
 from ..runtime.straggler import StragglerMonitor
+from ..sharding.partition import axis_size
 from ..workloads import load_workload
 from .backends import (AutoSelector, BoundBackend, DWNModelBundle,
                        StepTimeEstimator, autotune_model, available_backends,
@@ -115,13 +128,12 @@ def stub_inputs(cfg: ArchConfig, rng: np.random.Generator, size: int,
 
 
 def _lm_config(arch) -> ArchConfig | None:
-    """The LM config ``arch`` names or is, or None for a DWN target."""
+    """The LM config ``arch`` names or is, or None for a DWN target (a
+    DWN arch name or ``ArchConfig`` serves as the spec ``resolve_spec``
+    gives it, as in the reference)."""
     if isinstance(arch, ArchConfig):
-        if arch.family == "dwn":
-            raise ValueError(f"{arch.name}: the port serves DWN models by "
-                             f"spec preset name, DWNSpec or DWNArtifact")
-        return arch
-    if isinstance(arch, str) and (arch in list_archs()
+        return None if arch.family == "dwn" else arch
+    if isinstance(arch, str) and (arch in assigned_archs()
                                   or arch in NOT_PORTED):
         return get_arch(arch)
     return None
@@ -132,7 +144,8 @@ class ServingEngine:
 
     Args:
       arch: what to serve — an LM arch name (``"qwen3-8b"``) or
-        ``ArchConfig``; or a DWN spec preset name (``"dwn-jsc-lg"``), a
+        ``ArchConfig``; or a DWN spec preset or arch name
+        (``"dwn-jsc-lg"``), a DWN ``ArchConfig``, a
         :class:`~repro_torch.dwn.DWNSpec` (the engine fits it on its own
         data split), or a :class:`~repro_torch.dwn.DWNArtifact` (served
         as-is; missing stages are completed in place).
@@ -151,6 +164,10 @@ class ServingEngine:
         exactly when ``backend == "auto"``; ``REPRO_AUTOTUNE=0`` turns it
         off.
       n_train: DWN: training rows used to fit thermometer thresholds.
+      data_parallel: DWN: split buckets by rows over the ranks of the
+        initialised process group (see the module's docstring); without
+        one, or with one rank, the engine serves alone
+        (``self.data_parallel`` is False, ``self.n_data`` 1).
       seed: data split (DWN) and parameter-init seed.
       device: ``"cuda"`` (default) or ``"cpu"``.
       reduced: LM: serve the tiny same-family variant (``cfg.reduced()``).
@@ -169,7 +186,8 @@ class ServingEngine:
     def __init__(self, arch, *, backend: str | None = None,
                  max_bucket: int = 256, min_bucket: int = 8,
                  verify: bool = True, autotune: bool | None = None,
-                 n_train: int = 2000, seed: int = 0,
+                 n_train: int = 2000, data_parallel: bool = True,
+                 seed: int = 0,
                  device=None, reduced: bool = False, prompt_len: int = 32,
                  gen: int = 16, model_parallel: int = 1, dwn_head=None):
         self.device = resolve_device(device)
@@ -196,7 +214,8 @@ class ServingEngine:
                 raise ValueError(
                     "dwn_head attaches to an LM engine (the head rides the "
                     "backbone); DWN archs already serve classification")
-            self._init_dwn(arch, backend, verify, autotune, n_train)
+            self._init_dwn(arch, backend, verify, autotune, n_train,
+                           data_parallel)
         else:
             self._init_lm(cfg.reduced() if reduced else cfg, prompt_len,
                           gen, model_parallel)
@@ -208,14 +227,20 @@ class ServingEngine:
     # ------------------------------------------------------------------
 
     def _init_dwn(self, arch, backend: str | None, verify: bool,
-                  autotune: bool | None, n_train: int) -> None:
+                  autotune: bool | None, n_train: int,
+                  data_parallel: bool) -> None:
         if isinstance(arch, DWNArtifact):
             art, self.spec = arch, arch.spec
             name = arch.spec.label
         else:
             self.spec = resolve_spec(arch)
             art = DWNArtifact(self.spec)
-            name = arch if isinstance(arch, str) else self.spec.label
+            name = arch if isinstance(arch, str) else (
+                arch.name if isinstance(arch, ArchConfig)
+                else self.spec.label)
+        self.mesh = make_data_mesh(device_type=self.device.type)
+        self.n_data = axis_size(self.mesh, "data")
+        self.data_parallel = bool(data_parallel) and self.n_data > 1
         self.bit_exact: dict[str, bool] = {}
         self.tuned_configs: dict = {}
         self.data = load_workload(self.spec.workload, n_train,
@@ -312,8 +337,29 @@ class ServingEngine:
         xh = torch.from_numpy(np.ascontiguousarray(x, np.float32))
         backend = (self.auto.backend_for(xh) if self.auto is not None
                    else self.backend)
-        counts, pred = backend.step_for(xh.shape[0])(xh)
+        if self.data_parallel and xh.shape[0] % self.n_data == 0:
+            counts, pred = self._dp_step(backend, xh)
+        else:
+            counts, pred = backend.step_for(xh.shape[0])(xh)
         return counts.cpu().numpy(), pred.cpu().numpy()
+
+    def _dp_step(self, backend: BoundBackend, xh: torch.Tensor):
+        """One bucket split by rows over the ``("data",)`` mesh (the
+        reference's ``shard_map`` with the bucket's rows on "data"): this
+        rank's rows through its step at bucket/n, then every rank's counts
+        and predictions gathered in rank (row) order."""
+        import torch.distributed as dist
+        n, rank = self.n_data, self.mesh.get_local_rank("data")
+        k = xh.shape[0] // n
+        counts, pred = backend.step_for(k)(xh[rank * k:(rank + 1) * k])
+        group = self.mesh.get_group("data")
+        outs = []
+        for t in (counts, pred):
+            full = torch.empty((n * k,) + tuple(t.shape[1:]), dtype=t.dtype,
+                               device=t.device)
+            dist.all_gather_into_tensor(full, t.contiguous(), group=group)
+            outs.append(full)
+        return outs[0], outs[1]
 
     # ------------------------------------------------------------------
     # LM prefill/decode path
@@ -324,7 +370,7 @@ class ServingEngine:
         if model_parallel != 1:
             raise NotImplementedError(
                 f"model_parallel={model_parallel}: the port serves on one "
-                f"card (multi-card serving is ROADMAP Queue 1 item 9)")
+                f"card (multi-card LM serving is ROADMAP Queue 1 item 9b)")
         self.cfg = cfg
         self.prompt_len, self.gen = prompt_len, gen
         self._lm_stats: list[tuple[float, float]] = []
@@ -531,6 +577,11 @@ class ServingEngine:
         """
         if self.family != "dwn":
             raise ValueError("continuous batching is the DWN path")
+        if self.data_parallel:
+            raise ValueError(
+                f"a data-parallel engine ({self.n_data} ranks) serves "
+                f"through submit/drain; the continuous loop runs on one "
+                f"device (data_parallel=False)")
         if self._cont is not None:
             raise RuntimeError("serving loop already running")
         probe = self.data.x_test[:self.scheduler.max_bucket]
@@ -599,6 +650,9 @@ class ServingEngine:
         in queue, or missed at completion.  Raises ``QueueFull`` after
         ``timeout`` when backpressure applies.
         """
+        if self.data_parallel:
+            raise ValueError("a data-parallel engine serves through "
+                             "submit/drain, not the continuous loop")
         if self._cont is None:
             raise RuntimeError("submit_async needs the serving loop: use "
                                "engine.serve()")
@@ -715,6 +769,8 @@ class ServingEngine:
             # run their steps eagerly
             "cuda_graphs": {name: b.graphed
                             for name, b in self.backends.items()},
+            "data_parallel": self.data_parallel,
+            "devices": self.n_data,
             "luts": self.spec.luts,
             "bits_per_feature": self.spec.bits,
             "spec": self.spec.to_dict(),

@@ -1625,3 +1625,67 @@ def test_dwn_head_on_the_card_is_bit_exact_to_apply_hard():
         np.testing.assert_array_equal(r.result["pred"], want.argmax(-1))
     rep = eng.report()["dwn_head"]
     assert rep["served"] == 16 and rep["cuda_graphs"] is True
+
+
+@pytest.mark.parametrize("datapath", ["corner", "gather"])
+def test_dwn_arch_prefill_on_the_card_equals_k2(datapath):
+    """Exact: ``dwn_arch``'s prefill of 4096 samples at lg-2400 (contig
+    and strided) equals K2 serving the same params
+    (``dwn_arch.artifact``, a CUDA graph of the fused-packed backend),
+    whose replay launches K2 once."""
+    _need_card()
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import api, dwn_arch
+    from repro_torch.serving.backends import BoundBackend, get_backend
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((4096, 16), dtype=np.float32)
+                         * 0.7).cuda()
+    for grouping in ("contig", "strided"):
+        cfg = dataclasses.replace(get_arch("dwn-jsc-lg2400"),
+                                  dwn_datapath=datapath,
+                                  dwn_grouping=grouping)
+        params = dwn_arch.init_params(torch.Generator().manual_seed(5), cfg,
+                                      device="cuda")
+        counts, _ = api.make_prefill(cfg)(params, {"features": x})
+        art = dwn_arch.artifact(params, cfg).pack("cuda")
+        bound = BoundBackend(get_backend("fused-packed"),
+                             art.serving_model())
+        bound(x)                       # captures the step's graph
+        K.reset_launch_counts()
+        want, _ = bound(x)
+        assert K.launch_counts()["fused_dwn_packed"] == 1
+        assert torch.equal(counts, want)
+
+
+def test_dwn_arch_train_step_on_the_card_matches_the_cpu():
+    """One ``make_train_step(num_micro=4)`` step at lg-2400 on 4 x 256
+    samples: the card's loss, grad norm and params within 1e-5 of the
+    CPU's from the same params (float32 products without TF32)."""
+    _need_card()
+    from repro_torch.configs import get_arch
+    from repro_torch.models import api, dwn_arch
+    cfg = get_arch("dwn-jsc-lg2400")
+    params = dwn_arch.init_params(torch.Generator().manual_seed(1), cfg)
+    rng = np.random.default_rng(2)
+    batch = {"features": torch.from_numpy(rng.standard_normal(
+                 (4, 256, 16), dtype=np.float32) * 0.7),
+             "labels": torch.from_numpy(
+                 rng.integers(0, 5, (4, 256)).astype(np.int32))}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dev in ("cpu", "cuda"):
+            p = {k: v.to(dev).clone() for k, v in params.items()}
+            step, opt = api.make_train_step(cfg, num_micro=4)
+            p, _, m = step(p, opt.init(p),
+                           {k: v.to(dev) for k, v in batch.items()})
+            out[dev] = (float(m["loss"]), float(m["grad_norm"]),
+                        {k: v.cpu() for k, v in p.items()})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert abs(out["cuda"][0] - out["cpu"][0]) < 1e-5
+    assert abs(out["cuda"][1] - out["cpu"][1]) < 1e-5
+    for k in params:
+        assert (out["cuda"][2][k] - out["cpu"][2][k]).abs().max() < 1e-5, k

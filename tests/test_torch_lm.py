@@ -90,15 +90,19 @@ def test_config_copy_and_registry():
     reference's field for field, with the same parameter count and padded
     vocab; all ten of the reference's LM archs are registered (the VLM,
     SSM, hybrid and encoder-decoder ones among them) and resolve to
-    their family, unknown names raise."""
+    their family, beside the reference's DWN archs (the registry holds
+    the reference's names), unknown names raise."""
     for mk in (lambda g: g("qwen3-8b"), lambda g: g("qwen3-8b").reduced()):
         mine, ref = mk(get_arch), mk(jget_arch)
         assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
         assert mine.num_params() == ref.num_params()
         assert mine.vocab_padded(1) == ref.vocab_padded(1)
         assert mine.head_dim_ == ref.head_dim_
-    from repro.configs.registry import assigned_archs
-    assert list_archs() == assigned_archs() == [
+    from repro.configs.registry import assigned_archs, \
+        list_archs as jlist_archs
+    from repro_torch.configs import assigned_archs as tassigned_archs
+    assert list_archs() == jlist_archs()
+    assert tassigned_archs() == assigned_archs() == [
         "granite-moe-3b-a800m", "llava-next-34b", "mamba2-1.3b",
         "mixtral-8x7b", "phi3-mini-3.8b", "qwen2-7b", "qwen3-14b",
         "qwen3-8b", "recurrentgemma-2b", "whisper-large-v3"]
@@ -124,25 +128,26 @@ def test_unported_options_raise():
     serving form and in the float32 training form: the transformer refuses
     the SSM, hybrid and enc-dec families, naming them (``api.module_for``
     sends them to their own modules), and experts sharded over the model
-    axis (item 9); the DWN behind the LM interface (``family="dwn"``)
-    raises naming item 8.5 through ``module_for`` and
-    ``make_train_step``; the dense and VLM models train."""
+    axis (item 9b, the LM half of item 9); the DWN behind the LM
+    interface (``family="dwn"``, item 8.5, done) goes to ``dwn_arch``
+    through ``module_for`` and ``make_train_step``; the dense and VLM
+    models train."""
     cfg = _cfg()
     for bad, match in ((dict(family="ssm"), "family 'ssm'"),
                        (dict(family="hybrid"), "family 'hybrid'"),
                        (dict(family="encdec"), "family 'encdec'"),
                        (dict(family="moe", num_experts=4, top_k=2,
-                             moe_ep=True), "Queue 1 item 9")):
+                             moe_ep=True), "Queue 1 item 9b")):
         for dtype in (torch.bfloat16, torch.float32):
             with pytest.raises(NotImplementedError, match=match):
                 TT.init_params(dataclasses.replace(cfg, **bad), dtype=dtype)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8.5"):
-        api.make_train_step(dataclasses.replace(cfg, family="dwn"))
+    assert callable(api.make_train_step(
+        dataclasses.replace(cfg, family="dwn"))[0])
     assert callable(api.make_train_step(cfg)[0])
     assert callable(api.make_train_step(
         dataclasses.replace(cfg, family="vlm"))[0])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8.5"):
-        api.module_for(dataclasses.replace(cfg, family="dwn"))
+    assert api.module_for(dataclasses.replace(cfg, family="dwn")).__name__ \
+        == "repro_torch.models.dwn_arch"
     assert {f: api.module_for(dataclasses.replace(cfg, family=f)).__name__
             for f in ("ssm", "hybrid", "encdec", "vlm")} == {
         "ssm": "repro_torch.models.mamba2",
@@ -394,7 +399,7 @@ def test_engine_generates_the_models_greedy_tokens(attn_impl):
     assert (rep["prompt_len"], rep["generated"], rep["served"]) == (8, 3, 4)
     assert rep["arch"] == "qwen3-8b-reduced" and rep["device"] == "cpu"
     assert FK.launch_counts() == {"flash_attention": 0}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9b"):
         ServingEngine("qwen3-8b", reduced=True, device="cpu",
                       model_parallel=2)
 

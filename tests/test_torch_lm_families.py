@@ -185,13 +185,29 @@ def test_init_params_has_the_reference_tree(arch):
 
 
 def test_the_dwn_family_raises_naming_item_8_5():
-    """The DWN behind the LM interface (``dwn_arch``) is Queue 1 item 8.5;
-    no LM arch is left unported."""
+    """Queue 1 item 8.5 is done: the DWN family no longer raises but runs
+    through ``dwn_arch`` behind the same interface (``module_for`` of a
+    registered DWN arch, its prefill and train step); no LM arch is left
+    unported, and a family the port does not have still raises."""
     from repro_torch.configs import registry
     assert registry.NOT_PORTED == ()
-    cfg = dataclasses.replace(get_arch("qwen3-8b").reduced(), family="dwn")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8.5"):
-        TA.module_for(cfg)
+    cfg = get_arch("dwn-jsc-sm10")
+    mod = TA.module_for(cfg)
+    assert mod.__name__ == "repro_torch.models.dwn_arch"
+    params = mod.init_params(torch.Generator().manual_seed(0), cfg)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (32, 16)).astype(np.float32))
+    counts, cache = TA.make_prefill(cfg)(params, {"features": x})
+    assert counts.shape == (32, 5) and counts.le(2).all() \
+        and counts.ge(0).all()
+    assert int(cache["pos"]) == 0
+    step, opt = TA.make_train_step(cfg)
+    labels = torch.zeros(32, dtype=torch.int32)
+    _, _, metrics = step(params, opt.init(params),
+                         {"features": x, "labels": labels})
+    assert torch.isfinite(metrics["loss"])
+    with pytest.raises(NotImplementedError, match="family 'nope'"):
+        TA.module_for(dataclasses.replace(cfg, family="nope"))
 
 
 # ---------------------------------------------------------------------------

@@ -442,7 +442,7 @@ def test_lm_train_cli_on_the_cpu():
               for _ in range(4)]
     assert rep["first_loss"] == losses[0]
     assert rep["last_loss"] == float(np.mean(losses))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9b"):
         _cli(["--arch", "qwen3-8b", "--reduced", "--model-parallel", "2",
               "--device", "cpu"])
 

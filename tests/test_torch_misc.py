@@ -39,7 +39,8 @@ def test_data_loader_copy_gives_identical_rows(seed):
 
 def test_port_imports_neither_jax_nor_the_reference():
     """Every module of repro_torch imports in a fresh interpreter without
-    pulling in jax or any module of repro."""
+    pulling in jax or any module of repro (the DWN arch, its configs, the
+    sharding modules and the meshes among them)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -59,7 +60,10 @@ def test_port_imports_neither_jax_nor_the_reference():
         "          'sweep', 'sweep.grid', 'sweep.results', 'sweep.cache',\n"
         "          'sweep.artifacts', 'sweep.pipeline', 'sweep.executor',\n"
         "          'sweep.autodesign', 'launch.sweep', 'data.tokens',\n"
-        "          'optim.grad', 'workloads.lm_head'):\n"
+        "          'optim.grad', 'workloads.lm_head', 'models.dwn_arch',\n"
+        "          'configs.dwn_jsc', 'configs.dwn_mnist', 'configs.dwn_lm_head',\n"
+        "          'sharding', 'sharding.partition', 'sharding.annotate',\n"
+        "          'launch.mesh'):\n"
         "    assert 'repro_torch.' + n in names, names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")

@@ -164,7 +164,9 @@ def test_loop_trainer_equals_scan_engine(data, engine_pair):
 
 def test_train_dwn_batch_equals_sequential_runs(data):
     """A two-seed run equals two sequential ``train_dwn_scan`` runs within
-    1e-5 (here bit for bit: the same program, in turn); no mesh."""
+    1e-5 (here bit for bit: the same program, in turn); without a process
+    group ``data_parallel=True`` trains alone, as the reference does on
+    one device, and gives the same members."""
     out = train_dwn_batch(CFG, data, epochs=2, seeds=(0, 1), device="cpu")
     assert out.data_parallel is False and len(out.results) == 2
     for s, got in zip((0, 1), out.results):
@@ -175,9 +177,12 @@ def test_train_dwn_batch_equals_sequential_runs(data):
         lw = np.array([h["loss"] for h in want.history])
         assert np.abs(lg - lw).max() < LOSS_TOL
         assert abs(got.soft_test_acc - want.soft_test_acc) < ACC_TOL
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        train_dwn_batch(CFG, data, epochs=1, data_parallel=True,
-                        device="cpu")
+    alone = train_dwn_batch(CFG, data, epochs=1, seeds=(0, 1),
+                            data_parallel=True, device="cpu")
+    assert alone.data_parallel is False and len(alone.results) == 2
+    once = train_dwn_batch(CFG, data, epochs=1, seeds=(0, 1), device="cpu")
+    for a, b in zip(alone.results, once.results):
+        assert a.history[0]["loss"] == b.history[0]["loss"]
 
 
 def test_interleaved_trainers_share_one_program(data):
