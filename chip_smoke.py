@@ -10,9 +10,10 @@ autodesign), its staged packed and float datapaths, its
 flash-attention kernel, qwen3-8b serving at full width with a DWN head
 on its backbone, the LM zoo's ten archs served at full width (dense,
 MoE, VLM, SSM, hybrid and encoder-decoder; mixtral's depth cut to the
-card), qwen3-8b training, and the DWN behind the model zoo's interface
+card), qwen3-8b training, the DWN behind the model zoo's interface
 (``models.dwn_arch``: prefill variants against K2, the whole
-dwn_serve_1m shape, train steps, data-parallel serving at one rank).
+dwn_serve_1m shape, train steps, data-parallel serving at one rank), and
+the dry-run's roofline terms held against steps timed on the card.
 
     python3 chip_smoke.py
 
@@ -297,7 +298,21 @@ Phases, each printing one JSON line:
    step's ms and the peak memory; last ``ServingEngine("dwn-jsc-lg")``
    under a one-rank NCCL process group, which by the reference's rule is
    not data parallel (``devices`` 1), serving 4 x 4096 rows through K2,
-   each equal to ``apply_hard``.
+   each equal to ``apply_hard``;
+18. dryrun — ``repro_torch.launch.dryrun`` on the meta device (no card
+   work): ``run_cell`` of qwen3-8b at its four shapes on the (16, 16) and
+   (2, 16, 16) production meshes and of dwn-jsc-lg2400 at dwn_serve_1m,
+   each record's compute, memory and collective terms, bound and seconds
+   printed (a record holding an error fails the phase; long_500k is a
+   documented skip); then, priced on a (1, 1) mesh, the steps the lm and
+   dwn_arch phases timed: qwen3-8b's prefill of 4 x 2048 tokens (bf16
+   weights, K10 counted at its plain version's products), its decode step
+   at the cache's 2064 positions (timed in a CUDA graph) and
+   dwn-jsc-lg2400-opt3 at 1,048,576 samples, each measured ms beside the
+   three terms, measured over the lower bound, the phase's own
+   hand-counted bound and ``max_memory_allocated`` beside the argument
+   bytes; it fails unless each measured time reaches the compute term and
+   the argument bytes over HBM's 3.35 TB/s.
 
 Then it prints each phase's seconds, the kernels' summary line (K1's and
 K2's launches on each served path, the load phase's sessions, the
@@ -2210,7 +2225,16 @@ def phase_lm(device, batch=4, requests=2, prompt_len=2048, gen=16):
     out["decode_over_bound"] = (min(out["decode_s_per_tok"])
                                 / (bounds["decode_step"]["bound_ms"] / 1e3))
     emit(out)
-    return launches
+    # what the dryrun phase prices: the steps timed here, their bounds
+    step = {
+        "cfg": cfg, "batch": batch, "prompt_len": prompt_len, "gen": gen,
+        "prefill_ms": min(out["prefill_s"]) * 1e3,
+        "decode_ms": decode_graph_ms,
+        "decode_served_ms": min(out["decode_s_per_tok"]) * 1e3,
+        "prefill_bound_ms": bounds["prefill"]["bound_ms"],
+        "decode_bound_ms": bounds["decode_step"]["bound_ms"],
+        "max_memory_allocated": out["peak_memory_bytes"]}
+    return launches, step
 
 
 #: bytes of the card a served model's bf16 weights leave free: the masked
@@ -4808,7 +4832,8 @@ def phase_dwn_arch(device):
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     full_ms = time_ms(lambda: prefill(params, {"features": xf}), 2, 0)
-    peak = torch.cuda.max_memory_allocated() - base
+    peak_total = torch.cuda.max_memory_allocated()
+    peak = peak_total - base
     counts, _ = prefill(params, {"features": xf})
     want, launches = _k2_counts(params, cfg, xf)
     if counts.shape != (B, cfg.vocab_size) or not torch.equal(counts, want):
@@ -4822,6 +4847,9 @@ def phase_dwn_arch(device):
             "peak_bytes_above_inputs": peak,
             **dwn_prefill_bound(cfg, B)}
     emit({"phase": "dwn_arch", "full_shape": full})
+    priced_step = {"cfg": cfg, "shape": shape, "ms": full_ms,
+                   "bound_ms": full["bound_ms"],
+                   "max_memory_allocated": peak_total}
     del params, xf, counts, want
     # training: the card's steps against the CPU's, then 16 times the rows
     cfg = get_arch("dwn-jsc-lg2400")
@@ -4855,8 +4883,101 @@ def phase_dwn_arch(device):
     # K2's replays above only cross-check dwn_arch's counts; the engine's
     # launches are a serving path's
     return {"variants": variants, "full_shape": full, "train": train,
-            "data_parallel": dp, "check_launches": k2,
+            "data_parallel": dp, "priced_step": priced_step,
+            "check_launches": k2,
             "dp_launches": {k: launches[k] for k in k2}}
+
+
+#: the dry-run cells the dryrun phase writes: (arch, shapes, meshes)
+DRYRUN_CELLS = (("qwen3-8b", ("train_4k", "prefill_32k", "decode_32k",
+                              "long_500k"), (False, True)),
+                ("dwn-jsc-lg2400", ("dwn_serve_1m",), (False,)))
+
+
+def _terms(rec):
+    r = rec["roofline"]
+    return {k: r[k] for k in ("compute_s", "memory_s", "collective_s",
+                              "bound", "step_s_lower_bound")}
+
+
+def phase_dryrun(device, lm, dwn):
+    """The dry-run (``launch.dryrun``, on the meta device) of qwen3-8b's
+    four shapes at pod1 and pod2 and of dwn-jsc-lg2400 at dwn_serve_1m,
+    each record's terms, bound and seconds printed (a record holding an
+    error fails the phase); then, on a (1, 1) mesh, the steps the lm and
+    dwn_arch phases timed on the card (``lm``, ``dwn``: what
+    :func:`phase_lm` and :func:`phase_dwn_arch` return of them):
+    qwen3-8b's prefill of their batch of prompts (bf16 weights, K10's
+    attention counted at its plain version) and its decode step at the
+    cache's length, and dwn-jsc-lg2400-opt3 at 1,048,576 samples.  Each priced step's measured
+    ms beside its three terms, measured over the lower bound, the phase's
+    own hand-counted bound and the peak device memory beside the
+    argument bytes; the measured time must reach the compute term and
+    the argument bytes over HBM's rate."""
+    del device
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import HBM_BW
+    from repro_torch.sharding import AbstractMesh
+    records = []
+    for arch, shapes, meshes in DRYRUN_CELLS:
+        for multi_pod in meshes:
+            for name in shapes:
+                t0 = time.perf_counter()
+                rec = dryrun.run_cell(arch, name, multi_pod=multi_pod,
+                                      force=True)
+                seconds = time.perf_counter() - t0
+                if "error" in rec:
+                    raise SystemExit(f"dry-run {rec['cell']}: "
+                                     f"{rec['error']}")
+                row = {"cell": rec["cell"], "seconds": seconds}
+                if rec.get("skipped"):
+                    row["skipped"] = rec["reason"]
+                else:
+                    row.update(_terms(rec), lower_s=rec["lower_s"],
+                               meta_run_reused=rec["meta_run_reused"],
+                               argument_bytes=rec["memory_analysis"][
+                                   "argument_bytes"],
+                               useful_flops_ratio=rec["useful_flops_ratio"])
+                emit({"phase": "dryrun", "record": row})
+                records.append(row)
+    one = AbstractMesh(("data", "model"), (1, 1))
+    steps = {
+        "qwen3-8b prefill": (lm["cfg"], ShapeConfig(
+            "lm_prefill", lm["prompt_len"], lm["batch"], "prefill"),
+            {"serve_bf16"}, lm["prefill_ms"], lm["prefill_bound_ms"],
+            lm["max_memory_allocated"]),
+        "qwen3-8b decode step": (lm["cfg"], ShapeConfig(
+            "lm_decode", lm["prompt_len"] + lm["gen"], lm["batch"],
+            "decode"), {"serve_bf16"}, lm["decode_ms"],
+            lm["decode_bound_ms"], lm["max_memory_allocated"]),
+        "dwn-jsc-lg2400-opt3 at 1,048,576 samples": (
+            dwn["cfg"], dwn["shape"], set(), dwn["ms"], dwn["bound_ms"],
+            dwn["max_memory_allocated"])}
+    priced = {}
+    for what, (cfg, shape, variants, ms, hand_ms, peak) in steps.items():
+        rec = dryrun.analyze_cell(cfg, shape, one, variants=variants)
+        t = _terms(rec)
+        arg = rec["memory_analysis"]["argument_bytes"]
+        row = {"measured_ms": ms, **t,
+               "measured_over_lower_bound": ms / 1e3
+               / t["step_s_lower_bound"],
+               "hand_bound_ms": hand_ms,
+               "max_memory_allocated": peak, "argument_bytes": arg,
+               "flops": rec["flops_per_chip"],
+               "hbm_bytes": rec["hbm_bytes_per_chip"],
+               "lower_s": rec["lower_s"]}
+        if what == "qwen3-8b decode step":
+            row["served_ms"] = lm["decode_served_ms"]
+        emit({"phase": "dryrun", "priced": what, **row})
+        if not ms / 1e3 >= t["compute_s"]:
+            raise SystemExit(f"{what}: {ms} ms on the card is under the "
+                             f"compute term {t['compute_s'] * 1e3} ms")
+        if not ms / 1e3 >= arg / HBM_BW:
+            raise SystemExit(f"{what}: {ms} ms on the card is under the "
+                             f"argument bytes' {arg / HBM_BW * 1e3} ms")
+        priced[what] = row
+    return {"records": records, "priced": priced}
 
 
 def main() -> int:
@@ -4904,7 +5025,7 @@ def main() -> int:
                                                   "cuda")
     (flash_err, flash_timing, flash_err_by_hd, zoo_timing,
      served_timing) = run("flash", phase_flash, "cuda", ptxas["flash_attn"])
-    flash_launches = run("lm", phase_lm, "cuda")
+    flash_launches, lm_step = run("lm", phase_lm, "cuda")
     zoo_launches = run("lm_zoo", phase_lm_zoo, "cuda")
     head_launches = run("lm_head", phase_lm_head, "cuda")
     run("lm_train", phase_lm_train, "cuda")
@@ -4923,6 +5044,7 @@ def main() -> int:
     sweep_launches = run("sweep", phase_sweep, "cuda")
     run("cli", phase_cli, "cuda")
     dwn_arch = run("dwn_arch", phase_dwn_arch, "cuda")
+    run("dryrun", phase_dryrun, "cuda", lm_step, dwn_arch["priced_step"])
     emit({"phase": "seconds", "seconds": seconds,
           "total": sum(seconds.values())})
 

@@ -84,6 +84,14 @@ def make_data_mesh(*, device_type: str = "cuda"):
 PEAK_FLOPS_BF16 = 989e12          # dense bf16 FLOP/s
 HBM_BW = 3.35e12                  # HBM3 bytes/s
 NVLINK_BW = 450e9                 # NVLink bytes/s per direction
+#: bytes/s per direction between nodes, per card: a DGX H100 gives each
+#: of its 8 GPUs one 400 Gb/s InfiniBand port (ConnectX-7; NVIDIA DGX
+#: H100 user guide), so a collective whose group leaves an 8-GPU node
+#: moves its bytes at this rate
+INTERNODE_BW = 400e9 / 8
+#: GPUs a node joins by NVLink (a DGX H100)
+GPUS_PER_NODE = 8
 
-__all__ = ["HBM_BW", "NVLINK_BW", "PEAK_FLOPS_BF16", "init_from_env",
-           "make_data_mesh", "make_host_mesh", "make_production_mesh"]
+__all__ = ["GPUS_PER_NODE", "HBM_BW", "INTERNODE_BW", "NVLINK_BW",
+           "PEAK_FLOPS_BF16", "init_from_env", "make_data_mesh",
+           "make_host_mesh", "make_production_mesh"]

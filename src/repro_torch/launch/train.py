@@ -7,7 +7,7 @@ step) with the reference's AdamW and global-norm clipping
 straggler monitor and, given ``--ckpt-dir``, the checkpoint-restart
 ``Supervisor`` (the token stream's position rides in the checkpoint).
 Prints one JSON line with the reference's keys, plus the device.  One
-card: ``--model-parallel`` above 1 raises (ROADMAP.md Queue 1 item 9b).
+card: ``--model-parallel`` above 1 raises (ROADMAP.md Queue 1 item 9b.2).
 
 DWN archs (``--arch dwn-jsc-lg`` or any name ``dwn.resolve_spec`` takes):
 the arch resolves to a ``DWNSpec``, ``--workload`` (or the spec's own)
@@ -62,7 +62,7 @@ def lm_train(args) -> dict:
         raise NotImplementedError(
             f"--model-parallel {args.model_parallel}: the port trains on "
             f"one card (multi-card LM training is ROADMAP.md Queue 1 "
-            f"item 9b)")
+            f"item 9b.2)")
     device = resolve_device(args.device)
     mod = api.module_for(cfg)
     step_fn, opt = api.make_train_step(cfg, opt=api.make_optimizer(args.lr))

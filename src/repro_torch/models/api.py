@@ -3,10 +3,10 @@ serving engine and the train CLI call (the reference's
 ``repro.models.api``).
 
     make_optimizer(lr)                -> Adam (the reference's LM AdamW)
-    make_train_step(cfg, *, num_micro, opt, clip_norm)
+    make_train_step(cfg, *, tp, num_micro, opt, clip_norm)
                                       -> (step(params, opt, batch), opt)
-    make_prefill(cfg, cache_len=None) -> fn(params, batch)
-    make_decode_step(cfg)             -> fn(params, cache, batch)
+    make_prefill(cfg, *, tp, cache_len) -> fn(params, batch)
+    make_decode_step(cfg, *, tp)      -> fn(params, cache, batch)
     abstract_params(cfg, tp)          -> the params on the ``meta`` device
     param_axes(cfg)                   -> their logical axes
     batch_specs(cfg, shape, micro=)   -> one step's batch on ``meta``
@@ -20,10 +20,13 @@ Families: dense, MoE and VLM (``transformer``), SSM (``mamba2``), hybrid
 ``patches`` (VLM) or ``frames`` (encoder-decoder); a DWN batch carries
 ``features`` (B, F) and ``labels`` (B,).
 
-The abstract trees are the reference's shapes (a ``meta`` tensor where
-the reference has a ``ShapeDtypeStruct``; the layers of an LM are a list
-where the reference stacks them).  LM params and caches exist at tp = 1
-only: tensor parallelism is ROADMAP Queue 1 item 9b.
+The abstract trees are the reference's shapes at any tp (a ``meta``
+tensor where the reference has a ``ShapeDtypeStruct``; the layers of an
+LM are a list where the reference stacks them).  ``tp`` lays out heads,
+caches and the vocabulary as the reference's do at that degree; the steps
+run it on one device (its tp = 1 is the default here, 16 in the
+reference).  Running a model over several devices is ROADMAP Queue 1
+item 9b.2.
 """
 
 from __future__ import annotations
@@ -58,21 +61,14 @@ def module_for(cfg: ArchConfig):
 # abstract params / batches / caches (shapes on the meta device)
 # ---------------------------------------------------------------------------
 
-def _check_tp(cfg: ArchConfig, tp: int) -> None:
-    if cfg.family != "dwn" and tp != 1:
-        raise NotImplementedError(
-            f"{cfg.name}: tp={tp}: LM params are laid out for one device; "
-            f"tensor parallelism (heads and vocab padded to tp) is ROADMAP "
-            f"Queue 1 item 9b")
-
-
 def abstract_params(cfg: ArchConfig, tp: int = 16):
-    """The params of ``cfg`` on the ``meta`` device: shapes and dtypes,
-    nothing allocated or drawn (the float32 training form)."""
-    _check_tp(cfg, tp)
+    """The params of ``cfg`` laid out at ``tp`` on the ``meta`` device:
+    shapes and dtypes, nothing allocated or drawn (the float32 training
+    form)."""
     if cfg.family == "dwn":
         return dwn_arch.init_params(torch.Generator(), cfg, tp, device=META)
-    return module_for(cfg).init_params(cfg, device=META, dtype=torch.float32)
+    return module_for(cfg).init_params(cfg, tp=tp, device=META,
+                                       dtype=torch.float32)
 
 
 def param_axes(cfg: ArchConfig):
@@ -145,11 +141,11 @@ def batch_axes(cfg: ArchConfig, shape: ShapeConfig, *, micro: bool = False):
 
 
 def abstract_cache(cfg: ArchConfig, shape: ShapeConfig, tp: int = 16):
-    """The cache of ``shape`` on the ``meta`` device (``pos`` is the int
-    an LM cache starts from, a 0-d int32 tensor for the DWN)."""
-    _check_tp(cfg, tp)
+    """The cache of ``shape`` laid out at ``tp`` on the ``meta`` device
+    (``pos`` is the int an LM cache starts from, a 0-d int32 tensor for
+    the DWN)."""
     return module_for(cfg).init_cache(cfg, shape.global_batch,
-                                      shape.seq_len, device=META)
+                                      shape.seq_len, tp=tp, device=META)
 
 
 def cache_axes(cfg: ArchConfig, shape: ShapeConfig):
@@ -165,7 +161,7 @@ def make_optimizer(lr: float = 3e-4) -> Adam:
     return Adam(lr=lr, b1=0.9, b2=0.95, weight_decay=0.1)
 
 
-def make_train_step(cfg: ArchConfig, *, num_micro: int = 1,
+def make_train_step(cfg: ArchConfig, *, tp: int = 1, num_micro: int = 1,
                     opt: Adam | None = None, clip_norm: float = 1.0):
     """Returns ``(step, opt)``; ``step(params, opt_state, batch) -> (params,
     opt_state, {"loss", "grad_norm"})`` with the reference's arithmetic:
@@ -173,7 +169,7 @@ def make_train_step(cfg: ArchConfig, *, num_micro: int = 1,
     carry a leading (num_micro, micro_b) pair, and the loss and gradients
     are summed microbatch by microbatch in a loop and scaled by
     ``1 / num_micro``), clipped to ``clip_norm`` by their global norm, then
-    one Adam step.
+    one Adam step.  The model runs at ``tp`` (its params laid out so).
 
     ``params`` must be the float32 training form
     (``init_params(..., dtype=torch.float32)``); they and ``opt_state``
@@ -184,7 +180,7 @@ def make_train_step(cfg: ArchConfig, *, num_micro: int = 1,
     opt = opt or make_optimizer()
 
     def loss_of(params, data):
-        return mod.loss_fn(params, cfg, data), None
+        return mod.loss_fn(params, cfg, data, tp=tp), None
 
     def step(params, opt_state, batch):
         bad = sorted({str(t.dtype) for t in leaves(params)
@@ -208,20 +204,21 @@ def make_train_step(cfg: ArchConfig, *, num_micro: int = 1,
     return step, opt
 
 
-def make_prefill(cfg: ArchConfig, *, cache_len: int | None = None):
+def make_prefill(cfg: ArchConfig, *, tp: int = 1,
+                 cache_len: int | None = None):
     mod = module_for(cfg)
 
     def fn(params, batch):
-        return mod.prefill(params, cfg, batch, cache_len=cache_len)
+        return mod.prefill(params, cfg, batch, tp=tp, cache_len=cache_len)
 
     return fn
 
 
-def make_decode_step(cfg: ArchConfig):
+def make_decode_step(cfg: ArchConfig, *, tp: int = 1):
     mod = module_for(cfg)
 
     def fn(params, cache, batch):
-        return mod.decode_step(params, cfg, cache, batch["tokens"])
+        return mod.decode_step(params, cfg, cache, batch["tokens"], tp=tp)
 
     return fn
 

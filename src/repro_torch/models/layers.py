@@ -17,10 +17,14 @@ Conventions, as in the reference:
   memory, and float32 for training, the reference's ``PARAM_DTYPE``
   master weights.  Every product casts its operands to bf16, so the
   gradients of a float32 leaf are float32.
-* ``HeadLayout`` pads attention heads for tensor parallelism.  The port
-  runs on one card (tp = 1), where the layout neither pads query heads
-  nor repeats KV heads, so ``qkv_project`` does neither; the layout gives
-  the query heads per KV head.
+* ``HeadLayout`` pads attention heads for a tensor-parallel degree tp,
+  as the reference's does: dead query heads (zero weights and zero
+  o-projection rows) pad the query heads, and ``qkv_project`` repeats the
+  KV heads' activations (or pads them with zero heads) to the layout's
+  ``kv_padded``, so every shard would own whole query blocks with the KV
+  head they read.  Everything still runs on one device: at tp > 1 this
+  is the reference's arithmetic at tp, not tensor parallelism (no
+  collective runs).  At tp = 1 the layout pads and repeats nothing.
 """
 
 from __future__ import annotations
@@ -59,6 +63,9 @@ class HeadLayout:
     kv_padded: int
     slots: int
 
+    @property
+    def kv_repeat(self) -> int:
+        return self.kv_padded // self.num_kv
 
 
 def make_head_layout(num_q: int, num_kv: int, tp: int = 1) -> HeadLayout:
@@ -190,12 +197,36 @@ def proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(*x.shape[:-1], *w.shape[1:])
 
 
-def qkv_project(p, x: torch.Tensor, *, positions: torch.Tensor | None,
-                rope_theta: float | None, qk_norm_eps: float = 1e-6):
-    """x (B, S, D) -> q (B, S, H, hd), k/v (B, S, K, hd) in bf16 (the
-    reference's at tp = 1, where its padded layout repeats and pads
-    nothing).  The biases, where there are any, are added in bf16 before
-    the qk-norm and RoPE."""
+def pad_kv(t: torch.Tensor, layout: HeadLayout | None) -> torch.Tensor:
+    """k or v (B, S, K, hd) at the true KV head count -> (B, S, kv_padded,
+    hd): each head repeated ``kv_repeat`` times in place (head j becomes
+    heads [j r, (j + 1) r)), then zero heads up to ``kv_padded`` (MHA's
+    dead heads), as the reference's ``qkv_project`` lays them out.  The
+    copies share one weight, so GQA reads what it would unrepeated."""
+    if layout is None:
+        return t
+    if layout.kv_repeat > 1:
+        t = t.repeat_interleave(layout.kv_repeat, dim=2)
+    if t.shape[2] < layout.kv_padded:
+        t = torch.nn.functional.pad(
+            t, (0, 0, 0, layout.kv_padded - t.shape[2]))
+    return t
+
+
+def qkv_project(p, x: torch.Tensor, layout: HeadLayout | None = None, *,
+                positions: torch.Tensor | None, rope_theta: float | None,
+                qk_norm_eps: float = 1e-6):
+    """x (B, S, D) -> q (B, S, Hp, hd), k/v (B, S, Kp, hd) in bf16, the
+    reference's: the biases, where there are any, added in bf16 before the
+    qk-norm and RoPE; then k and v laid out at ``layout`` (:func:`pad_kv`;
+    ``None`` leaves the true KV heads).  The query heads are the params'
+    (padded when they were made at tp > 1); a ``layout`` that wants
+    another count raises ``ValueError``."""
+    if layout is not None and p["wq"].shape[1] != layout.q_padded:
+        raise ValueError(
+            f"the params hold {p['wq'].shape[1]} query heads; the head "
+            f"layout wants {layout.q_padded}: make the params at the tp the "
+            f"model runs at")
     q, k, v = proj(x, p["wq"]), proj(x, p["wk"]), proj(x, p["wv"])
     if "bq" in p:
         q = q + p["bq"].to(COMPUTE_DTYPE)
@@ -207,7 +238,7 @@ def qkv_project(p, x: torch.Tensor, *, positions: torch.Tensor | None,
     if rope_theta is not None:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
-    return q, k, v
+    return q, pad_kv(k, layout), pad_kv(v, layout)
 
 
 def _attn_parts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -557,8 +588,8 @@ def moe_apply(p, x: torch.Tensor, *, top_k: int,
     if ep:
         raise NotImplementedError(
             "moe_ep=True (experts sharded over the model axis) is not "
-            "ported yet (ROADMAP Queue 1 item 9b); the port runs experts "
-            "unsharded on one card")
+            "ported yet (ROADMAP Queue 1 item 9b.3); the port runs experts "
+            "unsharded")
     B, S, D = x.shape
     E = p["router"].shape[-1]
     E_real = num_real_experts or E
@@ -847,7 +878,7 @@ __all__ = [
     "init_attention", "init_embedding", "init_generator", "init_gelu_mlp", "init_layer_norm",
     "init_moe", "init_swiglu", "init_unembed", "layer_norm",
     "layers_from_numpy", "lm_logits", "make_head_layout", "moe_apply",
-    "moe_capacity", "proj", "qkv_project", "rms_norm", "rope_frequencies",
-    "run_block", "swiglu", "tied_logits", "token_ids", "tree_from_numpy",
-    "unembed", "write_prompt_kv",
+    "moe_capacity", "pad_kv", "proj", "qkv_project", "rms_norm",
+    "rope_frequencies", "run_block", "swiglu", "tied_logits", "token_ids",
+    "tree_from_numpy", "unembed", "write_prompt_kv",
 ]

@@ -17,19 +17,22 @@ counterpart of the reference's ``repro.models.mamba2``.
   with zeros in front (exact: the causal convolution pads with zeros);
   the reference keeps the short tail and its first decode step raises
   (ROADMAP fault 12).
+* ``tp`` (every function's keyword, 1 by default) pads the vocabulary
+  to ``cfg.vocab_padded(tp)``, as the reference's; the SSM has no heads
+  to pad, so it changes nothing else.
 * Params: a dict whose ``"layers"`` entry is a list of per-layer dicts;
   the matrices in ``dtype`` (bf16 to serve, float32 to train), every leaf
   the reference reads in float32 (norm scales, the convolution, the step
   and decay parameters, the skip) float32 in either form.
 
 Interface (the transformer's):
-    init_params(cfg, *, seed, device, dtype) -> params
+    init_params(cfg, *, tp, seed, device, dtype) -> params
     params_from_numpy(tree, cfg, *, device, dtype) -> params
-    forward(params, cfg, batch) -> (logits (B, S, Vp), h_last per layer)
-    loss_fn(params, cfg, batch) -> scalar loss
-    init_cache(cfg, batch_size, cache_len, *, device) -> cache
-    prefill(params, cfg, batch, *, cache_len) -> (last logits, cache)
-    decode_step(params, cfg, cache, tokens) -> (logits, cache)
+    forward(params, cfg, batch, *, tp) -> (logits (B, S, Vp), h_last a layer)
+    loss_fn(params, cfg, batch, *, tp) -> scalar loss
+    init_cache(cfg, batch_size, cache_len, *, tp, device) -> cache
+    prefill(params, cfg, batch, *, tp, cache_len) -> (last logits, cache)
+    decode_step(params, cfg, cache, tokens, *, tp) -> (logits, cache)
 """
 
 from __future__ import annotations
@@ -80,14 +83,15 @@ def _init_block(gen, cfg: ArchConfig, dev, dtype):
     }
 
 
-def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
+def init_params(cfg: ArchConfig, *, tp: int = 1, seed: int = 0, device=None,
                 dtype: torch.dtype = L.COMPUTE_DTYPE):
     """Random params from a ``torch.Generator`` on ``device`` with the
     reference's stds and its deterministic step, decay and skip
-    initialisations (see the module's docstring for the dtypes)."""
+    initialisations, the vocabulary padded at ``tp`` (see the module's
+    docstring for the dtypes)."""
     dev = torch.device("cpu" if device is None else device)
     gen = L.init_generator(dev, seed)
-    V = cfg.vocab_padded(1)
+    V = cfg.vocab_padded(tp)
     params = {
         "embed": L.init_embedding(gen, V, cfg.d_model, device=dev,
                                   dtype=dtype),
@@ -130,7 +134,7 @@ def param_axes(cfg: ArchConfig):
 
 def params_from_numpy(tree, cfg: ArchConfig, *, device=None,
                       dtype: torch.dtype = L.COMPUTE_DTYPE):
-    """The reference's tree (``init_params(key, cfg, tp=1)`` as numpy,
+    """The reference's tree (``init_params(key, cfg, tp)`` as numpy,
     layers stacked) as the port's params."""
     kw = dict(f32=F32_LEAVES, dtype=dtype,
               device=torch.device("cpu" if device is None else device))
@@ -262,7 +266,7 @@ def _run(params, cfg: ArchConfig, tokens: torch.Tensor, cache=None):
     return x, states
 
 
-def forward(params, cfg: ArchConfig, batch):
+def forward(params, cfg: ArchConfig, batch, *, tp: int = 1):
     """Full-sequence forward -> (logits (B, S, Vp) bf16, each block's
     last SSM state)."""
     tokens = L.token_ids(batch["tokens"], params["embed"]["table"].device)
@@ -270,9 +274,9 @@ def forward(params, cfg: ArchConfig, batch):
     return L.lm_logits(params, cfg, x), states
 
 
-def loss_fn(params, cfg: ArchConfig, batch) -> torch.Tensor:
+def loss_fn(params, cfg: ArchConfig, batch, *, tp: int = 1) -> torch.Tensor:
     """Cross-entropy of positions [0, S-1) against labels [1, S)."""
-    logits, _ = forward(params, cfg, batch)
+    logits, _ = forward(params, cfg, batch, tp=tp)
     labels = L.token_ids(batch["labels"], logits.device)
     return L.cross_entropy_loss(logits[:, :-1], labels[:, 1:],
                                 vocab_real=cfg.vocab_size)
@@ -283,11 +287,12 @@ def loss_fn(params, cfg: ArchConfig, batch) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ArchConfig, batch_size: int, cache_len: int = 0, *,
-               device=None):
+               tp: int = 1, device=None):
     """Each block's SSM state (L, B, H, P, N) float32 and last
     ``ssm_conv - 1`` convolution inputs (L, B, K-1, C) bf16: O(1) in the
-    sequence, so ``cache_len`` is unused."""
-    del cache_len
+    sequence, so ``cache_len`` is unused, and no head to lay out, so
+    ``tp`` is too."""
+    del cache_len, tp
     d_inner, H = _dims(cfg)
     G, N, P = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_headdim
     dev = torch.device("cpu" if device is None else device)
@@ -309,7 +314,8 @@ def cache_axes(cfg: ArchConfig, *, seq_shard: bool = False):
     }
 
 
-def prefill(params, cfg: ArchConfig, batch, *, cache_len: int | None = None):
+def prefill(params, cfg: ArchConfig, batch, *, tp: int = 1,
+            cache_len: int | None = None):
     """The whole prompt -> (last-token logits (B, Vp), cache); only the
     last position is unembedded."""
     dev = params["embed"]["table"].device
@@ -320,7 +326,7 @@ def prefill(params, cfg: ArchConfig, batch, *, cache_len: int | None = None):
     return L.lm_logits(params, cfg, x[:, -1:])[:, 0], cache
 
 
-def decode_step(params, cfg: ArchConfig, cache, tokens):
+def decode_step(params, cfg: ArchConfig, cache, tokens, *, tp: int = 1):
     """One token (B, 1) through the recurrence -> (logits (B, Vp), cache),
     the cache updated in place."""
     d_inner, H = _dims(cfg)

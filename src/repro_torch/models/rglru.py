@@ -19,19 +19,23 @@ local attention: the port's counterpart of the reference's
   a prompt that is no multiple of the window its first decode step
   overwrites a position still inside the window (ROADMAP fault 11).  A
   full ring shorter than the window raises ``ValueError``.
+* ``tp`` (every function's keyword, 1 by default) lays the attention
+  heads, the KV ring and the vocabulary out as the reference's do at that
+  tensor-parallel degree (the MQA's one KV head repeated, query heads
+  padded); everything runs on one device.
 * Params: ``{"embed", "super": {"rec1", "rec2", "attn"}: lists over the
   superblocks, "tail": list, "final_norm"}``; matrices in ``dtype``, the
   leaves the reference reads in float32 (norm scales, the convolution,
   the gates' W_a, W_x and biases, Lambda) float32 in either form.
 
 Interface (the transformer's):
-    init_params(cfg, *, seed, device, dtype) -> params
+    init_params(cfg, *, tp, seed, device, dtype) -> params
     params_from_numpy(tree, cfg, *, device, dtype) -> params
-    forward(params, cfg, batch) -> (logits (B, S, Vp), None)
-    loss_fn(params, cfg, batch) -> scalar loss
-    init_cache(cfg, batch_size, cache_len, *, device) -> cache
-    prefill(params, cfg, batch, *, cache_len) -> (last logits, cache)
-    decode_step(params, cfg, cache, tokens) -> (logits, cache)
+    forward(params, cfg, batch, *, tp) -> (logits (B, S, Vp), None)
+    loss_fn(params, cfg, batch, *, tp) -> scalar loss
+    init_cache(cfg, batch_size, cache_len, *, tp, device) -> cache
+    prefill(params, cfg, batch, *, tp, cache_len) -> (last logits, cache)
+    decode_step(params, cfg, cache, tokens, *, tp) -> (logits, cache)
 """
 
 from __future__ import annotations
@@ -49,8 +53,8 @@ CONV_K = 4
 F32_LEAVES = ("scale", "conv_w", "conv_b", "wa", "ba", "wx", "bx", "lam")
 
 
-def _layout(cfg: ArchConfig) -> L.HeadLayout:
-    return L.make_head_layout(cfg.num_heads, cfg.num_kv_heads, 1)
+def _layout(cfg: ArchConfig, tp: int) -> L.HeadLayout:
+    return L.make_head_layout(cfg.num_heads, cfg.num_kv_heads, tp)
 
 
 def block_pattern(num_layers: int) -> list[str]:
@@ -92,33 +96,34 @@ def _init_rec_layer(gen, cfg: ArchConfig, dev, dtype):
     }
 
 
-def _init_attn_layer(gen, cfg: ArchConfig, dev, dtype):
+def _init_attn_layer(gen, cfg: ArchConfig, layout, dev, dtype):
     D = cfg.d_model
     return {
         "ln1": {"scale": torch.ones(D, device=dev)},
-        "attn": L.init_attention(gen, D, _layout(cfg), cfg.head_dim_,
+        "attn": L.init_attention(gen, D, layout, cfg.head_dim_,
                                  device=dev, dtype=dtype),
         "ln2": {"scale": torch.ones(D, device=dev)},
         "mlp": L.init_swiglu(gen, D, cfg.d_ff, device=dev, dtype=dtype),
     }
 
 
-def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
+def init_params(cfg: ArchConfig, *, tp: int = 1, seed: int = 0, device=None,
                 dtype: torch.dtype = L.COMPUTE_DTYPE):
-    """Random params from a ``torch.Generator`` on ``device`` with the
-    reference's stds and Lambda grid (see the module's docstring for the
-    dtypes)."""
+    """Random params laid out at ``tp`` from a ``torch.Generator`` on
+    ``device`` with the reference's stds and Lambda grid (see the module's
+    docstring for the dtypes)."""
     dev = torch.device("cpu" if device is None else device)
     gen = L.init_generator(dev, seed)
     ns, nt = _num_super(cfg)
-    V = cfg.vocab_padded(1)
+    V = cfg.vocab_padded(tp)
+    layout = _layout(cfg, tp)
     rec = lambda: _init_rec_layer(gen, cfg, dev, dtype)  # noqa: E731
     params = {
         "embed": L.init_embedding(gen, V, cfg.d_model, device=dev,
                                   dtype=dtype),
         "super": {"rec1": [rec() for _ in range(ns)],
                   "rec2": [rec() for _ in range(ns)],
-                  "attn": [_init_attn_layer(gen, cfg, dev, dtype)
+                  "attn": [_init_attn_layer(gen, cfg, layout, dev, dtype)
                            for _ in range(ns)]},
         "final_norm": {"scale": torch.ones(cfg.d_model, device=dev)},
     }
@@ -170,7 +175,7 @@ def param_axes(cfg: ArchConfig):
 
 def params_from_numpy(tree, cfg: ArchConfig, *, device=None,
                       dtype: torch.dtype = L.COMPUTE_DTYPE):
-    """The reference's tree (``init_params(key, cfg, tp=1)`` as numpy,
+    """The reference's tree (``init_params(key, cfg, tp)`` as numpy,
     superblocks and tail stacked) as the port's params."""
     ns, nt = _num_super(cfg)
     kw = dict(f32=F32_LEAVES, dtype=dtype,
@@ -247,14 +252,14 @@ def _attn_mlp(lp, cfg: ArchConfig, x: torch.Tensor, o: torch.Tensor):
                                               cfg.norm_eps))
 
 
-def _attn_block(lp, cfg: ArchConfig, x: torch.Tensor,
+def _attn_block(lp, cfg: ArchConfig, layout, x: torch.Tensor,
                 positions: torch.Tensor):
     """Local (windowed, causal) attention and MLP over x -> (x, k, v)."""
     h = L.rms_norm(x, lp["ln1"]["scale"], cfg.norm_eps)
-    q, k, v = L.qkv_project(lp["attn"], h, positions=positions,
+    q, k, v = L.qkv_project(lp["attn"], h, layout, positions=positions,
                             rope_theta=cfg.rope_theta or None)
     with torch.profiler.record_function("lm.attention"):
-        o = L.attention_chunked(q, k, v, _layout(cfg), causal=True,
+        o = L.attention_chunked(q, k, v, layout, causal=True,
                                 window=cfg.local_window,
                                 kv_chunk=cfg.attn_chunk)
     return _attn_mlp(lp, cfg, x, o), k, v
@@ -264,10 +269,12 @@ def _attn_block(lp, cfg: ArchConfig, x: torch.Tensor,
 # forward / loss
 # ---------------------------------------------------------------------------
 
-def _run(params, cfg: ArchConfig, tokens: torch.Tensor, cache=None):
+def _run(params, cfg: ArchConfig, tokens: torch.Tensor, cache=None, *,
+         tp: int = 1):
     """Embed and run every block -> the last hidden state; with ``cache``
     each block's RG-LRU state, convolution tail and k/v are written
     there."""
+    layout = _layout(cfg, tp)
     x = L.embed(params["embed"], tokens)
     B, S = tokens.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
@@ -284,8 +291,8 @@ def _run(params, cfg: ArchConfig, tokens: torch.Tensor, cache=None):
     for i in range(len(sup["attn"])):
         x = rec(sup["rec1"][i], x, "lru1", "conv1", i)
         x = rec(sup["rec2"][i], x, "lru2", "conv2", i)
-        x, k, v = L.run_block(remat, _attn_block, sup["attn"][i], cfg, x,
-                              positions)
+        x, k, v = L.run_block(remat, _attn_block, sup["attn"][i], cfg,
+                              layout, x, positions)
         if cache is not None:
             L.write_prompt_kv(cache, i, k, v)
     for i, lp in enumerate(params.get("tail", [])):
@@ -293,15 +300,15 @@ def _run(params, cfg: ArchConfig, tokens: torch.Tensor, cache=None):
     return x
 
 
-def forward(params, cfg: ArchConfig, batch):
+def forward(params, cfg: ArchConfig, batch, *, tp: int = 1):
     """Full-sequence forward -> (logits (B, S, Vp) bf16, None)."""
     tokens = L.token_ids(batch["tokens"], params["embed"]["table"].device)
-    return L.lm_logits(params, cfg, _run(params, cfg, tokens)), None
+    return L.lm_logits(params, cfg, _run(params, cfg, tokens, tp=tp)), None
 
 
-def loss_fn(params, cfg: ArchConfig, batch) -> torch.Tensor:
+def loss_fn(params, cfg: ArchConfig, batch, *, tp: int = 1) -> torch.Tensor:
     """Cross-entropy of positions [0, S-1) against labels [1, S)."""
-    logits, _ = forward(params, cfg, batch)
+    logits, _ = forward(params, cfg, batch, tp=tp)
     labels = L.token_ids(batch["labels"], logits.device)
     return L.cross_entropy_loss(logits[:, :-1], labels[:, 1:],
                                 vocab_real=cfg.vocab_size)
@@ -312,12 +319,13 @@ def loss_fn(params, cfg: ArchConfig, batch) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ArchConfig, batch_size: int, cache_len: int, *,
-               device=None):
+               tp: int = 1, device=None):
     """The reference's cache: RG-LRU states (float32) and convolution
     tails (bf16) of the superblocks' two recurrent layers and of the tail
     (one zero entry when there is no tail), and the attention layers' KV
-    ring of min(cache_len, local_window) slots."""
-    layout = _layout(cfg)
+    ring of min(cache_len, local_window) slots, its heads laid out at
+    ``tp``."""
+    layout = _layout(cfg, tp)
     ns, nt = _num_super(cfg)
     W, B = cfg.lru_width, batch_size
     Skv = min(cache_len, cfg.local_window)
@@ -345,7 +353,8 @@ def cache_axes(cfg: ArchConfig, *, seq_shard: bool = False):
             "pos": logical(name="cache.pos")}
 
 
-def prefill(params, cfg: ArchConfig, batch, *, cache_len: int | None = None):
+def prefill(params, cfg: ArchConfig, batch, *, tp: int = 1,
+            cache_len: int | None = None):
     """The whole prompt -> (last-token logits (B, Vp), cache); the KV ring
     holds the prompt's last min(cache_len, window) positions, position p
     in slot p % slots.  ``cache_len`` defaults to the prompt's; shorter
@@ -357,8 +366,8 @@ def prefill(params, cfg: ArchConfig, batch, *, cache_len: int | None = None):
     if cache_len < S:
         raise ValueError(f"cache_len {cache_len} is shorter than the "
                          f"{S}-token prompt")
-    cache = init_cache(cfg, B, cache_len, device=dev)
-    x = _run(params, cfg, tokens, cache)
+    cache = init_cache(cfg, B, cache_len, tp=tp, device=dev)
+    x = _run(params, cfg, tokens, cache, tp=tp)
     cache["pos"] = S
     return L.lm_logits(params, cfg, x[:, -1:])[:, 0], cache
 
@@ -373,10 +382,11 @@ def _rec_step(lp, cfg: ArchConfig, x, cache, lru: str, conv: str, i: int):
     return x
 
 
-def decode_step(params, cfg: ArchConfig, cache, tokens):
+def decode_step(params, cfg: ArchConfig, cache, tokens, *, tp: int = 1):
     """One token (B, 1) -> (logits (B, Vp), cache), the cache updated in
     place: the recurrences advance one step and the attention layers write
     slot pos % Skv of their ring."""
+    layout = _layout(cfg, tp)
     dev = params["embed"]["table"].device
     x = L.embed(params["embed"], L.token_ids(tokens, dev))
     pos = int(cache["pos"])
@@ -388,12 +398,12 @@ def decode_step(params, cfg: ArchConfig, cache, tokens):
         x = _rec_step(sup["rec1"][i], cfg, x, cache, "lru1", "conv1", i)
         x = _rec_step(sup["rec2"][i], cfg, x, cache, "lru2", "conv2", i)
         hn = L.rms_norm(x, lp["ln1"]["scale"], cfg.norm_eps)
-        q, k, v = L.qkv_project(lp["attn"], hn, positions=positions,
+        q, k, v = L.qkv_project(lp["attn"], hn, layout, positions=positions,
                                 rope_theta=cfg.rope_theta or None)
         cache["k"][i, :, pos % Skv] = k[:, 0]
         cache["v"][i, :, pos % Skv] = v[:, 0]
         o = L.attention_decode(q, cache["k"][i], cache["v"][i],
-                               _layout(cfg), cur_len=pos + 1,
+                               layout, cur_len=pos + 1,
                                window=cfg.local_window)
         x = _attn_mlp(lp, cfg, x, o)
     for i, lp in enumerate(params.get("tail", [])):

@@ -20,9 +20,16 @@ counterpart of the reference's ``repro.models.transformer``.
   embeddings (B, P, D) are prepended to the token embeddings; the KV
   cache holds P more positions, prefill's position counts them, and
   ``loss_fn`` labels the text positions only.
-* One card: there is no tensor parallelism, so the head layout is the
-  reference's at tp = 1, and experts are not sharded (``moe_ep=True``
-  raises).
+* ``tp`` (every function's keyword, 1 by default; the reference's is
+  16) lays the params and the KV cache out as the reference's do at that
+  tensor-parallel degree: query heads padded with dead heads, KV heads
+  repeated or zero-padded (``layers.make_head_layout``), the vocabulary
+  padded to ``cfg.vocab_padded(tp)`` (the loss masks the padded logits).
+  Everything runs on one device, so tp > 1 is the reference's arithmetic
+  at tp, not tensor parallelism (ROADMAP Queue 1 item 9b.2).  Experts are
+  not sharded (``moe_ep=True`` raises, item 9b.3).
+* On the ``meta`` device (shapes only: the dry-run) the flash-attention
+  path runs the kernel's plain version, which launches nothing.
 * Params come in two forms: bf16 matrices for serving and float32
   matrices (``dtype=torch.float32``), the reference's master weights,
   for training.  With ``cfg.remat`` and gradients on, each layer runs
@@ -34,14 +41,14 @@ counterpart of the reference's ``repro.models.transformer``.
   gradients raises.
 
 Interface:
-    init_params(cfg, *, seed, device, dtype) -> params
+    init_params(cfg, *, tp, seed, device, dtype) -> params
     params_from_numpy(tree, cfg, *, device, dtype) -> params (reference init)
-    forward(params, cfg, batch, *, collect_kv, vocab_cols)
+    forward(params, cfg, batch, *, tp, collect_kv, vocab_cols)
                                              -> (logits, aux, kv)
-    loss_fn(params, cfg, batch)              -> scalar loss
-    prefill(params, cfg, batch, *, cache_len)  -> (last logits, cache)
-    init_cache(cfg, batch_size, cache_len, *, device) -> cache (zeros)
-    decode_step(params, cfg, cache, tokens)  -> (logits, cache)
+    loss_fn(params, cfg, batch, *, tp)       -> scalar loss
+    prefill(params, cfg, batch, *, tp, cache_len) -> (last logits, cache)
+    init_cache(cfg, batch_size, cache_len, *, tp, device) -> cache (zeros)
+    decode_step(params, cfg, cache, tokens, *, tp) -> (logits, cache)
 """
 
 from __future__ import annotations
@@ -64,7 +71,7 @@ FAMILIES = ("dense", "moe", "vlm")
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for what the port's transformer does
     not run: the families of the other modules (``models.api``) and
-    experts sharded over a model axis (ROADMAP Queue 1 item 9b)."""
+    experts sharded over a model axis (ROADMAP Queue 1 item 9b.3)."""
     missing = []
     if cfg.family not in FAMILIES:
         missing.append(f"family {cfg.family!r}")
@@ -78,22 +85,23 @@ def check_supported(cfg: ArchConfig) -> None:
     if cfg.moe_ep:
         raise NotImplementedError(
             f"{cfg.name}: moe_ep=True (experts sharded over the model "
-            f"axis) is not ported yet (ROADMAP Queue 1 item 9b); the port "
-            f"runs experts unsharded on one card")
+            f"axis) is not ported yet (ROADMAP Queue 1 item 9b.3); the "
+            f"port runs experts unsharded")
 
 
-def _layout(cfg: ArchConfig) -> L.HeadLayout:
-    return L.make_head_layout(cfg.num_heads, cfg.num_kv_heads, 1)
+def _layout(cfg: ArchConfig, tp: int) -> L.HeadLayout:
+    return L.make_head_layout(cfg.num_heads, cfg.num_kv_heads, tp)
 
 
 # ---------------------------------------------------------------------------
 # params
 # ---------------------------------------------------------------------------
 
-def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
+def init_params(cfg: ArchConfig, *, tp: int = 1, seed: int = 0, device=None,
                 dtype: torch.dtype = L.COMPUTE_DTYPE):
-    """Random params from a ``torch.Generator`` on ``device`` with the
-    reference's stds and dead-slot zeroing: matrix weights in ``dtype``
+    """Random params laid out at ``tp`` from a ``torch.Generator`` on
+    ``device`` with the reference's stds and dead-slot zeroing: matrix
+    weights in ``dtype``
     (bf16, the serving form; float32, the training form, whose bf16
     rounding is the serving form of the same seed), norm scales float32.
     ``torch`` and ``jax.random`` give different numbers from one seed: to
@@ -102,8 +110,8 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
     check_supported(cfg)
     dev = torch.device("cpu" if device is None else device)
     gen = L.init_generator(dev, seed)
-    layout = _layout(cfg)
-    D, V = cfg.d_model, cfg.vocab_padded(1)
+    layout = _layout(cfg, tp)
+    D, V = cfg.d_model, cfg.vocab_padded(tp)
     ones = lambda: {"scale": torch.ones(D, device=dev)}  # noqa: E731
     layers = []
     for _ in range(cfg.num_layers):
@@ -152,8 +160,9 @@ def param_axes(cfg: ArchConfig):
 
 def params_from_numpy(tree, cfg: ArchConfig, *, device=None,
                       dtype: torch.dtype = L.COMPUTE_DTYPE):
-    """The reference's param tree (``init_params(key, cfg, tp=1)`` as
-    numpy arrays, layers stacked on a leading axis) as the port's params:
+    """The reference's param tree (``init_params(key, cfg, tp)`` as numpy
+    arrays, layers stacked on a leading axis) as the port's params, laid
+    out at the reference's tp:
     matrix weights and biases to ``dtype`` (bf16 to serve; float32, the
     reference's own values, to train), norm scales and the MoE router
     float32, the layer axis split into a list."""
@@ -183,10 +192,14 @@ def _block_apply(lp, cfg: ArchConfig, layout: L.HeadLayout,
                  x: torch.Tensor, positions: torch.Tensor):
     """One layer over the whole sequence -> (x, aux, k, v)."""
     h = L.rms_norm(x, lp["ln1"]["scale"], cfg.norm_eps)
-    q, k, v = L.qkv_project(lp["attn"], h, positions=positions,
+    q, k, v = L.qkv_project(lp["attn"], h, layout, positions=positions,
                             rope_theta=cfg.rope_theta or None,
                             qk_norm_eps=cfg.norm_eps)
     flash_path = cfg.attn_impl == "pallas" and cfg.swa_window is None
+    if flash_path and q.is_meta:
+        # shapes only (the dry-run): the kernel's plain version stands in
+        # for K10, which nothing launches on the meta device
+        flash_path = False
     if flash_path and q.requires_grad:
         raise NotImplementedError(
             f"{cfg.name}: attn_impl='pallas' has no backward (the "
@@ -200,6 +213,8 @@ def _block_apply(lp, cfg: ArchConfig, layout: L.HeadLayout,
             # says, as the reference's pallas path does
             o = flash.attend(q, k, v, causal=True,
                              block=min(cfg.attn_chunk, q.shape[1]))
+        elif cfg.attn_impl == "pallas" and cfg.swa_window is None:
+            o = flash.attention_ref(q, k, v, causal=True)
         elif cfg.attn_impl == "tri" and cfg.swa_window is None:
             o = L.attention_causal_tri(q, k, v, layout,
                                        kv_chunk=cfg.attn_chunk,
@@ -223,7 +238,8 @@ def _patches(cfg: ArchConfig, batch, device) -> torch.Tensor | None:
 
 
 def _layers(params, cfg: ArchConfig, tokens: torch.Tensor, cache=None, *,
-            collect_kv: bool = False, patches: torch.Tensor | None = None):
+            tp: int = 1, collect_kv: bool = False,
+            patches: torch.Tensor | None = None):
     """Embed (``patches`` (B, P, D) before the tokens' embeddings) and run
     every layer -> (the last hidden state (B, P + S, D), the summed aux
     loss, ks, vs); each layer's k/v is written into ``cache`` when given
@@ -232,7 +248,7 @@ def _layers(params, cfg: ArchConfig, tokens: torch.Tensor, cache=None, *,
     recomputed in the backward pass instead of keeping its
     activations."""
     check_supported(cfg)
-    layout = _layout(cfg)
+    layout = _layout(cfg, tp)
     x = L.embed(params["embed"], tokens)
     if patches is not None:
         x = torch.cat([patches.to(x.dtype), x], dim=1)
@@ -253,8 +269,8 @@ def _layers(params, cfg: ArchConfig, tokens: torch.Tensor, cache=None, *,
     return x, aux, ks, vs
 
 
-def forward(params, cfg: ArchConfig, batch, *, collect_kv: bool = False,
-            vocab_cols: int | None = None):
+def forward(params, cfg: ArchConfig, batch, *, tp: int = 1,
+            collect_kv: bool = False, vocab_cols: int | None = None):
     """Full-sequence forward -> (logits (B, S, Vp) bf16, aux (the MoE's
     load-balance loss summed over the layers, a float32 scalar; 0.0 for
     the dense family), (k, v) stacked over layers (L, B, S, Kp, hd) or
@@ -263,18 +279,19 @@ def forward(params, cfg: ArchConfig, batch, *, collect_kv: bool = False,
     columns (the DWN head's pooled features read 16 of them)."""
     dev = params["embed"]["table"].device
     tokens = L.token_ids(batch["tokens"], dev)
-    x, aux, ks, vs = _layers(params, cfg, tokens, collect_kv=collect_kv,
+    x, aux, ks, vs = _layers(params, cfg, tokens, tp=tp,
+                             collect_kv=collect_kv,
                              patches=_patches(cfg, batch, dev))
     kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
     return L.lm_logits(params, cfg, x, vocab_cols), aux, kvs
 
 
-def loss_fn(params, cfg: ArchConfig, batch) -> torch.Tensor:
+def loss_fn(params, cfg: ArchConfig, batch, *, tp: int = 1) -> torch.Tensor:
     """Next-token loss of ``batch`` ({"tokens", "labels"}, (B, S) each):
     the cross-entropy of positions [0, S-1) against labels [1, S), plus
     0.01 times the summed aux loss, as the reference adds it.  A VLM
     batch's patch positions carry no label and are dropped."""
-    logits, aux, _ = forward(params, cfg, batch)
+    logits, aux, _ = forward(params, cfg, batch, tp=tp)
     if cfg.family == "vlm" and batch.get("patches") is not None:
         logits = logits[:, batch["patches"].shape[1]:]
     labels = L.token_ids(batch["labels"], logits.device)
@@ -301,8 +318,10 @@ def cache_len_for(cfg: ArchConfig, seq_len: int) -> int:
 
 
 def init_cache(cfg: ArchConfig, batch_size: int, cache_len: int, *,
-               device=None):
-    layout = _layout(cfg)
+               tp: int = 1, device=None):
+    """Zero K/V (L, B, ``cache_len_for(cfg, cache_len)``, kv_padded at
+    ``tp``, hd) bf16 and the position 0."""
+    layout = _layout(cfg, tp)
     shape = (cfg.num_layers, batch_size, cache_len_for(cfg, cache_len),
              layout.kv_padded, cfg.head_dim_)
     dev = torch.device("cpu" if device is None else device)
@@ -318,7 +337,8 @@ def cache_axes(cfg: ArchConfig, *, seq_shard: bool = False):
     return {"k": kv, "v": kv, "pos": logical(name="cache.pos")}
 
 
-def prefill(params, cfg: ArchConfig, batch, *, cache_len: int | None = None):
+def prefill(params, cfg: ArchConfig, batch, *, tp: int = 1,
+            cache_len: int | None = None):
     """Process the whole prompt -> (last-token logits (B, Vp), cache).
 
     The cache has ``cache_len_for(cfg, cache_len)`` positions
@@ -339,14 +359,14 @@ def prefill(params, cfg: ArchConfig, batch, *, cache_len: int | None = None):
     if cache_len < S:
         raise ValueError(f"cache_len {cache_len} is shorter than the "
                          f"{S}-token prompt")
-    cache = init_cache(cfg, B, cache_len, device=dev)
-    x, _, _, _ = _layers(params, cfg, tokens, cache,
+    cache = init_cache(cfg, B, cache_len, tp=tp, device=dev)
+    x, _, _, _ = _layers(params, cfg, tokens, cache, tp=tp,
                          patches=_patches(cfg, batch, dev))
     cache["pos"] = x.shape[1]
     return L.lm_logits(params, cfg, x[:, -1:])[:, 0], cache
 
 
-def decode_step(params, cfg: ArchConfig, cache, tokens):
+def decode_step(params, cfg: ArchConfig, cache, tokens, *, tp: int = 1):
     """One decode step: tokens (B, 1) against the cache -> (logits (B, Vp),
     cache).  The cache is updated in place (the reference returns a new
     one) and returned.  Under a sliding window the new position p goes to
@@ -354,7 +374,7 @@ def decode_step(params, cfg: ArchConfig, cache, tokens):
     ``ValueError``, since that slot still holds a position the window
     reads."""
     check_supported(cfg)
-    layout = _layout(cfg)
+    layout = _layout(cfg, tp)
     dev = params["embed"]["table"].device
     x = L.embed(params["embed"], L.token_ids(tokens, dev))
     pos = int(cache["pos"])
@@ -368,7 +388,7 @@ def decode_step(params, cfg: ArchConfig, cache, tokens):
     positions = torch.full((x.shape[0], 1), pos, device=dev)
     for i, lp in enumerate(params["layers"]):
         hn = L.rms_norm(x, lp["ln1"]["scale"], cfg.norm_eps)
-        q, k, v = L.qkv_project(lp["attn"], hn, positions=positions,
+        q, k, v = L.qkv_project(lp["attn"], hn, layout, positions=positions,
                                 rope_theta=cfg.rope_theta or None,
                                 qk_norm_eps=cfg.norm_eps)
         cache["k"][i, :, slot] = k[:, 0]

@@ -16,18 +16,22 @@ counterpart of the reference's ``repro.models.whisper``.
 * Params: ``{"embed", "enc_layers": list, "enc_ln", "dec_layers": list,
   "dec_ln"}``; matrices and their biases in ``dtype``, norm scales and
   biases float32.
+* ``tp`` (every function's keyword, 1 by default) lays the heads, the
+  caches and the vocabulary out as the reference's do at that degree (the
+  MHA's query heads padded with dead heads, K/V with zero heads, the
+  cached cross K/V too); everything runs on one device.
 
 Interface (the transformer's, plus the encoder's parts):
-    init_params(cfg, *, seed, device, dtype) -> params
+    init_params(cfg, *, tp, seed, device, dtype) -> params
     params_from_numpy(tree, cfg, *, device, dtype) -> params
-    encode(params, cfg, frames) -> encoder states (B, F, D)
-    cross_kv(params, cfg, enc_states) -> ([k], [v]) a decoder layer
-    decode_train(params, cfg, tokens, enc_states) -> logits (B, S, Vp)
-    forward(params, cfg, batch) -> (logits, 0.0)
-    loss_fn(params, cfg, batch) -> scalar loss
-    init_cache(cfg, batch_size, cache_len, *, device) -> cache
-    prefill(params, cfg, batch, *, cache_len) -> (last logits, cache)
-    decode_step(params, cfg, cache, tokens) -> (logits, cache)
+    encode(params, cfg, frames, *, tp) -> encoder states (B, F, D)
+    cross_kv(params, cfg, enc_states, *, tp) -> ([k], [v]) a decoder layer
+    decode_train(params, cfg, tokens, enc_states, *, tp) -> logits
+    forward(params, cfg, batch, *, tp) -> (logits, 0.0)
+    loss_fn(params, cfg, batch, *, tp) -> scalar loss
+    init_cache(cfg, batch_size, cache_len, *, tp, device) -> cache
+    prefill(params, cfg, batch, *, tp, cache_len) -> (last logits, cache)
+    decode_step(params, cfg, cache, tokens, *, tp) -> (logits, cache)
 """
 
 from __future__ import annotations
@@ -43,8 +47,8 @@ from . import layers as L
 F32_LEAVES = ("scale", "bias")
 
 
-def _layout(cfg: ArchConfig) -> L.HeadLayout:
-    return L.make_head_layout(cfg.num_heads, cfg.num_kv_heads, 1)
+def _layout(cfg: ArchConfig, tp: int) -> L.HeadLayout:
+    return L.make_head_layout(cfg.num_heads, cfg.num_kv_heads, tp)
 
 
 def sinusoid_positions(length: int, dim: int, start: int = 0) -> np.ndarray:
@@ -67,33 +71,32 @@ def _positions(length, dim, device, start=0) -> torch.Tensor:
 # params
 # ---------------------------------------------------------------------------
 
-def _attn(gen, cfg, dev, dtype):
-    return L.init_attention(gen, cfg.d_model, _layout(cfg), cfg.head_dim_,
-                            qkv_bias=True, out_bias=True, device=dev,
-                            dtype=dtype)
-
-
-def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
+def init_params(cfg: ArchConfig, *, tp: int = 1, seed: int = 0, device=None,
                 dtype: torch.dtype = L.COMPUTE_DTYPE):
-    """Random params from a ``torch.Generator`` on ``device`` with the
-    reference's stds (see the module's docstring for the dtypes)."""
+    """Random params laid out at ``tp`` from a ``torch.Generator`` on
+    ``device`` with the reference's stds (see the module's docstring for
+    the dtypes)."""
     dev = torch.device("cpu" if device is None else device)
     gen = L.init_generator(dev, seed)
+    layout = _layout(cfg, tp)
     D = cfg.d_model
     ln = lambda: L.init_layer_norm(D, device=dev)  # noqa: E731
     mlp = lambda: L.init_gelu_mlp(gen, D, cfg.d_ff, device=dev,  # noqa: E731
                                   dtype=dtype)
+    attn = lambda: L.init_attention(  # noqa: E731
+        gen, D, layout, cfg.head_dim_, qkv_bias=True, out_bias=True,
+        device=dev, dtype=dtype)
     return {
-        "embed": L.init_embedding(gen, cfg.vocab_padded(1), D, device=dev,
+        "embed": L.init_embedding(gen, cfg.vocab_padded(tp), D, device=dev,
                                   dtype=dtype),
-        "enc_layers": [{"ln1": ln(), "attn": _attn(gen, cfg, dev, dtype),
+        "enc_layers": [{"ln1": ln(), "attn": attn(),
                         "ln2": ln(), "mlp": mlp()}
                        for _ in range(cfg.enc_layers)],
         "enc_ln": ln(),
         "dec_layers": [{"ln1": ln(),
-                        "self_attn": _attn(gen, cfg, dev, dtype),
+                        "self_attn": attn(),
                         "ln_x": ln(),
-                        "cross_attn": _attn(gen, cfg, dev, dtype),
+                        "cross_attn": attn(),
                         "ln2": ln(), "mlp": mlp()}
                        for _ in range(cfg.num_layers)],
         "dec_ln": ln(),
@@ -125,7 +128,7 @@ def param_axes(cfg: ArchConfig):
 
 def params_from_numpy(tree, cfg: ArchConfig, *, device=None,
                       dtype: torch.dtype = L.COMPUTE_DTYPE):
-    """The reference's tree (``init_params(key, cfg, tp=1)`` as numpy, the
+    """The reference's tree (``init_params(key, cfg, tp)`` as numpy, the
     encoder's and decoder's layers stacked) as the port's params."""
     kw = dict(f32=F32_LEAVES, dtype=dtype,
               device=torch.device("cpu" if device is None else device))
@@ -143,36 +146,43 @@ def _ln(p, x, cfg):
     return L.layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
 
 
-def _enc_block(lp, cfg: ArchConfig, h: torch.Tensor):
-    q, k, v = L.qkv_project(lp["attn"], _ln(lp["ln1"], h, cfg),
+def _enc_block(lp, cfg: ArchConfig, layout, h: torch.Tensor):
+    q, k, v = L.qkv_project(lp["attn"], _ln(lp["ln1"], h, cfg), layout,
                             positions=None, rope_theta=None)
     with torch.profiler.record_function("lm.attention"):
-        o = L.attention_chunked(q, k, v, _layout(cfg), causal=False,
+        o = L.attention_chunked(q, k, v, layout, causal=False,
                                 kv_chunk=cfg.attn_chunk)
     h = h + L.attn_output(lp["attn"], o)
     return h + L.gelu_mlp(lp["mlp"], _ln(lp["ln2"], h, cfg))
 
 
-def encode(params, cfg: ArchConfig, frames) -> torch.Tensor:
+def encode(params, cfg: ArchConfig, frames, *, tp: int = 1) -> torch.Tensor:
     """frames (B, F, D) stub embeddings -> encoder states (B, F, D) bf16."""
+    layout = _layout(cfg, tp)
     dev = params["embed"]["table"].device
     frames = torch.as_tensor(frames).to(dev)
     B, Fr, D = frames.shape
     h = frames.to(L.COMPUTE_DTYPE) + _positions(Fr, D, dev)
     for lp in params["enc_layers"]:
         h = L.run_block(cfg.remat and h.requires_grad, _enc_block, lp, cfg,
-                        h)
+                        layout, h)
     return _ln(params["enc_ln"], h, cfg)
 
 
-def cross_kv(params, cfg: ArchConfig, enc_states: torch.Tensor):
-    """Each decoder layer's cross-attention K and V of the encoder states:
-    two lists of (B, F, H, hd) bf16."""
+def cross_kv(params, cfg: ArchConfig, enc_states: torch.Tensor, *,
+             tp: int = 1):
+    """Each decoder layer's cross-attention K and V of the encoder states,
+    laid out at ``tp`` (``layers.pad_kv``): two lists of (B, F, Kp, hd)
+    bf16."""
+    layout = _layout(cfg, tp)
+    cd = L.COMPUTE_DTYPE
     ks, vs = [], []
     for lp in params["dec_layers"]:
         ca = lp["cross_attn"]
-        ks.append(L.proj(enc_states, ca["wk"]) + ca["bk"].to(L.COMPUTE_DTYPE))
-        vs.append(L.proj(enc_states, ca["wv"]) + ca["bv"].to(L.COMPUTE_DTYPE))
+        ks.append(L.pad_kv(L.proj(enc_states, ca["wk"]) + ca["bk"].to(cd),
+                           layout))
+        vs.append(L.pad_kv(L.proj(enc_states, ca["wv"]) + ca["bv"].to(cd),
+                           layout))
     return ks, vs
 
 
@@ -182,12 +192,11 @@ def _cross_q(lp, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
             + ca["bq"].to(L.COMPUTE_DTYPE))
 
 
-def _dec_block(lp, cfg: ArchConfig, x, positions, k_enc, v_enc):
+def _dec_block(lp, cfg: ArchConfig, layout, x, positions, k_enc, v_enc):
     """Causal self-attention, cross-attention to (k_enc, v_enc), GELU MLP
     over x (B, S, D) -> (x, k, v)."""
-    layout = _layout(cfg)
     q, k, v = L.qkv_project(lp["self_attn"], _ln(lp["ln1"], x, cfg),
-                            positions=positions, rope_theta=None)
+                            layout, positions=positions, rope_theta=None)
     with torch.profiler.record_function("lm.attention"):
         o = L.attention_chunked(q, k, v, layout, causal=True,
                                 kv_chunk=cfg.attn_chunk)
@@ -199,7 +208,8 @@ def _dec_block(lp, cfg: ArchConfig, x, positions, k_enc, v_enc):
     return x + L.gelu_mlp(lp["mlp"], _ln(lp["ln2"], x, cfg)), k, v
 
 
-def _decoder(params, cfg: ArchConfig, tokens, enc_states, cache=None):
+def _decoder(params, cfg: ArchConfig, tokens, enc_states, cache=None, *,
+             tp: int = 1):
     """The decoder over ``tokens`` (B, S) -> its last hidden state after
     ``dec_ln``; with ``cache``, each layer's k/v goes to slots [0, S) and
     its cross K/V to ``xk``/``xv``."""
@@ -207,34 +217,36 @@ def _decoder(params, cfg: ArchConfig, tokens, enc_states, cache=None):
     B, S = tokens.shape
     x = L.embed(params["embed"], tokens) + _positions(S, cfg.d_model, dev)
     positions = torch.arange(S, device=dev).expand(B, S)
-    xks, xvs = cross_kv(params, cfg, enc_states)
+    layout = _layout(cfg, tp)
+    xks, xvs = cross_kv(params, cfg, enc_states, tp=tp)
     for i, lp in enumerate(params["dec_layers"]):
         x, k, v = L.run_block(cfg.remat and x.requires_grad, _dec_block, lp,
-                              cfg, x, positions, xks[i], xvs[i])
+                              cfg, layout, x, positions, xks[i], xvs[i])
         if cache is not None:
             L.write_prompt_kv(cache, i, k, v)
             cache["xk"][i], cache["xv"][i] = xks[i], xvs[i]
     return _ln(params["dec_ln"], x, cfg)
 
 
-def decode_train(params, cfg: ArchConfig, tokens, enc_states):
+def decode_train(params, cfg: ArchConfig, tokens, enc_states, *,
+                 tp: int = 1):
     """Teacher-forced decoder logits (B, S, Vp) bf16 of ``tokens`` over
     ``enc_states``."""
     tokens = L.token_ids(tokens, enc_states.device)
     return L.tied_logits(params["embed"]["table"],
-                         _decoder(params, cfg, tokens, enc_states))
+                         _decoder(params, cfg, tokens, enc_states, tp=tp))
 
 
-def forward(params, cfg: ArchConfig, batch):
+def forward(params, cfg: ArchConfig, batch, *, tp: int = 1):
     """Encoder over ``batch["frames"]``, decoder over ``batch["tokens"]``
     -> (logits (B, S, Vp) bf16, 0.0)."""
-    enc = encode(params, cfg, batch["frames"])
-    return decode_train(params, cfg, batch["tokens"], enc), 0.0
+    enc = encode(params, cfg, batch["frames"], tp=tp)
+    return decode_train(params, cfg, batch["tokens"], enc, tp=tp), 0.0
 
 
-def loss_fn(params, cfg: ArchConfig, batch) -> torch.Tensor:
+def loss_fn(params, cfg: ArchConfig, batch, *, tp: int = 1) -> torch.Tensor:
     """Cross-entropy of positions [0, S-1) against labels [1, S)."""
-    logits, _ = forward(params, cfg, batch)
+    logits, _ = forward(params, cfg, batch, tp=tp)
     labels = L.token_ids(batch["labels"], logits.device)
     return L.cross_entropy_loss(logits[:, :-1], labels[:, 1:],
                                 vocab_real=cfg.vocab_size)
@@ -245,10 +257,10 @@ def loss_fn(params, cfg: ArchConfig, batch) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ArchConfig, batch_size: int, cache_len: int, *,
-               device=None):
-    """Self-attention K/V (L, B, cache_len, H, hd) and cross K/V (L, B,
-    enc_frames, H, hd), bf16 zeros."""
-    layout = _layout(cfg)
+               tp: int = 1, device=None):
+    """Self-attention K/V (L, B, cache_len, Kp, hd) and cross K/V (L, B,
+    enc_frames, Kp, hd), bf16 zeros, Kp the layout's at ``tp``."""
+    layout = _layout(cfg, tp)
     dev = torch.device("cpu" if device is None else device)
 
     def zeros(n):
@@ -266,7 +278,8 @@ def cache_axes(cfg: ArchConfig, *, seq_shard: bool = False):
             "pos": logical(name="cache.pos")}
 
 
-def prefill(params, cfg: ArchConfig, batch, *, cache_len: int | None = None):
+def prefill(params, cfg: ArchConfig, batch, *, tp: int = 1,
+            cache_len: int | None = None):
     """Encoder and the decoder over the prompt -> (last-token logits (B,
     Vp), cache).  ``cache_len`` defaults to the prompt's; shorter raises
     ``ValueError``."""
@@ -277,18 +290,18 @@ def prefill(params, cfg: ArchConfig, batch, *, cache_len: int | None = None):
     if cache_len < S:
         raise ValueError(f"cache_len {cache_len} is shorter than the "
                          f"{S}-token prompt")
-    enc = encode(params, cfg, batch["frames"])
-    cache = init_cache(cfg, B, cache_len, device=dev)
-    x = _decoder(params, cfg, tokens, enc, cache)
+    enc = encode(params, cfg, batch["frames"], tp=tp)
+    cache = init_cache(cfg, B, cache_len, tp=tp, device=dev)
+    x = _decoder(params, cfg, tokens, enc, cache, tp=tp)
     cache["pos"] = S
     return L.tied_logits(params["embed"]["table"], x[:, -1]), cache
 
 
-def decode_step(params, cfg: ArchConfig, cache, tokens):
+def decode_step(params, cfg: ArchConfig, cache, tokens, *, tp: int = 1):
     """One decoder token (B, 1) -> (logits (B, Vp), cache), the cache
     updated in place: slot min(pos, Skv - 1) of the self-attention cache,
     the token's position min(pos, Skv), as the reference's."""
-    layout = _layout(cfg)
+    layout = _layout(cfg, tp)
     dev = params["embed"]["table"].device
     pos = int(cache["pos"])
     Skv = cache["k"].shape[2]
@@ -297,7 +310,7 @@ def decode_step(params, cfg: ArchConfig, cache, tokens):
     slot, cur = min(pos, Skv - 1), min(pos + 1, Skv)
     for i, lp in enumerate(params["dec_layers"]):
         q, k, v = L.qkv_project(lp["self_attn"], _ln(lp["ln1"], x, cfg),
-                                positions=None, rope_theta=None)
+                                layout, positions=None, rope_theta=None)
         cache["k"][i, :, slot] = k[:, 0]
         cache["v"][i, :, slot] = v[:, 0]
         o = L.attention_decode(q, cache["k"][i], cache["v"][i], layout,

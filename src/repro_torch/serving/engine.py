@@ -370,7 +370,7 @@ class ServingEngine:
         if model_parallel != 1:
             raise NotImplementedError(
                 f"model_parallel={model_parallel}: the port serves on one "
-                f"card (multi-card LM serving is ROADMAP Queue 1 item 9b)")
+                f"card (multi-card LM serving is ROADMAP Queue 1 item 9b.2)")
         self.cfg = cfg
         self.prompt_len, self.gen = prompt_len, gen
         self._lm_stats: list[tuple[float, float]] = []

@@ -1689,3 +1689,47 @@ def test_dwn_arch_train_step_on_the_card_matches_the_cpu():
     assert abs(out["cuda"][1] - out["cpu"][1]) < 1e-5
     for k in params:
         assert (out["cuda"][2][k] - out["cpu"][2][k]).abs().max() < 1e-5, k
+
+
+def test_dryrun_terms_bound_a_reduced_depth_qwen3_prefill_on_the_card():
+    """qwen3-8b at full width cut to 4 layers (bf16 weights from a seed,
+    ``masked`` attention): a prefill of 2 x 1024 tokens timed on the card
+    (the best of 5, each ending in a synchronize) takes at least its
+    dry-run's compute term and its argument bytes over HBM's rate, priced
+    on a (1, 1) mesh on the meta device (``launch.dryrun.analyze_cell``
+    with ``serve_bf16``, the reference's serving form: every param in
+    bf16, where the card keeps its norm scales float32); the argument
+    bytes are those params' and the tokens'."""
+    _need_card()
+    import dataclasses
+    import time
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import HBM_BW
+    from repro_torch.models import api, transformer
+    from repro_torch.optim.adam import leaves
+    from repro_torch.sharding import AbstractMesh
+    cfg = dataclasses.replace(get_arch("qwen3-8b"), num_layers=4)
+    B, S = 2, 1024
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen, device="cuda")}
+    prefill = api.make_prefill(cfg, cache_len=S)
+    prefill(params, batch)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    rec = dryrun.analyze_cell(cfg, ShapeConfig("p", S, B, "prefill"),
+                              AbstractMesh(("data", "model"), (1, 1)),
+                              variants={"serve_bf16"})
+    arg = rec["memory_analysis"]["argument_bytes"]
+    assert arg == sum(2 * t.numel() for t in leaves(params)) + 4 * B * S
+    assert min(times) >= rec["roofline"]["compute_s"] > 0
+    assert min(times) >= arg / HBM_BW

@@ -128,7 +128,7 @@ def test_unported_options_raise():
     serving form and in the float32 training form: the transformer refuses
     the SSM, hybrid and enc-dec families, naming them (``api.module_for``
     sends them to their own modules), and experts sharded over the model
-    axis (item 9b, the LM half of item 9); the DWN behind the LM
+    axis (item 9b.3, expert parallelism); the DWN behind the LM
     interface (``family="dwn"``, item 8.5, done) goes to ``dwn_arch``
     through ``module_for`` and ``make_train_step``; the dense and VLM
     models train."""
@@ -137,7 +137,7 @@ def test_unported_options_raise():
                        (dict(family="hybrid"), "family 'hybrid'"),
                        (dict(family="encdec"), "family 'encdec'"),
                        (dict(family="moe", num_experts=4, top_k=2,
-                             moe_ep=True), "Queue 1 item 9b")):
+                             moe_ep=True), "Queue 1 item 9b.3")):
         for dtype in (torch.bfloat16, torch.float32):
             with pytest.raises(NotImplementedError, match=match):
                 TT.init_params(dataclasses.replace(cfg, **bad), dtype=dtype)
@@ -399,7 +399,7 @@ def test_engine_generates_the_models_greedy_tokens(attn_impl):
     assert (rep["prompt_len"], rep["generated"], rep["served"]) == (8, 3, 4)
     assert rep["arch"] == "qwen3-8b-reduced" and rep["device"] == "cpu"
     assert FK.launch_counts() == {"flash_attention": 0}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9b"):
+    with pytest.raises(NotImplementedError, match=r"Queue 1 item 9b\.2"):
         ServingEngine("qwen3-8b", reduced=True, device="cpu",
                       model_parallel=2)
 

@@ -463,8 +463,8 @@ def test_local_window_ring_positions_match_the_prompt(monkeypatch):
     ks = {}
     orig = TR._attn_block
 
-    def spy(lp, cfg_, x, positions):
-        out = orig(lp, cfg_, x, positions)
+    def spy(lp, cfg_, layout, x, positions):
+        out = orig(lp, cfg_, layout, x, positions)
         ks[len(ks)] = out[1]
         return out
     monkeypatch.setattr(TR, "_attn_block", spy)

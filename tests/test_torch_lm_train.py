@@ -426,7 +426,8 @@ def test_lm_train_cli_on_the_cpu():
     """``--arch qwen3-8b --reduced --steps 4 --device cpu`` prints the
     reference's keys plus the device, the loss every ``--log-every``
     steps, and equals the same steps driven through ``make_train_step``
-    from the port's init; ``--model-parallel 2`` raises naming item 9."""
+    from the port's init; ``--model-parallel 2`` raises naming item
+    9b.2 (the model over several devices)."""
     rep, lines = _cli(["--arch", "qwen3-8b", "--reduced", "--steps", "4",
                        "--log-every", "2", "--device", "cpu"])
     assert set(rep) == REF_LM_KEYS | {"device"}
@@ -442,7 +443,7 @@ def test_lm_train_cli_on_the_cpu():
               for _ in range(4)]
     assert rep["first_loss"] == losses[0]
     assert rep["last_loss"] == float(np.mean(losses))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9b"):
+    with pytest.raises(NotImplementedError, match=r"Queue 1 item 9b\.2"):
         _cli(["--arch", "qwen3-8b", "--reduced", "--model-parallel", "2",
               "--device", "cpu"])
 

@@ -40,7 +40,8 @@ def test_data_loader_copy_gives_identical_rows(seed):
 def test_port_imports_neither_jax_nor_the_reference():
     """Every module of repro_torch imports in a fresh interpreter without
     pulling in jax or any module of repro (the DWN arch, its configs, the
-    sharding modules and the meshes among them)."""
+    sharding modules, the meshes, the roofline analysis and the dry-run
+    among them)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -63,7 +64,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "          'optim.grad', 'workloads.lm_head', 'models.dwn_arch',\n"
         "          'configs.dwn_jsc', 'configs.dwn_mnist', 'configs.dwn_lm_head',\n"
         "          'sharding', 'sharding.partition', 'sharding.annotate',\n"
-        "          'launch.mesh'):\n"
+        "          'launch.mesh', 'roofline', 'roofline.analyze',\n"
+        "          'launch.dryrun'):\n"
         "    assert 'repro_torch.' + n in names, names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")

@@ -194,12 +194,13 @@ def _meta_shapes(tree):
 @pytest.mark.parametrize("arch", sorted(list_archs()))
 def test_abstract_params_and_cache_equal_reference(arch):
     """Exact: ``abstract_params`` on the meta device (nothing allocated)
-    has the reference's shapes and dtypes, at tp = 16 for the DWN and at
-    tp = 1 for an LM (its layers a list where the reference stacks
-    them); ``abstract_cache`` likewise for every shape; an LM at tp > 1
-    raises, naming item 9b."""
+    has the reference's shapes and dtypes at tp = 16, the production
+    meshes' model axis, for every arch (an LM's query heads, KV cache
+    heads and vocabulary laid out at 16; its layers a list where the
+    reference stacks them); ``abstract_cache`` likewise for every
+    shape."""
     cfg, jcfg = get_arch(arch), jget_arch(arch)
-    tp = 16 if cfg.family == "dwn" else 1
+    tp = 16
     got = _meta_shapes(TA.abstract_params(cfg, tp))
     want = _meta_shapes(JA.abstract_params(jcfg, tp))
     unstacked = {tuple(k for k in p if k != "*"): p for p in got}
@@ -223,9 +224,9 @@ def test_abstract_params_and_cache_equal_reference(arch):
             m = mine[k]
             assert (tuple(m.shape) if torch.is_tensor(m) else ()) == \
                 tuple(v.shape), (name, k)
-    if cfg.family != "dwn":
-        with pytest.raises(NotImplementedError, match="item 9b"):
-            TA.abstract_params(cfg, 16)
+            if torch.is_tensor(m):
+                assert m.is_meta and str(m.dtype) == "torch." + str(
+                    v.dtype), (name, k)
 
 
 def test_tree_shardings_structure():
