@@ -13,7 +13,9 @@ MoE, VLM, SSM, hybrid and encoder-decoder; mixtral's depth cut to the
 card), qwen3-8b training, the DWN behind the model zoo's interface
 (``models.dwn_arch``: prefill variants against K2, the whole
 dwn_serve_1m shape, train steps, data-parallel serving at one rank), and
-the dry-run's roofline terms held against steps timed on the card.
+the dry-run's roofline terms held against steps timed on the card, and
+the transformer over a one-rank ``DeviceMesh`` (tensor parallelism, FSDP,
+expert parallelism, sharded restore).
 
     python3 chip_smoke.py
 
@@ -312,14 +314,30 @@ Phases, each printing one JSON line:
    three terms, measured over the lower bound, the phase's own
    hand-counted bound and ``max_memory_allocated`` beside the argument
    bytes; it fails unless each measured time reaches the compute term and
-   the argument bytes over HBM's 3.35 TB/s.
+   the argument bytes over HBM's 3.35 TB/s;
+19. mesh   — the model over a ``DeviceMesh`` at world size 1: under a
+   one-rank NCCL process group, ``ServingEngine(qwen3-8b with
+   attn_impl="pallas", model_parallel=1)`` at full width (36 layers)
+   takes the mesh path (params as DTensors on the (1, 1) ("data",
+   "model") mesh) and serves 2 requests of 4 x 2048 tokens, 16
+   generated: tokens equal to the meshless engine's on the same seeded
+   params and prompts (served first, before the group), the prefill's
+   logits within 0.05 of its, K10 once a layer a prefill; granite-moe at
+   full width with ``moe_ep`` (40 experts padded to 48) on the mesh
+   against ``ep=False`` on the same live experts, within 0.05, K10 at hd
+   64; 3 training steps of qwen3-8b at the lm_train phase's depth (8 x
+   128 tokens) through the mesh against the meshless steps (losses within
+   1e-3 relative); the reduced qwen3-8b's state trained on the mesh,
+   saved and restored onto it by ``shardings=``, every leaf equal; the
+   mesh path's prefill and decode times beside the meshless path's, its
+   peak memory and the phase's seconds.
 
 Then it prints each phase's seconds, the kernels' summary line (K1's and
 K2's launches on each served path, the load phase's sessions, the
 sweep's paper grid and the DWN head among them, K10's on every LM path,
 its hd-64 and hd-96 instances as entries of their own with their first
 designs' times, K2's launches in the dwn_arch phase's one-rank engine
-and, apart, in its cross-check replays,
+and, apart, in its cross-check replays, K10's on the mesh phase's paths,
 their times at the mnist-lg shape
 beside their bounds), nvidia-smi's line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -4980,6 +4998,250 @@ def phase_dryrun(device, lm, dwn):
     return {"records": records, "priced": priced}
 
 
+
+# ---------------------------------------------------------------------------
+# the model over a DeviceMesh (tensor parallelism, FSDP, expert
+# parallelism, sharded restore) at world size 1
+# ---------------------------------------------------------------------------
+
+#: the mesh phase's served shape: 2 requests of 4 x 2048 tokens, 16
+#: generated (the lm phase's)
+MESH_SERVED = dict(batch=4, requests=2, prompt_len=2048, gen=16)
+#: its training steps: 3 of 8 x 128 TokenStream tokens, qwen3-8b at the
+#: lm_train phase's depth
+MESH_TRAIN_STEPS, MESH_TRAIN_SHAPE = 3, (8, 128)
+
+
+@contextlib.contextmanager
+def _nccl_world_one():
+    """A one-rank NCCL process group on a free localhost port for the
+    block, destroyed after it."""
+    import socket
+
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _lm_served(engine, stream):
+    """The stream through the LM engine: (its results in order, K10's
+    launches over them)."""
+    done, launches = _lm_pass(engine, stream)
+    return done, launches.get("flash_attention", 0)
+
+
+def _train_steps(cfg, device, batches, mesh=None):
+    """``make_train_step`` from the seed-0 float32 init (as DTensors on
+    ``mesh`` when given) over ``batches``: ([(loss, grad norm)], the
+    final state, each step's ms by CUDA events)."""
+    import torch
+    from repro_torch.models import api, transformer
+    params = transformer.init_params(cfg, seed=0, device=device,
+                                     dtype=torch.float32)
+    if mesh is not None:
+        params = api.shard_params(cfg, params, mesh)
+    step, opt = api.make_train_step(cfg, mesh=mesh)
+    state = opt.init(params)
+    hist, ms = [], []
+    for raw in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        batch = {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
+        params, state, m = step(params, state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        hist.append((float(m["loss"]), float(m["grad_norm"])))
+        ms.append(start.elapsed_time(end))
+    return hist, (params, state), ms
+
+
+def phase_mesh(device):
+    """qwen3-8b served at full width through the ("data", "model")
+    ``DeviceMesh`` of a one-rank NCCL group against the meshless engine
+    on the same params and prompts; granite-moe's experts sharded
+    (``moe_ep``) against ``ep=False``; training steps through the mesh
+    against the meshless ones; a sharded save and restore."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import api, transformer
+    from repro_torch.sharding.partition import is_device_mesh
+    from repro_torch.optim.adam import AdamState, leaves
+    from repro_torch.runtime import checkpoint
+    from repro_torch.serving import ServingEngine
+    t_phase = time.perf_counter()
+    B, n, S, gen = (MESH_SERVED[k] for k in ("batch", "requests",
+                                            "prompt_len", "gen"))
+    cfg = dataclasses.replace(get_arch("qwen3-8b"), attn_impl="pallas")
+    torch.cuda.empty_cache()
+    # the meshless engine first (made with no process group, it stays
+    # meshless), then the mesh's; the two serve the stream in turns
+    plain = ServingEngine(cfg, prompt_len=S, gen=gen, device=device, seed=0)
+    plain.warmup(B)
+    stream = [plain.make_request(B, seed=300 + i) for i in range(n)]
+    out = {"phase": "mesh", "world": 1, "backend": "nccl",
+           "arch": cfg.name, "layers": cfg.num_layers, **MESH_SERVED}
+    with _nccl_world_one():
+        torch.cuda.reset_peak_memory_stats()
+        engine = ServingEngine(cfg, prompt_len=S, gen=gen, device=device,
+                               seed=0, model_parallel=1)
+        rep = engine.report()
+        if not (is_device_mesh(engine.mesh) and rep["model_parallel"] == 1
+                and rep["devices"] == 1):
+            raise SystemExit(f"the engine is not on a one-rank mesh: "
+                             f"{engine.mesh}, {rep['model_parallel']}")
+        engine.warmup(B)
+        turns = {"meshless": [], "mesh": []}
+        k10 = {"meshless": 0, "mesh": 0}
+        for name in ("meshless", "mesh", "mesh", "meshless"):
+            done, launched = _lm_served(
+                plain if name == "meshless" else engine, stream)
+            turns[name].append(done)
+            k10[name] += launched
+        want = [r.result["tokens"] for r in turns["meshless"][0]]
+        for done in turns["mesh"] + turns["meshless"][1:]:
+            for r, w in zip(done, want):
+                if not np.array_equal(r.result["tokens"], w):
+                    raise SystemExit(f"request {r.rid}: the mesh path's "
+                                     f"tokens differ from the meshless "
+                                     f"engine's")
+        prefill = api.make_prefill(cfg, cache_len=S + gen)
+        plain_logits = prefill(plain.params, stream[0])[0]
+        mesh_prefill = api.make_prefill(cfg, cache_len=S + gen,
+                                        mesh=engine.mesh)
+        _reset_counts()
+        logits = mesh_prefill(engine.params, stream[0])[0]
+        torch.cuda.synchronize()
+        per_prefill = _expect_launches("one mesh prefill", {
+            "flash_attention": cfg.num_layers})
+        rel = _rel(logits, plain_logits)
+        if not rel < LOGITS_REL:
+            raise SystemExit(f"mesh prefill logits {rel} >= {LOGITS_REL} "
+                             f"of the meshless path's")
+
+        def times(name, key):
+            return [r.result[key] for done in turns[name] for r in done]
+        out["serve"] = {
+            "turns": ["meshless", "mesh", "mesh", "meshless"],
+            "tokens_equal": True, "logits_rel": rel,
+            "logits_max_abs_err": float((logits.float()
+                                         - plain_logits.float()).abs().max()),
+            "tolerance": LOGITS_REL,
+            # over each path's two served passes
+            "k10_launches": k10["mesh"],
+            "k10_launches_meshless": k10["meshless"],
+            "k10_per_prefill": per_prefill["flash_attention"],
+            "prefill_s": times("mesh", "prefill_s"),
+            "prefill_s_meshless": times("meshless", "prefill_s"),
+            "decode_s_per_tok": times("mesh", "decode_s_per_tok"),
+            "decode_s_per_tok_meshless": times("meshless",
+                                               "decode_s_per_tok"),
+            "peak_memory_bytes_both_engines":
+                torch.cuda.max_memory_allocated()}
+        k10 = k10["mesh"]
+        mesh = engine.mesh
+        del engine, plain, logits, plain_logits
+        torch.cuda.empty_cache()
+
+        # granite-moe, experts over "model" (padded to 48) against
+        # ep=False on the same 40 live experts and router columns
+        base = dataclasses.replace(get_arch("granite-moe-3b-a800m"),
+                                   attn_impl="pallas")
+        ep = dataclasses.replace(base, moe_ep=True)
+        params = transformer.init_params(ep, seed=0, device=device)
+        E = base.num_experts
+        unpadded = {**params, "layers": [
+            {**lp, "moe": {k: (v[:, :E] if k == "router" else v[:E])
+                           for k, v in lp["moe"].items()}}
+            for lp in params["layers"]]}
+        gen_ = torch.Generator(device=device).manual_seed(0)
+        batch = {"tokens": torch.randint(0, base.vocab_size, (B, S),
+                                         generator=gen_, device=device)}
+        sharded = api.shard_params(ep, params, mesh)
+        _reset_counts()
+        ep_logits = api.make_prefill(ep, cache_len=S, mesh=mesh)(
+            sharded, batch)[0]
+        torch.cuda.synchronize()
+        ep_k10 = _expect_launches("granite moe_ep prefill", {
+            "flash_attention": base.num_layers})["flash_attention"]
+        want = api.make_prefill(base, cache_len=S)(unpadded, batch)[0]
+        rel = _rel(ep_logits, want)
+        if not rel < LOGITS_REL:
+            raise SystemExit(f"granite-moe moe_ep prefill {rel} >= "
+                             f"{LOGITS_REL} of ep=False")
+        out["moe_ep"] = {"arch": ep.name, "experts": int(
+            params["layers"][0]["moe"]["w_gate"].shape[0]),
+            "live_experts": E, "logits_rel": rel, "k10_launches": ep_k10,
+            "head_dim": base.head_dim_}
+        del params, unpadded, sharded, ep_logits, want
+        torch.cuda.empty_cache()
+
+        # training: the lm_train phase's depth, meshless then the mesh
+        total = torch.cuda.get_device_properties(0).total_memory
+        full = get_arch("qwen3-8b")
+        tcfg = dataclasses.replace(full,
+                                   num_layers=lm_train_layers(full, total))
+        Bt, St = MESH_TRAIN_SHAPE
+        ts = TokenStream(tcfg.vocab_size, St, Bt, seed=0)
+        batches = [ts.next_batch() for _ in range(MESH_TRAIN_STEPS)]
+        want_h, state, want_ms = _train_steps(tcfg, device, batches)
+        del state
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        got_h, state, got_ms = _train_steps(tcfg, device, batches, mesh)
+        peak_train = torch.cuda.max_memory_allocated()
+        del state
+        torch.cuda.empty_cache()
+        ok = all(abs(g[0] - w[0]) <= LM_TRAIN_LOSS_REL * w[0]
+                 for g, w in zip(got_h, want_h))
+        out["train"] = {"layers": tcfg.num_layers, "batch": Bt, "seq": St,
+                        "mesh": got_h, "meshless": want_h,
+                        "loss_rel": LM_TRAIN_LOSS_REL,
+                        "step_ms": got_ms, "step_ms_meshless": want_ms,
+                        "peak_memory_bytes": peak_train}
+        if not ok:
+            emit(out)
+            raise SystemExit("the mesh path's train losses disagree with "
+                             "the meshless steps'")
+
+        # a sharded save and restore: the reduced qwen3-8b trained on the
+        # mesh (a full-width state is 40+ GB of files), restored onto the
+        # mesh by its shardings, every leaf equal
+        small = get_arch("qwen3-8b").reduced()
+        ts = TokenStream(small.vocab_size, 128, 8, seed=0)
+        _, (params, state), _ = _train_steps(
+            small, device, [ts.next_batch() for _ in range(3)], mesh)
+        ckdir = ROOT / "build" / "chip_smoke_mesh_ckpt"
+        shutil.rmtree(ckdir, ignore_errors=True)
+        checkpoint.save(ckdir, 3, (params, state))
+        like = api.abstract_params(small, 1)
+        ps = api.param_shardings(small, like, mesh)
+        (rp, rs), _ = checkpoint.restore(
+            ckdir, 3, (like, AdamState(state.step, like, like)),
+            shardings=(ps, AdamState(None, ps, ps)))
+        shutil.rmtree(ckdir, ignore_errors=True)
+        equal = all(torch.equal(a.to_local(), b.to_local())
+                    for a, b in zip(leaves((rp, rs.mu, rs.nu)),
+                                    leaves((params, state.mu, state.nu))))
+        if not (equal and int(rs.step) == 3):
+            raise SystemExit("the restored mesh state differs from the "
+                             "saved one")
+        out["restore"] = {"arch": small.name, "leaves": len(leaves(
+            (rp, rs))), "equal": True,
+            "dtensors": all(hasattr(t, "placements") for t in leaves(rp))}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return {"qwen3-8b": k10, "granite-moe moe_ep": ep_k10}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {__file__}",
@@ -5045,6 +5307,7 @@ def main() -> int:
     run("cli", phase_cli, "cuda")
     dwn_arch = run("dwn_arch", phase_dwn_arch, "cuda")
     run("dryrun", phase_dryrun, "cuda", lm_step, dwn_arch["priced_step"])
+    mesh_launches = run("mesh", phase_mesh, "cuda")
     emit({"phase": "seconds", "seconds": seconds,
           "total": sum(seconds.values())})
 
@@ -5128,7 +5391,9 @@ def main() -> int:
     flash_paths = {"lm qwen3-8b": flash_launches["flash_attention"],
                    "lm_head dwn-lm-head on qwen3-8b":
                        head_launches["flash_attention"],
-                   **{f"lm_zoo {a}": n for a, n in zoo_launches.items()}}
+                   **{f"lm_zoo {a}": n for a, n in zoo_launches.items()},
+                   "mesh qwen3-8b on a one-rank NCCL mesh":
+                       mesh_launches["qwen3-8b"]}
     t = flash_timing
     summary.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH[0],
@@ -5155,7 +5420,9 @@ def main() -> int:
             "name": f"flash_attention hd{hd}", "route": "cuda",
             "source": FLASH[0], "replaces": FLASH[1],
             "launches": zoo_launches[arch],
-            "launches_by_path": {f"lm_zoo {arch}": zoo_launches[arch]},
+            "launches_by_path": {f"lm_zoo {arch}": zoo_launches[arch], **(
+                {"mesh granite-moe moe_ep on a one-rank NCCL mesh":
+                 mesh_launches["granite-moe moe_ep"]} if hd == 64 else {})},
             "head_dim": hd, "heads": [t["H"], t["KH"]], "equal": False,
             "tolerance": FLASH_TOL, "row_tolerance": FLASH_ROW_REL,
             **flash_err_by_hd[hd], "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -5167,6 +5434,9 @@ def main() -> int:
         if not zoo_launches[arch]:
             raise SystemExit(f"K10 at hd {hd} launched no time on the "
                              f"{arch} path")
+    if not all(mesh_launches.values()):
+        raise SystemExit(f"K10 launched no time on a mesh path: "
+                         f"{mesh_launches}")
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

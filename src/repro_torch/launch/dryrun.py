@@ -253,8 +253,9 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
       * "serve_bf16": serving weights in bf16;
       * "attn_tri", "scores_bf16", "cf1": ``attn_impl="tri"``,
         ``attn_scores_bf16``, capacity factor 1.0;
-      * "moe_ep": experts over the model axis, not ported (ROADMAP Queue
-        1 item 9b.3): the model raises and ``run_cell`` records it.
+      * "moe_ep": experts over the model axis (padded to a multiple of
+        16), the reference's expert-parallel layout, whose combine the
+        account all-reduces over "model".
     """
     cfg = get_arch(arch)
     shape = {**SHAPES, **DWN_SHAPES}[shape_name]

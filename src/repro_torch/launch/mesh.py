@@ -24,15 +24,21 @@ from ..sharding.partition import AbstractMesh
 
 def init_from_env(device_type: str) -> bool:
     """Join the process group a launcher such as ``torchrun`` describes
-    (``WORLD_SIZE`` above 1, with ``RANK`` and ``MASTER_ADDR`` /
-    ``MASTER_PORT`` in the environment): NCCL for ``cuda``, gloo
-    otherwise.  Returns whether a group of several ranks is up."""
+    (``WORLD_SIZE``, ``RANK`` and ``MASTER_ADDR`` / ``MASTER_PORT`` in the
+    environment; a group of one rank too where the launcher gave
+    ``MASTER_ADDR``): NCCL for ``cuda``, each rank on the card
+    ``LOCAL_RANK`` names, gloo otherwise.  Returns whether a group of
+    several ranks is up."""
     import os
 
     import torch.distributed as dist
-    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1 and "MASTER_ADDR" not in os.environ:
         return False
     if not dist.is_initialized():
+        if device_type == "cuda":
+            import torch
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
         dist.init_process_group(
             "nccl" if device_type == "cuda" else "gloo")
     return dist.get_world_size() > 1
@@ -53,8 +59,9 @@ def _world() -> int:
 
 def make_host_mesh(model_parallel: int = 1, *, device_type: str = "cuda"):
     """("data", "model") mesh over the process group's ranks, ``model``
-    of size ``model_parallel`` (cut to the world); one device without a
-    process group."""
+    of size ``model_parallel`` cut to the world (as the reference cuts it
+    to its devices; the world must be a multiple of the cut size); one
+    device, an ``AbstractMesh`` of (1, 1), without a process group."""
     n = _world()
     if not n:
         return AbstractMesh(("data", "model"), (1, 1))

@@ -28,7 +28,12 @@ flash-attention kernel).  ``--dwn-head`` (a spec preset name such as
 ``dwn-lm-head`` or a ``DWNArtifact`` checkpoint path) attaches a DWN
 classification head on the backbone's pooled features: the same drain
 then serves the LM request and one ``classify`` request of ``--batch``
-prompts, and the report carries ``dwn_head``.
+prompts, and the report carries ``dwn_head``.  Under ``torchrun`` the CLI
+joins the process group (NCCL on the card, gloo on the CPU) and the
+dense, MoE and VLM archs serve over the ("data", "model") mesh, "model"
+of ``--model-parallel`` ranks (cut to the world): every rank serves the
+same request and reports the same tokens; ``model_parallel`` in the
+report is the tp that ran.
 
 Runs on the CUDA card unless ``--device cpu`` is given.
 
@@ -46,6 +51,10 @@ Usage:
     python -m repro_torch.launch.serve --arch qwen3-8b --reduced \\
         --device cpu --prompt-len 8 --gen 2
     python -m repro_torch.launch.serve --arch qwen3-8b --dwn-head dwn-lm-head
+    torchrun --nproc-per-node 1 -m repro_torch.launch.serve \\
+        --arch qwen3-8b --model-parallel 1
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve \\
+        --arch qwen3-8b --reduced --device cpu --model-parallel 2
     python -m repro_torch.launch.serve --arch whisper-large-v3 --reduced \
         --device cpu --prompt-len 8 --gen 2
 
@@ -201,8 +210,9 @@ def main(argv=None) -> int:
                     help="DWN: serve alone on each rank even under an "
                          "initialised process group of several ranks")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="LM: tensor-parallel degree (the port serves on "
-                         "one card: only 1)")
+                    help="LM: tensor-parallel degree over the process "
+                         "group's ranks (under torchrun), cut to the "
+                         "world; 1 without a group")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--greedy", action="store_true", default=True,
                     help="LM: greedy decoding (the only mode)")
@@ -212,6 +222,7 @@ def main(argv=None) -> int:
     if bool(args.arch) == bool(args.spec):
         ap.error("give exactly one of --arch or --spec")
     if args.arch in assigned_archs():
+        init_from_env(args.device)
         rep = lm_serve(args)
     else:
         target = DWNSpec(**json.loads(args.spec)) if args.spec else args.arch

@@ -6,8 +6,15 @@ step) with the reference's AdamW and global-norm clipping
 (``models.api.make_train_step``), from float32 master weights, with the
 straggler monitor and, given ``--ckpt-dir``, the checkpoint-restart
 ``Supervisor`` (the token stream's position rides in the checkpoint).
-Prints one JSON line with the reference's keys, plus the device.  One
-card: ``--model-parallel`` above 1 raises (ROADMAP.md Queue 1 item 9b.2).
+Prints one JSON line with the reference's keys, plus the device, the tp
+that ran (``model_parallel``) and the ranks (``devices``).  Under
+``torchrun`` the CLI joins the process group and the dense, MoE and VLM
+archs train over the ("data", "model") mesh, "model" of
+``--model-parallel`` ranks cut to the world: the params and Adam's
+moments are DTensors, the batch's rows split over "data", and the
+``Supervisor`` saves from rank 0 and restores each leaf onto its
+sharding.  The SSM, hybrid and encoder-decoder archs raise above 1
+(ROADMAP.md Queue 1 item 9b.5).
 
 DWN archs (``--arch dwn-jsc-lg`` or any name ``dwn.resolve_spec`` takes):
 the arch resolves to a ``DWNSpec``, ``--workload`` (or the spec's own)
@@ -23,6 +30,9 @@ Usage:
     python -m repro_torch.launch.train --arch qwen3-8b --reduced --steps 20
     python -m repro_torch.launch.train --arch qwen3-8b --reduced \\
         --steps 20 --device cpu [--ckpt-dir /tmp/ckpt]
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch qwen3-8b --reduced --steps 20 --device cpu \\
+        --model-parallel 2
     python -m repro_torch.launch.train --arch dwn-jsc-lg --workload jsc
     python -m repro_torch.launch.train --arch dwn-jsc-sm --reduced \\
         --epochs 1 --device cpu
@@ -52,20 +62,30 @@ def lm_train(args) -> dict:
 
     from ..data.tokens import TokenStream
     from ..models import api
+    from ..optim.adam import AdamState
     from ..runtime.fault import PreemptionHandler, Supervisor, TrainHandle
     from ..runtime.straggler import StragglerMonitor
+    from ..sharding.partition import axis_size, is_device_mesh
+    from .mesh import init_from_env, make_host_mesh
 
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    if args.model_parallel != 1:
+    if cfg.family not in api.MESH_FAMILIES and args.model_parallel > 1:
         raise NotImplementedError(
-            f"--model-parallel {args.model_parallel}: the port trains on "
-            f"one card (multi-card LM training is ROADMAP.md Queue 1 "
-            f"item 9b.2)")
+            f"--model-parallel {args.model_parallel} for the {cfg.family!r} "
+            f"family (ROADMAP.md Queue 1 item 9b.5); the port trains "
+            f"families {api.MESH_FAMILIES} over a model axis")
     device = resolve_device(args.device)
+    mesh = None
+    if cfg.family in api.MESH_FAMILIES:
+        init_from_env(device.type)
+        mesh = make_host_mesh(args.model_parallel, device_type=device.type)
+    tp = axis_size(mesh, "model") if mesh is not None else 1
+    mesh = mesh if is_device_mesh(mesh) else None
     mod = api.module_for(cfg)
-    step_fn, opt = api.make_train_step(cfg, opt=api.make_optimizer(args.lr))
+    step_fn, opt = api.make_train_step(cfg, tp=tp, mesh=mesh,
+                                       opt=api.make_optimizer(args.lr))
     stream = TokenStream(cfg.vocab_size, args.seq, args.batch,
                          seed=args.seed)
     monitor = StragglerMonitor()
@@ -103,15 +123,23 @@ def lm_train(args) -> dict:
         return handle
 
     def init():
-        params = mod.init_params(cfg, seed=args.seed, device=device,
+        params = mod.init_params(cfg, tp=tp, seed=args.seed, device=device,
                                  dtype=torch.float32)
+        if mesh is not None:
+            params = api.shard_params(cfg, params, mesh)
         return params, opt.init(params)
 
     if args.ckpt_dir:
+        shardings = None
+        if mesh is not None:
+            ps = api.param_shardings(cfg, api.abstract_params(cfg, tp),
+                                     mesh)
+            shardings = (ps, AdamState(None, ps, ps))
         # the steps update the state in place: a restart with no
         # checkpoint yet makes a fresh one
         sup = Supervisor(args.ckpt_dir, save_every=args.save_every,
-                         preemption=PreemptionHandler(), device=device)
+                         preemption=PreemptionHandler(), device=device,
+                         shardings=shardings)
         handle = sup.run(step_once, init_state=init,
                          total_steps=args.steps)
     else:
@@ -122,7 +150,8 @@ def lm_train(args) -> dict:
             "first_loss": losses[0] if losses else None,
             "last_loss": float(np.mean(losses[-5:])) if losses else None,
             "straggler_events": len(monitor.events),
-            "device": str(device)}
+            "device": str(device), "model_parallel": tp,
+            "devices": mesh.size() if mesh is not None else 1}
 
 
 def dwn_train(args) -> dict:
@@ -225,8 +254,9 @@ def main(argv=None) -> int:
                     help="learning rate (default: 3e-4 for LM archs, 1e-3 "
                          "for DWN archs, the paper protocol)")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="LM: tensor-parallel degree (the port trains on "
-                         "one card: only 1)")
+                    help="LM: tensor-parallel degree over the process "
+                         "group's ranks (under torchrun), cut to the "
+                         "world; 1 without a group")
     ap.add_argument("--ckpt-dir", default="",
                     help="LM: checkpoint under this directory and resume "
                          "from its latest step (Supervisor)")

@@ -3,10 +3,12 @@ serving engine and the train CLI call (the reference's
 ``repro.models.api``).
 
     make_optimizer(lr)                -> Adam (the reference's LM AdamW)
-    make_train_step(cfg, *, tp, num_micro, opt, clip_norm)
+    make_train_step(cfg, *, tp, num_micro, opt, clip_norm, mesh)
                                       -> (step(params, opt, batch), opt)
-    make_prefill(cfg, *, tp, cache_len) -> fn(params, batch)
-    make_decode_step(cfg, *, tp)      -> fn(params, cache, batch)
+    make_prefill(cfg, *, tp, cache_len, mesh) -> fn(params, batch)
+    make_decode_step(cfg, *, tp, mesh) -> fn(params, cache, batch)
+    shard_params(cfg, params, mesh)   -> the params as DTensors
+    param_shardings(cfg, params, mesh) -> their ``NamedSharding``s
     abstract_params(cfg, tp)          -> the params on the ``meta`` device
     param_axes(cfg)                   -> their logical axes
     batch_specs(cfg, shape, micro=)   -> one step's batch on ``meta``
@@ -23,10 +25,16 @@ Families: dense, MoE and VLM (``transformer``), SSM (``mamba2``), hybrid
 The abstract trees are the reference's shapes at any tp (a ``meta``
 tensor where the reference has a ``ShapeDtypeStruct``; the layers of an
 LM are a list where the reference stacks them).  ``tp`` lays out heads,
-caches and the vocabulary as the reference's do at that degree; the steps
-run it on one device (its tp = 1 is the default here, 16 in the
-reference).  Running a model over several devices is ROADMAP Queue 1
-item 9b.2.
+caches and the vocabulary as the reference's do at that degree (1 by
+default here, 16 in the reference).  Without ``mesh`` a step runs that
+layout on one device.  With a ``("data", "model")`` ``DeviceMesh``
+(``launch.mesh.make_host_mesh``; the transformer's families, dense, MoE
+and VLM) the params are DTensors (:func:`shard_params`) and each rank
+runs its shards (``models.parallel``): tp is the mesh's "model" size,
+the batch's rows split over "data", the logits come back whole on every
+rank, and the KV cache holds this rank's rows and KV heads.  The SSM,
+hybrid and encoder-decoder families over a mesh are ROADMAP Queue 1
+item 9b.5.
 """
 
 from __future__ import annotations
@@ -36,15 +44,22 @@ import torch
 from ..configs.base import ArchConfig, ShapeConfig
 from ..optim.adam import Adam, leaves
 from ..optim.grad import accumulate_grads, clip_by_global_norm, value_and_grad
-from ..sharding.partition import logical
+from ..sharding import collectives as C
+from ..sharding.annotate import use_mesh
+from ..sharding.partition import (Partitioner, axis_size, is_device_mesh,
+                                  logical)
 from . import dwn_arch, mamba2, rglru, transformer, whisper
 from . import layers as L
+from . import parallel as P
 
 MODULES = {"dense": transformer, "moe": transformer, "vlm": transformer,
            "ssm": mamba2, "hybrid": rglru, "encdec": whisper,
            "dwn": dwn_arch}
 
 META = torch.device("meta")
+
+#: the families that run over a ``DeviceMesh``
+MESH_FAMILIES = transformer.FAMILIES
 
 
 def module_for(cfg: ArchConfig):
@@ -154,6 +169,40 @@ def cache_axes(cfg: ArchConfig, shape: ShapeConfig):
 
 
 # ---------------------------------------------------------------------------
+# params over a DeviceMesh
+# ---------------------------------------------------------------------------
+
+def param_shardings(cfg: ArchConfig, params, mesh):
+    """The ``NamedSharding`` of every leaf of ``params`` (whole tensors:
+    the init at the mesh's tp) on ``mesh`` by ``param_axes`` and the
+    partitioner, its divisibility fallbacks included."""
+    return Partitioner(mesh).tree_shardings(params, param_axes(cfg))
+
+
+def shard_params(cfg: ArchConfig, params, mesh):
+    """``params`` (the same whole tensors on every rank) as DTensors laid
+    out on the ``DeviceMesh`` ``mesh`` (each rank keeps its chunk)."""
+    return P.shard_tree(params, param_shardings(cfg, params, mesh))
+
+
+def _on_mesh(cfg: ArchConfig, mesh, tp: int):
+    """``mesh`` if it is a ``DeviceMesh`` (else None), checked against the
+    family and the layout's tp."""
+    if not is_device_mesh(mesh):
+        return None
+    if cfg.family not in MESH_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family over a DeviceMesh "
+            f"(ROADMAP Queue 1 item 9b.5); the port runs families "
+            f"{MESH_FAMILIES} there")
+    model = axis_size(mesh, "model")
+    if tp != model:
+        raise ValueError(f"params laid out at tp {tp} on a mesh whose "
+                         f"'model' axis has {model} ranks")
+    return mesh
+
+
+# ---------------------------------------------------------------------------
 # steps
 # ---------------------------------------------------------------------------
 
@@ -162,7 +211,8 @@ def make_optimizer(lr: float = 3e-4) -> Adam:
 
 
 def make_train_step(cfg: ArchConfig, *, tp: int = 1, num_micro: int = 1,
-                    opt: Adam | None = None, clip_norm: float = 1.0):
+                    opt: Adam | None = None, clip_norm: float = 1.0,
+                    mesh=None):
     """Returns ``(step, opt)``; ``step(params, opt_state, batch) -> (params,
     opt_state, {"loss", "grad_norm"})`` with the reference's arithmetic:
     the loss and its gradients (with ``num_micro > 1`` the batch leaves
@@ -175,12 +225,28 @@ def make_train_step(cfg: ArchConfig, *, tp: int = 1, num_micro: int = 1,
     (``init_params(..., dtype=torch.float32)``); they and ``opt_state``
     are updated in place and returned.  ``loss`` and ``grad_norm`` are
     float32 tensors on the params' device.
+
+    On a ``DeviceMesh`` ``mesh`` the params are DTensors
+    (:func:`shard_params`) and the moments ``opt.init`` makes of them
+    take their placements.  Each rank gathers its model rank's params
+    over "data" once a step, runs its rows of the batch (the rows must
+    split over "data"), the loss a mean over every rank's rows, then
+    ``models.parallel.reduce_grads`` and the clip by the norm over every
+    shard; every rank returns the same loss and norm.
     """
     mod = module_for(cfg)
     opt = opt or make_optimizer()
+    mesh = _on_mesh(cfg, mesh, tp)
 
     def loss_of(params, data):
         return mod.loss_fn(params, cfg, data, tp=tp), None
+
+    def grads_of(params, batch):
+        if num_micro == 1:
+            (loss, _), grads = value_and_grad(loss_of, params, batch)
+        else:
+            loss, grads = accumulate_grads(loss_of, params, batch, num_micro)
+        return loss, grads
 
     def step(params, opt_state, batch):
         bad = sorted({str(t.dtype) for t in leaves(params)
@@ -190,10 +256,16 @@ def make_train_step(cfg: ArchConfig, *, tp: int = 1, num_micro: int = 1,
                 f"{cfg.name}: training needs float32 params (the master "
                 f"weights; got {bad}): init_params(..., "
                 f"dtype=torch.float32)")
-        if num_micro == 1:
-            (loss, _), grads = value_and_grad(loss_of, params, batch)
+        if mesh is None:
+            loss, grads = grads_of(params, batch)
         else:
-            loss, grads = accumulate_grads(loss_of, params, batch, num_micro)
+            with use_mesh(mesh):
+                rows, _ = P.split_rows(batch, mesh, required=True,
+                                       dim=0 if num_micro == 1 else 1)
+                with C.batch_split():
+                    loss, grads = grads_of(P.gather_params(params), rows)
+                grads = P.reduce_grads(grads, params,
+                                       transformer.partial_grad)
         with torch.profiler.record_function("lm.clip"):
             grads, gnorm = clip_by_global_norm(grads, clip_norm,
                                                in_place=True)
@@ -205,24 +277,46 @@ def make_train_step(cfg: ArchConfig, *, tp: int = 1, num_micro: int = 1,
 
 
 def make_prefill(cfg: ArchConfig, *, tp: int = 1,
-                 cache_len: int | None = None):
+                 cache_len: int | None = None, mesh=None):
+    """``fn(params, batch) -> (last logits (B, Vp), cache)``; on a
+    ``DeviceMesh`` every rank returns the whole batch's logits and its own
+    share of the cache."""
     mod = module_for(cfg)
+    mesh = _on_mesh(cfg, mesh, tp)
 
     def fn(params, batch):
-        return mod.prefill(params, cfg, batch, tp=tp, cache_len=cache_len)
+        if mesh is None:
+            return mod.prefill(params, cfg, batch, tp=tp,
+                               cache_len=cache_len)
+        with use_mesh(mesh):
+            rows, split = P.split_rows(batch, mesh)
+            logits, cache = mod.prefill(P.gather_params(params), cfg, rows,
+                                        tp=tp, cache_len=cache_len)
+            return P.gather_rows(logits, split), cache
 
     return fn
 
 
-def make_decode_step(cfg: ArchConfig, *, tp: int = 1):
+def make_decode_step(cfg: ArchConfig, *, tp: int = 1, mesh=None):
+    """``fn(params, cache, batch) -> (logits (B, Vp), cache)``; on a
+    ``DeviceMesh`` the cache is this rank's (from the mesh's prefill)."""
     mod = module_for(cfg)
+    mesh = _on_mesh(cfg, mesh, tp)
 
     def fn(params, cache, batch):
-        return mod.decode_step(params, cfg, cache, batch["tokens"], tp=tp)
+        if mesh is None:
+            return mod.decode_step(params, cfg, cache, batch["tokens"],
+                                   tp=tp)
+        with use_mesh(mesh):
+            rows, split = P.split_rows({"tokens": batch["tokens"]}, mesh)
+            logits, cache = mod.decode_step(P.gather_params(params), cfg,
+                                            cache, rows["tokens"], tp=tp)
+            return P.gather_rows(logits, split), cache
 
     return fn
 
 
-__all__ = ["MODULES", "abstract_cache", "abstract_params", "batch_axes",
-           "batch_specs", "cache_axes", "make_decode_step", "make_optimizer",
-           "make_prefill", "make_train_step", "module_for", "param_axes"]
+__all__ = ["MESH_FAMILIES", "MODULES", "abstract_cache", "abstract_params",
+           "batch_axes", "batch_specs", "cache_axes", "make_decode_step",
+           "make_optimizer", "make_prefill", "make_train_step", "module_for",
+           "param_axes", "param_shardings", "shard_params"]

@@ -21,10 +21,17 @@ Conventions, as in the reference:
   as the reference's does: dead query heads (zero weights and zero
   o-projection rows) pad the query heads, and ``qkv_project`` repeats the
   KV heads' activations (or pads them with zero heads) to the layout's
-  ``kv_padded``, so every shard would own whole query blocks with the KV
-  head they read.  Everything still runs on one device: at tp > 1 this
-  is the reference's arithmetic at tp, not tensor parallelism (no
-  collective runs).  At tp = 1 the layout pads and repeats nothing.
+  ``kv_padded``, so every shard owns whole query blocks with the KV
+  head they read.  At tp = 1 the layout pads and repeats nothing.
+* Tensor parallelism (``models.parallel``): on a rank of a ``DeviceMesh``
+  whose "model" axis splits the params, each function takes this rank's
+  shards and calls the collectives the reference's hints imply
+  (``sharding.collectives``): the query heads, the MLP's hidden dim, the
+  experts (or their hidden dim) and the vocabulary are split; a function
+  learns that its leaf is split by comparing the leaf's shape with the
+  full size its caller passes (``layout``, ``d_ff``, ``vocab``).
+  Without a mesh every collective is the identity: one device runs the
+  reference's arithmetic at any tp.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..configs.base import round_up
+from ..sharding import collectives as C
 from ..sharding.partition import logical
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -86,6 +94,47 @@ def make_head_layout(num_q: int, num_kv: int, tp: int = 1) -> HeadLayout:
         return HeadLayout(num_q, num_kv, num_kv * s, tp, s)
     qp = round_up(num_q, tp)
     return HeadLayout(num_q, num_kv, qp, num_kv, qp // num_kv)
+
+
+def local_layout(layout: HeadLayout, n: int) -> HeadLayout:
+    """A model rank's share of ``layout`` on n ranks: ``q_padded / n``
+    query heads over ``kv_padded / n`` KV heads; where n does not divide
+    the KV heads (the layout kept them whole), one KV head a local query
+    head, each the copy its query head reads (:func:`local_kv`)."""
+    if n == 1:
+        return layout
+    hl = layout.q_padded // n
+    kl = layout.kv_padded // n if layout.kv_padded % n == 0 else hl
+    return HeadLayout(layout.num_q, layout.num_kv, hl, kl, hl // kl)
+
+
+def local_kv(t: torch.Tensor, layout: HeadLayout, rank: int,
+             n: int) -> torch.Tensor:
+    """k or v (B, S, kv_padded, hd) laid out at ``layout`` -> the KV heads
+    model rank ``rank`` of n reads (``local_layout(layout, n)``'s):
+    its slice where n divides them, else the head of each of its query
+    heads."""
+    if n == 1:
+        return t
+    if layout.kv_padded % n == 0:
+        kl = layout.kv_padded // n
+        return t[:, :, rank * kl:(rank + 1) * kl]
+    hl, g = layout.q_padded // n, layout.q_padded // layout.kv_padded
+    heads = torch.arange(rank * hl, (rank + 1) * hl, device=t.device) // g
+    return t.index_select(2, heads)
+
+
+def _split(local: int, full: int, n: int, what: str) -> bool:
+    """Whether a leaf whose dim holds ``local`` of ``full`` entries is
+    split over the n model ranks (``ValueError`` where it is neither whole
+    nor an n-th)."""
+    if local == full:
+        return False
+    if local * n != full:
+        raise ValueError(f"{what}: {local} of {full} entries on one of {n} "
+                         f"model ranks: the params were laid out for "
+                         f"another mesh")
+    return True
 
 
 # ---------------------------------------------------------------------------
@@ -221,12 +270,21 @@ def qkv_project(p, x: torch.Tensor, layout: HeadLayout | None = None, *,
     qk-norm and RoPE; then k and v laid out at ``layout`` (:func:`pad_kv`;
     ``None`` leaves the true KV heads).  The query heads are the params'
     (padded when they were made at tp > 1); a ``layout`` that wants
-    another count raises ``ValueError``."""
-    if layout is not None and p["wq"].shape[1] != layout.q_padded:
+    another count raises ``ValueError``.  On a model rank whose ``wq``
+    holds an n-th of the query heads, q holds those and k/v the KV heads
+    they read (``local_layout(layout, n)``); x enters through
+    Megatron's f."""
+    n = C.model_size()
+    heads = p["wq"].shape[1]
+    if layout is not None and heads not in (layout.q_padded,
+                                            layout.q_padded // n):
         raise ValueError(
-            f"the params hold {p['wq'].shape[1]} query heads; the head "
+            f"the params hold {heads} query heads; the head "
             f"layout wants {layout.q_padded}: make the params at the tp the "
             f"model runs at")
+    split = layout is not None and heads != layout.q_padded
+    if split:
+        x = C.copy_to_model(x)
     q, k, v = proj(x, p["wq"]), proj(x, p["wk"]), proj(x, p["wv"])
     if "bq" in p:
         q = q + p["bq"].to(COMPUTE_DTYPE)
@@ -238,7 +296,11 @@ def qkv_project(p, x: torch.Tensor, layout: HeadLayout | None = None, *,
     if rope_theta is not None:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
-    return q, pad_kv(k, layout), pad_kv(v, layout)
+    k, v = pad_kv(k, layout), pad_kv(v, layout)
+    if split:
+        rank = C.model_rank()
+        k, v = local_kv(k, layout, rank, n), local_kv(v, layout, rank, n)
+    return q, k, v
 
 
 def _attn_parts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -393,13 +455,19 @@ def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
     return o.reshape(B, 1, Hp, hd).to(COMPUTE_DTYPE)
 
 
-def attn_output(p, o: torch.Tensor) -> torch.Tensor:
+def attn_output(p, o: torch.Tensor,
+                layout: HeadLayout | None = None) -> torch.Tensor:
     """o (B, S, Hp, hd) -> (B, S, D) bf16, plus the output bias where
-    there is one."""
+    there is one.  Where ``wo`` holds a model rank's share of
+    ``layout``'s query heads, the partial products are summed over the
+    model ranks (Megatron's g) before the bias."""
     B, S = o.shape[:2]
     wo = p["wo"]
     y = (o.reshape(B, S, -1).to(COMPUTE_DTYPE)
          @ wo.reshape(-1, wo.shape[-1]).to(COMPUTE_DTYPE))
+    if layout is not None and _split(wo.shape[0], layout.q_padded,
+                                     C.model_size(), "attn.wo"):
+        y = C.reduce_from_model(y)
     if "bo" in p:
         y = y + p["bo"].to(COMPUTE_DTYPE)
     return y
@@ -446,13 +514,22 @@ def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int, *,
             "w_down": _normal(gen, (d_ff, d_model), std_out, device).to(cd)}
 
 
-def swiglu(p, x: torch.Tensor) -> torch.Tensor:
+def swiglu(p, x: torch.Tensor, d_ff: int | None = None) -> torch.Tensor:
+    """The SwiGLU MLP, bf16 products, SiLU in float32.  Where the params
+    hold a model rank's share of the ``d_ff`` hidden units, x enters
+    through Megatron's f and the down projection's partial sums leave
+    through its g."""
     cd = COMPUTE_DTYPE
+    split = d_ff is not None and _split(p["w_down"].shape[0], d_ff,
+                                        C.model_size(), "mlp.w_down")
+    if split:
+        x = C.copy_to_model(x)
     xc = x.to(cd)
     g = xc @ p["w_gate"].to(cd)
     u = xc @ p["w_up"].to(cd)
     h = torch.nn.functional.silu(g.float()).to(cd) * u
-    return h @ p["w_down"].to(cd)
+    y = h @ p["w_down"].to(cd)
+    return C.reduce_from_model(y) if split else y
 
 
 def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int, *,
@@ -491,11 +568,24 @@ def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
 def run_block(remat: bool, fn, *args):
     """``fn(*args)``; with ``remat``, under ``torch.utils.checkpoint`` (the
     reference's ``jax.checkpoint``): recomputed in the backward pass
-    instead of keeping its activations."""
-    if remat:
-        return torch.utils.checkpoint.checkpoint(fn, *args,
+    instead of keeping its activations.  The recomputation runs under the
+    ambient mesh of the forward (``collectives.ambient``; a card's
+    backward runs on another thread); where collectives run it recomputes
+    the whole block, so every forward collective runs again in the
+    backward, a count the collective account can state."""
+    if not remat:
+        return fn(*args)
+    ambient = C.ambient()
+
+    def again(*a):
+        with ambient():
+            return fn(*a)
+
+    whole = (torch.utils.checkpoint.set_checkpoint_early_stop(False)
+             if C.active() else contextlib.nullcontext())
+    with whole:
+        return torch.utils.checkpoint.checkpoint(again, *args,
                                                  use_reentrant=False)
-    return fn(*args)
 
 
 def causal_conv(x: torch.Tensor, w: torch.Tensor,
@@ -571,7 +661,8 @@ def moe_capacity(S: int, top_k: int, num_experts: int,
 
 def moe_apply(p, x: torch.Tensor, *, top_k: int,
               capacity_factor: float = 1.25, min_capacity: int = 4,
-              num_real_experts: int = 0, ep: bool = False):
+              num_real_experts: int = 0, ep: bool = False,
+              d_ff: int | None = None):
     """Token-choice top-k MoE with a per-row capacity, the reference's
     arithmetic -> (y (B, S, D) in x's dtype, the Switch aux loss).
 
@@ -579,21 +670,31 @@ def moe_apply(p, x: torch.Tensor, *, top_k: int,
     expert, as ``lax.top_k``) are renormalised into gates.  Each (token,
     k) pair takes the next slot of its expert in token-major order; pairs
     past the row's capacity are dropped (they read the zero row S).  The
-    expert products are bf16 with SiLU in float32; each kept pair reads
-    its slot's output back, weighted by its gate.  The aux loss is E times
-    the sum over experts of the share of first choices and the mean
-    probability.  ``ep=True`` (expert parallelism) is a sharding layout of
-    the same function, not ported.
+    expert products are bf16 with SiLU in float32.  The combine: with
+    ``ep=False`` each kept pair reads its slot's output back, weighted by
+    its gate; with ``ep=True`` (the reference's expert-parallel layout)
+    each slot's output, times its gate in float32, is scatter-added into
+    its token's row.  The aux loss is E times the sum over experts of the
+    share of first choices and the mean probability (means over the
+    global batch inside ``collectives.batch_split``).
+
+    On a model rank holding an n-th of the experts (``ep=True``) or of
+    the ``d_ff`` hidden units (``ep=False``) the routing runs whole on
+    every rank, x and the gates enter the experts through Megatron's f,
+    each rank runs its share and the partial (B, S, D) float32 outputs
+    are summed over the ranks (g).  The router stays float32 and
+    replicated.
     """
-    if ep:
-        raise NotImplementedError(
-            "moe_ep=True (experts sharded over the model axis) is not "
-            "ported yet (ROADMAP Queue 1 item 9b.3); the port runs experts "
-            "unsharded")
     B, S, D = x.shape
     E = p["router"].shape[-1]
     E_real = num_real_experts or E
     cap = moe_capacity(S, top_k, E_real, capacity_factor, min_capacity)
+    n = C.model_size()
+    if ep:
+        split = _split(p["w_gate"].shape[0], E, n, "moe.w_gate")
+    else:
+        split = d_ff is not None and _split(p["w_down"].shape[1], d_ff, n,
+                                            "moe.w_down")
     dev = x.device
 
     logits = x.float() @ p["router"].float()                  # (B, S, E)
@@ -607,6 +708,9 @@ def moe_apply(p, x: torch.Tensor, *, top_k: int,
     gate_vals, expert_idx = gate_vals[..., :top_k], expert_idx[..., :top_k]
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
+    xin = x
+    if split:
+        gate_vals, xin = C.copy_to_model(gate_vals), C.copy_to_model(x)
 
     # position of each (token, k) within its expert, token-major order: a
     # running count over the pairs, one row an expert (a scan along the
@@ -625,25 +729,45 @@ def moe_apply(p, x: torch.Tensor, *, top_k: int,
     # Dropped pairs write to a spare column ``cap``, cut off after.
     tok_idx = (torch.arange(T, device=dev) // top_k).expand(B, T)
     cols = torch.where(keep, pos_in_e, cap)
+    slot_at = flat_e * (cap + 1) + cols
     slot_tok = torch.full((B, E * (cap + 1)), S, dtype=torch.long,
                           device=dev)
-    slot_tok.scatter_(1, flat_e * (cap + 1) + cols, tok_idx)
+    slot_tok.scatter_(1, slot_at, tok_idx)
     slot_tok = slot_tok.view(B, E, cap + 1)[..., :cap]
 
-    xpad = torch.cat([x, x.new_zeros(B, 1, D)], dim=1)        # (B, S+1, D)
-    ye = _expert_ffn(p, _gather_slots(xpad, slot_tok))       # (B,E,cap,D)
-
-    # combine: each (token, k) reads its slot if kept
-    flat_slot = flat_e * cap + torch.where(keep, pos_in_e, 0)
-    yk = _gather_slots(ye.reshape(B, E * cap, D),
-                       flat_slot.reshape(B, S, top_k))       # (B,S,k,D)
-    w = (gate_vals * keep.reshape(B, S, top_k)).float()
-    y = torch.einsum("bskd,bsk->bsd", yk.float(), w)
+    xpad = torch.cat([xin, xin.new_zeros(B, 1, D)], dim=1)   # (B, S+1, D)
+    if ep:
+        # this rank's experts; the gates scattered into their slots
+        El = p["w_gate"].shape[0]
+        e0 = C.model_rank() * El if split else 0
+        slot_gate = torch.zeros((B, E * (cap + 1)), dtype=torch.float32,
+                                device=dev).scatter(
+            1, slot_at, gate_vals.reshape(B, T).float())
+        slot_gate = slot_gate.view(B, E, cap + 1)[:, e0:e0 + El, :cap]
+        tok = slot_tok[:, e0:e0 + El].reshape(B, El * cap)
+        ye = _expert_ffn(p, _gather_slots(xpad, tok.view(B, El, cap)))
+        yw = (ye.float() * slot_gate[..., None]).reshape(B, El * cap, D)
+        y = torch.zeros((B, S + 1, D), dtype=torch.float32,
+                        device=dev).scatter_add(
+            1, tok[..., None].expand(-1, -1, D), yw)[:, :S]
+    else:
+        ye = _expert_ffn(p, _gather_slots(xpad, slot_tok))   # (B,E,cap,D)
+        # each (token, k) reads its slot if kept
+        flat_slot = flat_e * cap + torch.where(keep, pos_in_e, 0)
+        yk = _gather_slots(ye.reshape(B, E * cap, D),
+                           flat_slot.reshape(B, S, top_k))   # (B,S,k,D)
+        w = (gate_vals * keep.reshape(B, S, top_k)).float()
+        y = torch.einsum("bskd,bsk->bsd", yk.float(), w)
+    if split:
+        y = C.reduce_from_model(y)
 
     # load-balance auxiliary loss (Switch-style) over the first choices
     frac_tokens = torch.nn.functional.one_hot(
         expert_idx[..., 0], E).float().mean(dim=(0, 1))
     frac_probs = probs.mean(dim=(0, 1))
+    if C.reduces_over_data():
+        frac_tokens, frac_probs = C.mean_over_data(
+            torch.stack([frac_tokens, frac_probs]))
     aux = E * torch.sum(frac_tokens * frac_probs)
     return y.to(x.dtype), aux
 
@@ -700,8 +824,20 @@ def token_ids(tokens, device) -> torch.Tensor:
     return tokens.to(device=device, dtype=torch.long)
 
 
-def embed(p, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens].to(COMPUTE_DTYPE)
+def embed(p, tokens: torch.Tensor, vocab: int | None = None) -> torch.Tensor:
+    """The rows of ``p["table"]`` the tokens pick, bf16.  Where the table
+    holds a model rank's share of the ``vocab`` rows, the lookup is
+    masked to this rank's rows (zeros elsewhere) and summed over the
+    model ranks (Megatron's g)."""
+    table = p["table"]
+    if vocab is None or not _split(table.shape[0], vocab, C.model_size(),
+                                   "embed.table"):
+        return table[tokens].to(COMPUTE_DTYPE)
+    rows = table.shape[0]
+    local = tokens - C.model_rank() * rows
+    mine = (local >= 0) & (local < rows)
+    x = table[torch.where(mine, local, 0)].to(COMPUTE_DTYPE)
+    return C.reduce_from_model(torch.where(mine[..., None], x, 0.0))
 
 
 def init_unembed(gen: torch.Generator, d_model: int, vocab_padded: int, *,
@@ -723,17 +859,29 @@ def tied_logits(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return x.to(COMPUTE_DTYPE) @ table.to(COMPUTE_DTYPE).t()
 
 
-def lm_logits(params, cfg, x: torch.Tensor,
-              cols: int | None = None) -> torch.Tensor:
+def lm_logits(params, cfg, x: torch.Tensor, cols: int | None = None, *,
+              vocab: int | None = None) -> torch.Tensor:
     """The final RMS norm (``params["final_norm"]``) and unembedding of x:
     through the embedding table when ``cfg.tie_embeddings``, else
     ``params["unembed"]``; ``cols`` unembeds only the first that many
-    vocabulary columns."""
+    vocabulary columns.  Where the table holds a model rank's share of
+    the ``vocab`` columns, x enters through Megatron's f and the logits
+    are gathered over the model ranks: every rank returns all of them."""
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    if cfg.tie_embeddings:
-        table = params["embed"]["table"]
-        return tied_logits(table if cols is None else table[:cols], x)
-    return unembed(params["unembed"], x, cols)
+    w = (params["embed"]["table"].t() if cfg.tie_embeddings
+         else params["unembed"]["w"])
+    if vocab is None or not _split(w.shape[1], vocab, C.model_size(),
+                                   "unembedding"):
+        if cfg.tie_embeddings:
+            table = params["embed"]["table"]
+            return tied_logits(table if cols is None else table[:cols], x)
+        return unembed(params["unembed"], x, cols)
+    if cols is not None:
+        raise NotImplementedError(
+            "the first vocabulary columns of a vocab-split unembedding "
+            "(the DWN head's features) on several model ranks")
+    x = C.copy_to_model(x.to(COMPUTE_DTYPE))
+    return C.gather_from_model(x @ w.to(COMPUTE_DTYPE))
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
@@ -745,8 +893,19 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
     logits: (B, S, Vp) (bf16 ok); labels: (B, S) integer (-1 = ignore).
     Returns the float32 mean over the labelled positions of
     ``logsumexp - picked`` plus ``z_loss`` times the mean of
-    ``logsumexp ** 2``.
+    ``logsumexp ** 2``: :func:`cross_entropy_sums`' sum over its count.
     """
+    total, count = cross_entropy_sums(logits, labels, vocab_real=vocab_real,
+                                      z_loss=z_loss)
+    return total / torch.clamp(count, min=1.0)
+
+
+def cross_entropy_sums(logits: torch.Tensor, labels: torch.Tensor, *,
+                       vocab_real: int, z_loss: float = 1e-4):
+    """(the sum over the labelled positions of ``logsumexp - picked`` plus
+    ``z_loss`` times that of ``logsumexp ** 2``, the count of labelled
+    positions), float32 scalars: the parts a mean over a batch whose rows
+    several ranks hold adds up."""
     Vp = logits.shape[-1]
     lf = logits.float()
     if vocab_real < Vp:
@@ -760,8 +919,7 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
     valid = (labels >= 0).float()
     nll = nll * valid
     z = (lse ** 2) * valid
-    denom = torch.clamp(valid.sum(), min=1.0)
-    return (nll.sum() + z_loss * z.sum()) / denom
+    return nll.sum() + z_loss * z.sum(), valid.sum()
 
 
 # ---------------------------------------------------------------------------
@@ -874,10 +1032,11 @@ __all__ = [
     "attn_output", "axes_attention", "axes_embedding", "axes_gelu_mlp",
     "axes_layer_norm", "axes_layers", "axes_moe", "axes_rms_norm",
     "axes_swiglu", "axes_unembed", "causal_conv", "check_ring", "conv_tail",
-    "count_moe_slots", "cross_entropy_loss", "embed", "gelu_mlp",
+    "count_moe_slots", "cross_entropy_loss", "cross_entropy_sums", "embed", "gelu_mlp",
     "init_attention", "init_embedding", "init_generator", "init_gelu_mlp", "init_layer_norm",
     "init_moe", "init_swiglu", "init_unembed", "layer_norm",
-    "layers_from_numpy", "lm_logits", "make_head_layout", "moe_apply",
+    "layers_from_numpy", "lm_logits", "local_kv", "local_layout",
+    "make_head_layout", "moe_apply",
     "moe_capacity", "pad_kv", "proj", "qkv_project", "rms_norm",
     "rope_frequencies", "run_block", "swiglu", "tied_logits", "token_ids",
     "tree_from_numpy", "unembed", "write_prompt_kv",

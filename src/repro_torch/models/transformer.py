@@ -25,9 +25,14 @@ counterpart of the reference's ``repro.models.transformer``.
   tensor-parallel degree: query heads padded with dead heads, KV heads
   repeated or zero-padded (``layers.make_head_layout``), the vocabulary
   padded to ``cfg.vocab_padded(tp)`` (the loss masks the padded logits).
-  Everything runs on one device, so tp > 1 is the reference's arithmetic
-  at tp, not tensor parallelism (ROADMAP Queue 1 item 9b.2).  Experts are
-  not sharded (``moe_ep=True`` raises, item 9b.3).
+  On one device that is the reference's arithmetic at tp.  On the ranks
+  of a ``DeviceMesh`` (``models.parallel``, ``api.make_*(mesh=)``) each
+  function runs this rank's shards: its query heads and the KV heads they
+  read (``layers.local_layout``), its share of the MLP's hidden units, of
+  the experts (``moe_ep=True``, padded to a multiple of 16 as the
+  reference pads them) or of their hidden units, and of the vocabulary;
+  the collectives are ``layers``'.  The KV cache holds this rank's rows
+  and KV heads.
 * On the ``meta`` device (shapes only: the dry-run) the flash-attention
   path runs the kernel's plain version, which launches nothing.
 * Params come in two forms: bf16 matrices for serving and float32
@@ -55,9 +60,10 @@ from __future__ import annotations
 
 import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, round_up
 from ..kernels.flash_attn import ops as flash
 from ..optim.adam import leaves
+from ..sharding import collectives as C
 from ..sharding.partition import logical
 from . import layers as L
 
@@ -71,7 +77,7 @@ FAMILIES = ("dense", "moe", "vlm")
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for what the port's transformer does
     not run: the families of the other modules (``models.api``) and
-    experts sharded over a model axis (ROADMAP Queue 1 item 9b.3)."""
+    attention implementations it lacks."""
     missing = []
     if cfg.family not in FAMILIES:
         missing.append(f"family {cfg.family!r}")
@@ -82,15 +88,36 @@ def check_supported(cfg: ArchConfig) -> None:
             f"{cfg.name}: {', '.join(missing)} not run by the "
             f"transformer, which runs families {FAMILIES} with attn_impl "
             f"in {ATTN_IMPLS}")
-    if cfg.moe_ep:
-        raise NotImplementedError(
-            f"{cfg.name}: moe_ep=True (experts sharded over the model "
-            f"axis) is not ported yet (ROADMAP Queue 1 item 9b.3); the "
-            f"port runs experts unsharded")
+
+
+#: the attention's leaves that the model axis leaves whole but whose
+#: gradient a model rank computes only in part (from its own query heads
+#: and the KV heads they read)
+MODEL_PARTIAL = {"attn": ("wk", "wv", "bk", "bv", "q_norm", "k_norm")}
+
+
+def partial_grad(path) -> bool:
+    """Whether the leaf at ``path`` (keys from the params' root) is one of
+    :data:`MODEL_PARTIAL`, whose gradient ``models.parallel`` sums over
+    the model ranks."""
+    return len(path) >= 2 and path[-1] in MODEL_PARTIAL.get(path[-2], ())
 
 
 def _layout(cfg: ArchConfig, tp: int) -> L.HeadLayout:
     return L.make_head_layout(cfg.num_heads, cfg.num_kv_heads, tp)
+
+
+def _local_layout(cfg: ArchConfig, tp: int) -> L.HeadLayout:
+    """This model rank's share of the layout at tp (the whole layout
+    without a ``DeviceMesh``)."""
+    return L.local_layout(_layout(cfg, tp), C.model_size())
+
+
+def num_experts(cfg: ArchConfig) -> int:
+    """The experts the params hold: with ``moe_ep`` padded to a multiple
+    of 16 (dead experts the router masks), as the reference pads them so
+    that they shard over the model axis."""
+    return round_up(cfg.num_experts, 16) if cfg.moe_ep else cfg.num_experts
 
 
 # ---------------------------------------------------------------------------
@@ -123,7 +150,8 @@ def init_params(cfg: ArchConfig, *, tp: int = 1, seed: int = 0, device=None,
               "ln2": ones()}
         if cfg.family == "moe":
             lp["moe"] = L.init_moe(gen, D, cfg.d_ff, cfg.num_experts,
-                                   device=dev, dtype=dtype)
+                                   pad_to=num_experts(cfg), device=dev,
+                                   dtype=dtype)
         else:
             lp["mlp"] = L.init_swiglu(gen, D, cfg.d_ff, device=dev,
                                       dtype=dtype)
@@ -184,13 +212,16 @@ def _ffn(lp, cfg: ArchConfig, h: torch.Tensor):
     if cfg.family == "moe":
         return L.moe_apply(lp["moe"], h, top_k=cfg.top_k,
                            capacity_factor=cfg.capacity_factor,
-                           num_real_experts=cfg.num_experts, ep=cfg.moe_ep)
-    return L.swiglu(lp["mlp"], h), 0.0
+                           num_real_experts=cfg.num_experts, ep=cfg.moe_ep,
+                           d_ff=cfg.d_ff)
+    return L.swiglu(lp["mlp"], h, d_ff=cfg.d_ff), 0.0
 
 
 def _block_apply(lp, cfg: ArchConfig, layout: L.HeadLayout,
                  x: torch.Tensor, positions: torch.Tensor):
-    """One layer over the whole sequence -> (x, aux, k, v)."""
+    """One layer over the whole sequence -> (x, aux, k, v); ``layout`` is
+    the whole model's, k and v hold this rank's KV heads."""
+    local = L.local_layout(layout, C.model_size())
     h = L.rms_norm(x, lp["ln1"]["scale"], cfg.norm_eps)
     q, k, v = L.qkv_project(lp["attn"], h, layout, positions=positions,
                             rope_theta=cfg.rope_theta or None,
@@ -216,15 +247,15 @@ def _block_apply(lp, cfg: ArchConfig, layout: L.HeadLayout,
         elif cfg.attn_impl == "pallas" and cfg.swa_window is None:
             o = flash.attention_ref(q, k, v, causal=True)
         elif cfg.attn_impl == "tri" and cfg.swa_window is None:
-            o = L.attention_causal_tri(q, k, v, layout,
+            o = L.attention_causal_tri(q, k, v, local,
                                        kv_chunk=cfg.attn_chunk,
                                        scores_dtype=sdt)
         else:
-            o = L.attention_chunked(q, k, v, layout, causal=True,
+            o = L.attention_chunked(q, k, v, local, causal=True,
                                     window=cfg.swa_window,
                                     kv_chunk=cfg.attn_chunk,
                                     scores_dtype=sdt)
-    x = x + L.attn_output(lp["attn"], o)
+    x = x + L.attn_output(lp["attn"], o, layout)
     y, aux = _ffn(lp, cfg, L.rms_norm(x, lp["ln2"]["scale"], cfg.norm_eps))
     return x + y, aux, k, v
 
@@ -249,7 +280,7 @@ def _layers(params, cfg: ArchConfig, tokens: torch.Tensor, cache=None, *,
     activations."""
     check_supported(cfg)
     layout = _layout(cfg, tp)
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(params["embed"], tokens, cfg.vocab_padded(tp))
     if patches is not None:
         x = torch.cat([patches.to(x.dtype), x], dim=1)
     B, S = x.shape[:2]
@@ -283,21 +314,27 @@ def forward(params, cfg: ArchConfig, batch, *, tp: int = 1,
                              collect_kv=collect_kv,
                              patches=_patches(cfg, batch, dev))
     kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
-    return L.lm_logits(params, cfg, x, vocab_cols), aux, kvs
+    return (L.lm_logits(params, cfg, x, vocab_cols,
+                        vocab=cfg.vocab_padded(tp)), aux, kvs)
 
 
 def loss_fn(params, cfg: ArchConfig, batch, *, tp: int = 1) -> torch.Tensor:
     """Next-token loss of ``batch`` ({"tokens", "labels"}, (B, S) each):
     the cross-entropy of positions [0, S-1) against labels [1, S), plus
     0.01 times the summed aux loss, as the reference adds it.  A VLM
-    batch's patch positions carry no label and are dropped."""
+    batch's patch positions carry no label and are dropped.  Inside
+    ``collectives.batch_split`` the mean is over the data ranks' rows
+    together."""
     logits, aux, _ = forward(params, cfg, batch, tp=tp)
     if cfg.family == "vlm" and batch.get("patches") is not None:
         logits = logits[:, batch["patches"].shape[1]:]
     labels = L.token_ids(batch["labels"], logits.device)
     with torch.profiler.record_function("lm.cross_entropy"):
-        ce = L.cross_entropy_loss(logits[:, :-1], labels[:, 1:],
-                                  vocab_real=cfg.vocab_size)
+        total, count = L.cross_entropy_sums(logits[:, :-1], labels[:, 1:],
+                                            vocab_real=cfg.vocab_size)
+        if C.reduces_over_data():
+            total, count = C.sum_over_data(torch.stack([total, count]))
+        ce = total / torch.clamp(count, min=1.0)
     return ce + 0.01 * aux
 
 
@@ -320,8 +357,9 @@ def cache_len_for(cfg: ArchConfig, seq_len: int) -> int:
 def init_cache(cfg: ArchConfig, batch_size: int, cache_len: int, *,
                tp: int = 1, device=None):
     """Zero K/V (L, B, ``cache_len_for(cfg, cache_len)``, kv_padded at
-    ``tp``, hd) bf16 and the position 0."""
-    layout = _layout(cfg, tp)
+    ``tp``, hd) bf16 and the position 0; on a model rank its KV heads
+    (``layers.local_layout``)."""
+    layout = _local_layout(cfg, tp)
     shape = (cfg.num_layers, batch_size, cache_len_for(cfg, cache_len),
              layout.kv_padded, cfg.head_dim_)
     dev = torch.device("cpu" if device is None else device)
@@ -363,7 +401,8 @@ def prefill(params, cfg: ArchConfig, batch, *, tp: int = 1,
     x, _, _, _ = _layers(params, cfg, tokens, cache, tp=tp,
                          patches=_patches(cfg, batch, dev))
     cache["pos"] = x.shape[1]
-    return L.lm_logits(params, cfg, x[:, -1:])[:, 0], cache
+    return (L.lm_logits(params, cfg, x[:, -1:],
+                        vocab=cfg.vocab_padded(tp))[:, 0], cache)
 
 
 def decode_step(params, cfg: ArchConfig, cache, tokens, *, tp: int = 1):
@@ -375,8 +414,10 @@ def decode_step(params, cfg: ArchConfig, cache, tokens, *, tp: int = 1):
     reads."""
     check_supported(cfg)
     layout = _layout(cfg, tp)
+    local = L.local_layout(layout, C.model_size())
     dev = params["embed"]["table"].device
-    x = L.embed(params["embed"], L.token_ids(tokens, dev))
+    x = L.embed(params["embed"], L.token_ids(tokens, dev),
+                cfg.vocab_padded(tp))
     pos = int(cache["pos"])
     Skv = cache["k"].shape[2]
     window = cfg.swa_window
@@ -393,17 +434,20 @@ def decode_step(params, cfg: ArchConfig, cache, tokens, *, tp: int = 1):
                                 qk_norm_eps=cfg.norm_eps)
         cache["k"][i, :, slot] = k[:, 0]
         cache["v"][i, :, slot] = v[:, 0]
-        o = L.attention_decode(q, cache["k"][i], cache["v"][i], layout,
+        o = L.attention_decode(q, cache["k"][i], cache["v"][i], local,
                                cur_len=cur, window=window)
-        x = x + L.attn_output(lp["attn"], o)
+        x = x + L.attn_output(lp["attn"], o, layout)
         y, _ = _ffn(lp, cfg, L.rms_norm(x, lp["ln2"]["scale"], cfg.norm_eps))
         x = x + y
     cache["pos"] = pos + 1
-    return L.lm_logits(params, cfg, x)[:, 0], cache
+    return (L.lm_logits(params, cfg, x, vocab=cfg.vocab_padded(tp))[:, 0],
+            cache)
 
 
 __all__ = [
-    "ATTN_IMPLS", "F32_LEAVES", "FAMILIES", "cache_axes", "cache_len_for",
-    "check_supported", "decode_step", "forward", "init_cache",
-    "init_params", "loss_fn", "param_axes", "params_from_numpy", "prefill",
+    "ATTN_IMPLS", "F32_LEAVES", "FAMILIES", "MODEL_PARTIAL", "cache_axes",
+    "cache_len_for", "check_supported", "decode_step", "forward",
+    "init_cache", "init_params", "loss_fn", "num_experts", "param_axes",
+    "partial_grad",
+    "params_from_numpy", "prefill",
 ]

@@ -6,7 +6,9 @@ after ``sqrt(v / bc2)``, corrects the bias with ``1 - b ** float32(step)``
 and clamps the parameters (the DWN trainer keeps tables and scores in
 [-1, 1]).  The step counter is an int32 tensor on the parameters' device,
 so a schedule reads it there and a step captured in a CUDA graph needs
-nothing from the host.
+nothing from the host.  Params that are DTensors (a model over a
+``DeviceMesh``) get moments laid out alike, and each rank updates its
+local shards: Adam is elementwise, so no collective runs.
 """
 
 from __future__ import annotations
@@ -32,6 +34,11 @@ def leaves(tree) -> list:
     return [tree]
 
 
+def _local(t):
+    """A DTensor's local shard (its storage), any other tensor itself."""
+    return t.to_local() if hasattr(t, "placements") else t
+
+
 def map_tree(fn, tree):
     """``tree`` with ``fn`` applied to each tensor."""
     if isinstance(tree, dict):
@@ -51,9 +58,16 @@ class Adam:
     clamp: tuple | None = None          # optional (lo, hi) param clamp
 
     def init(self, params) -> AdamState:
-        device = leaves(params)[0].device
-        zeros = lambda t: torch.zeros_like(t, memory_format=  # noqa: E731
-                                           torch.contiguous_format)
+        device = _local(leaves(params)[0]).device
+
+        def zeros(t):
+            z = torch.zeros_like(_local(t),
+                                 memory_format=torch.contiguous_format)
+            if t is _local(t):
+                return z
+            from torch.distributed.tensor import DTensor
+            return DTensor.from_local(z, t.device_mesh, t.placements,
+                                      run_check=False)
         return AdamState(torch.zeros((), dtype=torch.int32, device=device),
                          map_tree(zeros, params), map_tree(zeros, params))
 
@@ -82,8 +96,8 @@ class Adam:
         b2 = torch.full((), self.b2, dtype=torch.float32, device=dev)
         bc1, bc2 = 1 - b1 ** step, 1 - b2 ** step
         lr = self.lr_at(state.step)
-        for p, m, v, g in zip(leaves(params), leaves(state.mu),
-                              leaves(state.nu), leaves(grads)):
+        for p, m, v, g in zip(*(map(_local, leaves(t)) for t in (
+                params, state.mu, state.nu, grads))):
             m.mul_(self.b1).add_(g * (1 - self.b1))
             v.mul_(self.b2).add_(g * (1 - self.b2) * g)
             upd = (m / bc1).div_(torch.sqrt(v / bc2).add_(self.eps))

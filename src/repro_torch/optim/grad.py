@@ -7,7 +7,11 @@ reference's ``repro.optim.grad``.
 * top-k gradient compression with error feedback (EF-SGD style).
 
 Trees are the port's nested dicts and lists of tensors
-(``optim.adam.leaves`` / ``map_tree``).
+(``optim.adam.leaves`` / ``map_tree``).  A tree of DTensors (a model
+over a ``DeviceMesh``) takes the norm over every shard: each rank sums the
+squares of the shards it owns (a replicated shard counts on the ranks at
+coordinate 0 of each axis that replicates it) and the sums are added over
+the mesh's axes, so every rank clips by the same norm.
 """
 
 from __future__ import annotations
@@ -19,24 +23,61 @@ import torch
 from .adam import leaves, map_tree
 
 
+def _is_dtensor(x) -> bool:
+    return hasattr(x, "device_mesh") and hasattr(x, "placements")
+
+
+def _owned(x) -> bool:
+    """Whether this rank counts DTensor ``x``'s local shard in a norm: it
+    sits at coordinate 0 of every mesh axis that replicates ``x``."""
+    coord = x.device_mesh.get_coordinate()
+    return all(c == 0 for c, pl in zip(coord, x.placements)
+               if pl.is_replicate())
+
+
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
-    sums = [torch.sum(x.float() ** 2) for x in leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sums)))
+    """sqrt of the sum over leaves of each leaf's float32 sum of squares
+    (over every shard of a tree of DTensors, each counted once)."""
+    xs = leaves(tree)
+    if not any(_is_dtensor(x) for x in xs):
+        sums = [torch.sum(x.float() ** 2) for x in xs]
+        return torch.sqrt(torch.sum(torch.stack(sums)))
+    from ..sharding.collectives import all_reduce
+    mesh = next(x.device_mesh for x in xs if _is_dtensor(x))
+    sums = [torch.sum(x.to_local().float() ** 2) for x in xs
+            if _is_dtensor(x) and _owned(x)]
+    total = (torch.sum(torch.stack(sums)) if sums else
+             torch.zeros((), device=xs[0].to_local().device))
+    for i in range(mesh.ndim):
+        if mesh.size(i) > 1:
+            total = all_reduce(total, mesh.get_group(i))
+    return torch.sqrt(total)
+
+
+def _local(x):
+    return x.to_local() if _is_dtensor(x) else x
 
 
 def clip_by_global_norm(tree, max_norm: float, *, in_place: bool = False):
     """``(tree * min(1, max_norm / (norm + 1e-12)), norm)``.  With
     ``in_place`` the leaves are scaled where they are (the train step
     owns its gradients, and a copy of them at full width would not fit
-    beside the model) and ``tree`` itself is returned."""
+    beside the model) and ``tree`` itself is returned; a DTensor's local
+    shard is scaled."""
     norm = global_norm(tree)
     scale = torch.clamp(max_norm / (norm + 1e-12), max=1.0)
     if in_place:
         for x in leaves(tree):
-            x.mul_(scale)
+            _local(x).mul_(scale)
         return tree, norm
-    return map_tree(lambda x: x * scale, tree), norm
+
+    def scaled(x):
+        if not _is_dtensor(x):
+            return x * scale
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(x.to_local() * scale, x.device_mesh,
+                                  x.placements, run_check=False)
+    return map_tree(scaled, tree), norm
 
 
 def _requiring_grad(params):

@@ -16,11 +16,12 @@ itself on ``meta`` tensors (shapes only, nothing allocated) and counts:
 * **Per chip**: the global count divided by the chips (``"split":
   "even"``).  The reference's per-device HLO also counts work that
   every chip repeats, so this is a lower bound of its figure.
-* **Collectives** (:func:`collective_account`): what the partitioner's
-  specs need on the mesh, each term citing the reference's layout line it
-  prices, with the reference's ring wire model.  The port runs no
-  DTensor step yet (ROADMAP Queue 1 item 9b.2); once one runs,
-  ``CommDebugMode`` counts of it are to be held against this account.
+* **Collectives** (:func:`collective_account`): what the port's step
+  over a ``DeviceMesh`` (``models.parallel``, ``sharding.collectives``)
+  runs for the partitioner's specs, each term citing the reference's
+  layout line it prices, with the reference's ring wire model.
+  ``tests/test_torch_lm_mesh.py`` holds ``CommDebugMode``'s counts of a
+  prefill and a train step on a (2, 2) gloo mesh to it, kind by kind.
 
 Terms (seconds, per chip; the H100's constants from ``launch.mesh``):
 
@@ -45,6 +46,7 @@ from torch.utils._pytree import tree_leaves
 
 from ..launch.mesh import (GPUS_PER_NODE, HBM_BW, INTERNODE_BW, NVLINK_BW,
                            PEAK_FLOPS_BF16)
+from ..models.transformer import partial_grad
 from ..sharding.partition import LogicalAxes, axis_names, axis_size
 
 DTYPE_BYTES = {
@@ -244,6 +246,10 @@ DATA_AXES = ("pod", "data")
 
 #: the reference's lines each term prices
 CITE = {
+    "loss": "src/repro/models/layers.py:664-668, :714-733 (the aux loss's "
+            "and the loss's means over the global batch, split over dp)",
+    "norm": "src/repro/optim/grad.py:17-19 (the global norm over every "
+            "leaf, sharded alike)",
     "fsdp": "src/repro/sharding/partition.py:39 (embed -> fsdp)",
     "tp": "src/repro/sharding/partition.py:41-50 (heads, ff, ssm heads, "
           "conv_dim, lru -> model)",
@@ -268,6 +274,12 @@ def _tokens_per_row(cfg, shape, path) -> int:
     return shape.seq_len
 
 
+def _in_block(path) -> bool:
+    """Whether the params at ``path`` belong to a layer, which remat
+    recomputes in the backward (``layers.run_block``)."""
+    return str(path[0]).endswith("layers")
+
+
 def _unused(cfg, shape, path) -> bool:
     """Params a step never reads: the encoder's in a decode step (the
     cross K/V come from the cache)."""
@@ -285,27 +297,41 @@ def collective_account(cfg, shape, params, shardings, axes, *,
     whole batch when ``num_micro`` is 1).  Terms:
 
     * a param split over a data axis (FSDP): an all-gather of it over
-      those axes at every use (a forward, and in training a backward,
-      each microbatch), and in training one reduce-scatter of its float32
-      gradient a step;
+      those axes once a step (the step gathers its params and keeps them
+      for every microbatch's forward and backward), and in training one
+      reduce-scatter of its float32 gradient a step;
     * a param replicated over the data axes (with more than one data
       shard): in training one all-reduce of its gradient over them;
+    * a param the model axis leaves whole whose gradient each model rank
+      holds in part (the attention's K/V projections and qk-norms, which
+      a rank applies to its own heads only): in training one all-reduce
+      of its gradient over the model axis;
     * the Megatron pair: every output projection (a param whose last
       logical axis is "embed" and whose other dims the model axis splits)
-      all-reduces the (rows_local, positions, d_model) bf16 activations
-      it makes over the model axis, each forward, and again in each
-      backward in training; a vocab-split embedding all-reduces its
-      lookup in the forward, and in training the unembedding (or the tied
-      table) all-reduces its input's gradient in the backward;
-    * the last logits, vocab-split, all-gathered over the model axis
-      unless ``logits_sharded``, and the batch gathered over the data
-      axes (the reference's ``out_shardings`` replicate them); the DWN's
-      class counts, partial over LUTs split on the model axis, all-reduced
-      there, then gathered over the data axes.
+      all-reduces the (rows_local, positions, d_model) activations it
+      makes over the model axis (bf16; the experts' combine float32),
+      each forward, again in training where remat recomputes its layer
+      (``cfg.remat``), and once in each backward (the f at its block's
+      input); the experts' gates all-reduce their float32 gradient in
+      each backward; a vocab-split embedding all-reduces its lookup in
+      the forward, and in training the unembedding (or the tied table)
+      all-reduces its input's gradient in the backward;
+    * the logits, vocab-split, all-gathered over the model axis: the last
+      ones unless ``logits_sharded``, and in training every position's
+      for the loss each microbatch; the last ones' batch gathered over
+      the data axes (the reference's ``out_shardings`` replicate them);
+      the DWN's class counts, partial over LUTs split on the model axis,
+      all-reduced there, then gathered over the data axes;
+    * in training, with the batch split over the data axes, the loss's
+      sum and count all-reduced over them each microbatch, and each MoE
+      layer's two aux-loss means (each forward, its recomputation
+      included); the gradient norm's sum of squares all-reduced over
+      each mesh axis once a step.
 
-    Left out, so the account stays a lower bound: remat's recomputed
-    forwards, norms over a model-split dimension, the RG-LRU gates'
-    gather of their model-split input, the vocab-split loss's reductions.
+    Left out, so the account stays a lower bound: norms over a
+    model-split dimension and the RG-LRU gates' gather of their
+    model-split input (families the port runs over a mesh only at tp 1,
+    ROADMAP Queue 1 item 9b.5).
     """
     train = shape.kind == "train"
     stats = CollectiveStats({}, {}, 0.0, {})
@@ -334,6 +360,8 @@ def collective_account(cfg, shape, params, shardings, axes, *,
 
     act = 2 * cfg.d_model                     # one bf16 activation row
     uses_fwd = num_micro if train else 1
+    recompute = 2 if (train and cfg.remat) else 1
+    n_dp = math.prod(axis_size(mesh, a) for a in dp)
     for path, t, sh in pairs(params, shardings):
         ax = _leaf_axes(axes, path)
         if _unused(cfg, shape, path):
@@ -347,17 +375,27 @@ def collective_account(cfg, shape, params, shardings, axes, *,
         full = tensor_bytes(t)
         if data:
             gathered = full // n_model
-            add("all-gather", f"{name}: FSDP gather a use", data,
-                uses_fwd * (2 if train else 1), gathered, "fsdp")
+            add("all-gather", f"{name}: FSDP gather a step", data, 1,
+                gathered, "fsdp")
             if train:
                 add("reduce-scatter", f"{name}: gradient", data, 1,
                     4 * t.numel() // math.prod(shards), "grads")
         elif train and dp:
             add("all-reduce", f"{name}: gradient", dp, 1,
                 4 * t.numel() // n_model, "grads")
+        rows = rows_local * _tokens_per_row(cfg, shape, path)
+        if (train and not model_dims and "model" in names
+                and partial_grad(path)):
+            add("all-reduce", f"{name}: gradient, partial a model rank",
+                ("model",), 1, 4 * t.numel() // math.prod(shards), "grads")
+        if path[-1] == "router" and cfg.family == "moe":
+            if train and n_dp > 1:
+                add("all-reduce", f"{name}: the aux loss's means",
+                    dp, num_micro * recompute, 2 * 4 * t.shape[-1], "loss")
         if not model_dims:
             continue
-        rows = rows_local * _tokens_per_row(cfg, shape, path)
+        fwd = uses_fwd * (recompute if _in_block(path) else 1)
+        moe = len(path) > 1 and path[-2] == "moe"
         if path[:2] == ("embed", "table"):
             vocab_split = True
             add("all-reduce", f"{name}: vocab-split lookup", ("model",),
@@ -371,18 +409,32 @@ def collective_account(cfg, shape, params, shardings, axes, *,
                 add("all-reduce", f"{name}: unembedding's input gradient",
                     ("model",), num_micro, rows * act, "vocab")
         elif tuple(ax) and ax[-1] == "embed" and model_dims[-1] < len(on) - 1:
+            out = 2 * act if moe else act          # the experts' float32
             add("all-reduce", f"{name}: output projection (forward)",
-                ("model",), uses_fwd, rows * act, "tp")
+                ("model",), fwd, rows * out, "tp")
             if train:
                 add("all-reduce", f"{name}: output projection (backward)",
                     ("model",), num_micro, rows * act, "tp")
+            if train and moe:
+                add("all-reduce", f"{name}: the gates' gradient",
+                    ("model",), num_micro, rows * cfg.top_k * 4, "tp")
         elif cfg.family == "dwn" and path == ("tables",):
             counts = rows_local * cfg.vocab_size * 4
             add("all-reduce", "tables: partial class counts", ("model",),
                 uses_fwd, counts, "dwn")
-    if not train:
-        n_dp = math.prod(axis_size(mesh, a) for a in dp)
-        n_model = axis_size(mesh, "model") if "model" in names else 1
+    n_model = axis_size(mesh, "model") if "model" in names else 1
+    if train:
+        if vocab_split:
+            rows = rows_local * _tokens_per_row(cfg, shape, ("layers",))
+            add("all-gather", "logits over the vocabulary, for the loss",
+                ("model",), num_micro,
+                rows * 2 * cfg.vocab_padded(n_model), "logits")
+        if n_dp > 1:
+            add("all-reduce", "the loss's sum and count", dp, num_micro, 8,
+                "loss")
+        for a in names:
+            add("all-reduce", f"gradient norm over {a}", (a,), 1, 4, "norm")
+    else:
         if cfg.family == "dwn":
             per_row, split = 4 * cfg.vocab_size, False
         else:

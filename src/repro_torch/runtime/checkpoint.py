@@ -19,6 +19,13 @@ renamed before the marker is written, so a writer cut off mid-way never
 leaves a committed but partial checkpoint.  ``restore`` verifies every
 leaf's sha256 and shape.
 
+A tree with DTensor leaves (a model over a ``DeviceMesh``) saves
+collectively: every rank assembles each leaf's whole tensor, rank 0
+alone writes and commits the step, and the others wait for it at a
+barrier.  ``restore(..., shardings=)`` lays each loaded leaf out by a
+``NamedSharding`` on any mesh (each rank keeps its chunk), so a step
+saved at one world size restores at another.
+
 DWN artifacts (``save_artifact`` / ``load_artifact``) put the spec, its
 fingerprint, the stage and the calibration record in the manifest's
 ``extra`` with ``kind == "dwn-artifact"``.
@@ -36,6 +43,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from ..sharding.partition import place
 
 
 def _is_namedtuple(tree) -> bool:
@@ -74,10 +83,38 @@ def _rebuild(tree, leaves: dict, prefix: str = ""):
     return leaves[prefix]
 
 
+def _is_dtensor(leaf) -> bool:
+    return isinstance(leaf, torch.Tensor) and hasattr(leaf, "placements")
+
+
 def _as_numpy(leaf) -> np.ndarray:
+    if _is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
+
+
+def _collective(tree) -> bool:
+    """Whether saving ``tree`` is collective: it holds a DTensor."""
+    return any(_is_dtensor(leaf) for _, leaf in _leaf_paths(tree))
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    if dist.get_backend() == "nccl":
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier()
+
+
+def writes(tree) -> bool:
+    """Whether this process writes ``tree``'s checkpoints: always, unless
+    the tree holds DTensors and this is not rank 0."""
+    if not _collective(tree):
+        return True
+    import torch.distributed as dist
+    return dist.get_rank() == 0
 
 
 def _sha256(path: Path) -> str:
@@ -90,10 +127,28 @@ def _sha256(path: Path) -> str:
 
 def save(directory: str | os.PathLike, step: int, tree, *,
          extra: dict | None = None) -> Path:
-    """Atomically save a tree checkpoint.  Returns the final path."""
+    """Atomically save a tree checkpoint.  Returns the final path.  With
+    DTensor leaves every rank of the process group must call it: each
+    leaf is assembled on every rank, rank 0 writes, and every rank
+    returns once the step is committed."""
     base = Path(directory)
-    base.mkdir(parents=True, exist_ok=True)
     final = base / f"step_{step:08d}"
+    # one leaf at a time, assembled (on every rank) as it is written
+    arrays = ((name, _as_numpy(leaf)) for name, leaf in _leaf_paths(tree))
+    if not _collective(tree):
+        return _write(base, final, step, arrays, extra)
+    if writes(tree):
+        _write(base, final, step, arrays, extra)
+    else:
+        for _ in arrays:
+            pass
+    _barrier()
+    return final
+
+
+def _write(base: Path, final: Path, step: int, leaves, extra) -> Path:
+    """Write ``(path, array)`` pairs as step ``step`` and commit it."""
+    base.mkdir(parents=True, exist_ok=True)
     tmp = base / f"step_{step:08d}.tmp-{os.getpid()}"
     if tmp.exists():
         shutil.rmtree(tmp)
@@ -101,8 +156,7 @@ def save(directory: str | os.PathLike, step: int, tree, *,
 
     manifest: dict = {"step": step, "extra": extra or {},
                       "created": time.time(), "leaves": {}}
-    for name, leaf in _leaf_paths(tree):
-        arr = _as_numpy(leaf)
+    for name, arr in leaves:
         fn = name.replace("/", "__") + ".npy"
         np.save(tmp / fn, arr)
         manifest["leaves"][name] = {
@@ -132,14 +186,19 @@ def latest_step(directory: str | os.PathLike) -> int | None:
 
 
 def restore(directory: str | os.PathLike, step: int, like, *,
-            device="cpu", verify: bool = True):
+            device="cpu", shardings=None, verify: bool = True):
     """Restore a checkpoint into the structure of ``like`` (whose leaves
-    give the expected shapes).  Each leaf becomes a tensor on ``device``
-    with the dtype it was saved with.  Raises ``KeyError`` for a leaf
-    the checkpoint lacks, ``IOError`` for a checksum mismatch and
-    ``ValueError`` for a shape mismatch.  Returns (tree, extra)."""
+    give the expected shapes: a DTensor's are the whole tensor's).  Each
+    leaf becomes a tensor on ``device`` with the dtype it was saved with;
+    with ``shardings`` (a tree like ``like`` of ``NamedSharding``s on a
+    ``DeviceMesh``, None for a leaf to keep whole) a DTensor laid out by
+    its sharding on the mesh's device instead, the reference's
+    mesh-elastic restore.  Raises ``KeyError`` for a leaf the checkpoint
+    lacks, ``IOError`` for a checksum mismatch and ``ValueError`` for a
+    shape mismatch.  Returns (tree, extra)."""
     base = Path(directory) / f"step_{step:08d}"
     manifest = json.loads((base / "manifest.json").read_text())
+    placed = dict(_leaf_paths(shardings)) if shardings is not None else {}
     leaves = {}
     for name, leaf in _leaf_paths(like):
         meta = manifest["leaves"].get(name)
@@ -154,17 +213,29 @@ def restore(directory: str | os.PathLike, step: int, like, *,
             raise ValueError(
                 f"shape mismatch for {name}: ckpt {arr.shape} vs "
                 f"{want_shape}")
-        leaves[name] = torch.from_numpy(arr).to(device)
+        sharding = placed.get(name)
+        if sharding is None:
+            leaves[name] = torch.from_numpy(arr).to(device)
+        else:
+            leaves[name] = place(torch.from_numpy(arr).to(
+                _mesh_device(sharding.mesh)), sharding)
     return _rebuild(like, leaves), manifest["extra"]
 
 
-def restore_latest(directory, like, *, device="cpu"):
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def restore_latest(directory, like, *, device="cpu", shardings=None):
     """``(step, tree, extra)`` of the newest committed step, or
     ``(None, None, None)``."""
     s = latest_step(directory)
     if s is None:
         return None, None, None
-    tree, extra = restore(directory, s, like, device=device)
+    tree, extra = restore(directory, s, like, device=device,
+                          shardings=shardings)
     return s, tree, extra
 
 
@@ -286,4 +357,4 @@ def garbage_collect(directory: str | os.PathLike, keep: int = 3) -> None:
 
 
 __all__ = ["garbage_collect", "latest_step", "load_artifact", "restore",
-           "restore_latest", "save", "save_artifact"]
+           "restore_latest", "save", "save_artifact", "writes"]

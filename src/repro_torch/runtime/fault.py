@@ -1,9 +1,11 @@
 """Fault tolerance: restart supervisor + preemption handling.
 
 The port's copy of the reference's ``repro.runtime.fault``, over the
-port's ``runtime.checkpoint`` (the reference's on-disk layout).  Where the
-reference restores a checkpoint onto ``shardings``, the port's
-``Supervisor`` restores its leaves as tensors on ``device``: by default
+port's ``runtime.checkpoint`` (the reference's on-disk layout).  As the
+reference's, ``Supervisor(shardings=)`` restores each leaf onto its
+sharding (DTensors on a ``DeviceMesh``: a model over several ranks,
+which all run the supervisor, rank 0 writing its checkpoints); without
+``shardings`` it restores leaves as tensors on ``device``: by default
 the device of ``init_state``'s tensors, so a run on the card resumes on
 the card; with no tensor there, the card (``resolve_device``).  Pass
 ``device="cpu"`` to restore on the CPU.  The port's train steps update
@@ -103,13 +105,14 @@ class Supervisor:
     def __init__(self, ckpt_dir: str, *, policy: RestartPolicy | None = None,
                  save_every: int = 50, keep: int = 3,
                  preemption: PreemptionHandler | None = None,
-                 device=None):
+                 device=None, shardings=None):
         self.ckpt_dir = ckpt_dir
         self.policy = policy or RestartPolicy()
         self.save_every = save_every
         self.keep = keep
         self.preemption = preemption or PreemptionHandler(install=False)
         self.device = device
+        self.shardings = shardings
         self.restart_times: list[float] = []
         self.restarts = 0
 
@@ -128,7 +131,8 @@ class Supervisor:
     def _restore_or(self, init_state, init_extra) -> TrainHandle:
         state = init_state() if callable(init_state) else init_state
         step, tree, extra = ckpt.restore_latest(
-            self.ckpt_dir, state, device=self._state_device(state))
+            self.ckpt_dir, state, device=self._state_device(state),
+            shardings=self.shardings)
         if step is None:
             return TrainHandle(state, 0, dict(init_extra))
         del state
@@ -138,7 +142,8 @@ class Supervisor:
     def _save(self, handle: TrainHandle) -> None:
         ckpt.save(self.ckpt_dir, handle.step, handle.state,
                   extra=handle.extra)
-        ckpt.garbage_collect(self.ckpt_dir, keep=self.keep)
+        if ckpt.writes(handle.state):
+            ckpt.garbage_collect(self.ckpt_dir, keep=self.keep)
 
     def _register_crash(self) -> bool:
         """True if the restart budget allows another attempt."""

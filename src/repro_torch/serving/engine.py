@@ -98,10 +98,11 @@ from ..models.transformer import FAMILIES as TRANSFORMER_FAMILIES
 from ..core.model import apply_hard
 from ..device import resolve_device
 from ..dwn import DWNArtifact, resolve_spec, serving_datapath
-from ..launch.mesh import make_data_mesh
+from ..launch.mesh import make_data_mesh, make_host_mesh
 from ..models import api
+from ..models.parallel import gather_params
 from ..runtime.straggler import StragglerMonitor
-from ..sharding.partition import axis_size
+from ..sharding.partition import axis_size, is_device_mesh
 from ..workloads import load_workload
 from .backends import (AutoSelector, BoundBackend, DWNModelBundle,
                        StepTimeEstimator, autotune_model, available_backends,
@@ -173,7 +174,9 @@ class ServingEngine:
       reduced: LM: serve the tiny same-family variant (``cfg.reduced()``).
       prompt_len / gen: LM: prompt tokens per sequence and tokens generated
         per request.
-      model_parallel: LM: must be 1 — the port serves on one card.
+      model_parallel: LM: the tensor-parallel degree, cut to the world
+        of the initialised process group (1 without one); families other
+        than the transformer's raise above 1 (ROADMAP Queue 1 item 9b.5).
       dwn_head: LM only — a packed DWN classification head on the
         backbone's pooled features: a ``DWNArtifact``, a checkpoint path
         or a spec preset name such as ``"dwn-lm-head"`` (fitted on 512
@@ -367,17 +370,35 @@ class ServingEngine:
 
     def _init_lm(self, cfg: ArchConfig, prompt_len: int, gen: int,
                  model_parallel: int) -> None:
-        if model_parallel != 1:
+        """The reference's: the ("data", "model") host mesh with "model"
+        cut to the world (``make_host_mesh``), params from the seed laid
+        out at its tp.  Under a process group (the transformer's
+        families) the mesh is a ``DeviceMesh``: the params, drawn whole
+        on every rank, become DTensors and each request runs over the
+        ranks (``api.make_*(mesh=)``); every rank returns the same
+        tokens.  The other families serve on one device."""
+        if cfg.family not in api.MESH_FAMILIES and model_parallel > 1:
             raise NotImplementedError(
-                f"model_parallel={model_parallel}: the port serves on one "
-                f"card (multi-card LM serving is ROADMAP Queue 1 item 9b.2)")
+                f"{cfg.name}: model_parallel={model_parallel} for the "
+                f"{cfg.family!r} family (ROADMAP Queue 1 item 9b.5); the "
+                f"port runs families {api.MESH_FAMILIES} over a model axis")
         self.cfg = cfg
         self.prompt_len, self.gen = prompt_len, gen
         self._lm_stats: list[tuple[float, float]] = []
-        self._prefill = api.make_prefill(cfg, cache_len=prompt_len + gen)
-        self._decode = api.make_decode_step(cfg)
+        self.mesh = (make_host_mesh(model_parallel,
+                                    device_type=self.device.type)
+                     if cfg.family in api.MESH_FAMILIES else None)
+        mesh = self.mesh if is_device_mesh(self.mesh) else None
+        self.tp = axis_size(self.mesh, "model") if self.mesh else 1
+        self.devices = mesh.size() if mesh is not None else 1
+        self._prefill = api.make_prefill(cfg, tp=self.tp,
+                                         cache_len=prompt_len + gen,
+                                         mesh=mesh)
+        self._decode = api.make_decode_step(cfg, tp=self.tp, mesh=mesh)
         self.params = api.module_for(cfg).init_params(
-            cfg, seed=self.seed, device=self.device)
+            cfg, tp=self.tp, seed=self.seed, device=self.device)
+        if mesh is not None:
+            self.params = api.shard_params(cfg, self.params, mesh)
 
     # ------------------------------------------------------------------
     # DWN head on the LM backbone (dwn_head=)
@@ -390,13 +411,17 @@ class ServingEngine:
         the head's staged operands; ``verify`` checks its counts against
         ``apply_hard`` on the features of 8 seeded prompts.  The pooled
         features read the transformer's logits: other families raise
-        ``ValueError``."""
+        ``ValueError``, and so does an engine over several ranks."""
         from ..runtime.checkpoint import load_artifact
         if self.cfg.family not in TRANSFORMER_FAMILIES:
             raise ValueError(
                 f"{self.cfg.name}: a DWN head pools the transformer's "
                 f"logits (families {TRANSFORMER_FAMILIES}), not a "
                 f"{self.cfg.family!r} model's")
+        if self.devices > 1:
+            raise ValueError(
+                f"a DWN head rides an LM engine on one rank, not on "
+                f"{self.devices}")
         if isinstance(head, DWNArtifact):
             art = head
         elif Path(str(head)).exists():
@@ -438,7 +463,7 @@ class ServingEngine:
         which its next replay overwrites."""
         from ..workloads.lm_head import head_features
         toks = torch.as_tensor(np.asarray(tokens)).to(self.device)
-        feats = head_features(self.params, self.cfg, toks)
+        feats = head_features(gather_params(self.params), self.cfg, toks)
         counts, pred = self._head_backend(feats)
         return feats, counts, pred
 
@@ -737,7 +762,8 @@ class ServingEngine:
                 "mode": "lm-generate",
                 "prompt_len": self.prompt_len,
                 "generated": self.gen,
-                "model_parallel": 1,
+                "model_parallel": self.tp,
+                "devices": self.devices,
                 "attn_impl": self.cfg.attn_impl,
             })
             if self._lm_stats:

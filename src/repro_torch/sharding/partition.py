@@ -87,20 +87,22 @@ class AbstractMesh:
         return n
 
 
-def _is_device_mesh(mesh) -> bool:
+def is_device_mesh(mesh) -> bool:
+    """Whether ``mesh`` is a ``DeviceMesh`` (ranks behind it), not an
+    :class:`AbstractMesh` or None."""
     return hasattr(mesh, "mesh_dim_names")
 
 
 def axis_names(mesh) -> tuple[str, ...]:
     """The mesh's axis names (a ``DeviceMesh``'s ``mesh_dim_names``)."""
-    if _is_device_mesh(mesh):
+    if is_device_mesh(mesh):
         return tuple(mesh.mesh_dim_names or ())
     return tuple(mesh.axis_names)
 
 
 def axis_size(mesh, name: str) -> int:
     """Devices along the mesh axis ``name``."""
-    if _is_device_mesh(mesh):
+    if is_device_mesh(mesh):
         return mesh.size(axis_names(mesh).index(name))
     return mesh.shape[name]
 
@@ -205,7 +207,7 @@ class Partitioner:
         mesh dim, ``Shard(d)`` where the spec lays tensor dim d over it,
         else ``Replicate()``."""
         from torch.distributed.tensor import Replicate, Shard
-        if not _is_device_mesh(self.mesh):
+        if not is_device_mesh(self.mesh):
             raise TypeError("placements need a DeviceMesh; an abstract "
                             "mesh has no devices")
         out = []
@@ -242,6 +244,23 @@ class Partitioner:
         return walk(abstract_params, logical_tree, "")
 
 
+def place(t, sharding: NamedSharding):
+    """``t`` (the whole tensor, on this rank) as a DTensor laid out by
+    ``sharding`` on its ``DeviceMesh``: each rank keeps its own chunk, cut
+    locally (no collective; every rank holds the same ``t``).  A chunk
+    that is all of ``t`` is ``t`` itself, not a copy."""
+    from torch.distributed.tensor import DTensor, Shard
+    mesh = sharding.mesh
+    placements = Partitioner(mesh).placements(sharding.spec)
+    coord = mesh.get_coordinate()
+    local = t
+    for i, pl in enumerate(placements):
+        if isinstance(pl, Shard) and mesh.size(i) > 1:
+            local = local.chunk(mesh.size(i), dim=pl.dim)[coord[i]]
+    return DTensor.from_local(local.contiguous(), mesh, placements,
+                              run_check=False)
+
+
 class LogicalAxes(tuple):
     """A tuple of logical axis names acting as a tree *leaf*."""
 
@@ -262,4 +281,4 @@ def logical(*axes: str | None, name: str = "?") -> LogicalAxes:
 
 __all__ = ["AbstractMesh", "DEFAULT_RULES", "FallbackEvent", "LogicalAxes",
            "NamedSharding", "PartitionSpec", "Partitioner", "axis_names",
-           "axis_size", "logical"]
+           "axis_size", "is_device_mesh", "logical", "place"]

@@ -358,8 +358,9 @@ def test_main_writes_records_under_results_dryrun_torch(tmp_path,
     """``main(["--arch", "qwen3-8b", "--shape", "decode_32k"])`` writes
     one record with the reference's keys under ``results/dryrun_torch/``
     (here a temporary one), caches it, and creates no
-    ``results/dryrun/``; a skipped cell and the moe_ep variant (item 9b.3)
-    are records too."""
+    ``results/dryrun/``; a skipped cell is a record too, and the moe_ep
+    variant (item 9b.3, ported) a record whose account all-reduces the
+    experts' combine over "model"."""
     out = tmp_path / "results" / "dryrun_torch"
     assert dryrun.RESULTS.name == "dryrun_torch"
     assert dryrun.RESULTS.parent.name == "results"
@@ -385,8 +386,13 @@ def test_main_writes_records_under_results_dryrun_torch(tmp_path,
     skip = dryrun.run_cell("qwen3-8b", "long_500k", multi_pod=True)
     assert skip["skipped"] and "full-attention" in skip["reason"]
     assert dryrun.main(["--arch", "mixtral-8x7b", "--shape", "decode_32k",
-                        "--variant", "moe_ep", "--tag", "ep"]) == 1
-    err = json.loads((out / "mixtral-8x7b__decode_32k__pod1__ep.json")
-                     .read_text())
-    assert "item 9b.3" in err["error"]
+                        "--variant", "moe_ep", "--tag", "ep"]) == 0
+    ep = json.loads((out / "mixtral-8x7b__decode_32k__pod1__ep.json")
+                    .read_text())
+    assert "error" not in ep and ep["perf_variant"] == "moe_ep"
+    combine = [t for t in ep["collectives"]["terms"]
+               if t["what"] == "layers.0.moe.w_down: output projection "
+                               "(forward)"]
+    assert [(t["kind"], t["group"], t["count"]) for t in combine] == [
+        ("all-reduce", ["model"], 1)]
     assert not (tmp_path / "results" / "dryrun").exists()

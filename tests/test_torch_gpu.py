@@ -1733,3 +1733,83 @@ def test_dryrun_terms_bound_a_reduced_depth_qwen3_prefill_on_the_card():
     assert arg == sum(2 * t.numel() for t in leaves(params)) + 4 * B * S
     assert min(times) >= rec["roofline"]["compute_s"] > 0
     assert min(times) >= arg / HBM_BW
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def test_mesh_prefill_at_world_one_over_nccl_equals_meshless():
+    """The reduced qwen3-8b under ``pallas`` on a one-rank NCCL group's
+    (1, 1) ("data", "model") mesh (params as DTensors,
+    ``api.make_prefill(mesh=)``): its prefill's last logits and two decode
+    steps' equal to the meshless path's on the same params, bit for bit
+    (one rank runs no collective), with one flash-attention launch a
+    layer in the prefill."""
+    _need_card()
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api, transformer
+    cfg = dataclasses.replace(get_arch("qwen3-8b").reduced(),
+                              attn_impl="pallas", head_dim=128)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_host_mesh(1, device_type="cuda")
+        params = transformer.init_params(cfg, seed=0, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen,
+                             device="cuda")
+        want, wcache = api.make_prefill(cfg, cache_len=42)(
+            params, {"tokens": toks})
+        sharded = api.shard_params(cfg, params, mesh)
+        FK.reset_launch_counts()
+        got, cache = api.make_prefill(cfg, cache_len=42, mesh=mesh)(
+            sharded, {"tokens": toks})
+        torch.cuda.synchronize()
+        assert FK.launch_counts()["flash_attention"] == cfg.num_layers
+        assert torch.equal(got, want)
+        for t in range(2):
+            nxt = {"tokens": want[:, :cfg.vocab_size].argmax(-1)[:, None]}
+            got, cache = api.make_decode_step(cfg, mesh=mesh)(
+                sharded, cache, nxt)
+            want, wcache = api.make_decode_step(cfg)(params, wcache, nxt)
+            assert torch.equal(got, want), t
+    finally:
+        dist.destroy_process_group()
+
+
+def test_moe_ep_on_the_card_matches_ep_false():
+    """The reduced granite-moe under ``pallas`` with ``moe_ep=True`` (its
+    4 experts padded to 16, the float32 scatter-add combine) on the card:
+    prefill's last logits within 0.05 relative of ``ep=False`` on the
+    same live experts and router columns."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import api, transformer
+    base = dataclasses.replace(get_arch("granite-moe-3b-a800m").reduced(),
+                               attn_impl="pallas", head_dim=64)
+    ep = dataclasses.replace(base, moe_ep=True)
+    params = transformer.init_params(ep, seed=0, device="cuda")
+    plain = {**params, "layers": [
+        {**lp, "moe": {k: (v[:, :base.num_experts] if k == "router"
+                           else v[:base.num_experts])
+                       for k, v in lp["moe"].items()}}
+        for lp in params["layers"]]}
+    toks = torch.randint(0, base.vocab_size, (2, 40), device="cuda")
+    got, _ = api.make_prefill(ep, cache_len=40)(params, {"tokens": toks})
+    want, _ = api.make_prefill(base, cache_len=40)(plain, {"tokens": toks})
+    err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert params["layers"][0]["moe"]["w_gate"].shape[0] == 16
+    assert float(err) < 0.05, float(err)

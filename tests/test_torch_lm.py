@@ -127,20 +127,27 @@ def test_unported_options_raise():
     """What the port does not run raises ``NotImplementedError``, in the
     serving form and in the float32 training form: the transformer refuses
     the SSM, hybrid and enc-dec families, naming them (``api.module_for``
-    sends them to their own modules), and experts sharded over the model
-    axis (item 9b.3, expert parallelism); the DWN behind the LM
-    interface (``family="dwn"``, item 8.5, done) goes to ``dwn_arch``
-    through ``module_for`` and ``make_train_step``; the dense and VLM
-    models train."""
+    sends them to their own modules).  Experts sharded over the model
+    axis (``moe_ep``, item 9b.3) are ported: the params pad the 4 experts
+    to 16, as the reference's do, and the model runs in both forms.  The
+    DWN behind the LM interface (``family="dwn"``, item 8.5, done) goes
+    to ``dwn_arch`` through ``module_for`` and ``make_train_step``; the
+    dense and VLM models train."""
     cfg = _cfg()
     for bad, match in ((dict(family="ssm"), "family 'ssm'"),
                        (dict(family="hybrid"), "family 'hybrid'"),
-                       (dict(family="encdec"), "family 'encdec'"),
-                       (dict(family="moe", num_experts=4, top_k=2,
-                             moe_ep=True), "Queue 1 item 9b.3")):
+                       (dict(family="encdec"), "family 'encdec'")):
         for dtype in (torch.bfloat16, torch.float32):
             with pytest.raises(NotImplementedError, match=match):
                 TT.init_params(dataclasses.replace(cfg, **bad), dtype=dtype)
+    ep = dataclasses.replace(cfg, family="moe", num_experts=4, top_k=2,
+                             moe_ep=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        p = TT.init_params(ep, dtype=dtype)
+        assert p["layers"][0]["moe"]["w_gate"].shape[0] == 16
+        logits, _, _ = TT.forward(p, ep, {"tokens": torch.zeros(
+            (1, 4), dtype=torch.long)})
+        assert bool(torch.isfinite(logits.float()).all())
     assert callable(api.make_train_step(
         dataclasses.replace(cfg, family="dwn"))[0])
     assert callable(api.make_train_step(cfg)[0])
@@ -399,9 +406,12 @@ def test_engine_generates_the_models_greedy_tokens(attn_impl):
     assert (rep["prompt_len"], rep["generated"], rep["served"]) == (8, 3, 4)
     assert rep["arch"] == "qwen3-8b-reduced" and rep["device"] == "cpu"
     assert FK.launch_counts() == {"flash_attention": 0}
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 9b\.2"):
-        ServingEngine("qwen3-8b", reduced=True, device="cpu",
-                      model_parallel=2)
+    assert (rep["model_parallel"], rep["devices"]) == (1, 1)
+    # without a process group the model axis is cut to the world: one
+    # device, tp 1 (as the reference cuts it to its devices)
+    cut = ServingEngine("qwen3-8b", reduced=True, device="cpu",
+                        model_parallel=2)
+    assert cut.tp == 1 and cut.report()["model_parallel"] == 1
 
 
 def test_cli_serves_qwen3_8b_reduced_on_the_cpu():

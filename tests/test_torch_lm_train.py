@@ -426,11 +426,13 @@ def test_lm_train_cli_on_the_cpu():
     """``--arch qwen3-8b --reduced --steps 4 --device cpu`` prints the
     reference's keys plus the device, the loss every ``--log-every``
     steps, and equals the same steps driven through ``make_train_step``
-    from the port's init; ``--model-parallel 2`` raises naming item
-    9b.2 (the model over several devices)."""
+    from the port's init; ``--model-parallel 2`` without a process group
+    trains at tp 1 on one device (the model axis cut to the world)."""
     rep, lines = _cli(["--arch", "qwen3-8b", "--reduced", "--steps", "4",
                        "--log-every", "2", "--device", "cpu"])
-    assert set(rep) == REF_LM_KEYS | {"device"}
+    assert set(rep) == REF_LM_KEYS | {"device", "model_parallel",
+                                      "devices"}
+    assert (rep["model_parallel"], rep["devices"]) == (1, 1)
     assert rep["arch"] == "qwen3-8b-reduced" and rep["steps"] == 4
     assert rep["device"] == "cpu" and rep["straggler_events"] == 0
     assert [ln.split()[1] for ln in lines[:-1]] == ["2", "4"]
@@ -443,9 +445,10 @@ def test_lm_train_cli_on_the_cpu():
               for _ in range(4)]
     assert rep["first_loss"] == losses[0]
     assert rep["last_loss"] == float(np.mean(losses))
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 9b\.2"):
-        _cli(["--arch", "qwen3-8b", "--reduced", "--model-parallel", "2",
-              "--device", "cpu"])
+    cut, _ = _cli(["--arch", "qwen3-8b", "--reduced", "--model-parallel",
+                   "2", "--steps", "1", "--device", "cpu"])
+    assert (cut["model_parallel"], cut["devices"]) == (1, 1)
+    assert cut["first_loss"] == losses[0]
 
 
 @pytest.mark.slow

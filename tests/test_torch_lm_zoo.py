@@ -357,14 +357,29 @@ def test_moe_drops_match_reference_at_capacity_1_25(seed):
 
 
 def test_moe_expert_parallel_raises_naming_item_9():
-    """``moe_ep=True`` is a sharding layout the port does not run yet:
-    expert parallelism, item 9b.3."""
-    p, x = _moe_setup()
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 9b\.3"):
-        TL.moe_apply(_torch_moe(p), torch.from_numpy(x), top_k=2, ep=True)
-    cfg, _ = _cfgs("mixtral-8x7b", moe_ep=True)
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 9b\.3"):
-        TT.init_params(cfg)
+    """``moe_ep=True`` (expert parallelism, item 9b.3, now ported) on one
+    device: with the experts padded to 16, as the reference's transformer
+    pads them, ``moe_apply``'s float32 scatter-add combine within the
+    bf16 bar of the reference's ``ep=True`` and its aux loss within 1e-6
+    relative; the model's params pad mixtral's experts the same way, with
+    the reference's shapes."""
+    p = jax.tree.map(np.array, JL.init_moe(jax.random.PRNGKey(0), 32, 48, 4,
+                                           pad_to=16))
+    x = np.array(jax.random.normal(jax.random.PRNGKey(1), (2, 16, 32),
+                                   jnp.float32) * 0.5)
+    y, aux = TL.moe_apply(_torch_moe(p), torch.from_numpy(x), top_k=2,
+                          num_real_experts=4, ep=True)
+    jy, jaux = jax.jit(lambda p, x: JL.moe_apply(
+        p, x, top_k=2, num_real_experts=4, ep=True))(p, x)
+    _bf16_close(y, jy)
+    assert abs(float(aux) - float(jaux)) <= 1e-6 * float(jaux)
+    cfg, jcfg = _cfgs("mixtral-8x7b", moe_ep=True)
+    got = TT.init_params(cfg, device="meta")["layers"][0]["moe"]
+    want = jax.eval_shape(lambda k: JT.init_params(k, jcfg, tp=1),
+                          jax.random.PRNGKey(0))["layers"]["moe"]
+    assert {k: tuple(v.shape) for k, v in got.items()} == {
+        k: tuple(v.shape[1:]) for k, v in want.items()}
+    assert got["w_gate"].shape[0] == 16
 
 
 # ---------------------------------------------------------------------------
