@@ -5037,6 +5037,127 @@ def _lm_served(engine, stream):
     return done, launches.get("flash_attention", 0)
 
 
+#: the SSM, hybrid and encoder-decoder archs served through the one-rank
+#: mesh at full width, all layers, at the lm_zoo phase's shapes (ZOO)
+MESH_FAMILY_ARCHS = ("mamba2-1.3b", "recurrentgemma-2b", "whisper-large-v3")
+#: the data-parallel continuous session: the load phase's gate stream
+#: (dwn-jsc-lg, 4096-row buckets) cut to its first 12 requests, one of
+#: them oversize
+MESH_DP_REQUESTS = 12
+
+
+def _mesh_family(device, arch):
+    """``arch`` (ZOO's shape) served by the meshless engine and, on the
+    same params and prompts, through a one-rank NCCL mesh, in turns
+    (meshless, mesh, mesh, meshless): tokens equal, the prefill's logits
+    equal bit for bit (no collective runs at world 1); each path's
+    prefill s and decode s a token, the peak memory of both engines."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import api
+    from repro_torch.serving import ServingEngine
+    from repro_torch.sharding.partition import is_device_mesh
+    cell = ZOO[arch]
+    B, S, gen = cell.batch, cell.prompt_len, cell.gen
+    cfg = get_arch(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    plain = ServingEngine(cfg, prompt_len=S, gen=gen, device=device, seed=0)
+    plain.warmup(B)
+    stream = [plain.make_request(B, seed=300 + i)
+              for i in range(MESH_SERVED["requests"])]
+    with _nccl_world_one():
+        engine = ServingEngine(cfg, prompt_len=S, gen=gen, device=device,
+                               seed=0, model_parallel=1)
+        rep = engine.report()
+        if not (is_device_mesh(engine.mesh) and rep["model_parallel"] == 1
+                and rep["devices"] == 1):
+            raise SystemExit(f"{arch}: the engine is not on a one-rank "
+                             f"mesh: {engine.mesh}")
+        engine.warmup(B)
+        turns = {"meshless": [], "mesh": []}
+        for name in ("meshless", "mesh", "mesh", "meshless"):
+            done, _ = _lm_served(plain if name == "meshless" else engine,
+                                 stream)
+            turns[name].append(done)
+        want = [r.result["tokens"] for r in turns["meshless"][0]]
+        for done in turns["mesh"] + turns["meshless"][1:]:
+            for r, w in zip(done, want):
+                if not np.array_equal(r.result["tokens"], w):
+                    raise SystemExit(f"{arch} request {r.rid}: the mesh "
+                                     f"path's tokens differ from the "
+                                     f"meshless engine's")
+        plain_logits = api.make_prefill(cfg, cache_len=S + gen)(
+            plain.params, stream[0])[0]
+        logits = api.make_prefill(cfg, cache_len=S + gen, mesh=engine.mesh)(
+            engine.params, stream[0])[0]
+        torch.cuda.synchronize()
+        if not torch.equal(logits, plain_logits):
+            raise SystemExit(f"{arch}: the mesh prefill's logits differ "
+                             f"from the meshless path's by "
+                             f"{_rel(logits, plain_logits)}")
+        peak = torch.cuda.max_memory_allocated()
+        del engine, logits
+    del plain, plain_logits
+
+    def times(name, key):
+        return [r.result[key] for done in turns[name] for r in done]
+    return {"batch": B, "prompt_len": S, "gen": gen,
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "turns": ["meshless", "mesh", "mesh", "meshless"],
+            "tokens_equal": True, "prefill_logits_bit_equal": True,
+            "prefill_s": times("mesh", "prefill_s"),
+            "prefill_s_meshless": times("meshless", "prefill_s"),
+            "decode_s_per_tok": times("mesh", "decode_s_per_tok"),
+            "decode_s_per_tok_meshless": times("meshless",
+                                               "decode_s_per_tok"),
+            "peak_memory_bytes_both_engines": peak}
+
+
+def _mesh_dp_continuous(device):
+    """One continuous session of dwn-jsc-lg on an engine made with
+    ``data_parallel=True`` inside a one-rank NCCL world (the load phase's
+    gate, ``_async_gate``, pinned to K2, on MESH_DP_REQUESTS of its
+    requests): every result equal to the sync drain's and to
+    ``apply_hard``; the loop that ran (at world 1 the engine serves
+    alone, ``data_parallel`` False, so the one-device loop: the leader
+    and follower loops run on gloo ranks in the CPU tests); the
+    session's K1/K2 launches."""
+    import torch
+    from repro_torch.core.model import apply_hard
+    from repro_torch.serving import ServingEngine
+    with _nccl_world_one():
+        engine = ServingEngine("dwn-jsc-lg", device=device,
+                               backend="fused-packed",
+                               max_bucket=LOAD_BUCKET, min_bucket=8,
+                               n_train=20000, seed=0, data_parallel=True)
+        stream = _gate_stream(engine)[:MESH_DP_REQUESTS]
+        launches, gate = _async_gate(engine, stream, pinned=True)
+        for p in stream:
+            engine.submit(p)
+        for r in engine.drain():
+            x = torch.from_numpy(np.ascontiguousarray(r.payload, np.float32))
+            want = apply_hard(engine.artifact.frozen, x.to(engine.device))
+            if not np.array_equal(r.result[0], want.cpu().numpy()):
+                raise SystemExit(f"data-parallel engine request {r.rid} "
+                                 f"differs from apply_hard")
+        rep = engine.report()
+        loop = {"continuous_loop": rep["continuous_loop"],
+                "data_parallel": rep["data_parallel"],
+                "devices": rep["devices"]}
+        del engine
+    if loop["continuous_loop"] != "one-device":
+        raise SystemExit(f"a one-rank world ran the {loop} loop")
+    return {**gate, **loop, "equal_to_apply_hard": True,
+            "why": "at world 1 the engine sets data_parallel False "
+                   "(serving/engine.py, _init_dwn), so the one-device loop "
+                   "ran; the leader and follower loops run on gloo ranks "
+                   "(tests/test_torch_data_parallel.py)"}, launches
+
+
 def _train_steps(cfg, device, batches, mesh=None):
     """``make_train_step`` from the seed-0 float32 init (as DTensors on
     ``mesh`` when given) over ``batches``: ([(loss, grad norm)], the
@@ -5068,7 +5189,11 @@ def phase_mesh(device):
     ``DeviceMesh`` of a one-rank NCCL group against the meshless engine
     on the same params and prompts; granite-moe's experts sharded
     (``moe_ep``) against ``ep=False``; training steps through the mesh
-    against the meshless ones; a sharded save and restore."""
+    against the meshless ones; a sharded save and restore; mamba2,
+    recurrentgemma and whisper at full width through the mesh against the
+    meshless engine (``_mesh_family``); a continuous session on a
+    data-parallel DWN engine (``_mesh_dp_continuous``).  Returns K10's
+    launches on the mesh paths and the session's K1/K2 launches."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.data.tokens import TokenStream
@@ -5237,9 +5362,19 @@ def phase_mesh(device):
         out["restore"] = {"arch": small.name, "leaves": len(leaves(
             (rp, rs))), "equal": True,
             "dtensors": all(hasattr(t, "placements") for t in leaves(rp))}
-    out["seconds"] = time.perf_counter() - t_phase
     emit(out)
-    return {"qwen3-8b": k10, "granite-moe moe_ep": ep_k10}
+    for arch in MESH_FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        fam = _mesh_family(device, arch)
+        emit({"phase": "mesh", "arch": arch, **fam,
+              "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    dp, dp_launches = _mesh_dp_continuous(device)
+    emit({"phase": "mesh", "continuous_data_parallel": dp,
+          "seconds": time.perf_counter() - t0})
+    emit({"phase": "mesh", "seconds": time.perf_counter() - t_phase})
+    return {"k10": {"qwen3-8b": k10, "granite-moe moe_ep": ep_k10},
+            "dp_launches": dp_launches}
 
 
 def main() -> int:
@@ -5307,7 +5442,8 @@ def main() -> int:
     run("cli", phase_cli, "cuda")
     dwn_arch = run("dwn_arch", phase_dwn_arch, "cuda")
     run("dryrun", phase_dryrun, "cuda", lm_step, dwn_arch["priced_step"])
-    mesh_launches = run("mesh", phase_mesh, "cuda")
+    mesh = run("mesh", phase_mesh, "cuda")
+    mesh_launches = mesh["k10"]
     emit({"phase": "seconds", "seconds": seconds,
           "total": sum(seconds.values())})
 
@@ -5331,7 +5467,9 @@ def main() -> int:
                       "dwn_arch cross-check: K2 replays of its frozen "
                       "params": dwn_arch["check_launches"].get(name, 0),
                       "dp serving dwn-jsc-lg at world 1":
-                          dwn_arch["dp_launches"].get(name, 0)}
+                          dwn_arch["dp_launches"].get(name, 0),
+                      "mesh continuous session, data-parallel engine at "
+                      "world 1": mesh["dp_launches"].get(name, 0)}
                for name in launches}
     summary = []
     for name in ("fused_dwn_batch_major", "fused_dwn_packed"):

@@ -14,7 +14,10 @@ facade.  ``--workload`` serves a spec preset on another registered
 workload; under ``torchrun`` (``WORLD_SIZE`` above 1: the CLI joins the
 process group, NCCL on the card, gloo on the CPU) every rank serves the
 stream and buckets split by rows over the ranks, unless
-``--no-data-parallel`` is given (the continuous loop needs it).
+``--no-data-parallel`` is given.  With ``--continuous`` and data
+parallelism, rank 0 runs the loop (its requests, its buckets, each
+broadcast to the other ranks, which follow it) and reports the results;
+the report's ``continuous_loop`` says which loop a rank ran.
 
 LM archs (``--arch qwen3-8b``, or any of the reference's ten LM archs:
 dense, MoE, VLM, SSM, hybrid, encoder-decoder): one request of
@@ -29,9 +32,9 @@ flash-attention kernel).  ``--dwn-head`` (a spec preset name such as
 classification head on the backbone's pooled features: the same drain
 then serves the LM request and one ``classify`` request of ``--batch``
 prompts, and the report carries ``dwn_head``.  Under ``torchrun`` the CLI
-joins the process group (NCCL on the card, gloo on the CPU) and the
-dense, MoE and VLM archs serve over the ("data", "model") mesh, "model"
-of ``--model-parallel`` ranks (cut to the world): every rank serves the
+joins the process group (NCCL on the card, gloo on the CPU) and every LM
+arch serves over the ("data", "model") mesh, "model" of
+``--model-parallel`` ranks (cut to the world): every rank serves the
 same request and reports the same tokens; ``model_parallel`` in the
 report is the tp that ran.
 
@@ -53,6 +56,10 @@ Usage:
     python -m repro_torch.launch.serve --arch qwen3-8b --dwn-head dwn-lm-head
     torchrun --nproc-per-node 1 -m repro_torch.launch.serve \\
         --arch qwen3-8b --model-parallel 1
+    torchrun --nproc-per-node 1 -m repro_torch.launch.serve \\
+        --arch mamba2-1.3b --model-parallel 1
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
+        --arch dwn-jsc-sm --reduced --device cpu --continuous
     torchrun --nproc-per-node 4 -m repro_torch.launch.serve \\
         --arch qwen3-8b --reduced --device cpu --model-parallel 2
     python -m repro_torch.launch.serve --arch whisper-large-v3 --reduced \
@@ -105,11 +112,15 @@ def dwn_serve(target, args) -> dict:
     if args.continuous:
         # futures resolve out of order while the loop keeps steps in
         # flight; a deadline makes admission control and shedding part of
-        # the run
+        # the run.  A follower of a data-parallel engine runs the leader's
+        # buckets until the leader stops.
+        results = []
         with engine.serve():
-            pending = [engine.submit_async(
-                p, deadline_ms=args.deadline_ms or None) for p in payloads]
-            results = [r.future.result() for r in pending]
+            if engine.continuous_loop != "follower":
+                pending = [engine.submit_async(
+                    p, deadline_ms=args.deadline_ms or None)
+                    for p in payloads]
+                results = [r.future.result() for r in pending]
         done = [r for r in results if r.ok]
     else:
         for p in payloads:
@@ -190,7 +201,8 @@ def main(argv=None) -> int:
     ap.add_argument("--continuous", action="store_true",
                     help="DWN: serve through the continuous-batching loop "
                          "(scheduler thread + per-request futures) "
-                         "instead of the sync submit/drain facade")
+                         "instead of the sync submit/drain facade; data "
+                         "parallel under torchrun, rank 0's loop leading")
     ap.add_argument("--deadline-ms", type=float, default=0.0,
                     help="DWN with --continuous: per-request SLO deadline; "
                          "requests that provably cannot meet it are shed "

@@ -8,13 +8,11 @@ straggler monitor and, given ``--ckpt-dir``, the checkpoint-restart
 ``Supervisor`` (the token stream's position rides in the checkpoint).
 Prints one JSON line with the reference's keys, plus the device, the tp
 that ran (``model_parallel``) and the ranks (``devices``).  Under
-``torchrun`` the CLI joins the process group and the dense, MoE and VLM
-archs train over the ("data", "model") mesh, "model" of
-``--model-parallel`` ranks cut to the world: the params and Adam's
-moments are DTensors, the batch's rows split over "data", and the
-``Supervisor`` saves from rank 0 and restores each leaf onto its
-sharding.  The SSM, hybrid and encoder-decoder archs raise above 1
-(ROADMAP.md Queue 1 item 9b.5).
+``torchrun`` the CLI joins the process group and every LM arch trains
+over the ("data", "model") mesh, "model" of ``--model-parallel`` ranks
+cut to the world: the params and Adam's moments are DTensors, the
+batch's rows split over "data", and the ``Supervisor`` saves from rank
+0 and restores each leaf onto its sharding.
 
 DWN archs (``--arch dwn-jsc-lg`` or any name ``dwn.resolve_spec`` takes):
 the arch resolves to a ``DWNSpec``, ``--workload`` (or the spec's own)
@@ -71,17 +69,10 @@ def lm_train(args) -> dict:
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    if cfg.family not in api.MESH_FAMILIES and args.model_parallel > 1:
-        raise NotImplementedError(
-            f"--model-parallel {args.model_parallel} for the {cfg.family!r} "
-            f"family (ROADMAP.md Queue 1 item 9b.5); the port trains "
-            f"families {api.MESH_FAMILIES} over a model axis")
     device = resolve_device(args.device)
-    mesh = None
-    if cfg.family in api.MESH_FAMILIES:
-        init_from_env(device.type)
-        mesh = make_host_mesh(args.model_parallel, device_type=device.type)
-    tp = axis_size(mesh, "model") if mesh is not None else 1
+    init_from_env(device.type)
+    mesh = make_host_mesh(args.model_parallel, device_type=device.type)
+    tp = axis_size(mesh, "model")
     mesh = mesh if is_device_mesh(mesh) else None
     mod = api.module_for(cfg)
     step_fn, opt = api.make_train_step(cfg, tp=tp, mesh=mesh,

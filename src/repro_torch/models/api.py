@@ -28,13 +28,15 @@ LM are a list where the reference stacks them).  ``tp`` lays out heads,
 caches and the vocabulary as the reference's do at that degree (1 by
 default here, 16 in the reference).  Without ``mesh`` a step runs that
 layout on one device.  With a ``("data", "model")`` ``DeviceMesh``
-(``launch.mesh.make_host_mesh``; the transformer's families, dense, MoE
-and VLM) the params are DTensors (:func:`shard_params`) and each rank
-runs its shards (``models.parallel``): tp is the mesh's "model" size,
-the batch's rows split over "data", the logits come back whole on every
-rank, and the KV cache holds this rank's rows and KV heads.  The SSM,
-hybrid and encoder-decoder families over a mesh are ROADMAP Queue 1
-item 9b.5.
+(``launch.mesh.make_host_mesh``; every LM family) the params are
+DTensors (:func:`shard_params`) and each rank runs its shards
+(``models.parallel``): tp is the mesh's "model" size, the batch's rows
+split over "data", the logits come back whole on every rank, and the
+cache holds this rank's rows and its share of the KV heads, the SSM
+heads or the RG-LRU channels.  After a training step's backward the
+gradients are reduced by ``models.parallel.reduce_grads`` with the
+family's ``partial_grad``: the leaves the model axis leaves whole whose
+gradient each model rank holds in part.
 """
 
 from __future__ import annotations
@@ -58,8 +60,8 @@ MODULES = {"dense": transformer, "moe": transformer, "vlm": transformer,
 
 META = torch.device("meta")
 
-#: the families that run over a ``DeviceMesh``
-MESH_FAMILIES = transformer.FAMILIES
+#: the families that run over a ``DeviceMesh``: every LM family
+MESH_FAMILIES = transformer.FAMILIES + ("ssm", "hybrid", "encdec")
 
 
 def module_for(cfg: ArchConfig):
@@ -185,16 +187,26 @@ def shard_params(cfg: ArchConfig, params, mesh):
     return P.shard_tree(params, param_shardings(cfg, params, mesh))
 
 
+def partial_grad(cfg: ArchConfig, tp: int):
+    """The predicate ``models.parallel.reduce_grads`` reads: whether the
+    leaf at a path is one whose gradient each of ``tp`` model ranks
+    holds only in part (the family module's ``partial_grad``)."""
+    fn = getattr(module_for(cfg), "partial_grad", None)
+    return (lambda path: False) if fn is None else (
+        lambda path: fn(path, cfg, tp))
+
+
 def _on_mesh(cfg: ArchConfig, mesh, tp: int):
     """``mesh`` if it is a ``DeviceMesh`` (else None), checked against the
     family and the layout's tp."""
     if not is_device_mesh(mesh):
         return None
     if cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family over a DeviceMesh "
-            f"(ROADMAP Queue 1 item 9b.5); the port runs families "
-            f"{MESH_FAMILIES} there")
+        raise ValueError(
+            f"{cfg.name}: the {cfg.family!r} family runs data-parallel "
+            f"through ServingEngine(data_parallel=True) and "
+            f"train_dwn_batch(data_parallel=True); the steps here run the "
+            f"LM families {MESH_FAMILIES} over a DeviceMesh")
     model = axis_size(mesh, "model")
     if tp != model:
         raise ValueError(f"params laid out at tp {tp} on a mesh whose "
@@ -265,7 +277,7 @@ def make_train_step(cfg: ArchConfig, *, tp: int = 1, num_micro: int = 1,
                 with C.batch_split():
                     loss, grads = grads_of(P.gather_params(params), rows)
                 grads = P.reduce_grads(grads, params,
-                                       transformer.partial_grad)
+                                       partial_grad(cfg, tp))
         with torch.profiler.record_function("lm.clip"):
             grads, gnorm = clip_by_global_norm(grads, clip_norm,
                                                in_place=True)
@@ -319,4 +331,4 @@ def make_decode_step(cfg: ArchConfig, *, tp: int = 1, mesh=None):
 __all__ = ["MESH_FAMILIES", "MODULES", "abstract_cache", "abstract_params",
            "batch_axes", "batch_specs", "cache_axes", "make_decode_step",
            "make_optimizer", "make_prefill", "make_train_step", "module_for",
-           "param_axes", "param_shardings", "shard_params"]
+           "param_axes", "param_shardings", "partial_grad", "shard_params"]

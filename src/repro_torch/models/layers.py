@@ -29,9 +29,13 @@ Conventions, as in the reference:
   (``sharding.collectives``): the query heads, the MLP's hidden dim, the
   experts (or their hidden dim) and the vocabulary are split; a function
   learns that its leaf is split by comparing the leaf's shape with the
-  full size its caller passes (``layout``, ``d_ff``, ``vocab``).
-  Without a mesh every collective is the identity: one device runs the
-  reference's arithmetic at any tp.
+  full size its caller passes (``layout``, ``d_ff``, ``vocab``).  The
+  SSM and hybrid blocks take the channels a rank works on from each leaf
+  with :func:`model_part`, whether the partitioner split the leaf or a
+  divisibility fallback left it whole, and normalise over a model-split
+  dimension with :func:`rms_norm_model`.  Without a mesh every
+  collective is the identity: one device runs the reference's
+  arithmetic at any tp.
 """
 
 from __future__ import annotations
@@ -137,6 +141,25 @@ def _split(local: int, full: int, n: int, what: str) -> bool:
     return True
 
 
+def model_part(t: torch.Tensor, full: int, dim: int, split: bool,
+               what: str) -> torch.Tensor:
+    """The entries of leaf ``t`` along ``dim`` (``full`` of them in the
+    whole leaf) that this model rank works on: with ``split`` its n-th,
+    the leaf's own chunk where the partitioner split it and cut from the
+    whole leaf where a fallback kept it whole (each rank's gradient then
+    covers its own chunk: a partial gradient ``models.parallel`` sums);
+    without ``split`` all of them, gathered where the leaf holds an n-th
+    (every rank then runs the whole and holds the whole gradient)."""
+    n = C.model_size()
+    held = _split(t.shape[dim], full, n, what)
+    if split:
+        if held:
+            return t
+        k = full // n
+        return t.narrow(dim, C.model_rank() * k, k)
+    return C.gather_from_model(t, dim) if held else t
+
+
 # ---------------------------------------------------------------------------
 # Norms and RoPE
 # ---------------------------------------------------------------------------
@@ -145,6 +168,21 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * scale.float()
+    return out.to(x.dtype)
+
+
+def rms_norm_model(x: torch.Tensor, scale: torch.Tensor, full: int,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """:func:`rms_norm` of a dimension of ``full`` channels of which x
+    (and ``scale``) hold this model rank's share: the float32 sum of
+    squares of the local channels summed over the model ranks (forward
+    and backward, ``collectives.sum_over_model``) before the mean.  With
+    every channel here it is :func:`rms_norm`."""
+    if x.shape[-1] == full:
+        return rms_norm(x, scale, eps)
+    xf = x.float()
+    var = C.sum_over_model((xf * xf).sum(dim=-1, keepdim=True)) / full
     out = xf * torch.rsqrt(var + eps) * scale.float()
     return out.to(x.dtype)
 
@@ -274,15 +312,7 @@ def qkv_project(p, x: torch.Tensor, layout: HeadLayout | None = None, *,
     holds an n-th of the query heads, q holds those and k/v the KV heads
     they read (``local_layout(layout, n)``); x enters through
     Megatron's f."""
-    n = C.model_size()
-    heads = p["wq"].shape[1]
-    if layout is not None and heads not in (layout.q_padded,
-                                            layout.q_padded // n):
-        raise ValueError(
-            f"the params hold {heads} query heads; the head "
-            f"layout wants {layout.q_padded}: make the params at the tp the "
-            f"model runs at")
-    split = layout is not None and heads != layout.q_padded
+    split = heads_split(p, layout)
     if split:
         x = C.copy_to_model(x)
     q, k, v = proj(x, p["wq"]), proj(x, p["wk"]), proj(x, p["wv"])
@@ -298,9 +328,29 @@ def qkv_project(p, x: torch.Tensor, layout: HeadLayout | None = None, *,
         k = apply_rope(k, positions, rope_theta)
     k, v = pad_kv(k, layout), pad_kv(v, layout)
     if split:
-        rank = C.model_rank()
-        k, v = local_kv(k, layout, rank, n), local_kv(v, layout, rank, n)
+        k, v = model_kv(k, layout), model_kv(v, layout)
     return q, k, v
+
+
+def heads_split(p, layout: HeadLayout | None) -> bool:
+    """Whether ``p["wq"]`` holds this model rank's share of ``layout``'s
+    query heads (``ValueError`` for a count that is neither that nor all
+    of them)."""
+    if layout is None:
+        return False
+    heads = p["wq"].shape[1]
+    if heads not in (layout.q_padded, layout.q_padded // C.model_size()):
+        raise ValueError(
+            f"the params hold {heads} query heads; the head "
+            f"layout wants {layout.q_padded}: make the params at the tp the "
+            f"model runs at")
+    return heads != layout.q_padded
+
+
+def model_kv(t: torch.Tensor, layout: HeadLayout) -> torch.Tensor:
+    """k or v laid out at ``layout`` -> the KV heads this model rank's
+    query heads read (:func:`local_kv` on the ambient mesh)."""
+    return local_kv(t, layout, C.model_rank(), C.model_size())
 
 
 def _attn_parts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -547,15 +597,25 @@ def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int, *,
     return p
 
 
-def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
+def gelu_mlp(p, x: torch.Tensor, d_ff: int | None = None) -> torch.Tensor:
     """x @ w_in (+ b_in), GELU (tanh approximation) in float32, @ w_out (+
-    b_out): bf16 products and bias adds, as the reference's."""
+    b_out): bf16 products and bias adds, as the reference's.  Where the
+    params hold a model rank's share of the ``d_ff`` hidden units (and of
+    ``b_in``), x enters through Megatron's f, the output projection's
+    partial sums leave through its g, and ``b_out`` is added once, after
+    the sum."""
     cd = COMPUTE_DTYPE
+    split = d_ff is not None and _split(p["w_out"].shape[0], d_ff,
+                                        C.model_size(), "mlp.w_out")
+    if split:
+        x = C.copy_to_model(x)
     h = x.to(cd) @ p["w_in"].to(cd)
     if "b_in" in p:
         h = h + p["b_in"].to(cd)
     h = torch.nn.functional.gelu(h.float(), approximate="tanh").to(cd)
     y = h @ p["w_out"].to(cd)
+    if split:
+        y = C.reduce_from_model(y)
     if "b_out" in p:
         y = y + p["b_out"].to(cd)
     return y
@@ -853,10 +913,17 @@ def unembed(p, x: torch.Tensor, cols: int | None = None) -> torch.Tensor:
     return x.to(COMPUTE_DTYPE) @ w.to(COMPUTE_DTYPE)
 
 
-def tied_logits(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def tied_logits(table: torch.Tensor, x: torch.Tensor,
+                vocab: int | None = None) -> torch.Tensor:
     """x (..., D) against the embedding table (Vp, D): the tied
-    unembedding, bf16."""
-    return x.to(COMPUTE_DTYPE) @ table.to(COMPUTE_DTYPE).t()
+    unembedding, bf16.  Where the table holds a model rank's share of the
+    ``vocab`` rows, x enters through Megatron's f and the logits are
+    gathered over the model ranks."""
+    if vocab is None or not _split(table.shape[0], vocab, C.model_size(),
+                                   "embed.table"):
+        return x.to(COMPUTE_DTYPE) @ table.to(COMPUTE_DTYPE).t()
+    x = C.copy_to_model(x.to(COMPUTE_DTYPE))
+    return C.gather_from_model(x @ table.to(COMPUTE_DTYPE).t())
 
 
 def lm_logits(params, cfg, x: torch.Tensor, cols: int | None = None, *,
@@ -898,6 +965,19 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
     total, count = cross_entropy_sums(logits, labels, vocab_real=vocab_real,
                                       z_loss=z_loss)
     return total / torch.clamp(count, min=1.0)
+
+
+def batch_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
+                        vocab_real: int) -> torch.Tensor:
+    """:func:`cross_entropy_loss` over the global batch: inside
+    ``collectives.batch_split`` the sums and counts of every data rank's
+    rows together (elsewhere the batch's own)."""
+    with torch.profiler.record_function("lm.cross_entropy"):
+        total, count = cross_entropy_sums(logits, labels,
+                                          vocab_real=vocab_real)
+        if C.reduces_over_data():
+            total, count = C.sum_over_data(torch.stack([total, count]))
+        return total / torch.clamp(count, min=1.0)
 
 
 def cross_entropy_sums(logits: torch.Tensor, labels: torch.Tensor, *,
@@ -1030,14 +1110,17 @@ __all__ = [
     "COMPUTE_DTYPE", "HeadLayout", "PARAM_DTYPE", "apply_rope",
     "attention_causal_tri", "attention_chunked", "attention_decode",
     "attn_output", "axes_attention", "axes_embedding", "axes_gelu_mlp",
+    "batch_cross_entropy",
     "axes_layer_norm", "axes_layers", "axes_moe", "axes_rms_norm",
     "axes_swiglu", "axes_unembed", "causal_conv", "check_ring", "conv_tail",
     "count_moe_slots", "cross_entropy_loss", "cross_entropy_sums", "embed", "gelu_mlp",
     "init_attention", "init_embedding", "init_generator", "init_gelu_mlp", "init_layer_norm",
     "init_moe", "init_swiglu", "init_unembed", "layer_norm",
     "layers_from_numpy", "lm_logits", "local_kv", "local_layout",
-    "make_head_layout", "moe_apply",
+    "heads_split", "make_head_layout", "model_kv", "model_part",
+    "moe_apply",
     "moe_capacity", "pad_kv", "proj", "qkv_project", "rms_norm",
+    "rms_norm_model",
     "rope_frequencies", "run_block", "swiglu", "tied_logits", "token_ids",
     "tree_from_numpy", "unembed", "write_prompt_kv",
 ]

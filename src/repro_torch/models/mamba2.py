@@ -19,7 +19,23 @@ counterpart of the reference's ``repro.models.mamba2``.
   (ROADMAP fault 12).
 * ``tp`` (every function's keyword, 1 by default) pads the vocabulary
   to ``cfg.vocab_padded(tp)``, as the reference's; the SSM has no heads
-  to pad, so it changes nothing else.
+  to pad, so it changes nothing else on one device.
+* On the ranks of a ``DeviceMesh`` (``api.make_*(mesh=)``) where the
+  model ranks divide the SSM heads (the partitioner's "ssm_heads"
+  split), each rank runs its heads: ``w_z``, ``w_x`` and ``w_dt`` are
+  column-parallel (Megatron's f on the normed input), the step, decay
+  and skip params and the scan are local by head, ``w_bc`` is
+  replicated (every rank computes B and C whole), ``out_norm`` normalises
+  over the model-split ``d_inner`` (``layers.rms_norm_model``) and
+  ``w_out`` is row-parallel (g).  The convolution's params are laid out
+  over "conv_dim" = ``d_inner + 2 G N`` channels, whose n-th chunks do
+  not line up with the channels a rank convolves (its ``d_inner / n``
+  value channels and every B/C channel), so each block gathers them over
+  "model" (one all-gather of the (K + 1, conv_dim) taps and bias; the
+  backward a reduce-scatter) and takes its channels.  The cache holds
+  this rank's heads and those channels, ``d_inner / n + 2 G N`` a rank
+  (not the spec's conv_dim / n: ROADMAP, differences by design).  Where
+  the ranks do not divide the heads every rank runs the whole block.
 * Params: a dict whose ``"layers"`` entry is a list of per-layer dicts;
   the matrices in ``dtype`` (bf16 to serve, float32 to train), every leaf
   the reference reads in float32 (norm scales, the convolution, the step
@@ -41,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..sharding import collectives as C
 from ..sharding.partition import logical
 from . import layers as L
 
@@ -51,6 +68,34 @@ F32_LEAVES = ("scale", "dt_bias", "A_log", "D_skip", "conv_w", "conv_b")
 def _dims(cfg: ArchConfig) -> tuple[int, int]:
     d_inner = cfg.ssm_expand * cfg.d_model
     return d_inner, d_inner // cfg.ssm_headdim
+
+
+def _heads_split(cfg: ArchConfig) -> bool:
+    """Whether this model rank runs its share of the SSM heads: the model
+    ranks (of the ambient mesh) divide them, so the partitioner splits
+    "ssm_heads" (and "conv_dim" of ``d_inner``)."""
+    n = C.model_size()
+    if n == 1 or _dims(cfg)[1] % n:
+        return False
+    if cfg.ssm_ngroups != 1:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.ssm_ngroups} B/C groups over {n} model "
+            f"ranks; the port splits the heads of one group")
+    return True
+
+
+#: a block's leaves that the model axis leaves whole (``w_bc``; the
+#: convolution's where the ranks do not divide its channels) but whose
+#: gradient a model rank computes only in part, when it runs its heads
+MODEL_PARTIAL = ("w_bc", "conv_w", "conv_b")
+
+
+def partial_grad(path, cfg: ArchConfig | None = None, tp: int = 1) -> bool:
+    """Whether the leaf at ``path`` is one of :data:`MODEL_PARTIAL` of a
+    model whose ``tp`` ranks each run their share of the heads
+    (``models.parallel.reduce_grads``)."""
+    return (cfg is not None and tp > 1 and _dims(cfg)[1] % tp == 0
+            and path[0] == "layers" and path[-1] in MODEL_PARTIAL)
 
 
 # ---------------------------------------------------------------------------
@@ -223,38 +268,102 @@ def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y.reshape(Bt, S, H, P).to(L.COMPUTE_DTYPE), h
 
 
+def _conv_params(lp, cfg: ArchConfig, split: bool):
+    """(conv_w (K, c), conv_b (c,)) of the c channels this model rank
+    convolves: all of them, or (``split``) its ``d_inner / n`` value
+    channels followed by every B/C channel.  Where "conv_dim" is split
+    over "model" the taps and bias are gathered first, in one
+    all-gather (every rank then holds part of their gradient, so the
+    backward sums it and keeps this rank's chunk)."""
+    d_inner, _ = _dims(cfg)
+    full = d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+    n = C.model_size()
+    held = L._split(lp["conv_w"].shape[1], full, n, "ssm.conv_w")
+    if not (held or split):
+        return lp["conv_w"], lp["conv_b"]
+    wb = torch.cat([lp["conv_w"], lp["conv_b"][None]], dim=0)
+    if held:
+        wb = (C.gather_for_model(wb, 1) if split
+              else C.gather_from_model(wb, 1))
+    if split:
+        k, r = d_inner // n, C.model_rank()
+        wb = torch.cat([wb[:, r * k:(r + 1) * k], wb[:, d_inner:]], dim=1)
+    return wb[:-1], wb[-1]
+
+
+def _shares(lp, cfg: ArchConfig) -> dict:
+    """The block's params this model rank runs (``layers.model_part``:
+    its heads' where it runs a share of them, else all), with
+    ``"split"``: whether it does."""
+    d_inner, H = _dims(cfg)
+    split = _heads_split(cfg)
+
+    def part(t, full, dim, name):
+        return L.model_part(t, full, dim, split, f"ssm.{name}")
+
+    p = {name: part(lp[name], d_inner, 1, name) for name in ("w_z", "w_x")}
+    p["w_dt"] = part(lp["w_dt"], H, 1, "w_dt")
+    for name in ("dt_bias", "A_log", "D_skip"):
+        p[name] = part(lp[name], H, 0, name)
+    p["out_norm"] = part(lp["out_norm"]["scale"], d_inner, 0, "out_norm")
+    p["w_out"] = part(lp["w_out"], d_inner, 0, "w_out")
+    p["conv_w"], p["conv_b"] = _conv_params(lp, cfg, split)
+    p["split"] = split
+    return p
+
+
+def _project(lp, p, cfg: ArchConfig, x: torch.Tensor):
+    """The block's input projections of x -> (z, the convolution's input
+    (its value channels, then B and C), dt before the softplus)."""
+    h = L.rms_norm(x, lp["ln"]["scale"], cfg.norm_eps)
+    if p["split"]:
+        h = C.copy_to_model(h)
+    conv_in = torch.cat([L.proj(h, p["w_x"]), L.proj(h, lp["w_bc"])], -1)
+    return L.proj(h, p["w_z"]), conv_in, L.proj(h, p["w_dt"])
+
+
+def _output(p, cfg: ArchConfig, x: torch.Tensor, y: torch.Tensor,
+            z: torch.Tensor) -> torch.Tensor:
+    """The SSM output y (B, S, the rank's d_inner) -> x + its out
+    projection: the gate, the norm over d_inner, ``w_out`` (g where
+    split)."""
+    cd = L.COMPUTE_DTYPE
+    y = y.to(cd) * F.silu(z.float()).to(cd)
+    y = L.rms_norm_model(y, p["out_norm"], _dims(cfg)[0], cfg.norm_eps)
+    out = L.proj(y, p["w_out"])
+    return x + (C.reduce_from_model(out) if p["split"] else out)
+
+
 def _block_apply(lp, cfg: ArchConfig, x: torch.Tensor, state=None):
     """One SSD block over the whole sequence x (B, S, D) -> (x + out, the
     last SSM state (B, H, P, N) float32, the convolution's input (B, S,
-    conv channels) bf16)."""
-    d_inner, H = _dims(cfg)
+    conv channels) bf16); H and the channels this rank's (``_shares``)."""
     G, N, P = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_headdim
     cd = L.COMPUTE_DTYPE
-    h = L.rms_norm(x, lp["ln"]["scale"], cfg.norm_eps)
-    z = L.proj(h, lp["w_z"])
-    conv_in = torch.cat([L.proj(h, lp["w_x"]), L.proj(h, lp["w_bc"])], -1)
-    dt_raw = L.proj(h, lp["w_dt"])
-    conv = L.causal_conv(conv_in, lp["conv_w"], lp["conv_b"])
+    p = _shares(lp, cfg)
+    H = p["dt_bias"].shape[0]
+    dl = H * P
+    z, conv_in, dt_raw = _project(lp, p, cfg, x)
+    conv = L.causal_conv(conv_in, p["conv_w"], p["conv_b"])
     conv = F.silu(conv.float()).to(cd)
     Bt, S = x.shape[:2]
-    xh = conv[..., :d_inner].reshape(Bt, S, H, P)
-    Bg = conv[..., d_inner:d_inner + G * N].reshape(Bt, S, G, N)
-    Cg = conv[..., d_inner + G * N:].reshape(Bt, S, G, N)
-    dt = F.softplus(dt_raw.float() + lp["dt_bias"].float())
-    A = torch.exp(lp["A_log"].float())
+    xh = conv[..., :dl].reshape(Bt, S, H, P)
+    Bg = conv[..., dl:dl + G * N].reshape(Bt, S, G, N)
+    Cg = conv[..., dl + G * N:].reshape(Bt, S, G, N)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
+    A = torch.exp(p["A_log"].float())
     y, h_last = _ssd_chunked(xh, dt, A, Bg, Cg, min(cfg.ssm_chunk, S),
                              h0=state)
-    y = y + xh * lp["D_skip"].to(cd)[None, None, :, None]
-    y = y.reshape(Bt, S, d_inner) * F.silu(z.float()).to(cd)
-    y = L.rms_norm(y, lp["out_norm"]["scale"], cfg.norm_eps)
-    return x + L.proj(y, lp["w_out"]), h_last, conv_in
+    y = y + xh * p["D_skip"].to(cd)[None, None, :, None]
+    return _output(p, cfg, x, y.reshape(Bt, S, dl), z), h_last, conv_in
 
 
-def _run(params, cfg: ArchConfig, tokens: torch.Tensor, cache=None):
+def _run(params, cfg: ArchConfig, tokens: torch.Tensor, cache=None, *,
+         tp: int = 1):
     """Embed and run every block -> (the last hidden state, each block's
     last SSM state); with ``cache``, each block's state and convolution
     tail are written there."""
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(params["embed"], tokens, cfg.vocab_padded(tp))
     states = []
     for i, lp in enumerate(params["layers"]):
         x, st, conv_in = L.run_block(cfg.remat and x.requires_grad,
@@ -270,16 +379,18 @@ def forward(params, cfg: ArchConfig, batch, *, tp: int = 1):
     """Full-sequence forward -> (logits (B, S, Vp) bf16, each block's
     last SSM state)."""
     tokens = L.token_ids(batch["tokens"], params["embed"]["table"].device)
-    x, states = _run(params, cfg, tokens)
-    return L.lm_logits(params, cfg, x), states
+    x, states = _run(params, cfg, tokens, tp=tp)
+    return L.lm_logits(params, cfg, x, vocab=cfg.vocab_padded(tp)), states
 
 
 def loss_fn(params, cfg: ArchConfig, batch, *, tp: int = 1) -> torch.Tensor:
-    """Cross-entropy of positions [0, S-1) against labels [1, S)."""
+    """Cross-entropy of positions [0, S-1) against labels [1, S) (inside
+    ``collectives.batch_split`` the mean over the data ranks' rows
+    together)."""
     logits, _ = forward(params, cfg, batch, tp=tp)
     labels = L.token_ids(batch["labels"], logits.device)
-    return L.cross_entropy_loss(logits[:, :-1], labels[:, 1:],
-                                vocab_real=cfg.vocab_size)
+    return L.batch_cross_entropy(logits[:, :-1], labels[:, 1:],
+                                 vocab_real=cfg.vocab_size)
 
 
 # ---------------------------------------------------------------------------
@@ -291,10 +402,13 @@ def init_cache(cfg: ArchConfig, batch_size: int, cache_len: int = 0, *,
     """Each block's SSM state (L, B, H, P, N) float32 and last
     ``ssm_conv - 1`` convolution inputs (L, B, K-1, C) bf16: O(1) in the
     sequence, so ``cache_len`` is unused, and no head to lay out, so
-    ``tp`` is too."""
+    ``tp`` is too.  On a model rank that runs its share of the heads, H
+    is its heads and C its channels (``d_inner / n + 2 G N``)."""
     del cache_len, tp
     d_inner, H = _dims(cfg)
     G, N, P = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_headdim
+    if _heads_split(cfg):
+        d_inner, H = d_inner // C.model_size(), H // C.model_size()
     dev = torch.device("cpu" if device is None else device)
     Lc = cfg.num_layers
     return {"ssm": torch.zeros((Lc, batch_size, H, P, N), device=dev),
@@ -321,50 +435,50 @@ def prefill(params, cfg: ArchConfig, batch, *, tp: int = 1,
     dev = params["embed"]["table"].device
     tokens = L.token_ids(batch["tokens"], dev)
     cache = init_cache(cfg, tokens.shape[0], device=dev)
-    x, _ = _run(params, cfg, tokens, cache)
+    x, _ = _run(params, cfg, tokens, cache, tp=tp)
     cache["pos"] = tokens.shape[1]
-    return L.lm_logits(params, cfg, x[:, -1:])[:, 0], cache
+    return (L.lm_logits(params, cfg, x[:, -1:],
+                        vocab=cfg.vocab_padded(tp))[:, 0], cache)
 
 
 def decode_step(params, cfg: ArchConfig, cache, tokens, *, tp: int = 1):
     """One token (B, 1) through the recurrence -> (logits (B, Vp), cache),
     the cache updated in place."""
-    d_inner, H = _dims(cfg)
     G, N, P = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_headdim
     cd = L.COMPUTE_DTYPE
     dev = params["embed"]["table"].device
-    x = L.embed(params["embed"], L.token_ids(tokens, dev))
+    x = L.embed(params["embed"], L.token_ids(tokens, dev),
+                cfg.vocab_padded(tp))
     for i, lp in enumerate(params["layers"]):
-        hn = L.rms_norm(x, lp["ln"]["scale"], cfg.norm_eps)
-        z = L.proj(hn, lp["w_z"])
-        cin = torch.cat([L.proj(hn, lp["w_x"]), L.proj(hn, lp["w_bc"])], -1)
-        dt_raw = L.proj(hn, lp["w_dt"])
+        p = _shares(lp, cfg)
+        H = p["dt_bias"].shape[0]
+        dl = H * P
+        z, cin, dt_raw = _project(lp, p, cfg, x)
         # the window [kept inputs, this token]: oldest first, so the taps
         # (stored newest-first) run reversed
         win = torch.cat([cache["conv"][i], cin], dim=1)        # (B, K, C)
-        w = lp["conv_w"].float().flip(0)
-        cout = (win.float() * w).sum(1) + lp["conv_b"].float()
+        w = p["conv_w"].float().flip(0)
+        cout = (win.float() * w).sum(1) + p["conv_b"].float()
         cout = F.silu(cout).to(cd)
-        xs = cout[:, :d_inner].reshape(-1, H, P).float()
-        Bh = cout[:, d_inner:d_inner + G * N].reshape(-1, G, N)
-        Ch = cout[:, d_inner + G * N:].reshape(-1, G, N)
+        xs = cout[:, :dl].reshape(-1, H, P).float()
+        Bh = cout[:, dl:dl + G * N].reshape(-1, G, N)
+        Ch = cout[:, dl + G * N:].reshape(-1, G, N)
         Bh = Bh.repeat_interleave(H // G, dim=1).float()       # (B, H, N)
         Ch = Ch.repeat_interleave(H // G, dim=1).float()
-        dt = F.softplus(dt_raw[:, 0].float() + lp["dt_bias"].float())
-        a = torch.exp(-dt * torch.exp(lp["A_log"].float()))
+        dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"].float())
+        a = torch.exp(-dt * torch.exp(p["A_log"].float()))
         upd = torch.einsum("bhn,bhp->bhpn", Bh, xs * dt[..., None])
         ssm = cache["ssm"][i] * a[..., None, None] + upd
         y = torch.einsum("bhn,bhpn->bhp", Ch, ssm)
-        y = y + xs * lp["D_skip"].float()[None, :, None]
-        y = y.reshape(-1, 1, d_inner).to(cd) * F.silu(z.float()).to(cd)
-        y = L.rms_norm(y, lp["out_norm"]["scale"], cfg.norm_eps)
-        x = x + L.proj(y, lp["w_out"])
+        y = y + xs * p["D_skip"].float()[None, :, None]
+        x = _output(p, cfg, x, y.reshape(-1, 1, dl), z)
         cache["ssm"][i] = ssm
         cache["conv"][i] = win[:, 1:]
     cache["pos"] = int(cache["pos"]) + 1
-    return L.lm_logits(params, cfg, x)[:, 0], cache
+    return (L.lm_logits(params, cfg, x, vocab=cfg.vocab_padded(tp))[:, 0],
+            cache)
 
 
-__all__ = ["F32_LEAVES", "cache_axes", "decode_step", "forward",
-           "init_cache", "init_params", "loss_fn", "param_axes",
-           "params_from_numpy", "prefill"]
+__all__ = ["F32_LEAVES", "MODEL_PARTIAL", "cache_axes", "decode_step",
+           "forward", "init_cache", "init_params", "loss_fn", "param_axes",
+           "params_from_numpy", "partial_grad", "prefill"]

@@ -22,7 +22,17 @@ local attention: the port's counterpart of the reference's
 * ``tp`` (every function's keyword, 1 by default) lays the attention
   heads, the KV ring and the vocabulary out as the reference's do at that
   tensor-parallel degree (the MQA's one KV head repeated, query heads
-  padded); everything runs on one device.
+  padded).  On one device that is the reference's arithmetic at tp.  On
+  the ranks of a ``DeviceMesh`` (``api.make_*(mesh=)``) each function
+  runs this rank's shards: where the model ranks divide the RG-LRU width
+  (the partitioner's "lru" split), the recurrent block is column-parallel
+  into its channels (``w_gate``, ``w_in``, the depthwise convolution, the
+  scan), the gates' products read the convolution's output gathered over
+  "model" (``collectives.gather_for_model``: ``wa``/``wx`` take the whole
+  width in and give this rank's channels out) and ``w_out`` is
+  row-parallel; where they do not, every rank runs the whole block.  The
+  attention and the MLPs split as the transformer's; the cache holds
+  this rank's RG-LRU channels and KV heads.
 * Params: ``{"embed", "super": {"rec1", "rec2", "attn"}: lists over the
   superblocks, "tail": list, "final_norm"}``; matrices in ``dtype``, the
   leaves the reference reads in float32 (norm scales, the convolution,
@@ -44,6 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..sharding import collectives as C
 from ..sharding.partition import logical
 from . import layers as L
 
@@ -55,6 +66,26 @@ F32_LEAVES = ("scale", "conv_w", "conv_b", "wa", "ba", "wx", "bx", "lam")
 
 def _layout(cfg: ArchConfig, tp: int) -> L.HeadLayout:
     return L.make_head_layout(cfg.num_heads, cfg.num_kv_heads, tp)
+
+
+def _lru_split(cfg: ArchConfig) -> bool:
+    """Whether this model rank runs its share of the RG-LRU channels: the
+    model ranks (of the ambient mesh) divide the width, so the
+    partitioner splits "lru"."""
+    n = C.model_size()
+    return n > 1 and cfg.lru_width % n == 0
+
+
+#: the attention's leaves that the model axis leaves whole but whose
+#: gradient a model rank computes only in part
+MODEL_PARTIAL = {"attn": ("wk", "wv")}
+
+
+def partial_grad(path, cfg: ArchConfig | None = None, tp: int = 1) -> bool:
+    """Whether the leaf at ``path`` is one of :data:`MODEL_PARTIAL`
+    (``models.parallel.reduce_grads``): the recurrent block's leaves are
+    split over "model" or run whole on every rank, never partial."""
+    return len(path) >= 2 and path[-1] in MODEL_PARTIAL.get(path[-2], ())
 
 
 def block_pattern(num_layers: int) -> list[str]:
@@ -225,31 +256,46 @@ def _rec_block(lp, cfg: ArchConfig, x: torch.Tensor, *, h0=None,
     inputs ``conv0`` (B, K-1, W) where given -> (x, the last RG-LRU state
     (B, W) float32, the convolution's inputs xw (B, S, W) bf16)."""
     cd = L.COMPUTE_DTYPE
+    W, split = cfg.lru_width, _lru_split(cfg)
+
+    def part(name, dim):
+        return L.model_part(lp[name], W, dim, split, f"rec.{name}")
+
     h = L.rms_norm(x, lp["ln1"]["scale"], cfg.norm_eps)
-    gate = F.gelu(L.proj(h, lp["w_gate"]).float(),
+    if split:
+        h = C.copy_to_model(h)
+    gate = F.gelu(L.proj(h, part("w_gate", 1)).float(),
                   approximate="tanh").to(cd)
-    xw = L.proj(h, lp["w_in"])
+    xw = L.proj(h, part("w_in", 1))
+    conv_w, conv_b = part("conv_w", 1), part("conv_b", 0)
     if conv0 is not None:
         full = torch.cat([conv0.to(cd), xw], dim=1)
-        conv = L.causal_conv(full, lp["conv_w"], lp["conv_b"])
+        conv = L.causal_conv(full, conv_w, conv_b)
         conv = conv[:, conv0.shape[1]:]
     else:
-        conv = L.causal_conv(xw, lp["conv_w"], lp["conv_b"])
+        conv = L.causal_conv(xw, conv_w, conv_b)
+    # the gates read every channel of the convolution's output, gathered
+    # in float32 so that the backward sums the ranks' float32 gradients
+    # and rounds them to bf16 once, as one device does
     cf = conv.float()
-    r = torch.sigmoid(cf @ lp["wa"].float() + lp["ba"].float())
-    i = torch.sigmoid(cf @ lp["wx"].float() + lp["bx"].float())
-    y, h_last = _rglru_scan(conv, r, i, lp["lam"], h0=h0)
-    x = x + L.proj(y * gate, lp["w_out"])
+    if split:
+        cf = C.gather_for_model(cf, -1)
+    r = torch.sigmoid(cf @ part("wa", 1).float() + part("ba", 0).float())
+    i = torch.sigmoid(cf @ part("wx", 1).float() + part("bx", 0).float())
+    y, h_last = _rglru_scan(conv, r, i, part("lam", 0), h0=h0)
+    out = L.proj(y * gate, part("w_out", 0))
+    x = x + (C.reduce_from_model(out) if split else out)
     x = x + L.swiglu(lp["mlp"], L.rms_norm(x, lp["ln2"]["scale"],
-                                           cfg.norm_eps))
+                                           cfg.norm_eps), cfg.d_ff)
     return x, h_last, xw
 
 
-def _attn_mlp(lp, cfg: ArchConfig, x: torch.Tensor, o: torch.Tensor):
+def _attn_mlp(lp, cfg: ArchConfig, layout, x: torch.Tensor,
+              o: torch.Tensor):
     """The attention block's output projection, residual and MLP."""
-    x = x + L.attn_output(lp["attn"], o)
+    x = x + L.attn_output(lp["attn"], o, layout)
     return x + L.swiglu(lp["mlp"], L.rms_norm(x, lp["ln2"]["scale"],
-                                              cfg.norm_eps))
+                                              cfg.norm_eps), cfg.d_ff)
 
 
 def _attn_block(lp, cfg: ArchConfig, layout, x: torch.Tensor,
@@ -259,10 +305,11 @@ def _attn_block(lp, cfg: ArchConfig, layout, x: torch.Tensor,
     q, k, v = L.qkv_project(lp["attn"], h, layout, positions=positions,
                             rope_theta=cfg.rope_theta or None)
     with torch.profiler.record_function("lm.attention"):
-        o = L.attention_chunked(q, k, v, layout, causal=True,
-                                window=cfg.local_window,
+        o = L.attention_chunked(q, k, v,
+                                L.local_layout(layout, C.model_size()),
+                                causal=True, window=cfg.local_window,
                                 kv_chunk=cfg.attn_chunk)
-    return _attn_mlp(lp, cfg, x, o), k, v
+    return _attn_mlp(lp, cfg, layout, x, o), k, v
 
 
 # ---------------------------------------------------------------------------
@@ -275,7 +322,7 @@ def _run(params, cfg: ArchConfig, tokens: torch.Tensor, cache=None, *,
     each block's RG-LRU state, convolution tail and k/v are written
     there."""
     layout = _layout(cfg, tp)
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(params["embed"], tokens, cfg.vocab_padded(tp))
     B, S = tokens.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     remat = cfg.remat and x.requires_grad
@@ -303,15 +350,18 @@ def _run(params, cfg: ArchConfig, tokens: torch.Tensor, cache=None, *,
 def forward(params, cfg: ArchConfig, batch, *, tp: int = 1):
     """Full-sequence forward -> (logits (B, S, Vp) bf16, None)."""
     tokens = L.token_ids(batch["tokens"], params["embed"]["table"].device)
-    return L.lm_logits(params, cfg, _run(params, cfg, tokens, tp=tp)), None
+    return L.lm_logits(params, cfg, _run(params, cfg, tokens, tp=tp),
+                       vocab=cfg.vocab_padded(tp)), None
 
 
 def loss_fn(params, cfg: ArchConfig, batch, *, tp: int = 1) -> torch.Tensor:
-    """Cross-entropy of positions [0, S-1) against labels [1, S)."""
+    """Cross-entropy of positions [0, S-1) against labels [1, S) (inside
+    ``collectives.batch_split`` the mean over the data ranks' rows
+    together)."""
     logits, _ = forward(params, cfg, batch, tp=tp)
     labels = L.token_ids(batch["labels"], logits.device)
-    return L.cross_entropy_loss(logits[:, :-1], labels[:, 1:],
-                                vocab_real=cfg.vocab_size)
+    return L.batch_cross_entropy(logits[:, :-1], labels[:, 1:],
+                                 vocab_real=cfg.vocab_size)
 
 
 # ---------------------------------------------------------------------------
@@ -324,10 +374,12 @@ def init_cache(cfg: ArchConfig, batch_size: int, cache_len: int, *,
     tails (bf16) of the superblocks' two recurrent layers and of the tail
     (one zero entry when there is no tail), and the attention layers' KV
     ring of min(cache_len, local_window) slots, its heads laid out at
-    ``tp``."""
-    layout = _layout(cfg, tp)
+    ``tp``; on a model rank its RG-LRU channels and KV heads."""
+    layout = L.local_layout(_layout(cfg, tp), C.model_size())
     ns, nt = _num_super(cfg)
     W, B = cfg.lru_width, batch_size
+    if _lru_split(cfg):
+        W //= C.model_size()
     Skv = min(cache_len, cfg.local_window)
     dev = torch.device("cpu" if device is None else device)
     cd = L.COMPUTE_DTYPE
@@ -369,7 +421,8 @@ def prefill(params, cfg: ArchConfig, batch, *, tp: int = 1,
     cache = init_cache(cfg, B, cache_len, tp=tp, device=dev)
     x = _run(params, cfg, tokens, cache, tp=tp)
     cache["pos"] = S
-    return L.lm_logits(params, cfg, x[:, -1:])[:, 0], cache
+    return (L.lm_logits(params, cfg, x[:, -1:],
+                        vocab=cfg.vocab_padded(tp))[:, 0], cache)
 
 
 def _rec_step(lp, cfg: ArchConfig, x, cache, lru: str, conv: str, i: int):
@@ -387,8 +440,10 @@ def decode_step(params, cfg: ArchConfig, cache, tokens, *, tp: int = 1):
     place: the recurrences advance one step and the attention layers write
     slot pos % Skv of their ring."""
     layout = _layout(cfg, tp)
+    local = L.local_layout(layout, C.model_size())
     dev = params["embed"]["table"].device
-    x = L.embed(params["embed"], L.token_ids(tokens, dev))
+    x = L.embed(params["embed"], L.token_ids(tokens, dev),
+                cfg.vocab_padded(tp))
     pos = int(cache["pos"])
     Skv = cache["k"].shape[2]
     L.check_ring(cfg.name, pos, Skv, cfg.local_window)
@@ -403,15 +458,16 @@ def decode_step(params, cfg: ArchConfig, cache, tokens, *, tp: int = 1):
         cache["k"][i, :, pos % Skv] = k[:, 0]
         cache["v"][i, :, pos % Skv] = v[:, 0]
         o = L.attention_decode(q, cache["k"][i], cache["v"][i],
-                               layout, cur_len=pos + 1,
+                               local, cur_len=pos + 1,
                                window=cfg.local_window)
-        x = _attn_mlp(lp, cfg, x, o)
+        x = _attn_mlp(lp, cfg, layout, x, o)
     for i, lp in enumerate(params.get("tail", [])):
         x = _rec_step(lp, cfg, x, cache, "lru_t", "conv_t", i)
     cache["pos"] = pos + 1
-    return L.lm_logits(params, cfg, x)[:, 0], cache
+    return (L.lm_logits(params, cfg, x, vocab=cfg.vocab_padded(tp))[:, 0],
+            cache)
 
 
-__all__ = ["F32_LEAVES", "block_pattern", "cache_axes", "decode_step",
-           "forward", "init_cache", "init_params", "loss_fn", "param_axes",
-           "params_from_numpy", "prefill"]
+__all__ = ["F32_LEAVES", "MODEL_PARTIAL", "block_pattern", "cache_axes",
+           "decode_step", "forward", "init_cache", "init_params", "loss_fn",
+           "param_axes", "params_from_numpy", "partial_grad", "prefill"]

@@ -96,10 +96,11 @@ def check_supported(cfg: ArchConfig) -> None:
 MODEL_PARTIAL = {"attn": ("wk", "wv", "bk", "bv", "q_norm", "k_norm")}
 
 
-def partial_grad(path) -> bool:
+def partial_grad(path, cfg: ArchConfig | None = None, tp: int = 1) -> bool:
     """Whether the leaf at ``path`` (keys from the params' root) is one of
     :data:`MODEL_PARTIAL`, whose gradient ``models.parallel`` sums over
-    the model ranks."""
+    the model ranks (every family's module has one; ``cfg`` and ``tp``
+    matter where the model axis splits a block only at some degrees)."""
     return len(path) >= 2 and path[-1] in MODEL_PARTIAL.get(path[-2], ())
 
 
@@ -329,12 +330,8 @@ def loss_fn(params, cfg: ArchConfig, batch, *, tp: int = 1) -> torch.Tensor:
     if cfg.family == "vlm" and batch.get("patches") is not None:
         logits = logits[:, batch["patches"].shape[1]:]
     labels = L.token_ids(batch["labels"], logits.device)
-    with torch.profiler.record_function("lm.cross_entropy"):
-        total, count = L.cross_entropy_sums(logits[:, :-1], labels[:, 1:],
-                                            vocab_real=cfg.vocab_size)
-        if C.reduces_over_data():
-            total, count = C.sum_over_data(torch.stack([total, count]))
-        ce = total / torch.clamp(count, min=1.0)
+    ce = L.batch_cross_entropy(logits[:, :-1], labels[:, 1:],
+                               vocab_real=cfg.vocab_size)
     return ce + 0.01 * aux
 
 

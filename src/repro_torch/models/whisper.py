@@ -19,7 +19,14 @@ counterpart of the reference's ``repro.models.whisper``.
 * ``tp`` (every function's keyword, 1 by default) lays the heads, the
   caches and the vocabulary out as the reference's do at that degree (the
   MHA's query heads padded with dead heads, K/V with zero heads, the
-  cached cross K/V too); everything runs on one device.
+  cached cross K/V too).  On one device that is the reference's
+  arithmetic at tp.  On the ranks of a ``DeviceMesh``
+  (``api.make_*(mesh=)``) each function runs this rank's shards: its
+  query heads (self and cross attention alike) and the KV heads they
+  read, its share of the MLPs' hidden units and of the vocabulary, with
+  Megatron's f and g (``layers``); the encoder states enter the cross
+  K/V projections through one f, and the caches (self and cross) hold
+  this rank's KV heads.
 
 Interface (the transformer's, plus the encoder's parts):
     init_params(cfg, *, tp, seed, device, dtype) -> params
@@ -40,11 +47,23 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
+from ..optim.adam import leaves
+from ..sharding import collectives as C
 from ..sharding.partition import logical
 from . import layers as L
 
 #: leaves kept float32 in either param form: the LayerNorms'
 F32_LEAVES = ("scale", "bias")
+#: the attentions' leaves that the model axis leaves whole (the true KV
+#: heads) but whose gradient a model rank computes only in part
+MODEL_PARTIAL = {name: ("wk", "wv", "bk", "bv")
+                 for name in ("attn", "self_attn", "cross_attn")}
+
+
+def partial_grad(path, cfg: ArchConfig | None = None, tp: int = 1) -> bool:
+    """Whether the leaf at ``path`` is one of :data:`MODEL_PARTIAL`
+    (``models.parallel.reduce_grads``)."""
+    return len(path) >= 2 and path[-1] in MODEL_PARTIAL.get(path[-2], ())
 
 
 def _layout(cfg: ArchConfig, tp: int) -> L.HeadLayout:
@@ -146,14 +165,19 @@ def _ln(p, x, cfg):
     return L.layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
 
 
+def _local(layout: L.HeadLayout) -> L.HeadLayout:
+    """This model rank's share of ``layout`` (all of it without a mesh)."""
+    return L.local_layout(layout, C.model_size())
+
+
 def _enc_block(lp, cfg: ArchConfig, layout, h: torch.Tensor):
     q, k, v = L.qkv_project(lp["attn"], _ln(lp["ln1"], h, cfg), layout,
                             positions=None, rope_theta=None)
     with torch.profiler.record_function("lm.attention"):
-        o = L.attention_chunked(q, k, v, layout, causal=False,
+        o = L.attention_chunked(q, k, v, _local(layout), causal=False,
                                 kv_chunk=cfg.attn_chunk)
-    h = h + L.attn_output(lp["attn"], o)
-    return h + L.gelu_mlp(lp["mlp"], _ln(lp["ln2"], h, cfg))
+    h = h + L.attn_output(lp["attn"], o, layout)
+    return h + L.gelu_mlp(lp["mlp"], _ln(lp["ln2"], h, cfg), cfg.d_ff)
 
 
 def encode(params, cfg: ArchConfig, frames, *, tp: int = 1) -> torch.Tensor:
@@ -163,9 +187,12 @@ def encode(params, cfg: ArchConfig, frames, *, tp: int = 1) -> torch.Tensor:
     frames = torch.as_tensor(frames).to(dev)
     B, Fr, D = frames.shape
     h = frames.to(L.COMPUTE_DTYPE) + _positions(Fr, D, dev)
+    # every layer whose params take a gradient, the first too (its input,
+    # the frames, takes none)
+    remat = cfg.remat and torch.is_grad_enabled() and any(
+        t.requires_grad for t in leaves(params["enc_layers"]))
     for lp in params["enc_layers"]:
-        h = L.run_block(cfg.remat and h.requires_grad, _enc_block, lp, cfg,
-                        layout, h)
+        h = L.run_block(remat, _enc_block, lp, cfg, layout, h)
     return _ln(params["enc_ln"], h, cfg)
 
 
@@ -173,23 +200,35 @@ def cross_kv(params, cfg: ArchConfig, enc_states: torch.Tensor, *,
              tp: int = 1):
     """Each decoder layer's cross-attention K and V of the encoder states,
     laid out at ``tp`` (``layers.pad_kv``): two lists of (B, F, Kp, hd)
-    bf16."""
+    bf16.  On a model rank holding a share of the query heads, the KV
+    heads those read (``layers.model_kv``), the encoder states entering
+    every layer's projections through one Megatron f."""
     layout = _layout(cfg, tp)
     cd = L.COMPUTE_DTYPE
+    layers = params["dec_layers"]
+    split = bool(layers) and L.heads_split(layers[0]["cross_attn"], layout)
+    if split:
+        enc_states = C.copy_to_model(enc_states)
     ks, vs = [], []
-    for lp in params["dec_layers"]:
+    for lp in layers:
         ca = lp["cross_attn"]
-        ks.append(L.pad_kv(L.proj(enc_states, ca["wk"]) + ca["bk"].to(cd),
-                           layout))
-        vs.append(L.pad_kv(L.proj(enc_states, ca["wv"]) + ca["bv"].to(cd),
-                           layout))
+        k = L.pad_kv(L.proj(enc_states, ca["wk"]) + ca["bk"].to(cd), layout)
+        v = L.pad_kv(L.proj(enc_states, ca["wv"]) + ca["bv"].to(cd), layout)
+        if split:
+            k, v = L.model_kv(k, layout), L.model_kv(v, layout)
+        ks.append(k)
+        vs.append(v)
     return ks, vs
 
 
-def _cross_q(lp, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+def _cross_q(lp, cfg: ArchConfig, layout, x: torch.Tensor) -> torch.Tensor:
+    """The cross attention's queries of x: this rank's heads, x entering
+    through Megatron's f, where ``wq`` holds a share of them."""
     ca = lp["cross_attn"]
-    return (L.proj(_ln(lp["ln_x"], x, cfg), ca["wq"])
-            + ca["bq"].to(L.COMPUTE_DTYPE))
+    h = _ln(lp["ln_x"], x, cfg)
+    if L.heads_split(ca, layout):
+        h = C.copy_to_model(h)
+    return L.proj(h, ca["wq"]) + ca["bq"].to(L.COMPUTE_DTYPE)
 
 
 def _dec_block(lp, cfg: ArchConfig, layout, x, positions, k_enc, v_enc):
@@ -197,15 +236,18 @@ def _dec_block(lp, cfg: ArchConfig, layout, x, positions, k_enc, v_enc):
     over x (B, S, D) -> (x, k, v)."""
     q, k, v = L.qkv_project(lp["self_attn"], _ln(lp["ln1"], x, cfg),
                             layout, positions=positions, rope_theta=None)
+    local = _local(layout)
     with torch.profiler.record_function("lm.attention"):
-        o = L.attention_chunked(q, k, v, layout, causal=True,
+        o = L.attention_chunked(q, k, v, local, causal=True,
                                 kv_chunk=cfg.attn_chunk)
-    x = x + L.attn_output(lp["self_attn"], o)
+    x = x + L.attn_output(lp["self_attn"], o, layout)
     with torch.profiler.record_function("lm.attention"):
-        ox = L.attention_chunked(_cross_q(lp, cfg, x), k_enc, v_enc, layout,
-                                 causal=False, kv_chunk=cfg.attn_chunk)
-    x = x + L.attn_output(lp["cross_attn"], ox)
-    return x + L.gelu_mlp(lp["mlp"], _ln(lp["ln2"], x, cfg)), k, v
+        ox = L.attention_chunked(_cross_q(lp, cfg, layout, x), k_enc, v_enc,
+                                 local, causal=False,
+                                 kv_chunk=cfg.attn_chunk)
+    x = x + L.attn_output(lp["cross_attn"], ox, layout)
+    return (x + L.gelu_mlp(lp["mlp"], _ln(lp["ln2"], x, cfg), cfg.d_ff),
+            k, v)
 
 
 def _decoder(params, cfg: ArchConfig, tokens, enc_states, cache=None, *,
@@ -215,7 +257,8 @@ def _decoder(params, cfg: ArchConfig, tokens, enc_states, cache=None, *,
     its cross K/V to ``xk``/``xv``."""
     dev = enc_states.device
     B, S = tokens.shape
-    x = L.embed(params["embed"], tokens) + _positions(S, cfg.d_model, dev)
+    x = (L.embed(params["embed"], tokens, cfg.vocab_padded(tp))
+         + _positions(S, cfg.d_model, dev))
     positions = torch.arange(S, device=dev).expand(B, S)
     layout = _layout(cfg, tp)
     xks, xvs = cross_kv(params, cfg, enc_states, tp=tp)
@@ -234,7 +277,8 @@ def decode_train(params, cfg: ArchConfig, tokens, enc_states, *,
     ``enc_states``."""
     tokens = L.token_ids(tokens, enc_states.device)
     return L.tied_logits(params["embed"]["table"],
-                         _decoder(params, cfg, tokens, enc_states, tp=tp))
+                         _decoder(params, cfg, tokens, enc_states, tp=tp),
+                         cfg.vocab_padded(tp))
 
 
 def forward(params, cfg: ArchConfig, batch, *, tp: int = 1):
@@ -245,11 +289,13 @@ def forward(params, cfg: ArchConfig, batch, *, tp: int = 1):
 
 
 def loss_fn(params, cfg: ArchConfig, batch, *, tp: int = 1) -> torch.Tensor:
-    """Cross-entropy of positions [0, S-1) against labels [1, S)."""
+    """Cross-entropy of positions [0, S-1) against labels [1, S) (inside
+    ``collectives.batch_split`` the mean over the data ranks' rows
+    together)."""
     logits, _ = forward(params, cfg, batch, tp=tp)
     labels = L.token_ids(batch["labels"], logits.device)
-    return L.cross_entropy_loss(logits[:, :-1], labels[:, 1:],
-                                vocab_real=cfg.vocab_size)
+    return L.batch_cross_entropy(logits[:, :-1], labels[:, 1:],
+                                 vocab_real=cfg.vocab_size)
 
 
 # ---------------------------------------------------------------------------
@@ -259,8 +305,9 @@ def loss_fn(params, cfg: ArchConfig, batch, *, tp: int = 1) -> torch.Tensor:
 def init_cache(cfg: ArchConfig, batch_size: int, cache_len: int, *,
                tp: int = 1, device=None):
     """Self-attention K/V (L, B, cache_len, Kp, hd) and cross K/V (L, B,
-    enc_frames, Kp, hd), bf16 zeros, Kp the layout's at ``tp``."""
-    layout = _layout(cfg, tp)
+    enc_frames, Kp, hd), bf16 zeros, Kp the layout's at ``tp``; on a
+    model rank its KV heads (``layers.local_layout``)."""
+    layout = _local(_layout(cfg, tp))
     dev = torch.device("cpu" if device is None else device)
 
     def zeros(n):
@@ -294,7 +341,8 @@ def prefill(params, cfg: ArchConfig, batch, *, tp: int = 1,
     cache = init_cache(cfg, B, cache_len, tp=tp, device=dev)
     x = _decoder(params, cfg, tokens, enc, cache, tp=tp)
     cache["pos"] = S
-    return L.tied_logits(params["embed"]["table"], x[:, -1]), cache
+    return (L.tied_logits(params["embed"]["table"], x[:, -1],
+                          cfg.vocab_padded(tp)), cache)
 
 
 def decode_step(params, cfg: ArchConfig, cache, tokens, *, tp: int = 1):
@@ -302,10 +350,12 @@ def decode_step(params, cfg: ArchConfig, cache, tokens, *, tp: int = 1):
     updated in place: slot min(pos, Skv - 1) of the self-attention cache,
     the token's position min(pos, Skv), as the reference's."""
     layout = _layout(cfg, tp)
+    local = _local(layout)
     dev = params["embed"]["table"].device
     pos = int(cache["pos"])
     Skv = cache["k"].shape[2]
-    x = (L.embed(params["embed"], L.token_ids(tokens, dev))
+    x = (L.embed(params["embed"], L.token_ids(tokens, dev),
+                 cfg.vocab_padded(tp))
          + _positions(1, cfg.d_model, dev, start=min(pos, Skv)))
     slot, cur = min(pos, Skv - 1), min(pos + 1, Skv)
     for i, lp in enumerate(params["dec_layers"]):
@@ -313,20 +363,21 @@ def decode_step(params, cfg: ArchConfig, cache, tokens, *, tp: int = 1):
                                 layout, positions=None, rope_theta=None)
         cache["k"][i, :, slot] = k[:, 0]
         cache["v"][i, :, slot] = v[:, 0]
-        o = L.attention_decode(q, cache["k"][i], cache["v"][i], layout,
+        o = L.attention_decode(q, cache["k"][i], cache["v"][i], local,
                                cur_len=cur)
-        x = x + L.attn_output(lp["self_attn"], o)
-        ox = L.attention_decode(_cross_q(lp, cfg, x), cache["xk"][i],
-                                cache["xv"][i], layout,
+        x = x + L.attn_output(lp["self_attn"], o, layout)
+        ox = L.attention_decode(_cross_q(lp, cfg, layout, x),
+                                cache["xk"][i], cache["xv"][i], local,
                                 cur_len=cache["xk"].shape[2])
-        x = x + L.attn_output(lp["cross_attn"], ox)
-        x = x + L.gelu_mlp(lp["mlp"], _ln(lp["ln2"], x, cfg))
+        x = x + L.attn_output(lp["cross_attn"], ox, layout)
+        x = x + L.gelu_mlp(lp["mlp"], _ln(lp["ln2"], x, cfg), cfg.d_ff)
     cache["pos"] = pos + 1
     x = _ln(params["dec_ln"], x, cfg)
-    return L.tied_logits(params["embed"]["table"], x)[:, 0], cache
+    return (L.tied_logits(params["embed"]["table"], x,
+                          cfg.vocab_padded(tp))[:, 0], cache)
 
 
-__all__ = ["F32_LEAVES", "cache_axes", "cross_kv", "decode_step",
-           "decode_train", "encode", "forward", "init_cache", "init_params",
-           "loss_fn", "param_axes", "params_from_numpy", "prefill",
-           "sinusoid_positions"]
+__all__ = ["F32_LEAVES", "MODEL_PARTIAL", "cache_axes", "cross_kv",
+           "decode_step", "decode_train", "encode", "forward", "init_cache",
+           "init_params", "loss_fn", "param_axes", "params_from_numpy",
+           "partial_grad", "prefill", "sinusoid_positions"]

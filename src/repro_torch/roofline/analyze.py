@@ -46,7 +46,7 @@ from torch.utils._pytree import tree_leaves
 
 from ..launch.mesh import (GPUS_PER_NODE, HBM_BW, INTERNODE_BW, NVLINK_BW,
                            PEAK_FLOPS_BF16)
-from ..models.transformer import partial_grad
+from ..models import api
 from ..sharding.partition import LogicalAxes, axis_names, axis_size
 
 DTYPE_BYTES = {
@@ -253,6 +253,12 @@ CITE = {
     "fsdp": "src/repro/sharding/partition.py:39 (embed -> fsdp)",
     "tp": "src/repro/sharding/partition.py:41-50 (heads, ff, ssm heads, "
           "conv_dim, lru -> model)",
+    "ssm": "src/repro/models/mamba2.py:78-79, :226-251 (conv_w, conv_b "
+           "over conv_dim; out_norm over the model-split d_inner)",
+    "lru": "src/repro/models/rglru.py:87-90, :231-240 (wa, wx: the whole "
+           "width in, lru out; the gates read every channel)",
+    "cross": "src/repro/models/whisper.py:172-194 (the cross K/V of the "
+             "encoder states, heads over model)",
     "vocab": "src/repro/sharding/partition.py:38 (vocab -> model)",
     "grads": "src/repro/launch/dryrun.py:131-134 (params in and out "
              "sharded alike)",
@@ -276,8 +282,9 @@ def _tokens_per_row(cfg, shape, path) -> int:
 
 def _in_block(path) -> bool:
     """Whether the params at ``path`` belong to a layer, which remat
-    recomputes in the backward (``layers.run_block``)."""
-    return str(path[0]).endswith("layers")
+    recomputes in the backward (``layers.run_block``): a list of layers,
+    or recurrentgemma's superblocks and tail."""
+    return str(path[0]).endswith("layers") or path[0] in ("super", "tail")
 
 
 def _unused(cfg, shape, path) -> bool:
@@ -326,12 +333,19 @@ def collective_account(cfg, shape, params, shardings, axes, *,
       sum and count all-reduced over them each microbatch, and each MoE
       layer's two aux-loss means (each forward, its recomputation
       included); the gradient norm's sum of squares all-reduced over
-      each mesh axis once a step.
+      each mesh axis once a step;
+    * where the model ranks each run a share of a block's channels
+      (:func:`_channel_terms`): mamba2's ``out_norm`` over the model-split
+      ``d_inner`` (its float32 sums of squares all-reduced forward and
+      backward) and the convolution's taps and bias gathered over the
+      model axis each forward (a reduce-scatter of their gradient in each
+      backward); the RG-LRU gates' gather of the convolution's
+      model-split output (likewise); whisper's encoder states entering
+      the cross K/V projections through one f (its gradient all-reduced
+      in each backward).
 
-    Left out, so the account stays a lower bound: norms over a
-    model-split dimension and the RG-LRU gates' gather of their
-    model-split input (families the port runs over a mesh only at tp 1,
-    ROADMAP Queue 1 item 9b.5).
+    The model-partial gradients are the family module's
+    ``partial_grad``'s (``api.partial_grad``).
     """
     train = shape.kind == "train"
     stats = CollectiveStats({}, {}, 0.0, {})
@@ -362,6 +376,8 @@ def collective_account(cfg, shape, params, shardings, axes, *,
     uses_fwd = num_micro if train else 1
     recompute = 2 if (train and cfg.remat) else 1
     n_dp = math.prod(axis_size(mesh, a) for a in dp)
+    tp = axis_size(mesh, "model") if "model" in names else 1
+    partial_grad = api.partial_grad(cfg, tp)
     for path, t, sh in pairs(params, shardings):
         ax = _leaf_axes(axes, path)
         if _unused(cfg, shape, path):
@@ -395,6 +411,8 @@ def collective_account(cfg, shape, params, shardings, axes, *,
         if not model_dims:
             continue
         fwd = uses_fwd * (recompute if _in_block(path) else 1)
+        _channel_terms(cfg, path, t, add, rows=rows, fwd=fwd,
+                       bwd=num_micro if train else 0, tp=tp)
         moe = len(path) > 1 and path[-2] == "moe"
         if path[:2] == ("embed", "table"):
             vocab_split = True
@@ -422,13 +440,16 @@ def collective_account(cfg, shape, params, shardings, axes, *,
             counts = rows_local * cfg.vocab_size * 4
             add("all-reduce", "tables: partial class counts", ("model",),
                 uses_fwd, counts, "dwn")
-    n_model = axis_size(mesh, "model") if "model" in names else 1
     if train:
+        if cfg.family == "encdec" and tp > 1:
+            add("all-reduce", "encoder states' gradient at the cross K/V "
+                "projections' f", ("model",), num_micro,
+                rows_local * cfg.enc_frames * act, "cross")
         if vocab_split:
             rows = rows_local * _tokens_per_row(cfg, shape, ("layers",))
             add("all-gather", "logits over the vocabulary, for the loss",
                 ("model",), num_micro,
-                rows * 2 * cfg.vocab_padded(n_model), "logits")
+                rows * 2 * cfg.vocab_padded(tp), "logits")
         if n_dp > 1:
             add("all-reduce", "the loss's sum and count", dp, num_micro, 8,
                 "loss")
@@ -438,17 +459,44 @@ def collective_account(cfg, shape, params, shardings, axes, *,
         if cfg.family == "dwn":
             per_row, split = 4 * cfg.vocab_size, False
         else:
-            per_row = 2 * cfg.vocab_padded(n_model)
+            per_row = 2 * cfg.vocab_padded(tp)
             split = vocab_split
             if split and not logits_sharded:
                 add("all-gather", "logits over the vocabulary", ("model",),
                     1, rows_local * per_row, "logits")
         if rows_local * n_dp == shape.global_batch * (
                 shape.seq_len if cfg.family == "dwn" else 1):
-            keep = n_model if (split and logits_sharded) else 1
+            keep = tp if (split and logits_sharded) else 1
             add("all-gather", "logits over the batch", dp, 1,
                 rows_local * n_dp * per_row // keep, "logits")
     return stats
+
+
+def _channel_terms(cfg, path, t, add, *, rows: int, fwd: int, bwd: int,
+                   tp: int) -> None:
+    """The collectives of a model-split leaf of the SSM or hybrid block
+    (``rows`` positions a device holds; ``fwd`` forwards, ``bwd``
+    backwards a step; see :func:`collective_account`)."""
+    if cfg.family == "ssm" and path[-1] == "conv_w":
+        heads = cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim
+        split = heads % tp == 0
+        name = ".".join(str(p) for p in path[:-1])
+        add("all-gather", f"{name}: the convolution's taps and bias",
+            ("model",), fwd, (t.shape[0] + 1) * t.shape[1] * 4, "ssm")
+        if split:
+            add("reduce-scatter", f"{name}: the convolution's taps' and "
+                f"bias' gradient", ("model",), bwd,
+                (t.shape[0] + 1) * t.shape[1] * 4, "ssm")
+    elif cfg.family == "ssm" and path[-2:] == ("out_norm", "scale"):
+        name = ".".join(str(p) for p in path)
+        add("all-reduce", f"{name}: sum of squares over the split d_inner",
+            ("model",), fwd + bwd, rows * 4, "ssm")
+    elif cfg.family == "hybrid" and path[-1] == "conv_w":
+        name = ".".join(str(p) for p in path[:-1])
+        add("all-gather", f"{name}: the RG-LRU gates' float32 input",
+            ("model",), fwd, rows * 4 * cfg.lru_width, "lru")
+        add("reduce-scatter", f"{name}: the RG-LRU gates' input gradient",
+            ("model",), bwd, rows * 4 * cfg.lru_width, "lru")
 
 
 def _leaf_axes(axes, path):

@@ -49,9 +49,23 @@ bucket that the ranks divide is split by rows, each rank runs its rows
 through its backend step (a CUDA graph of K2/K1 on a card) and an
 all-gather into one tensor assembles the counts and predictions in row
 order over the ``("data",)`` mesh (``launch.mesh.make_data_mesh``).  A
-bucket the ranks do not divide runs whole on every rank.  A
-data-parallel engine serves through ``submit``/``drain`` only: the
-continuous loop refuses it.
+bucket the ranks do not divide runs whole on every rank.  A rank whose
+share of a step fails takes part in the gathers with rows that say so,
+and every rank then raises ``DataParallelStepError``: no rank waits on a
+collective another has left.
+
+The continuous loop on a data-parallel engine runs on the data axis's
+rank 0, the leader: its scheduler forms every bucket from its own clock
+(admission, expiry, the step-time estimates), broadcasts it over the
+data group (its row count, then its rows) and runs the data-parallel
+step.  Every other rank is a follower: ``serve()`` / ``start_serving``
+start a loop that receives each bucket and runs the same step, until
+the leader's stop, which the leader sends after ``stop_serving``.  The
+ranks therefore enter each step's all-gathers with the same bucket in
+the same order.  Requests are submitted on the leader
+(``submit_async`` on a follower raises); the report's
+``continuous_loop`` says which loop a rank ran ("leader", "follower",
+or "one-device" without data parallelism).
 
 Usage:
     engine = ServingEngine("dwn-jsc-lg", max_bucket=4096, backend="auto")
@@ -85,6 +99,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from pathlib import Path
 from typing import Any
@@ -126,6 +141,11 @@ def stub_inputs(cfg: ArchConfig, rng: np.random.Generator, size: int,
     name, n, scale = stub
     x = rng.standard_normal((size, n, cfg.d_model), dtype=np.float32) * scale
     return {name: torch.from_numpy(x).to(device, torch.bfloat16)}
+
+
+class DataParallelStepError(RuntimeError):
+    """A data-parallel DWN step failed on some data rank; raised on every
+    rank of the step."""
 
 
 def _lm_config(arch) -> ArchConfig | None:
@@ -175,8 +195,8 @@ class ServingEngine:
       prompt_len / gen: LM: prompt tokens per sequence and tokens generated
         per request.
       model_parallel: LM: the tensor-parallel degree, cut to the world
-        of the initialised process group (1 without one); families other
-        than the transformer's raise above 1 (ROADMAP Queue 1 item 9b.5).
+        of the initialised process group (1 without one); every LM
+        family runs over it.
       dwn_head: LM only — a packed DWN classification head on the
         backbone's pooled features: a ``DWNArtifact``, a checkpoint path
         or a spec preset name such as ``"dwn-lm-head"`` (fitted on 512
@@ -207,6 +227,11 @@ class ServingEngine:
         #: session's loop counters (report() merges the live session in)
         self._async_done: list[AsyncRequest] = []
         self._async_counters: dict = {}
+        #: a follower's session thread and what it ended with
+        self._follower: threading.Thread | None = None
+        self._follow_result: BaseException | None = None
+        #: the loop the last continuous session ran on this rank
+        self._loop_ran: str | None = None
         self.head_artifact: DWNArtifact | None = None
         self.head_bit_exact: bool | None = None
         self._head_served = 0
@@ -332,12 +357,13 @@ class ServingEngine:
             self.scheduler.bucket_for(min(size, self.scheduler.max_bucket))
         self._dwn_step(np.asarray(self.data.x_test[:bucket]))
 
-    def _dwn_step(self, x: np.ndarray):
-        """One bucket: the rows into the step (a CUDA graph's input on the
-        card), the step, results back to the host at once (the copy back
-        waits for the device; the next replay overwrites a graph's
-        outputs)."""
-        xh = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    def _dwn_step(self, x):
+        """One bucket (an array, or a float32 tensor): the rows into the
+        step (a CUDA graph's input on the card), the step, results back to
+        the host at once (the copy back waits for the device; the next
+        replay overwrites a graph's outputs)."""
+        xh = (x if isinstance(x, torch.Tensor)
+              else torch.from_numpy(np.ascontiguousarray(x, np.float32)))
         backend = (self.auto.backend_for(xh) if self.auto is not None
                    else self.backend)
         if self.data_parallel and xh.shape[0] % self.n_data == 0:
@@ -350,11 +376,22 @@ class ServingEngine:
         """One bucket split by rows over the ``("data",)`` mesh (the
         reference's ``shard_map`` with the bucket's rows on "data"): this
         rank's rows through its step at bucket/n, then every rank's counts
-        and predictions gathered in rank (row) order."""
+        and predictions gathered in rank (row) order.  Where this rank's
+        share fails it gathers predictions of -1 (a real one is a class
+        index), and every rank that finds one raises
+        ``DataParallelStepError``."""
         import torch.distributed as dist
         n, rank = self.n_data, self.mesh.get_local_rank("data")
         k = xh.shape[0] // n
-        counts, pred = backend.step_for(k)(xh[rank * k:(rank + 1) * k])
+        failed = None
+        try:
+            counts, pred = backend.step_for(k)(xh[rank * k:(rank + 1) * k])
+        except Exception as exc:       # the other ranks gather regardless
+            failed = exc
+            counts = torch.zeros((k, self.model.num_classes),
+                                 dtype=torch.float32, device=self.device)
+            pred = torch.full((k,), -1, dtype=torch.int32,
+                              device=self.device)
         group = self.mesh.get_group("data")
         outs = []
         for t in (counts, pred):
@@ -362,7 +399,80 @@ class ServingEngine:
                                device=t.device)
             dist.all_gather_into_tensor(full, t.contiguous(), group=group)
             outs.append(full)
+        if failed is not None:
+            raise DataParallelStepError(
+                f"the step failed on data rank {rank}") from failed
+        if bool((outs[1] < 0).any()):
+            raise DataParallelStepError("the step failed on another data "
+                                        "rank")
         return outs[0], outs[1]
+
+    # ------------------------------------------------------------------
+    # the continuous loop over the data ranks: the leader's buckets
+    # ------------------------------------------------------------------
+
+    @property
+    def continuous_loop(self) -> str:
+        """The loop a continuous session runs on this rank: "one-device"
+        (no data parallelism), "leader" (data rank 0: the scheduler) or
+        "follower" (every other data rank)."""
+        if not self.data_parallel:
+            return "one-device"
+        return ("leader" if self.mesh.get_local_rank("data") == 0
+                else "follower")
+
+    def _broadcast(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` from data rank 0 to every data rank, in place."""
+        import torch.distributed as dist
+        group = self.mesh.get_group("data")
+        dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
+        return t
+
+    def _lead_step(self, x: np.ndarray):
+        """The leader's step: the bucket broadcast to the followers (its
+        row count, then its rows), then the data-parallel step."""
+        xd = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+            self.device)
+        self._broadcast(torch.tensor(xd.shape, dtype=torch.int64,
+                                     device=self.device))
+        return self._dwn_step(self._broadcast(xd))
+
+    def _send_stop(self) -> None:
+        """The leader's stop: a row count of -1."""
+        self._broadcast(torch.tensor([-1, 0], dtype=torch.int64,
+                                     device=self.device))
+
+    def _follow(self) -> BaseException | None:
+        """A follower's session: every bucket the leader broadcasts through
+        the same step (the results are the leader's to return) until the
+        leader's stop.  Returns None, or the error of a step: a
+        ``DataParallelStepError`` ends the session on every rank, so the
+        loop returns at once; a bucket that failed here alone (one the
+        ranks do not divide, which every rank runs whole) leaves the
+        leader's results whole, so the loop follows on and returns the
+        error at the stop."""
+        error = None
+        while True:
+            head = self._broadcast(torch.empty(2, dtype=torch.int64,
+                                               device=self.device))
+            rows, width = (int(v) for v in head.tolist())
+            if rows < 0:
+                return error
+            x = self._broadcast(torch.empty((rows, width),
+                                            dtype=torch.float32,
+                                            device=self.device))
+            try:
+                self._dwn_step(x)
+            except DataParallelStepError as exc:
+                return exc
+            except Exception as exc:
+                error = exc
+
+    def _follow_thread(self) -> None:
+        try:
+            self._follow_result = self._follow()
+        except BaseException as exc:       # stop_serving raises it
+            self._follow_result = exc
 
     # ------------------------------------------------------------------
     # LM prefill/decode path
@@ -372,24 +482,17 @@ class ServingEngine:
                  model_parallel: int) -> None:
         """The reference's: the ("data", "model") host mesh with "model"
         cut to the world (``make_host_mesh``), params from the seed laid
-        out at its tp.  Under a process group (the transformer's
-        families) the mesh is a ``DeviceMesh``: the params, drawn whole
-        on every rank, become DTensors and each request runs over the
-        ranks (``api.make_*(mesh=)``); every rank returns the same
-        tokens.  The other families serve on one device."""
-        if cfg.family not in api.MESH_FAMILIES and model_parallel > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: model_parallel={model_parallel} for the "
-                f"{cfg.family!r} family (ROADMAP Queue 1 item 9b.5); the "
-                f"port runs families {api.MESH_FAMILIES} over a model axis")
+        out at its tp.  Under a process group the mesh is a
+        ``DeviceMesh``: the params, drawn whole on every rank, become
+        DTensors and each request runs over the ranks
+        (``api.make_*(mesh=)``); every rank returns the same tokens."""
         self.cfg = cfg
         self.prompt_len, self.gen = prompt_len, gen
         self._lm_stats: list[tuple[float, float]] = []
-        self.mesh = (make_host_mesh(model_parallel,
-                                    device_type=self.device.type)
-                     if cfg.family in api.MESH_FAMILIES else None)
+        self.mesh = make_host_mesh(model_parallel,
+                                   device_type=self.device.type)
         mesh = self.mesh if is_device_mesh(self.mesh) else None
-        self.tp = axis_size(self.mesh, "model") if self.mesh else 1
+        self.tp = axis_size(self.mesh, "model")
         self.devices = mesh.size() if mesh is not None else 1
         self._prefill = api.make_prefill(cfg, tp=self.tp,
                                          cache_len=prompt_len + gen,
@@ -599,19 +702,27 @@ class ServingEngine:
         captured (a capture fails if another thread launches work
         meanwhile).  Do not change a tuned config during a session: the
         next step at that bucket would capture.
+
+        On a data-parallel engine every rank calls it: the buckets are
+        stepped on every rank (at bucket / n rows where the ranks divide
+        them), then data rank 0 starts the scheduler and every other
+        rank a follower loop (see the module's docstring).
         """
         if self.family != "dwn":
             raise ValueError("continuous batching is the DWN path")
-        if self.data_parallel:
-            raise ValueError(
-                f"a data-parallel engine ({self.n_data} ranks) serves "
-                f"through submit/drain; the continuous loop runs on one "
-                f"device (data_parallel=False)")
-        if self._cont is not None:
+        if self._cont is not None or self._follower is not None:
             raise RuntimeError("serving loop already running")
         probe = self.data.x_test[:self.scheduler.max_bucket]
         for bucket in self.scheduler.buckets:
             self._dwn_step(probe[:bucket])
+        self._loop_ran = self.continuous_loop
+        if self._loop_ran == "follower":
+            self._follow_result = None
+            self._follower = threading.Thread(
+                target=self._follow_thread, name="repro_torch-serve-follow",
+                daemon=True)
+            self._follower.start()
+            return
         if self.estimator is None:
             if self.auto is not None:
                 self.estimator = estimator_from_calibration(self.auto)
@@ -626,23 +737,39 @@ class ServingEngine:
 
     def _continuous(self, slo: SLOConfig | None, *,
                     timer=time.perf_counter) -> ContinuousScheduler:
-        """The session's loop over this engine's DWN step, estimator and
-        straggler monitor (``timer``: the loop's clock)."""
+        """The session's loop over this engine's DWN step (the leader's,
+        which broadcasts each bucket first, on a data-parallel engine),
+        estimator and straggler monitor (``timer``: the loop's clock)."""
+        step = (self._lead_step if self.continuous_loop == "leader"
+                else self._dwn_step)
         return ContinuousScheduler(
-            self._dwn_step, max_bucket=self.scheduler.max_bucket,
+            step, max_bucket=self.scheduler.max_bucket,
             min_bucket=self.scheduler.min_bucket, slo=slo,
             estimator=self.estimator, monitor=self.straggler, timer=timer)
 
     def stop_serving(self, *, drain: bool = True) -> None:
         """Stop the loop; ``drain=True`` serves the queue first.  Loop
         counters survive in :meth:`report` (sessions accumulate).  Raises
-        if a step failed during the session."""
+        if a step failed during the session.  The leader of a
+        data-parallel engine then sends the followers its stop (unless a
+        ``DataParallelStepError`` already ended their loops); a follower
+        waits for it."""
+        if self._follower is not None:
+            thread, self._follower = self._follower, None
+            thread.join()
+            if self._follow_result is not None:
+                raise RuntimeError("a step failed on this follower during "
+                                   "the session") from self._follow_result
+            return
         if self._cont is None:
             raise RuntimeError("serving loop not running")
         cont, self._cont = self._cont, None
         try:
             cont.stop(drain=drain)
         finally:
+            if (self._loop_ran == "leader"
+                    and not isinstance(cont.error, DataParallelStepError)):
+                self._send_stop()
             self._end_session(cont)
 
     def _end_session(self, cont: ContinuousScheduler) -> None:
@@ -673,11 +800,14 @@ class ServingEngine:
         ``ServeResult`` — ``ok`` with ``value == (counts, pred)``, or
         typed shed when the deadline was unmeetable (admission), expired
         in queue, or missed at completion.  Raises ``QueueFull`` after
-        ``timeout`` when backpressure applies.
+        ``timeout`` when backpressure applies.  On a data-parallel engine
+        requests are submitted on data rank 0 (``ValueError`` on a
+        follower).
         """
-        if self.data_parallel:
-            raise ValueError("a data-parallel engine serves through "
-                             "submit/drain, not the continuous loop")
+        if self.continuous_loop == "follower":
+            raise ValueError(
+                "a follower of a data-parallel engine takes no requests: "
+                "submit them on data rank 0, whose loop forms the buckets")
         if self._cont is None:
             raise RuntimeError("submit_async needs the serving loop: use "
                                "engine.serve()")
@@ -751,6 +881,8 @@ class ServingEngine:
                 if self.straggler.events else None,
             },
         }
+        if self._loop_ran is not None:
+            out["continuous_loop"] = self._loop_ran
         if async_counters:
             out["async"] = async_counters
             if self.estimator is not None:
@@ -818,4 +950,4 @@ class ServingEngine:
         return out
 
 
-__all__ = ["ServingEngine"]
+__all__ = ["DataParallelStepError", "ServingEngine"]

@@ -16,6 +16,14 @@ put one (``models.parallel`` places the params and splits the batch):
   embedding lookup);
 * :func:`gather_from_model`: the vocab-split logits gathered over
   "model" (backward: this rank's slice of the gradient);
+* :func:`gather_for_model`: a model-split tensor gathered for a product
+  every rank runs on the whole of it (the RG-LRU gates' input, mamba2's
+  convolution params): backward, every rank's gradient summed and this
+  rank's slice kept (a reduce-scatter);
+* :func:`sum_over_model`: a sum every model rank reads whole (an RMS
+  norm's sum of squares over a model-split dimension): an all-reduce
+  forward and backward, since each rank's output depends on it and so
+  each rank holds only part of its gradient;
 * :func:`sum_over_data` / :func:`mean_over_data`: the loss's and the MoE
   aux loss's means over the global batch, whose rows the data ranks
   split (an all-reduce forward, the identity backward), live only inside
@@ -174,6 +182,33 @@ class _Gather(torch.autograd.Function):
         return part, None, None, None, None
 
 
+class _ReduceBoth(torch.autograd.Function):
+    """All-reduce forward and backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad, ctx.group), None
+
+
+class _GatherSum(torch.autograd.Function):
+    """All-gather along ``dim`` forward; the sum of the gradients, this
+    rank's slice, backward (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter(grad, ctx.dim, ctx.group), None, None
+
+
 def copy_to_model(x: torch.Tensor) -> torch.Tensor:
     """Megatron's f over "model": ``x`` forward, its gradient summed over
     the model ranks backward."""
@@ -194,6 +229,22 @@ def gather_from_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     if group is None:
         return x
     return _Gather.apply(x, dim % x.ndim, group, rank, n)
+
+
+def gather_for_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The model ranks' shards of ``x`` concatenated along ``dim``, for a
+    product every rank runs on the whole of it: each rank then holds part
+    of the gradient, so the backward sums them and keeps this rank's
+    slice."""
+    group = model_group()
+    return x if group is None else _GatherSum.apply(x, dim % x.ndim, group)
+
+
+def sum_over_model(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the model ranks, forward and backward: a sum
+    whose value every rank's output reads."""
+    group = model_group()
+    return x if group is None else _ReduceBoth.apply(x, group)
 
 
 # ---------------------------------------------------------------------------
@@ -263,7 +314,8 @@ def mean_over_data(x: torch.Tensor) -> torch.Tensor:
 
 
 __all__ = ["active", "all_gather", "ambient", "all_reduce", "batch_split",
-           "copy_to_model", "data_group", "gather_from_model",
+           "copy_to_model", "data_group", "gather_for_model",
+           "gather_from_model",
            "mean_over_data", "model_group", "model_rank", "model_size",
            "reduce_from_model", "reduce_scatter", "reduces_over_data",
-           "sum_over_data"]
+           "sum_over_data", "sum_over_model"]

@@ -54,7 +54,6 @@ from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.optim.adam import AdamState, leaves  # noqa: E402
 from repro_torch.runtime import checkpoint  # noqa: E402
-from repro_torch.serving import ServingEngine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 TIMEOUT_S = 240
@@ -536,24 +535,29 @@ def test_serving_on_1x3_with_kv_whole_and_vocab_replicated(world3):
 
 
 def test_other_families_over_a_model_axis_raise_naming_item_9b5():
-    """mamba2, recurrentgemma and whisper over a model axis are ROADMAP
-    Queue 1 item 9b.5: the engine, the train CLI and ``api.make_*(mesh=)``
-    refuse them."""
-    for arch in ("mamba2-1.3b", "recurrentgemma-2b", "whisper-large-v3"):
-        with pytest.raises(NotImplementedError, match=r"item 9b\.5"):
-            ServingEngine(arch, reduced=True, device="cpu",
-                          model_parallel=2)
-        with pytest.raises(NotImplementedError, match=r"item 9b\.5"):
-            train.main(["--arch", arch, "--reduced", "--device", "cpu",
-                        "--model-parallel", "2", "--steps", "1"])
-        # anything with a DeviceMesh's axis names stands in for one: the
-        # family is refused before the mesh is read
-        mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"))
+    """Queue 1 item 9b.5 is ported: mamba2, recurrentgemma and whisper run
+    over a model axis (``tests/test_torch_lm_mesh_families.py``), and no
+    refusal names the item.  What still raises: ``api.make_*(mesh=)`` for
+    params laid out at a tp that the mesh's "model" axis disagrees with
+    (every LM family), and for a DWN arch, which runs data-parallel
+    through the serving engine and ``train_dwn_batch`` instead."""
+    assert set(api.MESH_FAMILIES) == {"dense", "moe", "vlm", "ssm",
+                                      "hybrid", "encdec"}
+    # anything with a DeviceMesh's axis names and sizes stands in for one:
+    # the layout is refused before a collective runs
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 size=lambda i: (1, 2)[i])
+    for arch in ("qwen3-8b", "mamba2-1.3b", "recurrentgemma-2b",
+                 "whisper-large-v3"):
         cfg = get_arch(arch).reduced()
         for make in (api.make_prefill, api.make_decode_step,
                      api.make_train_step):
-            with pytest.raises(NotImplementedError, match=r"item 9b\.5"):
-                make(cfg, mesh=mesh)
+            with pytest.raises(ValueError, match="laid out at tp 4") as err:
+                make(cfg, tp=4, mesh=mesh)
+            assert "9b.5" not in str(err.value)
+    for make in (api.make_prefill, api.make_train_step):
+        with pytest.raises(ValueError, match="data-parallel"):
+            make(get_arch("dwn-jsc-lg2400"), mesh=mesh)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "qwen2-7b", "qwen3-14b",
