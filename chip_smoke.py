@@ -15,7 +15,9 @@ card), qwen3-8b training, the DWN behind the model zoo's interface
 dwn_serve_1m shape, train steps, data-parallel serving at one rank), and
 the dry-run's roofline terms held against steps timed on the card, and
 the transformer over a one-rank ``DeviceMesh`` (tensor parallelism, FSDP,
-expert parallelism, sharded restore).
+expert parallelism, sharded restore), and the shapes its kernels once
+refused for their size (wide encoders and layers, deep stacks, fan-in to
+16, any head dim to 256).
 
     python3 chip_smoke.py
 
@@ -330,7 +332,23 @@ Phases, each printing one JSON line:
    1e-3 relative); the reduced qwen3-8b's state trained on the mesh,
    saved and restored onto it by ``shardings=``, every leaf equal; the
    mesh path's prefill and decode times beside the meshless path's, its
-   peak memory and the phase's seconds.
+   peak memory and the phase's seconds;
+20. limits — the shapes the kernels once refused for their size alone
+   (LIMITS: jsc-lg at a 4096-threshold encoder, two hidden layers of
+   32,000 LUTs, 784 features, twelve layers, fan-in 10 and 16): K2, K1,
+   the staged path (K3, K4 a layer, K5), the float path (K7, K8 a layer,
+   K9) and, for one layer, K6 at B = 4096, 1000, 33 and 1 (the float
+   path at 256, 33 and 1; 33 and 1 at fan-in 16), every kernel bit-exact
+   to its plain version and every path's counts equal to apply_hard,
+   each launch on the path its plan names; the 4096-threshold model
+   served through ServingEngine pinned to K2 and with backend="auto" and
+   the 784-feature one pinned, every request equal to apply_hard; K4 on
+   rows of 8192 words; K10 at hd 8, 32, 80 and 256 (2 x 1000, 8 over 2
+   heads) and at B x H = 65,600 (grid.x folded, equal to its two
+   unfolded halves) against its plain version, per row to flash_row_bar,
+   SDPA's and flash_rounded's errors read beside each check and a
+   dropped key tile failing the bar; each new path timed once beside its
+   bound; the new kernels held to no spill.
 
 Then it prints each phase's seconds, the kernels' summary line (K1's and
 K2's launches on each served path, the load phase's sessions, the
@@ -339,7 +357,10 @@ its hd-64 and hd-96 instances as entries of their own with their first
 designs' times, K2's launches in the dwn_arch phase's one-rank engine
 and, apart, in its cross-check replays, K10's on the mesh phase's paths,
 their times at the mnist-lg shape
-beside their bounds), nvidia-smi's line and, last,
+beside their bounds, and the limits phase's paths as entries of their
+own: their launches over its drives, read from each launch's record, K10
+counted for each head dim apart, each timed at one shape),
+nvidia-smi's line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 so does a machine without a CUDA card, or a directory without the port.
 """
@@ -611,11 +632,11 @@ PTXAS_KEEP = ("registers", "spill", "smem", "Compiling entry",
 
 #: the tile kernels: (library, symbol in ptxas's entry names, name)
 TILE_SYMBOLS = (
-    ("fused_dwn", "fused_tiles_kernelILb0ELb1E", "fused_dwn_packed"),
-    ("fused_dwn", "fused_tiles_kernelILb0ELb0E",
+    ("fused_dwn", "fused_tiles_kernelILb0ELb1ELb0E", "fused_dwn_packed"),
+    ("fused_dwn", "fused_tiles_kernelILb0ELb0ELb0E",
      "fused_dwn_packed, model in global"),
-    ("fused_dwn", "fused_tiles_kernelILb1ELb1E", "fused_dwn_batch_major"),
-    ("fused_dwn", "fused_tiles_kernelILb1ELb0E",
+    ("fused_dwn", "fused_tiles_kernelILb1ELb1ELb0E", "fused_dwn_batch_major"),
+    ("fused_dwn", "fused_tiles_kernelILb1ELb0ELb0E",
      "fused_dwn_batch_major, model in global"),
     ("fused_dwn", "zero_kernel", "fused_dwn_zero"),
     *(("fused_dwn", f"fused_dwn_kernelILi{n}E", f"fused_dwn, fan-in {n}")
@@ -623,7 +644,7 @@ TILE_SYMBOLS = (
     ("fused_dwn", "fused_dwn_combine_kernel", "fused_dwn_combine"),
     ("fused_dwn", "fused_dwn_rows_kernel", "fused_dwn, rows"),
     ("lut_eval", "lut_eval_packed_kernel", "lut_eval_packed"),
-    ("lut_eval", "lut_eval_packed_rows_kernel",
+    ("lut_eval", "lut_eval_packed_rows_kernelILb1E",
      "lut_eval_packed, rows"),
     *(("lut_eval", f"lut_eval_tiles_kernelILi{n}E", f"lut_eval, fan-in {n}")
       for n in range(1, 9)),
@@ -1148,7 +1169,7 @@ def phase_staged(device, batches=(4096, 4097, 1000, 33, 31, 1),
             KL.LIBRARY, KL._SIGNATURES, "lut_eval_packed_rows_launch",
             w0.data_ptr(), B, w0.shape[1], widx.data_ptr(),
             boff.data_ptr(), tab.data_ptr(), m, n, tab.shape[1],
-            out_rows.data_ptr())
+            out_rows.data_ptr(), 1)
     timing["lut_eval_packed"]["rows_kernel_bucket_ms"] = {
         B: graph_ms(k4_rows(B)) for B in SERVED_BUCKETS}
     out_rows.zero_()
@@ -5377,6 +5398,567 @@ def phase_mesh(device):
             "dp_launches": dp_launches}
 
 
+#: the shapes the card's kernels once refused for their size alone, at
+#: full size (the CPU tests hold reduced versions of them to the
+#: reference): W1a, jsc-lg at a 4096-threshold encoder
+#: (``DWNConfig(bits_per_feature=4096, lut_counts=(2400,))``); W1b, two
+#: hidden layers of 32,000 LUTs; W2, 28 x 28 pixels at T = 16; W3, twelve
+#: layers; W4, one layer of 480 LUTs at fan-in 10 and 16
+LIMITS = {
+    "W1a": dict(F=16, T=4096, luts=(2400,), n=6, C=5),
+    "W1b": dict(F=16, T=200, luts=(32000, 32000, 2400), n=6, C=5),
+    "W2": dict(F=784, T=16, luts=(8000, 1280), n=6, C=10),
+    "W3": dict(F=16, T=200, luts=(2400,) * 12, n=6, C=5),
+    "W4n10": dict(F=16, T=200, luts=(480,), n=10, C=5),
+    "W4n16": dict(F=16, T=200, luts=(480,), n=16, C=5),
+}
+#: batches every shape's fused and staged paths are held at
+LIMITS_BATCHES = (4096, 1000, 33, 1)
+#: batches of the float path (K7's output is 256 KB a sample at W1a;
+#: K8's plain version at fan-in 16 holds (rows, 480, 32768) floats)
+LIMITS_FLOAT_BATCHES = {"W4n16": (33, 1)}
+LIMITS_FLOAT_DEFAULT = (256, 33, 1)
+#: K4 alone on rows of 8192 words: F = 16 features at T = 16,384 after K3
+K4_WIDE = dict(F=16, T=16384, m=2400, n=6)
+#: K10 at head dims without an instance of their own, or new instances:
+#: (B, S, H, KH), causal and not; hd 16 at B x H = 65,600 (grid.x folds)
+LIMITS_FLASH = (2, 1000, 8, 2)
+LIMITS_FLASH_HDS = (8, 32, 80, 256)
+LIMITS_FLASH_WIDE_BH = (8200, 64, 8, 8, 16)
+#: the per-row bar for rows of 8 to 31 head dims: their largest value is
+#: no steady scale, and over a million rows the bf16 algorithm itself (P
+#: and the output rounded to bf16: flash_rounded, in plain PyTorch on the
+#: same inputs) and SDPA read above FLASH_ROW_REL as the kernel does (on
+#: an H100 up to 0.0109 at hd 16 x 65,600 pairs, all three; PERF.md);
+#: a dropped key tile (flash_rounded's witness) reads 30 times this or
+#: more there, and each check asserts that it fails the bar
+FLASH_ROW_REL_NARROW = 2e-2
+#: rows of fewer head dims are held to FLASH_TOL alone: a row of one value
+#: has no scale but itself
+FLASH_ROW_MIN_HD = 8
+#: the witness's dropped keys, (first key, keys): left out of every query
+#: row past them
+FLASH_DROP_KEYS = (16, 16)
+#: rows each request of the phase's served streams holds (ragged)
+LIMITS_SERVED = (1000, 33, 1, 700)
+#: the new paths' symbols, held to no spill (TILE_SYMBOLS holds the rest)
+LIMITS_SYMBOLS = (
+    ("fused_dwn", "fused_tiles_kernelILb0ELb0ELb1E",
+     "fused_dwn_packed, scratch"),
+    ("fused_dwn", "fused_tiles_kernelILb1ELb0ELb1E",
+     "fused_dwn_batch_major, scratch"),
+    ("fused_dwn", "fused_dwn_global_kernelILb1E",
+     "fused_dwn global, features staged"),
+    ("fused_dwn", "fused_dwn_global_kernelILb0E", "fused_dwn global"),
+    *(("lut_eval", f"lut_eval_wide_kernelILi{h}E",
+       f"lut_eval wide, corner blocks of {2 ** h}") for h in range(1, 6)),
+    ("lut_eval", "lut_eval_packed_rows_kernelILb0E",
+     "lut_eval_packed, rows from global memory"))
+
+
+def flash_row_bar(hd):
+    """The per-row bar at head dim ``hd``: FLASH_ROW_REL from 32 on,
+    FLASH_ROW_REL_NARROW from FLASH_ROW_MIN_HD, else None."""
+    if hd >= 32:
+        return FLASH_ROW_REL
+    return FLASH_ROW_REL_NARROW if hd >= FLASH_ROW_MIN_HD else None
+
+
+def flash_rounded(q, k, v, causal, drop=None):
+    """Attention as a flash kernel rounds it, in plain PyTorch: scores in
+    float32 from bf16 (B, S, heads, hd) operands at hd^-0.5, P = exp(s -
+    the row's max) rounded to bf16 before P V, the float32 row sum, the
+    output rounded to bf16.  ``drop``: (first key, keys) left out of every
+    query row past them, a kernel that drops a key tile."""
+    import torch
+    H, KH, hd = q.shape[2], k.shape[2], q.shape[3]
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
+    kf, vf = (t.repeat_interleave(H // KH, 1) for t in (kf, vf))
+    s = qf @ kf.transpose(-1, -2) * hd ** -0.5
+    S = q.shape[1]
+    mask = torch.zeros((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask |= torch.ones_like(mask).triu(1)
+    if drop is not None:
+        first, keys = drop
+        mask[first + keys:, first:first + keys] = True
+    s = s.masked_fill(mask, float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    out = (p.bfloat16().float() @ vf) / p.sum(-1, keepdim=True)
+    return out.transpose(1, 2).bfloat16()
+
+
+def _limits_flash_check(got, q, k, v, causal, where):
+    """K10's output ``got`` against its plain version: FLASH_TOL
+    elementwise and ``flash_row_bar`` per row; beside it the same errors
+    of SDPA and of ``flash_rounded`` on the same inputs, and where the row
+    bar applies, the row error of a dropped key tile, which must fail it.
+    Raises on a failed check."""
+    import torch
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+    hd = q.shape[3]
+    want = attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    res = flash_errors(got, want)
+    bar = flash_row_bar(hd)
+    res["row_tolerance"] = bar
+    res["ok"] = bool(torch.isfinite(got).all() and (
+        (got.float() - want).abs() <= FLASH_TOL + FLASH_TOL * want.abs())
+        .all() and (bar is None or res["row_rel_err"] <= bar))
+    sdpa = torch.nn.functional.scaled_dot_product_attention(
+        *(t.transpose(1, 2) for t in (q, k, v)), is_causal=causal,
+        enable_gqa=True).transpose(1, 2)
+    res["library_row_rel_err"] = flash_errors(sdpa, want)["row_rel_err"]
+    res["rounded_row_rel_err"] = flash_errors(
+        flash_rounded(q, k, v, causal), want)["row_rel_err"]
+    if bar is not None and q.shape[1] > sum(FLASH_DROP_KEYS):
+        res["dropped_tile_row_rel_err"] = flash_errors(
+            flash_rounded(q, k, v, causal, FLASH_DROP_KEYS),
+            want)["row_rel_err"]
+        if res["dropped_tile_row_rel_err"] <= bar:
+            raise SystemExit(f"limits: the row bar {bar} passes a dropped "
+                             f"key tile at {where}: {res}")
+    check = {**where, "causal": causal, **res}
+    if not res["ok"]:
+        raise SystemExit(f"limits: K10 differs from its plain version: "
+                         f"{check}")
+    return check
+
+
+def _limits_counts():
+    """Every DWN kernel's launches since the last reset."""
+    out = {}
+    for K in _stage_kernels() + (_kernel_modules()[0],):
+        out.update(K.launch_counts())
+    return out
+
+
+def _limits_equal(what, got, want):
+    """Equal tensors (words in either carrier), else the run fails."""
+    import torch
+    from repro_torch.core.bitpack import from_word_pattern
+    got, want = (t if isinstance(t, (tuple, list)) else (t,)
+                 for t in (got, want))
+    for a, b in zip(got, want):
+        if a.dtype != b.dtype and not a.is_floating_point():
+            a, b = from_word_pattern(a), from_word_pattern(b)
+        if not torch.equal(a.cpu(), b.cpu()):
+            raise SystemExit(f"limits: {what} differ")
+
+
+def _limits_shape(device, name, s, rng, paths):
+    """One shape: K2 and K1, the staged path (K3 -> K4 per layer -> K5),
+    the float path (K7 -> K8 per layer -> K9) and, for one layer, K6,
+    driven at every batch with the counts set to 0 (the launches of the
+    path), then each kernel held bit for bit to its plain version on the
+    same inputs and every path's counts to ``apply_hard``.  ``paths``
+    collects each new path's launches, by name, from each launch's own
+    record (``last_launch`` / ``last_float_launch``), read in the drive
+    and held to the plan."""
+    import torch
+    from repro_torch.core.bitpack import to_word_pattern
+    from repro_torch.core.model import DWNConfig, FrozenDWN, apply_hard
+    from repro_torch.kernels.fused import kernel as KF
+    from repro_torch.kernels.fused import ops as tfused
+    from repro_torch.kernels.fused import ref as FR
+    from repro_torch.kernels.lut_eval import kernel as KL
+    from repro_torch.kernels.lut_eval import ref as LR
+    from repro_torch.kernels.lut_eval.ops import packed_wire_indices
+    from repro_torch.kernels.popcount import ops as tpc
+    from repro_torch.kernels.popcount import ref as PR
+    from repro_torch.kernels.thermometer import ops as tth
+    from repro_torch.kernels.thermometer import ref as TR
+    from repro_torch.kernels.lut_eval import ops as tlut
+    from repro_torch.kernels._launch import sm_count
+    F, T, luts, n, C = (s[k] for k in ("F", "T", "luts", "n", "C"))
+    th, maps, tabs = make_model(rng, F, T, luts, n)
+    x = torch.from_numpy(rng.uniform(-1, 1, (max(LIMITS_BATCHES), F))
+                         .astype(np.float32)).to(device)
+    thd = torch.from_numpy(th).to(device)
+    mapsd = [torch.from_numpy(a).to(device) for a in maps]
+    tabsd = [torch.from_numpy(a).to(device) for a in tabs]
+    ops = {v: tfused.prepare_operands(thd, mapsd, tabsd, C, v)
+           for v in ("packed", "batch-major")}
+    kern = {"packed": KF.fused_dwn_packed,
+            "batch-major": KF.fused_dwn_batch_major}
+    float_batches = LIMITS_FLOAT_BATCHES.get(name, LIMITS_FLOAT_DEFAULT)
+    # the drive: every path at every batch, counted from 0
+    _reset_counts()
+    fused, layouts, staged, floats, k6 = {}, {}, {}, {}, {}
+    k4_paths, k8_paths = {}, {}
+    t0 = time.perf_counter()
+    for B in LIMITS_BATCHES:
+        xb = x[:B]
+        for v in ("packed", "batch-major"):
+            fused[v, B] = kern[v](xb, *ops[v])
+            layouts[v, B] = KF.last_launch()
+        words = [tth.encode_packed(xb, thd)]
+        for layer, (mp, tb) in enumerate(zip(mapsd, tabsd)):
+            words.append(tlut.evaluate_packed(words[-1], mp, tb))
+            k4_paths[B, layer] = KL.last_launch()["path"]
+        staged[B] = (words, tpc.classify_packed(words[-1], C))
+        if len(luts) == 1:
+            k6[B] = (tfused.forward(xb, thd, mapsd[0], tabsd[0], C),
+                     KF.last_float_launch())
+    for B in float_batches:
+        bits = [tth.encode(x[:B], thd)]
+        for layer, (mp, tb) in enumerate(zip(mapsd, tabsd)):
+            bits.append(tlut.evaluate(bits[-1], mp, tb))
+            k8_paths[B, layer] = KL.last_float_launch()["path"]
+        floats[B] = (bits, tpc.classify(bits[-1], C))
+    torch.cuda.synchronize()
+    drive_s = time.perf_counter() - t0
+    launches = _limits_counts()
+    # the checks: plain versions on the same inputs (no launches)
+    frozen = FrozenDWN(DWNConfig(num_features=F, bits_per_feature=T,
+                                 lut_counts=tuple(luts), fan_in=n,
+                                 num_classes=C), th, maps, tabs)
+    plain = {"packed": FR.fused_dwn_packed_plain,
+             "batch-major": FR.fused_dwn_batch_major_plain}
+    for B in LIMITS_BATCHES:
+        xb = x[:B]
+        want = apply_hard(frozen, xb)
+        for v in ("packed", "batch-major"):
+            counts, idx = fused[v, B]
+            _limits_equal(f"{name} {v} B={B} against its plain version",
+                          (counts, idx), plain[v](xb, *ops[v]))
+            _limits_equal(f"{name} {v} B={B} against apply_hard", counts,
+                          want)
+            path = KF.check_activation_width(
+                v, F, T if v == "packed" else 0, luts, C)
+            lay = layouts[v, B]
+            if lay["scratch"] != (path == "global") or \
+                    lay["device_layers"] != max(
+                        0, len(luts) - KF.INLINE_LAYERS):
+                raise SystemExit(f"limits: {name} {v} B={B} took {lay}, "
+                                 f"planned {path}")
+            kname = ("fused_dwn_packed" if v == "packed"
+                     else "fused_dwn_batch_major")
+            paths[f"{kname} scratch"] += lay["scratch"]
+            paths[f"{kname} deep"] += lay["device_layers"] > 0
+        words, (counts, idx) = staged[B]
+        _limits_equal(f"{name} K3 B={B}", words[0].words,
+                      to_word_pattern(TR.thermometer_packed_plain(xb, thd)))
+        for layer, (mp, tb) in enumerate(zip(mapsd, tabsd)):
+            widx, boff = packed_wire_indices(mp)
+            m_pad = FR.round_up(mp.shape[0], 32)
+            tab_words = FR.pack_table_words(torch.nn.functional.pad(
+                tb.long(), (0, 0, 0, m_pad - mp.shape[0])))
+            pad = torch.nn.functional.pad
+            wplain = LR.lut_eval_packed_plain(
+                words[layer].words, pad(widx, (0, 0, 0, m_pad - len(mp))),
+                pad(boff, (0, 0, 0, m_pad - len(mp))), tab_words)
+            _limits_equal(f"{name} K4 layer {layer} B={B}",
+                          words[layer + 1].words, to_word_pattern(wplain))
+            plan = KL.plan_lut_eval_packed(B, words[layer].words.shape[1],
+                                           m_pad, n, sm_count(device))
+            if k4_paths[B, layer] != plan.path:
+                raise SystemExit(f"limits: {name} K4 layer {layer} B={B} "
+                                 f"took {k4_paths[B, layer]}, planned "
+                                 f"{plan.path}")
+            paths["lut_eval_packed global rows"] += \
+                k4_paths[B, layer] == "global"
+        _limits_equal(f"{name} K5 B={B}", (counts, idx),
+                      PR.popcount_classify_packed_plain(
+                          words[-1].words,
+                          tpc.class_masks(luts[-1], C, device)))
+        _limits_equal(f"{name} staged B={B} against apply_hard", counts,
+                      want)
+        if B in k6:
+            (counts, idx), plan = k6[B]
+            _limits_equal(f"{name} K6 B={B}", (counts, idx),
+                          FR.fused_dwn_plain(xb, thd, mapsd[0], tabsd[0], C))
+            _limits_equal(f"{name} K6 B={B} against apply_hard", counts,
+                          want)
+            if plan["path"] == "global":
+                paths["fused_dwn global"] += 1
+    for B in float_batches:
+        bits, (counts, idx) = floats[B]
+        _limits_equal(f"{name} K7 B={B}", bits[0],
+                      TR.thermometer_plain(x[:B], thd).reshape(B, -1))
+        for layer, (mp, tb) in enumerate(zip(mapsd, tabsd)):
+            _limits_equal(f"{name} K8 layer {layer} B={B}", bits[layer + 1],
+                          LR.lut_eval_plain(bits[layer], mp,
+                                            tb.to(torch.float32)))
+            plan = KL.plan_lut_eval(B, bits[layer].shape[1], mp.shape[0],
+                                    sm_count(device), n)
+            if k8_paths[B, layer] != plan.path:
+                raise SystemExit(f"limits: {name} K8 layer {layer} B={B} "
+                                 f"took {k8_paths[B, layer]}, planned "
+                                 f"{plan.path}")
+            paths["lut_eval wide"] += k8_paths[B, layer] == "global"
+        _limits_equal(f"{name} K9 B={B}", (counts, idx),
+                      PR.popcount_classify_plain(bits[-1], C))
+        _limits_equal(f"{name} float B={B} against apply_hard", counts,
+                      apply_hard(frozen, x[:B]))
+    return {"shape": s, "drive_s": drive_s, "launches": launches,
+            "batches": list(LIMITS_BATCHES), "float_batches":
+            list(float_batches),
+            "k2_layout": layouts["packed", max(LIMITS_BATCHES)],
+            "k1_layout": layouts["batch-major", max(LIMITS_BATCHES)]}, \
+        (x, thd, ops, mapsd, tabsd, frozen)
+
+
+def _limits_time(fn, plain, nbytes, ops, iters=10):
+    """A new path timed once in a CUDA graph beside its plain version and
+    its bound (bytes over HBM's rate, or operations over the SMs')."""
+    by_bytes = nbytes / PEAK_BYTES_PER_S
+    by_ops = ops_seconds(ops)
+    return {"ms": graph_ms(fn, iters=iters, replays=2),
+            "plain_ms": time_ms(plain, iters=1, warmup=1),
+            "bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": None}
+
+
+def _limits_served(device):
+    """W1a served through ``ServingEngine`` pinned to K2 and under
+    ``backend="auto"``, and W2 pinned to K2 (a workload of 784 features
+    registered for it, data made from a seed): every request's counts and
+    predictions equal to ``apply_hard``; K2's launches counted over each
+    drain."""
+    import torch
+    from repro_torch.core.classifier import predict
+    from repro_torch.core.model import DWNConfig, apply_hard
+    from repro_torch.dwn import DWNArtifact, DWNSpec
+    from repro_torch.kernels.fused import kernel as KF
+    from repro_torch.serving import ServingEngine
+    from repro_torch.workloads import base as wbase
+    name = "limits-784"
+    if name not in wbase.list_workloads():
+        def loader(n_train, n_test, seed):
+            from repro_torch.data.jsc import JSCData
+            r = np.random.default_rng(seed)
+            return JSCData(*(a.astype(dt) for a, dt in (
+                (r.uniform(-1, 1, (n_train, 784)), np.float32),
+                (r.integers(0, 10, n_train), np.int32),
+                (r.uniform(-1, 1, (n_test, 784)), np.float32),
+                (r.integers(0, 10, n_test), np.int32))))
+        wbase.register_workload(wbase.Workload(
+            name, 784, 10, loader, {"w2": DWNConfig(
+                num_features=784, bits_per_feature=16,
+                lut_counts=(8000, 1280), num_classes=10)},
+            "28 x 28 features made from a seed"))
+    cells = {"W1a fused-packed": (DWNSpec(preset="lg-2400", bits=4096),
+                                  "fused-packed"),
+             "W1a auto": (DWNSpec(preset="lg-2400", bits=4096), "auto"),
+             "W2 fused-packed": (DWNSpec(preset="w2", bits=16,
+                                         workload=name), "fused-packed")}
+    out = {}
+    rng = np.random.default_rng(11)
+    for cell, (spec, backend) in cells.items():
+        eng = ServingEngine(DWNArtifact(spec), backend=backend,
+                            device=device, max_bucket=1024, min_bucket=256,
+                            n_train=2000)
+        F = spec.dwn_config().num_features
+        stream = [rng.uniform(-1, 1, (r, F)).astype(np.float32)
+                  for r in LIMITS_SERVED]
+        KF.reset_launch_counts()
+        for p in stream:
+            eng.submit(p)
+        done = eng.drain()
+        launches = KF.launch_counts()
+        for r in done:
+            xr = torch.from_numpy(np.ascontiguousarray(r.payload)).to(device)
+            want = apply_hard(eng.artifact.frozen, xr)
+            if not (np.array_equal(r.result[0], want.cpu().numpy())
+                    and np.array_equal(r.result[1],
+                                       predict(want).cpu().numpy())):
+                raise SystemExit(f"limits: {cell} request {r.rid} differs "
+                                 f"from apply_hard")
+        if not (launches["fused_dwn_packed"]
+                or launches["fused_dwn_batch_major"]):
+            raise SystemExit(f"limits: {cell} launched no fused kernel: "
+                             f"{launches}")
+        out[cell] = {"served": _served(done), "launches": launches,
+                     "bit_exact": eng.bit_exact,
+                     "choice": (dict(eng.auto.choice) if eng.auto else
+                                backend)}
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_limits(device, ptxas=()):
+    """The shapes the card's kernels once refused (LIMITS, K4_WIDE, the
+    K10 head dims): every kernel of every path bit-exact to its plain
+    version, every path's counts equal to ``apply_hard`` (_limits_shape),
+    W1a and W2 served through ``ServingEngine`` (_limits_served), K4 on
+    rows of 8192 words, K10 at hd 8, 32, 80 and 256 and at B x H =
+    65,600 within FLASH_TOL; each new path timed once beside its bound and
+    its plain version, its launches counted over the phase's drives; the
+    new kernels' ptxas lines held to no spill."""
+    import torch
+    from repro_torch.kernels.fused import kernel as KF
+    from repro_torch.kernels.fused import ref as FR
+    from repro_torch.kernels.flash_attn import kernel as KA
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+    from repro_torch.kernels.lut_eval import kernel as KL
+    from repro_torch.kernels.lut_eval import ref as LR
+    from repro_torch.kernels.lut_eval.ops import packed_wire_indices
+    from repro_torch.kernels.thermometer import ops as tth
+    from repro_torch.core.bitpack import to_word_pattern
+    lines = [line for lib in ptxas for line in lib]
+    resources = {label: _ptxas_resources(lines, symbol)
+                 for _, symbol, label in LIMITS_SYMBOLS}
+    rng = np.random.default_rng(23)
+    paths = dict.fromkeys(("fused_dwn_packed scratch",
+                           "fused_dwn_batch_major scratch",
+                           "fused_dwn_packed deep",
+                           "fused_dwn_batch_major deep", "fused_dwn global",
+                           "lut_eval wide", "lut_eval_packed global rows"),
+                          0)
+    shapes, kept = {}, {}
+    for name, s in LIMITS.items():
+        shapes[name], kept[name] = _limits_shape(device, name, s, rng, paths)
+        if name not in ("W1a", "W2", "W3", "W4n10"):
+            del kept[name]
+        torch.cuda.empty_cache()
+    timing = {}
+    # K2 and K1 on the scratch: W1a's 2048 encoded words, W2's features
+    x, thd, ops, mapsd, tabsd, _ = kept["W1a"]
+    s = LIMITS["W1a"]
+    timing["fused_dwn_packed scratch"] = {"shape": "W1a", "B": 4096, **(
+        _limits_time(lambda: KF.fused_dwn_packed(x, *ops["packed"]),
+                     lambda: FR.fused_dwn_packed_plain(x, *ops["packed"]),
+                     *model_bytes_and_ops("packed", 4096, s["F"], s["T"],
+                                          s["luts"], s["n"], s["C"])))}
+    x, thd, ops, mapsd, tabsd, _ = kept["W2"]
+    s = LIMITS["W2"]
+    timing["fused_dwn_batch_major scratch"] = {"shape": "W2", "B": 4096, **(
+        _limits_time(
+            lambda: KF.fused_dwn_batch_major(x, *ops["batch-major"]),
+            lambda: FR.fused_dwn_batch_major_plain(x, *ops["batch-major"]),
+            *model_bytes_and_ops("batch-major", 4096, s["F"], s["T"],
+                                 s["luts"], s["n"], s["C"])))}
+    # twelve layers: the layers past INLINE_LAYERS read from device memory
+    x, thd, ops, mapsd, tabsd, _ = kept["W3"]
+    s = LIMITS["W3"]
+    timing["fused_dwn_packed deep"] = {"shape": "W3", "B": 4096, **(
+        _limits_time(lambda: KF.fused_dwn_packed(x, *ops["packed"]),
+                     lambda: FR.fused_dwn_packed_plain(x, *ops["packed"]),
+                     *model_bytes_and_ops("packed", 4096, s["F"], s["T"],
+                                          s["luts"], s["n"], s["C"])))}
+    timing["fused_dwn_batch_major deep"] = {"shape": "W3", "B": 4096, **(
+        _limits_time(
+            lambda: KF.fused_dwn_batch_major(x, *ops["batch-major"]),
+            lambda: FR.fused_dwn_batch_major_plain(x, *ops["batch-major"]),
+            *model_bytes_and_ops("batch-major", 4096, s["F"], s["T"],
+                                 s["luts"], s["n"], s["C"])))}
+    # K6 at fan-in 10; K8 at fan-in 10 and on W1a's 65,536-bit rows
+    x, thd, ops, mapsd, tabsd, _ = kept["W4n10"]
+    s = LIMITS["W4n10"]
+    timing["fused_dwn global"] = {"shape": "W4n10", "B": 4096, **(
+        _limits_time(
+            lambda: KF.fused_dwn(x, thd, mapsd[0], tabsd[0].float(), 5),
+            lambda: FR.fused_dwn_plain(x, thd, mapsd[0], tabsd[0], 5),
+            *model_bytes_and_ops("float_fused", 4096, s["F"], s["T"],
+                                 s["luts"], s["n"], s["C"])))}
+    for shape, B in (("W4n10", 256), ("W1a", 256)):
+        x, thd, ops, mapsd, tabsd, _ = kept[shape]
+        s = LIMITS[shape]
+        bits = tth.encode(x[:B], thd)
+        tab_t = tabsd[0].float().T.contiguous()
+        timing[f"lut_eval wide {shape}"] = {"shape": shape, "B": B, **(
+            _limits_time(lambda: KL.lut_eval(bits, mapsd[0], tab_t),
+                         lambda: LR.lut_eval_plain(bits, mapsd[0],
+                                                   tabsd[0].float()),
+                         *model_bytes_and_ops("float_lut_eval", B, s["F"],
+                                              s["T"], s["luts"], s["n"],
+                                              s["C"]), iters=3))}
+    kept.clear()
+    torch.cuda.empty_cache()
+    # K4 alone on rows of 8192 words (after K3), then timed
+    k = K4_WIDE
+    th, maps, tabs = make_model(rng, k["F"], k["T"], (k["m"],), k["n"])
+    x = torch.from_numpy(rng.uniform(-1, 1, (4096, k["F"])).astype(
+        np.float32)).to(device)
+    words = tth.encode_packed(x, torch.from_numpy(th).to(device)).words
+    widx, boff = (t.to(device).contiguous() for t in
+                  packed_wire_indices(torch.from_numpy(maps[0])))
+    tab_words = FR.pack_table_words(torch.from_numpy(tabs[0])).to(device)
+    _reset_counts()
+    for B in LIMITS_BATCHES:
+        got = KL.lut_eval_packed(words[:B], widx, boff, tab_words)
+        if KL.last_launch()["path"] != "global":
+            raise SystemExit(f"limits: K4 on 8192-word rows took "
+                             f"{KL.last_launch()}")
+        _limits_equal(f"K4 on 8192-word rows B={B}", got,
+                      to_word_pattern(LR.lut_eval_packed_plain(
+                          words[:B], widx, boff, tab_words)))
+    paths["lut_eval_packed global rows"] += _limits_counts()[
+        "lut_eval_packed"]
+    timing["lut_eval_packed global rows"] = {
+        "shape": "K4_WIDE", "B": 4096, **_limits_time(
+            lambda: KL.lut_eval_packed(words, widx, boff, tab_words),
+            lambda: LR.lut_eval_packed_plain(words, widx, boff, tab_words),
+            *model_bytes_and_ops("lut_eval", 4096, k["F"], k["T"],
+                                 (k["m"],), k["n"], 5))}
+    del words, x
+    # K10 at head dims 8, 32, 80 and 256, and hd 16 past 65,535 (b, h),
+    # each counted from 0 on its own
+    Bf, Sf, H, KH = LIMITS_FLASH
+    checks, flash_launches = [], {}
+    for hd in LIMITS_FLASH_HDS:
+        KA.reset_launch_counts()
+        for q_scale in FLASH_Q_SCALES:
+            q, kk, v = _flash_operands(device, rng, Bf, Sf, (H, KH, hd),
+                                       q_scale)
+            for causal in (True, False):
+                got = KA.flash_attention(q, kk, v, causal=causal)
+                checks.append(_limits_flash_check(
+                    got, q, kk, v, causal, {"B": Bf, "S": Sf, "H": H,
+                                            "KH": KH, "hd": hd,
+                                            "q_scale": q_scale}))
+        flash_launches[f"flash_attention hd{hd}"] = \
+            KA.launch_counts()["flash_attention"]
+    Bw, Sw, Hw, KHw, hdw = LIMITS_FLASH_WIDE_BH
+    KA.reset_launch_counts()
+    for q_scale in FLASH_Q_SCALES:
+        q, kk, v = _flash_operands(device, rng, Bw, Sw, (Hw, KHw, hdw),
+                                   q_scale)
+        for causal in (True, False):
+            got = KA.flash_attention(q, kk, v, causal=causal)
+            checks.append(_limits_flash_check(
+                got, q, kk, v, causal, {"B": Bw, "S": Sw, "H": Hw,
+                                        "KH": KHw, "hd": hdw,
+                                        "q_scale": q_scale}))
+            # the folded grid against the same rows in two launches
+            # whose batch x heads fit grid.y (no fold), launched after the
+            # count is read
+            checks[-1]["unfolded"] = (q, kk, v, causal, got)
+    flash_launches["flash_attention hd16 folded grid"] = \
+        KA.launch_counts()["flash_attention"]
+    for c in checks:
+        if "unfolded" not in c:
+            continue
+        q, kk, v, causal, got = c.pop("unfolded")
+        half = Bw // 2
+        parts = [KA.flash_attention(q[i:i + half], kk[i:i + half],
+                                    v[i:i + half], causal=causal)
+                 for i in (0, half)]
+        c["equal_unfolded"] = bool(torch.equal(got, torch.cat(parts)))
+        if not c["equal_unfolded"]:
+            raise SystemExit(f"limits: K10 at B x H = {Bw * Hw} differs "
+                             f"from its two unfolded halves: {c}")
+    del q, kk, v, got, parts
+    for hd in LIMITS_FLASH_HDS:
+        timing[f"flash_attention hd{hd}"] = {
+            "instance": KA.instance_for(hd),
+            **_flash_timing(device, rng, (H, KH, hd), Bf, Sf)}
+    timing["flash_attention hd16 folded grid"] = {
+        "instance": KA.instance_for(hdw),
+        **_flash_timing(device, rng, (Hw, KHw, hdw), Bw, Sw)}
+    served = _limits_served(device)
+    emit({"phase": "limits", "shapes": shapes, "paths": paths,
+          "served": served, "flash_checks": checks,
+          "flash_launches": flash_launches, "timing": timing,
+          "ptxas": resources})
+    missing = [p for p, n in {**paths, **flash_launches}.items() if not n]
+    if missing:
+        raise SystemExit(f"limits: no launch took {missing}")
+    return paths, timing, flash_launches, checks
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {__file__}",
@@ -5444,6 +6026,8 @@ def main() -> int:
     run("dryrun", phase_dryrun, "cuda", lm_step, dwn_arch["priced_step"])
     mesh = run("mesh", phase_mesh, "cuda")
     mesh_launches = mesh["k10"]
+    limit_paths, limit_timing, limit_flash, limit_checks = run(
+        "limits", phase_limits, "cuda", list(ptxas.values()))
     emit({"phase": "seconds", "seconds": seconds,
           "total": sum(seconds.values())})
 
@@ -5575,6 +6159,46 @@ def main() -> int:
     if not all(mesh_launches.values()):
         raise SystemExit(f"K10 launched no time on a mesh path: "
                          f"{mesh_launches}")
+    # the paths for the shapes the kernels once refused (limits phase):
+    # their launches over the phase's drives, each timed once at one shape
+    fused_src = "src/repro/kernels/fused/kernel.py"
+    lut_src = "src/repro/kernels/lut_eval/kernel.py"
+    limit_entries = {
+        "fused_dwn_packed scratch": (src, f"{fused_src}:189"),
+        "fused_dwn_batch_major scratch": (src, f"{fused_src}:286"),
+        "fused_dwn_packed deep": (src, f"{fused_src}:189"),
+        "fused_dwn_batch_major deep": (src, f"{fused_src}:286"),
+        "fused_dwn global": (src, f"{fused_src}:107"),
+        "lut_eval wide": (STAGES["lut_eval_packed"][0], f"{lut_src}:54"),
+        "lut_eval_packed global rows": (STAGES["lut_eval_packed"][0],
+                                        f"{lut_src}:99")}
+    for name, (source, replaced) in limit_entries.items():
+        t = dict(limit_timing[name if name != "lut_eval wide"
+                              else "lut_eval wide W1a"])
+        if name == "lut_eval wide":
+            t["fan_in_10"] = limit_timing["lut_eval wide W4n10"]
+        summary.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaced, "launches": limit_paths[name],
+            "equal": True, "max_abs_err": 0.0, **t})
+    for name, launches in limit_flash.items():
+        t = limit_timing[name]
+        hd = t["hd"]
+        mine = [c for c in limit_checks if c["hd"] == hd]
+        summary.append({
+            "name": name, "route": "cuda", "source": FLASH[0],
+            "replaces": FLASH[1], "launches": launches, "head_dim": hd,
+            "equal": False, "tolerance": FLASH_TOL,
+            "row_tolerance": flash_row_bar(hd),
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "row_rel_err": max(c["row_rel_err"] for c in mine),
+            "library_row_rel_err": max(c["library_row_rel_err"]
+                                       for c in mine),
+            **{k: t[k] for k in (
+                "instance", "B", "S", "H", "KH", "ms", "eager_ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "tflops", "bound_share")},
+            "library": "scaled_dot_product_attention"})
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -24,8 +24,8 @@ Two things differ from the reference by design:
   bucket has more than 32 rows, 64: 32 was the fastest of {32, ..., 256}
   for both kernels at 4096 rows of dwn-jsc-lg and 64 the second (PERF.md).
 * **No hidden failure.** Only a candidate that the wrapper refuses before
-  any launch (a ``ValueError`` of its operand checks, such as
-  ``kernel.check_activation_width``) is skipped, and the cache entry
+  any launch (a ``ValueError`` of its operand checks, on a malformed
+  operand) is skipped, and the cache entry
   records it as ``"refused"``.  Any other error, a CUDA error above all,
   propagates; and if every candidate is refused :func:`tune_fused`
   raises, since :data:`DEFAULT_CONFIG` would be refused too.  The

@@ -3,7 +3,8 @@
 // layers, K4 and K8), thermometer/csrc/thermometer.cu (the packed
 // encode, K3) and popcount/csrc/popcount.cu (the packed classify, K5):
 // asynchronous staging into shared memory, the reads of a LUT's
-// one-bit-per-entry table and the 16-byte rounding of the shared-memory
+// one-bit-per-entry table, L2 evict-last loads and the 16-byte rounding
+// of the shared-memory
 // layouts (align16, mirrored by kernels/_launch.py).  The build hashes
 // this directory into every library that includes it (kernels/_build.py),
 // so an edit rebuilds all four.
@@ -77,6 +78,32 @@ __device__ __forceinline__ V model_ld(const V* p) {
     return *p;
   else
     return __ldg(p);
+}
+
+// Loads of a model that stays in L2 while rows and outputs stream past
+// it (K6's and K8's tables, K8's wires): an evict-last policy.
+__device__ __forceinline__ uint64_t evict_last_policy() {
+  uint64_t pol;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
+               : "=l"(pol));
+  return pol;
+}
+
+__device__ __forceinline__ float ld_evict_last(const float* p,
+                                               uint64_t pol) {
+  float v;
+  asm("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;\n"
+      : "=f"(v)
+      : "l"(p), "l"(pol));
+  return v;
+}
+
+__device__ __forceinline__ int ld_evict_last(const int* p, uint64_t pol) {
+  int v;
+  asm("ld.global.nc.L2::cache_hint.s32 %0, [%1], %2;\n"
+      : "=r"(v)
+      : "l"(p), "l"(pol));
+  return v;
 }
 
 // Entry `addr` of one LUT's table (tw words at t), any fan-in.

@@ -123,6 +123,16 @@
 //     other are not told apart: the first shapes stay, and GQA launches
 //     keep the order by query block.
 
+// Any other head dim up to 256 runs on the smallest instance at or above
+// it (instance_for): the Hopper design at 64, 96 and 128 where hd is a
+// multiple of 8 (the maps span hd columns, so the rest of a box arrives
+// as zeros and is never stored), else the mma design at 16, 32, 64, 96
+// or 256, whose tiles zero-fill the columns past hd and whose output
+// writes the first hd.  The scale is always the operands' hd^-0.5.  hd
+// 32 and 256 have mma instances of their own (at hd 256, 128 float
+// accumulators a thread leave no room for Q's fragments, so Q keeps a
+// tile of its own in shared memory).
+//
 // hd = 16 (the reduced archs that the card tests use) runs the first
 // design, namespace mma: 4 warps of mma.sync m16n8k16 over 64 query rows,
 // K and V double-buffered with cp.async, both products fed by ldmatrix
@@ -131,7 +141,9 @@
 // flash_attn_mma_launch, for a same-call comparison only.  Rows are padded
 // by 8 bf16 (16 bytes), so the eight row addresses of an ldmatrix fall in
 // distinct bank groups at every hd.  Shared memory: two K and two V stages
-// of 64 x (hd + 8) bf16, 12,288 B at hd 16, 36,864 at 64 and 53,248 at 96.
+// of 64 x (hd + 8) bf16, 12,288 B at hd 16, 36,864 at 64 and 53,248 at 96
+// (at 256 a fifth tile for Q, 168,960 B).  The grid is (query blocks,
+// b * h) with the pairs past grid.y's 65,535 folded into grid.x.
 // A thread holds hd / 8 output n-tiles, hd / 2 float accumulators (48 at
 // hd 96), beside hd / 4 registers of Q fragments and 32 scores.
 //
@@ -177,8 +189,13 @@ template <int HD>
 struct Tile {
   static constexpr int kStride = HD + 8;        // bf16 per padded row
   static constexpr int kElems = kBK * kStride;  // one K, V or Q tile
-  // two stages of K and two of V; Q is staged in the second K stage
-  static constexpr int kSmemBytes = 4 * kElems * (int)sizeof(bf16);
+  // Q's fragments stay in registers up to hd 128; at hd 256 beside 128
+  // accumulators they would spill, so Q keeps a tile of its own and its
+  // fragments are read from it at each k-step
+  static constexpr bool kQInSmem = HD > 128;
+  // two stages of K and two of V; Q in the second K stage, or its own
+  static constexpr int kSmemBytes =
+      (kQInSmem ? 5 : 4) * kElems * (int)sizeof(bf16);
 };
 
 // 16 bytes global -> shared; zero-filled when !valid (src is then unread)
@@ -223,49 +240,73 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // rows [row0, row0 + ROWS) of one head, `stride` elements apart in
-// global memory, into a padded shared tile; rows at or past S are
-// zero-filled
+// global memory, into a padded shared tile; rows at or past S, and the
+// columns from the head dim hd (<= HD) to the instance's HD, are
+// zero-filled.  A head dim that is a multiple of 8 moves in 16-byte
+// cp.async copies (a chunk past hd is a zero fill); another one element
+// by element, with plain loads and stores (the tile is read after the
+// block's next barrier either way).
 template <int HD, int ROWS>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           long long stride, int row0, int S,
-                                          int tid) {
+                                          int tid, int hd) {
   constexpr int kChunks = HD / 8;  // 16-byte chunks per row
+  if (hd % 8 == 0) {
 #pragma unroll
-  for (int c = tid; c < ROWS * kChunks; c += kThreads) {
-    const int r = c / kChunks, k = c % kChunks;
+    for (int c = tid; c < ROWS * kChunks; c += kThreads) {
+      const int r = c / kChunks, k = c % kChunks;
+      const int row = row0 + r;
+      const bool valid = row < S && k * 8 < hd;
+      cp_async_16(dst + r * Tile<HD>::kStride + k * 8,
+                  src + (valid ? row * stride + k * 8 : 0), valid);
+    }
+    return;
+  }
+  for (int e = tid; e < ROWS * HD; e += kThreads) {
+    const int r = e / HD, col = e % HD;
     const int row = row0 + r;
-    const bool valid = row < S;
-    cp_async_16(dst + r * Tile<HD>::kStride + k * 8,
-                src + (valid ? row : 0) * stride + k * 8, valid);
+    dst[r * Tile<HD>::kStride + col] =
+        row < S && col < hd ? src[row * stride + col] : __float2bfloat16(0.0f);
   }
 }
 
+// HD: the instance; hd <= HD the operands' head dim, whose columns fill
+// the first hd of each tile row (the rest are zeros, which add nothing
+// to Q K^T, and whose output columns are never written).  The grid is
+// (query blocks x parts, min(BH, 65535)): (b, h) pair blockIdx.y +
+// part * gridDim.y, so that any B * H runs.
 template <int HD>
 __global__ void __launch_bounds__(kThreads) flash_attn_kernel_mma(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, bf16* __restrict__ o, int S, int H, int KH,
-    int causal, float scale_log2) {
+    int hd, int BH, int causal, float scale_log2) {
   constexpr int kStride = Tile<HD>::kStride;
   constexpr int kElems = Tile<HD>::kElems;
   constexpr int kSteps = HD / 16;  // k-steps of Q K^T over the head dim
   constexpr int kOut = HD / 8;     // 8-wide output column tiles
+  constexpr bool kQInSmem = Tile<HD>::kQInSmem;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // stages sK, sK + kElems
   bf16* sV = sK + 2 * kElems;                     // stages sV, sV + kElems
-  bf16* sQ = sK + kElems;  // until its fragments are in registers
+  // Q: in the second K stage until its fragments are in registers, or
+  // (kQInSmem) in a tile of its own throughout
+  bf16* sQ = kQInSmem ? sK + 4 * kElems : sK + kElems;
 
-  const int nq = gridDim.x;
-  const int qb = causal ? nq - 1 - (int)blockIdx.x : (int)blockIdx.x;
-  const int bh = blockIdx.y;
+  const int nq = (S + kBQ - 1) / kBQ;
+  const int part = (int)blockIdx.x / nq;
+  const int qi = (int)blockIdx.x - part * nq;
+  const int qb = causal ? nq - 1 - qi : qi;
+  const int bh = part * (int)gridDim.y + (int)blockIdx.y;
+  if (bh >= BH) return;  // the whole block: past the last pair
   const int b = bh / H, h = bh % H;
   const int kvh = h / (H / KH);
-  const long long q_stride = (long long)H * HD;
-  const long long kv_stride = (long long)KH * HD;
-  const bf16* qg = q + ((long long)b * S * H + h) * HD;
-  const bf16* kg = k + ((long long)b * S * KH + kvh) * HD;
-  const bf16* vg = v + ((long long)b * S * KH + kvh) * HD;
-  bf16* og = o + ((long long)b * S * H + h) * HD;
+  const long long q_stride = (long long)H * hd;
+  const long long kv_stride = (long long)KH * hd;
+  const bf16* qg = q + ((long long)b * S * H + h) * hd;
+  const bf16* kg = k + ((long long)b * S * KH + kvh) * hd;
+  const bf16* vg = v + ((long long)b * S * KH + kvh) * hd;
+  bf16* og = o + ((long long)b * S * H + h) * hd;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int grp = lane >> 2, quad = lane & 3;  // mma row group, lane in it
@@ -276,12 +317,12 @@ __global__ void __launch_bounds__(kThreads) flash_attn_kernel_mma(
   int n_tiles = (S + kBK - 1) / kBK;
   if (causal) n_tiles = min(n_tiles, (q0 + kBQ - 1) / kBK + 1);
 
-  load_tile<HD, kBQ>(sQ, qg, q_stride, q0, S, tid);
-  load_tile<HD, kBK>(sK, kg, kv_stride, 0, S, tid);
-  load_tile<HD, kBK>(sV, vg, kv_stride, 0, S, tid);
+  load_tile<HD, kBQ>(sQ, qg, q_stride, q0, S, tid, hd);
+  load_tile<HD, kBK>(sK, kg, kv_stride, 0, S, tid, hd);
+  load_tile<HD, kBK>(sV, vg, kv_stride, 0, S, tid, hd);
   cp_async_commit();
 
-  uint32_t qf[kSteps][4];
+  uint32_t qf[kQInSmem ? 1 : kSteps][4];
   float acc[kOut][4];
 #pragma unroll
   for (int n = 0; n < kOut; ++n)
@@ -294,7 +335,7 @@ __global__ void __launch_bounds__(kThreads) flash_attn_kernel_mma(
   for (int j = 0; j < n_tiles; ++j) {
     cp_async_wait_all();
     __syncthreads();  // tile j has landed; tile j - 1 is no longer read
-    if (j == 0) {
+    if (!kQInSmem && j == 0) {
 #pragma unroll
       for (int ks = 0; ks < kSteps; ++ks)
         ldmatrix_x4(qf[ks], sQ + (wrow + (mi & 1) * 8 + mr) * kStride +
@@ -304,8 +345,8 @@ __global__ void __launch_bounds__(kThreads) flash_attn_kernel_mma(
     if (j + 1 < n_tiles) {
       const int st = (j + 1) & 1;
       const int row0 = (j + 1) * kBK;
-      load_tile<HD, kBK>(sK + st * kElems, kg, kv_stride, row0, S, tid);
-      load_tile<HD, kBK>(sV + st * kElems, vg, kv_stride, row0, S, tid);
+      load_tile<HD, kBK>(sK + st * kElems, kg, kv_stride, row0, S, tid, hd);
+      load_tile<HD, kBK>(sV + st * kElems, vg, kv_stride, row0, S, tid, hd);
       cp_async_commit();
     }
     const bf16* cK = sK + (j & 1) * kElems;
@@ -317,13 +358,21 @@ __global__ void __launch_bounds__(kThreads) flash_attn_kernel_mma(
     for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
 #pragma unroll
     for (int ks = 0; ks < kSteps; ++ks) {
+      uint32_t qa[4];
+      if constexpr (kQInSmem) {
+        ldmatrix_x4(qa, sQ + (wrow + (mi & 1) * 8 + mr) * kStride + ks * 16 +
+                            (mi >> 1) * 8);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kQInSmem ? 0 : ks][e];
+      }
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t kf[4];
         ldmatrix_x4(kf, cK + (np * 16 + (mi >> 1) * 8 + mr) * kStride +
                             ks * 16 + (mi & 1) * 8);
-        mma_bf16(s[2 * np], qf[ks], kf[0], kf[1]);
-        mma_bf16(s[2 * np + 1], qf[ks], kf[2], kf[3]);
+        mma_bf16(s[2 * np], qa, kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
       }
     }
 
@@ -405,27 +454,41 @@ __global__ void __launch_bounds__(kThreads) flash_attn_kernel_mma(
     bf16* orow = og + row * q_stride + quad * 2;
 #pragma unroll
     for (int n = 0; n < kOut; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
-          __floats2bfloat162_rn(acc[n][2 * r] * l_run[r],
-                                acc[n][2 * r + 1] * l_run[r]);
+      const float lo = acc[n][2 * r] * l_run[r];
+      const float hi = acc[n][2 * r + 1] * l_run[r];
+      const int col = n * 8 + quad * 2;  // the first hd columns only
+      if (col + 1 < hd && hd % 2 == 0) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
+            __floats2bfloat162_rn(lo, hi);
+      } else {
+        if (col < hd) orow[n * 8] = __float2bfloat16(lo);
+        if (col + 1 < hd) orow[n * 8 + 1] = __float2bfloat16(hi);
+      }
     }
   }
 }
 
+// the instance HD at head dim hd <= HD; B * H past grid.y's 65,535 folds
+// into grid.x (parts of at most 65,535 pairs)
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int H, int KH, int causal, float scale_log2, cudaStream_t stream) {
-  if ((long long)B * H > 65535) return (int)cudaErrorInvalidValue;  // grid y
+           int H, int KH, int hd, int causal, float scale_log2,
+           cudaStream_t stream) {
+  const long long BH = (long long)B * H;
+  const long long gy = BH < 65535 ? BH : 65535;
+  const long long nq = (S + kBQ - 1) / kBQ, parts = (BH + gy - 1) / gy;
+  if (hd < 1 || hd > HD || BH > 0x7fffffff || nq * parts > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
   const int smem = Tile<HD>::kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_attn_kernel_mma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + kBQ - 1) / kBQ, B * H);
+  const dim3 grid((unsigned)(nq * parts), (unsigned)gy);
   flash_attn_kernel_mma<HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, H, KH, causal,
-      scale_log2);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, H, KH, hd,
+      (int)BH, causal, scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -1029,20 +1092,26 @@ int head_group(int B, int S, int H, int KH, int hd) {
   return max(1, (int)(kKVInL2 / 4 / kv));
 }
 
+// the instance HD at head dim hd <= HD, a multiple of 8 (TMA's rows are
+// whole 16-byte units): the maps span hd columns, so the columns from hd
+// to HD arrive as zeros and are never stored, as hd 96's 96-127 are on
+// its own instance
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int H, int KH, int causal, float scale_log2, cudaStream_t stream) {
+           int H, int KH, int hd, int causal, float scale_log2,
+           cudaStream_t stream) {
   using C = Cfg<HD>;
   // one block a (query block, b, h)
   const long long blocks = (long long)B * H * ((S + kBQ - 1) / kBQ);
-  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  if (blocks > 0x7fffffff || hd < 1 || hd > HD || hd % 8)
+    return (int)cudaErrorInvalidValue;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv, to;
-  if (!make_map(&tq, encode, q, B, S, H, HD, kBQ) ||
-      !make_map(&tk, encode, k, B, S, KH, HD, C::kBK) ||
-      !make_map(&tv, encode, v, B, S, KH, HD, C::kBK) ||
-      !make_map(&to, encode, o, B, S, H, HD, kOutRows))
+  if (!make_map(&tq, encode, q, B, S, H, hd, kBQ) ||
+      !make_map(&tk, encode, k, B, S, KH, hd, C::kBK) ||
+      !make_map(&tv, encode, v, B, S, KH, hd, C::kBK) ||
+      !make_map(&to, encode, o, B, S, H, hd, kOutRows))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       flash_attn_kernel_ws<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1051,7 +1120,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   flash_attn_kernel_ws<HD><<<(unsigned)blocks, kThreads, C::kSmemBytes,
                              stream>>>(tq, tk, tv, to, S, H, KH, causal,
                                        scale_log2,
-                                       head_group(B, S, H, KH, HD));
+                                       head_group(B, S, H, KH, hd));
   return (int)cudaGetLastError();
 }
 
@@ -1065,10 +1134,28 @@ bool valid_args(int B, int S, int H, int KH, int hd, float* scale_log2) {
 
 }  // namespace
 
+// The instance that runs head dim hd (1 <= hd <= 256): the smallest at or
+// above it, 16, 32, 64, 96, 128 or 256, where TMA reads hd (a multiple of
+// 8) on the Hopper design; another hd above 32 runs the mma.sync design's
+// hd-64 or hd-96 instance, or its hd-256 one above 96.  Returns the
+// instance; *tma whether it is the Hopper design's.  0 for hd outside.
+int instance_for(int hd, bool* tma) {
+  *tma = false;
+  if (hd < 1 || hd > 256) return 0;
+  if (hd <= 16) return 16;
+  if (hd <= 32) return 32;
+  *tma = hd % 8 == 0;
+  if (hd <= 64) return 64;
+  if (hd <= 96) return 96;
+  if (hd <= 128 && *tma) return 128;
+  *tma = false;
+  return 256;
+}
+
 // q (B, S, H, hd), k and v (B, S, KH, hd), o (B, S, H, hd): bf16,
-// contiguous, 16-byte aligned.  hd is 16, 64, 96 or 128; H % KH == 0;
-// B * H <= 65535 at hd 16, B * H * ceil(S / 128) < 2^31 at hd 64, 96 and
-// 128.
+// contiguous, 16-byte aligned where hd is a multiple of 8.  1 <= hd <=
+// 256, scaled by hd^-0.5 whatever instance runs it (instance_for);
+// H % KH == 0; B * H * ceil(S / 128) < 2^31 on the Hopper design.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  void* o, int B, int S, int H, int KH, int hd,
                                  int causal, void* stream) {
@@ -1076,18 +1163,41 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
   if (!valid_args(B, S, H, KH, hd, &scale_log2))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (hd) {
+  bool tma = false;
+  switch (instance_for(hd, &tma)) {
     case 16:
-      return mma::launch<16>(q, k, v, o, B, S, H, KH, causal, scale_log2, st);
+      return mma::launch<16>(q, k, v, o, B, S, H, KH, hd, causal, scale_log2,
+                             st);
+    case 32:
+      return mma::launch<32>(q, k, v, o, B, S, H, KH, hd, causal, scale_log2,
+                             st);
     case 64:
-      return ws::launch<64>(q, k, v, o, B, S, H, KH, causal, scale_log2, st);
+      return tma ? ws::launch<64>(q, k, v, o, B, S, H, KH, hd, causal,
+                                  scale_log2, st)
+                 : mma::launch<64>(q, k, v, o, B, S, H, KH, hd, causal,
+                                   scale_log2, st);
     case 96:
-      return ws::launch<96>(q, k, v, o, B, S, H, KH, causal, scale_log2, st);
+      return tma ? ws::launch<96>(q, k, v, o, B, S, H, KH, hd, causal,
+                                  scale_log2, st)
+                 : mma::launch<96>(q, k, v, o, B, S, H, KH, hd, causal,
+                                   scale_log2, st);
     case 128:
-      return ws::launch<128>(q, k, v, o, B, S, H, KH, causal, scale_log2, st);
+      return ws::launch<128>(q, k, v, o, B, S, H, KH, hd, causal, scale_log2,
+                             st);
+    case 256:
+      return mma::launch<256>(q, k, v, o, B, S, H, KH, hd, causal,
+                              scale_log2, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The instance and design flash_attn_launch runs at head dim hd: the
+// instance's hd, negated for the mma.sync design; 0 outside 1..256.
+extern "C" int flash_attn_instance(int hd) {
+  bool tma = false;
+  const int inst = instance_for(hd, &tma);
+  return tma ? inst : -inst;
 }
 
 // the first design (mma.sync) at hd 64 and 96, with flash_attn_launch's
@@ -1103,20 +1213,30 @@ extern "C" int flash_attn_mma_launch(const void* q, const void* k,
   cudaStream_t st = (cudaStream_t)stream;
   switch (hd) {
     case 64:
-      return mma::launch<64>(q, k, v, o, B, S, H, KH, causal, scale_log2, st);
+      return mma::launch<64>(q, k, v, o, B, S, H, KH, hd, causal, scale_log2,
+                             st);
     case 96:
-      return mma::launch<96>(q, k, v, o, B, S, H, KH, causal, scale_log2, st);
+      return mma::launch<96>(q, k, v, o, B, S, H, KH, hd, causal, scale_log2,
+                             st);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
 // the dynamic shared memory a flash_attn_launch at head dim hd asks for,
-// -1 for a head dim without an instance
+// -1 outside 1..256
 extern "C" int flash_attn_smem_bytes(int hd) {
-  switch (hd) {
-    case 16:
+  switch (flash_attn_instance(hd)) {
+    case -16:
       return mma::Tile<16>::kSmemBytes;
+    case -32:
+      return mma::Tile<32>::kSmemBytes;
+    case -64:
+      return mma::Tile<64>::kSmemBytes;
+    case -96:
+      return mma::Tile<96>::kSmemBytes;
+    case -256:
+      return mma::Tile<256>::kSmemBytes;
     case 64:
       return ws::Cfg<64>::kSmemBytes;
     case 96:

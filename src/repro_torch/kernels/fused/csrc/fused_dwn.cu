@@ -10,7 +10,7 @@
 //                                  fused_dwn_batch_major (_fused_bm_kernel)
 //
 // fused_dwn_kernel, the float datapath: one layer of m LUTs with float32
-// tables (m, 2^n), n <= 8.  Its bits come from its own compares, so they
+// tables (m, 2^n), n <= 8 (fused_dwn_global_kernel: n <= 16).  Its bits come from its own compares, so they
 // are exactly 0 or 1, and the reference's multilinear corner product then
 // equals the table entry they address, for finite tables: the kernel
 // reads tables[l, addr] and compares only the m*n wired bits (wire i =
@@ -43,7 +43,11 @@
 //     slices are cut narrower (down to one chunk) to fill the card;
 //   * features too wide for two tiles in half a block (F > 454) take
 //     fused_dwn_rows_kernel, the port's first float kernel, kept as it
-//     was.
+//     was;
+//   * fan-in 9 to 16 (a LUT's table is 2 KB to 256 KB), a block_m whose
+//     LUTs fit no block, and rows the rows kernel cannot hold beside one
+//     LUT take fused_dwn_global_kernel: the same chunks and sums, the
+//     model read from global memory (below).
 //
 // fused_tiles_kernel, the two served kernels (packed: encode all F*T bits,
 // then word-addressed layers; batch-major: the first layer compares only
@@ -84,8 +88,17 @@
 //     that does not fit even so (every layer but the last whole, and one
 //     32-LUT word of the last: a fan-in-16 table alone is 8 KB a LUT) is
 //     read from global memory instead, the same broadcasts through the
-//     read-only cache (kStaged = false).  The activations of 32 samples
-//     must fit a block either way: the wrappers refuse wider layers.
+//     read-only cache (kStaged = false), as is a stack deeper than the
+//     Plan's kMaxStack layers, whose later layers' descriptors are read
+//     from device memory (layer_at);
+//   * features and activations too wide for a tile of 32 samples in a
+//     block (the packed encode of a 4096-threshold encoder, hidden layers
+//     of 32,000 LUTs, 784 features) lie in a global scratch instead, one
+//     part of 32 * (F + buffers * widest) words for each block of the grid, the
+//     grid at most one block an SM so that the scratch stays in L2 (132
+//     parts of 264 KB at 2048 encoded words: 35 MB of the 50 MB), the
+//     model unstaged and only the class counts in shared memory
+//     (kGlobal; the wrappers plan it: kernel.check_activation_width).
 // Tensor cores are not used: the work is compares, shifts and table
 // selects; the TPU's one-hot matrix formulation would be thousands of
 // times as many multiply-adds.
@@ -103,10 +116,13 @@
 
 namespace {
 
-constexpr int kMaxLayers = 8;        // == ref.MAX_LAYERS (word-addressed)
-constexpr int kMaxStack = kMaxLayers + 1;  // batch-major: direct + rest
+// layers whose descriptors travel in the Plan, by value, K1's direct
+// first layer among them (== kernel.INLINE_LAYERS); a deeper stack's
+// later layers are read from the device copy of their meta rows
+// (Plan::deep_meta), so the depth is bounded by nothing but memory
+constexpr int kMaxStack = 9;
 constexpr int kMaxFanIn = 16;        // == ref.MAX_FAN_IN
-constexpr int kFloatMaxFanIn = 8;    // == kernel.FUSED_DWN_MAX_FAN_IN
+constexpr int kFloatMaxFanIn = 8;    // == kernel.FUSED_DWN_TILE_FAN_IN
 constexpr int kThreads = 256;        // fused_dwn_rows_kernel: 8 warps
 constexpr int kTileThreads = 512;    // the tile kernels: 16 warps
 constexpr int kMaxSmem = 232448;     // dynamic shared memory of a block
@@ -132,6 +148,15 @@ struct Plan {
   int T;
   int L;                  // layers; batch-major's layer 0 is direct-wire
   Layer layer[kMaxStack];
+  // layers from kMaxStack on (never staged): their rows of (m, n, wire
+  // offset, table offset, table words) in device memory, row l - first,
+  // over the word-addressed layers' wires and tables; host_meta is the
+  // host's copy of the same rows, read by the host's layout alone
+  const int* deep_meta;
+  const int* deep_wires;
+  const uint32_t* deep_tab;
+  const int* host_meta;
+  int first;              // batch-major: 1 (layer 0 is direct); else 0
   const uint32_t* masks;  // (C, W_last) class masks
   int C, W_last;
   float* counts;          // (B, C); zeroed before the launch when S > 1
@@ -145,7 +170,28 @@ struct Plan {
   // ([g][word][lane], buf_words words a group), class counts
   // ([g][c][lane]) and the last-arrival flag
   int th_s, mask_s, x_s, x_words, buf_s0, buf_s1, buf_words, cnt_s, flag_s;
+  // kGlobal launches: the tile's features ([f][lane], x_words) and its
+  // activation buffers ([word][lane], buf_words words each) lie in a
+  // global scratch of scratch_words words a block instead, and so do the
+  // class counts where they do not fit a block either (more than 1,815
+  // classes), from word cnt_word of the block's part (else -1)
+  uint32_t* scratch;
+  int scratch_words, cnt_word;
 };
+
+// Layer l's descriptor in an unstaged launch: the Plan's copy, or (past
+// kMaxStack) one built from its meta row in device memory.
+__device__ __forceinline__ Layer layer_at(const Plan& p, int l) {
+  if (l < kMaxStack) return p.layer[l];
+  const int* row = p.deep_meta + 5 * (l - p.first);
+  Layer ly = {};
+  ly.m = __ldg(row);
+  ly.n = __ldg(row + 1);
+  ly.tw = __ldg(row + 4);
+  ly.wires = p.deep_wires + __ldg(row + 2);
+  ly.tab = p.deep_tab + __ldg(row + 3);
+  return ly;
+}
 
 // The features of tile t into xs as [g][f][lane]; rows past B are zeros.
 // P: Plan (K1, K2) or FloatTiles (K6).
@@ -160,6 +206,17 @@ __device__ void stage_x(const P& p, float* xs, int t) {
       cp_async4(d, p.x + (row0 + r) * p.F + f);
     else
       *d = 0.0f;
+  }
+}
+
+// kGlobal: the features of tile t (32 samples) into xs as [f][lane], in
+// the block's scratch, with plain loads and stores; rows past B are zeros.
+__device__ void copy_x(const Plan& p, float* xs, int t) {
+  const long long row0 = (long long)t * 32;
+  for (int e = threadIdx.x; e < 32 * p.F; e += blockDim.x) {
+    const int r = e / p.F, f = e - r * p.F;
+    xs[f * 32 + r] =
+        row0 + r < p.B ? __ldg(p.x + (row0 + r) * p.F + f) : 0.0f;
   }
 }
 
@@ -326,10 +383,15 @@ __global__ void zero_kernel(int* p, int n) {
 
 // kStaged: the model (thresholds, every layer but the last, the block's
 // slice of the last layer and its class masks) is staged in shared memory;
-// else it is read from global memory, where it does not fit.
-template <bool kDirect, bool kStaged>
+// else it is read from global memory, where it does not fit.  kGlobal: a
+// tile of 32 samples' features and activations do not fit a block either,
+// and lie in the block's part of a global scratch (which stays in L2:
+// one part per block of the grid, the grid at most one block an SM), with
+// the model unstaged; only the class counts stay in shared memory.
+template <bool kDirect, bool kStaged, bool kGlobal>
 __global__ void __launch_bounds__(kTileThreads)
     fused_tiles_kernel(const __grid_constant__ Plan p) {
+  static_assert(!(kStaged && kGlobal), "a kGlobal launch reads its model");
   extern __shared__ __align__(16) unsigned char sm[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
@@ -359,39 +421,54 @@ __global__ void __launch_bounds__(kTileThreads)
             p.masks + (size_t)c * p.W_last + w0, nws * 4);
   }
   int t = blockIdx.x;
-  float* xbuf = reinterpret_cast<float*>(sm + p.x_s);
-  if (t < p.tiles) stage_x(p, xbuf, t);
+  uint32_t* scr =
+      kGlobal ? p.scratch + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) *
+                                p.scratch_words
+              : nullptr;
+  float* xbuf = kGlobal ? reinterpret_cast<float*>(scr)
+                        : reinterpret_cast<float*>(sm + p.x_s);
+  if (!kGlobal && t < p.tiles) stage_x(p, xbuf, t);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
 
-  int* cnt = reinterpret_cast<int*>(sm + p.cnt_s);
+  int* cnt = kGlobal && p.cnt_word >= 0
+                 ? reinterpret_cast<int*>(scr + p.cnt_word)
+                 : reinterpret_cast<int*>(sm + p.cnt_s);
   // class mask c of the slice's word w at masks[c * mask_stride + w]
   const uint32_t* masks =
       kStaged ? reinterpret_cast<const uint32_t*>(sm + p.mask_s)
               : p.masks + w0;
   const int mask_stride = kStaged ? nws : p.W_last;
-  uint32_t* buf0 = reinterpret_cast<uint32_t*>(sm + p.buf_s0);
-  uint32_t* buf1 = reinterpret_cast<uint32_t*>(sm + p.buf_s1);
+  uint32_t* buf0 = kGlobal ? scr + p.x_words
+                           : reinterpret_cast<uint32_t*>(sm + p.buf_s0);
+  uint32_t* buf1 = kGlobal ? buf0 + (size_t)p.G * p.buf_words * 32
+                           : reinterpret_cast<uint32_t*>(sm + p.buf_s1);
   const float* th =
       kStaged ? reinterpret_cast<const float*>(sm + p.th_s) : p.th;
   const int bw = p.buf_words;
   for (int k = 0; t < p.tiles; t += gridDim.x, ++k) {
-    const float* xs = xbuf + (k & 1) * p.x_words;
+    const float* xs = kGlobal ? xbuf : xbuf + (k & 1) * p.x_words;
     const long long row0 = (long long)t * p.G * 32;
     const int rows = (int)min((long long)p.G * 32, p.B - row0);
     const int G = (rows + 31) >> 5;  // groups holding a row below B
     // the next tile's features arrive while this one is computed
-    if (t + (int)gridDim.x < p.tiles)
+    if (!kGlobal && t + (int)gridDim.x < p.tiles)
       stage_x(p, xbuf + ((k + 1) & 1) * p.x_words, t + gridDim.x);
     cp_async_commit();
+    if (kGlobal) copy_x(p, xbuf, t);
     for (int i = tid; i < G * p.C * 32; i += blockDim.x) cnt[i] = 0;
+    if (kGlobal) __syncthreads();  // the features are in place
     if (!kDirect)
       encode_tile<kStaged>(p, G, xs, th, buf0, warp, nwarps, lane);
     __syncthreads();
 
     for (int l = 0; l < p.L; ++l) {
-      const Layer& ly = p.layer[l];
+      // a staged launch reads the layer in the Plan in place: a copy of it
+      // cost K2 5 % at lg-2400 (a same-call A/B on an H100)
+      Layer deep_ly;
+      if constexpr (!kStaged) deep_ly = layer_at(p, l);
+      const Layer& ly = kStaged ? p.layer[l] : deep_ly;
       const bool last = l == p.L - 1, direct = kDirect && l == 0;
       const int a = last ? w0 : 0, nw = last ? nws : ly.m >> 5;
       const int in_b = kDirect ? (l + 1) & 1 : l & 1;
@@ -749,6 +826,69 @@ __global__ void __launch_bounds__(kCombineThreads)
   }
 }
 
+// fused_dwn_global_kernel: K6 where its slices do not fit a block, any
+// fan-in up to kMaxFanIn (tables of 2^n floats, 256 KB a LUT at 16) and
+// any F.  The same chunks, lanes and sums as fused_dwn_kernel, with the
+// model read from global memory: a warp takes one chunk for its tile's 32
+// samples, reads each wire and threshold as a broadcast and each LUT's
+// addressed entry tables[l, addr] with an L2 evict-last policy, so the
+// tables stay in L2 while the samples pass; the tile's features are
+// staged in shared memory as [f][lane] where they fit (kStagedX), else
+// each lane reads its own row.  Slice s (grid.y) holds chunks [s * cs,
+// s * cs + cs).  Its chunk sums equal fused_dwn_kernel's.
+struct FloatGlobal {
+  const float* x;        // (B, F)
+  const float* th;       // (F, T)
+  const int* mapping;    // (m, n) wire indices f*T + t
+  const float* tables;   // (m, 2^n)
+  float* part;           // (nchunks, B)
+  int B, F, T, n;
+  int g, cpc, nchunks;   // as FloatTiles
+  int tiles, cs;         // tiles of 32 samples; chunks a slice
+};
+
+template <bool kStagedX>
+__global__ void __launch_bounds__(kTileThreads)
+    fused_dwn_global_kernel(const __grid_constant__ FloatGlobal p) {
+  extern __shared__ __align__(16) float xs[];  // kStagedX: [f][lane]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int c0 = blockIdx.y * p.cs;
+  const int nc = max(0, min(p.cs, p.nchunks - c0));
+  const size_t A = (size_t)1 << p.n;
+  const uint64_t keep = evict_last_policy();
+  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+    const long long row0 = (long long)t * 32, row = row0 + lane;
+    if (kStagedX) {
+      __syncthreads();  // the last tile's features are no longer read
+      for (int e = tid; e < 32 * p.F; e += blockDim.x) {
+        const int r = e / p.F, f = e - r * p.F;
+        xs[f * 32 + r] =
+            row0 + r < p.B ? __ldg(p.x + (row0 + r) * p.F + f) : 0.0f;
+      }
+      __syncthreads();
+    }
+    const float* x_row = p.x + (row < p.B ? row : 0) * p.F;
+    for (int q = warp; q < nc; q += nwarps) {
+      const int c = (c0 + q) / p.cpc, k = c0 + q - c * p.cpc;
+      const int l0 = c * p.g + 32 * k, cnt = min(32, p.g - 32 * k);
+      float acc = 0.0f;
+      for (int j = 0; j < cnt; ++j) {
+        const int* wl = p.mapping + (size_t)(l0 + j) * p.n;
+        uint32_t addr = 0;
+        for (int b = 0; b < p.n; ++b) {
+          const int wire = __ldg(wl + b);
+          const int f = wire / p.T;
+          const float xv = kStagedX ? xs[f * 32 + lane] : __ldg(x_row + f);
+          addr |= static_cast<uint32_t>(xv > __ldg(p.th + wire)) << b;
+        }
+        acc += ld_evict_last(p.tables + (size_t)(l0 + j) * A + addr, keep);
+      }
+      if (row < p.B) p.part[(size_t)(c0 + q) * p.B + row] = acc;
+    }
+  }
+}
+
 template <int N>
 cudaError_t launch_fused_dwn(const FloatTiles& p, int S, int C, int sms,
                              int plan_smem, float* counts, int* idx,
@@ -787,39 +927,58 @@ cudaError_t prepare_smem(Kernel kernel, size_t bytes) {
 }
 
 // meta: L rows of (m, n, wire offset, table offset, table words) of the
-// word-addressed layers; they go to p->layer[first..].
+// word-addressed layers, on the host, and deep_meta the same rows in
+// device memory (needed where first + L > kMaxStack); the first layers go
+// to p->layer[first..kMaxStack).
 cudaError_t fill_layers(Plan* p, int first, const int* meta, int num_layers,
-                        const void* wires, const void* tab) {
-  if (num_layers < 0 || num_layers > kMaxLayers) return cudaErrorInvalidValue;
+                        const void* wires, const void* tab,
+                        const void* deep_meta) {
+  if (num_layers < 0 || (first + num_layers > kMaxStack && !deep_meta))
+    return cudaErrorInvalidValue;
   for (int L = 0; L < num_layers; ++L) {
+    const int m = meta[5 * L + 0], n = meta[5 * L + 1];
+    if (m <= 0 || m % 32 || n < 1 || n > kMaxFanIn)
+      return cudaErrorInvalidValue;
+    if (first + L >= kMaxStack) continue;
     Layer& ly = p->layer[first + L];
-    ly.m = meta[5 * L + 0];
-    ly.n = meta[5 * L + 1];
+    ly.m = m;
+    ly.n = n;
     ly.tw = meta[5 * L + 4];
     ly.wires = static_cast<const int*>(wires) + meta[5 * L + 2];
     ly.wth = nullptr;
     ly.tab = static_cast<const uint32_t*>(tab) + meta[5 * L + 3];
-    if (ly.m <= 0 || ly.m % 32 || ly.n < 1 || ly.n > kMaxFanIn)
-      return cudaErrorInvalidValue;
   }
   p->L = first + num_layers;
+  p->first = first;
+  p->host_meta = meta;
+  p->deep_meta = static_cast<const int*>(deep_meta);
+  p->deep_wires = static_cast<const int*>(wires);
+  p->deep_tab = static_cast<const uint32_t*>(tab);
   return cudaSuccess;
 }
 
+// LUTs of layer l, from the Plan or, past kMaxStack, the host's meta.
+int layer_m(const Plan& p, int l) {
+  return l < kMaxStack ? p.layer[l].m : p.host_meta[5 * (l - p.first)];
+}
+
 // The shared-memory layout of a block whose slice of the last layer is
-// p.ws words, with the model (staged) or without it; returns its bytes.
+// p.ws words, with the model (staged: p.L <= kMaxStack) or without it;
+// returns its bytes.  global: the features and activation buffers lie in
+// the global scratch instead (p.scratch_words a block), the model
+// unstaged.
 template <bool kDirect>
-size_t layout(Plan& p, bool staged) {
+size_t layout(Plan& p, bool staged, bool global = false) {
   size_t off = 0;
   p.th_s = 0;
   // thresholds, padded to a whole word for the encode's 16-byte reads
   if (staged && !kDirect) off = (size_t)(p.F * p.T + 31) / 32 * 128;
-  int bw = kDirect ? 0 : (p.F * p.T + 31) / 32;
+  int bw = kDirect ? 0 : (int)(((long long)p.F * p.T + 31) / 32);
   for (int l = 0; l < p.L; ++l) {
-    Layer& ly = p.layer[l];
     const bool last = l == p.L - 1, direct = kDirect && l == 0;
-    if (!last) bw = max(bw, ly.m / 32);
+    if (!last) bw = max(bw, layer_m(p, l) / 32);
     if (!staged) continue;
+    Layer& ly = p.layer[l];
     const size_t luts = (size_t)(last ? p.ws : ly.m / 32) * 32;
     ly.wires_s = (int)off;
     off = align16(off + luts * ly.n * (direct ? 2 : 4));
@@ -832,11 +991,24 @@ size_t layout(Plan& p, bool staged) {
   if (staged) off = align16(off + (size_t)p.C * p.ws * 4);
   p.x_s = (int)off;
   p.x_words = p.G * p.F * 32;
-  off = align16(off + 2 * (size_t)p.x_words * 4);
   // activation buffers: the packed encode and every layer's output but
   // the last's, alternating between two
   const int outputs = kDirect ? p.L - 1 : p.L;
   p.buf_words = bw;
+  if (global) {
+    size_t words =
+        (size_t)p.x_words + (size_t)min(outputs, 2) * p.G * bw * 32;
+    const size_t counts = (size_t)p.G * p.C * 32;
+    const bool counts_fit = off + counts * 4 + 16 <= (size_t)kMaxSmem;
+    p.cnt_word = counts_fit || words > 0x7fffffff ? -1 : (int)words;
+    if (!counts_fit) words += counts;
+    p.scratch_words = words > 0x7fffffff ? -1 : (int)words;
+    p.buf_s0 = p.buf_s1 = p.cnt_s = (int)off;
+    if (counts_fit) off += counts * 4;
+    p.flag_s = (int)off;
+    return off + 16;
+  }
+  off = align16(off + 2 * (size_t)p.x_words * 4);
   p.buf_s0 = (int)off;
   if (outputs >= 1) off += (size_t)p.G * bw * 32 * 4;
   p.buf_s1 = (int)off;
@@ -853,7 +1025,8 @@ size_t layout(Plan& p, bool staged) {
 // model is read from global memory.  Then the tile: block_b samples
 // rounded up to a multiple of 32 (p.G groups), no more groups than B
 // fills, and down to the most that fit.  False if not even a tile of 32
-// samples fits (activations too wide: the wrappers refuse those first).
+// samples fits (activations too wide: the wrappers send those to the
+// scratch, launch_tiles' global layout).
 template <bool kDirect>
 bool fit(Plan& p, int block_b, bool* staged) {
   const auto fits = [&](bool st) {
@@ -861,8 +1034,8 @@ bool fit(Plan& p, int block_b, bool* staged) {
   };
   p.G = 1;
   p.ws = p.W_last;
-  *staged = true;
-  if (!fits(true)) {
+  *staged = p.L <= kMaxStack;  // deeper stacks read their model
+  if (*staged && !fits(true)) {
     int lo = 0, hi = p.W_last;  // fits(lo) or lo == 0; !fits(hi)
     while (hi - lo > 1) {
       p.ws = (lo + hi) / 2;
@@ -883,38 +1056,67 @@ bool fit(Plan& p, int block_b, bool* staged) {
   return fits(*staged);
 }
 
+// Slices per tile of a launch of `tiles` tiles on a card of `sms` SMs
+// whose last layer is W_last words, at most fit_ws words a block: fewer
+// tiles than SMs split the last layer's words over S blocks per tile
+// (one block an SM: a second block per SM that repeats the tile's encode
+// and adds its counts through global atomics was slower); never slices
+// wider than fit.  *ws: the words of a slice.
+int tile_slices(int tiles, int W_last, int fit_ws, int sms, int* ws) {
+  int S = tiles >= sms ? 1 : max(1, min(W_last, (sms + tiles / 2) / tiles));
+  S = max(S, (W_last + fit_ws - 1) / fit_ws);
+  *ws = (W_last + S - 1) / S;
+  return (W_last + *ws - 1) / *ws;
+}
+
+// Tile walkers of a launch on the global path: at most one an SM, so that
+// the scratch stays in L2, and every tile its own where slices split it.
+int scratch_walkers(int tiles, int S, int sms) {
+  return S > 1 ? tiles : min(tiles, sms);
+}
+
 // Tiles, slices and the shared-memory layout of one launch; then the
-// launch itself on `stream`.  info: whether the zero kernel was launched
-// first, whether the model was staged, slices per tile, samples per tile,
-// dynamic shared memory in bytes.
+// launch itself on `stream`.  global: the caller planned the features and
+// activations into the global scratch (kernel.check_activation_width),
+// scratch_blocks parts of scratch_words words, which must hold this
+// launch's blocks (fused_tiles_scratch_blocks) and match its layout.
+// info: whether the zero kernel was launched first, whether the model was
+// staged, slices per tile, samples per tile, dynamic shared memory in
+// bytes, whether the scratch was used, and the layers whose descriptors
+// the blocks read from device memory (past the Plan's kMaxStack).
 template <bool kDirect>
-cudaError_t launch_tiles(Plan& p, int block_b, cudaStream_t stream,
-                         int* info) {
+cudaError_t launch_tiles(Plan& p, int block_b, bool global,
+                         int scratch_blocks, int scratch_words,
+                         cudaStream_t stream, int* info) {
   if (p.B <= 0 || p.F <= 0 || p.C <= 0 || block_b <= 0 || p.L < 1 ||
-      p.layer[p.L - 1].m != 32 * p.W_last)
+      layer_m(p, p.L - 1) != 32 * p.W_last)
     return cudaErrorInvalidValue;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  bool staged = true;
-  if (!fit<kDirect>(p, block_b, &staged)) return cudaErrorInvalidValue;
+  bool staged = false;
+  if (global) {
+    // a tile of 32 samples, the model unstaged
+    p.G = 1;
+    p.ws = p.W_last;
+    if (layout<kDirect>(p, false, true) > (size_t)kMaxSmem ||
+        p.scratch_words != scratch_words || p.scratch == nullptr ||
+        (p.cnt_word < 0 &&
+         (size_t)p.C * 128 + 16 > (size_t)kMaxSmem))
+      return cudaErrorInvalidValue;
+  } else if (!fit<kDirect>(p, block_b, &staged)) {
+    return cudaErrorInvalidValue;
+  }
   const int fit_ws = p.ws;
   p.tiles = (int)((p.B + 32LL * p.G - 1) / (32LL * p.G));
-  auto kernel = staged ? fused_tiles_kernel<kDirect, true>
-                       : fused_tiles_kernel<kDirect, false>;
-  // fewer tiles than SMs: split the last layer's words over S blocks per
-  // tile (one block an SM: a second block per SM that repeats the
-  // tile's encode and adds its counts through global atomics was
-  // slower); and never slices wider than fit
-  p.S = p.tiles >= sms ? 1
-                       : max(1, min(p.W_last, (sms + p.tiles / 2) / p.tiles));
-  p.S = max(p.S, (p.W_last + fit_ws - 1) / fit_ws);
-  p.ws = (p.W_last + p.S - 1) / p.S;
-  p.S = (p.W_last + p.ws - 1) / p.ws;
+  auto kernel = global   ? fused_tiles_kernel<kDirect, false, true>
+                : staged ? fused_tiles_kernel<kDirect, true, false>
+                         : fused_tiles_kernel<kDirect, false, false>;
+  p.S = tile_slices(p.tiles, p.W_last, fit_ws, sms, &p.ws);
   if (p.S > 65535) return cudaErrorInvalidValue;  // grid.y
-  const size_t smem = layout<kDirect>(p, staged);
+  const size_t smem = layout<kDirect>(p, staged, global);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   err = prepare_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -922,6 +1124,13 @@ cudaError_t launch_tiles(Plan& p, int block_b, cudaStream_t stream,
                                                       kTileThreads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  // a persistent grid: at most as many tile walkers as fit on the card
+  // (with the scratch, scratch_walkers)
+  const int walkers = global ? scratch_walkers(p.tiles, p.S, sms)
+                      : p.S > 1 ? p.tiles
+                                : min(p.tiles, sms * per_sm);
+  if (global && (long long)walkers * p.S > scratch_blocks)
+    return cudaErrorInvalidValue;
   // blocks that split a tile add into counts and count their arrival:
   // both zeroed first by one small kernel (the caller allocates arrive
   // right after counts; in a CUDA graph a kernel node was cheaper than a
@@ -938,8 +1147,8 @@ cudaError_t launch_tiles(Plan& p, int block_b, cudaStream_t stream,
   info[2] = p.S;
   info[3] = 32 * p.G;
   info[4] = (int)smem;
-  // a persistent grid: at most as many tile walkers as fit on the card
-  const int walkers = p.S > 1 ? p.tiles : min(p.tiles, sms * per_sm);
+  info[5] = global;
+  info[6] = max(0, p.L - kMaxStack);
   kernel<<<dim3(walkers, p.S), kTileThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -1029,18 +1238,40 @@ extern "C" int fused_dwn_launch(const void* x, const void* th, int B, int F,
   }
 }
 
+// Blocks of a K1 or K2 launch of B samples on the global path whose last
+// layer is W_last words, each with its part of the scratch (the wrapper
+// allocates them): launch_tiles' tiles of 32 samples, slices and walkers
+// on the current device; -1 on a CUDA error or bad operands.
+extern "C" int fused_tiles_scratch_blocks(int B, int W_last) {
+  int dev = 0, sms = 0, ws = 0;
+  if (B <= 0 || W_last <= 0 || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return -1;
+  const int tiles = (int)((B + 31LL) / 32);
+  const int S = tile_slices(tiles, W_last, W_last, sms, &ws);
+  return scratch_walkers(tiles, S, sms) * S;
+}
+
+// K2 and (below) K1.  meta: the word-addressed layers' rows on the host,
+// deep_meta the same in device memory; global: features and activations
+// in `scratch`, scratch_blocks parts of scratch_words words (else null,
+// 0, 0); info: launch_tiles'.
 extern "C" int fused_dwn_packed_launch(
     const void* x, const void* th, int B, int F, int T, const int* meta,
-    int num_layers, const void* wires, const void* tab, const void* masks,
-    int C, int W_last, void* counts, void* idx, void* arrive, int block_b,
-    int* info, void* stream) {
+    const void* deep_meta, int num_layers, const void* wires,
+    const void* tab, const void* masks, int C, int W_last, void* counts,
+    void* idx, void* arrive, int block_b, int global, void* scratch,
+    int scratch_blocks, int scratch_words, int* info, void* stream) {
   Plan p = {};
   p.x = static_cast<const float*>(x);
   p.B = B;
   p.F = F;
   p.th = static_cast<const float*>(th);
   p.T = T;
-  cudaError_t err = fill_layers(&p, 0, meta, num_layers, wires, tab);
+  p.scratch = static_cast<uint32_t*>(scratch);
+  cudaError_t err =
+      fill_layers(&p, 0, meta, num_layers, wires, tab, deep_meta);
   if (err != cudaSuccess) return (int)err;
   if (T <= 0) return (int)cudaErrorInvalidValue;
   p.masks = static_cast<const uint32_t*>(masks);
@@ -1051,21 +1282,24 @@ extern "C" int fused_dwn_packed_launch(
   p.arrive = static_cast<int*>(arrive);
   if (p.arrive != reinterpret_cast<int*>(p.counts) + (size_t)B * C)
     return (int)cudaErrorInvalidValue;
-  return (int)launch_tiles<false>(p, block_b, (cudaStream_t)stream, info);
+  return (int)launch_tiles<false>(p, block_b, global != 0, scratch_blocks,
+                                  scratch_words, (cudaStream_t)stream, info);
 }
 
 extern "C" int fused_dwn_batch_major_launch(
     const void* x, int B, int F, const void* wire_f, const void* wire_th,
     const void* tab0, int m0, int n0, int tw0, const int* meta,
-    int num_layers, const void* wires, const void* tab, const void* masks,
-    int C, int W_last, void* counts, void* idx, void* arrive, int block_b,
-    int* info, void* stream) {
+    const void* deep_meta, int num_layers, const void* wires,
+    const void* tab, const void* masks, int C, int W_last, void* counts,
+    void* idx, void* arrive, int block_b, int global, void* scratch,
+    int scratch_blocks, int scratch_words, int* info, void* stream) {
   if (m0 <= 0 || m0 % 32 || n0 < 1 || n0 > kMaxFanIn)
     return (int)cudaErrorInvalidValue;
   Plan p = {};
   p.x = static_cast<const float*>(x);
   p.B = B;
   p.F = F;
+  p.scratch = static_cast<uint32_t*>(scratch);
   Layer& first = p.layer[0];
   first.m = m0;
   first.n = n0;
@@ -1073,7 +1307,8 @@ extern "C" int fused_dwn_batch_major_launch(
   first.wires = wire_f;
   first.wth = static_cast<const float*>(wire_th);
   first.tab = static_cast<const uint32_t*>(tab0);
-  cudaError_t err = fill_layers(&p, 1, meta, num_layers, wires, tab);
+  cudaError_t err =
+      fill_layers(&p, 1, meta, num_layers, wires, tab, deep_meta);
   if (err != cudaSuccess) return (int)err;
   p.masks = static_cast<const uint32_t*>(masks);
   p.C = C;
@@ -1083,7 +1318,62 @@ extern "C" int fused_dwn_batch_major_launch(
   p.arrive = static_cast<int*>(arrive);
   if (p.arrive != reinterpret_cast<int*>(p.counts) + (size_t)B * C)
     return (int)cudaErrorInvalidValue;
-  return (int)launch_tiles<true>(p, block_b, (cudaStream_t)stream, info);
+  return (int)launch_tiles<true>(p, block_b, global != 0, scratch_blocks,
+                                 scratch_words, (cudaStream_t)stream, info);
+}
+
+// K6 on its global path: fused_dwn_global_kernel over S slices of cs
+// chunks, then the combine kernel, on a card of sms SMs; smem: the plan's
+// dynamic shared memory (32 samples' features, or 0 to read them from
+// global memory).  part as fused_dwn_launch's; info: walkers, blocks an
+// SM holds.
+extern "C" int fused_dwn_global_launch(const void* x, const void* th, int B,
+                                       int F, int T, const void* mapping,
+                                       const void* tables, int m, int n,
+                                       int C, void* part, void* counts,
+                                       void* idx, int cs, int S, int sms,
+                                       int smem, int* info, void* stream) {
+  if (B <= 0 || F <= 0 || T <= 0 || m <= 0 || n < 1 || n > kMaxFanIn ||
+      C <= 0 || cs < 1 || S < 1 || S > 65535 || sms < 1 ||
+      (smem != 0 && smem != 128 * F) || smem > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  FloatGlobal p = {};
+  p.x = static_cast<const float*>(x);
+  p.th = static_cast<const float*>(th);
+  p.mapping = static_cast<const int*>(mapping);
+  p.tables = static_cast<const float*>(tables);
+  p.part = static_cast<float*>(part);
+  p.B = B;
+  p.F = F;
+  p.T = T;
+  p.n = n;
+  p.g = m / C;
+  p.cpc = (p.g + 31) / 32;
+  p.nchunks = C * p.cpc;
+  p.tiles = (int)((B + 31LL) / 32);
+  p.cs = cs;
+  // the slices must cover every chunk
+  if (S != max(1, (p.nchunks + cs - 1) / cs)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  auto kernel = smem ? fused_dwn_global_kernel<true>
+                     : fused_dwn_global_kernel<false>;
+  int per_sm = 0;
+  cudaError_t err = prepare_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kTileThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int walkers = min(p.tiles, max(1, sms * per_sm / S));
+  kernel<<<dim3(walkers, S), kTileThreads, smem, st>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  fused_dwn_combine_kernel<<<(B + 31) / 32, kCombineThreads, 0, st>>>(
+      p.part, B, C, p.cpc, static_cast<float*>(counts),
+      static_cast<int*>(idx));
+  info[0] = walkers;
+  info[1] = per_sm;
+  return (int)cudaGetLastError();
 }
 
 // fused_dwn's combine kernel on its own: part (C * cpc, B) chunk sums ->

@@ -26,10 +26,13 @@ fewer tiles than the card has SMs, or the last layer does not fit a
 block's shared memory whole, the last layer's LUTs are split over several
 blocks per tile, which add their class counts into the output: a small
 kernel, ``fused_dwn_zero``, zeroes it first on the launch's stream.  A
-model that does not fit even so (a fan-in-16 table is 8 KB a LUT) is read
-from global memory with the same broadcasts.  The activations of one tile
-of 32 samples must fit a block's shared memory: the wrappers refuse wider
-layers (:func:`check_activation_width`).
+model that does not fit even so (a fan-in-16 table is 8 KB a LUT), or
+deeper than :data:`INLINE_LAYERS` layers, is read from
+global memory with the same broadcasts.  Where even the features and
+activations of one tile of 32 samples do not fit a block, they lie in a
+global scratch, a part for each block of the grid, which stays in L2
+(:func:`check_activation_width` picks the path, :func:`scratch_blocks`
+sizes the scratch).
 
 All return ``(counts (B, classes) float32, idx (B,) int32)`` for any B.
 For tensors on the CPU a wrapper runs its plain version (``ref.py``); for
@@ -51,7 +54,7 @@ import torch
 from .._launch import (I, LaunchCounts, P, bind, device_type, expect,
                        launch, sm_count)
 from ..autotune import DEFAULT_CONFIG
-from .ref import (MAX_LAYERS, LayerStack, fused_dwn_batch_major_plain,
+from .ref import (MAX_FAN_IN, LayerStack, fused_dwn_batch_major_plain,
                   fused_dwn_combine_plain, fused_dwn_packed_plain,
                   fused_dwn_plain)
 
@@ -62,8 +65,17 @@ TILE_ROWS = 32
 #: dynamic shared memory one block may use on an H100.
 MAX_SMEM_BYTES = 232_448
 
-#: widest fan-in ``fused_dwn`` takes: 2^8 table entries per LUT.
-FUSED_DWN_MAX_FAN_IN = 8
+#: layers whose descriptors a packed launch passes by value, K1's direct
+#: first layer among them (== kMaxStack in the source); a deeper stack's
+#: later layers are read from ``LayerStack.meta_dev`` in device memory,
+#: unstaged (``last_launch()["device_layers"]`` counts them).
+INLINE_LAYERS = 9
+#: widest fan-in ``fused_dwn`` takes (the port's ``ref.MAX_FAN_IN``):
+#: 2^16 table entries per LUT.
+FUSED_DWN_MAX_FAN_IN = MAX_FAN_IN
+#: widest fan-in of ``fused_dwn``'s tiles and rows kernels (2^8 entries a
+#: LUT); wider LUTs take its global path (:func:`plan_fused_dwn`).
+FUSED_DWN_TILE_FAN_IN = 8
 #: ``fused_dwn``'s samples per tile when no ``FusedConfig`` is given (its
 #: slices are then as wide as fit a block: :func:`plan_fused_dwn`; chosen
 #: on the card: PERF.md).
@@ -83,16 +95,21 @@ _SIGNATURES = {
     "fused_dwn_launch": [P, P, I, I, I, P, P, I, I, I, P, P, P, I, I, I, I,
                          I, I, I, P, P],
     "fused_dwn_rows_launch": [P, P, I, I, I, P, P, I, I, I, P, P, I, I, P],
-    "fused_dwn_packed_launch": [P, P, I, I, I, P, I, P, P, P, I, I, P, P,
-                                P, I, P, P],
-    "fused_dwn_batch_major_launch": [P, I, I, P, P, P, I, I, I, P, I, P, P,
-                                     P, I, I, P, P, P, I, P, P],
+    "fused_dwn_global_launch": [P, P, I, I, I, P, P, I, I, I, P, P, P, I,
+                                I, I, I, P, P],
+    "fused_dwn_packed_launch": [P, P, I, I, I, P, P, I, P, P, P, I, I, P, P,
+                                P, I, I, P, I, I, P, P],
+    "fused_dwn_batch_major_launch": [P, I, I, P, P, P, I, I, I, P, P, I, P,
+                                     P, P, I, I, P, P, P, I, I, P, I, I, P,
+                                     P],
     "fused_dwn_combine_launch": [P, I, I, I, P, P, P],
     "fused_dwn_zero_launch": [P, I, P],
+    "fused_tiles_scratch_blocks": [I, I],
 }
 #: how the latest packed launch laid itself out (see :func:`last_launch`)
 _LAST: dict = {}
-_LAUNCH_INFO = ("zeroed", "staged", "slices", "tile_rows", "smem_bytes")
+_LAUNCH_INFO = ("zeroed", "staged", "slices", "tile_rows", "smem_bytes",
+                "scratch", "device_layers")
 #: the latest ``fused_dwn`` (see :func:`last_float_launch`)
 _LAST_FLOAT: dict = {}
 _FLOAT_INFO = ("walkers", "blocks_per_sm")
@@ -103,8 +120,11 @@ def last_launch() -> dict:
     of this process: ``zeroed`` (the zero kernel ran first), ``staged``
     (the model was staged in shared memory, else read from global
     memory), ``slices`` (blocks per tile that split the last layer),
-    ``tile_rows`` (samples per tile) and ``smem_bytes`` (dynamic shared
-    memory of a block)."""
+    ``tile_rows`` (samples per tile), ``smem_bytes`` (dynamic shared
+    memory of a block), ``scratch`` (features and activations in the
+    global scratch: :func:`check_activation_width`) and
+    ``device_layers`` (layers whose descriptors the blocks read from
+    ``LayerStack.meta_dev``: those past :data:`INLINE_LAYERS`)."""
     return dict(_LAST)
 
 
@@ -118,32 +138,62 @@ def min_tile_smem(F: int, num_classes: int, act_words: int,
     return 4 * TILE_ROWS * (2 * F + buffers * act_words + num_classes) + 16
 
 
-def check_activation_width(variant: str, F: int, T: int, lut_counts,
-                           num_classes: int) -> None:
-    """Raise ``ValueError`` unless a tile of 32 samples of the ``variant``
-    kernel fits a block's shared memory: its features and its widest
-    activations (the packed encode's F*T bits and every layer's outputs
-    but the last; batch-major compares its first layer's wires directly).
-    ``lut_counts``: LUTs of every layer, first to last."""
+def _activations(variant: str, F: int, T: int, lut_counts):
+    """(widest activations in words a sample, activation buffers) of a
+    tile of the ``variant`` kernel: the packed encode's F*T bits and every
+    layer's outputs but the last (batch-major compares its first layer's
+    wires directly), in up to two alternating buffers."""
     widths = [(m + 31) // 32 for m in lut_counts[:-1]]
     if variant == "packed":
         widths.append((F * T + 31) // 32)
-    buffers = min(len(widths), 2)
-    need = min_tile_smem(F, num_classes, max(widths, default=0), buffers)
-    if need > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"fused_dwn_{variant.replace('-', '_')}: features ({F}) and "
-            f"activations ({max(widths, default=0)} words a sample) of 32 "
-            f"samples need {need} bytes of shared memory, over a block's "
-            f"{MAX_SMEM_BYTES}")
+    return max(widths, default=0), min(len(widths), 2)
+
+
+def check_activation_width(variant: str, F: int, T: int, lut_counts,
+                           num_classes: int) -> str:
+    """Where a tile of 32 samples of the ``variant`` kernel keeps its
+    features and activations: ``"shared"`` where they fit a block's
+    shared memory (:func:`min_tile_smem`), the path of every launch that
+    fits, else ``"global"``: a global scratch of :func:`scratch_words`
+    words for each of :func:`scratch_blocks` blocks, the model read from
+    global memory.  ``lut_counts``: LUTs of every layer, first to last."""
+    width, buffers = _activations(variant, F, T, lut_counts)
+    if min_tile_smem(F, num_classes, width, buffers) <= MAX_SMEM_BYTES:
+        return "shared"
+    return "global"
+
+
+def scratch_words(variant: str, F: int, T: int, lut_counts,
+                  num_classes: int) -> int:
+    """Words of one block's part of the global scratch: a tile's features
+    ([f][lane]) and its activation buffers ([word][lane]), and its class
+    counts where they do not fit a block's shared memory (more than 1,815
+    classes)."""
+    width, buffers = _activations(variant, F, T, lut_counts)
+    counts = 4 * TILE_ROWS * num_classes + 16 > MAX_SMEM_BYTES
+    return TILE_ROWS * (F + buffers * width + counts * num_classes)
+
+
+def scratch_blocks(B: int, last_words: int) -> int:
+    """Blocks of a K1 or K2 launch of ``B`` samples on the global path on
+    the current CUDA device, each with its part of the scratch, whose
+    last layer packs to ``last_words`` words: the source's own count
+    (``fused_tiles_scratch_blocks``, from the tiles, slices and walkers
+    the launch lays out)."""
+    lib = bind(LIBRARY, _SIGNATURES)
+    blocks = lib.fused_tiles_scratch_blocks(B, last_words)
+    if blocks < 1:
+        raise RuntimeError(f"fused_tiles_scratch_blocks({B}, {last_words}) "
+                           f"returned {blocks}")
+    return blocks
 
 
 def _check_stack(layers: LayerStack, device: torch.device) -> None:
-    if layers.num_layers > MAX_LAYERS:
-        raise ValueError(f"the CUDA kernels take at most {MAX_LAYERS} "
-                         f"word-addressed layers, got {layers.num_layers}")
+    """Any depth: past :data:`INLINE_LAYERS` a launch reads the layers'
+    meta rows from ``meta_dev``."""
     for t, name in ((layers.wires, "wires"), (layers.tab, "tab")):
         expect(t, name, torch.int32, 1, device)
+    expect(layers.meta_dev, "meta_dev", torch.int32, 2, device)
 
 
 def _check_masks(class_masks: torch.Tensor, last_m: int,
@@ -182,14 +232,15 @@ def fused_dwn_combine(part: torch.Tensor, num_classes: int):
 
 
 def _launch_tiles(name: str, x: torch.Tensor, call, num_classes: int,
-                  block_b: int):
-    """Allocate outputs, run ``call(lib, counts, idx, arrive, info,
-    stream)`` on the current stream and raise on any CUDA error it
+                  block_b: int, scratch=None):
+    """Allocate outputs, run ``call(lib, counts, idx, arrive, scratch,
+    info, stream)`` on the current stream and raise on any CUDA error it
     returns.  ``arrive`` holds a counter per tile (at most one per 32
     samples), right after ``counts`` in one buffer: when blocks split a
     tile's last layer the launch zeroes both first, and the blocks add
-    into them.  ``info`` receives the launch's layout
-    (:func:`last_launch`)."""
+    into them.  ``scratch``: None, or (blocks, words a block) of the
+    global path's scratch, allocated here.  ``info`` receives the
+    launch's layout (:func:`last_launch`)."""
     if block_b < 1:
         raise ValueError(f"block_b must be >= 1, got {block_b}")
     B = x.shape[0]
@@ -200,10 +251,13 @@ def _launch_tiles(name: str, x: torch.Tensor, call, num_classes: int,
     if B == 0:
         return counts, idx
     arrive = buf[B * num_classes:]
+    scr = (None if scratch is None else
+           torch.empty(scratch[0] * scratch[1], dtype=torch.int32,
+                       device=x.device))
     info = (ctypes.c_int * len(_LAUNCH_INFO))()
     lib = bind(LIBRARY, _SIGNATURES)
     launch(lib, LIBRARY, name, x.device,
-           lambda stream: call(lib, counts, idx, arrive, info, stream),
+           lambda stream: call(lib, counts, idx, arrive, scr, info, stream),
            _COUNTS)
     _LAST.update(zip(_LAUNCH_INFO, info))
     if info[0]:
@@ -230,9 +284,9 @@ def fused_dwn_zero(t: torch.Tensor) -> torch.Tensor:
 
 def last_float_launch() -> dict:
     """The latest ``fused_dwn`` launch of this process: its
-    :class:`FloatPlan` fields and, on the ``"tiles"`` path, ``walkers``
-    (blocks that walk one slice's tiles) and ``blocks_per_sm`` as the
-    launch found them."""
+    :class:`FloatPlan` fields and, on the ``"tiles"`` and ``"global"``
+    paths, ``walkers`` (blocks that walk one slice's tiles) and
+    ``blocks_per_sm`` as the launch found them."""
     return dict(_LAST_FLOAT)
 
 
@@ -241,10 +295,14 @@ class FloatPlan:
     """How ``fused_dwn`` lays out one launch (:func:`plan_fused_dwn`).
 
     ``path`` is ``"tiles"`` (tiles of ``tile_rows`` samples, a multiple of
-    32, and ``slices`` blocks per tile, each staging up to ``cs`` chunks)
-    or ``"rows"`` (the port's first float kernel, kept for features too
+    32, and ``slices`` blocks per tile, each staging up to ``cs`` chunks),
+    ``"rows"`` (the port's first float kernel, kept for features too
     wide for a tile of 32 samples: ``tile_rows`` rows and ``block_m`` LUTs
-    a step per block).  Slice s is piece ``s % ppc``, of ``cs`` chunks,
+    a step per block) or ``"global"`` (fan-in above 8, or LUTs or rows
+    that no block holds: tiles of 32 samples, ``slices`` slices of ``cs``
+    chunks read from global memory, ``ucs == cs`` and ``ppc == 1``;
+    ``smem_bytes`` the tile's features, or 0 where they are read from
+    global memory too).  Slice s is piece ``s % ppc``, of ``cs`` chunks,
     of unit ``s // ppc``, which holds chunks ``[u * ucs, u * ucs + ucs)``:
     whole class groups when ``ppc == 1``, else one group cut into pieces.
     ``chunks``: the counted LUTs' chunks, C * ceil((m // C) / 32), the
@@ -303,18 +361,22 @@ def _slices(cpc: int, chunks: int, k: int, ppc: int):
 def plan_fused_dwn(B: int, F: int, m: int, n: int, C: int, block_b: int,
                    block_m: int | None, sms: int) -> FloatPlan:
     """The layout of a ``fused_dwn`` launch of B >= 1 samples on a card of
-    ``sms`` SMs; raises ``ValueError`` where no block fits.
+    ``sms`` SMs, for every shape.
 
-    * The path follows the shapes alone: where two tiles of 32 samples'
-      features take more than half a block's shared memory (F > 454: each
-      slice would stage them again for a sliver of the model), the rows
-      kernel takes the launch (:func:`_plan_rows`); else the tiles.
+    * The path follows the shapes alone: a fan-in above
+      :data:`FUSED_DWN_TILE_FAN_IN` (a LUT's table is 2 KB to 256 KB), or
+      an explicit ``block_m`` whose LUTs' tables and wires alone exceed a
+      block, takes the global path (:func:`_plan_global`).  Where two
+      tiles of 32 samples' features take more than half a block's shared
+      memory (F > 454: each slice would stage them again for a sliver of
+      the model), the rows kernel takes the launch (:func:`_plan_rows`),
+      or the global path where not even one row fits beside one LUT; else
+      the tiles.
     * ``block_m`` is the most LUTs a slice holds (None: as many as fit a
       block): cut to whole chunks of 32 (at least one) and to what fits
       beside the features, then to whole class groups where one fits,
       else to equal pieces of one group.  A slice never holds parts of two
-      groups.  A ``block_m`` whose LUTs' tables and wires alone exceed a
-      block is refused on either path, as the rows kernel refused it.
+      groups.
     * ``block_b`` is the samples of a tile: rounded up to a multiple of 32,
       to no more than B fills, and down to what fits shared memory.
     * With fewer tiles than SMs the slices are cut narrower (fewer groups
@@ -322,16 +384,15 @@ def plan_fused_dwn(B: int, F: int, m: int, n: int, C: int, block_b: int,
       card, as K1 and K2 split their last layer.
     """
     lut = 4 * (2 ** n + 2 * n)    # rows kernel: one LUT's table and wires
-    if block_m is not None and min(block_m, m) * lut > MAX_SMEM_BYTES:
-        raise ValueError(f"fused_dwn: {min(block_m, m)} LUTs of fan-in {n} "
-                         f"take {min(block_m, m) * lut} bytes of shared "
-                         f"memory per block, over the card's "
-                         f"{MAX_SMEM_BYTES}; lower block_m")
     g = m // C
     cpc = -(-g // CHUNK_LUTS)
     chunks = C * cpc
+    if n > FUSED_DWN_TILE_FAN_IN or (
+            block_m is not None and min(block_m, m) * lut > MAX_SMEM_BYTES):
+        return _plan_global(B, F, chunks, block_m, sms)
     if _tiles_smem_bytes(F, n, 1, 0) > MAX_SMEM_BYTES // 2:
-        return _plan_rows(B, F, m, n, C, block_b, block_m, chunks)
+        return (_plan_rows(B, F, m, n, C, block_b, block_m, chunks)
+                or _plan_global(B, F, chunks, block_m, sms))
     fit = (MAX_SMEM_BYTES - _tiles_smem_bytes(F, n, 1, 0)) // \
         _tiles_smem_bytes(0, n, 0, 1)         # chunks beside the features
     cap = fit if block_m is None else min(fit, block_m // CHUNK_LUTS)
@@ -357,23 +418,37 @@ def plan_fused_dwn(B: int, F: int, m: int, n: int, C: int, block_b: int,
                      _tiles_smem_bytes(F, n, groups, cs))
 
 
-def _plan_rows(B, F, m, n, C, block_b, block_m, chunks) -> FloatPlan:
+def _plan_rows(B, F, m, n, C, block_b, block_m, chunks):
     """The rows kernel for features too wide for a tile: ``block_m`` LUTs
-    a step (None: as many as fit beside one row), then ``block_b`` rows
-    cut to what fits beside them; refused where not even one row fits."""
+    a step (None: as many as fit beside one row; an explicit one cut to
+    that), then ``block_b`` rows cut to what fits beside them; None where
+    not even one row fits beside one LUT."""
     lut = 2 ** n + 2 * n          # floats of one LUT's table and wires
     row = F + 32 * C              # floats of one row's features and sums
-    if block_m is None:
-        bm = max(1, min(m, (MAX_SMEM_BYTES // 4 - row) // lut))
-    else:
-        bm = min(block_m, m)
+    fit = min(m, (MAX_SMEM_BYTES // 4 - row) // lut)
+    if fit < 1:
+        return None
+    bm = fit if block_m is None else min(block_m, fit)
     bb = max(1, min(block_b, B, (MAX_SMEM_BYTES // 4 - bm * lut) // row))
-    smem = _rows_smem_bytes(F, C, n, bb, bm)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"fused_dwn: {smem} bytes of shared memory per "
-                         f"block exceed the card's {MAX_SMEM_BYTES}; lower "
-                         f"block_m")
-    return FloatPlan("rows", bb, 1, 0, 0, 0, chunks, bm, smem)
+    return FloatPlan("rows", bb, 1, 0, 0, 0, chunks, bm,
+                     _rows_smem_bytes(F, C, n, bb, bm))
+
+
+def _plan_global(B, F, chunks, block_m, sms) -> FloatPlan:
+    """The global path: tiles of 32 samples, the chunks cut into slices
+    (blocks per tile) until tiles x slices fill the card, at most
+    ``block_m`` LUTs a slice; the tile's features staged where 32 samples'
+    fit a block."""
+    tiles = -(-B // TILE_ROWS)
+    S = max(1, min(chunks, (sms + tiles // 2) // tiles))
+    cs = max(1, -(-chunks // S))
+    if block_m is not None:
+        cs = min(cs, max(1, block_m // CHUNK_LUTS))
+    cs = max(cs, -(-chunks // 65535))         # grid.y
+    smem = 4 * TILE_ROWS * F
+    return FloatPlan("global", TILE_ROWS, max(1, -(-chunks // cs)), cs, 1,
+                     cs, chunks, cs * CHUNK_LUTS,
+                     smem if smem <= MAX_SMEM_BYTES else 0)
 
 
 def fused_dwn(x: torch.Tensor, thresholds: torch.Tensor,
@@ -390,10 +465,9 @@ def fused_dwn(x: torch.Tensor, thresholds: torch.Tensor,
     ``l // (m // num_classes)``; LUTs past the last whole group count for
     no class.  ``block_b`` (samples of a tile) and ``block_m`` (most LUTs
     of a slice; None: as many as fit) as :func:`plan_fused_dwn` rounds
-    them; on the tiles path the results do not depend on them, nor on B:
-    each class sums its chunks of 32 LUTs in order, each chunk in LUT
-    order.  Raises ``ValueError`` for operands no block fits (the rows
-    kernel's limits).
+    them; on the tiles and global paths the results do not depend on
+    them, nor on B: each class sums its chunks of 32 LUTs in order, each
+    chunk in LUT order.
     Returns (counts (B, classes) float32, idx (B,) int32).
     """
     if device_type(x, "fused_dwn") == "cpu":
@@ -440,16 +514,41 @@ def fused_dwn(x: torch.Tensor, thresholds: torch.Tensor,
         return counts, idx
     part = torch.empty((plan.chunks, B), dtype=torch.float32, device=dev)
     info = (ctypes.c_int * len(_FLOAT_INFO))()
-    launch(lib, LIBRARY, "fused_dwn", dev,
-           lambda stream: lib.fused_dwn_launch(
-               x.data_ptr(), thresholds.data_ptr(), B, F, T,
-               mapping.data_ptr(), tables.data_ptr(), m, n, num_classes,
-               part.data_ptr(), counts.data_ptr(), idx.data_ptr(),
-               plan.tile_rows // TILE_ROWS, plan.ucs, plan.ppc, plan.cs,
-               plan.slices, sms, plan.smem_bytes, info, stream), _COUNTS)
+    ops = (x.data_ptr(), thresholds.data_ptr(), B, F, T, mapping.data_ptr(),
+           tables.data_ptr(), m, n, num_classes, part.data_ptr(),
+           counts.data_ptr(), idx.data_ptr())
+    if plan.path == "global":
+        launch(lib, LIBRARY, "fused_dwn", dev,
+               lambda stream: lib.fused_dwn_global_launch(
+                   *ops, plan.cs, plan.slices, sms, plan.smem_bytes, info,
+                   stream), _COUNTS)
+    else:
+        launch(lib, LIBRARY, "fused_dwn", dev,
+               lambda stream: lib.fused_dwn_launch(
+                   *ops, plan.tile_rows // TILE_ROWS, plan.ucs, plan.ppc,
+                   plan.cs, plan.slices, sms, plan.smem_bytes, info,
+                   stream), _COUNTS)
     _COUNTS.add("fused_dwn_combine")
     _LAST_FLOAT.update(zip(_FLOAT_INFO, info))
     return counts, idx
+
+
+def _scratch(variant: str, B: int, F: int, T: int, luts, C: int,
+             device: torch.device):
+    """None on the shared path, else (blocks, words a block) of the
+    global path's scratch (:func:`check_activation_width`)."""
+    if B == 0 or check_activation_width(variant, F, T, luts, C) == "shared":
+        return None
+    with torch.cuda.device(device):
+        blocks = scratch_blocks(B, -(-luts[-1] // 32))
+    return blocks, scratch_words(variant, F, T, luts, C)
+
+
+def _scratch_args(scr, scratch) -> tuple:
+    """The C entry's (global, scratch, blocks, words a block)."""
+    if scratch is None:
+        return 0, None, 0, 0
+    return 1, scr.data_ptr(), scratch[0], scratch[1]
 
 
 def fused_dwn_packed(x: torch.Tensor, thresholds: torch.Tensor,
@@ -462,9 +561,9 @@ def fused_dwn_packed(x: torch.Tensor, thresholds: torch.Tensor,
     words.  ``block_b`` (>= 1): the samples a CUDA block takes at a time
     (a tile), rounded up to a multiple of 32 (one sample per lane), to no
     more than B fills, and down to the most that fit a block's shared
-    memory beside the model (:func:`last_launch` reports it); results do
-    not depend on it.  Raises ``ValueError`` if the activations of 32
-    samples do not fit a block (:func:`check_activation_width`).
+    memory beside the model (:func:`last_launch` reports it; a launch on
+    the global path of :func:`check_activation_width` takes tiles of 32);
+    results do not depend on it.  Any depth, any width.
     Returns (counts (B, classes) float32, idx (B,) int32).
     """
     if device_type(x, "fused_dwn_packed") == "cpu":
@@ -480,18 +579,19 @@ def fused_dwn_packed(x: torch.Tensor, thresholds: torch.Tensor,
     if F_th != F:
         raise ValueError(f"x has {F} features, thresholds {F_th}")
     C = _check_masks(class_masks, layers.shapes[-1][0], dev)
-    check_activation_width("packed", F, T,
-                           [m for m, _ in layers.shapes], C)
+    luts = [m for m, _ in layers.shapes]
+    scratch = _scratch("packed", B, F, T, luts, C, dev)
     meta = layers.meta
 
-    def call(lib, counts, idx, arrive, info, stream):
+    def call(lib, counts, idx, arrive, scr, info, stream):
         return lib.fused_dwn_packed_launch(
             x.data_ptr(), thresholds.data_ptr(), B, F, T,
-            meta.ctypes.data, layers.num_layers, layers.wires.data_ptr(),
-            layers.tab.data_ptr(), class_masks.data_ptr(), C,
-            class_masks.shape[1], counts.data_ptr(), idx.data_ptr(),
-            arrive.data_ptr(), block_b, info, stream)
-    return _launch_tiles("fused_dwn_packed", x, call, C, block_b)
+            meta.ctypes.data, layers.meta_dev.data_ptr(), layers.num_layers,
+            layers.wires.data_ptr(), layers.tab.data_ptr(),
+            class_masks.data_ptr(), C, class_masks.shape[1],
+            counts.data_ptr(), idx.data_ptr(), arrive.data_ptr(), block_b,
+            *_scratch_args(scr, scratch), info, stream)
+    return _launch_tiles("fused_dwn_packed", x, call, C, block_b, scratch)
 
 
 def fused_dwn_batch_major(x: torch.Tensor, wire_f: torch.Tensor,
@@ -530,25 +630,28 @@ def fused_dwn_batch_major(x: torch.Tensor, wire_f: torch.Tensor,
                          f"{n0} needs {(2 ** n0 + 31) // 32}")
     last_m = rest.shapes[-1][0] if rest.num_layers else m0
     C = _check_masks(class_masks, last_m, dev)
-    check_activation_width("batch-major", F, 0,
-                           [m0, *(m for m, _ in rest.shapes)], C)
+    luts = [m0, *(m for m, _ in rest.shapes)]
+    scratch = _scratch("batch-major", B, F, 0, luts, C, dev)
     meta = rest.meta
 
-    def call(lib, counts, idx, arrive, info, stream):
+    def call(lib, counts, idx, arrive, scr, info, stream):
         return lib.fused_dwn_batch_major_launch(
             x.data_ptr(), B, F, wire_f.data_ptr(), wire_th.data_ptr(),
             tab0.data_ptr(), m0, n0, tab0.shape[1],
-            meta.ctypes.data if rest.num_layers else None, rest.num_layers,
-            rest.wires.data_ptr(), rest.tab.data_ptr(),
+            meta.ctypes.data if rest.num_layers else None,
+            rest.meta_dev.data_ptr() if rest.num_layers else None,
+            rest.num_layers, rest.wires.data_ptr(), rest.tab.data_ptr(),
             class_masks.data_ptr(), C, class_masks.shape[1],
             counts.data_ptr(), idx.data_ptr(), arrive.data_ptr(), block_b,
-            info, stream)
-    return _launch_tiles("fused_dwn_batch_major", x, call, C, block_b)
+            *_scratch_args(scr, scratch), info, stream)
+    return _launch_tiles("fused_dwn_batch_major", x, call, C, block_b,
+                         scratch)
 
 
 __all__ = ["CHUNK_LUTS", "FUSED_DWN_BLOCK_B", "FUSED_DWN_MAX_FAN_IN",
-           "FloatPlan", "check_activation_width", "fused_dwn",
-           "fused_dwn_batch_major", "fused_dwn_combine", "fused_dwn_packed",
-           "fused_dwn_zero", "last_float_launch", "last_launch",
-           "launch_counts", "min_tile_smem", "plan_fused_dwn",
-           "reset_launch_counts"]
+           "FUSED_DWN_TILE_FAN_IN", "FloatPlan", "INLINE_LAYERS",
+           "check_activation_width", "fused_dwn", "fused_dwn_batch_major",
+           "fused_dwn_combine", "fused_dwn_packed", "fused_dwn_zero",
+           "last_float_launch", "last_launch", "launch_counts",
+           "min_tile_smem", "plan_fused_dwn", "reset_launch_counts",
+           "scratch_blocks", "scratch_words"]

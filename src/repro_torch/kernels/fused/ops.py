@@ -17,8 +17,7 @@ from ...core.bitpack import group_masks, to_word_pattern
 from ...device import resolve_device
 from ..autotune import DEFAULT_CONFIG
 from ..lut_eval.ref import check_wires
-from .kernel import (check_activation_width, fused_dwn,
-                     fused_dwn_batch_major, fused_dwn_packed)
+from .kernel import fused_dwn, fused_dwn_batch_major, fused_dwn_packed
 from .ref import LayerStack, first_layer_wires
 
 
@@ -69,18 +68,14 @@ def prepare_operands(thresholds: torch.Tensor, mappings, tables,
       num_classes: class groups of the last layer.
       variant: ``"packed"`` or ``"batch-major"``.
 
-    Raises ``ValueError`` for operands the kernels cannot take (an
-    out-of-range wire, a malformed table; on a CUDA device, activations
-    too wide for a block, :func:`kernel.check_activation_width`).
+    Raises ``ValueError`` for malformed operands (an out-of-range wire, a
+    malformed table); the kernels take any width and depth.
     """
     if not isinstance(mappings, (list, tuple)):
         mappings, tables = [mappings], [tables]
     thresholds = thresholds.to(torch.float32).contiguous()
     device = thresholds.device
     F, T = thresholds.shape
-    if device.type == "cuda":
-        check_activation_width(variant, F, T,
-                               [mp.shape[0] for mp in mappings], num_classes)
     masks = to_word_pattern(group_masks(mappings[-1].shape[0], num_classes,
                                         device)).contiguous()
     if variant == "batch-major":

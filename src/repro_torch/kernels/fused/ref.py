@@ -41,8 +41,6 @@ from ..popcount.ref import (popcount_classify_packed_plain,
                             popcount_classify_plain)
 from ..thermometer.ref import thermometer_packed_plain, thermometer_plain
 
-#: deepest stack of word-addressed layers the CUDA kernels take.
-MAX_LAYERS = 8
 #: widest LUT fan-in the operand prep accepts (2^n-entry tables).
 MAX_FAN_IN = 16
 #: most features the batch-major kernel's 16-bit feature indices reach.
@@ -82,11 +80,15 @@ class LayerStack:
       meta: (L, 5) int32 host array per layer: m (a multiple of 32), n,
         wire offset, table offset, table words per LUT (the kernels'
         layer descriptor).
+      meta_dev: the same (L, 5) int32, on the stack's device, where the
+        packed kernels read the layers of a stack deeper than the
+        descriptors a launch passes by value (``kernel.INLINE_LAYERS``).
     """
 
     wires: torch.Tensor
     tab: torch.Tensor
     meta: np.ndarray
+    meta_dev: torch.Tensor
 
     @classmethod
     def build(cls, mappings, tables, num_candidates: int,
@@ -119,8 +121,9 @@ class LayerStack:
             if not parts:
                 return torch.zeros(0, dtype=torch.int32, device=device)
             return torch.cat(parts).to(torch.int32).contiguous()
-        return cls(flat(wires), flat(tab),
-                   np.asarray(meta, np.int32).reshape(-1, 5))
+        meta = np.asarray(meta, np.int32).reshape(-1, 5)
+        return cls(flat(wires), flat(tab), meta,
+                   torch.as_tensor(meta, device=device).contiguous())
 
     @property
     def num_layers(self) -> int:
@@ -244,7 +247,7 @@ def fused_dwn_batch_major_plain(x: torch.Tensor, wire_f: torch.Tensor,
 
 
 __all__ = [
-    "LayerStack", "MAX_DIRECT_FEATURES", "MAX_FAN_IN", "MAX_LAYERS",
+    "LayerStack", "MAX_DIRECT_FEATURES", "MAX_FAN_IN",
     "first_layer_wires",
     "fused_dwn_batch_major_plain", "fused_dwn_combine_plain",
     "fused_dwn_packed_plain",

@@ -51,7 +51,14 @@
 //     128 a pass (19 passes at m = 2400, the last three-quarters full);
 //     below 132 tiles the passes are split over slices (grid.y);
 //   * rows too wide for a tile (C > 3632) take lut_eval_rows_kernel, the
-//     first design, kept as it was.
+//     first design, kept as it was;
+//   * fan-in 9 to 16 (tables of 2 KB to 256 KB a LUT, corner-major), and
+//     rows past the rows kernel's 58,112 bits, take lut_eval_wide_kernel:
+//     a thread a LUT, kWideRows rows a thread read straight from global
+//     memory, the fan-in a run-time argument (one instance for each
+//     corner block of 2^LOGH, LOGH = min(n, 5), not one per fan-in), the
+//     same lerps in the same order, and the tables and wires loaded with
+//     the evict-last policy.
 // It runs at 3.0x the bound: beside 784 float instructions for 8 rows of
 // a LUT at n = 6 it issues about 650 others, mostly the corner-major
 // table's loads (one per corner and thread) and their addresses.
@@ -87,7 +94,9 @@
 //   * rows too wide for two tiles in half a block (W_in > 454 words) and
 //     layers whose 32-LUT word fits no block (fan-in 16) take
 //     lut_eval_packed_rows_kernel, the port's first packed kernel, kept
-//     as it was.
+//     as it was; rows past its 7264 words (8 warps' rows in a block) take
+//     the same kernel reading each row from global memory
+//     (kStagedRow = false).
 //
 // Interface: plain C functions (loaded with ctypes) that launch on the
 // caller's stream and return cudaGetLastError().
@@ -103,7 +112,9 @@ constexpr int kThreads = 256;  // 8 warps (float; packed rows: a sample each)
 constexpr int kTileThreads = 512;  // lut_eval_packed_kernel: 16 warps
 constexpr int kMaxSmem = 232448;   // dynamic shared memory of a block
 constexpr int kRows = 8;       // float rows kernel: rows one block stages
-constexpr int kMaxFanIn = 8;   // float: 2^8 corners at most
+constexpr int kMaxFanIn = 8;   // float tiles and rows: 2^8 corners at most
+constexpr int kWideMaxFanIn = 16;  // float wide kernel (== ref.MAX_FAN_IN)
+constexpr int kWideRows = 4;       // float wide kernel: rows a thread
 constexpr int kFloatTileRows = 16;  // float tiles: rows of a tile
 constexpr int kPassLuts = 128;  // float tiles: LUTs of a pass (4 warps' lanes)
 constexpr int kLutRows = 8;     // float tiles: rows a thread evaluates
@@ -230,30 +241,8 @@ __device__ void prefetch_float_rows(const FloatTiles& p, int t) {
 }
 
 // The tables and wires stay in L2 across tiles while the rows and outputs
-// stream past them: their loads carry an evict-last policy.
-__device__ __forceinline__ uint64_t evict_last_policy() {
-  uint64_t pol;
-  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
-               : "=l"(pol));
-  return pol;
-}
-
-__device__ __forceinline__ float ld_evict_last(const float* p,
-                                               uint64_t pol) {
-  float v;
-  asm("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;\n"
-      : "=f"(v)
-      : "l"(p), "l"(pol));
-  return v;
-}
-
-__device__ __forceinline__ int ld_evict_last(const int* p, uint64_t pol) {
-  int v;
-  asm("ld.global.nc.L2::cache_hint.s32 %0, [%1], %2;\n"
-      : "=r"(v)
-      : "l"(p), "l"(pol));
-  return v;
-}
+// stream past them: their loads carry an evict-last policy
+// (evict_last_policy, ld_evict_last: tiles.cuh).
 
 // Folds corner a's table value t into one row's lerp tree: v is the hi
 // side of each level whose bit of a is 1 (fmaf(s, hi - lo, lo), input 0
@@ -454,9 +443,89 @@ cudaError_t launch_lut_eval_tiles(const FloatTiles& p, int S, int sms,
   return cudaGetLastError();
 }
 
+// The corner-block fold of the wide kernel: fold_block<N, LOGH> with the
+// fan-in n a run-time value (levels LOGH .. n - 1 follow the bits of h),
+// the same operations in the same order as fold<n>(t, h + a, ...).
+template <int LOGH>
+__device__ __forceinline__ void fold_wide(float t, int h, int a, int n,
+                                          const float* s, float* pend,
+                                          float& res) {
+  float v = t;
+#pragma unroll
+  for (int k = 0; k < LOGH; ++k) {
+    if ((a >> k) & 1) {
+      v = fmaf(s[k], v - pend[k], pend[k]);
+    } else {
+      pend[k] = v;
+      return;
+    }
+  }
+  bool held = false;
+#pragma unroll
+  for (int k = LOGH; k < kWideMaxFanIn; ++k) {
+    if (!held && k < n) {
+      if ((h >> k) & 1) {
+        v = fmaf(s[k], v - pend[k], pend[k]);
+      } else {
+        pend[k] = v;
+        held = true;
+      }
+    }
+  }
+  if (!held) res = v;
+}
+
+// K8 where the tiles and rows kernels do not reach (fan-in above 8, rows
+// past 58,112 bits): thread l of block x is LUT x * kThreads + l (lanes
+// over LUTs, so a corner's table load is coalesced), and evaluates it
+// for kWideRows rows at a time, row groups strided over grid.y; its
+// wires and each row's n bits go to registers, then the 2^n corners
+// stream through fold_wide in blocks of 2^LOGH (LOGH = min(n, 5)).
+template <int LOGH>
+__global__ void __launch_bounds__(kThreads) lut_eval_wide_kernel(
+    const float* __restrict__ bits, int B, int C,
+    const int* __restrict__ mapping, const float* __restrict__ tab_t, int m,
+    int n, float* __restrict__ out) {
+  const int l = blockIdx.x * kThreads + threadIdx.x;
+  if (l >= m) return;
+  const uint64_t keep = evict_last_policy();
+  int wire[kWideMaxFanIn];
+#pragma unroll
+  for (int k = 0; k < kWideMaxFanIn; ++k)
+    wire[k] = k < n ? ld_evict_last(mapping + (size_t)l * n + k, keep) : 0;
+  const int A = 1 << n;
+  for (long long r0 = (long long)blockIdx.y * kWideRows; r0 < B;
+       r0 += (long long)gridDim.y * kWideRows) {
+    float s[kWideRows][kWideMaxFanIn], pend[kWideRows][kWideMaxFanIn],
+        res[kWideRows];
+#pragma unroll
+    for (int r = 0; r < kWideRows; ++r) {
+      res[r] = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kWideMaxFanIn; ++k)
+        s[r][k] = k < n && r0 + r < B ? __ldg(bits + (r0 + r) * C + wire[k])
+                                      : 0.0f;
+    }
+    for (int h = 0; h < A; h += 1 << LOGH) {
+#pragma unroll
+      for (int a = 0; a < (1 << LOGH); ++a) {
+        const float t = ld_evict_last(tab_t + (size_t)(h + a) * m + l, keep);
+#pragma unroll
+        for (int r = 0; r < kWideRows; ++r)
+          fold_wide<LOGH>(t, h, a, n, s[r], pend[r], res[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kWideRows; ++r)
+      if (r0 + r < B) __stcs(out + (r0 + r) * m + l, res[r]);
+  }
+}
+
 // The first packed kernel, kept for input rows too wide for
 // lut_eval_packed_kernel's tiles of 32 samples: one warp a sample, lanes
-// over LUTs.
+// over LUTs; the warp's row staged in shared memory (kStagedRow) or, past
+// 7264 words, read from global memory.
+template <bool kStagedRow>
 __global__ void __launch_bounds__(kThreads) lut_eval_packed_rows_kernel(
     const uint32_t* __restrict__ words, int B, int W_in,
     const int* __restrict__ widx, const int* __restrict__ boff,
@@ -466,9 +535,13 @@ __global__ void __launch_bounds__(kThreads) lut_eval_packed_rows_kernel(
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * (kThreads / 32) + warp;
   if (row >= B) return;  // the whole warp leaves
-  uint32_t* in = smem + (size_t)warp * W_in;
-  for (int w = lane; w < W_in; w += 32) in[w] = __ldg(words + row * W_in + w);
-  __syncwarp();
+  const uint32_t* in = words + row * W_in;
+  if (kStagedRow) {
+    uint32_t* s = smem + (size_t)warp * W_in;
+    for (int w = lane; w < W_in; w += 32) s[w] = __ldg(in + w);
+    __syncwarp();
+    in = s;
+  }
   const int W_out = m >> 5;
   uint32_t* o = out + row * W_out;
   for (int w0 = 0; w0 < W_out; w0 += 32) {
@@ -479,8 +552,11 @@ __global__ void __launch_bounds__(kThreads) lut_eval_packed_rows_kernel(
       const int* wi = widx + (size_t)lut * n;
       const int* bo = boff + (size_t)lut * n;
       uint32_t addr = 0;
-      for (int k = 0; k < n; ++k)
-        addr |= ((in[__ldg(wi + k)] >> __ldg(bo + k)) & 1u) << k;
+      for (int k = 0; k < n; ++k) {
+        const uint32_t w =
+            kStagedRow ? in[__ldg(wi + k)] : __ldg(in + __ldg(wi + k));
+        addr |= ((w >> __ldg(bo + k)) & 1u) << k;
+      }
       const uint32_t t = __ldg(tab + (size_t)lut * tw + (addr >> 5));
       const uint32_t word = __ballot_sync(kFull, (t >> (addr & 31u)) & 1u);
       if (lane == j) mine = word;
@@ -777,27 +853,54 @@ extern "C" int lut_eval_packed_launch(const void* words, int B, int W_in,
   return (int)cudaGetLastError();
 }
 
-// The rows kernel: one warp a sample (rows of up to 7264 words).
+// The rows kernel: one warp a sample, its row staged (staged != 0: rows
+// of up to 7264 words) or read from global memory (any width).
 extern "C" int lut_eval_packed_rows_launch(const void* words, int B,
                                            int W_in, const void* widx,
                                            const void* boff, const void* tab,
                                            int m, int n, int tw, void* out,
-                                           void* stream) {
+                                           int staged, void* stream) {
   if (B <= 0 || W_in <= 0 || m <= 0 || m % 32 != 0 || n <= 0 || n > 31 ||
       tw != ((1LL << n) + 31) / 32)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(kThreads / 32) * W_in * sizeof(uint32_t);
+  const size_t smem =
+      staged ? (size_t)(kThreads / 32) * W_in * sizeof(uint32_t) : 0;
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  auto kernel = staged ? lut_eval_packed_rows_kernel<true>
+                       : lut_eval_packed_rows_kernel<false>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        lut_eval_packed_rows_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int grid = (B + kThreads / 32 - 1) / (kThreads / 32);
-  lut_eval_packed_rows_kernel<<<grid, kThreads, smem,
-                                (cudaStream_t)stream>>>(
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const uint32_t*)words, B, W_in, (const int*)widx, (const int*)boff,
       (const uint32_t*)tab, m, n, tw, (uint32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// K8's wide kernel: fan-in 1 to kWideMaxFanIn, rows of any width.
+extern "C" int lut_eval_wide_launch(const void* bits, int B, int C,
+                                    const void* mapping, const void* tab_t,
+                                    int m, int n, void* out, void* stream) {
+  if (B <= 0 || C <= 0 || m <= 0 || n < 1 || n > kWideMaxFanIn)
+    return (int)cudaErrorInvalidValue;
+  const long long groups = (B + kWideRows - 1LL) / kWideRows;
+  const dim3 grid((m + kThreads - 1) / kThreads,
+                  (unsigned)(groups < 65535 ? groups : 65535));
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* b = (const float*)bits;
+  const int* mp = (const int*)mapping;
+  const float* t = (const float*)tab_t;
+  float* o = (float*)out;
+  switch (min(n, 5)) {
+    case 1: lut_eval_wide_kernel<1><<<grid, kThreads, 0, st>>>(b, B, C, mp, t, m, n, o); break;
+    case 2: lut_eval_wide_kernel<2><<<grid, kThreads, 0, st>>>(b, B, C, mp, t, m, n, o); break;
+    case 3: lut_eval_wide_kernel<3><<<grid, kThreads, 0, st>>>(b, B, C, mp, t, m, n, o); break;
+    case 4: lut_eval_wide_kernel<4><<<grid, kThreads, 0, st>>>(b, B, C, mp, t, m, n, o); break;
+    default: lut_eval_wide_kernel<5><<<grid, kThreads, 0, st>>>(b, B, C, mp, t, m, n, o); break;
+  }
   return (int)cudaGetLastError();
 }
 

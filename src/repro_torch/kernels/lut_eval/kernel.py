@@ -43,8 +43,14 @@ FLOAT_ROWS = 8
 FLOAT_TILE_ROWS = 16
 #: LUTs of a pass of the float tile kernel (== kPassLuts): 4 warps' lanes.
 PASS_LUTS = 128
-#: widest fan-in the float kernels take (== kMaxFanIn): 2^8 corners.
-MAX_FAN_IN = 8
+#: widest fan-in of the float tiles and rows kernels (== kMaxFanIn): 2^8
+#: corners; wider LUTs take the wide kernel (:func:`plan_lut_eval`).
+TILE_FAN_IN = 8
+#: widest fan-in ``lut_eval`` takes (== kWideMaxFanIn, the port's
+#: ``fused.ref.MAX_FAN_IN``): 2^16 corners.
+MAX_FAN_IN = 16
+#: rows a thread of the float wide kernel evaluates (== kWideRows).
+WIDE_ROWS = 4
 _COUNTS = LaunchCounts("lut_eval", "lut_eval_packed")
 #: kernel name -> launches since the last :func:`reset_launch_counts`.
 launch_counts = _COUNTS.get
@@ -52,10 +58,11 @@ reset_launch_counts = _COUNTS.reset
 _SIGNATURES = {"lut_eval_launch": [P, I, I, P, P, I, I, P, I, I, I, I, P,
                                    P],
                "lut_eval_rows_launch": [P, I, I, P, P, I, I, I, P, P],
+               "lut_eval_wide_launch": [P, I, I, P, P, I, I, P, P],
                "lut_eval_packed_launch": [P, I, I, P, P, P, I, I, I, P, I,
                                           I, I, I, P, P],
                "lut_eval_packed_rows_launch": [P, I, I, P, P, P, I, I, I, P,
-                                               P]}
+                                               I, P]}
 #: the latest ``lut_eval_packed`` (see :func:`last_launch`)
 _LAST: dict = {}
 _LAUNCH_INFO = ("walkers", "blocks_per_sm")
@@ -93,8 +100,10 @@ class PackedPlan:
 
     ``path`` is ``"tiles"`` (tiles of 32 samples, one a lane, the layer's
     output words cut into ``slices`` slices of ``slice_words`` words, each
-    staged once per block) or ``"rows"`` (the port's first packed kernel,
-    one warp a sample, kept for input rows too wide for a tile).
+    staged once per block), ``"rows"`` (the port's first packed kernel,
+    one warp a sample, kept for input rows too wide for a tile) or
+    ``"global"`` (the same kernel reading each row from global memory,
+    for rows too wide for its 8 warps' rows in a block).
     """
 
     path: str
@@ -123,17 +132,15 @@ def plan_lut_eval_packed(B: int, W_in: int, m: int, n: int,
     those two tiles take more than half a block (W_in > 454 words: each
     slice would stage them again for a sliver of the layer), or not even
     one word of LUTs fits beside them (fan-in 16), the rows kernel
-    takes the launch: rows of up to 7264 words, as before; wider ones are
-    refused.
+    takes the launch: rows of up to 7264 words staged, as before; wider
+    ones read from global memory (``"global"``).
     """
     W_out = max(1, m // 32)       # m = 0: the wrapper launches nothing
     if _tiles_smem_bytes(W_in, n, 0) > MAX_SMEM_BYTES // 2 or \
             _tiles_smem_bytes(W_in, n, 1) > MAX_SMEM_BYTES:
         smem = THREADS // 32 * W_in * 4
         if smem > MAX_SMEM_BYTES:
-            raise ValueError(f"lut_eval_packed: {smem} bytes of shared "
-                             f"memory per block exceed the card's "
-                             f"{MAX_SMEM_BYTES}")
+            return PackedPlan("global", 1, W_out, 0)
         return PackedPlan("rows", 1, W_out, smem)
     lo, hi = 1, W_out + 1    # fits(lo); hi does not, or is past W_out
     while hi - lo > 1:
@@ -155,9 +162,12 @@ class FloatPlan:
     """How ``lut_eval`` lays out one launch.
 
     ``path`` is ``"tiles"`` (tiles of ``rows`` = 16 rows, the layer's
-    128-LUT passes cut into ``slices`` slices of ``slice_passes`` passes)
-    or ``"rows"`` (the port's first float kernel, ``rows`` <= 8 rows a
-    block, kept for rows too wide for a tile).
+    128-LUT passes cut into ``slices`` slices of ``slice_passes`` passes),
+    ``"rows"`` (the port's first float kernel, ``rows`` <= 8 rows a
+    block, kept for rows too wide for a tile) or ``"global"`` (the wide
+    kernel: fan-in above 8 or rows past the rows kernel's, ``rows`` =
+    :data:`WIDE_ROWS` rows a thread read from global memory, no shared
+    memory).
     """
 
     path: str
@@ -175,26 +185,25 @@ def _float_tiles_smem_bytes(C: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def plan_lut_eval(B: int, C: int, m: int, sms: int) -> FloatPlan:
+def plan_lut_eval(B: int, C: int, m: int, sms: int,
+                  n: int = TILE_FAN_IN) -> FloatPlan:
     """The layout of a ``lut_eval`` launch of B >= 1 rows of C bits and m
-    LUTs (of any fan-in the kernels take), on a card of ``sms`` SMs;
-    raises ``ValueError`` where no block fits.
+    LUTs of fan-in n, on a card of ``sms`` SMs, for every shape.
 
-    Where a tile of 16 rows fits a block (C <= 3632, any fan-in), the
+    Up to fan-in 8, where a tile of 16 rows fits a block (C <= 3632), the
     tile kernel takes it, the ceil(m/128) passes cut into slices only
     below 132 tiles, until tiles x slices fill the card.  Wider rows take
     the rows kernel: as many rows a block as fit, up to 8, so rows of up
-    to 58,112 bits, as before; wider ones are refused.  Cached: a wrapper
-    call looks its plan up, it does not plan again.
+    to 58,112 bits, as before.  Wider rows still, and fan-in 9 to 16, take
+    the wide kernel (``"global"``).  Cached: a wrapper call looks its plan
+    up, it does not plan again.
     """
     smem = _float_tiles_smem_bytes(C)
     passes = -(-max(m, 1) // PASS_LUTS)    # m = 0: nothing is launched
+    rows = min(FLOAT_ROWS, MAX_SMEM_BYTES // (4 * max(C, 1)))
+    if n > TILE_FAN_IN or (smem > MAX_SMEM_BYTES and rows < 1):
+        return FloatPlan("global", 1, passes, WIDE_ROWS, 0)
     if smem > MAX_SMEM_BYTES:
-        rows = min(FLOAT_ROWS, MAX_SMEM_BYTES // (4 * max(C, 1)))
-        if rows < 1:
-            raise ValueError(f"lut_eval: a row of {C} bits does not fit in "
-                             f"the card's {MAX_SMEM_BYTES} bytes of shared "
-                             f"memory")
         return FloatPlan("rows", 1, passes, rows, rows * C * 4)
     tiles = -(-B // FLOAT_TILE_ROWS)
     slices = min(passes, max(1, (sms + tiles // 2) // tiles))
@@ -209,10 +218,9 @@ def lut_eval(bits: torch.Tensor, mapping: torch.Tensor,
     bits (B, C) float32; mapping (m, n) int32 wire indices in [0, C) (the
     op checks them; the kernel does not); tables_t (2^n, m) float32, the
     tables corner-major (``tables.T``), so that neighbouring threads read
-    neighbouring LUTs.  1 <= n <= :data:`MAX_FAN_IN`.  Returns (B, m)
-    float32: ``ref.lut_eval_plain(bits, mapping, tables_t.T)``.  Raises
-    ``ValueError`` for rows wider than the rows kernel takes (58,112
-    bits; :func:`plan_lut_eval`).
+    neighbouring LUTs.  1 <= n <= :data:`MAX_FAN_IN`; any C
+    (:func:`plan_lut_eval`).  Returns (B, m) float32:
+    ``ref.lut_eval_plain(bits, mapping, tables_t.T)``.
     """
     if device_type(bits, "lut_eval") == "cpu":
         return lut_eval_plain(bits, mapping, tables_t.T)
@@ -229,7 +237,7 @@ def lut_eval(bits: torch.Tensor, mapping: torch.Tensor,
         raise ValueError(f"tables_t has shape {tuple(tables_t.shape)}; "
                          f"expected {(2 ** n, m)} (corner-major)")
     sms = sm_count(dev)
-    plan = plan_lut_eval(max(B, 1), C, m, sms)
+    plan = plan_lut_eval(max(B, 1), C, m, sms, n)
     out = torch.empty((B, m), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
@@ -241,6 +249,10 @@ def lut_eval(bits: torch.Tensor, mapping: torch.Tensor,
         launch(lib, LIBRARY, "lut_eval", dev,
                lambda stream: lib.lut_eval_rows_launch(
                    *ptrs, plan.rows, out.data_ptr(), stream), _COUNTS)
+    elif plan.path == "global":
+        launch(lib, LIBRARY, "lut_eval", dev,
+               lambda stream: lib.lut_eval_wide_launch(
+                   *ptrs, out.data_ptr(), stream), _COUNTS)
     else:
         launch(lib, LIBRARY, "lut_eval", dev,
                lambda stream: lib.lut_eval_launch(
@@ -260,9 +272,8 @@ def lut_eval_packed(words: torch.Tensor, word_idx: torch.Tensor,
     checks the wires); table_words (m, ceil(2^n/32)) int32 truth-table
     words; m a multiple of 32.  Returns (B, m/32) words.  On CUDA every
     word tensor is an int32 bit pattern; on the CPU the plain version
-    takes either carrier and returns int64 carriers.  Raises
-    ``ValueError`` for rows wider than the rows kernel takes (7264 words;
-    :func:`plan_lut_eval_packed`).
+    takes either carrier and returns int64 carriers.  Any W_in
+    (:func:`plan_lut_eval_packed`).
     """
     if device_type(words, "lut_eval_packed") == "cpu":
         return lut_eval_packed_plain(words, word_idx, bit_off, table_words)
@@ -291,11 +302,11 @@ def lut_eval_packed(words: torch.Tensor, word_idx: torch.Tensor,
     ptrs = (words.data_ptr(), B, W_in, word_idx.data_ptr(),
             bit_off.data_ptr(), table_words.data_ptr(), m, n,
             table_words.shape[1], out.data_ptr())
-    if plan.path == "rows":
+    if plan.path != "tiles":
+        staged = int(plan.path == "rows")
         launch(lib, LIBRARY, "lut_eval_packed", dev,
-               lambda stream: lib.lut_eval_packed_rows_launch(*ptrs,
-                                                              stream),
-               _COUNTS)
+               lambda stream: lib.lut_eval_packed_rows_launch(
+                   *ptrs, staged, stream), _COUNTS)
         return out
     info = (ctypes.c_int * len(_LAUNCH_INFO))()
     launch(lib, LIBRARY, "lut_eval_packed", dev,
@@ -307,6 +318,7 @@ def lut_eval_packed(words: torch.Tensor, word_idx: torch.Tensor,
 
 
 __all__ = ["FLOAT_ROWS", "FLOAT_TILE_ROWS", "FloatPlan", "MAX_FAN_IN",
-           "PASS_LUTS", "PackedPlan", "last_float_launch", "last_launch",
-           "launch_counts", "lut_eval", "lut_eval_packed", "plan_lut_eval",
-           "plan_lut_eval_packed", "reset_launch_counts"]
+           "PASS_LUTS", "PackedPlan", "TILE_FAN_IN", "WIDE_ROWS",
+           "last_float_launch", "last_launch", "launch_counts", "lut_eval",
+           "lut_eval_packed", "plan_lut_eval", "plan_lut_eval_packed",
+           "reset_launch_counts"]

@@ -25,14 +25,27 @@ ROOT = Path(__file__).resolve().parents[1]
 TIMEOUT_S = 240
 
 PRELUDE = textwrap.dedent("""
-    import json, sys
+    import faulthandler, json, sys
     import torch
     import torch.distributed as dist
+    faulthandler.enable()   # a fatal signal prints every thread's stack
     torch.set_num_threads(1)
     rank, world, init, out = (int(sys.argv[1]), int(sys.argv[2]),
                               sys.argv[3], sys.argv[4])
     dist.init_process_group("gloo", init_method="file://" + init,
                             world_size=world, rank=rank)
+""")
+
+#: every rank's last lines, after its result is written and its group
+#: destroyed: leave without the interpreter's C++ teardown, in which gloo
+#: aborts the process now and then ("terminate called without an active
+#: exception") after all its work, also in a script of torch.distributed
+#: alone that imports nothing of the port
+EXIT = textwrap.dedent("""
+    import os, sys
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 """)
 
 SERVE = PRELUDE + textwrap.dedent("""
@@ -97,7 +110,7 @@ SERVE = PRELUDE + textwrap.dedent("""
                "hinted_full": h.full_tensor().tolist(),
                "plain_passes": same}, open(out, "w"))
     dist.destroy_process_group()
-""")
+""") + EXIT
 
 TRAIN = PRELUDE + textwrap.dedent("""
     from repro_torch.core.model import JSC_PRESETS
@@ -114,7 +127,7 @@ TRAIN = PRELUDE + textwrap.dedent("""
                "tables": [r.params["layers"][0]["tables"].tolist()
                           for r in out_.results]}, open(out, "w"))
     dist.destroy_process_group()
-""")
+""") + EXIT
 
 # no init here: the CLI joins the group from the environment, as under
 # torchrun
@@ -137,7 +150,7 @@ CLI = textwrap.dedent("""
                                   "bit_exact_vs_oracle", "sample")}
                for r in reports], open(out, "w"))
     dist.destroy_process_group()
-""")
+""") + EXIT
 
 
 #: the continuous loop on a data-parallel engine: a served session (a
@@ -146,6 +159,7 @@ CLI = textwrap.dedent("""
 #: against the one-rank loop's; a session that sheds at admission; two
 #: sessions whose step fails, on the leader and on the last rank
 CONT = PRELUDE + textwrap.dedent("""
+    import threading
     import numpy as np
     from repro_torch.core.model import apply_hard
     from repro_torch.serving import ServingEngine, SLOConfig
@@ -222,17 +236,28 @@ CONT = PRELUDE + textwrap.dedent("""
             res["shed"] = sorted({r.future.result().shed for r in shed})
 
     # a step that fails on rank bad: the leader's future fails, every
-    # rank's session ends and raises at its stop
+    # rank's session ends and raises at its stop.  The fault is in place
+    # before the session starts, so that no bucket of the session can run
+    # on rank bad ahead of it (a follower's loop thread takes the leader's
+    # buckets as soon as serve() has started it).  start_serving steps
+    # every bucket on the calling thread first, and on every rank, so the
+    # fault fails only the steps of the session's loop threads
     ok_step = eng.backend.step_for
+    main = threading.main_thread()
+    warm = []
 
     def failing(k):
+        if threading.current_thread() is main:
+            warm.append(k)
+            return ok_step(k)
         raise RuntimeError("injected")
     for bad in (0, world - 1):
         ended = None
+        warm.clear()
+        if rank == bad:
+            eng.backend.step_for = failing
         try:
             with eng.serve():
-                if rank == bad:
-                    eng.backend.step_for = failing
                 if loop == "leader":
                     f = eng.submit_async(stream[0][:64]).future
                     try:
@@ -244,9 +269,11 @@ CONT = PRELUDE + textwrap.dedent("""
             res[f"stop_raised_{bad}"] = type(exc.__cause__).__name__
         eng.backend.step_for = ok_step
         res[f"future_{bad}"] = ended
+        if rank == bad:
+            res[f"warm_{bad}"] = len(warm)
     json.dump(res, open(out, "w"))
     dist.destroy_process_group()
-""")
+""") + EXIT
 
 CLI_CONTINUOUS = textwrap.dedent("""
     import contextlib, io, json, sys
@@ -265,7 +292,7 @@ CLI_CONTINUOUS = textwrap.dedent("""
         "continuous_loop", "data_parallel", "devices", "served", "sample",
         "bit_exact_vs_oracle")}, open(out, "w"))
     dist.destroy_process_group()
-""")
+""") + EXIT
 
 
 def _free_port() -> int:
@@ -301,6 +328,8 @@ def _spawn(script: str, world: int, tmp_path: Path, *,
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    for r, err in enumerate(errs):
+        (tmp_path / f"rank{r}.err").write_text(err)
     for p, err in zip(procs, errs):
         assert p.returncode == 0, err[-3000:]
     return [json.loads(o.read_text()) for o in outs]
@@ -437,6 +466,9 @@ def test_continuous_sessions_with_sheds_and_a_failing_step_end(continuous):
     assert lead["shed"] == ["admission"]
     for bad in (0, len(continuous) - 1):
         assert lead[f"future_{bad}"] == "DataParallelStepError"
+        # the fault was in place before the session: start_serving's
+        # steps ran through it on the calling thread
+        assert continuous[bad][f"warm_{bad}"] > 0
         for out in continuous:
             assert out[f"stop_raised_{bad}"] == "DataParallelStepError"
 

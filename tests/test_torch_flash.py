@@ -65,7 +65,7 @@ def _attend_cases():
 def test_attend_matches_reference_kernel_op_and_oracle(dtype, S, hd):
     """Causal, GQA 4:2 and 4:4, at each head dim of ``HEAD_DIMS`` (16,
     the reduced archs'; 64, 96 and 128, the LM zoo's on the Hopper
-    design): the port's ``attend`` against the reference's ``ops.attend``
+    design; 32 and 256, mma.sync instances of their own): the port's ``attend`` against the reference's ``ops.attend``
     in interpret mode (which pads S to its block) and against
     ``attention_ref``; the port's plain version in the reference's (BH,
     S, hd) layout against the reference's Pallas kernel in interpret mode

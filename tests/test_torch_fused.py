@@ -211,17 +211,19 @@ def test_first_layer_wires_layout():
     ("batch-major", 1000, 200, (2400,), False),
 ])
 def test_activation_width_check(variant, F, T, luts, fits):
-    """The wrappers refuse, before any launch, a model whose features and
-    widest activations for one tile of 32 samples do not fit a block's
-    shared memory (the layout the launch takes with the model left in
-    global memory); the table sizes and fan-ins never make them refuse."""
+    """A model whose features and widest activations for one tile of 32
+    samples fit a block's shared memory (the layout the launch takes with
+    the model left in global memory) keeps them there, as before; a wider
+    one, once refused, keeps them in the global scratch: 32 x (F +
+    buffers x widest) words a block.  The table sizes and fan-ins never
+    move them."""
     words = [(m + 31) // 32 for m in luts[:-1]]
     if variant == "packed":
         words.append((F * T + 31) // 32)
-    need = K.min_tile_smem(F, 5, max(words, default=0), min(len(words), 2))
+    buffers = min(len(words), 2)
+    need = K.min_tile_smem(F, 5, max(words, default=0), buffers)
     assert (need <= K.MAX_SMEM_BYTES) == fits
-    if fits:
-        K.check_activation_width(variant, F, T, luts, 5)
-    else:
-        with pytest.raises(ValueError, match="shared memory"):
-            K.check_activation_width(variant, F, T, luts, 5)
+    path = K.check_activation_width(variant, F, T, luts, 5)
+    assert path == ("shared" if fits else "global")
+    assert K.scratch_words(variant, F, T, luts, 5) == \
+        32 * (F + buffers * max(words, default=0))

@@ -141,7 +141,8 @@ def test_cuda_tile_rounds_block_b_and_fits_shared_memory():
     their last layer over blocks, fan-in 16 (one 32-LUT word of tables is
     256 KB) reads the model from global memory; both equal the plain
     version, and the zero kernel is counted when a launch splits its
-    tiles.  Activations too wide for a tile raise before any launch."""
+    tiles.  Activations too wide for a tile (once refused) lie in the
+    global scratch and equal the plain version too."""
     _need_card()
     x, th, maps, tabs = _model(50, 16, 200, (2400,), B=4096)
     xd = torch.from_numpy(x).cuda()
@@ -182,10 +183,14 @@ def test_cuda_tile_rounds_block_b_and_fits_shared_memory():
                 assert K.launch_counts()["fused_dwn_zero"] == \
                     before + lay["zeroed"]
     x, th, maps, tabs = _model(53, 16, 4000, (100,), B=8)
-    with pytest.raises(ValueError, match="shared memory"):
-        tops.prepare_operands(
-            torch.from_numpy(th).cuda(), [torch.from_numpy(maps[0]).cuda()],
-            [torch.from_numpy(tabs[0]).cuda()], 5)
+    ops = tops.prepare_operands(
+        torch.from_numpy(th).cuda(), [torch.from_numpy(maps[0]).cuda()],
+        [torch.from_numpy(tabs[0]).cuda()], 5)
+    xd = torch.from_numpy(x).cuda()
+    got = K.fused_dwn_packed(xd, *ops)
+    assert K.last_launch()["scratch"] == 1
+    ref = R.fused_dwn_packed_plain(xd, *ops)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
 def test_cuda_zero_kernel_zeroes_and_counts():
@@ -630,9 +635,10 @@ def test_float_ops_on_card_match_fused_kernels():
 
 def test_cuda_float_wrappers_refuse_bad_operands():
     """On the card the float wrappers and ops raise on operands they
-    cannot take (block_m < 1, fan-in above 8, classes that do not divide
+    cannot take (block_m < 1, fan-in above 16, classes that do not divide
     m, wires out of range, wrong dtype or device); they never fall back
-    to the plain version."""
+    to the plain version.  A block_m no block holds (once refused) takes
+    K6's global path and equals the plain version."""
     _need_card()
     x, th, maps, tabs = _model(140, 16, 200, (64,), B=8)
     xd, thd = torch.from_numpy(x).cuda(), torch.from_numpy(th).cuda()
@@ -644,9 +650,9 @@ def test_cuda_float_wrappers_refuse_bad_operands():
         KT.thermometer_encode(xd.double(), thd)
     bits = KT.thermometer_encode(xd, thd).reshape(8, -1)
     with pytest.raises(ValueError, match="fan-in"):
-        KL.lut_eval(bits, torch.zeros((4, 9), dtype=torch.int32,
+        KL.lut_eval(bits, torch.zeros((4, 17), dtype=torch.int32,
                                       device="cuda"),
-                    torch.zeros((512, 4), device="cuda"))
+                    torch.zeros((2 ** 17, 4), device="cuda"))
     with pytest.raises(ValueError, match="corner-major"):
         KL.lut_eval(bits, mp, tab[:, :32].contiguous())
     with pytest.raises(ValueError, match="int32"):
@@ -665,13 +671,16 @@ def test_cuda_float_wrappers_refuse_bad_operands():
     with pytest.raises(ValueError, match="block_m"):
         FusedConfig(block_m=0)
     with pytest.raises(ValueError, match="fan-in"):
-        K.fused_dwn(xd, thd, torch.zeros((4, 9), dtype=torch.int32,
+        K.fused_dwn(xd, thd, torch.zeros((4, 17), dtype=torch.int32,
                                          device="cuda"),
-                    torch.zeros((4, 512), device="cuda"), 2)
+                    torch.zeros((4, 2 ** 17), device="cuda"), 2)
     wide = torch.zeros((900, 8), dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError, match="shared memory"):
-        K.fused_dwn(xd, thd, wide, torch.zeros((900, 256), device="cuda"),
-                    5, block_m=900)
+    wide_tab = (torch.arange(900 * 256, device="cuda") % 3 == 0).float()
+    wide_tab = wide_tab.reshape(900, 256)
+    got = K.fused_dwn(xd, thd, wide, wide_tab, 5, block_m=900)
+    assert K.last_float_launch()["path"] == "global"
+    ref = R.fused_dwn_plain(xd, thd, wide, wide_tab, 5)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
 def _replayed(fn):
@@ -776,9 +785,9 @@ def test_cuda_fused_dwn_rounds_block_b_and_block_m():
     {0,1} tables: tiles of a multiple of 32 samples (cut to what fits),
     slices of whole 32-LUT chunks cut at class groups and to what fits a
     block (764 LUTs: over a tile block, the most the rows kernel took),
-    or the rows kernel's refusal where block_m's LUTs alone fit no block;
-    ``forward`` carries a FusedConfig's block_b and block_m to the
-    kernel."""
+    or, where block_m's LUTs alone fit no block (once refused), the
+    global path; ``forward`` carries a FusedConfig's block_b and block_m
+    to the kernel."""
     _need_card()
     x, th, maps, tabs = _model(170, 16, 200, (2400,), B=1000)
     xd, thd = torch.from_numpy(x).cuda(), torch.from_numpy(th).cuda()
@@ -797,8 +806,9 @@ def test_cuda_fused_dwn_rounds_block_b_and_block_m():
         assert (lay["tile_rows"], lay["slices"], lay["cs"]) == \
             (plan.tile_rows, plan.slices, plan.cs)
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
-    with pytest.raises(ValueError, match="shared memory"):
-        K.fused_dwn(xd, thd, mp, tab, 5, block_m=2400)
+    got = K.fused_dwn(xd, thd, mp, tab, 5, block_m=2400)
+    assert K.last_float_launch()["path"] == "global"
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     got = tops.forward(xd, thd, mp, tab, 5,
                        config=FusedConfig(block_b=64, block_m=256))
     assert K.last_float_launch()["tile_rows"] == 64
@@ -980,6 +990,10 @@ FLASH_TOL = 2e-2
 #: deep in a flat softmax |o| is far below FLASH_TOL, so the elementwise
 #: bar alone cannot see a wrong kernel there
 FLASH_ROW_REL = 1e-2
+#: the same bar for rows of 8 to 31 head dims, whose largest value is no
+#: steady scale (chip_smoke.FLASH_ROW_REL_NARROW); fewer than 8 are held
+#: elementwise alone
+FLASH_ROW_REL_NARROW = 2e-2
 
 
 def _attn_operands(seed, B, S, H, KH, hd, q_scale=0.5):
@@ -1288,14 +1302,15 @@ def test_lm_families_reduced_on_the_card_match_the_cpu(arch):
 
 def test_flash_wrapper_refuses_bad_operands():
     """On the card the wrapper raises on what the kernel does not take —
-    a head_dim without an instance, float32, heads that do not group,
-    non-contiguous or mixed-device operands, more batch x heads than the
-    hd-16 grid holds — and never falls back to the plain version."""
+    a head_dim above 256, float32, heads that do not group, non-contiguous
+    or mixed-device operands — and never falls back to the plain version;
+    batch x heads past the hd-16 grid's y (once refused) folds into its
+    x."""
     from repro_torch.kernels.flash_attn import kernel as FK
     _need_card()
-    q, k, v = (t.bfloat16() for t in _attn_operands(0, 1, 16, 4, 2, 32))
+    q, k, v = (t.bfloat16() for t in _attn_operands(0, 1, 16, 4, 2, 257))
     FK.reset_launch_counts()
-    with pytest.raises(ValueError, match="head_dim 32"):
+    with pytest.raises(ValueError, match="head_dim 257"):
         FK.flash_attention(q, k, v)
     q, k, v = _attn_operands(0, 1, 16, 4, 2, 128)
     with pytest.raises(ValueError, match="bfloat16"):
@@ -1307,17 +1322,16 @@ def test_flash_wrapper_refuses_bad_operands():
         FK.flash_attention(q.transpose(1, 2), k, v)
     with pytest.raises(ValueError, match="is on"):
         FK.flash_attention(q, k.cpu(), v)
-    # hd 16 puts batch x heads on the grid's y (at most 65535); the Hopper
-    # design (hd 128) one block a (query block, b, h) on x, so the same
-    # count launches there
-    q, k, v = (t.bfloat16() for t in _attn_operands(0, 1, 1, 65536, 1, 16))
-    with pytest.raises(ValueError, match="batch x heads"):
-        FK.flash_attention(q, k, v)
     assert FK.launch_counts() == {"flash_attention": 0}
-    q, k, v = (t.bfloat16() for t in _attn_operands(0, 1, 1, 65536, 1, 128))
-    torch.testing.assert_close(FK.flash_attention(q, k, v).float(),
-                               v.expand_as(q).float(), atol=0, rtol=0)
-    assert FK.launch_counts() == {"flash_attention": 1}
+    # hd 16 puts batch x heads on the grid's y, the part past 65,535 on
+    # its x; the Hopper design (hd 128) one block a (query block, b, h) on
+    # x: one key a row, so the output is v
+    for hd in (16, 128):
+        q, k, v = (t.bfloat16()
+                   for t in _attn_operands(0, 1, 1, 65536, 1, hd))
+        torch.testing.assert_close(FK.flash_attention(q, k, v).float(),
+                                   v.expand_as(q).float(), atol=0, rtol=0)
+    assert FK.launch_counts() == {"flash_attention": 2}
 
 
 # -- DWN training on the card ----------------------------------------------
@@ -1813,3 +1827,159 @@ def test_moe_ep_on_the_card_matches_ep_false():
     err = (got.float() - want.float()).abs().max() / want.float().abs().max()
     assert params["layers"][0]["moe"]["w_gate"].shape[0] == 16
     assert float(err) < 0.05, float(err)
+
+
+# -- every shape the reference's kernels take --------------------------------
+
+#: (F, T, LUTs a layer, fan-in, classes, variant) of K1/K2 launches whose
+#: features or activations do not fit a block (the global scratch) or
+#: whose stack passes INLINE_LAYERS: jsc-lg at a 4096-threshold encoder
+#: (K2), two 1000-word hidden layers, 784 features, twelve layers, a
+#: deep stack of fan-in-16 LUTs, and 2048 classes (their counts in the
+#: scratch too)
+WIDE_CASES = [(16, 4096, (2400,), 6, 5, "packed"),
+              (16, 200, (32000, 32000, 2400), 6, 5, "packed"),
+              (16, 200, (32000, 32000, 2400), 6, 5, "batch-major"),
+              (784, 16, (8000, 1280), 6, 10, "packed"),
+              (784, 16, (8000, 1280), 6, 10, "batch-major"),
+              (16, 200, (2400,) * 12, 6, 5, "packed"),
+              (16, 200, (2400,) * 12, 6, 5, "batch-major"),
+              (16, 200, (96,) * 10, 16, 3, "batch-major"),
+              (16, 200, (4096,), 6, 2048, "packed")]
+
+
+@pytest.mark.parametrize("F,T,counts,n,C,variant", WIDE_CASES)
+def test_cuda_fused_scratch_and_deep_stacks_match_plain(F, T, counts, n, C,
+                                                        variant):
+    """Exact at B = 1000, 33 and 1 (and 4097 for the one-layer shapes):
+    the scratch path where ``check_activation_width`` plans it (reported
+    by ``last_launch()["scratch"]``), any depth (the layers past
+    ``INLINE_LAYERS`` read from device memory, ``device_layers``), equal
+    to the plain version and, through a CUDA graph replay, to the eager
+    call.  The scratch's blocks: one an SM at most, or every tile times
+    its slices below as many tiles as SMs."""
+    _need_card()
+    kern, plain, name = _fused_kernel(variant)
+    x, th, maps, tabs = _model(300 + len(counts), F, T, counts, n=n, B=4097)
+    ops = tops.prepare_operands(
+        torch.from_numpy(th).cuda(),
+        [torch.from_numpy(a).cuda() for a in maps],
+        [torch.from_numpy(a).cuda() for a in tabs], C, variant)
+    path = K.check_activation_width(variant, F, T if variant == "packed"
+                                    else 0, counts, C)
+    for B in ((4097, 1000, 33, 1) if len(counts) == 1 else (1000, 33, 1)):
+        xd = torch.from_numpy(x[:B]).cuda()
+        got = kern(xd, *ops)
+        lay = K.last_launch()
+        assert lay["scratch"] == (path == "global")
+        assert lay["device_layers"] == max(
+            0, len(counts) - K.INLINE_LAYERS), lay
+        ref = plain(xd, *ops)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    graphed = _replayed(lambda: kern(xd, *ops))
+    assert torch.equal(graphed[0], got[0]) and torch.equal(graphed[1],
+                                                           got[1])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    W_last = counts[-1] // 32
+    assert K.scratch_blocks(32 * sms, W_last) == sms
+    assert K.scratch_blocks(10 ** 6, W_last) == sms
+    assert K.scratch_blocks(1, W_last) == min(W_last, sms)
+    assert K.scratch_blocks(33, W_last) <= sms + 1
+
+
+@pytest.mark.parametrize("F,n", [(16, 10), (16, 16), (3000, 6),
+                                 (60_000, 9)])
+def test_cuda_fused_dwn_global_path_matches_plain(F, n):
+    """K6 where no block holds its slices (fan-in 10 and 16) or its rows
+    (60,000 features, fan-in 9: the tile's features read from global
+    memory too): the global path, exact on {0,1} tables at B = 4097, 33
+    and 1; F = 3000 at fan-in 6 stays on the rows kernel."""
+    _need_card()
+    x, th, maps, tabs = _model(310 + n, F, 2, (480,), n=n, B=4097)
+    xd, thd = torch.from_numpy(x).cuda(), torch.from_numpy(th).cuda()
+    mp = torch.from_numpy(maps[0]).cuda()
+    tab = torch.from_numpy(tabs[0]).cuda().float()
+    for B in (4097, 33, 1):
+        got = K.fused_dwn(xd[:B], thd, mp, tab, 5)
+        lay = K.last_float_launch()
+        assert lay["path"] == ("rows" if n <= 8 and F <= 10_000
+                               else "global"), lay
+        assert lay["smem_bytes"] == (128 * F if 128 * F <= K.MAX_SMEM_BYTES
+                                     else 0) or lay["path"] == "rows"
+        ref = R.fused_dwn_plain(xd[:B], thd, mp, tab, 5)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("C,n", [(3200, 9), (3200, 12), (480, 16),
+                                 (65_536, 6), (60_000, 3)])
+def test_cuda_lut_eval_wide_matches_plain(C, n):
+    """K8's wide kernel at fan-in 9 to 16 and on rows past 58,112 bits:
+    bit-exact to the plain version on {0,1} bits (the same lerps in the
+    same order), soft bits within 1e-5."""
+    _need_card()
+    rng = np.random.default_rng(320 + n)
+    m = 96 if n == 16 else 300
+    mp = torch.from_numpy(rng.integers(0, C, (m, n)).astype(np.int32)).cuda()
+    tab = torch.from_numpy(rng.integers(0, 2, (m, 2 ** n)).astype(
+        np.float32)).cuda()
+    tab_t = tab.T.contiguous()
+    for B in (33, 1) if n == 16 else (257, 33, 1):
+        bits = torch.from_numpy(rng.integers(0, 2, (B, C)).astype(
+            np.float32)).cuda()
+        got = KL.lut_eval(bits, mp, tab_t)
+        assert KL.last_float_launch()["path"] == "global"
+        assert torch.equal(got, RL.lut_eval_plain(bits, mp, tab))
+    soft = torch.from_numpy(rng.uniform(0, 1, (5, C)).astype(
+        np.float32)).cuda()
+    torch.testing.assert_close(KL.lut_eval(soft, mp, tab_t),
+                               RL.lut_eval_plain(soft, mp, tab), rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [6, 16])
+def test_cuda_lut_eval_packed_global_rows_match_plain(n):
+    """K4 on rows past the rows kernel's 7264 words (8192 words, as K3
+    packs F = 16 at T = 16,384): each row read from global memory, exact
+    at B = 4097, 33 and 1."""
+    _need_card()
+    rng = np.random.default_rng(330 + n)
+    W_in, m = 8192, 256
+    wires = torch.from_numpy(rng.integers(0, 32 * W_in, (m, n)).astype(
+        np.int32)).cuda()
+    tab = R.pack_table_words(torch.from_numpy(
+        rng.integers(0, 2, (m, 2 ** n))).cuda())
+    for B in (4097, 33, 1):
+        words = torch.from_numpy(rng.integers(
+            -2 ** 31, 2 ** 31, (B, W_in), dtype=np.int64).astype(
+                np.int32)).cuda()
+        got = KL.lut_eval_packed(words, wires >> 5, wires & 31, tab)
+        assert KL.last_launch()["path"] == "global"
+        want = RL.lut_eval_packed_plain(words, wires >> 5, wires & 31, tab)
+        assert torch.equal(tbp.from_word_pattern(got), want)
+
+
+@pytest.mark.parametrize("hd", [1, 8, 17, 32, 40, 50, 80, 100, 104, 200,
+                                256])
+def test_flash_attention_any_head_dim_matches_plain_on_card(hd):
+    """Every head dim up to 256 on the smallest instance at or above it
+    (``instance_for``), its columns past hd zeros and its scale hd's own:
+    within 2e-2 of the plain version, causal and not, GQA 8:2, S = 1, 65
+    and 300; per row within 1e-2 from hd 32 on, within 2e-2 from hd 8 (a
+    row of fewer values has too few for its largest to scale the bar)."""
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+    _need_card()
+    for i, S in enumerate((1, 65, 300)):
+        q, k, v = (t.bfloat16() for t in _attn_operands(hd + i, 2, S, 8, 2,
+                                                        hd))
+        for causal in (True, False):
+            got = FK.flash_attention(q, k, v, causal=causal)
+            exact = attention_ref(q.float(), k.float(), v.float(),
+                                  causal=causal)
+            torch.testing.assert_close(got.float(), exact, atol=FLASH_TOL,
+                                       rtol=FLASH_TOL)
+            if hd >= 8:
+                row = ((got.float() - exact).abs().amax(-1)
+                       / exact.abs().amax(-1).clamp_min(1e-30))
+                bar = FLASH_ROW_REL if hd >= 32 else FLASH_ROW_REL_NARROW
+                assert float(row.max()) <= bar, (hd, S, causal)

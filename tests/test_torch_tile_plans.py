@@ -115,13 +115,16 @@ def test_float_plan_rounds_block_b_and_block_m(block_b, block_m, rows,
     ``block_m`` rounds down to whole chunks of 32 (at least one), then to
     whole class groups, or equal pieces of one (lg-2400, B = 1000; two
     tiles of 672 are cut to one-chunk slices to fill the card); None
-    takes as many as fit.  A ``block_m`` whose LUTs alone exceed a block
-    is refused, as the rows kernel alone refused it."""
+    takes as many as fit.  A ``block_m`` whose LUTs alone exceed a block,
+    once refused, takes the global path: tiles of 32, the tables read
+    from global memory, at most ``block_m`` LUTs a slice."""
     plan = K.plan_fused_dwn(1000, 16, 2400, 6, 5, block_b, block_m, SMS)
     assert (plan.path, plan.tile_rows, plan.block_m) == \
         ("tiles", rows, luts)
-    with pytest.raises(ValueError, match="shared memory"):
-        K.plan_fused_dwn(1000, 16, 2400, 6, 5, block_b, 2400, SMS)
+    wide = K.plan_fused_dwn(1000, 16, 2400, 6, 5, block_b, 2400, SMS)
+    assert (wide.path, wide.tile_rows, wide.smem_bytes) == \
+        ("global", 32, 16 * 128)
+    assert wide.block_m <= 2400 and wide.slices * wide.cs >= wide.chunks
 
 
 @pytest.mark.parametrize("F,n,m,block_m", [
@@ -141,15 +144,16 @@ def test_float_plan_caps_a_wide_block_m_to_what_fits(F, n, m, block_m):
 
 
 def test_float_plan_path_depends_on_the_features_only():
-    """Over widths, fan-ins, tile rows and slice widths, every accepted
-    launch takes the tiles path for F <= 454 and the rows kernel above."""
+    """Over widths, fan-ins, tile rows and slice widths, every launch
+    whose ``block_m`` fits a block takes the tiles path for F <= 454 and
+    the rows kernel above; one whose ``block_m`` does not (once refused)
+    the global path."""
     for F, n, bb, bm in itertools.product(
             (1, 16, 454, 455, 3000), range(1, 9), (1, 32, 4096),
             (1, 128, 480, 700, None)):
-        try:
-            plan = K.plan_fused_dwn(1000, F, 2400, n, 5, bb, bm, SMS)
-        except ValueError:
-            assert bm is not None and bm * 4 * (2 ** n + 2 * n) > MAX
+        plan = K.plan_fused_dwn(1000, F, 2400, n, 5, bb, bm, SMS)
+        if bm is not None and bm * 4 * (2 ** n + 2 * n) > MAX:
+            assert plan.path == "global", (F, n, bb, bm)
             continue
         assert plan.path == ("tiles" if F <= 454 else "rows"), (F, n, bb, bm)
 
@@ -191,20 +195,19 @@ def test_float_plan_sends_wide_features_to_the_rows_kernel(F, path):
 
 def test_float_plan_accepts_whatever_pr13_accepted():
     """No operand the rows kernel alone took is refused: over a grid of
-    widths, fan-ins and tile sizes, the plan raises only where its block
-    did not fit either; its refusal of 900 fan-in-8 LUTs a step stays."""
+    widths, fan-ins and tile sizes, every launch is planned, each one the
+    rows kernel took on the tiles or rows path as before; a block that
+    did not fit (900 fan-in-8 LUTs a step, once refused) takes the global
+    path."""
     for F, n, bb, bm, m in itertools.product(
             (1, 16, 300, 454, 455, 5000, 40_000), range(1, 9),
             (1, 16, 32, 256, 4096), (1, 32, 128, 256, 900), (64, 2400)):
         accepted = _pr13_accepts(1000, F, 5, n, bb, bm, m)
-        try:
-            K.plan_fused_dwn(1000, F, m, n, 5, bb, bm, SMS)
-            planned = True
-        except ValueError:
-            planned = False
-        assert planned or not accepted, (F, n, bb, bm, m)
-    with pytest.raises(ValueError, match="shared memory"):
-        K.plan_fused_dwn(8, 16, 900, 8, 5, K.FUSED_DWN_BLOCK_B, 900, SMS)
+        plan = K.plan_fused_dwn(1000, F, m, n, 5, bb, bm, SMS)
+        assert not accepted or plan.path != "global", (F, n, bb, bm, m)
+    plan = K.plan_fused_dwn(8, 16, 900, 8, 5, K.FUSED_DWN_BLOCK_B, 900, SMS)
+    assert (plan.path, plan.slices, plan.cs, plan.smem_bytes) == \
+        ("global", 30, 1, 16 * 128)
 
 
 def test_float_plan_without_counted_luts():
@@ -282,13 +285,15 @@ def test_packed_plan_paths(W_in, n, path):
 
 
 def test_packed_plan_accepts_every_width_pr12_took():
-    """Rows of up to 7264 words (8 warps' rows in a block) at any fan-in:
-    the rows kernel's limit, kept; wider rows are refused as before."""
+    """Rows of up to 7264 words (8 warps' rows in a block) at any fan-in
+    stage in shared memory as before; wider rows, once refused, are read
+    from global memory by the same kernel."""
     for W_in, n in itertools.product((1, 100, 454, 455, 3000, 7264),
                                      (1, 6, 10, 16, 20)):
-        KL.plan_lut_eval_packed(33, W_in, 256, n, SMS)
-    with pytest.raises(ValueError, match="shared memory"):
-        KL.plan_lut_eval_packed(33, 7265, 256, 6, SMS)
+        assert KL.plan_lut_eval_packed(33, W_in, 256, n, SMS).path != \
+            "global"
+    assert KL.plan_lut_eval_packed(33, 7265, 256, 6, SMS) == \
+        KL.PackedPlan("global", 1, 8, 0)
 
 
 @pytest.mark.parametrize("B,slices", [(1, 75), (64, 38), (1024, 4),
@@ -364,14 +369,15 @@ def test_float_lut_plan_paths(C, path):
 def test_float_lut_plan_accepts_every_width_pr13_took():
     """The first float kernel took rows of up to 58,112 bits (one row a
     block); so does the plan, the tiles up to 3632 bits and the rows
-    kernel above, and it refuses wider rows as before."""
+    kernel above; wider rows, once refused, take the wide kernel, which
+    reads them from global memory."""
     for C in (1, 100, 3200, 3632, 3633, 20_000, 29_056, 58_112):
         plan = KL.plan_lut_eval(100, C, 300, SMS)
         assert plan.path == ("tiles" if C <= 3632 else "rows"), C
     assert KL.plan_lut_eval(7, 29_056, 64, SMS).rows == 2
     assert KL.plan_lut_eval(7, 58_112, 64, SMS).rows == 1
-    with pytest.raises(ValueError, match="shared memory"):
-        KL.plan_lut_eval(7, 58_113, 64, SMS)
+    assert KL.plan_lut_eval(7, 58_113, 64, SMS) == \
+        KL.FloatPlan("global", 1, 1, KL.WIDE_ROWS, 0)
 
 
 @pytest.mark.parametrize("B,slices,per", [(1, 19, 1), (64, 19, 1),
