@@ -1771,10 +1771,13 @@ FLASH_GQA_PAST_L2_SIZES = {QWEN_HEADS: ((8, 2048),),
                            (24, 8, 64): ((10, 2048),)}
 #: the symbols of the Hopper design's instances, whose ptxas lines are
 #: held to no spills and no wgmma serialisation, and of the kept first
-#: designs at hd 64 and 96 (timed beside them, held to no spills); one
+#: designs at hd 32, 64, 96 and 256 (timed beside them, held to no
+#: spills); one
 #: symbol an instance, since a template's name holds every instance's
-FLASH_WS_SYMBOLS = {hd: f"{FLASH_SYMBOL}_wsILi{hd}E" for hd in (64, 96, 128)}
-FLASH_MMA_SYMBOLS = {hd: f"{FLASH_SYMBOL}_mmaILi{hd}E" for hd in (64, 96)}
+FLASH_WS_SYMBOLS = {hd: f"{FLASH_SYMBOL}_wsILi{hd}E"
+                    for hd in (32, 64, 96, 128, 256)}
+FLASH_MMA_SYMBOLS = {hd: f"{FLASH_SYMBOL}_mmaILi{hd}E"
+                     for hd in (32, 64, 96, 256)}
 #: flash attention (bf16 out, P rounded to bf16) against its float32
 #: plain version: the reference's bf16 bar (tests/test_flash_kernel.py:41),
 #: absolute and relative, as torch.testing.assert_close applies them
@@ -1794,19 +1797,38 @@ FLASH_Q_SCALES = (0.5, 4.0)
 LOGITS_REL = 0.05
 
 
+#: ex2.approx a clock an SM (the special-function unit's throughput at
+#: compute capability 9.0, CUDA C Programming Guide): the softmax takes
+#: one a score
+EX2_PER_CLOCK = 16
+
+
 def flash_bytes_and_ops(B, S, H, KH, hd, causal=True):
-    """Bytes of q, k, v and o (bf16, each once) and the tensor-core
-    operations of the two products over the keys each query sees."""
+    """Bytes of q, k, v and o (bf16, each once), the tensor-core
+    operations of the two products over the keys each query sees, and
+    those (query, key) scores, one ex2 each: B·H·S(S+1)/2 causal, B·H·S²
+    not."""
     nbytes = 2 * B * S * hd * (2 * H + 2 * KH)
     pairs = S * (S + 1) // 2 if causal else S * S
-    return nbytes, 4 * B * H * hd * pairs
+    return nbytes, 4 * B * H * hd * pairs, B * H * pairs
 
 
-def _bf16_bound(nbytes, nops):
+def flash_bound(B, S, H, KH, hd, causal=True):
+    """K10's least time on the card: the larger of its bytes at
+    PEAK_BYTES_PER_S and its tensor-core operations at
+    PEAK_BF16_OPS_PER_S.  ``terms_ms`` also gives "ex2_sfu", its scores'
+    ex2 at EX2_PER_CLOCK on SMS SMs at SM_CLOCK_HZ: the floor of a design
+    that takes every ex2 on the special-function unit, not of the
+    function (part of them can run on the FMA pipe), so it sets no
+    bound."""
+    nbytes, nops, scores = flash_bytes_and_ops(B, S, H, KH, hd, causal)
     by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S, nops / PEAK_BF16_OPS_PER_S
+    ex2 = scores / (EX2_PER_CLOCK * SMS * SM_CLOCK_HZ)
     return {"bound_ms": max(by_bytes, by_ops) * 1e3,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "bytes": nbytes, "operations": nops}
+            "terms_ms": {"bytes": by_bytes * 1e3, "tensor_ops": by_ops * 1e3,
+                         "ex2_sfu": ex2 * 1e3},
+            "bytes": nbytes, "operations": nops, "scores": scores}
 
 
 def ptxas_entry(lines, symbol):
@@ -1937,7 +1959,7 @@ def _flash_timing(device, rng, heads, B, S):
                             iters=3, warmup=1),
         "library_ms": graph_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
                                             enable_gqa=True), iters=20),
-        **first, **_bf16_bound(*flash_bytes_and_ops(B, S, *heads))}
+        **first, **flash_bound(B, S, *heads)}
     timing["tflops"] = timing["operations"] / timing["ms"] / 1e9
     timing["bound_share"] = timing["bound_ms"] / timing["ms"]
     return timing
@@ -5425,6 +5447,14 @@ K4_WIDE = dict(F=16, T=16384, m=2400, n=6)
 LIMITS_FLASH = (2, 1000, 8, 2)
 LIMITS_FLASH_HDS = (8, 32, 80, 256)
 LIMITS_FLASH_WIDE_BH = (8200, 64, 8, 8, 16)
+#: the Hopper design's hd-32 and hd-256 instances at full size, (B, S, H,
+#: KH, hd), causal and not: recurrentgemma-2b's heads (10 over 1 KV head,
+#: hd 256; causal equals its local attention while S is within its
+#: 2048-key window) and qwen3-8b's (32 over 8) at hd 32; they and
+#: LIMITS_FLASH at hd 32 and 256 also hold the kept mma.sync instances
+LIMITS_FLASH_FULL = {
+    "flash_attention hd256 recurrentgemma-2b": (4, 2048, 10, 1, 256),
+    "flash_attention hd32 qwen3-8b heads": (4, 2048, 32, 8, 32)}
 #: the per-row bar for rows of 8 to 31 head dims: their largest value is
 #: no steady scale, and over a million rows the bf16 algorithm itself (P
 #: and the output rounded to bf16: flash_rounded, in plain PyTorch on the
@@ -5522,6 +5552,49 @@ def _limits_flash_check(got, q, k, v, causal, where):
         raise SystemExit(f"limits: K10 differs from its plain version: "
                          f"{check}")
     return check
+
+
+def _limits_flash_routing():
+    """``flash_attn_instance`` (the instance and design flash_attn_launch
+    runs in C) against ``instance_for`` at every head dim 1-256; raises
+    on a head dim where they differ."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attn import kernel as KA
+    fn = _build.load(KA.LIBRARY).flash_attn_instance
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    differ = {}
+    for hd in range(1, KA.MAX_HEAD_DIM + 1):
+        inst, design = KA.instance_for(hd)
+        if fn(hd) != (inst if design == "tma" else -inst):
+            differ[hd] = [fn(hd), inst, design]
+    if differ:
+        raise SystemExit(f"limits: flash_attn_instance and instance_for "
+                         f"differ at {differ}")
+    return {"head_dims": KA.MAX_HEAD_DIM, "agree": True,
+            "on_tma": sum(KA.instance_for(hd)[1] == "tma"
+                          for hd in range(1, KA.MAX_HEAD_DIM + 1))}
+
+
+def _limits_flash_mma_checks(device, rng, shape):
+    """The kept mma.sync instance at ``shape`` (B, S, H, KH, hd), through
+    ``flash_attn_mma_launch`` (uncounted), held as K10 is
+    (``_limits_flash_check``), each q scale, causal and not."""
+    import torch
+    from repro_torch.kernels.flash_attn import kernel as KA
+    B, S, H, KH, hd = shape
+    checks = []
+    for q_scale in FLASH_Q_SCALES:
+        q, kk, v = _flash_operands(device, rng, B, S, (H, KH, hd), q_scale)
+        for causal in (True, False):
+            got = torch.zeros_like(q)
+            rows_kernel(KA.LIBRARY, KA._SIGNATURES, "flash_attn_mma_launch",
+                        q.data_ptr(), kk.data_ptr(), v.data_ptr(),
+                        got.data_ptr(), B, S, H, KH, hd, int(causal))()
+            torch.cuda.synchronize()
+            checks.append({"design": "mma", **_limits_flash_check(
+                got, q, kk, v, causal, {"B": B, "S": S, "H": H, "KH": KH,
+                                        "hd": hd, "q_scale": q_scale})})
+    return checks
 
 
 def _limits_counts():
@@ -5894,23 +5967,36 @@ def phase_limits(device, ptxas=()):
             *model_bytes_and_ops("lut_eval", 4096, k["F"], k["T"],
                                  (k["m"],), k["n"], 5))}
     del words, x
-    # K10 at head dims 8, 32, 80 and 256, and hd 16 past 65,535 (b, h),
-    # each counted from 0 on its own
+    # K10's instances as flash_attn_launch routes them in C, against
+    # instance_for's, at every head dim
+    routing = _limits_flash_routing()
+    # K10 at head dims 8, 32, 80 and 256, at hd 32 and 256 at full size,
+    # and hd 16 past 65,535 (b, h), each counted from 0 on its own
     Bf, Sf, H, KH = LIMITS_FLASH
     checks, flash_launches = [], {}
-    for hd in LIMITS_FLASH_HDS:
+    shapes_checked = {f"flash_attention hd{hd}": (Bf, Sf, H, KH, hd)
+                      for hd in LIMITS_FLASH_HDS}
+    shapes_checked.update(LIMITS_FLASH_FULL)
+    mma_checks = []
+    for name, (Bc, Sc, Hc, KHc, hd) in shapes_checked.items():
         KA.reset_launch_counts()
         for q_scale in FLASH_Q_SCALES:
-            q, kk, v = _flash_operands(device, rng, Bf, Sf, (H, KH, hd),
+            q, kk, v = _flash_operands(device, rng, Bc, Sc, (Hc, KHc, hd),
                                        q_scale)
+            where = {"B": Bc, "S": Sc, "H": Hc, "KH": KHc, "hd": hd,
+                     "q_scale": q_scale}
             for causal in (True, False):
                 got = KA.flash_attention(q, kk, v, causal=causal)
-                checks.append(_limits_flash_check(
-                    got, q, kk, v, causal, {"B": Bf, "S": Sf, "H": H,
-                                            "KH": KH, "hd": hd,
-                                            "q_scale": q_scale}))
-        flash_launches[f"flash_attention hd{hd}"] = \
-            KA.launch_counts()["flash_attention"]
+                checks.append({"entry": name, **_limits_flash_check(
+                    got, q, kk, v, causal, where)})
+                del got
+        flash_launches[name] = KA.launch_counts()["flash_attention"]
+        if hd in (32, 256):
+            # the kept mma.sync instance on the same shapes, uncounted
+            mma_checks += [{"entry": name, **c} for c in
+                           _limits_flash_mma_checks(
+                               device, rng, (Bc, Sc, Hc, KHc, hd))]
+        torch.cuda.empty_cache()
     Bw, Sw, Hw, KHw, hdw = LIMITS_FLASH_WIDE_BH
     KA.reset_launch_counts()
     for q_scale in FLASH_Q_SCALES:
@@ -5918,10 +6004,11 @@ def phase_limits(device, ptxas=()):
                                    q_scale)
         for causal in (True, False):
             got = KA.flash_attention(q, kk, v, causal=causal)
-            checks.append(_limits_flash_check(
-                got, q, kk, v, causal, {"B": Bw, "S": Sw, "H": Hw,
-                                        "KH": KHw, "hd": hdw,
-                                        "q_scale": q_scale}))
+            checks.append({"entry": "flash_attention hd16 folded grid",
+                           **_limits_flash_check(
+                               got, q, kk, v, causal,
+                               {"B": Bw, "S": Sw, "H": Hw, "KH": KHw,
+                                "hd": hdw, "q_scale": q_scale})})
             # the folded grid against the same rows in two launches
             # whose batch x heads fit grid.y (no fold), launched after the
             # count is read
@@ -5941,22 +6028,23 @@ def phase_limits(device, ptxas=()):
             raise SystemExit(f"limits: K10 at B x H = {Bw * Hw} differs "
                              f"from its two unfolded halves: {c}")
     del q, kk, v, got, parts
-    for hd in LIMITS_FLASH_HDS:
-        timing[f"flash_attention hd{hd}"] = {
-            "instance": KA.instance_for(hd),
-            **_flash_timing(device, rng, (H, KH, hd), Bf, Sf)}
+    for name, (Bc, Sc, Hc, KHc, hd) in shapes_checked.items():
+        timing[name] = {"instance": KA.instance_for(hd),
+                        **_flash_timing(device, rng, (Hc, KHc, hd), Bc, Sc)}
+        torch.cuda.empty_cache()
     timing["flash_attention hd16 folded grid"] = {
         "instance": KA.instance_for(hdw),
         **_flash_timing(device, rng, (Hw, KHw, hdw), Bw, Sw)}
     served = _limits_served(device)
     emit({"phase": "limits", "shapes": shapes, "paths": paths,
           "served": served, "flash_checks": checks,
+          "flash_mma_checks": mma_checks, "flash_routing": routing,
           "flash_launches": flash_launches, "timing": timing,
           "ptxas": resources})
     missing = [p for p, n in {**paths, **flash_launches}.items() if not n]
     if missing:
         raise SystemExit(f"limits: no launch took {missing}")
-    return paths, timing, flash_launches, checks
+    return paths, timing, flash_launches, checks, mma_checks
 
 
 def main() -> int:
@@ -6026,7 +6114,8 @@ def main() -> int:
     run("dryrun", phase_dryrun, "cuda", lm_step, dwn_arch["priced_step"])
     mesh = run("mesh", phase_mesh, "cuda")
     mesh_launches = mesh["k10"]
-    limit_paths, limit_timing, limit_flash, limit_checks = run(
+    (limit_paths, limit_timing, limit_flash, limit_checks,
+     limit_mma_checks) = run(
         "limits", phase_limits, "cuda", list(ptxas.values()))
     emit({"phase": "seconds", "seconds": seconds,
           "total": sum(seconds.values())})
@@ -6184,7 +6273,8 @@ def main() -> int:
     for name, launches in limit_flash.items():
         t = limit_timing[name]
         hd = t["hd"]
-        mine = [c for c in limit_checks if c["hd"] == hd]
+        mine = [c for c in limit_checks if c["entry"] == name]
+        first = [c for c in limit_mma_checks if c["entry"] == name]
         summary.append({
             "name": name, "route": "cuda", "source": FLASH[0],
             "replaces": FLASH[1], "launches": launches, "head_dim": hd,
@@ -6196,8 +6286,13 @@ def main() -> int:
                                        for c in mine),
             **{k: t[k] for k in (
                 "instance", "B", "S", "H", "KH", "ms", "eager_ms",
-                "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "tflops", "bound_share")},
+                "plain_ms", "bound_ms", "bound_by", "terms_ms",
+                "library_ms", "tflops", "bound_share")},
+            **({"first_design_ms": t["first_design_ms"],
+                "first_design_max_abs_err": max(
+                    c["max_abs_err"] for c in first),
+                "first_design_row_rel_err": max(
+                    c["row_rel_err"] for c in first)} if first else {}),
             "library": "scaled_dot_product_attention"})
     emit({"kernels": summary})
     print(smi, flush=True)

@@ -24,24 +24,39 @@
 // against 168 MB of q, k, v and o (0.050 ms at 3.35 TB/s), so it is bound
 // by operations: 0.139 ms at the published 989 TFLOP/s bf16.  So are
 // granite-moe's (H=24, KH=8, hd=64: 5.16e10 operations, 0.052 ms) and
-// phi3-mini's (H=KH=32, hd=96: 1.03e11, 0.104 ms).  At hd 64 a score's
-// ex2 (16 a clock an SM) costs as much SM time as its 256 tensor-core
-// operations (4096 a clock), so the softmax, not the products, sets the
-// pace there.
+// phi3-mini's (H=KH=32, hd=96: 1.03e11, 0.104 ms), and recurrentgemma-2b's
+// heads (B=4, S=2048, H=10, KH=1, hd=256: 8.59e10, 0.087 ms).  A score's
+// ex2 (16 a clock an SM) costs as much SM time as 256 tensor-core
+// operations (4096 a clock): at hd 64 the softmax, not the products, sets
+// the pace, and from hd 32 down the ex2s take longer than the products
+// (qwen3-8b's heads at hd 32: 2.69e8 scores, 0.064 ms on 132 SMs at 1980
+// MHz, against 0.035 for the products).  That is the floor of a design
+// that runs every ex2 on the special-function unit, not of the function
+// (part of them could run on the FMA pipe), so the bound stays the larger
+// of bytes and products.
 //
-// hd = 64 (granite-moe), 96 (phi3-mini) and 128 (qwen3-8b, qwen3-14b,
-// qwen2-7b, mixtral) run the Hopper design, namespace ws, a template on
-// hd:
-//   * one block of 288 threads owns 128 query rows of one (b, h): two
-//     consumer warpgroups (warps 0-7) of 64 rows each and one producer
-//     warp (warp 8), one thread of which issues every TMA copy.  288
-//     threads leave 224 registers to each; a full producer warpgroup with
-//     setmaxnreg (384 threads) was tried first at hd 128, but ptxas (CUDA
-//     12.9) kept the consumers' code near the launch bound's 168 registers
-//     and serialised the wgmmas;
+// hd = 32, 64 (granite-moe), 96 (phi3-mini), 128 (qwen3-8b, qwen3-14b,
+// qwen2-7b, mixtral) and 256 (recurrentgemma-2b's heads) run the Hopper
+// design, namespace ws, a template on hd:
+//   * one block owns 128 query rows of one (b, h): two consumer
+//     warpgroups (warps 0-7) of 64 rows each and a producer, one thread of
+//     which issues every TMA copy.  The register file is split among an
+//     SM's four schedulers, so with a producer warp (288 threads) the one
+//     scheduler with three warps leaves a thread 16,384 / 96 registers,
+//     168 as ptxas rounds it: enough for S, P and O up to hd 128 (a full
+//     producer warpgroup with setmaxnreg was tried first at hd 128, but
+//     ptxas (CUDA 12.9) serialised the wgmmas there).  At hd 256 O alone
+//     is 128 floats a thread, and at 168 registers ptxas spilled 524 bytes
+//     and serialised the wgmmas; so there the producer is a whole
+//     warpgroup (384 threads) whose warps give up their registers
+//     (setmaxnreg.dec to 24) to the consumers' (setmaxnreg.inc to 240),
+//     384 x 168 in all as at launch, and no spill is left;
 //   * shared memory: Q's 128 x hd tile (loaded once) and a ring of K and of
 //     V tiles (Shape<hd>: keys a tile, stages); at hd 128 32 KB of Q and 2
-//     stages of 96-key tiles (24 KB each), 129 KB in all, one block per SM.
+//     stages of 96-key tiles (24 KB each), 129 KB in all, one block per SM;
+//     at hd 256 64 KB of Q and 2 stages of 80-key tiles (40 KB each, four
+//     boxes), 225 KB; at hd 32 8 KB of Q and 2 stages of 64-key tiles of
+//     4 KB.
 //     Each tile has a full mbarrier (TMA completes its bytes) and an empty
 //     one (each consumer warp arrives once it has read it).  K and V are
 //     released apart: K as soon as Q K^T has landed, V after P V, and the
@@ -52,17 +67,21 @@
 //     o over (hd, H, S, B), k and v over (hd, KH, S, B), boxes of 64
 //     head-dim columns (128 bytes, the largest inner box of the 128-byte
 //     swizzle), so a tile is (hd + 63) / 64 boxes: one at hd 64, two at
-//     128, and two at hd 96, whose second box's columns 96-127 lie past the
-//     map's hd and arrive as zeros.  A barrier expects every box's whole
-//     bytes, zeros included, as for rows past S.  The maps are encoded on
+//     128, four at 256, and two at hd 96, whose second box's columns 96-127
+//     lie past the map's hd and arrive as zeros.  hd 32's rows are 64
+//     bytes: its boxes are 32 columns under the 64-byte swizzle (Cfg's
+//     kBoxCols; 64-column boxes whose columns 32-63 arrive as zeros were
+//     slower, below).  One full barrier expects every box's whole bytes,
+//     zeros included, as for rows past S.  The maps are encoded on
 //     the host at every launch (cuTensorMapEncodeTiled, found through
 //     cudaGetDriverEntryPoint[ByVersion]) and passed by value as
 //     __grid_constant__ parameters, which a CUDA graph captures.  Rows past
 //     S arrive as zeros; the score mask below still applies;
 //   * S = Q K^T runs on wgmma m64n{keys}k16 with both operands in shared
-//     memory, K-major as TMA stores them (128-byte swizzle descriptors,
-//     8-row groups 1024 bytes apart, k-steps 32 bytes into the span, four
-//     a box): hd / 16 k-steps, 6 at hd 96, which never reach the zeros;
+//     memory, K-major as TMA stores them (descriptors of the swizzle, 8-row
+//     groups 8 rows apart: 1024 bytes, 512 at hd 32; k-steps 32 bytes into
+//     the span, four a 128-byte box, two a 64-byte one): hd / 16 k-steps,
+//     6 at hd 96, which never reach the zeros;
 //   * the softmax runs in registers in the log2 domain, one FFMA and one
 //     ex2.approx.ftz per score: the accumulator gives each row to one quad
 //     of lanes, so a row's max is two shuffles; tiles that cross S or the
@@ -71,9 +90,9 @@
 //     and cost a third of the kernel's time at hd 128);
 //   * O += P V runs on wgmma m64n{hd}k16 with P from registers (the score
 //     fragment rounded to bf16 pairs is the A fragment) and V MN-major in
-//     shared memory (transpose-B bit set; lbo = the 64-column boxes'
-//     distance, so hd 96's columns 64-95 come from the second box, sbo =
-//     1024);
+//     shared memory (transpose-B bit set; lbo = the boxes' distance, so hd
+//     96's columns 64-95 come from the second box and hd 256's four boxes
+//     are one m64n256k16, the widest wgmma; sbo = 8 rows);
 //   * overlap: within a consumer, Q K^T of tile j is issued together with
 //     P V of tile j - 1 and the softmax of tile j runs while P V does; the
 //     two consumers take turns issuing (named barriers 1 and 2), so one's
@@ -85,8 +104,8 @@
 //     below);
 //   * epilogue: each consumer normalises its rows, writes them as bf16 in
 //     the swizzled layout into its part of Q's buffer and stores them with
-//     one TMA box per 64 columns; the map clips rows past S (and hd 96's
-//     columns 96-127);
+//     one TMA box per box of columns; the map clips rows past S (and hd
+//     96's columns 96-127);
 //   * causal blocks run the heaviest query blocks first, and KV tiles
 //     wholly above the diagonal are never loaded.  The grid is one block
 //     a (query block, b, h), walked query block by query block over groups
@@ -122,23 +141,57 @@
 //     their place in the turns, so shapes and orders within that of each
 //     other are not told apart: the first shapes stay, and GQA launches
 //     keep the order by query block.
+// Shapes tried at hd 256 (B=4, S=2048, H=10, KH=1: recurrentgemma-2b's
+// heads; causal equals its local attention while S is within its
+// 2048-key window) and hd 32 (B=4, S=2048, H=32, KH=8), causal, on the same
+// card, scripts/k10_tiles.py, each twice in turns (ms; registers a
+// thread, the launch's count: at hd 256 the consumers run at 240):
+//   hd 256: 80 keys, 2 stages 0.1357-0.1377 (kept; the limits shape B=2,
+//     S=1000, H=8, KH=2: 0.0244-0.0246); 64 keys 0.1411-0.1436 (0.0260-
+//     0.0269); 48 keys, 3 stages 0.159-0.170.  A producer warp alone (288
+//     threads): 64 keys spilled and serialised, not timed.  The first design
+//     0.569-0.593 (0.0899-0.0915), SDPA 0.170-0.172 (0.0301-0.0307).
+//   hd 32: 64 keys, 2 stages 0.1317-0.1324 (90 registers, kept; the limits
+//     shape 0.0121-0.0122), 4 stages 0.1317-0.1349; 96 keys, 4 stages
+//     0.181-0.182 (114); 128 keys at 2-6 stages 0.171-0.178 (138;
+//     0.0111-0.0118 at the limits shape); 160 keys, 4 stages 0.183-0.185
+//     (162).  64-column boxes, columns 32-63 zeros: 0.1327-0.1335 at 64 keys
+//     (0.0126-0.0127), 0.176-0.178 at 128.  Two blocks an SM (90
+//     registers fit 18 warps' 102) 0.1318-0.1323; the consumers not
+//     taking turns 0.1319-0.1323, both 0.135 together.  The
+//     first design 0.426-0.439 (0.0393-0.0404), SDPA 0.176-0.181
+//     (0.0154-0.0157).  The kernel reaches about half the ex2 rate (7.8
+//     scores a clock an SM of 16) whatever the warps an SM or the turns.
+// The rings are kept safe by their barriers alone: compute-sanitizer's
+// racecheck refuses the device.  Built with -DK10_DEBUG_RING the kernel
+// bounds every mbarrier wait (a trap past 2^32 clocks) and the producer
+// tags each K and V stage with the tile it loads there before it issues
+// the copy; each consumer checks the tag when its full barrier has
+// completed and again before it arrives on the empty one, so a wait on
+// the wrong phase, or a stage refilled before every consumer warp
+// released it, traps.  scripts/k10_tiles.py --debug-ring runs that build
+// through its checks at every Hopper instance, hd 256's four-box tiles
+// among them; none trapped on an NVIDIA H100 80GB HBM3 at 700 W (S from
+// 1 to 2048 around every tile edge, causal and not; the debug build of
+// hd 256 spills its checks' registers, 736 bytes).
 
 // Any other head dim up to 256 runs on the smallest instance at or above
-// it (instance_for): the Hopper design at 64, 96 and 128 where hd is a
-// multiple of 8 (the maps span hd columns, so the rest of a box arrives
-// as zeros and is never stored), else the mma design at 16, 32, 64, 96
-// or 256, whose tiles zero-fill the columns past hd and whose output
-// writes the first hd.  The scale is always the operands' hd^-0.5.  hd
-// 32 and 256 have mma instances of their own (at hd 256, 128 float
-// accumulators a thread leave no room for Q's fragments, so Q keeps a
-// tile of its own in shared memory).
+// it (instance_for): above 16 the Hopper design at 32, 64, 96, 128 and
+// 256 where hd is a multiple of 8 (the maps span hd columns, so the rest
+// of a box arrives as zeros and is never stored), else the mma design at
+// 32, 64, 96 or 256, whose tiles zero-fill the columns past hd and whose
+// output writes the first hd.  The scale is always the operands'
+// hd^-0.5.  At hd 256, 128 float accumulators a thread leave the mma
+// instance no room for Q's fragments, so Q keeps a tile of its own in
+// shared memory.
 //
-// hd = 16 (the reduced archs that the card tests use) runs the first
+// hd <= 16 (the reduced archs that the card tests use) runs the first
 // design, namespace mma: 4 warps of mma.sync m16n8k16 over 64 query rows,
 // K and V double-buffered with cp.async, both products fed by ldmatrix
-// (hd 16 rows are 32 bytes, below the 128-byte swizzle span of the Hopper
-// design).  Its hd-64 and hd-96 instances are kept behind
-// flash_attn_mma_launch, for a same-call comparison only.  Rows are padded
+// (hd 16 rows are 32 bytes, below the 64-byte swizzle span of the Hopper
+// design's narrowest box).  Its hd-32, hd-64, hd-96 and hd-256 instances
+// serve the head dims that are not multiples of 8 and are kept behind
+// flash_attn_mma_launch for a same-call comparison.  Rows are padded
 // by 8 bf16 (16 bytes), so the eight row addresses of an ldmatrix fall in
 // distinct bank groups at every hd.  Shared memory: two K and two V stages
 // of 64 x (hd + 8) bf16, 12,288 B at hd 16, 36,864 at 64 and 53,248 at 96
@@ -173,8 +226,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // ---------------------------------------------------------------------------
-// hd = 16, and 64 and 96 for comparison: the first design, mma.sync with
-// cp.async double buffering
+// hd <= 16, and hd 32, 64, 96 and 256 where hd is no multiple of 8 (and
+// for comparison): the first design, mma.sync with cp.async double
+// buffering
 // ---------------------------------------------------------------------------
 namespace mma {
 
@@ -495,18 +549,18 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 }  // namespace mma
 
 // ---------------------------------------------------------------------------
-// hd = 64, 96 and 128: TMA, wgmma and a warp-specialised pipeline
+// hd = 32, 64, 96, 128 and 256: TMA, wgmma and a warp-specialised pipeline
 // ---------------------------------------------------------------------------
 namespace ws {
 
 constexpr int kBQ = 128;          // query rows per block, 64 per consumer
 constexpr int kConsumers = 2;
-// two consumer warpgroups (warps 0-7) and one producer warp (warp 8): 288
-// threads, so the launch bounds give every thread 224 registers
-constexpr int kThreads = 128 * kConsumers + 32;
+// two consumer warpgroups (warps 0-7), then the producer (warp 8 on)
 constexpr int kProducerWarp = 4 * kConsumers;
-constexpr int kBoxCols = 64;            // head-dim columns per TMA box
-constexpr int kRowBytes = kBoxCols * 2;  // 128: the swizzle span
+// registers a thread with a producer warpgroup (setmaxnreg): 24 for the
+// producer, 240 for the consumers, 384 x 168 in all as at launch
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
 constexpr int kOutRows = kBQ / kConsumers;  // 64: one consumer's rows
 // named barriers (0 is __syncthreads): 1 + c is consumer c's turn to
 // issue, 3 + c its epilogue
@@ -529,18 +583,39 @@ template <>
 struct Shape<128> {
   static constexpr int kBK = 96, kStages = 2;
 };
+template <>
+struct Shape<32> {
+  static constexpr int kBK = 64, kStages = 2;
+};
+template <>
+struct Shape<256> {
+  static constexpr int kBK = 80, kStages = 2;
+};
 
 template <int HD>
 struct Cfg {
   static constexpr int kBK = Shape<HD>::kBK;
   static constexpr int kStages = Shape<HD>::kStages;
-  // 64-column boxes a tile: hd 96's second box is half out of bounds
+  // the register file is split among an SM's 4 schedulers, so 9 warps (a
+  // producer warp beside the consumers: 288 threads) leave a thread
+  // 16,384 / (3 x 32) registers, 168 as ptxas rounds it.  Up to hd 128
+  // S, P and O fit; at hd 256 O alone is 128 floats a thread, so the
+  // producer is a whole warpgroup that hands its registers to the
+  // consumers (setmaxnreg): 384 threads
+  static constexpr bool kProducerGroup = HD > 128;
+  static constexpr int kThreads = 128 * kConsumers + (kProducerGroup ? 128
+                                                                     : 32);
+  // head-dim columns a TMA box: 64, 128 bytes under the 128-byte swizzle;
+  // hd 32's 64-byte rows take boxes of 32 under the 64-byte swizzle
+  static constexpr int kBoxCols = HD == 32 ? 32 : 64;
+  static constexpr int kRowBytes = 2 * kBoxCols;  // the swizzle span
+  // boxes a tile: hd 96's second box is half out of bounds
   static constexpr int kBoxes = (HD + kBoxCols - 1) / kBoxCols;
-  static constexpr int kQHalf = kBQ * kRowBytes;  // one 64-column box of Q
-  static constexpr int kKVHalf = kBK * kRowBytes;
+  static constexpr int kQBox = kBQ * kRowBytes;  // one box of Q
+  static constexpr int kKVBox = kBK * kRowBytes;
   // whole boxes: TMA counts the zeros it writes out of bounds
-  static constexpr int kQBytes = kBoxes * kQHalf;
-  static constexpr int kKVBytes = kBoxes * kKVHalf;
+  static constexpr int kQBytes = kBoxes * kQBox;
+  static constexpr int kKVBytes = kBoxes * kKVBox;
   static constexpr int kS = kBK / 2;     // score floats per thread
   static constexpr int kO = HD / 2;      // output floats per thread
   static constexpr int kPSteps = kBK / 16;  // k-steps of P V
@@ -550,9 +625,17 @@ struct Cfg {
   static constexpr int kOffBar = kOffV + kStages * kKVBytes;
   // mbarriers: Q full, then K full, V full, K empty and V empty per stage
   static constexpr int kBarBytes = 8 * (1 + 4 * kStages);
-  static constexpr int kSmemBytes = kOffBar + kBarBytes + 1024;  // + slack
+#ifdef K10_DEBUG_RING
+  // the tile each K and each V stage holds, written by the producer
+  static constexpr int kTagBytes = 4 * 2 * kStages;
+#else
+  static constexpr int kTagBytes = 0;
+#endif
+  static constexpr int kSmemBytes =
+      kOffBar + kBarBytes + kTagBytes + 1024;  // + alignment slack
 
-  static_assert(HD % 16 == 0 && HD <= 128, "Q K^T takes 16 columns a step");
+  static_assert(kRowBytes == 128 || kRowBytes == 64, "a swizzle span");
+  static_assert(HD % 16 == 0 && HD <= 256, "Q K^T takes 16 columns a step");
   static_assert(kBK % 16 == 0 && kBK <= 256, "P V takes 16 keys a step");
   static_assert(kSmemBytes <= 232448, "more shared memory than a block has");
 };
@@ -576,9 +659,13 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
                : "memory");
 }
 
-// until the barrier's phase of this parity has completed
+// until the barrier's phase of this parity has completed; built with
+// K10_DEBUG_RING, a wait of more than 2^32 clocks (about 2 s) traps
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done;
+#ifdef K10_DEBUG_RING
+  const long long t0 = clock64();
+#endif
   do {
     asm volatile(
         "{\n.reg .pred p;\n"
@@ -587,7 +674,32 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "=r"(done)
         : "r"(bar), "r"(parity)
         : "memory");
+#ifdef K10_DEBUG_RING
+    if (!done && clock64() - t0 > (1ll << 32)) __trap();
+#endif
   } while (!done);
+}
+
+// K10_DEBUG_RING: the producer tags a stage with the tile it loads there
+// before it issues the copy; a consumer traps if a stage it waited for,
+// or is about to release, holds another tile (a wait on the wrong phase,
+// or a stage refilled before every consumer released it)
+__device__ __forceinline__ void ring_tag(uint32_t tag, int j) {
+#ifdef K10_DEBUG_RING
+  asm volatile("st.volatile.shared.u32 [%0], %1;\n" ::"r"(tag), "r"(j)
+               : "memory");
+#endif
+}
+
+__device__ __forceinline__ void ring_check(uint32_t tag, int j) {
+#ifdef K10_DEBUG_RING
+  int held;
+  asm volatile("ld.volatile.shared.u32 %0, [%1];\n"
+               : "=r"(held)
+               : "r"(tag)
+               : "memory");
+  if (held != j) __trap();
+#endif
 }
 
 __device__ __forceinline__ void bar_sync(int id, int threads) {
@@ -629,13 +741,14 @@ __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
 }
 
 // wgmma descriptor of a tile in shared memory laid out as TMA writes it
-// with 128-byte swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart
-// (sbo); lbo is the distance between 64-column halves for an MN-major
-// operand and unused for a K-major one
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
+// under the swizzle of ROW_BYTES-byte rows (128 or 64): 8-row groups
+// 8 * ROW_BYTES apart (sbo); lbo is the distance between boxes for an
+// MN-major operand and unused for a K-major one
+template <int ROW_BYTES>
+__device__ __forceinline__ uint64_t sw_desc(uint32_t addr, uint32_t lbo) {
+  constexpr uint64_t kLayout = ROW_BYTES == 128 ? 1 : 2;  // B128, B64
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+         ((uint64_t)(8 * ROW_BYTES >> 4) << 32) | (kLayout << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -669,13 +782,29 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
             "%44, %45, %46, %47"
 #define WG_REGS56 WG_REGS48 ", %48, %49, %50, %51, %52, %53, %54, %55"
 #define WG_REGS64 WG_REGS56 ", %56, %57, %58, %59, %60, %61, %62, %63"
+#define WG_REGS40 WG_REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39"
+#define WG_REGS16 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define WG_REGS96                                                            \
+  WG_REGS64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, " \
+            "%76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, "   \
+            "%88, %89, %90, %91, %92, %93, %94, %95"
+#define WG_REGS128                                                          \
+  WG_REGS96 ", %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, "    \
+            "%106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "  \
+            "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, "  \
+            "%126, %127"
 #define WG_D8(i)                                                        \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_D16 WG_D8(0), WG_D8(8)
+#define WG_D40 WG_D32, WG_D8(32)
 #define WG_D32 WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
 #define WG_D48 WG_D32, WG_D8(32), WG_D8(40)
 #define WG_D56 WG_D48, WG_D8(48)
 #define WG_D64 WG_D56, WG_D8(56)
+#define WG_D96 WG_D64, WG_D8(64), WG_D8(72), WG_D8(80), WG_D8(88)
+#define WG_D128 WG_D96, WG_D8(96), WG_D8(104), WG_D8(112), WG_D8(120)
 
 // d (64 x N f32, wgmma layout) (+)= A (64 x 16, shared) . B (16 x N,
 // shared, K-major); scale_d 0 overwrites d
@@ -711,35 +840,41 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),      \
                    "r"(1));                                                  \
   }
+WG_SS(64, 32, 33, 34, WG_REGS32, WG_D32)
+WG_SS(80, 40, 41, 42, WG_REGS40, WG_D40)
 WG_SS(96, 48, 49, 50, WG_REGS48, WG_D48)
 WG_SS(128, 64, 65, 66, WG_REGS64, WG_D64)
+WG_RS(32, 16, 17, 18, 19, 20, 21, WG_REGS16, WG_D16)
 WG_RS(64, 32, 33, 34, 35, 36, 37, WG_REGS32, WG_D32)
 WG_RS(96, 48, 49, 50, 51, 52, 53, WG_REGS48, WG_D48)
 WG_RS(128, 64, 65, 66, 67, 68, 69, WG_REGS64, WG_D64)
+WG_RS(256, 128, 129, 130, 131, 132, 133, WG_REGS128, WG_D128)
 #undef WG_SS
 #undef WG_RS
 
 // S (64 x kBK) = Q K^T from the descriptors of this consumer's 64 rows of
 // Q and of the K tile, both K-major: HD / 16 k-steps of 16 head-dim
-// columns, each 32 bytes into a 128-byte swizzle span, four a 64-column box
-// (the address field counts 16-byte units)
+// columns, each 32 bytes into a swizzle span, kRowBytes / 32 a box (the
+// address field counts 16-byte units)
 template <int HD>
 __device__ __forceinline__ void issue_qk(float (&s)[Cfg<HD>::kS], uint64_t dq,
                                          uint64_t dk) {
   using C = Cfg<HD>;
+  constexpr int kPerBox = C::kRowBytes / 32;
   wgmma_fence();
 #pragma unroll
   for (int ks = 0; ks < HD / 16; ++ks) {
-    const int off = (ks % 4) * 2;
-    wgmma_ss<C::kBK>(s, dq + (ks / 4) * (C::kQHalf / 16) + off,
-                     dk + (ks / 4) * (C::kKVHalf / 16) + off, ks > 0);
+    const int off = (ks % kPerBox) * 2;
+    wgmma_ss<C::kBK>(s, dq + (ks / kPerBox) * (C::kQBox / 16) + off,
+                     dk + (ks / kPerBox) * (C::kKVBox / 16) + off, ks > 0);
   }
   wgmma_commit();
 }
 
 // O (64 x HD) += P V: P from registers, V MN-major from its descriptor
 // (lbo the boxes' distance: at hd 96 columns 64-95 are the second box's
-// first half); k-step kk takes keys 16 kk .. 16 kk + 15, two 8-row groups
+// first half, at hd 256 the four boxes are one m64n256k16 each k-step);
+// k-step kk takes keys 16 kk .. 16 kk + 15, two 8-row groups
 template <int HD>
 __device__ __forceinline__ void issue_pv(
     float (&o)[Cfg<HD>::kO], const uint32_t (&pf)[Cfg<HD>::kPSteps][4],
@@ -747,7 +882,7 @@ __device__ __forceinline__ void issue_pv(
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < Cfg<HD>::kPSteps; ++kk)
-    wgmma_rs<HD>(o, pf[kk], dv + kk * (16 * kRowBytes / 16));
+    wgmma_rs<HD>(o, pf[kk], dv + kk * Cfg<HD>::kRowBytes);  // 16 rows
   wgmma_commit();
 }
 
@@ -847,7 +982,7 @@ struct Softmax {
 };
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Cfg<HD>::kThreads, 1)
     flash_attn_kernel_ws(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
@@ -855,7 +990,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                          int KH, int causal, float scale_log2, int group) {
   using C = Cfg<HD>;
   constexpr int kBK = C::kBK, kStages = C::kStages, kBoxes = C::kBoxes;
-  constexpr int kQHalf = C::kQHalf, kKVHalf = C::kKVHalf;
+  constexpr int kQBox = C::kQBox, kKVBox = C::kKVBox;
+  constexpr int kBoxCols = C::kBoxCols, kRowBytes = C::kRowBytes;
   constexpr int kKVBytes = C::kKVBytes, kO = C::kO;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -867,6 +1003,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   // every consumer warp has read it
   const uint32_t bar_k = bar_q + 8, bar_v = bar_k + 8 * kStages,
                  bar_ek = bar_v + 8 * kStages, bar_ev = bar_ek + 8 * kStages;
+  // K10_DEBUG_RING's tags: the tile in each K stage, then each V stage
+  const uint32_t tag_k = bar_q + C::kBarBytes, tag_v = tag_k + 4 * kStages;
 
   // the block's query block and (b, h): the (b, h) pairs run in groups of
   // `group`, one group after another; in a group the query blocks run
@@ -900,9 +1038,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
-  if (warp_id == kProducerWarp) {
-    // producer warp: one thread keeps the ring full
-    if (tid % 32 == 0) {
+  if (C::kProducerGroup ? warp_id >= kProducerWarp
+                        : warp_id == kProducerWarp) {
+    // the producer: one thread keeps the ring full
+    if constexpr (C::kProducerGroup)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+          kProducerRegs));
+    if ((!C::kProducerGroup || warp_id == kProducerWarp) && tid % 32 == 0) {
       prefetch_map(&tq);
       prefetch_map(&tk);
       prefetch_map(&tv);
@@ -910,30 +1052,35 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_expect_tx(bar_q, C::kQBytes);
 #pragma unroll
       for (int x = 0; x < kBoxes; ++x)
-        tma_load(sQ + x * kQHalf, &tq, bar_q, x * kBoxCols, h, q0, b);
+        tma_load(sQ + x * kQBox, &tq, bar_q, x * kBoxCols, h, q0, b);
       // tile j of K or V into its stage, once both consumers have released
-      // the tile kStages before it
+      // the tile kStages before it: one full barrier expects all kBoxes
+      // boxes' bytes
       auto load = [&](uint32_t dst, const CUtensorMap* map, uint32_t full,
-                      uint32_t empty, int j) {
+                      uint32_t empty, uint32_t tag, int j) {
         const int st = j % kStages;
         if (j >= kStages) mbar_wait(empty + 8 * st, (j / kStages - 1) & 1);
+        ring_tag(tag + 4 * st, j);
         dst += st * kKVBytes;
         mbar_expect_tx(full + 8 * st, kKVBytes);
 #pragma unroll
         for (int x = 0; x < kBoxes; ++x)
-          tma_load(dst + x * kKVHalf, map, full + 8 * st, x * kBoxCols, kvh,
+          tma_load(dst + x * kKVBox, map, full + 8 * st, x * kBoxCols, kvh,
                    j * kBK, b);
       };
       // the consumers need K_j together with V_{j-1}
-      load(sK, &tk, bar_k, bar_ek, 0);
+      load(sK, &tk, bar_k, bar_ek, tag_k, 0);
       for (int j = 1; j < n_tiles; ++j) {
-        load(sK, &tk, bar_k, bar_ek, j);
-        load(sV, &tv, bar_v, bar_ev, j - 1);
+        load(sK, &tk, bar_k, bar_ek, tag_k, j);
+        load(sV, &tv, bar_v, bar_ev, tag_v, j - 1);
       }
-      load(sV, &tv, bar_v, bar_ev, n_tiles - 1);
+      load(sV, &tv, bar_v, bar_ev, tag_v, n_tiles - 1);
     }
   } else {
     // consumer warpgroups: 64 query rows each, both products on wgmma
+    if constexpr (C::kProducerGroup)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+          kConsumerRegs));
     const int c = warp_id / 4;
     const int t = tid % 128, warp = t / 32, lane = t % 32;
     const int grp = lane >> 2, quad = lane & 3;
@@ -942,9 +1089,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     const uint32_t qa = sQ + c * kOutRows * kRowBytes;
     // wgmma descriptors: Q's rows, then K and V stage 0 (a stage is
     // kKVBytes / 16 further)
-    const uint64_t dq = sw128_desc(qa, 16, 1024);
-    const uint64_t dk = sw128_desc(sK, 16, 1024);
-    const uint64_t dv = sw128_desc(sV, kKVHalf, 1024);
+    const uint64_t dq = sw_desc<kRowBytes>(qa, 16);
+    const uint64_t dk = sw_desc<kRowBytes>(sK, 16);
+    const uint64_t dv = sw_desc<kRowBytes>(sV, kKVBox);
 
     float o[kO];
 #pragma unroll
@@ -958,11 +1105,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // tile 0: S_0 = Q K_0^T and its softmax
     mbar_wait(bar_k, 0);
+    ring_check(tag_k, 0);
     bar_sync(kTurnBar + c, 256);
     issue_qk<HD>(s, dq, dk);
     bar_arrive(kTurnBar + 1 - c, 256);
     wgmma_wait<0>();
     fence_regs(s);
+    ring_check(tag_k, 0);
     if (lane == 0) mbar_arrive(bar_ek);  // K_0 released
     sm.tile(s, 0);
     pack_p<kBK>(pf, s);
@@ -972,13 +1121,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int j = 1; j < n_tiles; ++j) {
       const int st = j % kStages, sp = (j - 1) % kStages;
       mbar_wait(bar_k + 8 * st, (j / kStages) & 1);
+      ring_check(tag_k + 4 * st, j);
       bar_sync(kTurnBar + c, 256);
       issue_qk<HD>(s, dq, dk + st * (kKVBytes / 16));
       mbar_wait(bar_v + 8 * sp, ((j - 1) / kStages) & 1);
+      ring_check(tag_v + 4 * sp, j - 1);
       issue_pv<HD>(o, pf, dv + sp * (kKVBytes / 16));
       bar_arrive(kTurnBar + 1 - c, 256);
       wgmma_wait<1>();  // S_j has landed; P V may still run
       fence_regs(s);
+      ring_check(tag_k + 4 * st, j);
       if (lane == 0) mbar_arrive(bar_ek + 8 * st);  // K_j released
       const float2 alpha = sm.tile(s, j * kBK);
       wgmma_wait<0>();
@@ -986,12 +1138,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int i = 0; i < kO; ++i) o[i] *= (i & 2) ? alpha.y : alpha.x;
       pack_p<kBK>(pf, s);
+      ring_check(tag_v + 4 * sp, j - 1);
       if (lane == 0) mbar_arrive(bar_ev + 8 * sp);  // V_{j-1} released
     }
 
     // the last tile's P V
     const int last = n_tiles - 1;
     mbar_wait(bar_v + 8 * (last % kStages), (last / kStages) & 1);
+    ring_check(tag_v + 4 * (last % kStages), last);
     bar_sync(kTurnBar + c, 256);
     issue_pv<HD>(o, pf, dv + (last % kStages) * (kKVBytes / 16));
     if (c == 0) bar_arrive(kTurnBar + 1, 256);  // one turn per sync
@@ -1000,15 +1154,19 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // epilogue: normalise, stage bf16 rows in this consumer's part of Q's
     // buffer in the swizzled layout, and store them with one TMA box per
-    // 64 columns (the map clips rows past S and hd 96's columns 96-127)
+    // kBoxCols columns (the map clips rows past S and hd 96's columns
+    // 96-127).  The swizzle XORs a row's 16-byte chunk with bits 7 and up
+    // of its byte offset: row % 8 for 128-byte rows, (row / 2) % 4 for 64
     const float2 inv = sm.inverse_sums();
     unsigned char* out = smem + (qa - base);
+    constexpr int kChunks = kRowBytes / 16;  // 16-byte chunks a row
 #pragma unroll
     for (int i = 0; i < kO; i += 2) {
       const int r = (i >> 1) & 1, col8 = i >> 2;  // 8-column group
       const int row = warp * 16 + grp + r * 8;
-      unsigned char* dst = out + (col8 / 8) * kQHalf + row * kRowBytes +
-                           (((col8 % 8) ^ (row % 8)) * 16) + quad * 4;
+      const int phase = kRowBytes == 128 ? row % 8 : (row / 2) % 4;
+      unsigned char* dst = out + (col8 / kChunks) * kQBox + row * kRowBytes +
+                           (((col8 % kChunks) ^ phase) * 16) + quad * 4;
       *reinterpret_cast<__nv_bfloat162*>(dst) =
           __floats2bfloat162_rn(o[i] * (r ? inv.y : inv.x),
                                 o[i + 1] * (r ? inv.y : inv.x));
@@ -1018,7 +1176,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (t == 0 && row0 < S) {
 #pragma unroll
       for (int x = 0; x < kBoxes; ++x)
-        tma_store(&to, qa + x * kQHalf, x * kBoxCols, h, row0, b);
+        tma_store(&to, qa + x * kQBox, x * kBoxCols, h, row0, b);
       asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
       asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
     }
@@ -1053,18 +1211,21 @@ EncodeTiled encode_tiled() {
 }
 
 // a 4-d map over (hd, heads, S, B) of a contiguous bf16 (B, S, heads, hd)
-// tensor, box (64, 1, rows, 1), 128-byte swizzle, zeros out of bounds
+// tensor, box (box_cols, 1, rows, 1), the swizzle of box_cols * 2-byte
+// rows (64 columns: 128 bytes; 32: 64), zeros out of bounds
 bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int B,
-              int S, int heads, int hd, int rows) {
+              int S, int heads, int hd, int rows, int box_cols) {
   const cuuint64_t row = (cuuint64_t)hd * sizeof(bf16);
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
                               (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
-  const cuuint32_t box[4] = {(cuuint32_t)kBoxCols, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                               : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -1095,7 +1256,8 @@ int head_group(int B, int S, int H, int KH, int hd) {
 // the instance HD at head dim hd <= HD, a multiple of 8 (TMA's rows are
 // whole 16-byte units): the maps span hd columns, so the columns from hd
 // to HD arrive as zeros and are never stored, as hd 96's 96-127 are on
-// its own instance
+// its own instance (a box wholly past hd, as hd 136's last on the hd-256
+// instance, arrives as zeros too)
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
            int H, int KH, int hd, int causal, float scale_log2,
@@ -1108,16 +1270,16 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv, to;
-  if (!make_map(&tq, encode, q, B, S, H, hd, kBQ) ||
-      !make_map(&tk, encode, k, B, S, KH, hd, C::kBK) ||
-      !make_map(&tv, encode, v, B, S, KH, hd, C::kBK) ||
-      !make_map(&to, encode, o, B, S, H, hd, kOutRows))
+  if (!make_map(&tq, encode, q, B, S, H, hd, kBQ, C::kBoxCols) ||
+      !make_map(&tk, encode, k, B, S, KH, hd, C::kBK, C::kBoxCols) ||
+      !make_map(&tv, encode, v, B, S, KH, hd, C::kBK, C::kBoxCols) ||
+      !make_map(&to, encode, o, B, S, H, hd, kOutRows, C::kBoxCols))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       flash_attn_kernel_ws<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  flash_attn_kernel_ws<HD><<<(unsigned)blocks, kThreads, C::kSmemBytes,
+  flash_attn_kernel_ws<HD><<<(unsigned)blocks, C::kThreads, C::kSmemBytes,
                              stream>>>(tq, tk, tv, to, S, H, KH, causal,
                                        scale_log2,
                                        head_group(B, S, H, KH, hd));
@@ -1135,20 +1297,21 @@ bool valid_args(int B, int S, int H, int KH, int hd, float* scale_log2) {
 }  // namespace
 
 // The instance that runs head dim hd (1 <= hd <= 256): the smallest at or
-// above it, 16, 32, 64, 96, 128 or 256, where TMA reads hd (a multiple of
-// 8) on the Hopper design; another hd above 32 runs the mma.sync design's
-// hd-64 or hd-96 instance, or its hd-256 one above 96.  Returns the
-// instance; *tma whether it is the Hopper design's.  0 for hd outside.
+// above it, 16, 32, 64, 96, 128 or 256.  Above 16, a multiple of 8 (the
+// rows TMA reads are whole 16-byte units) runs the Hopper design's
+// instance at 32, 64, 96, 128 or 256; another hd the mma.sync design's
+// at 32, 64, 96 or, above 96, 256.  hd 1-16 runs the mma.sync instance
+// 16.  Returns the instance; *tma whether it is the Hopper design's.  0
+// for hd outside.
 int instance_for(int hd, bool* tma) {
   *tma = false;
   if (hd < 1 || hd > 256) return 0;
   if (hd <= 16) return 16;
-  if (hd <= 32) return 32;
   *tma = hd % 8 == 0;
+  if (hd <= 32) return 32;
   if (hd <= 64) return 64;
   if (hd <= 96) return 96;
   if (hd <= 128 && *tma) return 128;
-  *tma = false;
   return 256;
 }
 
@@ -1169,8 +1332,10 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
       return mma::launch<16>(q, k, v, o, B, S, H, KH, hd, causal, scale_log2,
                              st);
     case 32:
-      return mma::launch<32>(q, k, v, o, B, S, H, KH, hd, causal, scale_log2,
-                             st);
+      return tma ? ws::launch<32>(q, k, v, o, B, S, H, KH, hd, causal,
+                                  scale_log2, st)
+                 : mma::launch<32>(q, k, v, o, B, S, H, KH, hd, causal,
+                                   scale_log2, st);
     case 64:
       return tma ? ws::launch<64>(q, k, v, o, B, S, H, KH, hd, causal,
                                   scale_log2, st)
@@ -1185,8 +1350,10 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
       return ws::launch<128>(q, k, v, o, B, S, H, KH, hd, causal, scale_log2,
                              st);
     case 256:
-      return mma::launch<256>(q, k, v, o, B, S, H, KH, hd, causal,
-                              scale_log2, st);
+      return tma ? ws::launch<256>(q, k, v, o, B, S, H, KH, hd, causal,
+                                   scale_log2, st)
+                 : mma::launch<256>(q, k, v, o, B, S, H, KH, hd, causal,
+                                    scale_log2, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1200,9 +1367,9 @@ extern "C" int flash_attn_instance(int hd) {
   return tma ? inst : -inst;
 }
 
-// the first design (mma.sync) at hd 64 and 96, with flash_attn_launch's
-// arguments: kept for a same-call comparison with the Hopper design, which
-// flash_attn_launch runs at those head dims; B * H <= 65535
+// the first design (mma.sync) at hd 32, 64, 96 and 256, with
+// flash_attn_launch's arguments: kept for a same-call comparison with the
+// Hopper design, which flash_attn_launch runs at those head dims
 extern "C" int flash_attn_mma_launch(const void* q, const void* k,
                                      const void* v, void* o, int B, int S,
                                      int H, int KH, int hd, int causal,
@@ -1212,12 +1379,18 @@ extern "C" int flash_attn_mma_launch(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (hd) {
+    case 32:
+      return mma::launch<32>(q, k, v, o, B, S, H, KH, hd, causal, scale_log2,
+                             st);
     case 64:
       return mma::launch<64>(q, k, v, o, B, S, H, KH, hd, causal, scale_log2,
                              st);
     case 96:
       return mma::launch<96>(q, k, v, o, B, S, H, KH, hd, causal, scale_log2,
                              st);
+    case 256:
+      return mma::launch<256>(q, k, v, o, B, S, H, KH, hd, causal,
+                              scale_log2, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1237,12 +1410,16 @@ extern "C" int flash_attn_smem_bytes(int hd) {
       return mma::Tile<96>::kSmemBytes;
     case -256:
       return mma::Tile<256>::kSmemBytes;
+    case 32:
+      return ws::Cfg<32>::kSmemBytes;
     case 64:
       return ws::Cfg<64>::kSmemBytes;
     case 96:
       return ws::Cfg<96>::kSmemBytes;
     case 128:
       return ws::Cfg<128>::kSmemBytes;
+    case 256:
+      return ws::Cfg<256>::kSmemBytes;
     default:
       return -1;
   }

@@ -1105,9 +1105,10 @@ def test_flash_attention_lm_zoo_head_shapes_match_plain_on_card(H, KH, hd):
                 assert row <= FLASH_ROW_REL, (B, S, q_scale, causal, row)
 
 
-@pytest.mark.parametrize("H,KH,hd", [(24, 8, 64), (32, 32, 96)])
+@pytest.mark.parametrize("H,KH,hd", [(24, 8, 64), (32, 32, 96),
+                                     (32, 8, 32), (10, 1, 256)])
 def test_flash_attention_first_design_matches_plain_on_card(H, KH, hd):
-    """The first design (mma.sync) at hd 64 and 96, kept behind
+    """The first design (mma.sync) at hd 64, 96, 32 and 256, kept behind
     ``flash_attn_mma_launch`` for chip_smoke.py's same-call comparison:
     within 2e-2 of the plain version and each query row within 1e-2,
     causal and not, flat and peaked softmax, at sequence lengths around
@@ -1139,6 +1140,39 @@ def test_flash_attention_first_design_matches_plain_on_card(H, KH, hd):
     assert FK.launch_counts() == before
 
 
+@pytest.mark.parametrize("hd", [32, 256])
+@pytest.mark.parametrize("H,KH", [(10, 1), (32, 8)])
+def test_flash_attention_hd32_and_hd256_hopper_instances_match_plain_on_card(
+        H, KH, hd):
+    """The Hopper design's hd-32 instance (64-byte rows, boxes of 32
+    columns under the 64-byte swizzle) and hd-256 instance (four boxes a
+    tile, P V on m64n256k16) at recurrentgemma-2b's GQA 10:1 and
+    qwen3-8b's 32:8, S = 1, on either side of the 128-row query blocks
+    (127, 129), 1000 and 2048, causal and not, flat and peaked softmax:
+    within 2e-2 of the plain version in bf16 and each query row within
+    1e-2 of its largest value in float32; one launch counted a call, on
+    the instance ``instance_for`` names."""
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+    _need_card()
+    assert FK.instance_for(hd) == (hd, "tma")
+    for i, S in enumerate((1, 127, 129, 1000, 2048)):
+        B = 1 + S % 2
+        for q_scale in (0.5, 4.0):
+            q, k, v = (t.bfloat16() for t in
+                       _attn_operands(400 + i, B, S, H, KH, hd, q_scale))
+            for causal in (True, False):
+                before = FK.launch_counts()["flash_attention"]
+                got = FK.flash_attention(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                assert FK.launch_counts()["flash_attention"] == before + 1
+                torch.testing.assert_close(
+                    got.float(), attention_ref(q, k, v, causal=causal).float(),
+                    atol=FLASH_TOL, rtol=FLASH_TOL)
+                row = _row_rel(got, q, k, v, causal)
+                assert row <= FLASH_ROW_REL, (B, S, q_scale, causal, row)
+
+
 def test_flash_attention_at_llavas_served_shape_matches_plain_on_card():
     """llava-next-34b's served prefill: B = 2, S = 2880 patch positions +
     1024 tokens = 3904 (its last 128-row query block holds 64 rows, its
@@ -1163,13 +1197,16 @@ def test_flash_attention_at_llavas_served_shape_matches_plain_on_card():
             torch.cuda.empty_cache()
 
 
-def test_flash_attention_graph_replay_equals_eager():
+@pytest.mark.parametrize("H,KH,hd", [(32, 8, 128), (10, 1, 256),
+                                     (32, 8, 32)])
+def test_flash_attention_graph_replay_equals_eager(H, KH, hd):
     """The launch captured in a CUDA graph (its tensor maps are kernel
     parameters, captured by value) replays to the eager call's output bit
-    for bit, one launch counted per captured call."""
+    for bit, one launch counted per captured call: the Hopper design at
+    hd 128, 256 (four boxes a tile) and 32 (64-byte rows)."""
     from repro_torch.kernels.flash_attn import kernel as FK
     _need_card()
-    q, k, v = (t.bfloat16() for t in _attn_operands(7, 2, 300, 32, 8, 128))
+    q, k, v = (t.bfloat16() for t in _attn_operands(7, 2, 300, H, KH, hd))
     eager = FK.flash_attention(q, k, v, causal=True)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -1959,7 +1996,7 @@ def test_cuda_lut_eval_packed_global_rows_match_plain(n):
 
 
 @pytest.mark.parametrize("hd", [1, 8, 17, 32, 40, 50, 80, 100, 104, 200,
-                                256])
+                                256, 24, 136, 248])
 def test_flash_attention_any_head_dim_matches_plain_on_card(hd):
     """Every head dim up to 256 on the smallest instance at or above it
     (``instance_for``), its columns past hd zeros and its scale hd's own:

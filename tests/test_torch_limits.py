@@ -238,14 +238,17 @@ def test_full_size_float_and_packed_layer_plans():
 
 
 @pytest.mark.parametrize("hd,inst,design", [
-    (8, 16, "mma"), (16, 16, "mma"), (32, 32, "mma"), (40, 64, "tma"),
+    (8, 16, "mma"), (16, 16, "mma"), (32, 32, "tma"), (40, 64, "tma"),
     (50, 64, "mma"), (64, 64, "tma"), (80, 96, "tma"), (96, 96, "tma"),
-    (100, 256, "mma"), (128, 128, "tma"), (200, 256, "mma"),
-    (256, 256, "mma")])
+    (100, 256, "mma"), (128, 128, "tma"), (200, 256, "tma"),
+    (256, 256, "tma"), (24, 32, "tma"), (136, 256, "tma"),
+    (17, 32, "mma"), (250, 256, "mma")])
 def test_every_head_dim_to_256_has_an_instance(hd, inst, design):
     """K10 runs each head dim on the smallest instance at or above it;
-    TMA reads only multiples of 8, so other head dims run the mma.sync
-    design (its hd-64 and hd-96 instances, or hd 256 above 96)."""
+    TMA reads only multiples of 8, so above 16 those run the Hopper
+    design (its instances at 32, 64, 96, 128 and 256) and other head dims
+    the mma.sync design (its hd-32, hd-64 and hd-96 instances, or hd 256
+    above 96); hd 1-16 runs the mma.sync instance 16."""
     assert KA.instance_for(hd) == (inst, design)
     assert inst in KA.HEAD_DIMS
 

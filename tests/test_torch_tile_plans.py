@@ -566,3 +566,32 @@ def test_k8_bound_counts_the_lerp_trees_float_operations(n):
         "float_lut_eval", B, 16, 200, (m,), n, 5)
     assert ops["fp32"] == B * m * per_row + m * per_lut
     assert ops["int"] == B * m * n
+
+
+@pytest.mark.parametrize("shape,causal,bound_ms,bound_by,ex2_ms", [
+    ((2, 1000, 8, 2, 32), True, 0.00104, "operations", 0.00191),
+    ((4, 2048, 32, 8, 32), True, 0.0348, "operations", 0.0642),
+    ((4, 2048, 10, 1, 256), True, 0.0869, "operations", 0.0201),
+    ((2, 1000, 8, 2, 8), True, 0.000259, "operations", 0.00191),
+    ((4, 2048, 24, 8, 64), True, 0.0521, "operations", 0.0482),
+    ((4, 2048, 32, 8, 128), True, 0.139, "operations", 0.0642),
+    ((8200, 64, 8, 8, 16), True, 0.160, "bytes", 0.0326),
+    ((2, 1000, 8, 2, 32), False, 0.00207, "operations", 0.00383)])
+def test_k10_bound_is_the_larger_of_bytes_and_products(
+        shape, causal, bound_ms, bound_by, ex2_ms):
+    """K10's bound is the larger of q, k, v and o at 3.35 TB/s and the two
+    products' tensor-core operations at 989 TFLOP/s; one ex2 a score at
+    16 a clock an SM on 132 SMs at 1980 MHz, the scores B·H·S(S+1)/2
+    causal and B·H·S² not, is a term of its own (the special-function
+    unit's floor) that sets no bound, even where it is the largest."""
+    B, S, H, KH, hd = shape
+    cs = _chip_smoke()
+    cs.SM_CLOCK_HZ = 1.98e9
+    got = cs.flash_bound(B, S, H, KH, hd, causal)
+    pairs = S * (S + 1) // 2 if causal else S * S
+    assert got["scores"] == B * H * pairs
+    assert got["bound_by"] == bound_by
+    assert got["bound_ms"] == pytest.approx(bound_ms, rel=1e-2)
+    terms = got["terms_ms"]
+    assert got["bound_ms"] == max(terms["bytes"], terms["tensor_ops"])
+    assert terms["ex2_sfu"] == pytest.approx(ex2_ms, rel=1e-2)
