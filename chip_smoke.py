@@ -343,9 +343,12 @@ Phases, each printing one JSON line:
    each launch on the path its plan names; the 4096-threshold model
    served through ServingEngine pinned to K2 and with backend="auto" and
    the 784-feature one pinned, every request equal to apply_hard; K4 on
-   rows of 8192 words; K10 at hd 8, 32, 80 and 256 (2 x 1000, 8 over 2
-   heads) and at B x H = 65,600 (grid.x folded, equal to its two
-   unfolded halves) against its plain version, per row to flash_row_bar,
+   rows of 8192 words (the block rows kernel, timed beside the kept
+   global kernel in the same call) and of 58,113 words (the global
+   kernel); K10 at hd 8, 16, 32, 80 and 256 (2 x 1000, 8 over 2 heads),
+   at hd 16, 32 and 256 at full size and at B x H = 65,600 (equal to its
+   two halves launched apart) against its plain version, per row to
+   flash_row_bar,
    SDPA's and flash_rounded's errors read beside each check and a
    dropped key tile failing the bar; each new path timed once beside its
    bound; the new kernels held to no spill.
@@ -1775,9 +1778,9 @@ FLASH_GQA_PAST_L2_SIZES = {QWEN_HEADS: ((8, 2048),),
 #: spills); one
 #: symbol an instance, since a template's name holds every instance's
 FLASH_WS_SYMBOLS = {hd: f"{FLASH_SYMBOL}_wsILi{hd}E"
-                    for hd in (32, 64, 96, 128, 256)}
+                    for hd in (16, 32, 64, 96, 128, 256)}
 FLASH_MMA_SYMBOLS = {hd: f"{FLASH_SYMBOL}_mmaILi{hd}E"
-                     for hd in (32, 64, 96, 256)}
+                     for hd in (16, 32, 64, 96, 256)}
 #: flash attention (bf16 out, P rounded to bf16) against its float32
 #: plain version: the reference's bf16 bar (tests/test_flash_kernel.py:41),
 #: absolute and relative, as torch.testing.assert_close applies them
@@ -1921,6 +1924,15 @@ def _flash_operands(device, rng, B, S, heads, q_scale=0.5):
                                              (KH, 1.0))]
 
 
+def kept_first_design(hd):
+    """Whether ``flash_attn_mma_launch`` keeps the first design (mma.sync)
+    beside the Hopper instance that runs head dim ``hd``: at hd 8 and 16
+    (its instance 16) and at 32, 64, 96 and 256."""
+    from repro_torch.kernels.flash_attn import kernel as KA
+    return (KA.instance_for(hd)[1] == "tma"
+            and (hd <= 16 or hd in FLASH_MMA_SYMBOLS))
+
+
 def _flash_timing(device, rng, heads, B, S):
     """K10 at (B, S) and one head shape in a CUDA graph and eagerly, its
     plain version, the SDPA yardstick and the bound from shapes; at hd 64
@@ -1935,7 +1947,7 @@ def _flash_timing(device, rng, heads, B, S):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     H, KH, hd = heads
     first = {}
-    if hd in FLASH_MMA_SYMBOLS:
+    if kept_first_design(hd):
         out = torch.zeros_like(q)
         mma = rows_kernel(KA.LIBRARY, KA._SIGNATURES, "flash_attn_mma_launch",
                           q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -5442,19 +5454,24 @@ LIMITS_FLOAT_BATCHES = {"W4n16": (33, 1)}
 LIMITS_FLOAT_DEFAULT = (256, 33, 1)
 #: K4 alone on rows of 8192 words: F = 16 features at T = 16,384 after K3
 K4_WIDE = dict(F=16, T=16384, m=2400, n=6)
+#: K4 on rows of one word more than a block stages: the kept global kernel
+K4_GLOBAL_WORDS = 58_113
 #: K10 at head dims without an instance of their own, or new instances:
-#: (B, S, H, KH), causal and not; hd 16 at B x H = 65,600 (grid.x folds)
+#: (B, S, H, KH), causal and not; hd 16 at B x H = 65,600 (all on grid.x
+#: on the Hopper design; the mma.sync design folds grid.y into grid.x)
 LIMITS_FLASH = (2, 1000, 8, 2)
-LIMITS_FLASH_HDS = (8, 32, 80, 256)
+LIMITS_FLASH_HDS = (8, 16, 32, 80, 256)
 LIMITS_FLASH_WIDE_BH = (8200, 64, 8, 8, 16)
-#: the Hopper design's hd-32 and hd-256 instances at full size, (B, S, H,
-#: KH, hd), causal and not: recurrentgemma-2b's heads (10 over 1 KV head,
-#: hd 256; causal equals its local attention while S is within its
-#: 2048-key window) and qwen3-8b's (32 over 8) at hd 32; they and
-#: LIMITS_FLASH at hd 32 and 256 also hold the kept mma.sync instances
+#: the Hopper design's hd-16, hd-32 and hd-256 instances at full size,
+#: (B, S, H, KH, hd), causal and not: recurrentgemma-2b's heads (10 over 1
+#: KV head, hd 256; causal equals its local attention while S is within
+#: its 2048-key window) and qwen3-8b's (32 over 8) at hd 32 and 16; they
+#: and LIMITS_FLASH at hd 8, 16, 32 and 256 also hold the kept mma.sync
+#: instances
 LIMITS_FLASH_FULL = {
     "flash_attention hd256 recurrentgemma-2b": (4, 2048, 10, 1, 256),
-    "flash_attention hd32 qwen3-8b heads": (4, 2048, 32, 8, 32)}
+    "flash_attention hd32 qwen3-8b heads": (4, 2048, 32, 8, 32),
+    "flash_attention hd16 qwen3-8b heads": (4, 2048, 32, 8, 16)}
 #: the per-row bar for rows of 8 to 31 head dims: their largest value is
 #: no steady scale, and over a million rows the bf16 algorithm itself (P
 #: and the output rounded to bf16: flash_rounded, in plain PyTorch on the
@@ -5483,7 +5500,11 @@ LIMITS_SYMBOLS = (
     *(("lut_eval", f"lut_eval_wide_kernelILi{h}E",
        f"lut_eval wide, corner blocks of {2 ** h}") for h in range(1, 6)),
     ("lut_eval", "lut_eval_packed_rows_kernelILb0E",
-     "lut_eval_packed, rows from global memory"))
+     "lut_eval_packed, rows from global memory"),
+    ("lut_eval", "lut_eval_packed_block_kernelILb1E",
+     "lut_eval_packed, block rows, layer in registers"),
+    ("lut_eval", "lut_eval_packed_block_kernelILb0E",
+     "lut_eval_packed, block rows"))
 
 
 def flash_row_bar(hd):
@@ -5856,9 +5877,11 @@ def phase_limits(device, ptxas=()):
     K10 head dims): every kernel of every path bit-exact to its plain
     version, every path's counts equal to ``apply_hard`` (_limits_shape),
     W1a and W2 served through ``ServingEngine`` (_limits_served), K4 on
-    rows of 8192 words, K10 at hd 8, 32, 80 and 256 and at B x H =
-    65,600 within FLASH_TOL; each new path timed once beside its bound and
-    its plain version, its launches counted over the phase's drives; the
+    rows of 8192 words (block rows) and of K4_GLOBAL_WORDS (global), K10
+    at hd 8, 16, 32, 80 and 256, at full size (LIMITS_FLASH_FULL) and at
+    B x H = 65,600 within FLASH_TOL; each new path timed once beside its
+    bound and its plain version (K4's block rows beside the kept global
+    kernel in turns), its launches counted over the phase's drives; the
     new kernels' ptxas lines held to no spill."""
     import torch
     from repro_torch.kernels.fused import kernel as KF
@@ -5878,8 +5901,8 @@ def phase_limits(device, ptxas=()):
                            "fused_dwn_batch_major scratch",
                            "fused_dwn_packed deep",
                            "fused_dwn_batch_major deep", "fused_dwn global",
-                           "lut_eval wide", "lut_eval_packed global rows"),
-                          0)
+                           "lut_eval wide", "lut_eval_packed block rows",
+                           "lut_eval_packed global rows"), 0)
     shapes, kept = {}, {}
     for name, s in LIMITS.items():
         shapes[name], kept[name] = _limits_shape(device, name, s, rng, paths)
@@ -5940,7 +5963,8 @@ def phase_limits(device, ptxas=()):
                                               s["C"]), iters=3))}
     kept.clear()
     torch.cuda.empty_cache()
-    # K4 alone on rows of 8192 words (after K3), then timed
+    # K4 alone on rows of 8192 words (after K3): the block rows kernel;
+    # then on rows of K4_GLOBAL_WORDS random words: the global kernel
     k = K4_WIDE
     th, maps, tabs = make_model(rng, k["F"], k["T"], (k["m"],), k["n"])
     x = torch.from_numpy(rng.uniform(-1, 1, (4096, k["F"])).astype(
@@ -5949,29 +5973,91 @@ def phase_limits(device, ptxas=()):
     widx, boff = (t.to(device).contiguous() for t in
                   packed_wire_indices(torch.from_numpy(maps[0])))
     tab_words = FR.pack_table_words(torch.from_numpy(tabs[0])).to(device)
-    _reset_counts()
-    for B in LIMITS_BATCHES:
-        got = KL.lut_eval_packed(words[:B], widx, boff, tab_words)
-        if KL.last_launch()["path"] != "global":
-            raise SystemExit(f"limits: K4 on 8192-word rows took "
-                             f"{KL.last_launch()}")
-        _limits_equal(f"K4 on 8192-word rows B={B}", got,
-                      to_word_pattern(LR.lut_eval_packed_plain(
-                          words[:B], widx, boff, tab_words)))
-    paths["lut_eval_packed global rows"] += _limits_counts()[
-        "lut_eval_packed"]
+    W_in = words.shape[1]
+    group, bufs = KL.block_rows_shape(W_in)
+    for where, rows, path, rows_staged in (
+            ("8192-word rows", words, "block_rows", group * bufs),
+            (f"{K4_GLOBAL_WORDS}-word rows", None, "global", 0)):
+        if rows is None:
+            rows = torch.from_numpy(rng.integers(
+                -2 ** 31, 2 ** 31, (max(LIMITS_BATCHES), K4_GLOBAL_WORDS),
+                dtype=np.int64).astype(np.int32)).to(device)
+            wide = torch.from_numpy(rng.integers(
+                0, 32 * K4_GLOBAL_WORDS, (k["m"], k["n"])).astype(
+                    np.int32)).to(device)
+            wi, bo = wide >> 5, wide & 31
+        else:
+            wi, bo = widx, boff
+        _reset_counts()
+        for B in LIMITS_BATCHES:
+            got = KL.lut_eval_packed(rows[:B], wi, bo, tab_words)
+            last = KL.last_launch()
+            if (last["path"], last["staged_rows"]) != (path, rows_staged):
+                raise SystemExit(f"limits: K4 on {where} took {last}")
+            if path == "block_rows" and B == 4096:
+                layout = last
+            _limits_equal(f"K4 on {where} B={B}", got,
+                          to_word_pattern(LR.lut_eval_packed_plain(
+                              rows[:B], wi, bo, tab_words)))
+        name = {"block_rows": "lut_eval_packed block rows",
+                "global": "lut_eval_packed global rows"}[path]
+        paths[name] += _limits_counts()["lut_eval_packed"]
+    del rows, wide, wi, bo
+    # at K4_WIDE, B = 4096: the block rows kernel through the wrapper, the
+    # kept global kernel and the block rows kernel with one group of as
+    # many rows as a block holds (no overlap) through their C entries,
+    # uncounted, each held bit for bit to the plain version first; then
+    # timed in turns (A B C C B A)
+    from repro_torch.kernels._launch import sm_count
+    out = torch.empty((4096, k["m"] // 32), dtype=torch.int32,
+                      device=device)
+    ptrs = (words.data_ptr(), 4096, W_in, widx.data_ptr(), boff.data_ptr(),
+            tab_words.data_ptr(), k["m"], k["n"], tab_words.shape[1],
+            out.data_ptr())
+    cap = KL.MAX_SMEM_BYTES // (4 * W_in)
+    info = (ctypes.c_int * 3)()
+    calls = {
+        "block rows": lambda: KL.lut_eval_packed(words, widx, boff,
+                                                  tab_words),
+        "global": rows_kernel(KL.LIBRARY, KL._SIGNATURES,
+                              "lut_eval_packed_rows_launch", *ptrs, 0),
+        "one group": rows_kernel(
+            KL.LIBRARY, KL._SIGNATURES, "lut_eval_packed_block_launch",
+            *ptrs, cap, 1, sm_count(device), cap * W_in * 4, info)}
+    want = to_word_pattern(LR.lut_eval_packed_plain(words, widx, boff,
+                                                    tab_words))
+    for name, fn in calls.items():
+        out.zero_()
+        got = fn()
+        torch.cuda.synchronize()
+        _limits_equal(f"K4 {name} at K4_WIDE", out if got is None else got,
+                      want)
+    runs = {name: [] for name in calls}
+    for order in (list(calls), list(calls)[::-1]):
+        for name in order:
+            runs[name].append(graph_ms(calls[name], iters=10, replays=2))
+    bound = _limits_time(calls["block rows"],
+                         lambda: LR.lut_eval_packed_plain(words, widx, boff,
+                                                          tab_words),
+                         *model_bytes_and_ops("lut_eval", 4096, k["F"],
+                                              k["T"], (k["m"],), k["n"], 5))
+    timing["lut_eval_packed block rows"] = {
+        "shape": "K4_WIDE", "B": 4096, **bound, "layout": layout,
+        "turns_ms": {name: t for name, t in runs.items()},
+        "one_group_rows": cap, "one_group_cached": bool(info[2])}
     timing["lut_eval_packed global rows"] = {
-        "shape": "K4_WIDE", "B": 4096, **_limits_time(
-            lambda: KL.lut_eval_packed(words, widx, boff, tab_words),
-            lambda: LR.lut_eval_packed_plain(words, widx, boff, tab_words),
-            *model_bytes_and_ops("lut_eval", 4096, k["F"], k["T"],
-                                 (k["m"],), k["n"], 5))}
-    del words, x
+        "shape": "K4_WIDE", "B": 4096, **bound,
+        "ms": sum(runs["global"]) / 2,
+        "turns_ms": {name: t for name, t in runs.items()},
+        "launched": "through lut_eval_packed_rows_launch (staged=0), "
+                    "uncounted; its launches are the wrapper's at "
+                    f"{K4_GLOBAL_WORDS} words"}
+    del words, x, out, want
     # K10's instances as flash_attn_launch routes them in C, against
     # instance_for's, at every head dim
     routing = _limits_flash_routing()
-    # K10 at head dims 8, 32, 80 and 256, at hd 32 and 256 at full size,
-    # and hd 16 past 65,535 (b, h), each counted from 0 on its own
+    # K10 at head dims 8, 16, 32, 80 and 256, at hd 16, 32 and 256 at full
+    # size, and hd 16 past 65,535 (b, h), each counted from 0 on its own
     Bf, Sf, H, KH = LIMITS_FLASH
     checks, flash_launches = [], {}
     shapes_checked = {f"flash_attention hd{hd}": (Bf, Sf, H, KH, hd)
@@ -5991,7 +6077,7 @@ def phase_limits(device, ptxas=()):
                     got, q, kk, v, causal, where)})
                 del got
         flash_launches[name] = KA.launch_counts()["flash_attention"]
-        if hd in (32, 256):
+        if kept_first_design(hd):
             # the kept mma.sync instance on the same shapes, uncounted
             mma_checks += [{"entry": name, **c} for c in
                            _limits_flash_mma_checks(
@@ -6259,6 +6345,8 @@ def main() -> int:
         "fused_dwn_batch_major deep": (src, f"{fused_src}:286"),
         "fused_dwn global": (src, f"{fused_src}:107"),
         "lut_eval wide": (STAGES["lut_eval_packed"][0], f"{lut_src}:54"),
+        "lut_eval_packed block rows": (STAGES["lut_eval_packed"][0],
+                                       f"{lut_src}:99"),
         "lut_eval_packed global rows": (STAGES["lut_eval_packed"][0],
                                         f"{lut_src}:99")}
     for name, (source, replaced) in limit_entries.items():

@@ -30,14 +30,16 @@
 // operations (4096 a clock): at hd 64 the softmax, not the products, sets
 // the pace, and from hd 32 down the ex2s take longer than the products
 // (qwen3-8b's heads at hd 32: 2.69e8 scores, 0.064 ms on 132 SMs at 1980
-// MHz, against 0.035 for the products).  That is the floor of a design
+// MHz, against 0.035 for the products; at hd 16 the same 0.064 against
+// 0.017).  That is the floor of a design
 // that runs every ex2 on the special-function unit, not of the function
 // (part of them could run on the FMA pipe), so the bound stays the larger
 // of bytes and products.
 //
-// hd = 32, 64 (granite-moe), 96 (phi3-mini), 128 (qwen3-8b, qwen3-14b,
-// qwen2-7b, mixtral) and 256 (recurrentgemma-2b's heads) run the Hopper
-// design, namespace ws, a template on hd:
+// hd = 16 (the reduced archs; hd 8 too), 32, 64 (granite-moe), 96
+// (phi3-mini), 128 (qwen3-8b, qwen3-14b, qwen2-7b, mixtral) and 256
+// (recurrentgemma-2b's heads) run the Hopper design, namespace ws, a
+// template on hd:
 //   * one block owns 128 query rows of one (b, h): two consumer
 //     warpgroups (warps 0-7) of 64 rows each and a producer, one thread of
 //     which issues every TMA copy.  The register file is split among an
@@ -56,7 +58,7 @@
 //     stages of 96-key tiles (24 KB each), 129 KB in all, one block per SM;
 //     at hd 256 64 KB of Q and 2 stages of 80-key tiles (40 KB each, four
 //     boxes), 225 KB; at hd 32 8 KB of Q and 2 stages of 64-key tiles of
-//     4 KB.
+//     4 KB; at hd 16 4 KB of Q and 2 stages of 64-key tiles of 2 KB.
 //     Each tile has a full mbarrier (TMA completes its bytes) and an empty
 //     one (each consumer warp arrives once it has read it).  K and V are
 //     released apart: K as soon as Q K^T has landed, V after P V, and the
@@ -71,7 +73,9 @@
 //     lie past the map's hd and arrive as zeros.  hd 32's rows are 64
 //     bytes: its boxes are 32 columns under the 64-byte swizzle (Cfg's
 //     kBoxCols; 64-column boxes whose columns 32-63 arrive as zeros were
-//     slower, below).  One full barrier expects every box's whole bytes,
+//     slower, below), and hd 16's rows of 32 bytes are 16-column boxes
+//     under the 32-byte swizzle; hd 8 reads the hd-16 instance through a
+//     map 8 columns wide, whose columns 8-15 arrive as zeros.  One full barrier expects every box's whole bytes,
 //     zeros included, as for rows past S.  The maps are encoded on
 //     the host at every launch (cuTensorMapEncodeTiled, found through
 //     cudaGetDriverEntryPoint[ByVersion]) and passed by value as
@@ -79,9 +83,10 @@
 //     S arrive as zeros; the score mask below still applies;
 //   * S = Q K^T runs on wgmma m64n{keys}k16 with both operands in shared
 //     memory, K-major as TMA stores them (descriptors of the swizzle, 8-row
-//     groups 8 rows apart: 1024 bytes, 512 at hd 32; k-steps 32 bytes into
-//     the span, four a 128-byte box, two a 64-byte one): hd / 16 k-steps,
-//     6 at hd 96, which never reach the zeros;
+//     groups 8 rows apart: 1024 bytes, 512 at hd 32, 256 at hd 16; k-steps
+//     32 bytes into the span, four a 128-byte box, two a 64-byte one, one
+//     a 32-byte one): hd / 16 k-steps, 6 at hd 96, which never reach the
+//     zeros;
 //   * the softmax runs in registers in the log2 domain, one FFMA and one
 //     ex2.approx.ftz per score: the accumulator gives each row to one quad
 //     of lanes, so a row's max is two shuffles; tiles that cross S or the
@@ -92,7 +97,10 @@
 //     fragment rounded to bf16 pairs is the A fragment) and V MN-major in
 //     shared memory (transpose-B bit set; lbo = the boxes' distance, so hd
 //     96's columns 64-95 come from the second box and hd 256's four boxes
-//     are one m64n256k16, the widest wgmma; sbo = 8 rows);
+//     are one m64n256k16, the widest wgmma; sbo = 8 rows).  At hd 16, V
+//     under the 32-byte swizzle is one swizzle atom wide (16 columns), so
+//     lbo is unused, and a k-step's 16 keys are two 8-row groups 256 bytes
+//     apart (sbo); the product is m64n16k16, 8 floats of O a thread;
 //   * overlap: within a consumer, Q K^T of tile j is issued together with
 //     P V of tile j - 1 and the softmax of tile j runs while P V does; the
 //     two consumers take turns issuing (named barriers 1 and 2), so one's
@@ -162,6 +170,22 @@
 //     first design 0.426-0.439 (0.0393-0.0404), SDPA 0.176-0.181
 //     (0.0154-0.0157).  The kernel reaches about half the ex2 rate (7.8
 //     scores a clock an SM of 16) whatever the warps an SM or the turns.
+// Shapes tried at hd 16 (B=4, S=2048, H=32, KH=8), causal, on the same
+// card, scripts/k10_tiles.py, each twice in turns (ms; registers a
+// thread; in brackets hd 16 and hd 8 at the limits shape, then 65,600
+// (b, h) pairs of 64 rows, B=8200, S=64, H=KH=8):
+//   64 keys, 2 stages 0.1245-0.1266 (82 registers, kept; 0.0119-0.0121,
+//     0.0129-0.0139, 0.701-0.712); 4 stages 0.1246-0.1266; two blocks an
+//     SM (82 registers fit 18 warps) 0.1241-0.1242 (0.701 at the pairs);
+//     96 keys, 3 stages 0.1539-0.1556 (106; 0.0110-0.0111, 1.421); 128
+//     keys at 2 and 4 stages 0.1563-0.1593 (130; 0.0110-0.0111,
+//     0.0118-0.0131, 1.542-1.557); 192 keys spilled 144 bytes (166) and
+//     three blocks an SM (70 registers) spilled 144 bytes, both
+//     serialising the wgmmas, not timed.  mma.sync 0.3058-0.3103
+//     (0.0254-0.0259, 0.0250-0.0257, 0.4198), SDPA 0.1747-0.1782
+//     (0.0158-0.0160, 0.0187-0.0188, 1.1255-1.1256).  The pairs of 64
+//     rows run a 128-row block for 64 rows: 0.70 ms against mma.sync's
+//     64-row blocks' 0.42, still ahead of SDPA.
 // The rings are kept safe by their barriers alone: compute-sanitizer's
 // racecheck refuses the device.  Built with -DK10_DEBUG_RING the kernel
 // bounds every mbarrier wait (a trap past 2^32 clocks) and the producer
@@ -171,27 +195,27 @@
 // the wrong phase, or a stage refilled before every consumer warp
 // released it, traps.  scripts/k10_tiles.py --debug-ring runs that build
 // through its checks at every Hopper instance, hd 256's four-box tiles
-// among them; none trapped on an NVIDIA H100 80GB HBM3 at 700 W (S from
-// 1 to 2048 around every tile edge, causal and not; the debug build of
-// hd 256 spills its checks' registers, 736 bytes).
+// among them, and hd 16's at hd 16 and 8; none trapped on an NVIDIA H100
+// 80GB HBM3 at 700 W (S from 1 to 2048 around every tile edge, causal
+// and not; the debug build of hd 256 spills its checks' registers, 736
+// bytes).
 
 // Any other head dim up to 256 runs on the smallest instance at or above
-// it (instance_for): above 16 the Hopper design at 32, 64, 96, 128 and
-// 256 where hd is a multiple of 8 (the maps span hd columns, so the rest
-// of a box arrives as zeros and is never stored), else the mma design at
+// it (instance_for): the Hopper design at 16, 32, 64, 96, 128 and 256
+// where hd is a multiple of 8 (the maps span hd columns, so the rest of a
+// box arrives as zeros and is never stored), else the mma design at 16,
 // 32, 64, 96 or 256, whose tiles zero-fill the columns past hd and whose
 // output writes the first hd.  The scale is always the operands'
 // hd^-0.5.  At hd 256, 128 float accumulators a thread leave the mma
 // instance no room for Q's fragments, so Q keeps a tile of its own in
 // shared memory.
 //
-// hd <= 16 (the reduced archs that the card tests use) runs the first
-// design, namespace mma: 4 warps of mma.sync m16n8k16 over 64 query rows,
-// K and V double-buffered with cp.async, both products fed by ldmatrix
-// (hd 16 rows are 32 bytes, below the 64-byte swizzle span of the Hopper
-// design's narrowest box).  Its hd-32, hd-64, hd-96 and hd-256 instances
-// serve the head dims that are not multiples of 8 and are kept behind
-// flash_attn_mma_launch for a same-call comparison.  Rows are padded
+// The first design, namespace mma: 4 warps of mma.sync m16n8k16 over 64
+// query rows, K and V double-buffered with cp.async, both products fed by
+// ldmatrix.  Its hd-16, hd-32, hd-64, hd-96 and hd-256 instances serve
+// the head dims that are not multiples of 8 (hd 1-7 and 9-15 on the
+// hd-16 one) and are kept behind flash_attn_mma_launch for a same-call
+// comparison.  Rows are padded
 // by 8 bf16 (16 bytes), so the eight row addresses of an ldmatrix fall in
 // distinct bank groups at every hd.  Shared memory: two K and two V stages
 // of 64 x (hd + 8) bf16, 12,288 B at hd 16, 36,864 at 64 and 53,248 at 96
@@ -226,9 +250,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // ---------------------------------------------------------------------------
-// hd <= 16, and hd 32, 64, 96 and 256 where hd is no multiple of 8 (and
-// for comparison): the first design, mma.sync with cp.async double
-// buffering
+// hd 16, 32, 64, 96 and 256 where hd is no multiple of 8 (and for
+// comparison): the first design, mma.sync with cp.async double buffering
 // ---------------------------------------------------------------------------
 namespace mma {
 
@@ -549,7 +572,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 }  // namespace mma
 
 // ---------------------------------------------------------------------------
-// hd = 32, 64, 96, 128 and 256: TMA, wgmma and a warp-specialised pipeline
+// hd = 16, 32, 64, 96, 128 and 256: TMA, wgmma and a warp-specialised
+// pipeline
 // ---------------------------------------------------------------------------
 namespace ws {
 
@@ -588,6 +612,10 @@ struct Shape<32> {
   static constexpr int kBK = 64, kStages = 2;
 };
 template <>
+struct Shape<16> {
+  static constexpr int kBK = 64, kStages = 2;
+};
+template <>
 struct Shape<256> {
   static constexpr int kBK = 80, kStages = 2;
 };
@@ -606,8 +634,9 @@ struct Cfg {
   static constexpr int kThreads = 128 * kConsumers + (kProducerGroup ? 128
                                                                      : 32);
   // head-dim columns a TMA box: 64, 128 bytes under the 128-byte swizzle;
-  // hd 32's 64-byte rows take boxes of 32 under the 64-byte swizzle
-  static constexpr int kBoxCols = HD == 32 ? 32 : 64;
+  // hd 32's 64-byte rows take boxes of 32 under the 64-byte swizzle, hd
+  // 16's 32-byte rows boxes of 16 under the 32-byte one
+  static constexpr int kBoxCols = HD == 16 ? 16 : HD == 32 ? 32 : 64;
   static constexpr int kRowBytes = 2 * kBoxCols;  // the swizzle span
   // boxes a tile: hd 96's second box is half out of bounds
   static constexpr int kBoxes = (HD + kBoxCols - 1) / kBoxCols;
@@ -634,7 +663,8 @@ struct Cfg {
   static constexpr int kSmemBytes =
       kOffBar + kBarBytes + kTagBytes + 1024;  // + alignment slack
 
-  static_assert(kRowBytes == 128 || kRowBytes == 64, "a swizzle span");
+  static_assert(kRowBytes == 128 || kRowBytes == 64 || kRowBytes == 32,
+                "a swizzle span");
   static_assert(HD % 16 == 0 && HD <= 256, "Q K^T takes 16 columns a step");
   static_assert(kBK % 16 == 0 && kBK <= 256, "P V takes 16 keys a step");
   static_assert(kSmemBytes <= 232448, "more shared memory than a block has");
@@ -741,12 +771,16 @@ __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
 }
 
 // wgmma descriptor of a tile in shared memory laid out as TMA writes it
-// under the swizzle of ROW_BYTES-byte rows (128 or 64): 8-row groups
+// under the swizzle of ROW_BYTES-byte rows (128, 64 or 32): 8-row groups
 // 8 * ROW_BYTES apart (sbo); lbo is the distance between boxes for an
-// MN-major operand and unused for a K-major one
+// MN-major operand and unused for a K-major one.  At 32 bytes (hd 16) a
+// row is one swizzle atom either way: K-major, Q K^T's one k-step is the
+// whole row; MN-major, V's 16 columns are one atom wide, so lbo is unused
+// there too and a k-step of 16 keys is two 8-row groups 256 bytes apart
 template <int ROW_BYTES>
 __device__ __forceinline__ uint64_t sw_desc(uint32_t addr, uint32_t lbo) {
-  constexpr uint64_t kLayout = ROW_BYTES == 128 ? 1 : 2;  // B128, B64
+  // B128, B64, B32
+  constexpr uint64_t kLayout = ROW_BYTES == 128 ? 1 : ROW_BYTES == 64 ? 2 : 3;
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(8 * ROW_BYTES >> 4) << 32) | (kLayout << 62);
 }
@@ -783,8 +817,9 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #define WG_REGS56 WG_REGS48 ", %48, %49, %50, %51, %52, %53, %54, %55"
 #define WG_REGS64 WG_REGS56 ", %56, %57, %58, %59, %60, %61, %62, %63"
 #define WG_REGS40 WG_REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39"
+#define WG_REGS8 "%0, %1, %2, %3, %4, %5, %6, %7"
 #define WG_REGS16 \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+  WG_REGS8 ", %8, %9, %10, %11, %12, %13, %14, %15"
 #define WG_REGS96                                                            \
   WG_REGS64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, " \
             "%76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, "   \
@@ -844,6 +879,7 @@ WG_SS(64, 32, 33, 34, WG_REGS32, WG_D32)
 WG_SS(80, 40, 41, 42, WG_REGS40, WG_D40)
 WG_SS(96, 48, 49, 50, WG_REGS48, WG_D48)
 WG_SS(128, 64, 65, 66, WG_REGS64, WG_D64)
+WG_RS(16, 8, 9, 10, 11, 12, 13, WG_REGS8, WG_D8(0))
 WG_RS(32, 16, 17, 18, 19, 20, 21, WG_REGS16, WG_D16)
 WG_RS(64, 32, 33, 34, 35, 36, 37, WG_REGS32, WG_D32)
 WG_RS(96, 48, 49, 50, 51, 52, 53, WG_REGS48, WG_D48)
@@ -1156,7 +1192,8 @@ __global__ void __launch_bounds__(Cfg<HD>::kThreads, 1)
     // buffer in the swizzled layout, and store them with one TMA box per
     // kBoxCols columns (the map clips rows past S and hd 96's columns
     // 96-127).  The swizzle XORs a row's 16-byte chunk with bits 7 and up
-    // of its byte offset: row % 8 for 128-byte rows, (row / 2) % 4 for 64
+    // of its byte offset: row % 8 for 128-byte rows, (row / 2) % 4 for 64,
+    // (row / 4) % 2 for 32
     const float2 inv = sm.inverse_sums();
     unsigned char* out = smem + (qa - base);
     constexpr int kChunks = kRowBytes / 16;  // 16-byte chunks a row
@@ -1164,7 +1201,9 @@ __global__ void __launch_bounds__(Cfg<HD>::kThreads, 1)
     for (int i = 0; i < kO; i += 2) {
       const int r = (i >> 1) & 1, col8 = i >> 2;  // 8-column group
       const int row = warp * 16 + grp + r * 8;
-      const int phase = kRowBytes == 128 ? row % 8 : (row / 2) % 4;
+      const int phase = kRowBytes == 128  ? row % 8
+                        : kRowBytes == 64 ? (row / 2) % 4
+                                          : (row / 4) % 2;
       unsigned char* dst = out + (col8 / kChunks) * kQBox + row * kRowBytes +
                            (((col8 % kChunks) ^ phase) * 16) + quad * 4;
       *reinterpret_cast<__nv_bfloat162*>(dst) =
@@ -1212,7 +1251,7 @@ EncodeTiled encode_tiled() {
 
 // a 4-d map over (hd, heads, S, B) of a contiguous bf16 (B, S, heads, hd)
 // tensor, box (box_cols, 1, rows, 1), the swizzle of box_cols * 2-byte
-// rows (64 columns: 128 bytes; 32: 64), zeros out of bounds
+// rows (64 columns: 128 bytes; 32: 64; 16: 32), zeros out of bounds
 bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int B,
               int S, int heads, int hd, int rows, int box_cols) {
   const cuuint64_t row = (cuuint64_t)hd * sizeof(bf16);
@@ -1224,8 +1263,9 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int B,
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(ptr), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE,
-                box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                               : CU_TENSOR_MAP_SWIZZLE_64B,
+                box_cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                 : CU_TENSOR_MAP_SWIZZLE_32B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -1297,17 +1337,16 @@ bool valid_args(int B, int S, int H, int KH, int hd, float* scale_log2) {
 }  // namespace
 
 // The instance that runs head dim hd (1 <= hd <= 256): the smallest at or
-// above it, 16, 32, 64, 96, 128 or 256.  Above 16, a multiple of 8 (the
-// rows TMA reads are whole 16-byte units) runs the Hopper design's
-// instance at 32, 64, 96, 128 or 256; another hd the mma.sync design's
-// at 32, 64, 96 or, above 96, 256.  hd 1-16 runs the mma.sync instance
-// 16.  Returns the instance; *tma whether it is the Hopper design's.  0
-// for hd outside.
+// above it, 16, 32, 64, 96, 128 or 256.  A multiple of 8 (the rows TMA
+// reads are whole 16-byte units) runs the Hopper design's instance at 16,
+// 32, 64, 96, 128 or 256; another hd the mma.sync design's at 16, 32, 64,
+// 96 or, above 96, 256.  Returns the instance; *tma whether it is the
+// Hopper design's.  0 for hd outside.
 int instance_for(int hd, bool* tma) {
   *tma = false;
   if (hd < 1 || hd > 256) return 0;
-  if (hd <= 16) return 16;
   *tma = hd % 8 == 0;
+  if (hd <= 16) return 16;
   if (hd <= 32) return 32;
   if (hd <= 64) return 64;
   if (hd <= 96) return 96;
@@ -1329,8 +1368,10 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
   bool tma = false;
   switch (instance_for(hd, &tma)) {
     case 16:
-      return mma::launch<16>(q, k, v, o, B, S, H, KH, hd, causal, scale_log2,
-                             st);
+      return tma ? ws::launch<16>(q, k, v, o, B, S, H, KH, hd, causal,
+                                  scale_log2, st)
+                 : mma::launch<16>(q, k, v, o, B, S, H, KH, hd, causal,
+                                   scale_log2, st);
     case 32:
       return tma ? ws::launch<32>(q, k, v, o, B, S, H, KH, hd, causal,
                                   scale_log2, st)
@@ -1367,9 +1408,10 @@ extern "C" int flash_attn_instance(int hd) {
   return tma ? inst : -inst;
 }
 
-// the first design (mma.sync) at hd 32, 64, 96 and 256, with
-// flash_attn_launch's arguments: kept for a same-call comparison with the
-// Hopper design, which flash_attn_launch runs at those head dims
+// the first design (mma.sync) at hd 1-16 (instance 16), 32, 64, 96 and
+// 256, with flash_attn_launch's arguments: kept for a same-call comparison
+// with the Hopper design, which flash_attn_launch runs at hd 8, 16, 32,
+// 64, 96 and 256
 extern "C" int flash_attn_mma_launch(const void* q, const void* k,
                                      const void* v, void* o, int B, int S,
                                      int H, int KH, int hd, int causal,
@@ -1378,6 +1420,9 @@ extern "C" int flash_attn_mma_launch(const void* q, const void* k,
   if (!valid_args(B, S, H, KH, hd, &scale_log2))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  if (hd <= 16)
+    return mma::launch<16>(q, k, v, o, B, S, H, KH, hd, causal, scale_log2,
+                           st);
   switch (hd) {
     case 32:
       return mma::launch<32>(q, k, v, o, B, S, H, KH, hd, causal, scale_log2,
@@ -1410,6 +1455,8 @@ extern "C" int flash_attn_smem_bytes(int hd) {
       return mma::Tile<96>::kSmemBytes;
     case -256:
       return mma::Tile<256>::kSmemBytes;
+    case 16:
+      return ws::Cfg<16>::kSmemBytes;
     case 32:
       return ws::Cfg<32>::kSmemBytes;
     case 64:

@@ -19,15 +19,16 @@ _COUNTS = LaunchCounts("flash_attention")
 #: kernel name -> launches since the last :func:`reset_launch_counts`.
 launch_counts = _COUNTS.get
 reset_launch_counts = _COUNTS.reset
-#: flash_attn_mma_launch runs the first design at hd 32, 64, 96 and 256,
-#: for a same-call comparison on the card only: the wrapper never calls it
+#: flash_attn_mma_launch runs the first design at hd 1-16, 32, 64, 96 and
+#: 256, for a same-call comparison on the card only: the wrapper never
+#: calls it
 _SIGNATURES = {fn: [P, P, P, P, I, I, I, I, I, I, P]
                for fn in ("flash_attn_launch", "flash_attn_mma_launch")}
-#: head dims the kernel is instantiated for: 32 (no preset's; timed at
-#: qwen3-8b's heads), 64 (granite-moe), 96 (phi3-mini), 128 (qwen3-8b,
-#: qwen3-14b, qwen2-7b, mixtral) and 256 (recurrentgemma-2b's heads) on
-#: the Hopper design, 16 (the reduced archs) on the mma.sync one, which
-#: also keeps instances at 32, 64, 96 and 256 for head dims that are not
+#: head dims the kernel is instantiated for: 16 (the reduced archs), 32
+#: (no preset's; timed at qwen3-8b's heads), 64 (granite-moe), 96
+#: (phi3-mini), 128 (qwen3-8b, qwen3-14b, qwen2-7b, mixtral) and 256
+#: (recurrentgemma-2b's heads) on the Hopper design; the mma.sync one
+#: keeps instances at 16, 32, 64, 96 and 256 for head dims that are not
 #: multiples of 8; any other head dim up to :data:`MAX_HEAD_DIM` runs on
 #: the smallest instance above it (:func:`instance_for`), the plain
 #: version on any
@@ -44,18 +45,15 @@ _WS_ROWS = 128
 def instance_for(hd: int) -> tuple[int, str]:
     """(instance head dim, design) that runs head dim ``hd`` (1 to
     :data:`MAX_HEAD_DIM`), as ``instance_for`` in the source: the
-    smallest instance at or above ``hd``.  Above 16, a multiple of 8
-    (TMA's rows are whole 16-byte units) runs the Hopper design ("tma")
-    at 32, 64, 96, 128 or 256, another head dim the mma.sync design
-    ("mma") at 32, 64, 96 or, above 96, 256; hd 1-16 runs the mma.sync
-    instance 16.  The columns past ``hd`` are zeros in shared memory and
-    the scale is ``hd ** -0.5`` either way."""
+    smallest instance at or above ``hd``.  A multiple of 8 (TMA's rows
+    are whole 16-byte units) runs the Hopper design ("tma") at 16, 32, 64,
+    96, 128 or 256, another head dim the mma.sync design ("mma") at 16,
+    32, 64, 96 or, above 96, 256.  The columns past ``hd`` are zeros in
+    shared memory and the scale is ``hd ** -0.5`` either way."""
     if not 1 <= hd <= MAX_HEAD_DIM:
         raise ValueError(f"head_dim {hd} is outside [1, {MAX_HEAD_DIM}]")
-    if hd <= 16:
-        return 16, "mma"
     design = "tma" if hd % 8 == 0 else "mma"
-    for inst in (32, 64, 96, 128):
+    for inst in (16, 32, 64, 96, 128):
         if hd <= inst and (design == "tma" or inst != 128):
             return inst, design
     return 256, design

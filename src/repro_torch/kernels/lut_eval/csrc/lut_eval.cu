@@ -1,7 +1,8 @@
 // LUT-layer evaluation for Hopper (sm_90a): one layer of LUTs on float32
 // bits (lut_eval_tiles_kernel, and lut_eval_rows_kernel for rows its
 // tiles do not take) or on packed bits (lut_eval_packed_kernel, and
-// lut_eval_packed_rows_kernel for shapes its tiles do not take).
+// lut_eval_packed_rows_kernel and lut_eval_packed_block_kernel for shapes
+// its tiles do not take).
 //
 // Replaces the Pallas TPU kernels
 //   lut_eval        <- src/repro/kernels/lut_eval/kernel.py (_lut_eval_kernel)
@@ -95,8 +96,40 @@
 //     layers whose 32-LUT word fits no block (fan-in 16) take
 //     lut_eval_packed_rows_kernel, the port's first packed kernel, kept
 //     as it was; rows past its 7264 words (8 warps' rows in a block) take
-//     the same kernel reading each row from global memory
-//     (kStagedRow = false).
+//     lut_eval_packed_block_kernel, below, and rows past the 58,112 words
+//     one block stages the first kernel reading each row from global
+//     memory (kStagedRow = false).
+//
+// lut_eval_packed_block_kernel.  The same function on rows past 7264
+// words (F = 16 at T = 16,384 after K3: 8192 words).  What bounds it: the
+// rows' bytes, 134 MB at B = 4096 (0.0405 ms at 3.35 TB/s), against 59 M
+// random 4-byte reads of them; the first kernel on such rows (one warp a
+// sample reading its row word by word from global memory, its 8 warps'
+// rows 256 KB, past L1) took 1.31 ms, each row fetched as 32-byte sectors
+// for 4 useful bytes and every LUT's wires and table reloaded a sample.
+// The design:
+//   * a block stages R rows with 16-byte cp.async copies, each row's
+//     bytes leaving device memory once: as many as fit, cap = 227 KB /
+//     (4 W_in); from two on in two groups of cap / 2 rows (R = 6 at 8192
+//     words), one arriving while the other is evaluated, a persistent
+//     grid walking the groups; one row a group up to 58,112 words;
+//   * lanes are LUTs, 32 a warp (one output word), and a thread evaluates
+//     its LUT on every row of the group: a wire is one shared-memory read
+//     at a random word (about 3.5-way bank conflicts across 32 lanes, 25
+//     us of wavefronts on 132 SMs at B = 4096), a funnel shift and an
+//     and-or, each wire kept as one 32-bit value, word << 7 | ((bit - k)
+//     & 31);
+//   * up to fan-in 6 and 5 words a warp (m <= 2560), each warp's wires
+//     and table words sit in registers for the whole launch (126
+//     registers, one block an SM), loaded once a block; otherwise they are
+//     loaded for every group through L1;
+//   * a ballot a row packs each output word; a layer of fewer words than
+//     the block's 16 warps splits each word's rows over warps.
+// At K4_WIDE (B = 4096, 2400 LUT6) on an NVIDIA H100 80GB HBM3 at 700 W,
+// in CUDA graphs, in turns (scripts/k4_block_rows.py): two groups of 3
+// rows 0.0552-0.0553 ms (kept; 1.36x the bound), of 2 rows 0.0571-0.0573,
+// of 1 row 0.0766-0.0770; one group of 7 rows 0.0754, of 4 rows
+// 0.0689-0.0691, of 1 row 0.0977; the first kernel 1.321.
 //
 // Interface: plain C functions (loaded with ctypes) that launch on the
 // caller's stream and return cudaGetLastError().
@@ -565,6 +598,142 @@ __global__ void __launch_bounds__(kThreads) lut_eval_packed_rows_kernel(
   }
 }
 
+// lut_eval_packed_block_kernel: rows past the staged rows kernel's 7264
+// words, a group of `group` rows staged a block and shared by all its
+// LUTs.  Items are (output word, row part): part p of a group is its rows
+// p, p + parts, ... (parts > 1 only where the layer has fewer words than
+// the block has warps); warp w takes items w, w + kBlockWarps, ...
+constexpr int kBlockThreads = 512;  // 16 warps
+constexpr int kBlockWarps = kBlockThreads / 32;
+constexpr int kBlockMaxGroup = 8;   // rows a group: <= 7 past 7264 words
+// the cached instance keeps each of its items' wires and table words in
+// registers for the whole launch: up to kBlockSlots items a warp, fan-in
+// up to kBlockFanIn (tables of at most 2 words)
+constexpr int kBlockSlots = 5;
+constexpr int kBlockFanIn = 6;
+
+struct BlockRows {
+  const uint32_t* words;  // (B, W_in)
+  const int* widx;        // (m, n) input word of each wire
+  const int* boff;        // (m, n) its bit
+  const uint32_t* tab;    // (m, tw) one bit per entry
+  uint32_t* out;          // (B, W_out)
+  int B, W_in, n, tw, W_out;
+  int group, bufs;        // rows a group; groups staged (1, or 2: overlap)
+  int groups, parts;      // ceil(B / group); row parts of an item
+  int buf_words;          // one group's buffer: group * W_in, 16-byte units
+};
+
+// Group g's rows into buf with 16-byte cp.async copies where both sides
+// allow it (one contiguous span of rows * W_in words).
+__device__ __forceinline__ void stage_group(const BlockRows& p, uint32_t* buf,
+                                            int g) {
+  const long long row0 = (long long)g * p.group;
+  const int rows = (int)min((long long)p.group, p.B - row0);
+  stage(buf, p.words + row0 * p.W_in, rows * p.W_in * 4);
+}
+
+// The wire of LUT `lut`'s input k as one 32-bit value, word << 7 | ((bit -
+// k) & 31): the word's byte offset is v >> 5 (bits 5 and 6 are zero), and
+// rotating the word right by v & 31 brings the bit to place k.
+__device__ __forceinline__ uint32_t block_wire(const BlockRows& p, int lut,
+                                               int k) {
+  const size_t i = (size_t)lut * p.n + k;
+  return (uint32_t)__ldg(p.widx + i) << 7 | ((__ldg(p.boff + i) - k) & 31);
+}
+
+// Bit k of a LUT's address on the row at `row` (bytes) from its wire v.
+__device__ __forceinline__ uint32_t block_bit(const char* row, uint32_t v,
+                                              int k) {
+  const uint32_t t = *reinterpret_cast<const uint32_t*>(row + (v >> 5));
+  return __funnelshift_r(t, t, v) & (1u << k);
+}
+
+// kCached: fan-in <= kBlockFanIn and at most kBlockSlots items a warp,
+// whose wires and table words sit in registers; else they are loaded for
+// every group (through L1).  A persistent grid walks the groups, the next
+// one arriving in the second buffer while one is evaluated (bufs == 2).
+template <bool kCached>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    lut_eval_packed_block_kernel(const __grid_constant__ BlockRows p) {
+  extern __shared__ __align__(16) uint32_t groups_s[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int items = p.W_out * p.parts;
+  const int row_bytes = p.W_in * 4;
+  uint32_t wires[kCached ? kBlockSlots : 1][kBlockFanIn];
+  uint32_t tabs[kCached ? kBlockSlots : 1][2];
+  if constexpr (kCached) {
+#pragma unroll
+    for (int s = 0; s < kBlockSlots; ++s) {
+      const int item = warp + s * kBlockWarps;
+      const int lut = min(item / p.parts, p.W_out - 1) * 32 + lane;
+#pragma unroll
+      for (int k = 0; k < kBlockFanIn; ++k)
+        wires[s][k] = k < p.n ? block_wire(p, lut, k) : 0u;
+      tabs[s][0] = __ldg(p.tab + (size_t)lut * p.tw);
+      tabs[s][1] = p.tw > 1 ? __ldg(p.tab + (size_t)lut * p.tw + 1) : 0u;
+    }
+  }
+  int g = blockIdx.x;
+  if (g < p.groups) stage_group(p, groups_s, g);
+  cp_async_commit();
+  for (int it = 0; g < p.groups; g += gridDim.x, ++it) {
+    const int buf = p.bufs == 2 ? it & 1 : 0;
+    cp_async_wait_all();
+    __syncthreads();  // group g has landed; the other buffer is free
+    if (p.bufs == 2 && g + (int)gridDim.x < p.groups)
+      stage_group(p, groups_s + (buf ^ 1) * p.buf_words, g + gridDim.x);
+    cp_async_commit();
+    const char* rows =
+        reinterpret_cast<const char*>(groups_s + buf * p.buf_words);
+    const long long row0 = (long long)g * p.group;
+    const int valid = (int)min((long long)p.group, p.B - row0);
+    // one item on every row of its part: a ballot a row packs its word,
+    // which lane i keeps for the part's row i and stores
+    auto evaluate = [&](int item, const uint32_t* wire, const uint32_t* t) {
+      const int word = item / p.parts, part = item - word * p.parts;
+      const int lut = word * 32 + lane;
+      uint32_t mine = 0;
+#pragma unroll
+      for (int i = 0; i < kBlockMaxGroup; ++i) {
+        const int r = part + i * p.parts;
+        if (r >= p.group) break;
+        const char* row = rows + r * row_bytes;
+        uint32_t addr = 0, bit;
+        if constexpr (kCached) {
+#pragma unroll
+          for (int k = 0; k < kBlockFanIn; ++k)
+            if (k < p.n) addr |= block_bit(row, wire[k], k);
+          bit = p.n <= 5 ? t[0] >> addr & 1u : table6(t[0], t[1], addr);
+        } else {
+          for (int k = 0; k < p.n; ++k)
+            addr |= block_bit(row, block_wire(p, lut, k), k);
+          bit = table_bit<false>(p.tab + (size_t)lut * p.tw, p.n, addr);
+        }
+        const uint32_t w = __ballot_sync(kFull, bit);
+        if (lane == i) mine = w;
+      }
+      const int r = part + lane * p.parts;
+      if (r < valid) p.out[(row0 + r) * p.W_out + word] = mine;
+    };
+    if constexpr (kCached) {
+#pragma unroll
+      for (int s = 0; s < kBlockSlots; ++s)
+        if (warp + s * kBlockWarps < items)
+          evaluate(warp + s * kBlockWarps, wires[s], tabs[s]);
+    } else {
+      for (int item = warp; item < items; item += kBlockWarps)
+        evaluate(item, wires[0], tabs[0]);
+    }
+    if (p.bufs == 1) {
+      __syncthreads();  // the group is read; the next one may land
+      if (g + (int)gridDim.x < p.groups)
+        stage_group(p, groups_s, g + gridDim.x);
+      cp_async_commit();
+    }
+  }
+}
+
 // lut_eval_packed_kernel: one word-addressed layer over tiles of
 // kTileRows samples, one a lane, the layer's words split into slices of ws
 // (grid.y).
@@ -877,6 +1046,70 @@ extern "C" int lut_eval_packed_rows_launch(const void* words, int B,
   kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const uint32_t*)words, B, W_in, (const int*)widx, (const int*)boff,
       (const uint32_t*)tab, m, n, tw, (uint32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// K4 on rows past the staged rows kernel's: groups of `group` rows
+// (1..kBlockMaxGroup), `bufs` of them staged a block (2: the next group
+// arrives while one is evaluated), on a card of sms SMs; smem: the plan's
+// dynamic shared memory in bytes (kernel.py: plan_lut_eval_packed), bufs
+// buffers of group * W_in words, each rounded up to 16 bytes.  info:
+// walkers (grid.x), blocks an SM holds, whether the wires and tables sit
+// in registers (the cached instance).
+extern "C" int lut_eval_packed_block_launch(const void* words, int B,
+                                            int W_in, const void* widx,
+                                            const void* boff, const void* tab,
+                                            int m, int n, int tw, void* out,
+                                            int group, int bufs, int sms,
+                                            int smem, int* info,
+                                            void* stream) {
+  if (B <= 0 || W_in <= 0 || W_in > (1 << 25) || m <= 0 || m % 32 != 0 ||
+      n <= 0 || n > 31 || tw != ((1LL << n) + 31) / 32 || group < 1 ||
+      group > kBlockMaxGroup || (bufs != 1 && bufs != 2) || sms < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t buf = align16((size_t)group * W_in * 4);
+  if (bufs * buf != (size_t)smem || (size_t)smem > (size_t)kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  BlockRows p = {};
+  p.words = static_cast<const uint32_t*>(words);
+  p.widx = static_cast<const int*>(widx);
+  p.boff = static_cast<const int*>(boff);
+  p.tab = static_cast<const uint32_t*>(tab);
+  p.out = static_cast<uint32_t*>(out);
+  p.B = B;
+  p.W_in = W_in;
+  p.n = n;
+  p.tw = tw;
+  p.W_out = m / 32;
+  p.group = group;
+  p.bufs = bufs;
+  p.groups = (B + group - 1) / group;
+  // a layer of fewer words than warps splits each word's rows over parts
+  p.parts = p.W_out >= kBlockWarps
+                ? 1
+                : min(group, (kBlockWarps + p.W_out - 1) / p.W_out);
+  p.buf_words = (int)(buf / 4);
+  const bool cached =
+      n <= kBlockFanIn &&
+      (p.W_out * p.parts + kBlockWarps - 1) / kBlockWarps <= kBlockSlots;
+  auto kernel = cached ? lut_eval_packed_block_kernel<true>
+                       : lut_eval_packed_block_kernel<false>;
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kBlockThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int walkers = min(p.groups, sms * per_sm);
+  kernel<<<walkers, kBlockThreads, smem, (cudaStream_t)stream>>>(p);
+  info[0] = walkers;
+  info[1] = per_sm;
+  info[2] = cached;
   return (int)cudaGetLastError();
 }
 

@@ -5,7 +5,8 @@ Pallas kernels of the same names.
 
 ``lut_eval_packed`` stages its layer once per CUDA block in shared memory
 and lets a warp's 32 lanes be 32 samples, so every read of the layer is a
-broadcast (``csrc/lut_eval.cu``); a launch's layout comes from
+broadcast (``csrc/lut_eval.cu``); rows too wide for that stage a group
+of rows a block, shared by all its LUTs; a launch's layout comes from
 :func:`plan_lut_eval_packed` and :func:`last_launch` reports it.
 ``lut_eval`` stages tiles of 16 rows and lets a warp's lanes be LUTs, 8
 rows a thread, each table entry loaded once for 8 rows; its layout comes
@@ -43,6 +44,8 @@ FLOAT_ROWS = 8
 FLOAT_TILE_ROWS = 16
 #: LUTs of a pass of the float tile kernel (== kPassLuts): 4 warps' lanes.
 PASS_LUTS = 128
+#: rows a group of the block rows kernel holds at most (== kBlockMaxGroup)
+BLOCK_MAX_GROUP = 8
 #: widest fan-in of the float tiles and rows kernels (== kMaxFanIn): 2^8
 #: corners; wider LUTs take the wide kernel (:func:`plan_lut_eval`).
 TILE_FAN_IN = 8
@@ -62,10 +65,14 @@ _SIGNATURES = {"lut_eval_launch": [P, I, I, P, P, I, I, P, I, I, I, I, P,
                "lut_eval_packed_launch": [P, I, I, P, P, P, I, I, I, P, I,
                                           I, I, I, P, P],
                "lut_eval_packed_rows_launch": [P, I, I, P, P, P, I, I, I, P,
-                                               I, P]}
+                                               I, P],
+               "lut_eval_packed_block_launch": [P, I, I, P, P, P, I, I, I,
+                                                P, I, I, I, I, P, P]}
 #: the latest ``lut_eval_packed`` (see :func:`last_launch`)
 _LAST: dict = {}
 _LAUNCH_INFO = ("walkers", "blocks_per_sm")
+#: what the C entry of the block rows path reports besides
+_BLOCK_INFO = _LAUNCH_INFO + ("cached",)
 #: what the C entry found at the latest ``lut_eval`` tiles launch
 _FLOAT_INFO = (ctypes.c_int * len(_LAUNCH_INFO))()
 #: the latest ``lut_eval`` plan (see :func:`last_float_launch`)
@@ -76,7 +83,9 @@ def last_launch() -> dict:
     """The latest ``lut_eval_packed`` launch of this process: its
     :class:`PackedPlan` fields and, on the ``"tiles"`` path, ``walkers``
     (blocks that walk one slice's tiles) and ``blocks_per_sm`` as the
-    launch found them."""
+    launch found them; on the ``"block_rows"`` path also ``group`` and
+    ``buffers`` (:func:`block_rows_shape`), and ``cached`` (whether the
+    layer's wires and tables sat in registers)."""
     return dict(_LAST)
 
 
@@ -101,15 +110,19 @@ class PackedPlan:
     ``path`` is ``"tiles"`` (tiles of 32 samples, one a lane, the layer's
     output words cut into ``slices`` slices of ``slice_words`` words, each
     staged once per block), ``"rows"`` (the port's first packed kernel,
-    one warp a sample, kept for input rows too wide for a tile) or
-    ``"global"`` (the same kernel reading each row from global memory,
-    for rows too wide for its 8 warps' rows in a block).
+    one warp a sample, kept for input rows too wide for a tile),
+    ``"block_rows"`` (rows too wide for its 8 warps' rows in a block:
+    ``staged_rows`` rows a block, R, shared by all its LUTs) or
+    ``"global"`` (the first kernel reading each row from global memory,
+    for rows too wide for one row a block).  ``staged_rows`` is 0 on the
+    other paths.
     """
 
     path: str
     slices: int
     slice_words: int
     smem_bytes: int
+    staged_rows: int = 0
 
 
 def _tiles_smem_bytes(W_in: int, n: int, ws: int) -> int:
@@ -119,6 +132,21 @@ def _tiles_smem_bytes(W_in: int, n: int, ws: int) -> int:
     tw = (2 ** n + 31) // 32
     return (align16(ws * 32 * n * 2) + align16(ws * 32 * tw * 4)
             + align16(ws * (TILE_ROWS + 1) * 4) + 2 * W_in * TILE_ROWS * 4)
+
+
+def block_rows_shape(W_in: int) -> tuple[int, int]:
+    """(rows a group, groups staged) of the block rows path at W_in
+    words: as many rows as a block holds, ``cap``; from two on, two groups
+    of cap // 2 rows, so that one arrives while the other is evaluated
+    (R = 6 at 8192 words); one group of one row up to 58,112 words.  Each
+    group's buffer is rounded up to 16 bytes; (0, 0) where no row fits."""
+    cap = MAX_SMEM_BYTES // (4 * W_in)
+    if cap < 2:
+        return cap, cap
+    group, bufs = min(cap // 2, BLOCK_MAX_GROUP), 2
+    while bufs * align16(group * W_in * 4) > MAX_SMEM_BYTES:
+        group, bufs = (group - 1, bufs) if group > 1 else (1, 1)
+    return group, bufs
 
 
 def plan_lut_eval_packed(B: int, W_in: int, m: int, n: int,
@@ -132,16 +160,23 @@ def plan_lut_eval_packed(B: int, W_in: int, m: int, n: int,
     those two tiles take more than half a block (W_in > 454 words: each
     slice would stage them again for a sliver of the layer), or not even
     one word of LUTs fits beside them (fan-in 16), the rows kernel
-    takes the launch: rows of up to 7264 words staged, as before; wider
-    ones read from global memory (``"global"``).
+    takes the launch: rows of up to 7264 words staged, as before.  Wider
+    rows up to 58,112 words take the block rows kernel (``"block_rows"``,
+    :func:`block_rows_shape`); wider ones still the rows kernel reading
+    each row from global memory (``"global"``).
     """
     W_out = max(1, m // 32)       # m = 0: the wrapper launches nothing
     if _tiles_smem_bytes(W_in, n, 0) > MAX_SMEM_BYTES // 2 or \
             _tiles_smem_bytes(W_in, n, 1) > MAX_SMEM_BYTES:
         smem = THREADS // 32 * W_in * 4
-        if smem > MAX_SMEM_BYTES:
-            return PackedPlan("global", 1, W_out, 0)
-        return PackedPlan("rows", 1, W_out, smem)
+        if smem <= MAX_SMEM_BYTES:
+            return PackedPlan("rows", 1, W_out, smem)
+        group, bufs = block_rows_shape(W_in)
+        if group:
+            return PackedPlan("block_rows", 1, W_out,
+                              bufs * align16(group * W_in * 4),
+                              group * bufs)
+        return PackedPlan("global", 1, W_out, 0)
     lo, hi = 1, W_out + 1    # fits(lo); hi does not, or is past W_out
     while hi - lo > 1:
         mid = (lo + hi) // 2
@@ -302,6 +337,16 @@ def lut_eval_packed(words: torch.Tensor, word_idx: torch.Tensor,
     ptrs = (words.data_ptr(), B, W_in, word_idx.data_ptr(),
             bit_off.data_ptr(), table_words.data_ptr(), m, n,
             table_words.shape[1], out.data_ptr())
+    if plan.path == "block_rows":
+        group, bufs = block_rows_shape(W_in)
+        info = (ctypes.c_int * len(_BLOCK_INFO))()
+        launch(lib, LIBRARY, "lut_eval_packed", dev,
+               lambda stream: lib.lut_eval_packed_block_launch(
+                   *ptrs, group, bufs, sms, plan.smem_bytes, info, stream),
+               _COUNTS)
+        _LAST.update(group=group, buffers=bufs, **dict(zip(
+            _BLOCK_INFO, (info[0], info[1], bool(info[2])))))
+        return out
     if plan.path != "tiles":
         staged = int(plan.path == "rows")
         launch(lib, LIBRARY, "lut_eval_packed", dev,
@@ -317,8 +362,8 @@ def lut_eval_packed(words: torch.Tensor, word_idx: torch.Tensor,
     return out
 
 
-__all__ = ["FLOAT_ROWS", "FLOAT_TILE_ROWS", "FloatPlan", "MAX_FAN_IN",
-           "PASS_LUTS", "PackedPlan", "TILE_FAN_IN", "WIDE_ROWS",
-           "last_float_launch", "last_launch", "launch_counts", "lut_eval",
-           "lut_eval_packed", "plan_lut_eval", "plan_lut_eval_packed",
-           "reset_launch_counts"]
+__all__ = ["BLOCK_MAX_GROUP", "FLOAT_ROWS", "FLOAT_TILE_ROWS", "FloatPlan",
+           "MAX_FAN_IN", "PASS_LUTS", "PackedPlan", "TILE_FAN_IN",
+           "WIDE_ROWS", "block_rows_shape", "last_float_launch",
+           "last_launch", "launch_counts", "lut_eval", "lut_eval_packed",
+           "plan_lut_eval", "plan_lut_eval_packed", "reset_launch_counts"]

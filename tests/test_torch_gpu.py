@@ -1106,13 +1106,15 @@ def test_flash_attention_lm_zoo_head_shapes_match_plain_on_card(H, KH, hd):
 
 
 @pytest.mark.parametrize("H,KH,hd", [(24, 8, 64), (32, 32, 96),
-                                     (32, 8, 32), (10, 1, 256)])
+                                     (32, 8, 32), (10, 1, 256), (32, 8, 16),
+                                     (8, 2, 8)])
 def test_flash_attention_first_design_matches_plain_on_card(H, KH, hd):
-    """The first design (mma.sync) at hd 64, 96, 32 and 256, kept behind
-    ``flash_attn_mma_launch`` for chip_smoke.py's same-call comparison:
-    within 2e-2 of the plain version and each query row within 1e-2,
-    causal and not, flat and peaked softmax, at sequence lengths around
-    its 64-row blocks; the wrapper's launch count does not move."""
+    """The first design (mma.sync) at hd 64, 96, 32, 256, 16 and 8 (its
+    instance 16), kept behind ``flash_attn_mma_launch`` for
+    chip_smoke.py's same-call comparison: within 2e-2 of the plain version
+    and each query row within 1e-2 (2e-2 below hd 32), causal and not,
+    flat and peaked softmax, at sequence lengths around its 64-row blocks;
+    the wrapper's launch count does not move."""
     from repro_torch.kernels._launch import bind
     from repro_torch.kernels.flash_attn import kernel as FK
     from repro_torch.kernels.flash_attn.ref import attention_ref
@@ -1136,7 +1138,8 @@ def test_flash_attention_first_design_matches_plain_on_card(H, KH, hd):
                     got.float(), attention_ref(q, k, v, causal=causal).float(),
                     atol=FLASH_TOL, rtol=FLASH_TOL)
                 row = _row_rel(got, q, k, v, causal)
-                assert row <= FLASH_ROW_REL, (B, S, q_scale, causal, row)
+                bar = FLASH_ROW_REL if hd >= 32 else FLASH_ROW_REL_NARROW
+                assert row <= bar, (B, S, q_scale, causal, row)
     assert FK.launch_counts() == before
 
 
@@ -1171,6 +1174,88 @@ def test_flash_attention_hd32_and_hd256_hopper_instances_match_plain_on_card(
                     atol=FLASH_TOL, rtol=FLASH_TOL)
                 row = _row_rel(got, q, k, v, causal)
                 assert row <= FLASH_ROW_REL, (B, S, q_scale, causal, row)
+
+
+@pytest.mark.parametrize("hd", [8, 16])
+@pytest.mark.parametrize("H,KH", [(32, 8), (8, 2)])
+def test_flash_attention_hd8_and_hd16_hopper_instance_match_plain_on_card(
+        H, KH, hd):
+    """The Hopper design's hd-16 instance (32-byte rows, boxes of 16
+    columns under the 32-byte swizzle; hd 8 reads the same boxes, columns
+    8-15 zeros) at qwen3-8b's GQA 32:8 and the limits shape's 8:2, S = 1,
+    on either side of the 64-key tiles and 128-row query blocks (63, 65,
+    127, 129, 191, 193), 1000 and 2048, causal and not, flat and peaked
+    softmax: within 2e-2 of the plain version and each query row within
+    2e-2 of its largest value (rows under 32 head dims); one launch
+    counted a call, on the instance ``instance_for`` names."""
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+    _need_card()
+    assert FK.instance_for(hd) == (16, "tma")
+    for i, S in enumerate((1, 63, 65, 127, 129, 191, 193, 1000, 2048)):
+        B = 1 + S % 2
+        for q_scale in (0.5, 4.0):
+            q, k, v = (t.bfloat16() for t in
+                       _attn_operands(500 + i, B, S, H, KH, hd, q_scale))
+            for causal in (True, False):
+                before = FK.launch_counts()["flash_attention"]
+                got = FK.flash_attention(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                assert FK.launch_counts()["flash_attention"] == before + 1
+                torch.testing.assert_close(
+                    got.float(), attention_ref(q, k, v, causal=causal).float(),
+                    atol=FLASH_TOL, rtol=FLASH_TOL)
+                row = _row_rel(got, q, k, v, causal)
+                assert row <= FLASH_ROW_REL_NARROW, (B, S, q_scale, causal,
+                                                     row)
+
+
+def _rounded_row_rel(q, k, v, causal):
+    """The per-row error of the bf16 algorithm itself in plain PyTorch
+    (scores in float32, P = exp(s - max) rounded to bf16 before P V, the
+    float32 row sum, the output rounded to bf16; chip_smoke.flash_rounded)
+    against the exact output, on (B, S, heads, hd) operands."""
+    H, KH, hd = q.shape[2], k.shape[2], q.shape[3]
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
+    kf, vf = (t.repeat_interleave(H // KH, 1) for t in (kf, vf))
+    s = qf @ kf.transpose(-1, -2) * hd ** -0.5
+    if causal:
+        S = q.shape[1]
+        s = s.masked_fill(torch.ones((S, S), dtype=torch.bool,
+                                     device=q.device).triu(1), float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    out = ((p.bfloat16().float() @ vf) / p.sum(-1, keepdim=True))
+    return _row_rel(out.transpose(1, 2).bfloat16(), q, k, v, causal)
+
+
+@pytest.mark.parametrize("hd", [8, 16])
+def test_flash_attention_hd16_instance_at_65600_pairs_matches_plain(hd):
+    """B x H = 65,600 (b, h) pairs of 64 rows (chip_smoke's
+    LIMITS_FLASH_WIDE_BH) on the hd-16 Hopper instance, one block a pair
+    on grid.x: within 2e-2 of the plain version, causal and not, and equal
+    bit for bit to its two halves launched apart; per row within 2e-2, or
+    within the bf16 algorithm's own row error on the same inputs where
+    that is larger: over these 4.2 million rows of 8 values one row reads
+    0.0253 for the kernel, mma.sync, SDPA and that algorithm alike (a row
+    whose largest value is 0.048; PERF.md), so no bf16 kernel meets 2e-2
+    there."""
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+    _need_card()
+    q, k, v = (t.bfloat16() for t in _attn_operands(600 + hd, 8200, 64, 8,
+                                                    8, hd))
+    for causal in (True, False):
+        got = FK.flash_attention(q, k, v, causal=causal)
+        torch.testing.assert_close(
+            got.float(), attention_ref(q, k, v, causal=causal).float(),
+            atol=FLASH_TOL, rtol=FLASH_TOL)
+        row = _row_rel(got, q, k, v, causal)
+        assert row <= max(FLASH_ROW_REL_NARROW,
+                          _rounded_row_rel(q, k, v, causal)), (causal, row)
+        halves = torch.cat([FK.flash_attention(q[i:i + 4100], k[i:i + 4100],
+                                               v[i:i + 4100], causal=causal)
+                            for i in (0, 4100)])
+        assert torch.equal(got, halves)
 
 
 def test_flash_attention_at_llavas_served_shape_matches_plain_on_card():
@@ -1341,8 +1426,8 @@ def test_flash_wrapper_refuses_bad_operands():
     """On the card the wrapper raises on what the kernel does not take —
     a head_dim above 256, float32, heads that do not group, non-contiguous
     or mixed-device operands — and never falls back to the plain version;
-    batch x heads past the hd-16 grid's y (once refused) folds into its
-    x."""
+    batch x heads past the mma.sync grid's y (once refused) folds into its
+    x (hd 15), and runs on the Hopper design's x (hd 16 and 128)."""
     from repro_torch.kernels.flash_attn import kernel as FK
     _need_card()
     q, k, v = (t.bfloat16() for t in _attn_operands(0, 1, 16, 4, 2, 257))
@@ -1360,15 +1445,15 @@ def test_flash_wrapper_refuses_bad_operands():
     with pytest.raises(ValueError, match="is on"):
         FK.flash_attention(q, k.cpu(), v)
     assert FK.launch_counts() == {"flash_attention": 0}
-    # hd 16 puts batch x heads on the grid's y, the part past 65,535 on
-    # its x; the Hopper design (hd 128) one block a (query block, b, h) on
-    # x: one key a row, so the output is v
-    for hd in (16, 128):
+    # hd 15 (mma.sync) puts batch x heads on the grid's y, the part past
+    # 65,535 on its x; the Hopper design (hd 16 and 128) one block a
+    # (query block, b, h) on x: one key a row, so the output is v
+    for hd in (15, 16, 128):
         q, k, v = (t.bfloat16()
                    for t in _attn_operands(0, 1, 1, 65536, 1, hd))
         torch.testing.assert_close(FK.flash_attention(q, k, v).float(),
                                    v.expand_as(q).float(), atol=0, rtol=0)
-    assert FK.launch_counts() == {"flash_attention": 2}
+    assert FK.launch_counts() == {"flash_attention": 3}
 
 
 # -- DWN training on the card ----------------------------------------------
@@ -1973,14 +2058,45 @@ def test_cuda_lut_eval_wide_matches_plain(C, n):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("W_in,n,group,bufs", [
+    (8192, 6, 3, 2), (58_112, 6, 1, 1), (8192, 16, 3, 2), (8192, 3, 3, 2)])
+def test_cuda_lut_eval_packed_block_rows_match_plain(W_in, n, group, bufs):
+    """K4 on rows past the rows kernel's 7264 words (8192 words, as K3
+    packs F = 16 at T = 16,384, and the widest row one block stages,
+    58,112 words): a block stages R rows shared by its LUTs (two groups
+    of three at 8192, one row at 58,112), the layer in registers up to
+    fan-in 6, loaded per group at 16; exact at B = 4097, 33 and 1, and on
+    a layer of one word (its rows split over the block's warps)."""
+    _need_card()
+    rng = np.random.default_rng(340 + n + W_in)
+    for m in (2400, 32):
+        wires = torch.from_numpy(rng.integers(0, 32 * W_in, (m, n)).astype(
+            np.int32)).cuda()
+        tab = R.pack_table_words(torch.from_numpy(
+            rng.integers(0, 2, (m, 2 ** n))).cuda())
+        for B in (4097, 33, 1):
+            words = torch.from_numpy(rng.integers(
+                -2 ** 31, 2 ** 31, (B, W_in), dtype=np.int64).astype(
+                    np.int32)).cuda()
+            got = KL.lut_eval_packed(words, wires >> 5, wires & 31, tab)
+            last = KL.last_launch()
+            assert (last["path"], last["group"], last["buffers"],
+                    last["staged_rows"]) == ("block_rows", group, bufs,
+                                             group * bufs)
+            assert last["cached"] == (n <= 6)
+            want = RL.lut_eval_packed_plain(words, wires >> 5, wires & 31,
+                                            tab)
+            assert torch.equal(tbp.from_word_pattern(got), want)
+
+
 @pytest.mark.parametrize("n", [6, 16])
 def test_cuda_lut_eval_packed_global_rows_match_plain(n):
-    """K4 on rows past the rows kernel's 7264 words (8192 words, as K3
-    packs F = 16 at T = 16,384): each row read from global memory, exact
-    at B = 4097, 33 and 1."""
+    """K4 on rows one word past the widest a block stages (58,113 words):
+    each row read from global memory by the kept rows kernel, exact at B =
+    4097, 33 and 1."""
     _need_card()
     rng = np.random.default_rng(330 + n)
-    W_in, m = 8192, 256
+    W_in, m = 58_113, 256
     wires = torch.from_numpy(rng.integers(0, 32 * W_in, (m, n)).astype(
         np.int32)).cuda()
     tab = R.pack_table_words(torch.from_numpy(

@@ -219,8 +219,9 @@ def test_full_size_float_and_packed_layer_plans():
     """K6 at fan-in 10 and 16 takes its global path (tables from global
     memory, the tile's features staged), as does any explicit block_m no
     block holds; K8 at W1a's 65,536-bit rows and at fan-in 10 and 16
-    takes the wide kernel; K4 at rows of 8,192 words reads them from
-    global memory, at fan-in 16 on 100-word rows the rows kernel."""
+    takes the wide kernel; K4 at rows of 8,192 words stages six of them a
+    block (two groups of three), at fan-in 16 on 100-word rows the rows
+    kernel."""
     for n in (10, 16):
         for Bn in (1, 33, 1000, 4096):
             plan = K.plan_fused_dwn(Bn, 16, 480, n, 5, 32, None, SMS)
@@ -233,22 +234,23 @@ def test_full_size_float_and_packed_layer_plans():
     plan = KL.plan_lut_eval(256, 65_536, 2400, SMS, 6)
     assert (plan.path, plan.rows, plan.smem_bytes) == ("global", 4, 0)
     assert KL.plan_lut_eval_packed(4096, 8192, 2400, 6, SMS) == \
-        KL.PackedPlan("global", 1, 75, 0)
+        KL.PackedPlan("block_rows", 1, 75, 6 * 8192 * 4, 6)
     assert KL.plan_lut_eval_packed(4096, 100, 480, 16, SMS).path == "rows"
 
 
 @pytest.mark.parametrize("hd,inst,design", [
-    (8, 16, "mma"), (16, 16, "mma"), (32, 32, "tma"), (40, 64, "tma"),
+    (8, 16, "tma"), (16, 16, "tma"), (1, 16, "mma"), (12, 16, "mma"),
+    (15, 16, "mma"), (32, 32, "tma"), (40, 64, "tma"),
     (50, 64, "mma"), (64, 64, "tma"), (80, 96, "tma"), (96, 96, "tma"),
     (100, 256, "mma"), (128, 128, "tma"), (200, 256, "tma"),
     (256, 256, "tma"), (24, 32, "tma"), (136, 256, "tma"),
     (17, 32, "mma"), (250, 256, "mma")])
 def test_every_head_dim_to_256_has_an_instance(hd, inst, design):
     """K10 runs each head dim on the smallest instance at or above it;
-    TMA reads only multiples of 8, so above 16 those run the Hopper
-    design (its instances at 32, 64, 96, 128 and 256) and other head dims
-    the mma.sync design (its hd-32, hd-64 and hd-96 instances, or hd 256
-    above 96); hd 1-16 runs the mma.sync instance 16."""
+    TMA reads only multiples of 8, so those run the Hopper design (its
+    instances at 16, 32, 64, 96, 128 and 256: hd 8 and 16 on the hd-16
+    one) and other head dims the mma.sync design (its hd-16, hd-32, hd-64
+    and hd-96 instances, or hd 256 above 96)."""
     assert KA.instance_for(hd) == (inst, design)
     assert inst in KA.HEAD_DIMS
 
@@ -377,9 +379,10 @@ def _same_or_new(old, new, new_paths):
 def test_plans_of_shapes_the_tiles_took_are_unchanged():
     """Over grids of batches, widths, fan-ins 1-8 and tile sizes, every
     K6, K8 and K4 launch the former plans took keeps that plan field for
-    field, and every one they refused now takes the global path; K1 and K2
-    keep shared memory exactly where it fitted before; K10 runs its four
-    former head dims on their own instances."""
+    field, and every one they refused now takes the global path (K4's
+    rows of up to 58,112 words the block rows path); K1 and K2 keep
+    shared memory exactly where it fitted before; K10 runs its four former
+    head dims on their own instances, hd 16 now on the Hopper design."""
     kept = refused = 0
     for Bn, F, n, bb, bm, m in itertools.product(
             (1, 33, 1000, 4096), (1, 16, 454, 455, 5000, 60_000),
@@ -394,7 +397,7 @@ def test_plans_of_shapes_the_tiles_took_are_unchanged():
             (1, 6, 10, 16), (32, 2400)):
         _same_or_new(lambda: _Old.lut_eval_packed(Bn, W_in, m, n, SMS),
                      lambda: KL.plan_lut_eval_packed(Bn, W_in, m, n, SMS),
-                     ("global",))
+                     ("block_rows",))
     for Bn, C, m, n in itertools.product(
             (1, 33, 4096), (1, 3632, 3633, 58_112, 58_113, 65_536),
             (64, 2400), range(1, 9)):
@@ -413,7 +416,61 @@ def test_plans_of_shapes_the_tiles_took_are_unchanged():
         path = K.check_activation_width(variant, F, T, luts, 5)
         assert path == ("shared" if need <= MAX else "global")
     for hd in (16, 64, 96, 128):
-        assert KA.instance_for(hd) == (hd, "mma" if hd == 16 else "tma")
+        assert KA.instance_for(hd) == (hd, "tma")
+
+
+@pytest.mark.parametrize("W_in,n,path,group,bufs", [
+    (7264, 6, "rows", 0, 0), (7265, 6, "block_rows", 3, 2),
+    (8192, 6, "block_rows", 3, 2), (14_528, 6, "block_rows", 2, 2),
+    (29_056, 6, "block_rows", 1, 2), (29_057, 6, "block_rows", 1, 1),
+    (58_112, 6, "block_rows", 1, 1), (58_113, 6, "global", 0, 0),
+    (8192, 16, "block_rows", 3, 2), (100, 16, "rows", 0, 0)])
+def test_k4_plan_edges_past_the_rows_kernel(W_in, n, path, group, bufs):
+    """K4 past the staged rows kernel's 7264 words: a block stages R rows
+    (two groups of half of what fits, one row where only one fits), up to
+    the widest row one block holds (58,112 words); one word more reads
+    each row from global memory; fan-in 16 takes the same paths as 6 (the
+    block rows kernel loads its wires per group past fan-in 6).  The plan
+    reports R, and its shared memory is R rows, each group's rounded up
+    to 16 bytes."""
+    for Bn in (1, 33, 4096):
+        plan = KL.plan_lut_eval_packed(Bn, W_in, 2400, n, SMS)
+        assert plan.path == path
+        assert plan.staged_rows == group * bufs
+        if path == "block_rows":
+            assert KL.block_rows_shape(W_in) == (group, bufs)
+            assert plan.smem_bytes == bufs * align16(group * W_in * 4) <= MAX
+            assert (MAX // (4 * W_in) < 2) == (bufs == 1)
+        elif path == "rows":
+            assert plan.smem_bytes == KL.THREADS // 32 * W_in * 4 <= MAX
+        else:
+            assert plan.smem_bytes == 0 and MAX // (4 * W_in) == 0
+
+
+@pytest.mark.parametrize("W_in", [7265, 58_113])
+def test_k4_past_the_rows_kernel_matches_reference(W_in):
+    """The wrapper on rows past the staged rows kernel (its plain version
+    on the CPU; the block rows and global kernels on the card, where
+    ``tests/test_torch_gpu.py`` holds them to it) against the reference's
+    Pallas kernel in interpret mode: exact words, wires anywhere in the
+    row."""
+    from repro.kernels.lut_eval import kernel as jkernel
+    rng = np.random.default_rng(W_in)
+    Bn, m, n = 3, 64, 6
+    words = rng.integers(0, 2 ** 32, (Bn, W_in), dtype=np.uint64).astype(
+        np.uint32)
+    wires = rng.integers(0, 32 * W_in, (m, n)).astype(np.int32)
+    tabs = rng.integers(0, 2, (m, 2 ** n)).astype(np.int32)
+    got = KL.lut_eval_packed(
+        torch.from_numpy(words.astype(np.int64)),
+        torch.from_numpy(wires >> 5), torch.from_numpy(wires & 31),
+        R.pack_table_words(torch.from_numpy(tabs)))
+    want = jkernel.lut_eval_packed(
+        jnp.asarray(words), jnp.asarray(wires >> 5),
+        jnp.asarray(wires & 31), jnp.asarray(tabs), block_b=Bn,
+        interpret=True)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(want).astype(np.int64))
 
 
 def _qkv(seed, Bq, S, H, KH, hd):

@@ -21,6 +21,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build, autotune  # noqa: E402
+from repro_torch.kernels._launch import align16  # noqa: E402
 from repro_torch.kernels.autotune import FusedConfig  # noqa: E402
 from repro_torch.kernels.fused import kernel as K  # noqa: E402
 from repro_torch.kernels.fused import ref as R  # noqa: E402
@@ -286,13 +287,17 @@ def test_packed_plan_paths(W_in, n, path):
 
 def test_packed_plan_accepts_every_width_pr12_took():
     """Rows of up to 7264 words (8 warps' rows in a block) at any fan-in
-    stage in shared memory as before; wider rows, once refused, are read
-    from global memory by the same kernel."""
+    stage in shared memory as before; wider rows, once refused, are
+    staged six a block by the block rows kernel (two groups of three) up
+    to 58,112 words, and read from global memory by the first kernel
+    past that."""
     for W_in, n in itertools.product((1, 100, 454, 455, 3000, 7264),
                                      (1, 6, 10, 16, 20)):
-        assert KL.plan_lut_eval_packed(33, W_in, 256, n, SMS).path != \
-            "global"
+        assert KL.plan_lut_eval_packed(33, W_in, 256, n, SMS).path not in \
+            ("global", "block_rows")
     assert KL.plan_lut_eval_packed(33, 7265, 256, 6, SMS) == \
+        KL.PackedPlan("block_rows", 1, 8, 2 * align16(3 * 7265 * 4), 6)
+    assert KL.plan_lut_eval_packed(33, 58_113, 256, 6, SMS) == \
         KL.PackedPlan("global", 1, 8, 0)
 
 
@@ -576,6 +581,8 @@ def test_k8_bound_counts_the_lerp_trees_float_operations(n):
     ((4, 2048, 24, 8, 64), True, 0.0521, "operations", 0.0482),
     ((4, 2048, 32, 8, 128), True, 0.139, "operations", 0.0642),
     ((8200, 64, 8, 8, 16), True, 0.160, "bytes", 0.0326),
+    ((4, 2048, 32, 8, 16), True, 0.0174, "operations", 0.0642),
+    ((2, 1000, 8, 2, 16), True, 0.000518, "operations", 0.00191),
     ((2, 1000, 8, 2, 32), False, 0.00207, "operations", 0.00383)])
 def test_k10_bound_is_the_larger_of_bytes_and_products(
         shape, causal, bound_ms, bound_by, ex2_ms):
@@ -595,3 +602,13 @@ def test_k10_bound_is_the_larger_of_bytes_and_products(
     terms = got["terms_ms"]
     assert got["bound_ms"] == max(terms["bytes"], terms["tensor_ops"])
     assert terms["ex2_sfu"] == pytest.approx(ex2_ms, rel=1e-2)
+
+
+def test_chip_smoke_keeps_the_first_design_where_its_entry_has_it():
+    """``chip_smoke.kept_first_design``: the head dims at which the Hopper
+    design runs and ``flash_attn_mma_launch`` still reaches the mma.sync
+    design (its instance 16 at hd 8 and 16; 32, 64, 96 and 256), so the
+    limits and flash phases time and hold both in the same call."""
+    cs = _chip_smoke()
+    kept = [hd for hd in range(1, 257) if cs.kept_first_design(hd)]
+    assert kept == [8, 16, 32, 64, 96, 256]
